@@ -17,6 +17,14 @@ Phases (any failure raises; the script then exits non-zero):
    call that computes the same function where there is one
    (``library_ms``), and the least time the card could take
    (``bound_ms``).
+   Then K2 ``mtl_gather_multihot``, K3 ``mtl_gather_two_level`` and K4
+   ``mtl_gather_two_level_q8`` on the full Criteo table at d = 32 (an
+   851 MB fp32 backing; a 213 MB int8 one plus 26.6 MB of scales) under
+   a 65,536-row cache whose hot set comes from one observe + refresh on
+   quadratic-skew traffic, at b = 256 and 1024 and h = 1 and 5: bitwise
+   against their plain versions (out-of-range ids included), K3 at h = 1
+   bitwise against K1, timed the same way; K3 at h = 1 also through a
+   cold cache (rows 0..C-1, nearly all misses), its miss path.
 4. Main path: full-width DCNv2 on the uncapped Criteo schema (k = 39,
    d = 32, 6,648,548 table rows, D = 1248, three 1248×1248 cross layers,
    MLP 1248→1024→1024→1024) with random weights from a seed, served
@@ -27,7 +35,18 @@ Phases (any failure raises; the script then exits non-zero):
    on the card, and the card must agree with the CPU path on the same
    weights.
 5. DCN, DeepFM and Wide&Deep at the same width, the same way.
-6. One JSON line of every ported kernel, then the card's name and power
+6. The cached tier: the same DCNv2 weights adopted into a ``CachedStore``
+   (C = 65,536) with fp32 rows and one with int8 rows, each served through
+   one "dual" plan per batch (``runtime_provider=model.store_runtime_env``)
+   while the store observes every request, refreshes every 8 and takes one
+   batch of 1,024 trainer delta rows halfway — no recompile. fp32 scores
+   must be bitwise those of a ``DenseStore`` plan replaying the same ids
+   and deltas; int8 scores within 1e-2 of them. K3 (fp32) or K4 (int8)
+   launches once per step, K1 never. Then latency and a trace of each,
+   the four levels of the fp32 cached model, and store-level multi-hot
+   (h = 5) through a ``DenseStore`` (K2) and the fp32 ``CachedStore`` (K3),
+   bitwise equal.
+7. One JSON line of every ported kernel, then the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -51,6 +70,10 @@ LADDER_TOL = dict(rtol=1e-5, atol=1e-6)
 CPU_TOL = dict(rtol=1e-4, atol=1e-5)
 SEED = 0
 LATENCY_WARMUP, LATENCY_SAMPLES = 3, 60   # p80 has 12 samples beyond it
+CACHE_CAPACITY = 65_536     # the reference's serve default (serve.py:267)
+HOT = 5                     # ids per field of the pooled (multi-hot) forms
+REFRESH_EVERY, DELTA_ROWS = 8, 1_024
+Q8_SCORE_GATE = 1e-2        # per-score |int8 - fp32| (accuracy_parity.py:13)
 
 
 def log(msg: str) -> None:
@@ -103,7 +126,23 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids):
+def recorder(rows: list):
+    """``record(...)``: append one kernel measurement to ``rows`` (one
+    dict per kernel and shape) and log it."""
+    def record(name, shape, err, ms, plain_ms, lib_ms, bytes_moved, flops):
+        b_ms, b_by = bound(bytes_moved, flops)
+        rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.5f}"
+        log(f"[kernels] {name} {shape}: max|kernel-plain|={err:.3e} "
+            f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
+    return record
+
+
+def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
+                  record):
     from repro_torch.kernels.fused_cross import (
         fused_cross_v1, fused_cross_v1_plain, fused_cross_v2,
         fused_cross_v2_plain)
@@ -114,17 +153,6 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids):
 
     k = schema.k
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rows = []   # one dict per (kernel, shape)
-
-    def record(name, shape, err, ms, plain_ms, lib_ms, bytes_moved, flops):
-        b_ms, b_by = bound(bytes_moved, flops)
-        rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by))
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.5f}"
-        log(f"[kernels] {name} {shape}: max|kernel-plain|={err:.3e} "
-            f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib} "
-            f"bound_ms={b_ms:.5f} ({b_by})")
 
     for b in (256, 1024):
         # K1 at d = 32 (main table) and d = 1 (wide / FM tables)
@@ -198,7 +226,165 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids):
                device_ms(torch, fused_fm_second_order, sets),
                device_ms(torch, fused_fm_second_order_plain, sets), None,
                b * k * 32 * 4 + b * 4, 4 * b * k * 32)
-    return rows
+
+
+def slot_ids(schema, sample_ids, b: int, h: int, step: int):
+    """(b, k, h) int32 ids: h independent draws of the schema's traffic."""
+    ids = sample_ids(schema, b * h, step=step)
+    return ids.reshape(b, h, schema.k).transpose(0, 2, 1).copy()
+
+
+def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
+    """K2, K3 and K4 on the full-width table of collection ``emb`` under a
+    65,536-row cache (fp32 and int8), against their plain versions and
+    K1, timed."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.embedding import CachedStore
+    from repro_torch.kernels.multi_table_lookup import (
+        mtl_gather, mtl_gather_multihot, mtl_gather_multihot_plain,
+        mtl_gather_two_level, mtl_gather_two_level_plain,
+        mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain)
+
+    table32, offsets, spec = emb.dense_view(), emb.offsets, emb.spec
+    k, d = spec.k, spec.dim
+    n_rows = spec.rows
+    warm = sample_ids(schema, 16_384, step=50_000)      # quadratic skew
+    stores = {}
+    for row_dtype in (None, "int8"):
+        store = CachedStore(spec, CACHE_CAPACITY, row_dtype, device=dev)
+        store.from_dense({"mega_table": table32})
+        store.observe(warm + spec.offsets[None, :])
+        store.refresh()
+        stores[row_dtype] = store
+        log(f"[tiered] {store.describe()}: hot set from one refresh over "
+            f"{warm.shape[0]} quadratic-skew rows, cached traffic "
+            f"{store.cached_traffic_fraction:.3f}")
+    f32, q8 = stores[None], stores["int8"]
+    assert torch.equal(f32.backing, table32)
+    rng = np.random.default_rng(SEED + 2)
+
+    def k2(i, m, rows):
+        return mtl_gather_multihot(i, m, offsets, table32)
+
+    def k2_plain(i, m, rows):
+        return mtl_gather_multihot_plain(i, m, offsets, table32)
+
+    def k3(i, m, rows):
+        return mtl_gather_two_level(i, offsets, f32.slot_of_row, f32.cache,
+                                    f32.backing, mask=m)
+
+    def k3_plain(i, m, rows):
+        return mtl_gather_two_level_plain(i, offsets, f32.slot_of_row,
+                                          f32.cache, f32.backing, mask=m)
+
+    def k4(i, m, rows):
+        return mtl_gather_two_level_q8(i, offsets, q8.slot_of_row, q8.cache,
+                                       q8.cache_scale, q8.backing,
+                                       q8.backing_scale, mask=m)
+
+    def k4_plain(i, m, rows):
+        return mtl_gather_two_level_q8_plain(
+            i, offsets, q8.slot_of_row, q8.cache, q8.cache_scale,
+            q8.backing, q8.backing_scale, mask=m)
+
+    # K3's miss path: a cold cache holding rows 0..C-1 (the map before any
+    # refresh), so nearly every slot of this traffic reads the backing
+    cold_map = torch.full((n_rows,), -1, dtype=torch.int32, device=dev)
+    cold_map[:CACHE_CAPACITY] = torch.arange(CACHE_CAPACITY,
+                                             dtype=torch.int32, device=dev)
+    cold_cache = table32[:CACHE_CAPACITY].clone()
+
+    def k3_cold(i, m, rows):
+        return mtl_gather_two_level(i, offsets, cold_map, cold_cache,
+                                    table32, mask=m)
+
+    def k3_cold_plain(i, m, rows):
+        return mtl_gather_two_level_plain(i, offsets, cold_map, cold_cache,
+                                          table32, mask=m)
+
+    def bag(table):                          # one pooled PyTorch call
+        return lambda i, m, rows: F.embedding_bag(rows, table, mode="sum")
+
+    def take(i, m, rows):
+        return torch.index_select(f32.backing, 0, rows.reshape(-1))
+
+    for b in (256, 1024):
+        for h in (1, HOT):
+            sets = []
+            for s in range(n_sets(2 * b * k * h * d * 4)):
+                if h == 1:
+                    ids = torch.from_numpy(sample_ids(
+                        schema, b, step=51_000 + s)).to(dev)
+                    mask = None
+                else:
+                    ids = torch.from_numpy(slot_ids(
+                        schema, sample_ids, b, h, 52_000 + s)).to(dev)
+                    mask = torch.from_numpy(rng.integers(
+                        0, 2, size=(b, k, h)).astype(np.float32)).to(dev)
+                rows = ids.long().reshape(b, k, h) \
+                    + offsets.long()[None, :, None]
+                if mask is not None:
+                    rows = torch.where(mask != 0, rows, n_rows - 1)
+                sets.append((ids, mask, rows.reshape(b * k, h)))
+            ids0, mask0, rows0 = sets[0]
+            bad = ids0.clone()
+            bad.view(b, k, h)[0, :3, 0] = torch.tensor(
+                [-7, 2**31 - 1, 10**8], dtype=torch.int32, device=dev)
+            outs = {}
+            for name, fn, plain in (("mtl_gather_multihot", k2, k2_plain),
+                                    ("mtl_gather_two_level", k3, k3_plain),
+                                    ("mtl_gather_two_level_q8", k4,
+                                     k4_plain)):
+                out = fn(ids0, mask0, rows0)
+                want = plain(ids0, mask0, rows0)
+                assert torch.equal(out, want), f"{name} b={b} h={h}"
+                assert torch.equal(fn(bad, mask0, rows0),
+                                   plain(bad, mask0, rows0)), \
+                    f"{name} out-of-range ids"
+                outs[name] = out
+            # a cache row is a copy of its backing row: K3 == K2, and at
+            # h = 1 K3 == K1
+            assert torch.equal(outs["mtl_gather_two_level"],
+                               outs["mtl_gather_multihot"])
+            if h == 1:
+                assert torch.equal(outs["mtl_gather_two_level"],
+                                   mtl_gather(ids0, offsets, table32))
+            uniq = torch.unique(rows0).numel()
+            hits = int((f32.slot_of_row.index_select(
+                0, rows0.reshape(-1)) >= 0).sum())
+            ids_bytes = b * k * h * 4 * (1 if mask0 is None else 2) + k * 4
+            out_bytes = b * k * d * 4
+            shape = f"b={b},k={k},d={d},h={h}"
+            log(f"[tiered] {shape}: {uniq} distinct rows, cache hits "
+                f"{hits / rows0.numel():.3f} of {rows0.numel()} slots")
+            for name, fn, plain, lib, row_bytes in (
+                    ("mtl_gather_multihot", k2, k2_plain, bag(table32),
+                     4 * d),
+                    ("mtl_gather_two_level", k3, k3_plain,
+                     take if h == 1 else bag(f32.backing), 4 + 4 * d),
+                    ("mtl_gather_two_level_q8", k4, k4_plain, None,
+                     4 + d + 4)):
+                record(name, shape, 0.0, device_ms(torch, fn, sets),
+                       device_ms(torch, plain, sets),
+                       None if lib is None else device_ms(torch, lib, sets),
+                       ids_bytes + uniq * row_bytes + out_bytes, 0)
+            if h == 1:
+                out = k3_cold(ids0, mask0, rows0)
+                assert torch.equal(out, k3_cold_plain(ids0, mask0, rows0))
+                assert torch.equal(out, outs["mtl_gather_two_level"])
+                hits = int((cold_map.index_select(0, rows0.reshape(-1))
+                            >= 0).sum())
+                log(f"[tiered] {shape}, cold cache: hits "
+                    f"{hits / rows0.numel():.3f} of {rows0.numel()} slots")
+                record("mtl_gather_two_level", shape + ",cold", 0.0,
+                       device_ms(torch, k3_cold, sets),
+                       device_ms(torch, k3_cold_plain, sets),
+                       device_ms(torch, take, sets),
+                       ids_bytes + uniq * (4 + 4 * d) + out_bytes, 0)
+    del stores, f32, q8, cold_map, cold_cache
+    torch.cuda.empty_cache()
 
 
 def trace_step(torch, name, plan, ids, n_steps: int = 20) -> None:
@@ -256,6 +442,59 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20) -> None:
         f"{overlap / n_steps:.1f} us/step")
     for kname, dur in top:
         log(f"[{name}]   {dur / n_steps:8.1f} us/step  {kname[:90]}")
+
+
+def latency(torch, name, plan, schema, sample_ids) -> None:
+    """p50/p80 of full-batch ``predict`` calls (closed loop, one caller);
+    at level "dual" also a profiler trace of the step."""
+    import numpy as np
+
+    ids_b = sample_ids(schema, plan.batch_size, step=30_000)
+    lat = []
+    for _ in range(LATENCY_WARMUP + LATENCY_SAMPLES):
+        t0 = time.perf_counter()
+        plan.predict(ids_b)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = np.asarray(lat[LATENCY_WARMUP:])
+    log(f"[{name}] latency {plan.level} b={plan.batch_size}: p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p80 "
+        f"{np.percentile(lat, 80):.3f} ms ({lat.size} requests)")
+    if plan.level == "dual":
+        trace_step(torch, name, plan, torch.from_numpy(ids_b).to(plan.device))
+
+
+def paired_latency(torch, plans: dict, schema, sample_ids) -> None:
+    """Request latency of several "dual" plans of one batch size, measured
+    in turns (a, b, c, c, b, a, ...) so host and clock drift fall on all
+    alike: p50/p80 of ``predict`` and p50 of the host's enqueue of one step
+    (``plan(ids)`` returning, before the device finishes); then a trace
+    of each plan."""
+    import numpy as np
+
+    b = next(iter(plans.values())).batch_size
+    ids_b = sample_ids(schema, b, step=30_000)
+    ids_dev = torch.from_numpy(ids_b).to(next(iter(plans.values())).device)
+    lat = {tag: [] for tag in plans}
+    enq = {tag: [] for tag in plans}
+    tags = list(plans)
+    for r in range(LATENCY_WARMUP + LATENCY_SAMPLES):
+        for tag in (tags if r % 2 == 0 else tags[::-1]):
+            t0 = time.perf_counter()
+            plans[tag].predict(ids_b)
+            lat[tag].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            plans[tag](ids_dev)
+            enq[tag].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    for tag in tags:
+        la = np.asarray(lat[tag][LATENCY_WARMUP:])
+        en = np.asarray(enq[tag][LATENCY_WARMUP:])
+        log(f"[{tag}] latency dual b={b} (in turns with {len(tags) - 1} "
+            f"other plans): p50 {np.percentile(la, 50):.3f} ms, p80 "
+            f"{np.percentile(la, 80):.3f} ms, host enqueue of a step p50 "
+            f"{np.percentile(en, 50):.3f} ms ({la.size} requests)")
+    for tag, plan in plans.items():
+        trace_step(torch, tag, plan, ids_dev)
 
 
 def serve(plan, schema, sample_ids, n_requests: int, step0: int):
@@ -321,18 +560,7 @@ def run_model(torch, dev, name, spec, schema, sample_ids, *, batches,
         for level in LEVELS:
             plan = plans[level] if b == 256 else compile_plan(
                 model, level, b, device=dev)
-            ids_b = sample_ids(schema, b, step=30_000)
-            lat = []
-            for r in range(LATENCY_WARMUP + LATENCY_SAMPLES):
-                t0 = time.perf_counter()
-                plan.predict(ids_b)
-                lat.append((time.perf_counter() - t0) * 1e3)
-            lat = np.asarray(lat[LATENCY_WARMUP:])
-            log(f"[{name}] latency {level} b={b}: p50 "
-                f"{np.percentile(lat, 50):.3f} ms, p80 "
-                f"{np.percentile(lat, 80):.3f} ms ({lat.size} requests)")
-            if level == "dual":
-                trace_step(torch, name, plan, torch.from_numpy(ids_b).to(dev))
+            latency(torch, name, plan, schema, sample_ids)
 
     # the main path: counters reset just before, read just after
     dual = {b: compile_plan(model, "dual", b, device=dev) for b in batches}
@@ -355,6 +583,189 @@ def run_model(torch, dev, name, spec, schema, sample_ids, *, batches,
     del plans, dual, model
     torch.cuda.empty_cache()
     return counts, n_steps
+
+
+def run_cached(torch, dev, spec, schema, sample_ids, *, batches,
+               n_requests) -> dict:
+    """Serve full-width DCNv2 through "dual" over a fp32 and an int8
+    ``CachedStore`` adopted from the dense model's weights, with observe /
+    refresh / deltas between requests, against a ``DenseStore`` replay of
+    the same ids and deltas; then latency, traces, the level ladder and
+    store-level multi-hot. Returns the launches of K2, K3 and K4 on their
+    paths."""
+    import numpy as np
+
+    from repro_torch.core import LEVELS, compile_plan
+    from repro_torch.embedding import CachedStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ctr import DCNv2
+
+    def build(row_dtype="dense"):
+        model = DCNv2(spec, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        if row_dtype != "dense":
+            model.use_store(CachedStore(spec.embedding_spec(),
+                                        CACHE_CAPACITY, row_dtype,
+                                        device=dev))
+        return model
+
+    dense = build()
+    cached = {rd: build(rd) for rd in (None, "int8")}
+    torch.cuda.synchronize()
+    assert torch.equal(cached[None].embedding.store.backing,
+                       dense.embedding.dense_view())
+    emb_spec = spec.embedding_spec()
+    offsets = emb_spec.offsets
+
+    # the request schedule: ids per request, one delta batch per batch
+    # size (a third of its rows touched by the requests after it)
+    half = n_requests // 2
+    drng = np.random.default_rng(SEED + 3)
+    schedule, deltas = {}, {}
+    for b in batches:
+        schedule[b] = [sample_ids(schema, b, step=60_000 + 100 * b + r)
+                       for r in range(n_requests)]
+        later = np.concatenate([ids + offsets[None, :]
+                                for ids in schedule[b][half:]]).ravel()
+        cand = np.unique(np.concatenate([
+            drng.choice(later, DELTA_ROWS // 2),
+            drng.choice(emb_spec.zero_row, DELTA_ROWS)]))
+        rows = drng.permutation(cand)[:DELTA_ROWS]
+        vals = (drng.standard_normal((DELTA_ROWS, emb_spec.dim)) * 0.05
+                ).astype(np.float32)
+        deltas[b] = (rows, vals)
+
+    def serve_schedule(model, plans, tag):
+        store = model.embedding.store
+        scores = {}
+        swap_ms = {"refresh": [], "deltas": []}
+        for b in batches:
+            out, windows = [], []
+            seen = (store.stats.hits, store.stats.lookups)
+            for r, ids in enumerate(schedule[b]):
+                if store.refreshable:
+                    model.embedding.observe(ids)
+                out.append(plans[b].predict(ids))
+                if store.refreshable and (r + 1) % REFRESH_EVERY == 0:
+                    hits, looks = store.stats.hits, store.stats.lookups
+                    windows.append((hits - seen[0]) / (looks - seen[1]))
+                    t0 = time.perf_counter()
+                    store.refresh()
+                    swap_ms["refresh"].append(
+                        (time.perf_counter() - t0) * 1e3)
+                    seen = (store.stats.hits, store.stats.lookups)
+                if r + 1 == half:
+                    rows, vals = deltas[b]
+                    if store.refreshable:
+                        t0 = time.perf_counter()
+                        assert store.apply_deltas(rows, vals) == DELTA_ROWS
+                        swap_ms["deltas"].append(
+                            (time.perf_counter() - t0) * 1e3)
+                    else:                      # the dense replay's twin
+                        torch.cuda.synchronize()
+                        store.mega_table.index_copy_(
+                            0, torch.from_numpy(rows).to(dev),
+                            torch.from_numpy(vals).to(dev))
+            scores[b] = np.concatenate(out)
+            if windows:
+                log(f"[{tag}] b={b}: hit rate per {REFRESH_EVERY}-request "
+                    f"window, each ended by a refresh: "
+                    + " -> ".join(f"{w:.4f}" for w in windows)
+                    + f"; cached traffic "
+                    f"{store.cached_traffic_fraction:.4f}")
+        if store.refreshable:
+            log(f"[{tag}] host wall time of each publish (build aside, "
+                f"device sync, swap): refresh "
+                + ", ".join(f"{t:.2f}" for t in swap_ms["refresh"])
+                + " ms; deltas "
+                + ", ".join(f"{t:.2f}" for t in swap_ms["deltas"]) + " ms")
+        return scores
+
+    # the four levels of the fp32 cached model agree on the card
+    m32 = cached[None]
+    ids = torch.from_numpy(sample_ids(schema, 256, step=10_000)).to(dev)
+    logits = {lvl: compile_plan(m32, lvl, 256, device=dev,
+                                runtime_provider=m32.store_runtime_env)(ids)
+              for lvl in LEVELS}
+    for lvl, out in logits.items():
+        torch.testing.assert_close(out, logits["naive"], **LADDER_TOL,
+                                   msg=lambda m: f"cached {lvl}: {m}")
+    log("[cached] level ladder on the card (fp32 rows): max|level-naive| "
+        f"= { {lvl: (o - logits['naive']).abs().max().item()
+               for lvl, o in logits.items()} }")
+    del logits
+
+    dense_plans = {b: compile_plan(dense, "dual", b, device=dev)
+                   for b in batches}
+    want = serve_schedule(dense, dense_plans, "dense")
+    launches = {}
+    served = {"dense": dense_plans}
+    for rd, model in cached.items():
+        tag = "cached-int8" if rd else "cached-fp32"
+        store = model.embedding.store
+        plans = {}
+        for b in batches:                  # the only compiles of this run
+            plans[b] = compile_plan(model, "dual", b, device=dev,
+                                    runtime_provider=model.store_runtime_env)
+        n_compiles = len(plans)
+        served[tag] = plans
+        kernel = "mtl_gather_two_level_q8" if rd else "mtl_gather_two_level"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = serve_schedule(model, plans, tag)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n_steps = len(batches) * n_requests
+        assert counts[kernel] == n_steps, counts
+        assert counts["mtl_gather"] == 0, counts
+        assert counts["fused_cross_v2"] == 3 * n_steps, counts
+        assert len(plans) == n_compiles and store.stats.refreshes == \
+            len(batches) * (n_requests // REFRESH_EVERY), store.stats
+        launches[kernel] = counts[kernel]
+        s = np.concatenate([got[b] for b in batches])
+        w = np.concatenate([want[b] for b in batches])
+        assert np.all(np.isfinite(s)) and np.all((s > 0) & (s < 1))
+        err = float(np.abs(s - w).max())
+        if rd is None:
+            assert np.array_equal(s, w), f"fp32 cached != dense ({err})"
+        else:
+            assert err < Q8_SCORE_GATE, f"int8 scores off by {err}"
+        log(f"[{tag}] main path: {n_steps} requests through dual "
+            f"({', '.join(str(b) for b in batches)}) on {n_compiles} plans, "
+            f"{store.stats.refreshes} refreshes, {len(batches)} delta "
+            f"batches of {DELTA_ROWS} rows; max|score - dense replay| = "
+            f"{err:.3e}; launches {counts}")
+    for b in batches:
+        paired_latency(torch, {tag: plans[b] for tag, plans in served.items()},
+                       schema, sample_ids)
+    del served
+
+    # the stores took the same deltas: one table, and store-level multi-hot
+    # through the dense store (K2) and the fp32 cached store (K3) agree
+    assert torch.equal(dense.embedding.dense_view(),
+                       cached[None].embedding.store.backing)
+    rng = np.random.default_rng(SEED + 4)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for r in range(8):
+        ids = torch.from_numpy(slot_ids(schema, sample_ids, 1024, HOT,
+                                        70_000 + r)).to(dev)
+        mask = torch.from_numpy(rng.integers(
+            0, 2, size=tuple(ids.shape)).astype(np.float32)).to(dev)
+        a = dense.embedding.forward_multihot(ids, mask)
+        c = cached[None].embedding.forward_multihot(ids, mask)
+        assert torch.equal(a, c), "multi-hot: dense != cached"
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["mtl_gather_multihot"] == counts[
+        "mtl_gather_two_level"] == 8, counts
+    launches["mtl_gather_multihot"] = counts["mtl_gather_multihot"]
+    log(f"[multihot] 8 pooled lookups (b=1024, h={HOT}, random mask) "
+        f"through DenseStore and CachedStore: bitwise equal; launches "
+        f"{counts}")
+    del dense, cached
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -406,8 +817,11 @@ def main() -> int:
     wide = FusedEmbeddingCollection(spec.wide_spec(), device=dev)
     emb.store.reset_parameters(gen)
     wide.store.reset_parameters(gen)
-    rows = phase_kernels(torch, dev, emb.dense_view(), wide.dense_view(),
-                         emb.offsets, CRITEO, sample_ids)
+    rows = []
+    record = recorder(rows)
+    phase_kernels(torch, dev, emb.dense_view(), wide.dense_view(),
+                  emb.offsets, CRITEO, sample_ids, record)
+    phase_tiered_kernels(torch, dev, emb, CRITEO, sample_ids, record)
     del emb, wide
     torch.cuda.empty_cache()
 
@@ -431,10 +845,24 @@ def main() -> int:
             assert counts[kernel] == per_step * steps, counts
             launches[kernel] = counts[kernel]
 
-    # 6. summary
-    sources = {"mtl_gather": ("mtl_gather.cu",
-                              "src/repro/kernels/multi_table_lookup.py:60",
+    # 6. the cached tier (K3, K4) and store-level multi-hot (K2)
+    launches.update(run_cached(
+        torch, dev, ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024),
+        CRITEO, sample_ids, batches=(256, 1024), n_requests=16))
+
+    # 7. summary
+    lookup = "src/repro/kernels/multi_table_lookup.py"
+    sources = {"mtl_gather": ("mtl_gather.cu", f"{lookup}:60",
                               "b=1024,k=39,d=32"),
+               "mtl_gather_multihot": ("mtl_gather_tiered.cu",
+                                       f"{lookup}:106",
+                                       f"b=1024,k=39,d=32,h={HOT}"),
+               "mtl_gather_two_level": ("mtl_gather_tiered.cu",
+                                        f"{lookup}:164",
+                                        "b=1024,k=39,d=32,h=1"),
+               "mtl_gather_two_level_q8": ("mtl_gather_tiered.cu",
+                                           f"{lookup}:241",
+                                           "b=1024,k=39,d=32,h=1"),
                "fused_cross_v2": ("fused_cross.cu",
                                   "src/repro/kernels/fused_cross.py:26",
                                   "b=1024,D=1248"),

@@ -9,6 +9,12 @@ path: the first key names an embedding collection's store (``"emb"``,
 ``"fm_w"``, ``"wide"``) or a model attribute, and the rest walks
 attributes and list indices. Every buffer of the model (the collections'
 derived offsets aside) must be written exactly once, with the same shape.
+A ``CachedStore`` subtree (``backing``, ``cache``, ``slot_of_row``, and
+for int8 rows ``backing_scale``/``cache_scale``) lands in the store's
+buffers of the same names, int8 and int32 leaves included; each store
+then re-derives its host state from what was loaded (``resync``), so a
+cached store's ``observe`` and ``apply_deltas`` count against the loaded
+index map.
 
 Tests use this to hold the port against the reference on the same
 parameters; the port's own weights come from ``CTRModel.init``.
@@ -71,4 +77,6 @@ def load_jax_params(model, params: dict):
     if pending:
         raise ValueError(f"buffers missing from the reference tree: "
                          f"{sorted(pending.values())}")
+    for coll in model.embedding_collections().values():
+        coll.store.resync()
     return model

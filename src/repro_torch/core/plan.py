@@ -8,6 +8,13 @@ returned so the first served request pays no first-call cost (cuBLAS
 handles, stream creation, kernel build and load). ``compile_ms`` is that
 whole preparation.
 
+A refreshable store's tensors (``runtime_keys``) are per-call inputs of
+the step, named by ``runtime_inputs``: each call reads them from the
+``runtime_provider`` the plan was compiled with, so a store that swaps
+its buffers (a cache refresh, an online delta) retargets every plan
+without a rebuild. The default provider binds the tensors present at
+compile time, as the reference's does.
+
 This slice compiles fp32 plans on one device. Mesh placement, int8
 compute and CUDA-graph capture of the "dual" step come in later slices.
 """
@@ -104,7 +111,9 @@ class InferencePlan:
 
 def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
                  device: torch.device | str | None = None,
-                 branch_order: str = "longer_first") -> InferencePlan:
+                 branch_order: str = "longer_first",
+                 runtime_provider: Callable[[], dict] | None = None
+                 ) -> InferencePlan:
     """Compile one (model, level, batch shape) into an InferencePlan.
 
     Args:
@@ -114,6 +123,11 @@ def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
         batch_size: the fixed batch shape this plan serves.
         device: where the plan runs; CUDA unless the caller says "cpu".
         branch_order: breadth-first head-branch policy (§V-H ablations).
+        runtime_provider: zero-argument callable returning the current
+            runtime store tensors (edge name -> tensor, the plan's
+            ``runtime_inputs``), consulted on every step; pass
+            ``model.store_runtime_env`` to serve whatever the store
+            publishes. Default: the tensors present at compile time.
     """
     device = resolve_device(device)
     if level not in LEVELS:
@@ -131,9 +145,14 @@ def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
     step_env = executor.make_step(graph, order, device)
     n_fields = model.spec.k
     runtime = model.store_runtime_env()
+    provider = runtime_provider if runtime_provider is not None \
+        else (lambda: runtime)
+    if set(provider()) != set(runtime):
+        raise ValueError(f"runtime_provider gives {sorted(provider())}; the "
+                         f"graph takes {sorted(runtime)}")
 
     def step(ids: torch.Tensor) -> torch.Tensor:
-        return step_env({"ids": ids}, runtime)
+        return step_env({"ids": ids}, provider())
 
     step(torch.zeros((batch_size, n_fields), dtype=torch.int32,
                      device=device))

@@ -7,12 +7,16 @@ with C3's output-first allocation inside the kernel). Where the table
 lives is the store's business.
 
 The reference's ``apply(params, ids)`` is this module's ``forward(ids)``
-(``nn.Module.apply`` means something else in PyTorch). The vocab-parallel
-``apply_sharded`` comes with the multi-device slice.
+and its ``apply_multihot`` is ``forward_multihot`` (``nn.Module.apply``
+means something else in PyTorch). The vocab-parallel ``apply_sharded``
+comes with the multi-device slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -35,12 +39,14 @@ class FusedEmbeddingCollection(nn.Module):
         self.spec = spec
         self.store = store if store is not None else DenseStore(
             spec, device=device)
-        if self.store.spec != spec:
+        # row_dtype is the store's wire-format choice, not part of the
+        # model's schema: two specs differing only there are compatible
+        if dataclasses.replace(self.store.spec, row_dtype=None) != \
+                dataclasses.replace(spec, row_dtype=None):
             raise ValueError("store was built for a different embedding "
                              f"spec: {self.store.spec} != {spec}")
-        table = self.store.dense_view()
         self.register_buffer("offsets", torch.as_tensor(
-            spec.offsets, dtype=torch.int32, device=table.device))
+            spec.offsets, dtype=torch.int32, device=self.store.device))
 
     def dense_view(self) -> torch.Tensor:
         """The full (rows, d) table, whichever tier holds it."""
@@ -53,7 +59,25 @@ class FusedEmbeddingCollection(nn.Module):
         return self.store.lookup(ids, self.offsets, strategy=strategy,
                                  runtime=runtime)
 
+    def forward_multihot(self, ids: torch.Tensor, mask: torch.Tensor, *,
+                         strategy: str = "auto",
+                         runtime: dict[str, torch.Tensor] | None = None
+                         ) -> torch.Tensor:
+        """ids/mask (b, k, h) -> (b, k*d) sum-pooled."""
+        return self.store.lookup_multihot(ids, mask, self.offsets,
+                                          strategy=strategy, runtime=runtime)
+
     def apply_serial(self, ids: torch.Tensor) -> torch.Tensor:
         """Baseline: k separate gathers + concat (PyTorch-A)."""
         return kops.multi_table_lookup(ids, self.store.dense_view(),
                                        self.offsets, strategy="serial")
+
+    def observe(self, ids) -> None:
+        """Feed served (b, k) id traffic (numpy or a tensor) to the store's
+        admission counters, on the host."""
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu().numpy()
+        ids = np.asarray(ids, dtype=np.int64)
+        if ids.ndim == 1:
+            ids = ids[None, :]
+        self.store.observe(ids + self.spec.offsets[None, :])

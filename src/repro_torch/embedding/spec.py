@@ -21,11 +21,25 @@ class FusedEmbeddingSpec:
     Attributes:
         field_sizes: number of features n_i per field (len = k).
         dim:         shared embedding dimension d.
+        multi_hot:   max ids per field (1 = one-hot fields).
         dtype:       parameter dtype name (a ``torch`` attribute).
+        row_dtype:   wire dtype of stored rows: ``None`` keeps rows in
+                     ``dtype`` (bit-exact); ``"int8"`` stores them
+                     quantized with one fp32 scale per row
+                     (``repro_torch.quant``), dequantized inside the
+                     gather. A store-side choice: two specs differing
+                     only here describe the same model.
     """
     field_sizes: tuple[int, ...]
     dim: int
+    multi_hot: int = 1
     dtype: str = "float32"
+    row_dtype: str | None = None
+
+    def __post_init__(self):
+        if self.row_dtype not in (None, "int8"):
+            raise ValueError(f"row_dtype must be None or 'int8', "
+                             f"got {self.row_dtype!r}")
 
     @property
     def k(self) -> int:
@@ -44,3 +58,16 @@ class FusedEmbeddingSpec:
     @property
     def zero_row(self) -> int:
         return int(sum(self.field_sizes))
+
+    @property
+    def quantized(self) -> bool:
+        """True when stored rows travel as int8 + per-row fp32 scale."""
+        return self.row_dtype == "int8"
+
+    @property
+    def wire_row_bytes(self) -> int:
+        """Bytes one row moves on a gather: ``4·d`` for fp32 rows,
+        ``d + 4`` for int8 rows (payload + scale)."""
+        if self.quantized:
+            return self.dim + 4
+        return self.dim * np.dtype(self.dtype).itemsize

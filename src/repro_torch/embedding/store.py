@@ -3,25 +3,34 @@
 Counterpart of ``repro.embedding.store``. Here a store is an
 ``nn.Module`` that owns its tensors as buffers on an explicit device.
 ``DenseStore`` keeps the whole ``(rows, d)`` mega-table in device memory;
-every lookup is one fused gather. The tiered stores come in later slices.
+every lookup is one fused gather. ``CachedStore``
+(``repro_torch.embedding.cached``) keeps a hot-row cache over the full
+backing table. The host tier comes in a later slice.
 
 The ``runtime_keys`` contract carries over: a store that can swap its
 tensors between calls lists them there, and graphs take them as runtime
 inputs (edge names from :func:`runtime_edge`) instead of closing over
-them. ``DenseStore`` lists none.
+them. ``DenseStore`` lists none. Where the reference's store methods take
+and return a parameter subtree, the port's read and replace the store's
+own buffers.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import quant
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
 from .spec import FusedEmbeddingSpec
 
-__all__ = ["EmbeddingStore", "DenseStore", "runtime_edge"]
+__all__ = ["StoreStats", "EmbeddingStore", "DenseStore", "runtime_edge",
+           "validate_deltas"]
 
 
 def runtime_edge(prefix: str, leaf: str) -> str:
@@ -29,13 +38,84 @@ def runtime_edge(prefix: str, leaf: str) -> str:
     return f"{prefix}:{leaf}"
 
 
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def validate_deltas(spec: FusedEmbeddingSpec, row_ids, new_rows
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Canonicalize one ``(row_id, new_row)`` delta batch (numpy or torch).
+
+    ``row_ids`` become a unique int64 vector (duplicates keep the **last**
+    occurrence: the stream is ordered), ``new_rows`` the matching
+    ``(n, d)`` full-precision array. Rejects ids out of range and any id at
+    or past ``spec.zero_row``: the zero row must stay zero for multi-hot
+    masking, so a trainer can never push values into it.
+    """
+    row_ids = _host(row_ids).astype(np.int64).reshape(-1)
+    rows = _host(new_rows).astype(np.dtype(spec.dtype))
+    if rows.ndim == 1:
+        rows = rows[None, :]
+    if rows.shape != (row_ids.size, spec.dim):
+        raise ValueError(f"delta rows shape {rows.shape} != "
+                         f"{(row_ids.size, spec.dim)}")
+    if row_ids.size == 0:
+        return row_ids, rows
+    if row_ids.min() < 0 or row_ids.max() >= spec.zero_row:
+        bad = row_ids[(row_ids < 0) | (row_ids >= spec.zero_row)]
+        raise ValueError(
+            f"delta row ids {bad[:8].tolist()} out of range [0, "
+            f"{spec.zero_row}) — the zero row must stay zero (multi-hot "
+            "masking depends on it)")
+    _, first_in_reversed = np.unique(row_ids[::-1], return_index=True)
+    keep = row_ids.size - 1 - first_in_reversed
+    return row_ids[keep], rows[keep]
+
+
+@dataclasses.dataclass
+class StoreStats:
+    """Host-side traffic counters of one embedding store.
+
+    ``hits``/``misses`` count row lookups against the store's current
+    index map; ``refreshes`` counts cache rebuilds; ``delta_rows`` rows
+    whose values changed through :meth:`EmbeddingStore.apply_deltas`. The
+    byte counters are wire bytes (``spec.wire_row_bytes``):
+    ``gather_bytes`` the gather traffic of observed lookups,
+    ``quant_bytes_saved`` what int8 rows saved against full precision,
+    ``quant_rows`` rows pushed through ``repro_torch.quant``. All stay
+    zero for ``DenseStore``. The reference's staging counters belong to
+    the host tier and come with it.
+    """
+    hits: int = 0
+    misses: int = 0
+    refreshes: int = 0
+    gather_bytes: int = 0
+    quant_rows: int = 0
+    quant_bytes_saved: int = 0
+    delta_rows: int = 0
+
+    @property
+    def lookups(self) -> int:
+        return self.hits + self.misses
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.lookups
+        return self.hits / n if n else 0.0
+
+
 class EmbeddingStore(nn.Module):
     """Interface of the embedding parameter tier.
 
     Implementations must be bit-exact with each other: a store is a
-    memory-system choice, never a numerics choice.
+    memory-system choice, never a numerics choice (int8 rows relax this
+    to the accuracy gate).
     """
 
+    #: True when the store keeps a rebuildable cache tier
+    refreshable: bool = False
     #: buffers that compiled plans take as per-call inputs (swappable);
     #: empty for stores that never swap their tensors
     runtime_keys: tuple = ()
@@ -43,7 +123,33 @@ class EmbeddingStore(nn.Module):
     def __init__(self, spec: FusedEmbeddingSpec):
         super().__init__()
         self.spec = spec
+        self.stats = StoreStats()
 
+    @property
+    def device(self) -> torch.device:
+        """Where the store's tensors live (read without touching them)."""
+        return next(self.buffers()).device
+
+    @property
+    def quantized(self) -> bool:
+        """True when rows travel as int8 + per-row fp32 scale."""
+        return self.spec.quantized
+
+    @property
+    def wire_row_bytes(self) -> int:
+        """Bytes one row moves on a gather."""
+        return self.spec.wire_row_bytes
+
+    def _observe_traffic(self, rows: np.ndarray) -> None:
+        """Wire-byte accounting of every tiered store's ``observe``:
+        ``rows`` are the clipped global rows this batch gathered."""
+        self.stats.gather_bytes += rows.size * self.wire_row_bytes
+        if self.quantized:
+            full = self.spec.dim * np.dtype(self.spec.dtype).itemsize
+            self.stats.quant_bytes_saved += rows.size * (
+                full - self.wire_row_bytes)
+
+    # -- params ------------------------------------------------------------
     @torch.no_grad()
     def init_dense_table(self, table: torch.Tensor,
                          generator: torch.Generator) -> None:
@@ -55,6 +161,17 @@ class EmbeddingStore(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         raise NotImplementedError
 
+    def adopt(self, tensors: dict[str, torch.Tensor]) -> None:
+        """Take over another store's tensors (its buffers by name:
+        ``{"mega_table"}`` or ``{"backing", ...}``) in this store's
+        layout, values preserved bit for bit — a store swap is a placement
+        change, not a re-init."""
+        raise NotImplementedError
+
+    def resync(self) -> None:
+        """Re-derive host-side state from the buffers after they were
+        written from outside (a loaded parameter tree). No-op here."""
+
     def dense_view(self) -> torch.Tensor:
         """The full (rows, d) table."""
         raise NotImplementedError
@@ -63,6 +180,7 @@ class EmbeddingStore(nn.Module):
         """Leaf name -> tensor for every ``runtime_keys`` buffer."""
         return {leaf: getattr(self, leaf) for leaf in self.runtime_keys}
 
+    # -- lookup ------------------------------------------------------------
     def lookup(self, ids: torch.Tensor, offsets: torch.Tensor, *,
                strategy: str = "auto",
                runtime: dict[str, torch.Tensor] | None = None
@@ -70,6 +188,36 @@ class EmbeddingStore(nn.Module):
         """ids (b, k) -> (b, k*d). ``runtime`` overrides the
         ``runtime_keys`` buffers for this call."""
         raise NotImplementedError
+
+    def lookup_multihot(self, ids: torch.Tensor, mask: torch.Tensor,
+                        offsets: torch.Tensor, *, strategy: str = "auto",
+                        runtime: dict[str, torch.Tensor] | None = None
+                        ) -> torch.Tensor:
+        """ids/mask (b, k, h) -> (b, k*d) sum-pooled."""
+        raise NotImplementedError
+
+    # -- traffic / cache management ---------------------------------------
+    def observe(self, global_rows: np.ndarray) -> None:
+        """Record served row traffic (host side). No-op here."""
+
+    def refresh(self) -> None:
+        """Rebuild any cache tier from observed traffic. No-op here."""
+
+    def apply_deltas(self, row_ids, new_rows) -> int:
+        """Apply online ``(row_id, new_row)`` deltas (a live trainer's
+        push) and return the number of rows applied. Only stores whose
+        tensors are runtime plan inputs support it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support online deltas: its "
+            "tensors are compiled into plans as constants, not runtime "
+            "inputs. Serve through CachedStore (its tiers republish "
+            "through the recompile-free swap).")
+
+    @property
+    def cached_traffic_fraction(self) -> float:
+        """Share of observed traffic whose rows are currently cached (1.0
+        for a store that holds everything in one tier)."""
+        return 1.0
 
     def describe(self) -> str:
         raise NotImplementedError
@@ -90,6 +238,21 @@ class DenseStore(EmbeddingStore):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.init_dense_table(self.mega_table, generator)
 
+    @torch.no_grad()
+    def adopt(self, tensors: dict[str, torch.Tensor]) -> None:
+        if "mega_table" in tensors:
+            table = tensors["mega_table"]
+        elif "backing_scale" in tensors \
+                and tensors["backing"].dtype == torch.int8:
+            # a quantized tiered store: rebuild full-precision rows (the
+            # int8 grid is all the values that remain)
+            table = quant.dequantize_rows(tensors["backing"],
+                                          tensors["backing_scale"])
+        else:
+            table = tensors["backing"]
+        self.mega_table = table.to(self.mega_table.device,
+                                   self.mega_table.dtype, copy=True)
+
     def dense_view(self) -> torch.Tensor:
         return self.mega_table
 
@@ -99,6 +262,13 @@ class DenseStore(EmbeddingStore):
                ) -> torch.Tensor:
         return kops.multi_table_lookup(ids, self.mega_table, offsets,
                                        strategy=strategy)
+
+    def lookup_multihot(self, ids: torch.Tensor, mask: torch.Tensor,
+                        offsets: torch.Tensor, *, strategy: str = "auto",
+                        runtime: dict[str, torch.Tensor] | None = None
+                        ) -> torch.Tensor:
+        return kops.multi_table_lookup_multihot(ids, mask, self.mega_table,
+                                                offsets, strategy=strategy)
 
     def describe(self) -> str:
         return f"dense(rows={self.spec.rows},d={self.spec.dim})"

@@ -1,10 +1,13 @@
-"""Hand-written CUDA kernels of the main path, their wrappers and their
+"""Hand-written CUDA kernels of the ported paths, their wrappers and their
 plain PyTorch versions.
 
-  K1  mtl_gather             csrc/mtl_gather.cu   (multi_table_lookup.py)
-  K9  fused_cross_v2         csrc/fused_cross.cu  (fused_cross.py)
-  K10 fused_cross_v1         csrc/fused_cross.cu  (fused_cross.py)
-  K11 fused_fm_second_order  csrc/fused_fm.cu     (fused_fm.py)
+  K1  mtl_gather               csrc/mtl_gather.cu         (multi_table_lookup.py)
+  K2  mtl_gather_multihot      csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
+  K3  mtl_gather_two_level     csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
+  K4  mtl_gather_two_level_q8  csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
+  K9  fused_cross_v2           csrc/fused_cross.cu        (fused_cross.py)
+  K10 fused_cross_v1           csrc/fused_cross.cu        (fused_cross.py)
+  K11 fused_fm_second_order    csrc/fused_fm.cu           (fused_fm.py)
 
 Each wrapper counts its launches in ``<wrapper>.launches``; a run can
 reset and read them all with :func:`reset_launch_counts` and
@@ -14,10 +17,15 @@ libraries are compiled at the first launch (``_build``).
 
 from .fused_cross import fused_cross_v1, fused_cross_v2
 from .fused_fm import fused_fm_second_order
-from .multi_table_lookup import mtl_gather
+from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
+                                 mtl_gather_two_level,
+                                 mtl_gather_two_level_q8)
 
 KERNELS = {
     "mtl_gather": mtl_gather,
+    "mtl_gather_multihot": mtl_gather_multihot,
+    "mtl_gather_two_level": mtl_gather_two_level,
+    "mtl_gather_two_level_q8": mtl_gather_two_level_q8,
     "fused_cross_v2": fused_cross_v2,
     "fused_cross_v1": fused_cross_v1,
     "fused_fm_second_order": fused_fm_second_order,
@@ -34,4 +42,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "mtl_gather",
-           "fused_cross_v2", "fused_cross_v1", "fused_fm_second_order"]
+           "mtl_gather_multihot", "mtl_gather_two_level",
+           "mtl_gather_two_level_q8", "fused_cross_v2", "fused_cross_v1",
+           "fused_fm_second_order"]

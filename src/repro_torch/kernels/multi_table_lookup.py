@@ -1,13 +1,24 @@
-"""Output-first fused multi-table gather (Alg. 1) — ``csrc/mtl_gather.cu``.
+"""Fused multi-table gathers (Alg. 1) and their pooled and tiered forms.
 
-Counterpart of ``repro.kernels.multi_table_lookup.mtl_gather``. The
-reference kernel takes precomputed global rows; this one takes the
-``(b, k)`` local ids plus the ``(k,)`` table offsets and adds them inside
-the kernel (Alg. 1 lines 6–8), so no separate pass over the ids runs.
+Counterparts of ``repro.kernels.multi_table_lookup``:
 
-Global rows are clamped into ``[0, N)``: an out-of-range id reads some row
-of the table, never memory past it. The plain version clamps the same way,
-so kernel and plain version are bitwise equal on any input.
+  K1 ``mtl_gather``               ``csrc/mtl_gather.cu``
+  K2 ``mtl_gather_multihot``      ``csrc/mtl_gather_tiered.cu``
+  K3 ``mtl_gather_two_level``     ``csrc/mtl_gather_tiered.cu``
+  K4 ``mtl_gather_two_level_q8``  ``csrc/mtl_gather_tiered.cu``
+
+The reference kernels take precomputed global rows (and, for the tiered
+ones, a slot vector gathered in a separate pass); these take the local
+ids plus the ``(k,)`` table offsets and add them inside the kernel (Alg. 1
+lines 6–8), and the tiered ones read ``slot_of_row[row]`` themselves. The
+pooled forms take ``(b, k, h)`` ids and an optional ``(b, k, h)`` float32
+mask; a masked slot reads the table's last row (the zero row), exactly as
+the reference redirects it before its kernel.
+
+Global rows are clamped into ``[0, N)`` and a slot outside ``[0, C)``
+counts as a miss: an out-of-range id reads some row of the table, never
+memory past it. The plain versions clamp, select and sum (in slot order)
+the same way, so kernel and plain version are bitwise equal on any input.
 """
 
 from __future__ import annotations
@@ -18,8 +29,12 @@ import functools
 import torch
 
 from . import _build
+from .ref import ref_two_level_gather, ref_two_level_gather_q8
 
-__all__ = ["mtl_gather", "mtl_gather_plain"]
+__all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
+           "mtl_gather_multihot_plain", "mtl_gather_two_level",
+           "mtl_gather_two_level_plain", "mtl_gather_two_level_q8",
+           "mtl_gather_two_level_q8_plain"]
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -80,3 +95,260 @@ def mtl_gather(ids: torch.Tensor, offsets: torch.Tensor,
 
 
 mtl_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2–K4: pooled and two-level gathers (csrc/mtl_gather_tiered.cu)
+# ---------------------------------------------------------------------------
+
+def _slot_rows(ids: torch.Tensor, offsets: torch.Tensor,
+               mask: torch.Tensor | None, n_rows: int) -> torch.Tensor:
+    """(b, k, h) global rows as the kernels compute them: id + offset,
+    masked slots redirected to row ``n_rows - 1``, clamped into
+    ``[0, n_rows)``."""
+    rows = ids.to(torch.int64) + offsets.to(torch.int64)[None, :, None]
+    if mask is not None:
+        rows = torch.where(mask != 0, rows, n_rows - 1)
+    return rows.clamp_(0, n_rows - 1)
+
+
+def _pool(vals: torch.Tensor, b: int, k: int, h: int) -> torch.Tensor:
+    """(b*k*h, d) slot values -> (b, k*d), summed over the h slots in slot
+    order starting from slot 0 (the kernels' order, not ``sum``'s)."""
+    d = vals.shape[-1]
+    vals = vals.reshape(b, k, h, d)
+    acc = vals[:, :, 0]
+    for j in range(1, h):
+        acc = acc + vals[:, :, j]
+    return acc.reshape(b, k * d)
+
+
+def _as_slots(ids: torch.Tensor) -> torch.Tensor:
+    return ids if ids.dim() == 3 else ids.unsqueeze(-1)
+
+
+def mtl_gather_multihot_plain(ids: torch.Tensor, mask: torch.Tensor | None,
+                              offsets: torch.Tensor,
+                              table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2."""
+    ids = _as_slots(ids)
+    b, k, h = ids.shape
+    rows = _slot_rows(ids, offsets, mask, table.shape[0])
+    return _pool(table.index_select(0, rows.reshape(-1)), b, k, h)
+
+
+def mtl_gather_two_level_plain(ids: torch.Tensor, offsets: torch.Tensor,
+                               slot_of_row: torch.Tensor,
+                               cache: torch.Tensor, backing: torch.Tensor,
+                               mask: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of K3."""
+    ids = _as_slots(ids)
+    b, k, h = ids.shape
+    rows = _slot_rows(ids, offsets, mask, backing.shape[0]).reshape(-1)
+    return _pool(ref_two_level_gather(rows, slot_of_row, cache, backing),
+                 b, k, h)
+
+
+def mtl_gather_two_level_q8_plain(ids: torch.Tensor, offsets: torch.Tensor,
+                                  slot_of_row: torch.Tensor,
+                                  cache: torch.Tensor,
+                                  cache_scale: torch.Tensor,
+                                  backing: torch.Tensor,
+                                  backing_scale: torch.Tensor,
+                                  mask: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of K4."""
+    ids = _as_slots(ids)
+    b, k, h = ids.shape
+    rows = _slot_rows(ids, offsets, mask, backing.shape[0]).reshape(-1)
+    return _pool(ref_two_level_gather_q8(rows, slot_of_row, cache,
+                                         cache_scale, backing, backing_scale),
+                 b, k, h)
+
+
+@functools.cache
+def _tiered(name: str, n_pointers: int, n_sizes: int):
+    fn = getattr(_build.library("mtl_gather_tiered"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers \
+        + [ctypes.c_int64] * n_sizes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_slots(ids: torch.Tensor, mask: torch.Tensor | None,
+                 offsets: torch.Tensor, dev: torch.device
+                 ) -> tuple[torch.Tensor, int, int, int]:
+    """Check the id/mask/offset inputs of K2–K4; returns the ids as
+    (b, k, h) with b, k, h."""
+    if not isinstance(ids, torch.Tensor) or ids.dim() not in (2, 3):
+        raise ValueError("ids must be a (b, k) or (b, k, h) tensor")
+    _build.check_tensor("ids", ids, torch.int32, ids.dim(), dev)
+    ids = _as_slots(ids)
+    b, k, h = ids.shape
+    _build.check_tensor("offsets", offsets, torch.int32, 1, dev)
+    if offsets.shape[0] != k:
+        raise ValueError(f"offsets has {offsets.shape[0]} entries for "
+                         f"{k} fields")
+    if mask is not None:
+        _build.check_tensor("mask", mask, torch.float32, 3, dev)
+        if tuple(mask.shape) != (b, k, h):
+            raise ValueError(f"mask has shape {tuple(mask.shape)}, ids "
+                             f"{(b, k, h)}")
+    if h < 1:
+        raise ValueError("ids need at least one slot per field")
+    return ids, b, k, h
+
+
+def _check_table(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 dev: torch.device, d: int | None = None) -> None:
+    _build.check_tensor(name, t, dtype, 2, dev)
+    if t.shape[0] == 0:
+        raise ValueError(f"{name} has no rows")
+    if d is not None and t.shape[1] != d:
+        raise ValueError(f"{name} rows have width {t.shape[1]}, expected {d}")
+
+
+def _check_scale(name: str, t: torch.Tensor, rows: int,
+                 dev: torch.device) -> None:
+    _build.check_tensor(name, t, torch.float32, 2, dev)
+    if tuple(t.shape) != (rows, 1):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{(rows, 1)}")
+
+
+def _check_map(slot_of_row: torch.Tensor, n_rows: int,
+               dev: torch.device) -> None:
+    _build.check_tensor("slot_of_row", slot_of_row, torch.int32, 1, dev)
+    if slot_of_row.shape[0] != n_rows:
+        raise ValueError(f"slot_of_row has {slot_of_row.shape[0]} entries "
+                         f"for {n_rows} backing rows")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
+                        offsets: torch.Tensor,
+                        table: torch.Tensor) -> torch.Tensor:
+    """K2: pooled (sum) gather of ``h`` ids per (row, field).
+
+    Args:
+        ids:     (b, k, h) int32 per-field local ids ((b, k) means h = 1).
+        mask:    (b, k, h) float32, nonzero = valid slot; ``None`` = all
+                 valid. A masked slot reads row ``N - 1``, the zero row.
+        offsets: (k,) int32 starting row of each field in ``table``.
+        table:   (N, d) float32 mega-table whose last row is all zero.
+
+    Returns:
+        (b, k*d) float32 pooled rows.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream.
+    """
+    dev = table.device
+    ids, b, k, h = _check_slots(ids, mask, offsets, dev)
+    _check_table("table", table, torch.float32, dev)
+    n_rows, d = table.shape
+    if dev.type == "cpu":
+        return mtl_gather_multihot_plain(ids, mask, offsets, table)
+    out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    code = _tiered("mtl_gather_multihot", 5, 5)(
+        ids.data_ptr(), _ptr(mask), offsets.data_ptr(), table.data_ptr(),
+        out.data_ptr(), b, k, h, d, n_rows, _build.current_stream(dev))
+    _build.check_launch("mtl_gather_multihot", code)
+    mtl_gather_multihot.launches += 1
+    return out
+
+
+def mtl_gather_two_level(ids: torch.Tensor, offsets: torch.Tensor,
+                         slot_of_row: torch.Tensor, cache: torch.Tensor,
+                         backing: torch.Tensor,
+                         mask: torch.Tensor | None = None) -> torch.Tensor:
+    """K3: two-level gather — cache hits from ``cache``, misses from
+    ``backing`` — pooled over ``h`` ids per (row, field) (h = 1 is the
+    one-hot lookup).
+
+    Args:
+        ids:         (b, k) or (b, k, h) int32 per-field local ids.
+        offsets:     (k,) int32 starting row of each field.
+        slot_of_row: (N,) int32 cache slot per global row, -1 = uncached.
+        cache:       (C, d) float32 hot-row copies.
+        backing:     (N, d) float32 full mega-table (last row all zero).
+        mask:        optional (b, k, h) float32; masked slots read row N-1.
+
+    Returns:
+        (b, k*d) float32.
+    """
+    dev = backing.device
+    ids, b, k, h = _check_slots(ids, mask, offsets, dev)
+    _check_table("backing", backing, torch.float32, dev)
+    n_rows, d = backing.shape
+    _check_table("cache", cache, torch.float32, dev, d)
+    _check_map(slot_of_row, n_rows, dev)
+    if dev.type == "cpu":
+        return mtl_gather_two_level_plain(ids, offsets, slot_of_row, cache,
+                                          backing, mask)
+    out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    code = _tiered("mtl_gather_two_level", 7, 6)(
+        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+        slot_of_row.data_ptr(), cache.data_ptr(), backing.data_ptr(),
+        out.data_ptr(), b, k, h, d, cache.shape[0], n_rows,
+        _build.current_stream(dev))
+    _build.check_launch("mtl_gather_two_level", code)
+    mtl_gather_two_level.launches += 1
+    return out
+
+
+def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
+                            slot_of_row: torch.Tensor, cache: torch.Tensor,
+                            cache_scale: torch.Tensor, backing: torch.Tensor,
+                            backing_scale: torch.Tensor,
+                            mask: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """K4: K3 on int8 rows, each dequantized (``q * scale``, the scale from
+    the same tier) before the fp32 pool.
+
+    Args:
+        ids, offsets, slot_of_row, mask: as :func:`mtl_gather_two_level`.
+        cache:         (C, d) int8 hot-row copies.
+        cache_scale:   (C, 1) float32 per-row scales.
+        backing:       (N, d) int8 full mega-table.
+        backing_scale: (N, 1) float32 per-row scales.
+
+    Returns:
+        (b, k*d) float32.
+    """
+    dev = backing.device
+    ids, b, k, h = _check_slots(ids, mask, offsets, dev)
+    _check_table("backing", backing, torch.int8, dev)
+    n_rows, d = backing.shape
+    _check_table("cache", cache, torch.int8, dev, d)
+    _check_scale("backing_scale", backing_scale, n_rows, dev)
+    _check_scale("cache_scale", cache_scale, cache.shape[0], dev)
+    _check_map(slot_of_row, n_rows, dev)
+    if dev.type == "cpu":
+        return mtl_gather_two_level_q8_plain(ids, offsets, slot_of_row,
+                                             cache, cache_scale, backing,
+                                             backing_scale, mask)
+    out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    code = _tiered("mtl_gather_two_level_q8", 9, 6)(
+        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+        slot_of_row.data_ptr(), cache.data_ptr(), cache_scale.data_ptr(),
+        backing.data_ptr(), backing_scale.data_ptr(), out.data_ptr(),
+        b, k, h, d, cache.shape[0], n_rows, _build.current_stream(dev))
+    _build.check_launch("mtl_gather_two_level_q8", code)
+    mtl_gather_two_level_q8.launches += 1
+    return out
+
+
+mtl_gather_multihot.launches = 0
+mtl_gather_two_level.launches = 0
+mtl_gather_two_level_q8.launches = 0

@@ -9,9 +9,14 @@ Counterpart of ``repro.kernels.ops``. Strategies for
   "torch"       one ``index_select`` over the mega-table  [C2 in PyTorch]
   "serial"      per-field gathers + concat (the paper's PyTorch baseline)
 
-The reference's "input_first" and "onehot" strategies wait for their
-kernels. The fused-tail wrappers dispatch on the tensor's device the same
-way: the kernel for CUDA tensors, the plain version for CPU tensors.
+The multi-hot and cached-tier lookups take "auto"/"kernel" (the K2, K3
+or K4 wrapper, which redirects masked slots to the table's zero row
+``N - 1`` and reads ``slot_of_row`` in the kernel) and "torch" (the
+reference's "jnp" oracle path: one gather, then mask-multiply-sum for
+multi-hot). The reference's "input_first" and "onehot" strategies wait
+for their kernels. The fused-tail wrappers dispatch on the tensor's
+device the same way: the kernel for CUDA tensors, the plain version for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,12 +26,20 @@ import torch
 from . import ref
 from .fused_cross import fused_cross_v1, fused_cross_v2
 from .fused_fm import fused_fm_second_order
-from .multi_table_lookup import mtl_gather
+from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
+                                 mtl_gather_two_level,
+                                 mtl_gather_two_level_q8)
 
-__all__ = ["STRATEGIES", "multi_table_lookup", "fused_cross_v1",
+__all__ = ["STRATEGIES", "POOLED_STRATEGIES", "multi_table_lookup",
+           "multi_table_lookup_multihot", "multi_table_lookup_cached",
+           "multi_table_lookup_cached_multihot",
+           "multi_table_lookup_cached_q8",
+           "multi_table_lookup_cached_q8_multihot", "fused_cross_v1",
            "fused_cross_v2", "fused_fm_second_order"]
 
 STRATEGIES = ("auto", "kernel", "torch", "serial")
+#: strategies of the multi-hot and cached-tier lookups
+POOLED_STRATEGIES = ("auto", "kernel", "torch")
 
 
 def multi_table_lookup(ids: torch.Tensor, mega_table: torch.Tensor,
@@ -54,3 +67,189 @@ def multi_table_lookup(ids: torch.Tensor, mega_table: torch.Tensor,
         return torch.cat(cols, dim=1)
     raise ValueError(f"unknown strategy {strategy!r}; expected one of "
                      f"{STRATEGIES}")
+
+
+def _unknown(strategy: str):
+    return ValueError(f"unknown strategy {strategy!r}; expected one of "
+                      f"{POOLED_STRATEGIES}")
+
+
+def _global_rows(ids: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Alg. 1 lines 6–7 vectorized: local ids -> flat global rows
+    ((b, k) or (b, k, h) ids)."""
+    off = offsets.long()
+    off = off[None, :] if ids.dim() == 2 else off[None, :, None]
+    return (ids.long() + off).reshape(-1)
+
+
+def _redirected_rows(ids: torch.Tensor, mask: torch.Tensor,
+                     offsets: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Flat (b*k*h,) rows with masked slots sent to the zero row ``N-1``
+    (``ops.py:189-191`` of the reference)."""
+    return torch.where(mask.reshape(-1) != 0, _global_rows(ids, offsets),
+                       n_rows - 1)
+
+
+def _mask_pool(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The oracle's pooling: (b*k*h, d) values × mask, summed over h."""
+    b, k, h = mask.shape
+    d = vals.shape[-1]
+    pooled = (vals.reshape(b, k, h, d)
+              * mask[..., None].to(vals.dtype)).sum(dim=2)
+    return pooled.reshape(b, k * d)
+
+
+def multi_table_lookup_multihot(ids: torch.Tensor, mask: torch.Tensor,
+                                mega_table: torch.Tensor,
+                                offsets: torch.Tensor, *,
+                                strategy: str = "auto") -> torch.Tensor:
+    """Multi-hot (pooled) fused lookup.
+
+    Args:
+        ids:        (b, k, h) local ids; invalid slots arbitrary.
+        mask:       (b, k, h) 1 for valid slots, 0 otherwise.
+        mega_table: (N, d) with a trailing all-zero row at ``N - 1``.
+        offsets:    (k,) table starts.
+
+    Returns:
+        (b, k*d) pooled output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_multihot(ids, mask.to(torch.float32), offsets,
+                                   mega_table)
+    if strategy == "torch":
+        return ref.ref_multi_hot_lookup(ids, mask, mega_table, offsets)
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_cached(ids: torch.Tensor, cache: torch.Tensor,
+                              backing: torch.Tensor,
+                              slot_of_row: torch.Tensor,
+                              offsets: torch.Tensor, *,
+                              strategy: str = "auto") -> torch.Tensor:
+    """Fused lookup through a tiered (cache + backing) store: one
+    two-level gather, bitwise equal to the dense lookup because cache rows
+    are verbatim copies.
+
+    Args:
+        ids:         (b, k) int32 per-field local ids.
+        cache:       (C, d) hot-row copies.
+        backing:     (N, d) full mega-table.
+        slot_of_row: (N,) int32 cache slot per global row, -1 = uncached.
+        offsets:     (k,) int32 starting row of each table.
+
+    Returns:
+        (b, k*d) embedding output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_two_level(ids, offsets, slot_of_row, cache,
+                                    backing)
+    if strategy == "torch":
+        b, k = ids.shape
+        out = ref.ref_two_level_gather(_global_rows(ids, offsets),
+                                       slot_of_row, cache, backing)
+        return out.reshape(b, k * backing.shape[1])
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_cached_multihot(ids: torch.Tensor, mask: torch.Tensor,
+                                       cache: torch.Tensor,
+                                       backing: torch.Tensor,
+                                       slot_of_row: torch.Tensor,
+                                       offsets: torch.Tensor, *,
+                                       strategy: str = "auto"
+                                       ) -> torch.Tensor:
+    """Multi-hot (pooled) lookup through a tiered store; either strategy
+    pools exactly as its dense twin does, so the two stores agree bitwise.
+
+    Args:
+        ids, mask:   (b, k, h) local ids and validity mask.
+        cache:       (C, d) hot-row copies.
+        backing:     (N, d) mega-table with a trailing all-zero row.
+        slot_of_row: (N,) int32 index map.
+        offsets:     (k,) table starts.
+
+    Returns:
+        (b, k*d) pooled output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_two_level(ids, offsets, slot_of_row, cache,
+                                    backing, mask=mask.to(torch.float32))
+    if strategy == "torch":
+        vals = ref.ref_two_level_gather(_global_rows(ids, offsets),
+                                        slot_of_row, cache, backing)
+        return _mask_pool(vals, mask)
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_cached_q8(ids: torch.Tensor, cache: torch.Tensor,
+                                 cache_scale: torch.Tensor,
+                                 backing: torch.Tensor,
+                                 backing_scale: torch.Tensor,
+                                 slot_of_row: torch.Tensor,
+                                 offsets: torch.Tensor, *,
+                                 strategy: str = "auto") -> torch.Tensor:
+    """Quantized tiered lookup: int8 cache/backing rows with per-row fp32
+    scales, dequantized inside the gather.
+
+    Args:
+        ids:           (b, k) int32 per-field local ids.
+        cache:         (C, d) int8 hot-row copies.
+        cache_scale:   (C, 1) fp32 per-row scales.
+        backing:       (N, d) int8 full mega-table.
+        backing_scale: (N, 1) fp32 per-row scales.
+        slot_of_row:   (N,) int32 cache slot per global row, -1 = uncached.
+        offsets:       (k,) int32 starting row of each table.
+
+    Returns:
+        (b, k*d) float32 embedding output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_two_level_q8(ids, offsets, slot_of_row, cache,
+                                       cache_scale, backing, backing_scale)
+    if strategy == "torch":
+        b, k = ids.shape
+        out = ref.ref_two_level_gather_q8(_global_rows(ids, offsets),
+                                          slot_of_row, cache, cache_scale,
+                                          backing, backing_scale)
+        return out.reshape(b, k * backing.shape[1])
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_cached_q8_multihot(ids: torch.Tensor,
+                                          mask: torch.Tensor,
+                                          cache: torch.Tensor,
+                                          cache_scale: torch.Tensor,
+                                          backing: torch.Tensor,
+                                          backing_scale: torch.Tensor,
+                                          slot_of_row: torch.Tensor,
+                                          offsets: torch.Tensor, *,
+                                          strategy: str = "auto"
+                                          ) -> torch.Tensor:
+    """Multi-hot (pooled) quantized tiered lookup. Masked slots read the
+    zero row, whose int8 payload is 0, so they dequantize to an exact
+    0.0; pooling is in fp32 after the per-row dequant.
+
+    Args:
+        ids, mask:     (b, k, h) local ids and validity mask.
+        cache:         (C, d) int8 hot-row copies.
+        cache_scale:   (C, 1) fp32 per-row scales.
+        backing:       (N, d) int8 mega-table with a trailing zero row.
+        backing_scale: (N, 1) fp32 per-row scales.
+        slot_of_row:   (N,) int32 index map.
+        offsets:       (k,) table starts.
+
+    Returns:
+        (b, k*d) float32 pooled output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_two_level_q8(ids, offsets, slot_of_row, cache,
+                                       cache_scale, backing, backing_scale,
+                                       mask=mask.to(torch.float32))
+    if strategy == "torch":
+        rows = _redirected_rows(ids, mask, offsets, backing.shape[0])
+        vals = ref.ref_two_level_gather_q8(rows, slot_of_row, cache,
+                                           cache_scale, backing,
+                                           backing_scale)
+        return _mask_pool(vals, mask)
+    raise _unknown(strategy)

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the functions this package's kernels compute.
 
-Counterpart of ``repro.kernels.ref``, limited to the main inference path:
-the multi-table lookup (Alg. 1 and its serial baseline), the DCN / DCNv2
-cross tails and the FM second-order term. The kernel modules' plain
-versions and the ``torch``/``serial`` lookup strategies are built on these.
+Counterpart of ``repro.kernels.ref``, limited to the ported paths: the
+multi-table lookup (Alg. 1 and its serial baseline), the multi-hot pooled
+lookup, the two-level (cache + backing) gathers of the cached tier in
+fp32 and int8, the DCN / DCNv2 cross tails and the FM second-order term.
+The kernel modules' plain versions and the ``torch``/``serial`` lookup
+strategies are built on these.
 
 ``multi_table_lookup_alg1`` is a literal transcription of the paper's
 Algorithm 1 in numpy scalar code, for tiny sizes only.
@@ -15,8 +17,10 @@ import numpy as np
 import torch
 
 __all__ = ["multi_table_lookup_alg1", "ref_multi_table_lookup",
-           "ref_serial_lookup", "ref_cross_v2_elementwise",
-           "ref_cross_v1_elementwise", "ref_fm_second_order"]
+           "ref_serial_lookup", "ref_multi_hot_lookup",
+           "ref_two_level_gather", "ref_two_level_gather_q8",
+           "ref_cross_v2_elementwise", "ref_cross_v1_elementwise",
+           "ref_fm_second_order"]
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +80,94 @@ def ref_serial_lookup(ids: torch.Tensor,
     ``nn.Embedding`` loop)."""
     cols = [tables[i].index_select(0, ids[:, i]) for i in range(len(tables))]
     return torch.cat(cols, dim=1)
+
+
+def ref_multi_hot_lookup(ids: torch.Tensor, weights: torch.Tensor,
+                         mega_table: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """Multi-hot (sequence-feature) oracle: weighted sum over the hot axis.
+
+    Args:
+        ids:        (b, k, h) per-field IDs, h = max hot count.
+        weights:    (b, k, h) 0/1 validity mask (or any pooling weights).
+        mega_table: (N, d).
+        offsets:    (k,).
+
+    Returns:
+        (b, k*d) pooled embedding output.
+    """
+    b, k, h = ids.shape
+    d = mega_table.shape[1]
+    rows = (ids.long() + offsets.long()[None, :, None]).reshape(-1)
+    gathered = mega_table.index_select(0, rows).reshape(b, k, h, d)
+    pooled = (gathered * weights[..., None].to(mega_table.dtype)).sum(dim=2)
+    return pooled.reshape(b, k * d)
+
+
+def _tier_select(flat_rows: torch.Tensor, slot_of_row: torch.Tensor,
+                 n_cache: int):
+    """Per row: whether it is a cache hit, its cache slot (0 on a miss)
+    and its backing row (0 on a hit) — the not-taken tier is pinned to
+    its row 0, as the reference's index maps pin it. A slot outside
+    ``[0, n_cache)`` counts as a miss, so no map can send a read past
+    the cache."""
+    slots = slot_of_row.index_select(0, flat_rows).long()
+    hit = (slots >= 0) & (slots < n_cache)
+    return hit, torch.where(hit, slots, 0), torch.where(hit, 0, flat_rows)
+
+
+def ref_two_level_gather(flat_rows: torch.Tensor, slot_of_row: torch.Tensor,
+                         cache: torch.Tensor,
+                         backing: torch.Tensor) -> torch.Tensor:
+    """Two-level (cache + backing) gather oracle — the CachedStore lookup.
+
+    Hits read their row from ``cache``, misses fall through to
+    ``backing``. Cache rows are verbatim copies of backing rows, so the
+    result is bitwise ``backing.index_select(0, flat_rows)``.
+
+    Args:
+        flat_rows:   (R,) global rows.
+        slot_of_row: (N,) int32 cache slot per global row, -1 = uncached.
+        cache:       (C, d) hot-row copies.
+        backing:     (N, d) full mega-table.
+
+    Returns:
+        (R, d) gathered rows.
+    """
+    flat_rows = flat_rows.long()
+    hit, slots, miss_rows = _tier_select(flat_rows, slot_of_row,
+                                         cache.shape[0])
+    return torch.where(hit[:, None], cache.index_select(0, slots),
+                       backing.index_select(0, miss_rows))
+
+
+def ref_two_level_gather_q8(flat_rows: torch.Tensor,
+                            slot_of_row: torch.Tensor, cache: torch.Tensor,
+                            cache_scale: torch.Tensor, backing: torch.Tensor,
+                            backing_scale: torch.Tensor) -> torch.Tensor:
+    """Quantized two-level gather oracle — the int8 CachedStore lookup:
+    select the int8 payload and the fp32 scale by tier, then one dequant
+    multiply (the kernel's arithmetic exactly, so the two are bitwise).
+
+    Args:
+        flat_rows:     (R,) global rows.
+        slot_of_row:   (N,) int32 cache slot per global row, -1 = uncached.
+        cache:         (C, d) int8 hot-row copies.
+        cache_scale:   (C, 1) fp32 per-row scales.
+        backing:       (N, d) int8 full mega-table.
+        backing_scale: (N, 1) fp32 per-row scales.
+
+    Returns:
+        (R, d) float32 dequantized rows.
+    """
+    flat_rows = flat_rows.long()
+    hit, slots, miss_rows = _tier_select(flat_rows, slot_of_row,
+                                         cache.shape[0])
+    q = torch.where(hit[:, None], cache.index_select(0, slots),
+                    backing.index_select(0, miss_rows)).to(torch.float32)
+    s = torch.where(hit[:, None], cache_scale.index_select(0, slots),
+                    backing_scale.index_select(0, miss_rows))
+    return q * s
 
 
 # ---------------------------------------------------------------------------

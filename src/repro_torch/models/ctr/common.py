@@ -186,23 +186,34 @@ class CTRModel(nn.Module):
 
     Each embedding subtree of the reference's parameter tree is one
     :class:`FusedEmbeddingCollection` here (``embedding`` for the main
-    table, keyed ``"emb"``; wide/FM variants add their own).
+    table, keyed ``"emb"``; wide/FM variants add their own). Pass
+    ``store=`` (e.g. a ``CachedStore``) to tier the main table; the
+    default is a ``DenseStore`` on ``device``. A given store fixes the
+    device.
     """
 
-    #: reference parameter-tree key of the main embedding subtree
+    #: reference parameter-tree key of the main (tierable) embedding
+    #: subtree — the one ``store=``/``use_store`` operate on
     main_embedding_key = "emb"
 
-    def __init__(self, spec: CTRModelSpec, *,
+    def __init__(self, spec: CTRModelSpec, store=None, *,
                  device: torch.device | str | None = None):
         super().__init__()
-        device = resolve_device(device)
+        if store is None:
+            device = resolve_device(device)
+        elif (device is not None
+              and resolve_device(device).type != store.device.type):
+            raise ValueError(f"store lives on {store.device}, the model was "
+                             f"asked for {device}")
         self.spec = spec
         self.embedding = FusedEmbeddingCollection(spec.embedding_spec(),
-                                                  device=device)
+                                                  store=store, device=device)
 
     @property
     def device(self) -> torch.device:
-        return self.embedding.dense_view().device
+        # the store's own device: no table is read, so an int8 store is
+        # never dequantized to answer
+        return self.embedding.store.device
 
     @property
     def dtype(self) -> torch.dtype:
@@ -236,6 +247,20 @@ class CTRModel(nn.Module):
             for leaf, t in coll.store.runtime_tensors().items():
                 env[runtime_edge(key, leaf)] = t
         return env
+
+    @torch.no_grad()
+    def use_store(self, store) -> "CTRModel":
+        """Swap the main table's store: ``store`` adopts the current
+        store's tensors bit for bit (see ``EmbeddingStore.adopt``) and the
+        main collection is rebound to it. Returns ``self``. Plans compiled
+        before the swap keep the old collection."""
+        if store.device.type != self.device.type:
+            raise ValueError(f"store lives on {store.device}, the model on "
+                             f"{self.device}")
+        store.adopt(dict(self.embedding.store.named_buffers()))
+        self.embedding = FusedEmbeddingCollection(self.spec.embedding_spec(),
+                                                  store=store)
+        return self
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         """Logits (b, 1): the "dual" graph run in its own op order."""

@@ -41,8 +41,8 @@ class CrossV1(nn.Module):
 
 
 class DCN(CTRModel):
-    def __init__(self, spec, *, device=None):
-        super().__init__(spec, device=device)
+    def __init__(self, spec, store=None, *, device=None):
+        super().__init__(spec, store, device=device)
         kw = dict(device=self.device, dtype=self.dtype)
         d_in = spec.input_dim
         self.mlp = mlp_layers((d_in, *spec.hidden), **kw)

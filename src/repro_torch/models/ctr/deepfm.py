@@ -19,8 +19,8 @@ from .common import CTRModel, Dense, emit_embedding_ops, emit_mlp_ops, \
 
 
 class DeepFM(CTRModel):
-    def __init__(self, spec, *, device=None):
-        super().__init__(spec, device=device)
+    def __init__(self, spec, store=None, *, device=None):
+        super().__init__(spec, store, device=device)
         kw = dict(device=self.device, dtype=self.dtype)
         # FM first-order d=1 tables are tiny — always dense
         self.wide_embedding = FusedEmbeddingCollection(spec.wide_spec(),

@@ -17,8 +17,8 @@ from .common import CTRModel, Dense, emit_embedding_ops, emit_mlp_ops, \
 
 
 class WideDeep(CTRModel):
-    def __init__(self, spec, *, device=None):
-        super().__init__(spec, device=device)
+    def __init__(self, spec, store=None, *, device=None):
+        super().__init__(spec, store, device=device)
         kw = dict(device=self.device, dtype=self.dtype)
         # wide d=1 tables are tiny — always dense, never worth tiering
         self.wide_embedding = FusedEmbeddingCollection(spec.wide_spec(),

@@ -7,9 +7,9 @@ imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py -q
 
-K1, K9 and K10 are bitwise (a copy, and arithmetic rounded in the plain
-order without FMA); K11 sums in another order than ``torch.sum``
-(``rtol=atol=1e-5``). Whole models cross devices at ``rtol=1e-4,
+K1–K4, K9 and K10 are bitwise (copies, pools summed in slot order, and
+arithmetic rounded in the plain order without FMA); K11 sums in another
+order than ``torch.sum`` (``rtol=atol=1e-5``). Whole models cross devices at ``rtol=1e-4,
 atol=1e-5``: cuBLAS and the CPU BLAS sum the GEMMs in different orders.
 """
 
@@ -27,8 +27,12 @@ from repro_torch.kernels.fused_cross import (  # noqa: E402
 from repro_torch.kernels.fused_fm import (  # noqa: E402
     fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
-    mtl_gather, mtl_gather_plain)
+    mtl_gather, mtl_gather_multihot, mtl_gather_multihot_plain,
+    mtl_gather_plain, mtl_gather_two_level, mtl_gather_two_level_plain,
+    mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain)
+from repro_torch.embedding import CachedStore  # noqa: E402
 from repro_torch.models.ctr import CTR_MODELS  # noqa: E402
+from repro_torch.quant import quantize_rows  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -60,6 +64,130 @@ def test_mtl_gather_bitwise(cuda, d):
     torch.cuda.synchronize()
     assert mtl_gather.launches == before + 1
     assert torch.equal(got, mtl_gather_plain(*args))
+
+
+def _tiered_inputs(rng, h, device, b=256, d=32, capacity=4096):
+    """Ids with out-of-range entries, a random mask, and a table split
+    into a random hot set (fp32 and int8), on ``device``."""
+    sizes = rng.integers(2, 5000, size=39)
+    n = int(sizes.sum()) + 1
+    mega = rng.normal(size=(n, d)).astype(np.float32)
+    mega[-1] = 0.0
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    ids = np.stack([rng.integers(0, s, size=(b, h)) for s in sizes],
+                   axis=1).astype(np.int32)
+    ids[0, :3, 0] = [-7, 2**31 - 1, 10**8]               # clamped rows
+    mask = rng.integers(0, 2, size=ids.shape).astype(np.float32)
+    hot = np.sort(rng.choice(n, size=capacity, replace=False))
+    slot_of_row = np.full(n, -1, np.int32)
+    slot_of_row[hot] = np.arange(capacity, dtype=np.int32)
+    slot_of_row[hot[0]] = capacity + 5                  # a slot past the cache
+    t = {k: torch.from_numpy(v).to(device) for k, v in dict(
+        ids=ids, mask=mask, offsets=offsets, mega=mega,
+        slot_of_row=slot_of_row, hot=hot).items()}
+    t["cache"] = t["mega"].index_select(0, t["hot"])
+    t["q"], t["scale"] = quantize_rows(t["mega"])
+    t["qcache"] = t["q"].index_select(0, t["hot"])
+    t["qscale"] = t["scale"].index_select(0, t["hot"])
+    return t
+
+
+@pytest.mark.parametrize("h", [1, 5])
+def test_tiered_gathers_bitwise(cuda, h):
+    t = _tiered_inputs(np.random.default_rng(h), h, cuda)
+    before = {f: f.launches for f in (mtl_gather_multihot,
+                                      mtl_gather_two_level,
+                                      mtl_gather_two_level_q8)}
+    k2 = mtl_gather_multihot(t["ids"], t["mask"], t["offsets"], t["mega"])
+    k3 = mtl_gather_two_level(t["ids"], t["offsets"], t["slot_of_row"],
+                              t["cache"], t["mega"], mask=t["mask"])
+    k4 = mtl_gather_two_level_q8(t["ids"], t["offsets"], t["slot_of_row"],
+                                 t["qcache"], t["qscale"], t["q"],
+                                 t["scale"], mask=t["mask"])
+    torch.cuda.synchronize()
+    assert all(f.launches == n + 1 for f, n in before.items())
+    assert torch.equal(k2, mtl_gather_multihot_plain(
+        t["ids"], t["mask"], t["offsets"], t["mega"]))
+    assert torch.equal(k3, mtl_gather_two_level_plain(
+        t["ids"], t["offsets"], t["slot_of_row"], t["cache"], t["mega"],
+        mask=t["mask"]))
+    assert torch.equal(k3, k2)
+    assert torch.equal(k4, mtl_gather_two_level_q8_plain(
+        t["ids"], t["offsets"], t["slot_of_row"], t["qcache"], t["qscale"],
+        t["q"], t["scale"], mask=t["mask"]))
+    if h == 1:                                          # K3 one-hot == K1
+        ids = t["ids"][..., 0].contiguous()
+        assert torch.equal(
+            mtl_gather_two_level(ids, t["offsets"], t["slot_of_row"],
+                                 t["cache"], t["mega"]),
+            mtl_gather(ids, t["offsets"], t["mega"]))
+
+
+@pytest.mark.parametrize("kernel", ["multihot", "two_level", "q8"])
+def test_tiered_gathers_launch_on_the_current_stream(cuda, kernel):
+    """A write queued on a side stream behind a sleep must be what the
+    kernel launched on that stream reads."""
+    n, d = 4096, 32
+    ids = torch.randint(0, n - 1, (64, 3), dtype=torch.int32, device=cuda)
+    offsets = torch.zeros(3, dtype=torch.int32, device=cuda)
+    slot_of_row = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    table = torch.zeros((n, d), device=cuda)
+    q = torch.zeros((n, d), dtype=torch.int8, device=cuda)
+    scale = torch.ones((n, 1), device=cuda)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        table.fill_(2.0)
+        q.fill_(3)
+        if kernel == "multihot":
+            out = mtl_gather_multihot(ids, None, offsets, table)
+        elif kernel == "two_level":
+            out = mtl_gather_two_level(ids, offsets, slot_of_row,
+                                       table[:8].clone(), table)
+        else:
+            out = mtl_gather_two_level_q8(ids, offsets, slot_of_row, q[:8],
+                                          scale[:8], q, scale)
+    side.synchronize()
+    assert torch.all(out == (2.0 if kernel != "q8" else 3.0))
+
+
+@pytest.mark.parametrize("row_dtype", [None, "int8"])
+def test_store_swap_during_a_dual_step_frees_nothing_still_read(cuda,
+                                                                row_dtype):
+    """A dual step queued on a side stream (held behind a sleep) reads the
+    store's tensors; deltas published meanwhile from the default stream
+    must not let the allocator hand those tensors' memory to new writes
+    before the step has read them."""
+    spec = ctr_spec("dcnv2", "criteo", **SPEC_KW)
+    model = CTR_MODELS["dcnv2"](spec, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    store = CachedStore(spec.embedding_spec(), 256, row_dtype, device=cuda)
+    model.use_store(store)
+    plan = compile_plan(model, "dual", 64, device=cuda,
+                        runtime_provider=model.store_runtime_env)
+    ids = torch.from_numpy(sample_ids(CRITEO.scaled(2_000), 64, seed=4)
+                           ).to(cuda)
+    want = plan(ids).clone()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        out = plan(ids)
+        done = side.record_event()
+    assert not done.query()                      # the step is still queued
+    rows = np.arange(0, 2_000, 7)
+    store.apply_deltas(rows, np.full((rows.size, spec.embed_dim), 9.0,
+                                     np.float32))
+    store.refresh()
+    junk = [torch.full_like(t, float("nan") if t.is_floating_point()
+                            else -1) for t in store.runtime_tensors().values()
+            for _ in range(4)]
+    side.synchronize()
+    assert torch.equal(out, want)
+    assert not torch.equal(plan(ids), want)      # the plan sees the deltas
+    del junk
 
 
 def test_fused_tails_and_fm(cuda):

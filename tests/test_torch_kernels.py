@@ -202,4 +202,4 @@ def test_build_dir_tracks_sources():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
-        "mtl_gather", "fused_cross", "fused_fm"}
+        "mtl_gather", "mtl_gather_tiered", "fused_cross", "fused_fm"}

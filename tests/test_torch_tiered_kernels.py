@@ -1,0 +1,348 @@
+"""repro_torch K2–K4 and the int8 row format against the reference.
+
+The plain versions of K2 ``mtl_gather_multihot``, K3 ``mtl_gather_two_level``
+and K4 ``mtl_gather_two_level_q8`` (what the wrappers run on CPU tensors)
+are held bitwise against the reference's Pallas kernels in interpret mode,
+on tiers cut by the reference's own ``_split_cache``/``_q8_split_cache``
+recipes. The port's ``"torch"`` oracle strategies are held against the
+reference's ``"jnp"`` ones: bitwise for one-hot gathers, at the reference's
+``TOL`` (``rtol=atol=1e-5``) where they pool. ``repro_torch.quant`` is held
+bitwise against ``repro.quant``. The CUDA kernels themselves are held
+against these plain versions in ``tests/test_torch_cuda.py``, on a card.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import quant as jquant  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch import quant  # noqa: E402
+from repro_torch.kernels import (KERNELS, launch_counts, ops,  # noqa: E402
+                                 reset_launch_counts)
+from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
+    mtl_gather_multihot, mtl_gather_multihot_plain, mtl_gather_plain,
+    mtl_gather_two_level, mtl_gather_two_level_plain,
+    mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain)
+from test_kernels import _q8_split_cache, _split_cache  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+SIZES, D = [13, 29, 6], 16
+
+
+def t(x):
+    """A reference array as a CPU tensor (copied, so it is writable)."""
+    return torch.from_numpy(np.array(x))
+
+
+def make_mega(rng, zero_row=True):
+    """The mega-table of ``SIZES`` (with the trailing zero row the pooled
+    lookups mask into), its offsets, as jnp arrays."""
+    mega = rng.normal(size=(sum(SIZES), D)).astype(np.float32)
+    if zero_row:
+        mega = np.concatenate([mega, np.zeros((1, D), np.float32)])
+    offsets = np.concatenate([[0], np.cumsum(SIZES)[:-1]]).astype(np.int32)
+    return jnp.asarray(mega), jnp.asarray(offsets)
+
+
+def make_slots(rng, b, h):
+    ids = np.stack([rng.integers(0, n, size=(b, h)) for n in SIZES],
+                   axis=1).astype(np.int32)
+    mask = rng.integers(0, 2, size=ids.shape).astype(np.float32)
+    return jnp.asarray(ids), jnp.asarray(mask)
+
+
+def make_onehot(rng, b):
+    return jnp.asarray(np.stack([rng.integers(0, n, size=b) for n in SIZES],
+                                axis=1).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# plain versions == the reference's Pallas kernels (interpret mode), bitwise
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("h", [1, 3, 5])
+def test_multihot_plain_bitwise_vs_pallas(h):
+    rng = np.random.default_rng(h)
+    mega, offsets = make_mega(rng)
+    ids, mask = make_slots(rng, 12, h)
+    want = jops.multi_table_lookup_multihot(ids, mask, mega, offsets,
+                                            strategy="pallas", interpret=True)
+    got = mtl_gather_multihot(t(ids), t(mask), t(offsets), t(mega))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("capacity", [1, 16, 48])
+def test_two_level_plain_bitwise_vs_pallas_and_k1(capacity):
+    rng = np.random.default_rng(capacity)
+    mega, offsets = make_mega(rng, zero_row=False)
+    cache, slot_of_row = _split_cache(rng, mega, capacity)
+    ids = make_onehot(rng, 24)
+    want = jops.multi_table_lookup_cached(ids, cache, mega, slot_of_row,
+                                          offsets, strategy="pallas",
+                                          interpret=True)
+    got = mtl_gather_two_level(t(ids), t(offsets), t(slot_of_row), t(cache),
+                               t(mega))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # K3 at h = 1 is K1 on the same table
+    assert torch.equal(got, mtl_gather_plain(t(ids), t(offsets), t(mega)))
+
+
+@pytest.mark.parametrize("h", [1, 3, 5])
+def test_two_level_pooled_plain_bitwise_vs_pallas_and_k2(h):
+    rng = np.random.default_rng(10 + h)
+    mega, offsets = make_mega(rng)
+    cache, slot_of_row = _split_cache(rng, mega, 16)
+    ids, mask = make_slots(rng, 12, h)
+    want = jops.multi_table_lookup_cached_multihot(
+        ids, mask, cache, mega, slot_of_row, offsets, strategy="pallas",
+        interpret=True)
+    got = mtl_gather_two_level(t(ids), t(offsets), t(slot_of_row), t(cache),
+                               t(mega), mask=t(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, mtl_gather_multihot_plain(t(ids), t(mask),
+                                                      t(offsets), t(mega)))
+
+
+@pytest.mark.parametrize("capacity", [1, 16, 48])
+def test_two_level_q8_plain_bitwise_vs_pallas(capacity):
+    rng = np.random.default_rng(capacity)
+    mega, offsets = make_mega(rng, zero_row=False)
+    q, scale, cache, cscale, slot_of_row = _q8_split_cache(rng, mega,
+                                                           capacity)
+    ids = make_onehot(rng, 24)
+    want = jops.multi_table_lookup_cached_q8(
+        ids, cache, cscale, q, scale, slot_of_row, offsets,
+        strategy="pallas", interpret=True)
+    got = mtl_gather_two_level_q8(t(ids), t(offsets), t(slot_of_row),
+                                  t(cache), t(cscale), t(q), t(scale))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("h", [1, 3, 5])
+def test_two_level_q8_pooled_plain_bitwise_vs_pallas(h):
+    rng = np.random.default_rng(20 + h)
+    mega, offsets = make_mega(rng)
+    q, scale, cache, cscale, slot_of_row = _q8_split_cache(rng, mega, 16)
+    ids, mask = make_slots(rng, 12, h)
+    want = jops.multi_table_lookup_cached_q8_multihot(
+        ids, mask, cache, cscale, q, scale, slot_of_row, offsets,
+        strategy="pallas", interpret=True)
+    got = mtl_gather_two_level_q8(t(ids), t(offsets), t(slot_of_row),
+                                  t(cache), t(cscale), t(q), t(scale),
+                                  mask=t(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the "torch" oracle strategies == the reference's "jnp" ones
+# ---------------------------------------------------------------------------
+
+def _oracle_case(name, rng):
+    """(port call, reference call) on the same inputs for one lookup."""
+    h = 3
+    mega, offsets = make_mega(rng)
+    cache, slot_of_row = _split_cache(rng, mega, 16)
+    q, scale, qcache, qscale, qslots = _q8_split_cache(rng, mega, 16)
+    ids, mask = make_slots(rng, 12, h)
+    one = make_onehot(rng, 12)
+    cases = {
+        "multihot": (ops.multi_table_lookup_multihot,
+                     jops.multi_table_lookup_multihot,
+                     (ids, mask, mega, offsets)),
+        "cached": (ops.multi_table_lookup_cached,
+                   jops.multi_table_lookup_cached,
+                   (one, cache, mega, slot_of_row, offsets)),
+        "cached_multihot": (ops.multi_table_lookup_cached_multihot,
+                            jops.multi_table_lookup_cached_multihot,
+                            (ids, mask, cache, mega, slot_of_row, offsets)),
+        "cached_q8": (ops.multi_table_lookup_cached_q8,
+                      jops.multi_table_lookup_cached_q8,
+                      (one, qcache, qscale, q, scale, qslots, offsets)),
+        "cached_q8_multihot": (ops.multi_table_lookup_cached_q8_multihot,
+                               jops.multi_table_lookup_cached_q8_multihot,
+                               (ids, mask, qcache, qscale, q, scale, qslots,
+                                offsets)),
+    }
+    return cases[name]
+
+
+@pytest.mark.parametrize("name", ["multihot", "cached", "cached_multihot",
+                                  "cached_q8", "cached_q8_multihot"])
+def test_torch_strategy_matches_reference_jnp(name):
+    port, jax_fn, args = _oracle_case(name, np.random.default_rng(7))
+    want = np.asarray(jax_fn(*args, strategy="jnp"))
+    got = port(*[t(a) for a in args], strategy="torch").numpy()
+    if "multihot" in name:
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+    # the kernel strategy (its plain version on the CPU) pools in slot
+    # order, the oracle with a sum: equal within the reference's TOL
+    np.testing.assert_allclose(
+        port(*[t(a) for a in args], strategy="kernel").numpy(), want, **TOL)
+    with pytest.raises(ValueError, match="unknown strategy"):
+        port(*[t(a) for a in args], strategy="pallas")
+
+
+# ---------------------------------------------------------------------------
+# out-of-range input: clamped rows, out-of-range slots are misses
+# ---------------------------------------------------------------------------
+
+BAD_IDS = [-7, 2**31 - 1, 10**8]
+
+
+def test_plain_versions_clamp_out_of_range_ids():
+    rng = np.random.default_rng(3)
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    n = mega.shape[0]
+    ids = np.stack([rng.integers(0, s, size=(4, 2)) for s in SIZES],
+                   axis=1).astype(np.int32)
+    ids[0, :, 0] = BAD_IDS
+    mask = np.ones(ids.shape, np.float32)
+    rows = np.clip(ids.astype(np.int64) + offsets[None, :, None], 0, n - 1)
+    want = mega[rows].sum(axis=2).reshape(4, -1)
+    got = mtl_gather_multihot_plain(t(ids), t(mask), t(offsets), t(mega))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    slot_of_row = np.full(n, -1, np.int32)
+    slot_of_row[rows[0, 1, 0]] = 0
+    cache = mega[rows[0, 1, 0]][None, :].copy()
+    got3 = mtl_gather_two_level_plain(t(ids), t(offsets), t(slot_of_row),
+                                      t(cache), t(mega), mask=t(mask))
+    assert torch.equal(got3, got)
+    q, scale = quant.quantize_rows(t(mega))
+    got4 = mtl_gather_two_level_q8_plain(
+        t(ids), t(offsets), t(slot_of_row), q[rows[0, 1, 0]][None, :],
+        scale[rows[0, 1, 0]][None, :], q, scale, mask=t(mask))
+    deq = quant.dequantize_rows(q, scale).numpy()
+    np.testing.assert_allclose(got4.numpy(), deq[rows].sum(axis=2).reshape(
+        4, -1), rtol=1e-6, atol=1e-6)
+
+
+def test_slot_outside_the_cache_reads_the_backing():
+    rng = np.random.default_rng(4)
+    mega, offsets = (np.asarray(a) for a in make_mega(rng, zero_row=False))
+    ids = np.asarray(make_onehot(rng, 8))
+    cache = np.full((2, D), 99.0, np.float32)
+    slot_of_row = np.full(mega.shape[0], 5, np.int32)        # all >= C
+    slot_of_row[:3] = -9
+    got = mtl_gather_two_level(t(ids), t(offsets), t(slot_of_row), t(cache),
+                               t(mega))
+    assert torch.equal(got, mtl_gather_plain(t(ids), t(offsets), t(mega)))
+
+
+def test_masked_slots_read_the_zero_row():
+    rng = np.random.default_rng(5)
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    ids, _ = make_slots(rng, 6, 4)
+    ids = np.asarray(ids)
+    none = np.zeros(ids.shape, np.float32)
+    got = mtl_gather_multihot(t(ids), t(none), t(offsets), t(mega))
+    assert torch.all(got == 0.0)
+    first = none.copy()
+    first[..., 0] = 1.0
+    got = mtl_gather_multihot(t(ids), t(first), t(offsets), t(mega))
+    assert torch.equal(got, mtl_gather_plain(t(ids[..., 0]), t(offsets),
+                                             t(mega)))
+
+
+# ---------------------------------------------------------------------------
+# wrapper input checks, registry, launch counts
+# ---------------------------------------------------------------------------
+
+def _good_args(rng):
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    q, scale = jquant.quantize_rows(mega)
+    q, scale = np.asarray(q), np.asarray(scale)
+    ids = np.asarray(make_slots(rng, 4, 2)[0])
+    slot_of_row = np.full(mega.shape[0], -1, np.int32)
+    slot_of_row[:2] = [0, 1]
+    return dict(ids=ids, mask=np.ones(ids.shape, np.float32),
+                offsets=offsets, mega=mega, cache=mega[:2].copy(), q=q,
+                scale=scale, qcache=q[:2].copy(), qscale=scale[:2].copy(),
+                slot_of_row=slot_of_row)
+
+
+def _call(kernel, a):
+    a = {k: t(v) for k, v in a.items()}
+    if kernel == "multihot":
+        return mtl_gather_multihot(a["ids"], a["mask"], a["offsets"],
+                                   a["mega"])
+    if kernel == "two_level":
+        return mtl_gather_two_level(a["ids"], a["offsets"], a["slot_of_row"],
+                                    a["cache"], a["mega"], mask=a["mask"])
+    return mtl_gather_two_level_q8(a["ids"], a["offsets"], a["slot_of_row"],
+                                   a["qcache"], a["qscale"], a["q"],
+                                   a["scale"], mask=a["mask"])
+
+
+BAD_INPUTS = [(kernel, bad) for kernel in ("multihot", "two_level", "q8")
+              for bad in ("ids_dtype", "mask_shape", "mask_dtype",
+                          "offsets_len", "map_len", "table_dtype",
+                          "noncontiguous")
+              if (kernel, bad) != ("multihot", "map_len")]   # K2 has no map
+
+
+@pytest.mark.parametrize("kernel,bad", BAD_INPUTS)
+def test_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
+    a = _good_args(np.random.default_rng(6))
+    _call(kernel, a)                                   # the good call runs
+    if bad == "ids_dtype":
+        a["ids"] = a["ids"].astype(np.int64)
+    elif bad == "mask_shape":
+        a["mask"] = a["mask"][:, :, :1]
+    elif bad == "mask_dtype":
+        a["mask"] = a["mask"].astype(np.float64)
+    elif bad == "offsets_len":
+        a["offsets"] = a["offsets"][:2]
+    elif bad == "map_len":
+        a["slot_of_row"] = a["slot_of_row"][:-1]
+    elif bad == "table_dtype":
+        a["mega"], a["q"] = a["q"], a["mega"]
+        a["cache"], a["qcache"] = a["qcache"], a["cache"]
+    elif bad == "noncontiguous":
+        a["ids"] = np.asfortranarray(a["ids"])
+    with pytest.raises((TypeError, ValueError)):
+        _call(kernel, a)
+
+
+def test_registry_lists_the_tiered_kernels_and_cpu_counts_nothing():
+    assert {"mtl_gather_multihot", "mtl_gather_two_level",
+            "mtl_gather_two_level_q8"} <= set(KERNELS)
+    reset_launch_counts()
+    a = _good_args(np.random.default_rng(8))
+    for kernel in ("multihot", "two_level", "q8"):
+        _call(kernel, a)
+    assert all(n == 0 for n in launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# repro_torch.quant == repro.quant, bitwise
+# ---------------------------------------------------------------------------
+
+def _quant_table(rng):
+    x = rng.normal(size=(32, 12)).astype(np.float32) * 0.05
+    x[3] = 0.0                                          # all-zero row
+    x[5, :5] = [127.0, 0.5, 1.5, 2.5, -2.5]             # scale 1: half-steps
+    x[5, 5:] = -0.5
+    x[7, :4] = [254.0, 1.0, 3.0, -5.0]                  # scale 2: half-steps
+    x[7, 4:] = 0.0
+    return x
+
+
+def test_quantize_rows_bitwise_vs_reference():
+    x = _quant_table(np.random.default_rng(0))
+    jq, js = (np.asarray(a) for a in jquant.quantize_rows(jnp.asarray(x)))
+    q, s = quant.quantize_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), jq)
+    np.testing.assert_array_equal(s.numpy(), js)
+    assert q.dtype == torch.int8 and s.shape == (32, 1)
+    np.testing.assert_array_equal(q[5, :5].numpy(), [127, 0, 2, 2, -2])
+    assert torch.all(q[3] == 0) and s[3].item() == np.float32(quant.SCALE_EPS)
+    assert int(q.min()) >= -127
+    np.testing.assert_array_equal(
+        quant.dequantize_rows(q, s).numpy(),
+        np.asarray(jquant.dequantize_rows(jnp.asarray(jq), jnp.asarray(js))))
+    assert torch.all(quant.dequantize_rows(q, s)[3] == 0.0)
