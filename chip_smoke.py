@@ -25,6 +25,14 @@ Phases (any failure raises; the script then exits non-zero):
    against their plain versions (out-of-range ids included), K3 at h = 1
    bitwise against K1, timed the same way; K3 at h = 1 also through a
    cold cache (rows 0..C-1, nearly all misses), its miss path.
+   Then K5 ``mtl_gather_three_level`` and K6
+   ``mtl_gather_three_level_q8`` on the same table under the same kind
+   of 65,536-row cache (its hot set from one observe + refresh of a
+   ``HostBackedStore``) with every miss of the timed batches staged, at
+   b = 256 and 1024 and h = 1 and 5: bitwise against their plain
+   versions (ids -7, 2**31-1 and 10**8, a cache slot past C, a staging
+   slot past S and rows in neither tier, which read exactly 0.0), K5
+   against K1 (h = 1) and K2 (h = 5), K6 against K4; timed the same way.
 4. Main path: full-width DCNv2 on the uncapped Criteo schema (k = 39,
    d = 32, 6,648,548 table rows, D = 1248, three 1248×1248 cross layers,
    MLP 1248→1024→1024→1024) with random weights from a seed, served
@@ -35,17 +43,25 @@ Phases (any failure raises; the script then exits non-zero):
    on the card, and the card must agree with the CPU path on the same
    weights.
 5. DCN, DeepFM and Wide&Deep at the same width, the same way.
-6. The cached tier: the same DCNv2 weights adopted into a ``CachedStore``
-   (C = 65,536) with fp32 rows and one with int8 rows, each served through
-   one "dual" plan per batch (``runtime_provider=model.store_runtime_env``)
-   while the store observes every request, refreshes every 8 and takes one
-   batch of 1,024 trainer delta rows halfway — no recompile. fp32 scores
-   must be bitwise those of a ``DenseStore`` plan replaying the same ids
-   and deltas; int8 scores within 1e-2 of them. K3 (fp32) or K4 (int8)
-   launches once per step, K1 never. Then latency and a trace of each,
-   the four levels of the fp32 cached model, and store-level multi-hot
-   (h = 5) through a ``DenseStore`` (K2) and the fp32 ``CachedStore`` (K3),
-   bitwise equal.
+6. The tiered stores: the same DCNv2 weights adopted into a
+   ``CachedStore`` (C = 65,536) and a ``HostBackedStore`` (C = S =
+   65,536; the backing in host memory), each with fp32 and with int8
+   rows, each served through one "dual" plan per batch
+   (``runtime_provider=model.store_runtime_env``): per request a prefetch
+   hint of the next request, ``stage`` (host stores), ``predict`` and
+   ``observe``, a refresh every 8 and one batch of 1,024 trainer delta
+   rows halfway — no recompile. fp32 scores must be bitwise those of a
+   ``DenseStore`` plan replaying the same ids and deltas; int8 scores
+   within 1e-2 of them. K3/K4 (cached) or K5/K6 (host) launch once per
+   step, K1 never. A host store's device tensors must be its cache,
+   staging area and two maps, never a (rows, d) table, and a staging
+   upload moves only the rows and map entries that changed. Then latency
+   of all five plans in turns, traces, the four levels of the fp32 cached
+   model, the host store with the reference's default staging area (S =
+   256), where nearly every batch overflows and is served in chunks, and
+   store-level multi-hot (h = 5) through a ``DenseStore`` (K2), the fp32
+   ``CachedStore`` (K3) and the fp32 ``HostBackedStore`` (K5), bitwise
+   equal.
 7. One JSON line of every ported kernel, then the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -71,6 +87,8 @@ CPU_TOL = dict(rtol=1e-4, atol=1e-5)
 SEED = 0
 LATENCY_WARMUP, LATENCY_SAMPLES = 3, 60   # p80 has 12 samples beyond it
 CACHE_CAPACITY = 65_536     # the reference's serve default (serve.py:267)
+STAGING_CAPACITY = 65_536   # >= b*k = 39,936 at b = 1024: no batch overflows
+OVERFLOW_STAGING = 256      # the reference's default, max(4*k*h, 256)
 HOT = 5                     # ids per field of the pooled (multi-hot) forms
 REFRESH_EVERY, DELTA_ROWS = 8, 1_024
 Q8_SCORE_GATE = 1e-2        # per-score |int8 - fp32| (accuracy_parity.py:13)
@@ -387,20 +405,190 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
     torch.cuda.empty_cache()
 
 
-def trace_step(torch, name, plan, ids, n_steps: int = 20) -> None:
+def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
+    """K5 and K6 on the full-width table of collection ``emb`` under a
+    65,536-row cache whose hot set comes from one observe + refresh of a
+    fp32 ``HostBackedStore``, with every miss of the timed batches staged
+    (fp32 and int8 tiers), against their plain versions, K1/K2 and K4,
+    timed."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.embedding import HostBackedStore
+    from repro_torch.kernels.multi_table_lookup import (
+        mtl_gather, mtl_gather_multihot, mtl_gather_three_level,
+        mtl_gather_three_level_plain, mtl_gather_three_level_q8,
+        mtl_gather_three_level_q8_plain, mtl_gather_two_level_q8)
+    from repro_torch.quant import quantize_rows
+
+    table32, offsets, spec = emb.dense_view(), emb.offsets, emb.spec
+    k, d, n_rows = spec.k, spec.dim, spec.rows
+    store = HostBackedStore(spec, CACHE_CAPACITY, STAGING_CAPACITY,
+                            device=dev)
+    store.from_dense({"mega_table": table32})
+    store.observe(sample_ids(schema, 16_384, step=50_000)
+                  + spec.offsets[None, :])
+    store.refresh()
+    slot_of_row, cache = store.slot_of_row, store.cache
+    hot = np.flatnonzero(store._slot_of_row >= 0)
+    cached_rows = torch.from_numpy(
+        hot[np.argsort(store._slot_of_row[hot])]).to(dev)
+    log(f"[host-kernels] {store.describe()}: hot set from one refresh, "
+        f"cached traffic {store.cached_traffic_fraction:.3f}")
+    del store
+    q, scale = quantize_rows(table32)
+    qcache = q.index_select(0, cached_rows)
+    qcscale = scale.index_select(0, cached_rows)
+    rng = np.random.default_rng(SEED + 5)
+
+    def staged_tiers(rows):
+        """Staging map and tiers holding every uncached row of ``rows``."""
+        rows = torch.unique(rows)
+        miss = rows[slot_of_row.index_select(0, rows) < 0]
+        smap = torch.full((n_rows,), -1, dtype=torch.int32, device=dev)
+        smap[miss] = torch.arange(miss.numel(), dtype=torch.int32,
+                                  device=dev)
+        return (smap, table32.index_select(0, miss),
+                q.index_select(0, miss), scale.index_select(0, miss))
+
+    for b in (256, 1024):
+        for h in (1, HOT):
+            sets = []
+            for s in range(n_sets(2 * b * k * h * d * 4)):
+                if h == 1:
+                    ids = torch.from_numpy(sample_ids(
+                        schema, b, step=53_000 + s)).to(dev)
+                    mask = None
+                else:
+                    ids = torch.from_numpy(slot_ids(
+                        schema, sample_ids, b, h, 54_000 + s)).to(dev)
+                    mask = torch.from_numpy(rng.integers(
+                        0, 2, size=(b, k, h)).astype(np.float32)).to(dev)
+                rows = ids.long().reshape(b, k, h) \
+                    + offsets.long()[None, :, None]
+                if mask is not None:
+                    rows = torch.where(mask != 0, rows, n_rows - 1)
+                sets.append((ids, mask, rows.reshape(b * k, h)))
+            smap, staging, qstaging, qsscale = staged_tiers(
+                torch.cat([r.reshape(-1) for _, _, r in sets]))
+
+            def k5(i, m, rows, som=slot_of_row, sm=smap):
+                return mtl_gather_three_level(i, offsets, som, sm, cache,
+                                              staging, mask=m)
+
+            def k5_plain(i, m, rows, som=slot_of_row, sm=smap):
+                return mtl_gather_three_level_plain(i, offsets, som, sm,
+                                                    cache, staging, mask=m)
+
+            def k6(i, m, rows, som=slot_of_row, sm=smap):
+                return mtl_gather_three_level_q8(i, offsets, som, sm, qcache,
+                                                 qcscale, qstaging, qsscale,
+                                                 mask=m)
+
+            def k6_plain(i, m, rows, som=slot_of_row, sm=smap):
+                return mtl_gather_three_level_q8_plain(
+                    i, offsets, som, sm, qcache, qcscale, qstaging, qsscale,
+                    mask=m)
+
+            ids0, mask0, rows0 = sets[0]
+            bad = ids0.clone()
+            bad.view(b, k, h)[0, :3, 0] = torch.tensor(
+                [-7, 2**31 - 1, 10**8], dtype=torch.int32, device=dev)
+            for name, fn, plain in (("mtl_gather_three_level", k5, k5_plain),
+                                    ("mtl_gather_three_level_q8", k6,
+                                     k6_plain)):
+                out = fn(ids0, mask0, rows0)
+                assert torch.equal(out, plain(ids0, mask0, rows0)), \
+                    f"{name} b={b} h={h}"
+                assert torch.equal(fn(bad, mask0, rows0),
+                                   plain(bad, mask0, rows0)), \
+                    f"{name} out-of-range ids"
+            # every row resolves: K5 is K1 (h = 1) and K2 (pooled) on the
+            # dense table, and K6 is K4 on the int8 table
+            k5_out = k5(ids0, mask0, rows0)
+            if h == 1:
+                assert torch.equal(k5_out, mtl_gather(ids0, offsets, table32))
+            assert torch.equal(k5_out, mtl_gather_multihot(ids0, mask0,
+                                                           offsets, table32))
+            assert torch.equal(k6(ids0, mask0, rows0), mtl_gather_two_level_q8(
+                ids0, offsets, slot_of_row, qcache, qcscale, q, scale,
+                mask=mask0))
+            if h == 1:
+                # a cache slot past C, a staging slot past S and a row
+                # staged nowhere: all three read exactly 0.0
+                flat = rows0.reshape(-1)
+                hit = slot_of_row.index_select(0, flat) >= 0
+                r_c = int(flat[hit][0])
+                staged_rows = flat[~hit]
+                r_s, r_n = int(staged_rows[0]), int(
+                    staged_rows[staged_rows != staged_rows[0]][0])
+                som2, smap2 = slot_of_row.clone(), smap.clone()
+                som2[r_c] = CACHE_CAPACITY + 5
+                smap2[r_s] = staging.shape[0] + 5
+                smap2[r_n] = -1
+                gone = torch.isin(flat, torch.tensor([r_c, r_s, r_n],
+                                                     device=dev))
+                for name, fn, plain in (
+                        ("mtl_gather_three_level", k5, k5_plain),
+                        ("mtl_gather_three_level_q8", k6, k6_plain)):
+                    out = fn(bad, None, rows0, som2, smap2)
+                    assert torch.equal(out, plain(bad, None, rows0, som2,
+                                                  smap2)), f"{name} tiers"
+                    out = fn(ids0, None, rows0, som2, smap2).view(b * k, d)
+                    assert torch.all(out[gone] == 0.0) \
+                        and not torch.signbit(out[gone]).any(), name
+                    assert bool((out[~gone].abs().sum(dim=1) > 0).all()), name
+            uniq = torch.unique(rows0)
+            n_miss = int((slot_of_row.index_select(0, uniq) < 0).sum())
+            hits = int((slot_of_row.index_select(0, rows0.reshape(-1))
+                        >= 0).sum())
+            ids_bytes = b * k * h * 4 * (1 if mask0 is None else 2) + k * 4
+            out_bytes = b * k * d * 4
+            shape = f"b={b},k={k},d={d},h={h}"
+            log(f"[host-kernels] {shape}: {uniq.numel()} distinct rows, "
+                f"{n_miss} staged; cache hits {hits / rows0.numel():.3f} of "
+                f"{rows0.numel()} slots; staging holds {staging.shape[0]} "
+                f"rows for {len(sets)} timed batches")
+            # each distinct row: its cache slot, on a miss its staging slot
+            maps = uniq.numel() * 4 + n_miss * 4
+            lib = (lambda i, m, rows: torch.index_select(
+                       table32, 0, rows.reshape(-1))) if h == 1 else \
+                (lambda i, m, rows: F.embedding_bag(rows, table32,
+                                                    mode="sum"))
+            for name, fn, plain, lib_fn, row_bytes in (
+                    ("mtl_gather_three_level", k5, k5_plain, lib, 4 * d),
+                    ("mtl_gather_three_level_q8", k6, k6_plain, None, d + 4)):
+                record(name, shape, 0.0, device_ms(torch, fn, sets),
+                       device_ms(torch, plain, sets),
+                       None if lib_fn is None else device_ms(torch, lib_fn,
+                                                             sets),
+                       ids_bytes + maps + uniq.numel() * row_bytes
+                       + out_bytes, 0)
+    del q, scale, qcache, qcscale, cache, slot_of_row
+    torch.cuda.empty_cache()
+
+
+def trace_step(torch, name, plan, ids, n_steps: int = 20,
+               prepare=None) -> None:
     """Profile ``n_steps`` calls of ``plan`` and print, per step: device
     busy time (union of kernel and copy intervals), the share of the
     traced window with nothing running on the device, the time kernels
-    on two or more streams overlapped, and the five kernels that took the
-    most device time. The Chrome trace lands in ``build/traces/``."""
+    on two or more streams overlapped, the host-to-device copies, and the
+    five kernels that took the most device time. ``prepare(i)``, when
+    given, runs before step i (a host store stages that step's batch
+    there) and returns its device ids; otherwise every step runs on
+    ``ids``. The Chrome trace lands in ``build/traces/``."""
     from torch.profiler import ProfilerActivity, profile
 
-    plan(ids)
+    def step_ids(i):
+        return ids if prepare is None else prepare(i)
+
+    plan(step_ids(n_steps))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            plan(ids)
+        for i in range(n_steps):
+            plan(step_ids(i))
         torch.cuda.synchronize()
     out = ROOT / "build" / "traces"
     out.mkdir(parents=True, exist_ok=True)
@@ -436,10 +624,14 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20) -> None:
         by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     streams = sorted({st for _, _, st in spans})
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e["name"]]
     log(f"[{name}] trace {plan.level} b={plan.batch_size}, {n_steps} steps: "
         f"device busy {busy / n_steps:.1f} us/step, idle share of window "
         f"{1 - busy / window:.3f}, streams {streams}, multi-stream overlap "
-        f"{overlap / n_steps:.1f} us/step")
+        f"{overlap / n_steps:.1f} us/step, host-to-device copies "
+        f"{len(h2d) / n_steps:.1f}/step taking "
+        f"{sum(e['dur'] for e in h2d) / n_steps:.1f} us/step")
     for kname, dur in top:
         log(f"[{name}]   {dur / n_steps:8.1f} us/step  {kname[:90]}")
 
@@ -463,24 +655,36 @@ def latency(torch, name, plan, schema, sample_ids) -> None:
         trace_step(torch, name, plan, torch.from_numpy(ids_b).to(plan.device))
 
 
-def paired_latency(torch, plans: dict, schema, sample_ids) -> None:
+def paired_latency(torch, plans: dict, schema, sample_ids,
+                   stores: dict | None = None) -> None:
     """Request latency of several "dual" plans of one batch size, measured
     in turns (a, b, c, c, b, a, ...) so host and clock drift fall on all
-    alike: p50/p80 of ``predict`` and p50 of the host's enqueue of one step
-    (``plan(ids)`` returning, before the device finishes); then a trace
-    of each plan."""
+    alike, each round on a fresh batch: p50/p80 of a request (``stage`` +
+    ``predict`` for the plans whose tag is in ``stores``, host stores that
+    stage each batch first; ``predict`` for the others) and p50 of the
+    host's enqueue of one step (``plan(ids)`` returning, before the device
+    finishes); then a trace of each plan (staging each step's batch for
+    the host stores)."""
     import numpy as np
 
+    stores = stores or {}
     b = next(iter(plans.values())).batch_size
-    ids_b = sample_ids(schema, b, step=30_000)
-    ids_dev = torch.from_numpy(ids_b).to(next(iter(plans.values())).device)
+    dev = next(iter(plans.values())).device
+    rounds = LATENCY_WARMUP + LATENCY_SAMPLES
+    batches = [sample_ids(schema, b, step=30_000 + r) for r in range(rounds)]
+    ids_b = batches[0]
+    ids_dev = torch.from_numpy(ids_b).to(dev)
+    for store in stores.values():
+        store.stage(ids_b)
     lat = {tag: [] for tag in plans}
     enq = {tag: [] for tag in plans}
     tags = list(plans)
-    for r in range(LATENCY_WARMUP + LATENCY_SAMPLES):
+    for r, ids in enumerate(batches):
         for tag in (tags if r % 2 == 0 else tags[::-1]):
             t0 = time.perf_counter()
-            plans[tag].predict(ids_b)
+            if tag in stores:
+                stores[tag].stage(ids)
+            plans[tag].predict(ids)
             lat[tag].append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
             plans[tag](ids_dev)
@@ -489,12 +693,20 @@ def paired_latency(torch, plans: dict, schema, sample_ids) -> None:
     for tag in tags:
         la = np.asarray(lat[tag][LATENCY_WARMUP:])
         en = np.asarray(enq[tag][LATENCY_WARMUP:])
-        log(f"[{tag}] latency dual b={b} (in turns with {len(tags) - 1} "
-            f"other plans): p50 {np.percentile(la, 50):.3f} ms, p80 "
-            f"{np.percentile(la, 80):.3f} ms, host enqueue of a step p50 "
-            f"{np.percentile(en, 50):.3f} ms ({la.size} requests)")
+        what = "stage + predict" if tag in stores else "predict"
+        log(f"[{tag}] latency dual b={b} ({what}, in turns with "
+            f"{len(tags) - 1} other plans): p50 {np.percentile(la, 50):.3f} "
+            f"ms, p80 {np.percentile(la, 80):.3f} ms, host enqueue of a step "
+            f"p50 {np.percentile(en, 50):.3f} ms ({la.size} requests)")
     for tag, plan in plans.items():
-        trace_step(torch, tag, plan, ids_dev)
+        prepare = None
+        if tag in stores:
+            feed = [sample_ids(schema, b, step=31_000 + i) for i in range(21)]
+
+            def prepare(i, store=stores[tag], feed=feed):
+                store.stage(feed[i])
+                return torch.from_numpy(feed[i]).to(dev)
+        trace_step(torch, tag, plan, ids_dev, prepare=prepare)
 
 
 def serve(plan, schema, sample_ids, n_requests: int, step0: int):
@@ -585,36 +797,72 @@ def run_model(torch, dev, name, spec, schema, sample_ids, *, batches,
     return counts, n_steps
 
 
-def run_cached(torch, dev, spec, schema, sample_ids, *, batches,
+def check_host_device_state(torch, store) -> None:
+    """A host store's device tensors are its cache, staging area (with
+    their scales) and two maps: ``device_bytes`` is their sum, and no
+    (rows, d) table sits on the card."""
+    spec = store.spec
+    row_bytes = spec.dim + 4 if store.quantized else 4 * spec.dim
+    want = (store.capacity + store.staging_capacity) * row_bytes \
+        + 2 * spec.rows * 4
+    assert store.device_bytes() == want, (store.device_bytes(), want)
+    names = {name for name, _ in store.named_buffers()}
+    assert names == set(store.runtime_keys), names
+    for name, t in store.named_buffers():
+        assert not (t.dim() == 2 and t.shape[0] == spec.rows), name
+
+
+def run_tiered(torch, dev, spec, schema, sample_ids, *, batches,
                n_requests) -> dict:
-    """Serve full-width DCNv2 through "dual" over a fp32 and an int8
-    ``CachedStore`` adopted from the dense model's weights, with observe /
-    refresh / deltas between requests, against a ``DenseStore`` replay of
-    the same ids and deltas; then latency, traces, the level ladder and
-    store-level multi-hot. Returns the launches of K2, K3 and K4 on their
-    paths."""
+    """Serve full-width DCNv2 through "dual" over fp32 and int8
+    ``CachedStore``s and ``HostBackedStore``s adopted from the dense
+    model's weights, with hint / stage / observe / refresh / deltas
+    between requests, against a ``DenseStore`` replay of the same ids and
+    deltas; then latency, traces, the level ladders, chunked serving
+    through the reference's default staging area, and store-level
+    multi-hot. Returns the launches of K2–K6 on their paths."""
     import numpy as np
 
     from repro_torch.core import LEVELS, compile_plan
-    from repro_torch.embedding import CachedStore
+    from repro_torch.embedding import (CachedStore, HostBackedStore,
+                                       StagingOverflowError)
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.ctr import DCNv2
 
-    def build(row_dtype="dense"):
+    emb_spec = spec.embedding_spec()
+
+    def build(kind="dense", row_dtype=None):
         model = DCNv2(spec, device=dev).init(
             torch.Generator(device=dev).manual_seed(SEED))
-        if row_dtype != "dense":
-            model.use_store(CachedStore(spec.embedding_spec(),
-                                        CACHE_CAPACITY, row_dtype,
+        if kind == "cached":
+            model.use_store(CachedStore(emb_spec, CACHE_CAPACITY, row_dtype,
                                         device=dev))
+        elif kind == "host":
+            model.use_store(HostBackedStore(emb_spec, CACHE_CAPACITY,
+                                            STAGING_CAPACITY,
+                                            row_dtype=row_dtype, device=dev))
         return model
 
     dense = build()
-    cached = {rd: build(rd) for rd in (None, "int8")}
+    tiers = {"cached-fp32": build("cached"),
+             "cached-int8": build("cached", "int8"),
+             "host-fp32": build("host"),
+             "host-int8": build("host", "int8")}
+    gathers = {"cached-fp32": "mtl_gather_two_level",
+               "cached-int8": "mtl_gather_two_level_q8",
+               "host-fp32": "mtl_gather_three_level",
+               "host-int8": "mtl_gather_three_level_q8"}
     torch.cuda.synchronize()
-    assert torch.equal(cached[None].embedding.store.backing,
-                       dense.embedding.dense_view())
-    emb_spec = spec.embedding_spec()
+    table = dense.embedding.dense_view()
+    assert torch.equal(tiers["cached-fp32"].embedding.store.backing, table)
+    assert np.array_equal(tiers["host-fp32"].embedding.store.host_view(),
+                          table.cpu().numpy())
+    for tag in ("host-fp32", "host-int8"):
+        store = tiers[tag].embedding.store
+        check_host_device_state(torch, store)
+        log(f"[{tag}] {store.describe()}: {store.device_bytes()} bytes on "
+            f"the device (cache, staging, two maps), "
+            f"{store.host_view().nbytes} bytes of backing in host memory")
     offsets = emb_spec.offsets
 
     # the request schedule: ids per request, one delta batch per batch
@@ -636,16 +884,33 @@ def run_cached(torch, dev, spec, schema, sample_ids, *, batches,
         deltas[b] = (rows, vals)
 
     def serve_schedule(model, plans, tag):
+        """Per request: hint the next request and stage this one (host
+        stores), predict, observe; a refresh every ``REFRESH_EVERY``
+        requests and the delta batch halfway."""
         store = model.embedding.store
         scores = {}
         swap_ms = {"refresh": [], "deltas": []}
+        stage_ms, per_req = [], []
         for b in batches:
             out, windows = [], []
             seen = (store.stats.hits, store.stats.lookups)
-            for r, ids in enumerate(schedule[b]):
+            reqs = schedule[b]
+            for r, ids in enumerate(reqs):
+                if store.needs_staging:
+                    if r + 1 < len(reqs):
+                        store.prefetch_hint(reqs[r + 1])
+                    st = store.stats
+                    before = (st.staged_rows, st.prefetched_rows,
+                              st.h2d_bytes, store.upload_bytes)
+                    t0 = time.perf_counter()
+                    store.stage(ids)
+                    stage_ms.append((time.perf_counter() - t0) * 1e3)
+                    per_req.append([a - z for a, z in zip(
+                        (st.staged_rows, st.prefetched_rows, st.h2d_bytes,
+                         store.upload_bytes), before)])
+                out.append(plans[b].predict(ids))
                 if store.refreshable:
                     model.embedding.observe(ids)
-                out.append(plans[b].predict(ids))
                 if store.refreshable and (r + 1) % REFRESH_EVERY == 0:
                     hits, looks = store.stats.hits, store.stats.lookups
                     windows.append((hits - seen[0]) / (looks - seen[1]))
@@ -679,29 +944,48 @@ def run_cached(torch, dev, spec, schema, sample_ids, *, batches,
                 + ", ".join(f"{t:.2f}" for t in swap_ms["refresh"])
                 + " ms; deltas "
                 + ", ".join(f"{t:.2f}" for t in swap_ms["deltas"]) + " ms")
+        if per_req:
+            pr = np.asarray(per_req, dtype=np.float64)
+            snapshot = sum(t.numel() * t.element_size() for k, t in
+                           store.runtime_tensors().items()
+                           if k.startswith("staging"))
+            log(f"[{tag}] per request ({len(per_req)}): staged at serve "
+                f"time {pr[:, 0].mean():.1f} rows, already prefetched "
+                f"{pr[:, 1].mean():.1f} rows; h2d_bytes (staged rows x "
+                f"wire bytes) {pr[:, 2].mean():.0f} B; staging upload "
+                f"copied {pr[:, 3].mean():.0f} B (max {pr[:, 3].max():.0f};"
+                f" a whole-area snapshot would be {snapshot} B); host time "
+                f"of stage p50 {np.percentile(stage_ms, 50):.3f} ms, p80 "
+                f"{np.percentile(stage_ms, 80):.3f} ms")
         return scores
 
-    # the four levels of the fp32 cached model agree on the card
-    m32 = cached[None]
-    ids = torch.from_numpy(sample_ids(schema, 256, step=10_000)).to(dev)
-    logits = {lvl: compile_plan(m32, lvl, 256, device=dev,
-                                runtime_provider=m32.store_runtime_env)(ids)
-              for lvl in LEVELS}
-    for lvl, out in logits.items():
-        torch.testing.assert_close(out, logits["naive"], **LADDER_TOL,
-                                   msg=lambda m: f"cached {lvl}: {m}")
-    log("[cached] level ladder on the card (fp32 rows): max|level-naive| "
-        f"= { {lvl: (o - logits['naive']).abs().max().item()
-               for lvl, o in logits.items()} }")
-    del logits
+    # the four levels of the fp32 cached model agree on the card, and the
+    # three the fp32 host model serves ("naive" needs the whole table on
+    # the device, which the host store never holds)
+    ids_np = sample_ids(schema, 256, step=10_000)
+    ids = torch.from_numpy(ids_np).to(dev)
+    for tag, levels in (("cached-fp32", LEVELS),
+                        ("host-fp32", ("fused_emb", "fused_all", "dual"))):
+        m = tiers[tag]
+        m.embedding.store.stage(ids_np)
+        logits = {lvl: compile_plan(m, lvl, 256, device=dev,
+                                    runtime_provider=m.store_runtime_env)(ids)
+                  for lvl in levels}
+        ref = logits[levels[0]]
+        for lvl, out in logits.items():
+            torch.testing.assert_close(out, ref, **LADDER_TOL,
+                                       msg=lambda msg: f"{tag} {lvl}: {msg}")
+        log(f"[{tag}] level ladder on the card: max|level-{levels[0]}| = "
+            f"{ {lvl: (o - ref).abs().max().item() for lvl, o in logits.items()} }")
+        del logits
 
     dense_plans = {b: compile_plan(dense, "dual", b, device=dev)
                    for b in batches}
     want = serve_schedule(dense, dense_plans, "dense")
-    launches = {}
+    w = np.concatenate([want[b] for b in batches])
+    launches, got_all = {}, {}
     served = {"dense": dense_plans}
-    for rd, model in cached.items():
-        tag = "cached-int8" if rd else "cached-fp32"
+    for tag, model in tiers.items():
         store = model.embedding.store
         plans = {}
         for b in batches:                  # the only compiles of this run
@@ -709,7 +993,7 @@ def run_cached(torch, dev, spec, schema, sample_ids, *, batches,
                                     runtime_provider=model.store_runtime_env)
         n_compiles = len(plans)
         served[tag] = plans
-        kernel = "mtl_gather_two_level_q8" if rd else "mtl_gather_two_level"
+        kernel = gathers[tag]
         torch.cuda.synchronize()
         reset_launch_counts()
         got = serve_schedule(model, plans, tag)
@@ -717,33 +1001,87 @@ def run_cached(torch, dev, spec, schema, sample_ids, *, batches,
         counts = launch_counts()
         n_steps = len(batches) * n_requests
         assert counts[kernel] == n_steps, counts
-        assert counts["mtl_gather"] == 0, counts
+        for other in ("mtl_gather", *gathers.values()):
+            assert other == kernel or counts[other] == 0, counts
         assert counts["fused_cross_v2"] == 3 * n_steps, counts
         assert len(plans) == n_compiles and store.stats.refreshes == \
             len(batches) * (n_requests // REFRESH_EVERY), store.stats
         launches[kernel] = counts[kernel]
         s = np.concatenate([got[b] for b in batches])
-        w = np.concatenate([want[b] for b in batches])
         assert np.all(np.isfinite(s)) and np.all((s > 0) & (s < 1))
         err = float(np.abs(s - w).max())
-        if rd is None:
-            assert np.array_equal(s, w), f"fp32 cached != dense ({err})"
+        if tag.endswith("fp32"):
+            assert np.array_equal(s, w), f"fp32 {tag} != dense ({err})"
         else:
-            assert err < Q8_SCORE_GATE, f"int8 scores off by {err}"
+            assert err < Q8_SCORE_GATE, f"{tag} scores off by {err}"
+        if tag.startswith("host"):
+            check_host_device_state(torch, store)
+            assert store.stats.staging_overflows == 0, store.stats
+        got_all[tag] = s
         log(f"[{tag}] main path: {n_steps} requests through dual "
             f"({', '.join(str(b) for b in batches)}) on {n_compiles} plans, "
             f"{store.stats.refreshes} refreshes, {len(batches)} delta "
             f"batches of {DELTA_ROWS} rows; max|score - dense replay| = "
             f"{err:.3e}; launches {counts}")
+    log("[host-int8] max|host int8 - cached int8| on the same ids and "
+        f"deltas = {float(np.abs(got_all['host-int8'] - got_all['cached-int8']).max()):.3e}")
+    host_stores = {tag: tiers[tag].embedding.store
+                   for tag in ("host-fp32", "host-int8")}
     for b in batches:
         paired_latency(torch, {tag: plans[b] for tag, plans in served.items()},
-                       schema, sample_ids)
+                       schema, sample_ids, stores=host_stores)
     del served
 
+    # the reference's default staging area (S = 256) at b = 256 after one
+    # refresh: nearly every batch's misses overflow it, and the batch is
+    # served in chunks through the same plan, bitwise the dense replay
+    m_over = DCNv2(spec, device=dev)
+    m_over.load_state_dict(dense.state_dict())     # deltas included
+    over = HostBackedStore(emb_spec, CACHE_CAPACITY, OVERFLOW_STAGING,
+                           device=dev)
+    m_over.use_store(over)
+    over.observe(sample_ids(schema, 16_384, step=50_000) + offsets[None, :])
+    over.refresh()
+    plan_o = compile_plan(m_over, "dual", 256, device=dev,
+                          runtime_provider=m_over.store_runtime_env)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    chunks = []
+    for r in range(8):
+        ids = sample_ids(schema, 256, step=80_000 + r)
+        try:
+            over.stage(ids)
+            parts = [ids]
+            s = plan_o.predict(ids)
+        except StagingOverflowError:
+            parts = over.split_for_staging(ids)
+            outs = []
+            for part in parts:
+                over.stage(part)
+                outs.append(plan_o.predict(part))
+            s = np.concatenate(outs)
+        chunks.append(len(parts))
+        assert np.array_equal(s, dense_plans[256].predict(ids)), \
+            f"overflow request {r}"
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["mtl_gather_three_level"] == sum(chunks), counts
+    assert over.stats.staging_overflows > 0, over.stats
+    log(f"[host-overflow] {over.describe()}: 8 requests of b=256, "
+        f"{over.stats.staging_overflows} staging overflows, chunks per "
+        f"request {chunks}; scores bitwise the dense replay; launches "
+        f"{counts}")
+    over.pipeline.stop()
+    del m_over, over, plan_o
+
     # the stores took the same deltas: one table, and store-level multi-hot
-    # through the dense store (K2) and the fp32 cached store (K3) agree
+    # through the dense store (K2), the fp32 cached store (K3) and the fp32
+    # host store (K5) agree
+    host32 = tiers["host-fp32"].embedding
     assert torch.equal(dense.embedding.dense_view(),
-                       cached[None].embedding.store.backing)
+                       tiers["cached-fp32"].embedding.store.backing)
+    assert np.array_equal(host32.store.host_view(),
+                          dense.embedding.dense_view().cpu().numpy())
     rng = np.random.default_rng(SEED + 4)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -753,17 +1091,23 @@ def run_cached(torch, dev, spec, schema, sample_ids, *, batches,
         mask = torch.from_numpy(rng.integers(
             0, 2, size=tuple(ids.shape)).astype(np.float32)).to(dev)
         a = dense.embedding.forward_multihot(ids, mask)
-        c = cached[None].embedding.forward_multihot(ids, mask)
+        c = tiers["cached-fp32"].embedding.forward_multihot(ids, mask)
+        host32.store.stage(ids, mask)
+        h = host32.forward_multihot(ids, mask)
         assert torch.equal(a, c), "multi-hot: dense != cached"
+        assert torch.equal(a, h), "multi-hot: dense != host"
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts["mtl_gather_multihot"] == counts[
-        "mtl_gather_two_level"] == 8, counts
+        "mtl_gather_two_level"] == counts["mtl_gather_three_level"] == 8, \
+        counts
     launches["mtl_gather_multihot"] = counts["mtl_gather_multihot"]
     log(f"[multihot] 8 pooled lookups (b=1024, h={HOT}, random mask) "
-        f"through DenseStore and CachedStore: bitwise equal; launches "
-        f"{counts}")
-    del dense, cached
+        f"through DenseStore, CachedStore and HostBackedStore: bitwise "
+        f"equal; launches {counts}")
+    for store in host_stores.values():
+        store.pipeline.stop()
+    del dense, tiers, host_stores, host32
     torch.cuda.empty_cache()
     return launches
 
@@ -822,6 +1166,7 @@ def main() -> int:
     phase_kernels(torch, dev, emb.dense_view(), wide.dense_view(),
                   emb.offsets, CRITEO, sample_ids, record)
     phase_tiered_kernels(torch, dev, emb, CRITEO, sample_ids, record)
+    phase_host_kernels(torch, dev, emb, CRITEO, sample_ids, record)
     del emb, wide
     torch.cuda.empty_cache()
 
@@ -845,8 +1190,8 @@ def main() -> int:
             assert counts[kernel] == per_step * steps, counts
             launches[kernel] = counts[kernel]
 
-    # 6. the cached tier (K3, K4) and store-level multi-hot (K2)
-    launches.update(run_cached(
+    # 6. the cached and host tiers (K3-K6) and store-level multi-hot (K2)
+    launches.update(run_tiered(
         torch, dev, ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024),
         CRITEO, sample_ids, batches=(256, 1024), n_requests=16))
 
@@ -863,6 +1208,12 @@ def main() -> int:
                "mtl_gather_two_level_q8": ("mtl_gather_tiered.cu",
                                            f"{lookup}:241",
                                            "b=1024,k=39,d=32,h=1"),
+               "mtl_gather_three_level": ("mtl_gather_tiered.cu",
+                                          f"{lookup}:323",
+                                          "b=1024,k=39,d=32,h=1"),
+               "mtl_gather_three_level_q8": ("mtl_gather_tiered.cu",
+                                             f"{lookup}:403",
+                                             "b=1024,k=39,d=32,h=1"),
                "fused_cross_v2": ("fused_cross.cu",
                                   "src/repro/kernels/fused_cross.py:26",
                                   "b=1024,D=1248"),

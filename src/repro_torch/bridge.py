@@ -14,7 +14,15 @@ for int8 rows ``backing_scale``/``cache_scale``) lands in the store's
 buffers of the same names, int8 and int32 leaves included; each store
 then re-derives its host state from what was loaded (``resync``), so a
 cached store's ``observe`` and ``apply_deltas`` count against the loaded
-index map.
+index map. A ``HostBackedStore`` subtree (``cache``, ``slot_of_row``,
+``staging``, ``staging_slot_of_row``, and for int8 rows ``cache_scale`` and
+``staging_scale``) lands the same way, and the store's ``resync`` takes its
+cache map and its staging area (rows, scales and map) from the loaded
+buffers. The host backing is not a parameter in either package: hand it
+over before loading, with ``store.adopt({"mega_table": table})`` from the
+same dense table or from the reference store's ``host_view()``, or for
+int8 rows ``store.adopt({"backing": host_view(), "backing_scale":
+host_scale_view()})``.
 
 Tests use this to hold the port against the reference on the same
 parameters; the port's own weights come from ``CTRModel.init``.

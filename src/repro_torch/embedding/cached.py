@@ -46,7 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
 from .spec import FusedEmbeddingSpec
-from .store import EmbeddingStore, validate_deltas
+from .store import EmbeddingStore, check_index_map, validate_deltas
 
 __all__ = ["CachedStore"]
 
@@ -97,20 +97,6 @@ class CachedStore(EmbeddingStore):
         m[:self.capacity] = np.arange(self.capacity, dtype=np.int32)
         return m
 
-    def _check_map(self, m: np.ndarray) -> None:
-        """A valid index map: every entry in ``[-1, C)``, and the cached
-        rows fill each of the C slots exactly once."""
-        if m.shape != (self.spec.rows,):
-            raise ValueError(f"index map has shape {m.shape}, expected "
-                             f"{(self.spec.rows,)}")
-        if m.min() < -1 or m.max() >= self.capacity:
-            raise ValueError(f"index map entries must lie in [-1, "
-                             f"{self.capacity})")
-        slots = np.sort(m[m >= 0])
-        if not np.array_equal(slots, np.arange(self.capacity)):
-            raise ValueError(f"index map holds {slots.size} slots, not each "
-                             f"of the {self.capacity} once")
-
     # -- params ------------------------------------------------------------
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -159,7 +145,7 @@ class CachedStore(EmbeddingStore):
                     ) -> dict[str, torch.Tensor]:
         """Fresh runtime tensors for ``backing`` under index map
         ``slot_of_row`` (the cache gathered from the backing)."""
-        self._check_map(slot_of_row)
+        check_index_map(slot_of_row, self.spec.rows, self.capacity)
         hot = np.flatnonzero(slot_of_row >= 0)
         cached_rows = hot[np.argsort(slot_of_row[hot])]   # row of slot s
         rows = torch.from_numpy(cached_rows).to(backing.device)
@@ -175,25 +161,11 @@ class CachedStore(EmbeddingStore):
             out["cache_scale"] = backing_scale.index_select(0, rows)
         return out
 
-    def _publish(self, tensors: dict[str, torch.Tensor]) -> None:
-        """Swap the buffers to ``tensors`` in one step, after every queued
-        kernel that may read the old ones has finished."""
-        for name, t in tensors.items():
-            old = getattr(self, name)
-            if t.shape != old.shape or t.dtype != old.dtype:
-                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} does "
-                                 f"not replace {tuple(old.shape)} "
-                                 f"{old.dtype}")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        for name, t in tensors.items():
-            setattr(self, name, t)
-
     def resync(self) -> None:
         """Bring the host mirror of the index map in line with the
         ``slot_of_row`` buffer (after a parameter tree was loaded)."""
         m = self.slot_of_row.cpu().numpy().astype(np.int32)
-        self._check_map(m)
+        check_index_map(m, self.spec.rows, self.capacity)
         self._slot_of_row = m
 
     def dense_view(self) -> torch.Tensor:
@@ -205,13 +177,6 @@ class CachedStore(EmbeddingStore):
         return self.backing
 
     # -- lookup ------------------------------------------------------------
-    def _tensors(self, runtime: dict[str, torch.Tensor] | None
-                 ) -> dict[str, torch.Tensor]:
-        t = self.runtime_tensors()
-        if runtime:
-            t.update(runtime)
-        return t
-
     def lookup(self, ids: torch.Tensor, offsets: torch.Tensor, *,
                strategy: str = "auto",
                runtime: dict[str, torch.Tensor] | None = None

@@ -5,7 +5,9 @@ Counterpart of ``repro.embedding.store``. Here a store is an
 ``DenseStore`` keeps the whole ``(rows, d)`` mega-table in device memory;
 every lookup is one fused gather. ``CachedStore``
 (``repro_torch.embedding.cached``) keeps a hot-row cache over the full
-backing table. The host tier comes in a later slice.
+backing table; ``HostBackedStore`` (``repro_torch.embedding.host``) keeps
+the backing in host memory and stages each batch's misses onto the
+device before its lookup (``needs_staging``).
 
 The ``runtime_keys`` contract carries over: a store that can swap its
 tensors between calls lists them there, and graphs take them as runtime
@@ -30,7 +32,7 @@ from repro_torch.kernels import ops as kops
 from .spec import FusedEmbeddingSpec
 
 __all__ = ["StoreStats", "EmbeddingStore", "DenseStore", "runtime_edge",
-           "validate_deltas"]
+           "validate_deltas", "check_index_map"]
 
 
 def runtime_edge(prefix: str, leaf: str) -> str:
@@ -74,6 +76,20 @@ def validate_deltas(spec: FusedEmbeddingSpec, row_ids, new_rows
     return row_ids[keep], rows[keep]
 
 
+def check_index_map(m: np.ndarray, rows: int, capacity: int) -> None:
+    """A valid cache index map: ``rows`` entries, each in ``[-1, C)``, the
+    cached rows filling each of the ``C`` slots exactly once."""
+    if m.shape != (rows,):
+        raise ValueError(f"index map has shape {m.shape}, expected "
+                         f"{(rows,)}")
+    if m.min() < -1 or m.max() >= capacity:
+        raise ValueError(f"index map entries must lie in [-1, {capacity})")
+    slots = np.sort(m[m >= 0])
+    if not np.array_equal(slots, np.arange(capacity)):
+        raise ValueError(f"index map holds {slots.size} slots, not each "
+                         f"of the {capacity} once")
+
+
 @dataclasses.dataclass
 class StoreStats:
     """Host-side traffic counters of one embedding store.
@@ -85,12 +101,23 @@ class StoreStats:
     ``gather_bytes`` the gather traffic of observed lookups,
     ``quant_bytes_saved`` what int8 rows saved against full precision,
     ``quant_rows`` rows pushed through ``repro_torch.quant``. All stay
-    zero for ``DenseStore``. The reference's staging counters belong to
-    the host tier and come with it.
+    zero for ``DenseStore``.
+
+    The staging counters are live only for stores with ``needs_staging``:
+    ``staged_rows`` rows gathered from the host backing at serve time (the
+    prefetch worker had not got there first), ``prefetched_rows`` rows
+    already staged when their batch arrived, ``h2d_bytes`` the wire bytes
+    of the rows staged at serve time (``staged_rows · wire_row_bytes``,
+    the reference's count) and ``staging_overflows`` batches whose miss
+    set exceeded the staging buffer (served in chunks).
     """
     hits: int = 0
     misses: int = 0
     refreshes: int = 0
+    staged_rows: int = 0
+    prefetched_rows: int = 0
+    h2d_bytes: int = 0
+    staging_overflows: int = 0
     gather_bytes: int = 0
     quant_rows: int = 0
     quant_bytes_saved: int = 0
@@ -119,6 +146,10 @@ class EmbeddingStore(nn.Module):
     #: buffers that compiled plans take as per-call inputs (swappable);
     #: empty for stores that never swap their tensors
     runtime_keys: tuple = ()
+    #: True when the device tensors alone cannot resolve every lookup:
+    #: the caller must :meth:`stage` each batch's ids before its lookup
+    #: (and may :meth:`prefetch_hint` upcoming batches)
+    needs_staging: bool = False
 
     def __init__(self, spec: FusedEmbeddingSpec):
         super().__init__()
@@ -180,6 +211,31 @@ class EmbeddingStore(nn.Module):
         """Leaf name -> tensor for every ``runtime_keys`` buffer."""
         return {leaf: getattr(self, leaf) for leaf in self.runtime_keys}
 
+    def _tensors(self, runtime: dict[str, torch.Tensor] | None
+                 ) -> dict[str, torch.Tensor]:
+        """The runtime tensors, with ``runtime``'s taking precedence."""
+        t = self.runtime_tensors()
+        if runtime:
+            t.update(runtime)
+        return t
+
+    def _publish(self, tensors: dict[str, torch.Tensor]) -> None:
+        """Swap the buffers to ``tensors`` in one step, after every queued
+        kernel that may read the old ones has finished (the caching
+        allocator may hand a dropped tensor's memory to the next
+        allocation while a step queued on another stream still reads
+        it)."""
+        for name, t in tensors.items():
+            old = getattr(self, name)
+            if t.shape != old.shape or t.dtype != old.dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} does "
+                                 f"not replace {tuple(old.shape)} "
+                                 f"{old.dtype}")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for name, t in tensors.items():
+            setattr(self, name, t)
+
     # -- lookup ------------------------------------------------------------
     def lookup(self, ids: torch.Tensor, offsets: torch.Tensor, *,
                strategy: str = "auto",
@@ -196,6 +252,22 @@ class EmbeddingStore(nn.Module):
         """ids/mask (b, k, h) -> (b, k*d) sum-pooled."""
         raise NotImplementedError
 
+    # -- staging (only meaningful when ``needs_staging``) -----------------
+    def stage(self, ids, mask=None) -> None:
+        """Make every row of this batch reachable from the device tensors
+        before its lookup. No-op for stores whose device tensors already
+        cover every row."""
+
+    def prefetch_hint(self, ids, mask=None) -> None:
+        """Hint that ``ids`` will be served soon, so a staging store can
+        resolve their misses off the serving thread. No-op here."""
+
+    def split_for_staging(self, ids) -> list:
+        """Split a batch into chunks each of which :meth:`stage` can
+        resolve (the fallback after a staging overflow): one chunk for
+        stores that do not stage."""
+        return [np.asarray(ids)]
+
     # -- traffic / cache management ---------------------------------------
     def observe(self, global_rows: np.ndarray) -> None:
         """Record served row traffic (host side). No-op here."""
@@ -210,8 +282,8 @@ class EmbeddingStore(nn.Module):
         raise NotImplementedError(
             f"{type(self).__name__} does not support online deltas: its "
             "tensors are compiled into plans as constants, not runtime "
-            "inputs. Serve through CachedStore (its tiers republish "
-            "through the recompile-free swap).")
+            "inputs. Serve through CachedStore or HostBackedStore (their "
+            "tiers republish through the recompile-free swap).")
 
     @property
     def cached_traffic_fraction(self) -> float:

@@ -5,6 +5,8 @@ plain PyTorch versions.
   K2  mtl_gather_multihot      csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
   K3  mtl_gather_two_level     csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
   K4  mtl_gather_two_level_q8  csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
+  K5  mtl_gather_three_level   csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
+  K6  mtl_gather_three_level_q8 csrc/mtl_gather_tiered.cu (multi_table_lookup.py)
   K9  fused_cross_v2           csrc/fused_cross.cu        (fused_cross.py)
   K10 fused_cross_v1           csrc/fused_cross.cu        (fused_cross.py)
   K11 fused_fm_second_order    csrc/fused_fm.cu           (fused_fm.py)
@@ -18,6 +20,8 @@ libraries are compiled at the first launch (``_build``).
 from .fused_cross import fused_cross_v1, fused_cross_v2
 from .fused_fm import fused_fm_second_order
 from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
+                                 mtl_gather_three_level,
+                                 mtl_gather_three_level_q8,
                                  mtl_gather_two_level,
                                  mtl_gather_two_level_q8)
 
@@ -26,6 +30,8 @@ KERNELS = {
     "mtl_gather_multihot": mtl_gather_multihot,
     "mtl_gather_two_level": mtl_gather_two_level,
     "mtl_gather_two_level_q8": mtl_gather_two_level_q8,
+    "mtl_gather_three_level": mtl_gather_three_level,
+    "mtl_gather_three_level_q8": mtl_gather_three_level_q8,
     "fused_cross_v2": fused_cross_v2,
     "fused_cross_v1": fused_cross_v1,
     "fused_fm_second_order": fused_fm_second_order,
@@ -43,5 +49,6 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "mtl_gather",
            "mtl_gather_multihot", "mtl_gather_two_level",
-           "mtl_gather_two_level_q8", "fused_cross_v2", "fused_cross_v1",
+           "mtl_gather_two_level_q8", "mtl_gather_three_level",
+           "mtl_gather_three_level_q8", "fused_cross_v2", "fused_cross_v1",
            "fused_fm_second_order"]

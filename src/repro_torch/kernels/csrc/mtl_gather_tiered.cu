@@ -1,20 +1,30 @@
-// Pooled and tiered fused multi-table gathers: the multi-hot lookup and the
-// cached tier's two-level lookup in fp32 and int8.
+// Pooled and tiered fused multi-table gathers: the multi-hot lookup, the
+// cached tier's two-level lookup and the host tier's three-level lookup, in
+// fp32 and int8.
 //
-// Replaces three Pallas kernels of src/repro/kernels/multi_table_lookup.py:
-//   K2 `mtl_gather_multihot`     (:106) sum of `hot` rows per output row;
-//   K3 `mtl_gather_two_level`    (:164) hit -> cache[slot], miss ->
-//                                       backing[row], pooled over `hot`;
-//   K4 `mtl_gather_two_level_q8` (:241) K3 on int8 rows with one fp32 scale
-//                                       per row, dequantized before the pool.
+// Replaces five Pallas kernels of src/repro/kernels/multi_table_lookup.py:
+//   K2 `mtl_gather_multihot`       (:106) sum of `hot` rows per output row;
+//   K3 `mtl_gather_two_level`      (:164) hit -> cache[slot], miss ->
+//                                         backing[row], pooled over `hot`;
+//   K4 `mtl_gather_two_level_q8`   (:241) K3 on int8 rows with one fp32
+//                                         scale per row, dequantized before
+//                                         the pool;
+//   K5 `mtl_gather_three_level`    (:323) hit -> cache[slot], else staged ->
+//                                         staging[slot], else 0 (the guard);
+//                                         there is no backing operand: the
+//                                         backing lives in host memory;
+//   K6 `mtl_gather_three_level_q8` (:403) K5 on int8 rows, the scale from the
+//                                         winning tier; a row in neither tier
+//                                         gives exactly 0.0.
 // Each of those copies one (1, d) row per grid step; the tier is picked by
-// scalar-prefetch index maps over a slot vector gathered in a separate pass,
-// and both tiers' blocks are fetched before the body selects one.
+// scalar-prefetch index maps over slot vectors gathered in a separate pass,
+// and every tier's block is fetched before the body selects one.
 //
 // Bound on an H100: bytes. Per call they read the b*k*h ids (and the mask),
-// one slot per distinct row touched, each distinct row once (4*d bytes fp32,
-// d + 4 bytes int8), and write b*k*d floats; the arithmetic (one add per
-// slot, one multiply more for int8) is far below the card's rate.
+// one slot per distinct row touched (two for K5/K6 on a cache miss), each
+// distinct row once (4*d bytes fp32, d + 4 bytes int8), and write b*k*d
+// floats; the arithmetic (one add per slot, one multiply more for int8) is
+// far below the card's rate.
 //
 // Design: K1's (mtl_gather.cu) output-first layout, one thread per output
 // element, so every warp's stores are one coalesced segment and with d = 32
@@ -29,10 +39,13 @@
 // PyTorch versions, and K3 at h = 1 with K1 (a cache row is a verbatim copy
 // of its backing row).
 //
+// K5/K6 read the staging map only on a cache miss, so a hit costs what K3's
+// does; a staged row costs one more dependent load.
+//
 // Out-of-range input: the global row is clamped into [0, n_rows) as in K1,
-// and a slot outside [0, n_cache) counts as a miss, so no id and no map can
-// make a thread read past the backing table or the cache. The plain versions
-// clamp and select the same way.
+// and a slot outside [0, n_cache) (or [0, n_staging)) counts as a miss, so no
+// id and no map can make a thread read past the backing table, the cache or
+// the staging buffer. The plain versions clamp and select the same way.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,6 +96,51 @@ struct TwoLevelRowsQ8 {
       scale = __ldg(backing_scale + r);
     }
     return __fmul_rn(static_cast<float>(q), scale);
+  }
+};
+
+// K5: cache, else staging, else the zero guard; only the winning tier's
+// element is loaded, and the staging map only on a cache miss.
+struct ThreeLevelRows {
+  const int32_t* slot_of_row;
+  const int32_t* staging_slot_of_row;
+  const float* cache;
+  const float* staging;
+  int64_t n_cache;
+  int64_t n_staging;
+  __device__ __forceinline__ float operator()(int64_t r, int64_t e,
+                                              int64_t d) const {
+    const int64_t s = __ldg(slot_of_row + r);
+    if (s >= 0 && s < n_cache) return __ldg(cache + s * d + e);
+    const int64_t t = __ldg(staging_slot_of_row + r);
+    if (t >= 0 && t < n_staging) return __ldg(staging + t * d + e);
+    return 0.0f;
+  }
+};
+
+// K6: as K5 on int8 payloads; the scale comes from the winning tier.
+struct ThreeLevelRowsQ8 {
+  const int32_t* slot_of_row;
+  const int32_t* staging_slot_of_row;
+  const int8_t* cache;
+  const float* cache_scale;
+  const int8_t* staging;
+  const float* staging_scale;
+  int64_t n_cache;
+  int64_t n_staging;
+  __device__ __forceinline__ float operator()(int64_t r, int64_t e,
+                                              int64_t d) const {
+    const int64_t s = __ldg(slot_of_row + r);
+    if (s >= 0 && s < n_cache) {
+      return __fmul_rn(static_cast<float>(__ldg(cache + s * d + e)),
+                       __ldg(cache_scale + s));
+    }
+    const int64_t t = __ldg(staging_slot_of_row + r);
+    if (t >= 0 && t < n_staging) {
+      return __fmul_rn(static_cast<float>(__ldg(staging + t * d + e)),
+                       __ldg(staging_scale + t));
+    }
+    return 0.0f;
   }
 };
 
@@ -189,5 +247,42 @@ extern "C" int mtl_gather_two_level_q8(
                                static_cast<const int8_t*>(backing),
                                static_cast<const float*>(backing_scale),
                                n_cache},
+                out, b, k, h, d, n_rows, stream);
+}
+
+// K5/K6: n_rows is the length of both maps (the host backing's height).
+
+extern "C" int mtl_gather_three_level(
+    const void* ids, const void* mask, const void* offsets,
+    const void* slot_of_row, const void* staging_slot_of_row,
+    const void* cache, const void* staging, void* out, int64_t b, int64_t k,
+    int64_t h, int64_t d, int64_t n_cache, int64_t n_staging, int64_t n_rows,
+    void* stream) {
+  return launch(ids, mask, offsets,
+                ThreeLevelRows{static_cast<const int32_t*>(slot_of_row),
+                               static_cast<const int32_t*>(
+                                   staging_slot_of_row),
+                               static_cast<const float*>(cache),
+                               static_cast<const float*>(staging), n_cache,
+                               n_staging},
+                out, b, k, h, d, n_rows, stream);
+}
+
+extern "C" int mtl_gather_three_level_q8(
+    const void* ids, const void* mask, const void* offsets,
+    const void* slot_of_row, const void* staging_slot_of_row,
+    const void* cache, const void* cache_scale, const void* staging,
+    const void* staging_scale, void* out, int64_t b, int64_t k, int64_t h,
+    int64_t d, int64_t n_cache, int64_t n_staging, int64_t n_rows,
+    void* stream) {
+  return launch(ids, mask, offsets,
+                ThreeLevelRowsQ8{static_cast<const int32_t*>(slot_of_row),
+                                 static_cast<const int32_t*>(
+                                     staging_slot_of_row),
+                                 static_cast<const int8_t*>(cache),
+                                 static_cast<const float*>(cache_scale),
+                                 static_cast<const int8_t*>(staging),
+                                 static_cast<const float*>(staging_scale),
+                                 n_cache, n_staging},
                 out, b, k, h, d, n_rows, stream);
 }

@@ -6,6 +6,8 @@ Counterparts of ``repro.kernels.multi_table_lookup``:
   K2 ``mtl_gather_multihot``      ``csrc/mtl_gather_tiered.cu``
   K3 ``mtl_gather_two_level``     ``csrc/mtl_gather_tiered.cu``
   K4 ``mtl_gather_two_level_q8``  ``csrc/mtl_gather_tiered.cu``
+  K5 ``mtl_gather_three_level``   ``csrc/mtl_gather_tiered.cu``
+  K6 ``mtl_gather_three_level_q8`` ``csrc/mtl_gather_tiered.cu``
 
 The reference kernels take precomputed global rows (and, for the tiered
 ones, a slot vector gathered in a separate pass); these take the local
@@ -16,8 +18,10 @@ mask; a masked slot reads the table's last row (the zero row), exactly as
 the reference redirects it before its kernel.
 
 Global rows are clamped into ``[0, N)`` and a slot outside ``[0, C)``
-counts as a miss: an out-of-range id reads some row of the table, never
-memory past it. The plain versions clamp, select and sum (in slot order)
+(or the staging buffer's ``[0, S)``) counts as a miss: an out-of-range id
+reads some row of the table, never memory past it. K5/K6 have no backing
+operand (the host tier keeps it in host memory); ``N`` is the length of
+their two maps, and a row in neither tier reads zero. The plain versions clamp, select and sum (in slot order)
 the same way, so kernel and plain version are bitwise equal on any input.
 """
 
@@ -29,12 +33,15 @@ import functools
 import torch
 
 from . import _build
-from .ref import ref_two_level_gather, ref_two_level_gather_q8
+from .ref import (ref_three_level_gather, ref_three_level_gather_q8,
+                  ref_two_level_gather, ref_two_level_gather_q8)
 
 __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
            "mtl_gather_multihot_plain", "mtl_gather_two_level",
            "mtl_gather_two_level_plain", "mtl_gather_two_level_q8",
-           "mtl_gather_two_level_q8_plain"]
+           "mtl_gather_two_level_q8_plain", "mtl_gather_three_level",
+           "mtl_gather_three_level_plain", "mtl_gather_three_level_q8",
+           "mtl_gather_three_level_q8_plain"]
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -167,6 +174,40 @@ def mtl_gather_two_level_q8_plain(ids: torch.Tensor, offsets: torch.Tensor,
                  b, k, h)
 
 
+def mtl_gather_three_level_plain(ids: torch.Tensor, offsets: torch.Tensor,
+                                 slot_of_row: torch.Tensor,
+                                 staging_slot_of_row: torch.Tensor,
+                                 cache: torch.Tensor, staging: torch.Tensor,
+                                 mask: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of K5."""
+    ids = _as_slots(ids)
+    b, k, h = ids.shape
+    rows = _slot_rows(ids, offsets, mask, slot_of_row.shape[0]).reshape(-1)
+    return _pool(ref_three_level_gather(rows, slot_of_row,
+                                        staging_slot_of_row, cache, staging),
+                 b, k, h)
+
+
+def mtl_gather_three_level_q8_plain(ids: torch.Tensor, offsets: torch.Tensor,
+                                    slot_of_row: torch.Tensor,
+                                    staging_slot_of_row: torch.Tensor,
+                                    cache: torch.Tensor,
+                                    cache_scale: torch.Tensor,
+                                    staging: torch.Tensor,
+                                    staging_scale: torch.Tensor,
+                                    mask: torch.Tensor | None = None
+                                    ) -> torch.Tensor:
+    """Plain PyTorch version of K6."""
+    ids = _as_slots(ids)
+    b, k, h = ids.shape
+    rows = _slot_rows(ids, offsets, mask, slot_of_row.shape[0]).reshape(-1)
+    return _pool(ref_three_level_gather_q8(rows, slot_of_row,
+                                           staging_slot_of_row, cache,
+                                           cache_scale, staging,
+                                           staging_scale), b, k, h)
+
+
 @functools.cache
 def _tiered(name: str, n_pointers: int, n_sizes: int):
     fn = getattr(_build.library("mtl_gather_tiered"), name)
@@ -218,11 +259,23 @@ def _check_scale(name: str, t: torch.Tensor, rows: int,
 
 
 def _check_map(slot_of_row: torch.Tensor, n_rows: int,
-               dev: torch.device) -> None:
-    _build.check_tensor("slot_of_row", slot_of_row, torch.int32, 1, dev)
+               dev: torch.device, name: str = "slot_of_row") -> None:
+    _build.check_tensor(name, slot_of_row, torch.int32, 1, dev)
     if slot_of_row.shape[0] != n_rows:
-        raise ValueError(f"slot_of_row has {slot_of_row.shape[0]} entries "
+        raise ValueError(f"{name} has {slot_of_row.shape[0]} entries "
                          f"for {n_rows} backing rows")
+
+
+def _check_maps(slot_of_row: torch.Tensor, staging_slot_of_row: torch.Tensor,
+                dev: torch.device) -> int:
+    """Check K5/K6's two maps, which must have one entry per global row
+    each; returns that row count."""
+    _build.check_tensor("slot_of_row", slot_of_row, torch.int32, 1, dev)
+    n_rows = slot_of_row.shape[0]
+    if n_rows == 0:
+        raise ValueError("slot_of_row has no entries")
+    _check_map(staging_slot_of_row, n_rows, dev, "staging_slot_of_row")
+    return n_rows
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -349,6 +402,104 @@ def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+def mtl_gather_three_level(ids: torch.Tensor, offsets: torch.Tensor,
+                           slot_of_row: torch.Tensor,
+                           staging_slot_of_row: torch.Tensor,
+                           cache: torch.Tensor, staging: torch.Tensor,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: three-level gather — cache hits from ``cache``, staged misses
+    from ``staging``, anything else zero (the guard) — pooled over ``h``
+    ids per (row, field) (h = 1 is the one-hot lookup).
+
+    Args:
+        ids:                 (b, k) or (b, k, h) int32 per-field local ids.
+        offsets:             (k,) int32 starting row of each field.
+        slot_of_row:         (N,) int32 cache slot per global row, -1 =
+                             uncached.
+        staging_slot_of_row: (N,) int32 staging slot per global row, -1 =
+                             unstaged.
+        cache:               (C, d) float32 hot-row copies.
+        staging:             (S, d) float32 staged miss rows.
+        mask:                optional (b, k, h) float32; masked slots read
+                             row N-1.
+
+    Returns:
+        (b, k*d) float32.
+    """
+    dev = cache.device
+    ids, b, k, h = _check_slots(ids, mask, offsets, dev)
+    _check_table("cache", cache, torch.float32, dev)
+    d = cache.shape[1]
+    _check_table("staging", staging, torch.float32, dev, d)
+    n_rows = _check_maps(slot_of_row, staging_slot_of_row, dev)
+    if dev.type == "cpu":
+        return mtl_gather_three_level_plain(ids, offsets, slot_of_row,
+                                            staging_slot_of_row, cache,
+                                            staging, mask)
+    out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    code = _tiered("mtl_gather_three_level", 8, 7)(
+        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+        slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
+        cache.data_ptr(), staging.data_ptr(), out.data_ptr(), b, k, h, d,
+        cache.shape[0], staging.shape[0], n_rows, _build.current_stream(dev))
+    _build.check_launch("mtl_gather_three_level", code)
+    mtl_gather_three_level.launches += 1
+    return out
+
+
+def mtl_gather_three_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
+                              slot_of_row: torch.Tensor,
+                              staging_slot_of_row: torch.Tensor,
+                              cache: torch.Tensor, cache_scale: torch.Tensor,
+                              staging: torch.Tensor,
+                              staging_scale: torch.Tensor,
+                              mask: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """K6: K5 on int8 rows, each dequantized (``q * scale``, the scale
+    from the winning tier) before the fp32 pool; a row in neither tier
+    gives exactly 0.0.
+
+    Args:
+        ids, offsets, slot_of_row, staging_slot_of_row, mask: as
+            :func:`mtl_gather_three_level`.
+        cache:         (C, d) int8 hot-row copies.
+        cache_scale:   (C, 1) float32 per-row scales.
+        staging:       (S, d) int8 staged miss rows.
+        staging_scale: (S, 1) float32 per-row scales.
+
+    Returns:
+        (b, k*d) float32.
+    """
+    dev = cache.device
+    ids, b, k, h = _check_slots(ids, mask, offsets, dev)
+    _check_table("cache", cache, torch.int8, dev)
+    d = cache.shape[1]
+    _check_table("staging", staging, torch.int8, dev, d)
+    _check_scale("cache_scale", cache_scale, cache.shape[0], dev)
+    _check_scale("staging_scale", staging_scale, staging.shape[0], dev)
+    n_rows = _check_maps(slot_of_row, staging_slot_of_row, dev)
+    if dev.type == "cpu":
+        return mtl_gather_three_level_q8_plain(
+            ids, offsets, slot_of_row, staging_slot_of_row, cache,
+            cache_scale, staging, staging_scale, mask)
+    out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    code = _tiered("mtl_gather_three_level_q8", 10, 7)(
+        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+        slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
+        cache.data_ptr(), cache_scale.data_ptr(), staging.data_ptr(),
+        staging_scale.data_ptr(), out.data_ptr(), b, k, h, d, cache.shape[0],
+        staging.shape[0], n_rows, _build.current_stream(dev))
+    _build.check_launch("mtl_gather_three_level_q8", code)
+    mtl_gather_three_level_q8.launches += 1
+    return out
+
+
 mtl_gather_multihot.launches = 0
 mtl_gather_two_level.launches = 0
 mtl_gather_two_level_q8.launches = 0
+mtl_gather_three_level.launches = 0
+mtl_gather_three_level_q8.launches = 0

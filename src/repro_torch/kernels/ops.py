@@ -9,11 +9,11 @@ Counterpart of ``repro.kernels.ops``. Strategies for
   "torch"       one ``index_select`` over the mega-table  [C2 in PyTorch]
   "serial"      per-field gathers + concat (the paper's PyTorch baseline)
 
-The multi-hot and cached-tier lookups take "auto"/"kernel" (the K2, K3
-or K4 wrapper, which redirects masked slots to the table's zero row
-``N - 1`` and reads ``slot_of_row`` in the kernel) and "torch" (the
-reference's "jnp" oracle path: one gather, then mask-multiply-sum for
-multi-hot). The reference's "input_first" and "onehot" strategies wait
+The multi-hot, cached-tier and host-tier lookups take "auto"/"kernel"
+(the K2–K6 wrapper, which redirects masked slots to the table's zero row
+``N - 1`` and reads the slot maps in the kernel; the reference's
+"pallas") and "torch" (the reference's "jnp" oracle path: one gather,
+then mask-multiply-sum for multi-hot). The reference's "input_first" and "onehot" strategies wait
 for their kernels. The fused-tail wrappers dispatch on the tensor's
 device the same way: the kernel for CUDA tensors, the plain version for
 CPU tensors.
@@ -27,6 +27,8 @@ from . import ref
 from .fused_cross import fused_cross_v1, fused_cross_v2
 from .fused_fm import fused_fm_second_order
 from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
+                                 mtl_gather_three_level,
+                                 mtl_gather_three_level_q8,
                                  mtl_gather_two_level,
                                  mtl_gather_two_level_q8)
 
@@ -34,7 +36,10 @@ __all__ = ["STRATEGIES", "POOLED_STRATEGIES", "multi_table_lookup",
            "multi_table_lookup_multihot", "multi_table_lookup_cached",
            "multi_table_lookup_cached_multihot",
            "multi_table_lookup_cached_q8",
-           "multi_table_lookup_cached_q8_multihot", "fused_cross_v1",
+           "multi_table_lookup_cached_q8_multihot",
+           "multi_table_lookup_host", "multi_table_lookup_host_multihot",
+           "multi_table_lookup_host_q8",
+           "multi_table_lookup_host_q8_multihot", "fused_cross_v1",
            "fused_cross_v2", "fused_fm_second_order"]
 
 STRATEGIES = ("auto", "kernel", "torch", "serial")
@@ -251,5 +256,151 @@ def multi_table_lookup_cached_q8_multihot(ids: torch.Tensor,
         vals = ref.ref_two_level_gather_q8(rows, slot_of_row, cache,
                                            cache_scale, backing,
                                            backing_scale)
+        return _mask_pool(vals, mask)
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_host(ids: torch.Tensor, cache: torch.Tensor,
+                            staging: torch.Tensor, slot_of_row: torch.Tensor,
+                            staging_slot_of_row: torch.Tensor,
+                            offsets: torch.Tensor, *,
+                            strategy: str = "auto") -> torch.Tensor:
+    """Fused lookup through a host-backed (cache + staging) store: cached
+    rows from ``cache``, this batch's staged misses from ``staging``,
+    anything else zero (the guard; the serve path stages every miss
+    first). Bitwise equal to the dense lookup on a staged batch.
+
+    Args:
+        ids:                 (b, k) int32 per-field local ids.
+        cache:               (C, d) hot-row copies.
+        staging:             (S, d) staged miss rows of this batch.
+        slot_of_row:         (N,) int32 cache slot per row, -1 = uncached.
+        staging_slot_of_row: (N,) int32 staging slot per row, -1 = unstaged.
+        offsets:             (k,) int32 starting row of each table.
+
+    Returns:
+        (b, k*d) embedding output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_three_level(ids, offsets, slot_of_row,
+                                      staging_slot_of_row, cache, staging)
+    if strategy == "torch":
+        b, k = ids.shape
+        out = ref.ref_three_level_gather(_global_rows(ids, offsets),
+                                         slot_of_row, staging_slot_of_row,
+                                         cache, staging)
+        return out.reshape(b, k * cache.shape[1])
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_host_multihot(ids: torch.Tensor, mask: torch.Tensor,
+                                     cache: torch.Tensor,
+                                     staging: torch.Tensor,
+                                     slot_of_row: torch.Tensor,
+                                     staging_slot_of_row: torch.Tensor,
+                                     offsets: torch.Tensor, *,
+                                     strategy: str = "auto") -> torch.Tensor:
+    """Multi-hot (pooled) lookup through a host-backed store. Masked slots
+    read the zero row, which pools zero from any tier (every tier holds
+    verbatim copies, and the guard gives zero when neither holds it).
+
+    Args:
+        ids, mask:           (b, k, h) local ids and validity mask.
+        cache:               (C, d) hot-row copies.
+        staging:             (S, d) staged miss rows of this batch.
+        slot_of_row:         (N,) int32 cache index map.
+        staging_slot_of_row: (N,) int32 staging index map.
+        offsets:             (k,) table starts.
+
+    Returns:
+        (b, k*d) pooled output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_three_level(ids, offsets, slot_of_row,
+                                      staging_slot_of_row, cache, staging,
+                                      mask=mask.to(torch.float32))
+    if strategy == "torch":
+        rows = _redirected_rows(ids, mask, offsets, slot_of_row.shape[0])
+        vals = ref.ref_three_level_gather(rows, slot_of_row,
+                                          staging_slot_of_row, cache, staging)
+        return _mask_pool(vals, mask)
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_host_q8(ids: torch.Tensor, cache: torch.Tensor,
+                               cache_scale: torch.Tensor,
+                               staging: torch.Tensor,
+                               staging_scale: torch.Tensor,
+                               slot_of_row: torch.Tensor,
+                               staging_slot_of_row: torch.Tensor,
+                               offsets: torch.Tensor, *,
+                               strategy: str = "auto") -> torch.Tensor:
+    """Quantized host-backed lookup: int8 cache/staging rows with per-row
+    fp32 scales, dequantized inside the gather; a row in neither tier
+    gives an exact 0.0.
+
+    Args:
+        ids:                 (b, k) int32 per-field local ids.
+        cache:               (C, d) int8 hot-row copies.
+        cache_scale:         (C, 1) fp32 per-row scales.
+        staging:             (S, d) int8 staged miss rows.
+        staging_scale:       (S, 1) fp32 per-row scales.
+        slot_of_row:         (N,) int32 cache slot per row, -1 = uncached.
+        staging_slot_of_row: (N,) int32 staging slot per row, -1 = unstaged.
+        offsets:             (k,) int32 starting row of each table.
+
+    Returns:
+        (b, k*d) float32 embedding output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_three_level_q8(ids, offsets, slot_of_row,
+                                         staging_slot_of_row, cache,
+                                         cache_scale, staging, staging_scale)
+    if strategy == "torch":
+        b, k = ids.shape
+        out = ref.ref_three_level_gather_q8(
+            _global_rows(ids, offsets), slot_of_row, staging_slot_of_row,
+            cache, cache_scale, staging, staging_scale)
+        return out.reshape(b, k * cache.shape[1])
+    raise _unknown(strategy)
+
+
+def multi_table_lookup_host_q8_multihot(ids: torch.Tensor, mask: torch.Tensor,
+                                        cache: torch.Tensor,
+                                        cache_scale: torch.Tensor,
+                                        staging: torch.Tensor,
+                                        staging_scale: torch.Tensor,
+                                        slot_of_row: torch.Tensor,
+                                        staging_slot_of_row: torch.Tensor,
+                                        offsets: torch.Tensor, *,
+                                        strategy: str = "auto"
+                                        ) -> torch.Tensor:
+    """Multi-hot (pooled) quantized host-backed lookup; masked slots read
+    the zero row (int8 payload 0, or the guard), pooled in fp32 after the
+    per-row dequant.
+
+    Args:
+        ids, mask:           (b, k, h) local ids and validity mask.
+        cache:               (C, d) int8 hot-row copies.
+        cache_scale:         (C, 1) fp32 per-row scales.
+        staging:             (S, d) int8 staged miss rows.
+        staging_scale:       (S, 1) fp32 per-row scales.
+        slot_of_row:         (N,) int32 cache index map.
+        staging_slot_of_row: (N,) int32 staging index map.
+        offsets:             (k,) table starts.
+
+    Returns:
+        (b, k*d) float32 pooled output.
+    """
+    if strategy in ("auto", "kernel"):
+        return mtl_gather_three_level_q8(ids, offsets, slot_of_row,
+                                         staging_slot_of_row, cache,
+                                         cache_scale, staging, staging_scale,
+                                         mask=mask.to(torch.float32))
+    if strategy == "torch":
+        rows = _redirected_rows(ids, mask, offsets, slot_of_row.shape[0])
+        vals = ref.ref_three_level_gather_q8(
+            rows, slot_of_row, staging_slot_of_row, cache, cache_scale,
+            staging, staging_scale)
         return _mask_pool(vals, mask)
     raise _unknown(strategy)

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.kernels.ref``, limited to the ported paths: the
 multi-table lookup (Alg. 1 and its serial baseline), the multi-hot pooled
-lookup, the two-level (cache + backing) gathers of the cached tier in
+lookup, the two-level (cache + backing) gathers of the cached tier and
+the three-level (cache / staging / zero) gathers of the host tier, in
 fp32 and int8, the DCN / DCNv2 cross tails and the FM second-order term.
 The kernel modules' plain versions and the ``torch``/``serial`` lookup
 strategies are built on these.
@@ -19,6 +20,7 @@ import torch
 __all__ = ["multi_table_lookup_alg1", "ref_multi_table_lookup",
            "ref_serial_lookup", "ref_multi_hot_lookup",
            "ref_two_level_gather", "ref_two_level_gather_q8",
+           "ref_three_level_gather", "ref_three_level_gather_q8",
            "ref_cross_v2_elementwise", "ref_cross_v1_elementwise",
            "ref_fm_second_order"]
 
@@ -168,6 +170,88 @@ def ref_two_level_gather_q8(flat_rows: torch.Tensor,
     s = torch.where(hit[:, None], cache_scale.index_select(0, slots),
                     backing_scale.index_select(0, miss_rows))
     return q * s
+
+
+def _three_tier_select(flat_rows: torch.Tensor, slot_of_row: torch.Tensor,
+                       staging_slot_of_row: torch.Tensor, n_cache: int,
+                       n_staging: int):
+    """Per row: cache hit, staged (and not a cache hit), and the two
+    slots to read (0 where that tier is not taken). The cache wins when a
+    row is in both tiers; a slot outside its tier counts as absent, so no
+    map can send a read past the cache or the staging buffer."""
+    cslots = slot_of_row.index_select(0, flat_rows).long()
+    sslots = staging_slot_of_row.index_select(0, flat_rows).long()
+    cache_hit = (cslots >= 0) & (cslots < n_cache)
+    staged = ~cache_hit & (sslots >= 0) & (sslots < n_staging)
+    return (cache_hit, staged, torch.where(cache_hit, cslots, 0),
+            torch.where(staged, sslots, 0))
+
+
+def ref_three_level_gather(flat_rows: torch.Tensor, slot_of_row: torch.Tensor,
+                           staging_slot_of_row: torch.Tensor,
+                           cache: torch.Tensor,
+                           staging: torch.Tensor) -> torch.Tensor:
+    """Three-level (cache / staging / zero-guard) gather oracle — the
+    HostBackedStore lookup.
+
+    There is no device backing to fall through to: a row in neither the
+    cache nor the staging buffer gathers zero (the guard). The serve path
+    stages every miss before the lookup, so on a staged batch the result
+    is bitwise the dense gather (both tiers hold verbatim backing rows).
+
+    Args:
+        flat_rows:           (R,) global rows.
+        slot_of_row:         (N,) int32 cache slot per row, -1 = uncached.
+        staging_slot_of_row: (N,) int32 staging slot per row, -1 = unstaged.
+        cache:               (C, d) hot-row copies.
+        staging:             (S, d) this batch's staged miss rows.
+
+    Returns:
+        (R, d) gathered rows (zero where neither tier resolves).
+    """
+    flat_rows = flat_rows.long()
+    cache_hit, staged, cslots, sslots = _three_tier_select(
+        flat_rows, slot_of_row, staging_slot_of_row, cache.shape[0],
+        staging.shape[0])
+    zero = torch.zeros((), dtype=cache.dtype)
+    return torch.where(cache_hit[:, None], cache.index_select(0, cslots),
+                       torch.where(staged[:, None],
+                                   staging.index_select(0, sslots), zero))
+
+
+def ref_three_level_gather_q8(flat_rows: torch.Tensor,
+                              slot_of_row: torch.Tensor,
+                              staging_slot_of_row: torch.Tensor,
+                              cache: torch.Tensor, cache_scale: torch.Tensor,
+                              staging: torch.Tensor,
+                              staging_scale: torch.Tensor) -> torch.Tensor:
+    """Quantized three-level gather oracle — the int8 HostBackedStore
+    lookup: the int8 payload and the fp32 scale from the winning tier, one
+    dequant multiply, and an exact 0.0 for a row in neither tier (the
+    reference's q = 0 times any scale).
+
+    Args:
+        flat_rows:           (R,) global rows.
+        slot_of_row:         (N,) int32 cache slot per row, -1 = uncached.
+        staging_slot_of_row: (N,) int32 staging slot per row, -1 = unstaged.
+        cache:               (C, d) int8 hot-row copies.
+        cache_scale:         (C, 1) fp32 per-row scales.
+        staging:             (S, d) int8 staged miss rows.
+        staging_scale:       (S, 1) fp32 per-row scales.
+
+    Returns:
+        (R, d) float32 dequantized rows (zero where neither tier resolves).
+    """
+    flat_rows = flat_rows.long()
+    cache_hit, staged, cslots, sslots = _three_tier_select(
+        flat_rows, slot_of_row, staging_slot_of_row, cache.shape[0],
+        staging.shape[0])
+    hit, st = cache_hit[:, None], staged[:, None]
+    q = torch.where(hit, cache.index_select(0, cslots),
+                    staging.index_select(0, sslots)).to(torch.float32)
+    s = torch.where(hit, cache_scale.index_select(0, cslots),
+                    staging_scale.index_select(0, sslots))
+    return torch.where(hit | st, q * s, torch.zeros((), dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------

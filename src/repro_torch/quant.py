@@ -34,7 +34,11 @@ SCALE_EPS = 1e-12
 def absmax_scale(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Per-slice symmetric scale ``max|x| / QMAX`` (keepdim), floored at
     ``SCALE_EPS`` so all-zero slices round-trip to exact zero."""
-    s = x.abs().amax(dim=dim, keepdim=True) / QMAX
+    # divide by a tensor on x's device: PyTorch's CUDA kernel turns a
+    # division by a Python number into a multiply by its reciprocal, which
+    # can round the last bit differently from the reference's division
+    qmax = torch.tensor(QMAX, dtype=x.dtype, device=x.device)
+    s = x.abs().amax(dim=dim, keepdim=True) / qmax
     return s.clamp_min(SCALE_EPS).to(torch.float32)
 
 

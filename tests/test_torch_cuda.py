@@ -7,7 +7,7 @@ imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py -q
 
-K1–K4, K9 and K10 are bitwise (copies, pools summed in slot order, and
+K1–K6, K9 and K10 are bitwise (copies, pools summed in slot order, and
 arithmetic rounded in the plain order without FMA); K11 sums in another
 order than ``torch.sum`` (``rtol=atol=1e-5``). Whole models cross devices at ``rtol=1e-4,
 atol=1e-5``: cuBLAS and the CPU BLAS sum the GEMMs in different orders.
@@ -28,9 +28,11 @@ from repro_torch.kernels.fused_fm import (  # noqa: E402
     fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather, mtl_gather_multihot, mtl_gather_multihot_plain,
-    mtl_gather_plain, mtl_gather_two_level, mtl_gather_two_level_plain,
+    mtl_gather_plain, mtl_gather_three_level, mtl_gather_three_level_plain,
+    mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
+    mtl_gather_two_level, mtl_gather_two_level_plain,
     mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain)
-from repro_torch.embedding import CachedStore  # noqa: E402
+from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
 from repro_torch.models.ctr import CTR_MODELS  # noqa: E402
 from repro_torch.quant import quantize_rows  # noqa: E402
 
@@ -123,7 +125,8 @@ def test_tiered_gathers_bitwise(cuda, h):
             mtl_gather(ids, t["offsets"], t["mega"]))
 
 
-@pytest.mark.parametrize("kernel", ["multihot", "two_level", "q8"])
+@pytest.mark.parametrize("kernel", ["multihot", "two_level", "q8",
+                                    "three_level", "three_level_q8"])
 def test_tiered_gathers_launch_on_the_current_stream(cuda, kernel):
     """A write queued on a side stream behind a sleep must be what the
     kernel launched on that stream reads."""
@@ -134,6 +137,7 @@ def test_tiered_gathers_launch_on_the_current_stream(cuda, kernel):
     table = torch.zeros((n, d), device=cuda)
     q = torch.zeros((n, d), dtype=torch.int8, device=cuda)
     scale = torch.ones((n, 1), device=cuda)
+    staged_map = torch.arange(n, dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
@@ -145,11 +149,177 @@ def test_tiered_gathers_launch_on_the_current_stream(cuda, kernel):
         elif kernel == "two_level":
             out = mtl_gather_two_level(ids, offsets, slot_of_row,
                                        table[:8].clone(), table)
-        else:
+        elif kernel == "q8":
             out = mtl_gather_two_level_q8(ids, offsets, slot_of_row, q[:8],
                                           scale[:8], q, scale)
+        elif kernel == "three_level":          # every row staged in place
+            out = mtl_gather_three_level(ids, offsets, slot_of_row,
+                                         staged_map, table[:8], table)
+        else:
+            out = mtl_gather_three_level_q8(ids, offsets, slot_of_row,
+                                            staged_map, q[:8], scale[:8], q,
+                                            scale)
     side.synchronize()
-    assert torch.all(out == (2.0 if kernel != "q8" else 3.0))
+    assert torch.all(out == (3.0 if "q8" in kernel else 2.0))
+
+
+def _host_inputs(rng, h, device, b=256, d=32, capacity=4096):
+    """Ids with out-of-range entries and a random mask over a table split
+    into a cache, a staging area (a slot past each tier included) and rows
+    in neither tier, fp32 and int8; and the same staged fully."""
+    t = _tiered_inputs(rng, h, device, b, d, capacity)
+    n = t["mega"].shape[0]
+    som = t["slot_of_row"].cpu().numpy()
+    uncached = np.flatnonzero(som < 0)
+    warm = np.sort(rng.choice(uncached, size=uncached.size // 2,
+                              replace=False))
+    smap = np.full(n, -1, np.int32)
+    smap[warm] = np.arange(warm.size, dtype=np.int32)
+    smap[warm[0]] = warm.size + 9                      # a slot past staging
+    full = np.full(n, -1, np.int32)                    # every row resolves
+    full[uncached] = np.arange(uncached.size, dtype=np.int32)
+    hot0 = int(t["hot"][0])                     # its cache slot is past C:
+    full[hot0] = uncached.size                  # stage it too
+    t["smap"] = torch.from_numpy(smap).to(device)
+    t["full_map"] = torch.from_numpy(full).to(device)
+    rows = torch.from_numpy(np.concatenate([warm, [0]])).to(device)
+    t["staging"] = t["mega"].index_select(0, rows)
+    t["qstaging"] = t["q"].index_select(0, rows)
+    t["qsscale"] = t["scale"].index_select(0, rows)
+    frows = torch.from_numpy(np.concatenate([uncached, [hot0]])).to(device)
+    t["full_staging"] = t["mega"].index_select(0, frows)
+    return t
+
+
+@pytest.mark.parametrize("h", [1, 5])
+def test_three_level_gathers_bitwise(cuda, h):
+    t = _host_inputs(np.random.default_rng(10 + h), h, cuda)
+    before = {f: f.launches for f in (mtl_gather_three_level,
+                                      mtl_gather_three_level_q8)}
+    k5 = mtl_gather_three_level(t["ids"], t["offsets"], t["slot_of_row"],
+                                t["smap"], t["cache"], t["staging"],
+                                mask=t["mask"])
+    k6 = mtl_gather_three_level_q8(t["ids"], t["offsets"], t["slot_of_row"],
+                                   t["smap"], t["qcache"], t["qscale"],
+                                   t["qstaging"], t["qsscale"],
+                                   mask=t["mask"])
+    torch.cuda.synchronize()
+    assert all(f.launches == n + 1 for f, n in before.items())
+    assert torch.equal(k5, mtl_gather_three_level_plain(
+        t["ids"], t["offsets"], t["slot_of_row"], t["smap"], t["cache"],
+        t["staging"], mask=t["mask"]))
+    assert torch.equal(k6, mtl_gather_three_level_q8_plain(
+        t["ids"], t["offsets"], t["slot_of_row"], t["smap"], t["qcache"],
+        t["qscale"], t["qstaging"], t["qsscale"], mask=t["mask"]))
+    assert (k5 == 0).any() and (k6 == 0).any()         # the zero guard
+    # fully staged: K5 is K2 on the table (and K1 at h = 1)
+    full = mtl_gather_three_level(t["ids"], t["offsets"], t["slot_of_row"],
+                                  t["full_map"], t["cache"],
+                                  t["full_staging"], mask=t["mask"])
+    assert torch.equal(full, mtl_gather_multihot(t["ids"], t["mask"],
+                                                 t["offsets"], t["mega"]))
+    if h == 1:
+        ids = t["ids"][..., 0].contiguous()
+        assert torch.equal(
+            mtl_gather_three_level(ids, t["offsets"], t["slot_of_row"],
+                                   t["full_map"], t["cache"],
+                                   t["full_staging"]),
+            mtl_gather(ids, t["offsets"], t["mega"]))
+
+
+def _host_model(cuda, row_dtype, staging_capacity):
+    spec = ctr_spec("dcnv2", "criteo", **SPEC_KW)
+    dense = CTR_MODELS["dcnv2"](spec, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    model = CTR_MODELS["dcnv2"](spec, device=cuda)
+    model.load_state_dict(dense.state_dict())
+    store = HostBackedStore(spec.embedding_spec(), 256, staging_capacity,
+                            row_dtype=row_dtype, device=cuda)
+    model.use_store(store)
+    return dense, model, store
+
+
+@pytest.mark.parametrize("row_dtype", [None, "int8"])
+def test_host_store_dual_plan_matches_dense(cuda, row_dtype):
+    """Hint, stage, predict, observe, refresh and deltas through one
+    "dual" plan over a host store: fp32 bitwise the dense plan, int8
+    within the reference's 1e-2 gate; K5/K6 once per step."""
+    dense, model, store = _host_model(cuda, row_dtype, 64 * 39)
+    plan = compile_plan(model, "dual", 64, device=cuda,
+                        runtime_provider=model.store_runtime_env)
+    dplan = compile_plan(dense, "dual", 64, device=cuda)
+    schema = CRITEO.scaled(2_000)
+    reqs = [sample_ids(schema, 64, step=r) for r in range(6)]
+    kernel = "mtl_gather_three_level_q8" if row_dtype else \
+        "mtl_gather_three_level"
+    try:
+        reset_launch_counts()
+        for r, ids in enumerate(reqs):
+            if r + 1 < len(reqs):
+                store.prefetch_hint(reqs[r + 1])
+            store.stage(ids)
+            got = plan.predict(ids)
+            model.embedding.observe(ids)
+            want = dplan.predict(ids)
+            if row_dtype is None:
+                np.testing.assert_array_equal(got, want)
+            else:
+                assert np.abs(got - want).max() < 1e-2
+            if r == 2:
+                store.refresh()
+                rows = np.arange(1, 3_000, 5)
+                vals = np.full((rows.size, store.spec.dim), 0.01,
+                               np.float32)
+                store.apply_deltas(rows, vals)
+                dense.embedding.store.mega_table[
+                    torch.from_numpy(rows).to(cuda)] = \
+                    torch.from_numpy(vals).to(cuda)
+        counts = launch_counts()
+        assert counts[kernel] == len(reqs), counts
+        assert counts["mtl_gather"] == len(reqs), counts   # the dense plan
+        # the uploads move what changed: less than a whole-area snapshot
+        # per request even at this width, where most of the area changes
+        snapshot = store.staging.numel() * 4 \
+            + store.staging_slot_of_row.numel() * 4
+        assert store.upload_bytes < len(reqs) * snapshot
+    finally:
+        store.pipeline.stop()
+
+
+def test_staging_upload_waits_for_a_step_queued_on_another_stream(cuda):
+    """A "dual" step queued on a side stream behind a sleep reads the
+    staging area; a batch staged meanwhile from the default stream evicts
+    the step's rows. The upload must wait for the step: its scores stay
+    the dense ones."""
+    dense, model, store = _host_model(cuda, None, 39 * 32)
+    plan = compile_plan(model, "dual", 32, device=cuda,
+                        runtime_provider=model.store_runtime_env)
+    schema = CRITEO.scaled(2_000)
+    ids, other = (sample_ids(schema, 32, step=s, skew="uniform")
+                  for s in (5, 6))
+    try:
+        want = compile_plan(dense, "dual", 32, device=cuda).predict(ids)
+        store.stage(ids)
+        ids_dev = torch.from_numpy(ids).to(cuda)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)
+            out = plan(ids_dev)
+            done = side.record_event()
+        assert not done.query()                  # the step is still queued
+        step_rows = store.miss_rows(ids)
+        store.stage(other)                       # evicts the step's rows
+        assert (store.pipeline.snapshot()[2][step_rows] < 0).any()
+        side.synchronize()
+        got = torch.sigmoid(out.reshape(-1)).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(plan.predict(other),
+                                      compile_plan(dense, "dual", 32,
+                                                   device=cuda).predict(other))
+    finally:
+        store.pipeline.stop()
 
 
 @pytest.mark.parametrize("row_dtype", [None, "int8"])
@@ -188,6 +358,18 @@ def test_store_swap_during_a_dual_step_frees_nothing_still_read(cuda,
     assert torch.equal(out, want)
     assert not torch.equal(plan(ids), want)      # the plan sees the deltas
     del junk
+
+
+def test_quantize_rows_on_the_card_is_bitwise_the_cpu(cuda):
+    """Codes and scales made on the card equal those made on the CPU (and
+    so the reference's): the scale is a true division, not a multiply by
+    a rounded reciprocal."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((65_536, 32), generator=g) * 0.05
+    x[7] = 0.0
+    q, s = quantize_rows(x)
+    qc, sc = quantize_rows(x.to(cuda))
+    assert torch.equal(sc.cpu(), s) and torch.equal(qc.cpu(), q)
 
 
 def test_fused_tails_and_fm(cuda):

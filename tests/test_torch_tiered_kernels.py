@@ -1,10 +1,12 @@
-"""repro_torch K2–K4 and the int8 row format against the reference.
+"""repro_torch K2–K6 and the int8 row format against the reference.
 
-The plain versions of K2 ``mtl_gather_multihot``, K3 ``mtl_gather_two_level``
-and K4 ``mtl_gather_two_level_q8`` (what the wrappers run on CPU tensors)
-are held bitwise against the reference's Pallas kernels in interpret mode,
-on tiers cut by the reference's own ``_split_cache``/``_q8_split_cache``
-recipes. The port's ``"torch"`` oracle strategies are held against the
+The plain versions of K2 ``mtl_gather_multihot``, K3 ``mtl_gather_two_level``,
+K4 ``mtl_gather_two_level_q8``, K5 ``mtl_gather_three_level`` and K6
+``mtl_gather_three_level_q8`` (what the wrappers run on CPU tensors) are
+held bitwise against the reference's Pallas kernels in interpret mode, on
+tiers cut by the reference's own ``_split_cache``/``_q8_split_cache``
+recipes (K2–K4) and on cache + staging tiers that cover every row, leave
+some rows in neither tier (the zero guard) or hold a row in both (K5/K6). The port's ``"torch"`` oracle strategies are held against the
 reference's ``"jnp"`` ones: bitwise for one-hot gathers, at the reference's
 ``TOL`` (``rtol=atol=1e-5``) where they pool. ``repro_torch.quant`` is held
 bitwise against ``repro.quant``. The CUDA kernels themselves are held
@@ -24,6 +26,8 @@ from repro_torch.kernels import (KERNELS, launch_counts, ops,  # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather_multihot, mtl_gather_multihot_plain, mtl_gather_plain,
+    mtl_gather_three_level, mtl_gather_three_level_plain,
+    mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
     mtl_gather_two_level, mtl_gather_two_level_plain,
     mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain)
 from test_kernels import _q8_split_cache, _split_cache  # noqa: E402
@@ -346,3 +350,278 @@ def test_quantize_rows_bitwise_vs_reference():
         quant.dequantize_rows(q, s).numpy(),
         np.asarray(jquant.dequantize_rows(jnp.asarray(jq), jnp.asarray(js))))
     assert torch.all(quant.dequantize_rows(q, s)[3] == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# K5/K6: the host tier's three-level gathers (cache / staging / zero)
+# ---------------------------------------------------------------------------
+
+TIER_CASES = ("full", "partial", "both")
+STALE = 7.0         # what a staged copy of a cached row holds in "both"
+
+
+def make_tiers(rng, mega, case):
+    """Cache and staging tiers over ``mega`` (numpy), fp32 and int8, and
+    both maps. "full": every row in one tier; "partial": 8 cached and 8
+    staged rows, the rest in neither (the zero guard); "both": as "full",
+    and four cached rows also staged, with another value (the cache must
+    win)."""
+    n, d = mega.shape
+    capacity, staged = (8, 8) if case == "partial" else (16, n - 16)
+    pick = rng.choice(n, size=capacity + staged, replace=False)
+    hot, warm = np.sort(pick[:capacity]), np.sort(pick[capacity:])
+    extra = hot[:4] if case == "both" else hot[:0]
+    slot_of_row = np.full(n, -1, np.int32)
+    slot_of_row[hot] = np.arange(capacity, dtype=np.int32)
+    smap = np.full(n, -1, np.int32)
+    smap[warm] = np.arange(staged, dtype=np.int32)
+    smap[extra] = staged + np.arange(extra.size, dtype=np.int32)
+    q, scale = (np.asarray(a) for a in jquant.quantize_rows(mega))
+    return dict(
+        slot_of_row=slot_of_row, smap=smap, cache=mega[hot],
+        staging=np.concatenate([mega[warm],
+                                np.full((extra.size, d), STALE, np.float32)]),
+        qcache=q[hot], qscale=scale[hot],
+        qstaging=np.concatenate([q[warm], np.full((extra.size, d), 5,
+                                                  np.int8)]),
+        qsscale=np.concatenate([scale[warm],
+                                np.ones((extra.size, 1), np.float32)]))
+
+
+def _host_args(h, case, seed):
+    rng = np.random.default_rng(seed)
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    tiers = make_tiers(rng, mega, case)
+    ids, mask = (np.asarray(a) for a in make_slots(rng, 12, h))
+    if h == 1:
+        ids = ids[..., 0].copy()
+    return mega, offsets, tiers, ids, mask
+
+
+@pytest.mark.parametrize("case", TIER_CASES)
+@pytest.mark.parametrize("h", [1, 3])
+def test_three_level_plain_bitwise_vs_pallas(h, case):
+    mega, offsets, tr, ids, mask = _host_args(h, case, 30 + h)
+    args = (tr["cache"], tr["staging"], tr["slot_of_row"], tr["smap"],
+            offsets)
+    if h == 1:
+        want = jops.multi_table_lookup_host(ids, *args, strategy="pallas",
+                                            interpret=True)
+        m = None
+    else:
+        want = jops.multi_table_lookup_host_multihot(
+            ids, mask, *args, strategy="pallas", interpret=True)
+        m = t(mask)
+    got = mtl_gather_three_level(t(ids), t(offsets), t(tr["slot_of_row"]),
+                                 t(tr["smap"]), t(tr["cache"]),
+                                 t(tr["staging"]), mask=m)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if case == "partial":
+        return
+    # every row resolves: K5 is K1 (h = 1) and K2 (pooled) on the table
+    if h == 1:
+        assert torch.equal(got, mtl_gather_plain(t(ids), t(offsets), t(mega)))
+    else:
+        assert torch.equal(got, mtl_gather_multihot_plain(
+            t(ids), t(mask), t(offsets), t(mega)))
+
+
+@pytest.mark.parametrize("case", TIER_CASES)
+@pytest.mark.parametrize("h", [1, 3])
+def test_three_level_q8_plain_bitwise_vs_pallas(h, case):
+    _, offsets, tr, ids, mask = _host_args(h, case, 40 + h)
+    args = (tr["qcache"], tr["qscale"], tr["qstaging"], tr["qsscale"],
+            tr["slot_of_row"], tr["smap"], offsets)
+    if h == 1:
+        want = jops.multi_table_lookup_host_q8(ids, *args, strategy="pallas",
+                                               interpret=True)
+        m = None
+    else:
+        want = jops.multi_table_lookup_host_q8_multihot(
+            ids, mask, *args, strategy="pallas", interpret=True)
+        m = t(mask)
+    got = mtl_gather_three_level_q8(
+        t(ids), t(offsets), t(tr["slot_of_row"]), t(tr["smap"]),
+        t(tr["qcache"]), t(tr["qscale"]), t(tr["qstaging"]),
+        t(tr["qsscale"]), mask=m)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_three_level_zero_guard_and_cache_priority():
+    """Rows in neither tier read exactly 0.0 (K5 and K6); a row in both
+    reads the cache's copy."""
+    mega, offsets, tr, ids, _ = _host_args(1, "partial", 50)
+    rows = ids.astype(np.int64) + offsets[None, :]
+    neither = (tr["slot_of_row"][rows] < 0) & (tr["smap"][rows] < 0)
+    assert neither.any() and not neither.all()
+    b, k = ids.shape
+    for got in (mtl_gather_three_level(
+                    t(ids), t(offsets), t(tr["slot_of_row"]), t(tr["smap"]),
+                    t(tr["cache"]), t(tr["staging"])),
+                mtl_gather_three_level_q8(
+                    t(ids), t(offsets), t(tr["slot_of_row"]), t(tr["smap"]),
+                    t(tr["qcache"]), t(tr["qscale"]), t(tr["qstaging"]),
+                    t(tr["qsscale"]))):
+        got = got.numpy().reshape(b, k, -1)
+        assert np.all(got[neither] == 0.0)
+        assert not np.any(np.signbit(got[neither]))
+        assert np.all(np.abs(got[~neither]).sum(axis=-1) > 0)
+    mega, offsets, tr, ids, _ = _host_args(1, "both", 51)
+    both = np.flatnonzero((tr["slot_of_row"] >= 0) & (tr["smap"] >= 0))
+    assert both.size == 4
+    ids = np.zeros((4, len(SIZES)), np.int32)
+    field = np.searchsorted(offsets, both, side="right") - 1
+    ids[np.arange(4), field] = both - offsets[field]
+    got = mtl_gather_three_level(t(ids), t(offsets), t(tr["slot_of_row"]),
+                                 t(tr["smap"]), t(tr["cache"]),
+                                 t(tr["staging"]))
+    assert not torch.any(got == STALE)
+    assert torch.equal(got, mtl_gather_plain(t(ids), t(offsets), t(mega)))
+
+
+def test_three_level_plain_versions_clamp_and_bound_slots():
+    """Ids -7, 2**31-1 and 10**8 read clamped rows; a cache slot >= C or a
+    staging slot >= S counts as absent (the next tier, or zero)."""
+    rng = np.random.default_rng(52)
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    n = mega.shape[0]
+    tr = make_tiers(rng, mega, "full")
+    ids = np.array(make_onehot(rng, 6))
+    ids[0, :3] = BAD_IDS
+    rows = np.clip(ids.astype(np.int64) + offsets[None, :], 0, n - 1)
+    args = (t(ids), t(offsets), t(tr["slot_of_row"]), t(tr["smap"]),
+            t(tr["cache"]), t(tr["staging"]))
+    got = mtl_gather_three_level(*args)
+    np.testing.assert_array_equal(got.numpy(),
+                                  mega[rows].reshape(6, -1))
+    som, smap = tr["slot_of_row"].copy(), tr["smap"].copy()
+    r_cached = int(np.flatnonzero(som >= 0)[0])
+    r_staged = int(np.flatnonzero((smap >= 0) & (som < 0))[0])
+    som[r_cached] = tr["cache"].shape[0] + 3        # past the cache
+    smap[r_cached] = -1
+    smap[r_staged] = tr["staging"].shape[0] + 3     # past the staging area
+    out = mtl_gather_three_level_plain(
+        t(np.array([[r_cached], [r_staged]], np.int32)),
+        t(np.zeros(1, np.int32)), t(som), t(smap), t(tr["cache"]),
+        t(tr["staging"]))
+    assert torch.all(out == 0.0)
+    outq = mtl_gather_three_level_q8_plain(
+        t(np.array([[r_cached], [r_staged]], np.int32)),
+        t(np.zeros(1, np.int32)), t(som), t(smap), t(tr["qcache"]),
+        t(tr["qscale"]), t(tr["qstaging"]), t(tr["qsscale"]))
+    assert torch.all(outq == 0.0)
+
+
+def _host_oracle_case(name, rng):
+    """(port call, reference call) on the same inputs for one host-tier
+    lookup."""
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    tr = make_tiers(rng, mega, "full")
+    ids, mask = (np.asarray(a) for a in make_slots(rng, 12, 3))
+    one = np.asarray(make_onehot(rng, 12))
+    f32 = (tr["cache"], tr["staging"], tr["slot_of_row"], tr["smap"],
+           offsets)
+    q8 = (tr["qcache"], tr["qscale"], tr["qstaging"], tr["qsscale"],
+          tr["slot_of_row"], tr["smap"], offsets)
+    cases = {
+        "host": (ops.multi_table_lookup_host, jops.multi_table_lookup_host,
+                 (one, *f32)),
+        "host_multihot": (ops.multi_table_lookup_host_multihot,
+                          jops.multi_table_lookup_host_multihot,
+                          (ids, mask, *f32)),
+        "host_q8": (ops.multi_table_lookup_host_q8,
+                    jops.multi_table_lookup_host_q8, (one, *q8)),
+        "host_q8_multihot": (ops.multi_table_lookup_host_q8_multihot,
+                             jops.multi_table_lookup_host_q8_multihot,
+                             (ids, mask, *q8)),
+    }
+    return cases[name]
+
+
+@pytest.mark.parametrize("name", ["host", "host_multihot", "host_q8",
+                                  "host_q8_multihot"])
+def test_host_ops_match_reference(name):
+    """"torch" == the reference's "jnp" (bitwise one-hot, ``TOL`` pooled);
+    "kernel"/"auto" (the plain version on the CPU) == the reference's
+    "pallas" in interpret mode, bitwise."""
+    port, jax_fn, args = _host_oracle_case(name, np.random.default_rng(9))
+    jargs = [jnp.asarray(a) for a in args]
+    want = np.asarray(jax_fn(*jargs, strategy="jnp"))
+    want_pl = np.asarray(jax_fn(*jargs, strategy="pallas", interpret=True))
+    got = port(*[t(a) for a in args], strategy="torch").numpy()
+    if "multihot" in name:
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+    for strategy in ("kernel", "auto"):
+        np.testing.assert_array_equal(
+            port(*[t(a) for a in args], strategy=strategy).numpy(), want_pl)
+    with pytest.raises(ValueError, match="unknown strategy"):
+        port(*[t(a) for a in args], strategy="serial")
+
+
+def _host_call(kernel, a):
+    a = {k: t(v) for k, v in a.items()}
+    if kernel == "three_level":
+        return mtl_gather_three_level(a["ids"], a["offsets"],
+                                      a["slot_of_row"], a["smap"],
+                                      a["cache"], a["staging"],
+                                      mask=a["mask"])
+    return mtl_gather_three_level_q8(a["ids"], a["offsets"], a["slot_of_row"],
+                                     a["smap"], a["qcache"], a["qscale"],
+                                     a["qstaging"], a["qsscale"],
+                                     mask=a["mask"])
+
+
+HOST_BAD_INPUTS = [(kernel, bad) for kernel in ("three_level", "q8")
+                   for bad in ("ids_dtype", "mask_shape", "offsets_len",
+                               "map_len", "staging_map_len", "map_dtype",
+                               "staging_width", "table_dtype",
+                               "noncontiguous")]
+
+
+@pytest.mark.parametrize("kernel,bad", HOST_BAD_INPUTS)
+def test_host_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
+    rng = np.random.default_rng(10)
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    a = {k: v for k, v in make_tiers(rng, mega, "partial").items()}
+    a["ids"] = np.asarray(make_slots(rng, 4, 2)[0])
+    a["mask"] = np.ones(a["ids"].shape, np.float32)
+    a["offsets"] = offsets
+    _host_call(kernel, a)                               # the good call runs
+    if bad == "ids_dtype":
+        a["ids"] = a["ids"].astype(np.int64)
+    elif bad == "mask_shape":
+        a["mask"] = a["mask"][:, :, :1]
+    elif bad == "offsets_len":
+        a["offsets"] = a["offsets"][:2]
+    elif bad == "map_len":
+        a["slot_of_row"] = a["slot_of_row"][:-1]
+    elif bad == "staging_map_len":
+        a["smap"] = a["smap"][:-1]
+    elif bad == "map_dtype":
+        a["smap"] = a["smap"].astype(np.int64)
+    elif bad == "staging_width":
+        a["staging"] = a["staging"][:, :-1].copy()
+        a["qstaging"] = a["qstaging"][:, :-1].copy()
+    elif bad == "table_dtype":
+        a["cache"], a["qcache"] = a["qcache"], a["cache"]
+        a["staging"], a["qstaging"] = a["qstaging"], a["staging"]
+    elif bad == "noncontiguous":
+        a["ids"] = np.asfortranarray(a["ids"])
+    with pytest.raises((TypeError, ValueError)):
+        _host_call(kernel, a)
+
+
+def test_registry_lists_the_host_kernels_and_cpu_counts_nothing():
+    assert {"mtl_gather_three_level", "mtl_gather_three_level_q8"} \
+        <= set(KERNELS)
+    rng = np.random.default_rng(11)
+    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    a = dict(make_tiers(rng, mega, "full"), offsets=offsets)
+    a["ids"] = np.asarray(make_slots(rng, 4, 2)[0])
+    a["mask"] = np.ones(a["ids"].shape, np.float32)
+    reset_launch_counts()
+    for kernel in ("three_level", "q8"):
+        _host_call(kernel, a)
+    assert all(n == 0 for n in launch_counts().values())
