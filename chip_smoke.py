@@ -33,6 +33,17 @@ Phases (any failure raises; the script then exits non-zero):
    versions (ids -7, 2**31-1 and 10**8, a cache slot past C, a staging
    slot past S and rows in neither tier, which read exactly 0.0), K5
    against K1 (h = 1) and K2 (h = 5), K6 against K4; timed the same way.
+   Then K12 ``dmm_q8`` at DCNv2's MLP shapes (1248 -> 1024, 1024 -> 1024)
+   at b = 256 and 1024, plus (1, 1, 1), (33, 7, 5) and ±127 codes at
+   fan_in 1248, bitwise against its plain version on the card and on the
+   CPU; K8 ``mtl_input_first`` at Fig. 11's shapes (39 fields of 100,000
+   rows, d = 32 at b = 2048, 16,384, 65,536 and d = 60 at b = 2048) and
+   on the full Criteo table, bitwise against K1, with the input-first /
+   output-first ratio; K7 ``mtl_onehot`` over Criteo's 18 fields of at
+   most 128 rows (fp32 and bf16, out-of-range ids giving zero rows),
+   bitwise against its plain version and a K1 gather; then K8's path
+   (``FusedEmbeddingCollection.forward(strategy="input_first")``) and
+   K7's (``ops.multi_table_lookup_onehot``) with the counters reset.
 4. Main path: full-width DCNv2 on the uncapped Criteo schema (k = 39,
    d = 32, 6,648,548 table rows, D = 1248, three 1248×1248 cross layers,
    MLP 1248→1024→1024→1024) with random weights from a seed, served
@@ -62,7 +73,18 @@ Phases (any failure raises; the script then exits non-zero):
    store-level multi-hot (h = 5) through a ``DenseStore`` (K2), the fp32
    ``CachedStore`` (K3) and the fp32 ``HostBackedStore`` (K5), bitwise
    equal.
-7. One JSON line of every ported kernel, then the card's name and power
+7. int8 dense compute: full-width DCNv2, DCN, DeepFM and Wide&Deep
+   compiled with ``compute_dtype="int8"`` (the MLP's three matmuls through
+   K12 ``dmm_q8``; the cross and head GEMMs stay fp32): the four levels
+   agree on the card, the card agrees with the CPU int8 path, the MLP
+   weight counters are the reference's (3,387,392 B int8 for DCNv2), and
+   "dual" plans serve requests with three K12 launches a step, scores
+   within 1e-2 of the fp32 plan's; DCNv2's int8 and fp32 plans timed in
+   turns and traced. Then the full int8 stack: DCNv2 over an int8-row
+   ``CachedStore`` with int8 compute, refreshed and updated between
+   requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
+   fp32-row twin bitwise the dense int8-compute plan.
+8. One JSON line of every ported kernel, then the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -80,6 +102,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores, same sheet
+INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, same sheet
 FM_TOL = dict(rtol=1e-5, atol=1e-5)
 LADDER_TOL = dict(rtol=1e-5, atol=1e-6)
 # GEMMs with K up to 2272 summed in another order by cuBLAS and the CPU BLAS
@@ -92,6 +115,11 @@ OVERFLOW_STAGING = 256      # the reference's default, max(4*k*h, 256)
 HOT = 5                     # ids per field of the pooled (multi-hot) forms
 REFRESH_EVERY, DELTA_ROWS = 8, 1_024
 Q8_SCORE_GATE = 1e-2        # per-score |int8 - fp32| (accuracy_parity.py:13)
+# Fig. 11's sweep (benchmarks/workload_allocation.py:24-28): k = 39 fields
+# of 100,000 rows, uniform ids, (b, d)
+FIG11_FIELDS, FIG11_ROWS = 39, 100_000
+FIG11_CASES = ((2048, 32), (16_384, 32), (65_536, 32), (2048, 60))
+ONEHOT_MAX_ROWS, ONEHOT_PAD = 128, 128  # Criteo's fields of <= 128 rows
 
 
 def log(msg: str) -> None:
@@ -134,9 +162,10 @@ def n_sets(bytes_per_set: int) -> int:
     return max(2, min(32, math.ceil(120e6 / max(bytes_per_set, 1))))
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -147,8 +176,9 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 def recorder(rows: list):
     """``record(...)``: append one kernel measurement to ``rows`` (one
     dict per kernel and shape) and log it."""
-    def record(name, shape, err, ms, plain_ms, lib_ms, bytes_moved, flops):
-        b_ms, b_by = bound(bytes_moved, flops)
+    def record(name, shape, err, ms, plain_ms, lib_ms, bytes_moved, flops,
+               ops_per_s=FP32_FLOPS_PER_S):
+        b_ms, b_by = bound(bytes_moved, flops, ops_per_s)
         rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
@@ -244,6 +274,243 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
                device_ms(torch, fused_fm_second_order, sets),
                device_ms(torch, fused_fm_second_order_plain, sets), None,
                b * k * 32 * 4 + b * 4, 4 * b * k * 32)
+
+
+def phase_q8_kernels(torch, dev, record):
+    """K12 ``dmm_q8`` at DCNv2's MLP shapes (1248 -> 1024 and 1024 ->
+    1024) at b = 256 and 1024, ReLU on and off, plus (1, 1, 1), (33, 7, 5)
+    and codes of ±127 at fan_in 1248 (the largest |acc|, 127² · 1248 >
+    2**24): bitwise against its plain version on the card and on the CPU;
+    timed (ReLU on, as the plan runs it) beside the plain version,
+    ``torch._int_mm`` (the int32 product only: no PyTorch call has the
+    epilogue) and, for information, the fp32 ``addmm`` + ReLU of the fp32
+    plan."""
+    from repro_torch.kernels.dense_matmul import (dmm_q8, dmm_q8_plain,
+                                                  pack_weight)
+    from repro_torch.quant import absmax_scale, quantize, quantize_channels
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def make(b, fan_in, fan_out, saturate=False):
+        h = torch.randn((b, fan_in), device=dev, generator=g)
+        w = torch.randn((fan_in, fan_out), device=dev, generator=g) * 0.03
+        if saturate:
+            h = torch.where(h >= 0, 1.0, -1.0)
+            w = torch.where(w >= 0, 0.03, -0.03)
+            w[:, 0] = 0.03 * h[0]
+        hs = absmax_scale(h)
+        wq, ws = quantize_channels(w)
+        bias = torch.randn((1, fan_out), device=dev, generator=g) * 0.1
+        return (quantize(h, hs), hs, pack_weight(wq), ws, bias), (h, w)
+
+    def check(args, relu, tag):
+        out = dmm_q8(*args, relu=relu)
+        want = dmm_q8_plain(*args, relu=relu)
+        assert torch.equal(out, want), f"dmm_q8 {tag} relu={relu}"
+        cpu = dmm_q8_plain(*[a.cpu() for a in args], relu=relu)
+        assert torch.equal(out.cpu(), cpu), f"dmm_q8 {tag} vs CPU"
+        return (out - want).abs().max().item()
+
+    for b, fan_in, fan_out, sat in ((1, 1, 1, False), (33, 7, 5, False),
+                                    (256, 1248, 1024, True)):
+        args, _ = make(b, fan_in, fan_out, sat)
+        for relu in (True, False):
+            check(args, relu, f"{(b, fan_in, fan_out)}")
+        if sat:
+            acc = int(args[0][0].cpu().long() @ args[2][0].cpu().long())
+            assert acc == 127 * 127 * fan_in > 2**24, acc
+            log(f"[q8] codes of ±127 at fan_in {fan_in}: |acc| = {acc} > "
+                f"2**24, bitwise against the plain version (card and CPU)")
+    log("[q8] (1, 1, 1) and (33, 7, 5): bitwise, ReLU on and off")
+
+    for b in (256, 1024):
+        for fan_in in (1248, 1024):
+            fan_out = 1024
+            per_set = b * fan_in + fan_in * fan_out + 4 * b * fan_out
+            sets, fp32 = [], []
+            for _ in range(n_sets(per_set)):
+                args, (h, w) = make(b, fan_in, fan_out)
+                sets.append(args)
+                fp32.append((args[4], h, w))
+            err = max(check(sets[0], relu, f"b={b},in={fan_in}")
+                      for relu in (True, False))
+            ms = device_ms(torch, lambda *a: dmm_q8(*a, relu=True), sets)
+            plain_ms = device_ms(
+                torch, lambda *a: dmm_q8_plain(*a, relu=True), sets)
+            lib_ms = device_ms(
+                torch, lambda hq, hs, wq_t, ws, bias: torch._int_mm(
+                    hq, wq_t.t()), sets)
+            fp32_ms = device_ms(
+                torch, lambda bias, h, w: torch.relu(torch.addmm(bias, h, w)),
+                fp32)
+            moved = b * fan_in + b * 4 + fan_in * fan_out + 2 * fan_out * 4 \
+                + b * fan_out * 4
+            shape = f"b={b},in={fan_in},out={fan_out}"
+            record("dmm_q8", shape, err, ms, plain_ms, lib_ms, moved,
+                   2 * b * fan_in * fan_out, INT8_OPS_PER_S)
+            log(f"[q8] {shape}: library_ms is torch._int_mm, the int32 "
+                f"product only; the fp32 plan's addmm + relu takes "
+                f"{fp32_ms:.5f} ms")
+
+
+def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
+                          record) -> dict:
+    """K8 ``mtl_input_first`` at Fig. 11's shapes and on the full Criteo
+    table, and K7 ``mtl_onehot`` over Criteo's 18 fields of at most 128
+    rows padded to 128 (fp32 and bf16): bitwise against their plain
+    versions, K8 against K1 and K7 (fp32) against a K1 gather of the same
+    rows; timed. Then each one's path with the counters reset just before
+    and read just after: K8 through ``FusedEmbeddingCollection.forward(
+    strategy="input_first")``, K7 through ``ops.multi_table_lookup_onehot``.
+    Returns their launches there."""
+    import numpy as np
+
+    from repro_torch.embedding import (FusedEmbeddingCollection,
+                                       FusedEmbeddingSpec)
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels.multi_table_lookup import (
+        mtl_gather, mtl_input_first, mtl_input_first_plain, mtl_onehot,
+        mtl_onehot_plain)
+
+    def fmajor_rows(ids, offsets):
+        rows = ids.long() + offsets.long()[None, :]
+        return rows.t().reshape(-1)
+
+    def k8_case(table, offsets, sets, shape):
+        """Check K8 on ``sets[0]`` and time it: the kernel alone (its
+        (k, b, d) buffer), with the transpose, and K1 beside it."""
+        ids0 = sets[0][0]
+        b, k = ids0.shape
+        d = table.shape[1]
+        out = mtl_input_first(ids0, offsets, table)
+        assert torch.equal(out, mtl_input_first_plain(ids0, offsets, table))
+        assert torch.equal(out, mtl_gather(ids0, offsets, table)), shape
+        assert torch.equal(mtl_input_first(ids0, offsets, table,
+                                           field_major=True),
+                           mtl_input_first_plain(ids0, offsets, table,
+                                                 field_major=True))
+        kernel_ms = device_ms(torch, lambda i, r: mtl_input_first(
+            i, offsets, table, field_major=True), sets)
+        full_ms = device_ms(torch, lambda i, r: mtl_input_first(
+            i, offsets, table), sets)
+        k1_ms = device_ms(torch, lambda i, r: mtl_gather(i, offsets, table),
+                          sets)
+        plain_ms = device_ms(torch, lambda i, r: mtl_input_first_plain(
+            i, offsets, table, field_major=True), sets)
+        lib_ms = device_ms(torch, lambda i, r: torch.index_select(
+            table, 0, r), sets)
+        uniq = torch.unique(sets[0][1]).numel()
+        record("mtl_input_first", shape, 0.0, kernel_ms, plain_ms, lib_ms,
+               b * k * 4 + k * 4 + uniq * d * 4 + b * k * d * 4, 0)
+        log(f"[fig11] {shape}: input-first kernel {kernel_ms:.5f} ms, with "
+            f"its transpose {full_ms:.5f} ms; output-first K1 {k1_ms:.5f} "
+            f"ms; input-first / output-first = {full_ms / k1_ms:.3f} "
+            f"(kernel alone {kernel_ms / k1_ms:.3f})")
+
+    # Fig. 11: k = 39 fields of 100,000 rows, uniform ids
+    rng = np.random.default_rng(SEED)
+    for b, d in FIG11_CASES:
+        spec = FusedEmbeddingSpec(field_sizes=(FIG11_ROWS,) * FIG11_FIELDS,
+                                  dim=d)
+        coll = FusedEmbeddingCollection(spec, device=dev)
+        coll.store.reset_parameters(
+            torch.Generator(device=dev).manual_seed(SEED))
+        table, offsets = coll.dense_view(), coll.offsets
+        sets = []
+        for _ in range(n_sets(2 * b * FIG11_FIELDS * d * 4)):
+            ids = torch.from_numpy(rng.integers(
+                0, FIG11_ROWS, size=(b, FIG11_FIELDS)).astype(np.int32)
+                ).to(dev)
+            sets.append((ids, fmajor_rows(ids, offsets)))
+        k8_case(table, offsets, sets, f"b={b},k={FIG11_FIELDS},d={d},fig11")
+        del coll, table, sets
+        torch.cuda.empty_cache()
+
+    # the full Criteo table
+    table, offsets = emb.dense_view(), emb.offsets
+    k = schema.k
+    for b in (256, 1024):
+        sets = []
+        for s in range(n_sets(2 * b * k * 32 * 4)):
+            ids = torch.from_numpy(sample_ids(schema, b, step=55_000 + s)
+                                   ).to(dev)
+            sets.append((ids, fmajor_rows(ids, offsets)))
+        bad = sets[0][0].clone()
+        bad[0, :3] = torch.tensor([-7, 2**31 - 1, 10**8], device=dev)
+        assert torch.equal(mtl_input_first(bad, offsets, table),
+                           mtl_gather(bad, offsets, table)), "clamped ids"
+        k8_case(table, offsets, sets, f"b={b},k={k},d=32")
+
+    # K7 over Criteo's small fields, rows taken from the main table
+    small = [f for f, n in enumerate(schema.field_sizes)
+             if n <= ONEHOT_MAX_ROWS]
+    sizes = [schema.field_sizes[f] for f in small]
+    offs = [int(emb.spec.offsets[f]) for f in small]
+    ks = len(small)
+    stacked32 = torch.zeros((ks, ONEHOT_PAD, 32), device=dev)
+    for j, (o, n) in enumerate(zip(offs, sizes)):
+        stacked32[j, :n] = table[o:o + n]
+    small_offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
+    small_idx = torch.tensor(small, device=dev)
+    field = torch.arange(ks, device=dev)[None, :]
+    log(f"[onehot] {ks} Criteo fields of at most {ONEHOT_MAX_ROWS} rows "
+        f"(sizes {min(sizes)}-{max(sizes)}), padded to n_pad = {ONEHOT_PAD}")
+    for b in (256, 1024):
+        for stacked in (stacked32, stacked32.to(torch.bfloat16)):
+            el = stacked.element_size()
+            sets = []
+            for s in range(n_sets(2 * b * ks * 32 * el)):
+                ids = torch.from_numpy(sample_ids(schema, b, step=56_000 + s)
+                                       ).to(dev).index_select(1, small_idx)
+                sets.append((ids.contiguous(),))
+            ids0 = sets[0][0]
+            out = mtl_onehot(ids0, stacked)
+            assert torch.equal(out, mtl_onehot_plain(ids0, stacked))
+            bad = ids0.clone()
+            bad[0, :3] = torch.tensor([-1, ONEHOT_PAD, 10**6], device=dev)
+            got = mtl_onehot(bad, stacked)
+            assert torch.equal(got, mtl_onehot_plain(bad, stacked))
+            assert not got[0, :3].any(), "out-of-range ids give zero rows"
+            if stacked.dtype == torch.float32:
+                assert torch.equal(out.reshape(b, -1), mtl_gather(
+                    ids0, small_offsets, table)), "K7 != K1 gather"
+            uniq = torch.unique(ids0.long() * ks + field).numel()
+            shape = f"b={b},k={ks},n_pad={ONEHOT_PAD},d=32," \
+                f"{str(stacked.dtype).split('.')[-1]}"
+            record("mtl_onehot", shape, 0.0,
+                   device_ms(torch, lambda i: mtl_onehot(i, stacked), sets),
+                   device_ms(torch, lambda i: mtl_onehot_plain(i, stacked),
+                             sets),
+                   device_ms(torch, lambda i: stacked[field, i.long()], sets),
+                   b * ks * 4 + uniq * 32 * el + b * ks * 32 * el, 0)
+
+    # each lookup's path, counters reset just before and read just after
+    batches = [torch.from_numpy(sample_ids(schema, b, step=57_000 + r)
+                                ).to(dev) for b in (256, 1024)
+               for r in range(8)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for ids in batches:
+        out = emb(ids, strategy="input_first")
+        assert out.shape == (ids.shape[0], k * 32)
+    for ids in batches:
+        for stacked in (stacked32, stacked32.to(torch.bfloat16)):
+            out = ops.multi_table_lookup_onehot(
+                ids.index_select(1, small_idx).contiguous(), stacked)
+            assert out.shape == (ids.shape[0], ks, 32)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["mtl_input_first"] == len(batches), counts
+    assert counts["mtl_onehot"] == 2 * len(batches), counts
+    assert counts["mtl_gather"] == 0, counts
+    for ids in batches[::8]:
+        assert torch.equal(emb(ids, strategy="input_first"), emb(ids))
+    log(f"[lookups] {len(batches)} lookups (b = 256, 1024) through "
+        f"FusedEmbeddingCollection.forward(strategy=\"input_first\") and "
+        f"{2 * len(batches)} through ops.multi_table_lookup_onehot (fp32, "
+        f"bf16): launches {counts}")
+    return {"mtl_input_first": counts["mtl_input_first"],
+            "mtl_onehot": counts["mtl_onehot"]}
 
 
 def slot_ids(schema, sample_ids, b: int, h: int, step: int):
@@ -812,6 +1079,31 @@ def check_host_device_state(torch, store) -> None:
         assert not (t.dim() == 2 and t.shape[0] == spec.rows), name
 
 
+def request_schedule(schema, sample_ids, emb_spec, batches, n_requests):
+    """Per batch size: the ids of each request, and one batch of
+    ``DELTA_ROWS`` trainer delta rows (a third of them touched by the
+    requests after the halfway point, where the batch lands)."""
+    import numpy as np
+
+    half = n_requests // 2
+    offsets = emb_spec.offsets
+    drng = np.random.default_rng(SEED + 3)
+    schedule, deltas = {}, {}
+    for b in batches:
+        schedule[b] = [sample_ids(schema, b, step=60_000 + 100 * b + r)
+                       for r in range(n_requests)]
+        later = np.concatenate([ids + offsets[None, :]
+                                for ids in schedule[b][half:]]).ravel()
+        cand = np.unique(np.concatenate([
+            drng.choice(later, DELTA_ROWS // 2),
+            drng.choice(emb_spec.zero_row, DELTA_ROWS)]))
+        rows = drng.permutation(cand)[:DELTA_ROWS]
+        vals = (drng.standard_normal((DELTA_ROWS, emb_spec.dim)) * 0.05
+                ).astype(np.float32)
+        deltas[b] = (rows, vals)
+    return schedule, deltas
+
+
 def run_tiered(torch, dev, spec, schema, sample_ids, *, batches,
                n_requests) -> dict:
     """Serve full-width DCNv2 through "dual" over fp32 and int8
@@ -865,23 +1157,9 @@ def run_tiered(torch, dev, spec, schema, sample_ids, *, batches,
             f"{store.host_view().nbytes} bytes of backing in host memory")
     offsets = emb_spec.offsets
 
-    # the request schedule: ids per request, one delta batch per batch
-    # size (a third of its rows touched by the requests after it)
     half = n_requests // 2
-    drng = np.random.default_rng(SEED + 3)
-    schedule, deltas = {}, {}
-    for b in batches:
-        schedule[b] = [sample_ids(schema, b, step=60_000 + 100 * b + r)
-                       for r in range(n_requests)]
-        later = np.concatenate([ids + offsets[None, :]
-                                for ids in schedule[b][half:]]).ravel()
-        cand = np.unique(np.concatenate([
-            drng.choice(later, DELTA_ROWS // 2),
-            drng.choice(emb_spec.zero_row, DELTA_ROWS)]))
-        rows = drng.permutation(cand)[:DELTA_ROWS]
-        vals = (drng.standard_normal((DELTA_ROWS, emb_spec.dim)) * 0.05
-                ).astype(np.float32)
-        deltas[b] = (rows, vals)
+    schedule, deltas = request_schedule(schema, sample_ids, emb_spec,
+                                        batches, n_requests)
 
     def serve_schedule(model, plans, tag):
         """Per request: hint the next request and stage this one (host
@@ -1112,6 +1390,200 @@ def run_tiered(torch, dev, spec, schema, sample_ids, *, batches,
     return launches
 
 
+def run_int8_models(torch, dev, schema, sample_ids) -> int:
+    """Full-width DCNv2, then DCN, DeepFM and Wide&Deep, compiled with
+    ``compute_dtype="int8"``: the four levels agree on the card, the card
+    agrees with the CPU int8 path on the same weights, the weight counters
+    are the reference's, and "dual" plans serve a few dozen requests
+    (partial batches among them) with the counters reset just before and
+    read just after: three K12 launches a step, scores finite, in (0, 1)
+    and within ``Q8_SCORE_GATE`` of the fp32 plan's on the same requests.
+    DCNv2's int8 and fp32 plans are then timed in turns and traced.
+    Returns K12's launches in DCNv2's run."""
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.core import LEVELS, compile_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ctr import CTR_MODELS
+
+    launches = 0
+    for name, batches, n_requests in (("dcnv2", (256, 1024), 16),
+                                      ("dcn", (256,), 24),
+                                      ("deepfm", (256,), 24),
+                                      ("widedeep", (256,), 24)):
+        spec = ctr_spec(name, "criteo", embed_dim=32, hidden=1024)
+        model = CTR_MODELS[name](spec, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        tag = f"{name}-int8"
+        ids = torch.from_numpy(sample_ids(schema, 256, step=10_000)).to(dev)
+        logits = {lvl: compile_plan(model, lvl, 256, device=dev,
+                                    compute_dtype="int8")(ids)
+                  for lvl in LEVELS}
+        for lvl, out in logits.items():
+            assert out.shape == (256, 1) and torch.isfinite(out).all(), lvl
+            torch.testing.assert_close(out, logits["naive"], **LADDER_TOL,
+                                       msg=lambda m: f"{tag} {lvl}: {m}")
+        log(f"[{tag}] level ladder on the card: max|level-naive| = "
+            f"{ {lvl: (o - logits['naive']).abs().max().item() for lvl, o in logits.items()} }")
+        del logits
+
+        cpu_model = CTR_MODELS[name](spec, device="cpu")
+        cpu_model.load_state_dict(model.state_dict())
+        small = sample_ids(schema, 16, step=20_000)
+        want = compile_plan(cpu_model, "dual", 16, device="cpu",
+                            compute_dtype="int8")(torch.from_numpy(small))
+        del cpu_model
+
+        p8 = {b: compile_plan(model, "dual", b, device=dev,
+                              compute_dtype="int8") for b in batches}
+        p32 = {b: compile_plan(model, "dual", b, device=dev)
+               for b in batches}
+        got = p8[256](torch.from_numpy(np.concatenate(
+            [small, sample_ids(schema, 240, step=20_001)])).to(dev))[:16]
+        torch.testing.assert_close(got.cpu(), want, **CPU_TOL)
+        st = p8[256].stats
+        assert (st.compute_dtype, st.mlp_quant_matmuls,
+                st.mlp_quant_weight_bytes,
+                st.mlp_quant_weight_bytes_saved) == (
+            "int8", 3, 3_387_392, 10_113_024), st
+        assert p32[256].stats.mlp_quant_matmuls == 0
+        ratio = (st.mlp_quant_weight_bytes
+                 + st.mlp_quant_weight_bytes_saved) \
+            / st.mlp_quant_weight_bytes
+        log(f"[{tag}] card vs CPU int8 path, dual, 16 rows: max|diff| = "
+            f"{(got.cpu() - want).abs().max().item():.3e}; MLP weights "
+            f"{st.mlp_quant_weight_bytes} B int8 (saved "
+            f"{st.mlp_quant_weight_bytes_saved} B, {ratio:.3f}x smaller)")
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        s8 = np.concatenate([np.concatenate(serve(
+            p8[b], schema, sample_ids, n_requests, 40_000 + b))
+            for b in batches])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n_steps = len(batches) * n_requests
+        assert counts["dmm_q8"] == 3 * n_steps, counts
+        s32 = np.concatenate([np.concatenate(serve(
+            p32[b], schema, sample_ids, n_requests, 40_000 + b))
+            for b in batches])
+        assert np.all(np.isfinite(s8)) and np.all((s8 > 0) & (s8 < 1))
+        err = float(np.abs(s8 - s32).max())
+        assert err < Q8_SCORE_GATE, f"{tag}: |int8 - fp32| = {err}"
+        log(f"[{tag}] main path: {n_steps} requests through dual "
+            f"({', '.join(str(b) for b in batches)}), {s8.size} scores in "
+            f"[{s8.min():.4f}, {s8.max():.4f}]; max|int8 - fp32| = "
+            f"{err:.3e}; launches {counts}")
+        if name == "dcnv2":
+            launches = counts["dmm_q8"]
+            for b in batches:
+                paired_latency(torch, {"dcnv2-fp32": p32[b],
+                                       "dcnv2-int8": p8[b]},
+                               schema, sample_ids)
+        del model, p8, p32
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_int8_stack(torch, dev, spec, schema, sample_ids, *, batches,
+                   n_requests) -> None:
+    """The full int8 stack (the reference's ``mlp_quant.py`` refresh check
+    without the engine): DCNv2 over an int8-row ``CachedStore`` with int8
+    compute, and its fp32-row twin, each served through one "dual" plan
+    per batch (``runtime_provider=model.store_runtime_env``) with observe,
+    a refresh every 8 requests and one delta batch halfway; beside them a
+    ``DenseStore`` model replaying the same ids and deltas through an fp32
+    and an int8-compute plan. The fp32-row twin must be bitwise the dense
+    int8-compute plan, the int8 stack within ``Q8_SCORE_GATE`` of the
+    dense fp32 plan, with no plan rebuilt."""
+    import numpy as np
+
+    from repro_torch.core import compile_plan
+    from repro_torch.embedding import CachedStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ctr import DCNv2
+
+    emb_spec = spec.embedding_spec()
+
+    def build(row_dtype="dense"):
+        model = DCNv2(spec, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        if row_dtype != "dense":
+            model.use_store(CachedStore(emb_spec, CACHE_CAPACITY, row_dtype,
+                                        device=dev))
+        return model
+
+    dense, c32, c8 = build(), build(None), build("int8")
+    cached = (c32, c8)
+    plans = {}
+    for b in batches:
+        plans[b] = {
+            "dense-fp32": compile_plan(dense, "dual", b, device=dev),
+            "dense-int8c": compile_plan(dense, "dual", b, device=dev,
+                                        compute_dtype="int8"),
+            "cached-fp32-int8c": compile_plan(
+                c32, "dual", b, device=dev, compute_dtype="int8",
+                runtime_provider=c32.store_runtime_env),
+            "cached-int8-int8c": compile_plan(
+                c8, "dual", b, device=dev, compute_dtype="int8",
+                runtime_provider=c8.store_runtime_env)}
+    compiled = {id(p) for per in plans.values() for p in per.values()}
+    half = n_requests // 2
+    schedule, deltas = request_schedule(schema, sample_ids, emb_spec,
+                                        batches, n_requests)
+    scores = {tag: [] for tag in plans[batches[0]]}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for b in batches:
+        for r, ids in enumerate(schedule[b]):
+            for tag, plan in plans[b].items():
+                scores[tag].append(plan.predict(ids))
+            for m in cached:
+                m.embedding.observe(ids)
+                if (r + 1) % REFRESH_EVERY == 0:
+                    m.embedding.store.refresh()
+            if r + 1 == half:
+                rows, vals = deltas[b]
+                for m in cached:
+                    assert m.embedding.store.apply_deltas(rows, vals) \
+                        == DELTA_ROWS
+                torch.cuda.synchronize()
+                dense.embedding.store.mega_table.index_copy_(
+                    0, torch.from_numpy(rows).to(dev),
+                    torch.from_numpy(vals).to(dev))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_steps = len(batches) * n_requests
+    assert counts["dmm_q8"] == 3 * 3 * n_steps, counts
+    assert counts["mtl_gather"] == 2 * n_steps, counts
+    assert counts["mtl_gather_two_level"] == n_steps, counts
+    assert counts["mtl_gather_two_level_q8"] == n_steps, counts
+    assert {id(p) for per in plans.values() for p in per.values()} \
+        == compiled
+    for m in cached:
+        assert m.embedding.store.stats.refreshes == \
+            len(batches) * (n_requests // REFRESH_EVERY)
+    s = {tag: np.concatenate(v) for tag, v in scores.items()}
+    for tag, v in s.items():
+        assert np.all(np.isfinite(v)) and np.all((v > 0) & (v < 1)), tag
+    assert np.array_equal(s["cached-fp32-int8c"], s["dense-int8c"]), \
+        "fp32-row cached int8-compute plan != dense int8-compute plan"
+    err8 = float(np.abs(s["cached-int8-int8c"] - s["dense-fp32"]).max())
+    errc = float(np.abs(s["dense-int8c"] - s["dense-fp32"]).max())
+    assert err8 < Q8_SCORE_GATE and errc < Q8_SCORE_GATE, (err8, errc)
+    log(f"[int8-stack] {n_steps} requests ({', '.join(map(str, batches))}) "
+        f"through {len(compiled)} plans, no rebuild; "
+        f"{c8.embedding.store.stats.refreshes} refreshes and "
+        f"{len(batches)} delta batches of {DELTA_ROWS} rows per cached "
+        f"store; cached fp32 rows + int8 compute bitwise the dense int8 "
+        f"compute plan; max|int8 rows + int8 compute - dense fp32| = "
+        f"{err8:.3e}, max|int8 compute - fp32| on the dense store = "
+        f"{errc:.3e}; launches {counts}")
+    del dense, c32, c8, cached, plans
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1167,12 +1639,14 @@ def main() -> int:
                   emb.offsets, CRITEO, sample_ids, record)
     phase_tiered_kernels(torch, dev, emb, CRITEO, sample_ids, record)
     phase_host_kernels(torch, dev, emb, CRITEO, sample_ids, record)
+    phase_q8_kernels(torch, dev, record)
+    launches = phase_lookup_variants(torch, dev, emb, CRITEO, sample_ids,
+                                     record)
     del emb, wide
     torch.cuda.empty_cache()
 
     # 4. the main path, then 5. the other three models; each model's run
     # resets the launch counters just before it and reads them just after
-    launches = {}
     for name, batches, n_requests, gathers, kernel, per_step in (
             ("dcnv2", (256, 1024), 16, 1, "fused_cross_v2", 3),
             ("dcn", (256,), 24, 1, "fused_cross_v1", 3),
@@ -1195,7 +1669,13 @@ def main() -> int:
         torch, dev, ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024),
         CRITEO, sample_ids, batches=(256, 1024), n_requests=16))
 
-    # 7. summary
+    # 7. int8 dense compute (K12): the four models, then the full int8 stack
+    launches["dmm_q8"] = run_int8_models(torch, dev, CRITEO, sample_ids)
+    run_int8_stack(torch, dev,
+                   ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024),
+                   CRITEO, sample_ids, batches=(256, 1024), n_requests=16)
+
+    # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"
     sources = {"mtl_gather": ("mtl_gather.cu", f"{lookup}:60",
                               "b=1024,k=39,d=32"),
@@ -1220,9 +1700,17 @@ def main() -> int:
                "fused_cross_v1": ("fused_cross.cu",
                                   "src/repro/kernels/fused_cross.py:48",
                                   "b=1024,D=1248"),
+               "mtl_onehot": ("mtl_onehot.cu", f"{lookup}:472",
+                              f"b=1024,k=18,n_pad={ONEHOT_PAD},d=32,"
+                              "float32"),
+               "mtl_input_first": ("mtl_input_first.cu", f"{lookup}:510",
+                                   "b=1024,k=39,d=32"),
                "fused_fm_second_order": ("fused_fm.cu",
                                          "src/repro/kernels/fused_fm.py:31",
-                                         "b=1024,k=39,d=32")}
+                                         "b=1024,k=39,d=32"),
+               "dmm_q8": ("dense_matmul_q8.cu",
+                          "src/repro/kernels/dense_matmul.py:42",
+                          "b=1024,in=1248,out=1024")}
     kernels = []
     for name, (src, replaces, shape) in sources.items():
         row = next(r for r in rows if r["name"] == name

@@ -12,13 +12,15 @@ from .dual_parallel import (BRANCH_ORDERS, LEVELS, DualParallelExecutor,
                             ExecutorStats)
 from .opgraph import (FusedOp, Op, OpGraph, fuse_non_gemm,
                       register_fused_kernel)
-from .plan import InferencePlan, PlanKey, compile_plan, plan_key_for
+from .plan import (COMPUTE_DTYPES, InferencePlan, PlanKey, compile_plan,
+                   plan_key_for)
 from .scheduler import (breadth_first_schedule, depth_first_schedule,
                         full_order)
 
 __all__ = [
     "LEVELS",
     "BRANCH_ORDERS",
+    "COMPUTE_DTYPES",
     "DualParallelExecutor",
     "ExecutorStats",
     "InferencePlan",

@@ -54,6 +54,14 @@ class ExecutorStats:
     # identity of the embedding tier the plan was compiled against,
     # stamped by compile_plan
     embedding_store: str = "none"
+    # dense-branch compute dtype of the graph, and the quantized-matmul
+    # counters emit_mlp_ops records in OpGraph.meta (weight bytes are the
+    # int8 codes plus one fp32 scale per channel; "saved" is against the
+    # 4 B/element fp32 matrix)
+    compute_dtype: str = "fp32"
+    mlp_quant_matmuls: int = 0
+    mlp_quant_weight_bytes: int = 0
+    mlp_quant_weight_bytes_saved: int = 0
 
 
 def _run(op, env: dict[str, Any]) -> None:
@@ -73,6 +81,7 @@ class DualParallelExecutor:
         graph_builder: callable ``(level) -> OpGraph``. Models build the
             graph differently per level only in the embedding module
             (serial vs fused lookup); fusion and scheduling happen here.
+            ``compile_plan`` binds the compute dtype into it.
         level: one of LEVELS.
         branch_order: "longer_first" (paper default), "explicit_first",
             "implicit_first" (§V-H startup-sequence ablation).
@@ -115,6 +124,12 @@ class DualParallelExecutor:
                                if getattr(op, "kernel", None)),
             schedule_policy=sched.policy,
             queue=tuple(sched.queue),
+            compute_dtype=graph.meta.get("compute_dtype", "fp32"),
+            mlp_quant_matmuls=graph.meta.get("mlp_quant_matmuls", 0),
+            mlp_quant_weight_bytes=graph.meta.get(
+                "mlp_quant_weight_bytes", 0),
+            mlp_quant_weight_bytes_saved=graph.meta.get(
+                "mlp_quant_weight_bytes_saved", 0),
         )
         return graph, order
 

@@ -94,6 +94,9 @@ class OpGraph:
         self.graph_inputs = tuple(graph_inputs)
         self.ops: list[Op | FusedOp] = []
         self._producers: dict[str, str] = {}   # value edge -> op name
+        # structural facts the emitters record (e.g. emit_mlp_ops'
+        # quantized-matmul counters), carried through fusion
+        self.meta: dict[str, Any] = {}
 
     # -- construction ------------------------------------------------------
     def add_input(self, name: str) -> None:
@@ -253,6 +256,7 @@ def fuse_non_gemm(graph: OpGraph) -> OpGraph:
     as their own group so the kernel can serve them.
     """
     fused = OpGraph(graph.graph_inputs)
+    fused.meta = dict(graph.meta)
     ops = graph.ops
     i = 0
     group_id = 0

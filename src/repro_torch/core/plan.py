@@ -15,8 +15,12 @@ its buffers (a cache refresh, an online delta) retargets every plan
 without a rebuild. The default provider binds the tensors present at
 compile time, as the reference's does.
 
-This slice compiles fp32 plans on one device. Mesh placement, int8
-compute and CUDA-graph capture of the "dual" step come in later slices.
+``compute_dtype="int8"`` runs every MLP matmul as the int8 kernel
+(K12): weights quantized per output channel once, when the graph is
+built; activations per row at every step. It is part of the plan's
+identity, and with a ``runtime_provider`` it combines with an int8-row
+tiered store into one plan that no refresh rebuilds. Mesh placement and
+CUDA-graph capture of the "dual" step come in later slices.
 """
 
 from __future__ import annotations
@@ -34,7 +38,12 @@ from .dual_parallel import (BRANCH_ORDERS, LEVELS, DualParallelExecutor,
                             ExecutorStats)
 from .opgraph import OpGraph
 
-__all__ = ["PlanKey", "InferencePlan", "compile_plan", "plan_key_for"]
+__all__ = ["PlanKey", "InferencePlan", "compile_plan", "plan_key_for",
+           "COMPUTE_DTYPES"]
+
+#: dense-branch compute dtypes a plan can be compiled at: fp32 GEMMs, or
+#: int8 matmuls with the dequant, bias and ReLU in the epilogue (K12)
+COMPUTE_DTYPES = ("fp32", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +54,7 @@ class PlanKey:
     batch_size: int
     branch_order: str = "longer_first"
     store: str = "dense"
+    compute_dtype: str = "fp32"
 
 
 def _store_describe(model) -> str:
@@ -54,11 +64,13 @@ def _store_describe(model) -> str:
 
 
 def plan_key_for(model, level: str, batch_size: int,
-                 branch_order: str = "longer_first") -> PlanKey:
+                 branch_order: str = "longer_first",
+                 compute_dtype: str = "fp32") -> PlanKey:
     """The single definition of plan identity."""
     return PlanKey(model=getattr(model.spec, "name", type(model).__name__),
                    level=level, batch_size=int(batch_size),
-                   branch_order=branch_order, store=_store_describe(model))
+                   branch_order=branch_order, store=_store_describe(model),
+                   compute_dtype=compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +124,8 @@ class InferencePlan:
 def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
                  device: torch.device | str | None = None,
                  branch_order: str = "longer_first",
-                 runtime_provider: Callable[[], dict] | None = None
-                 ) -> InferencePlan:
+                 runtime_provider: Callable[[], dict] | None = None,
+                 compute_dtype: str = "fp32") -> InferencePlan:
     """Compile one (model, level, batch shape) into an InferencePlan.
 
     Args:
@@ -128,6 +140,9 @@ def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
             ``runtime_inputs``), consulted on every step; pass
             ``model.store_runtime_env`` to serve whatever the store
             publishes. Default: the tensors present at compile time.
+        compute_dtype: ``"fp32"`` or ``"int8"`` (one of
+            ``COMPUTE_DTYPES``): the MLP matmuls' arithmetic. The cross
+            and head GEMMs stay fp32 either way, as in the reference.
     """
     device = resolve_device(device)
     if level not in LEVELS:
@@ -135,10 +150,17 @@ def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
     if branch_order not in BRANCH_ORDERS:
         raise ValueError(f"branch_order must be one of {BRANCH_ORDERS}, "
                          f"got {branch_order!r}")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
     if model.device.type != device.type:
         raise ValueError(f"model lives on {model.device}; compile_plan was "
                          f"asked for {device}")
-    executor = DualParallelExecutor(model.build_graph, level=level,
+    builder = model.build_graph
+    if compute_dtype != "fp32":
+        def builder(lvl, _build=model.build_graph):
+            return _build(lvl, compute_dtype=compute_dtype)
+    executor = DualParallelExecutor(builder, level=level,
                                     branch_order=branch_order)
     t0 = time.perf_counter()
     graph, order = executor.prepare()
@@ -162,8 +184,9 @@ def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
 
     stats = executor.stats
     stats.embedding_store = _store_describe(model)
+    stats.compute_dtype = compute_dtype
     return InferencePlan(key=plan_key_for(model, level, batch_size,
-                                          branch_order),
+                                          branch_order, compute_dtype),
                          stats=stats, graph=graph, order=tuple(order),
                          step=step, n_fields=n_fields,
                          compile_ms=compile_ms, device=device,

@@ -7,9 +7,12 @@ plain PyTorch versions.
   K4  mtl_gather_two_level_q8  csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
   K5  mtl_gather_three_level   csrc/mtl_gather_tiered.cu  (multi_table_lookup.py)
   K6  mtl_gather_three_level_q8 csrc/mtl_gather_tiered.cu (multi_table_lookup.py)
+  K7  mtl_onehot               csrc/mtl_onehot.cu         (multi_table_lookup.py)
+  K8  mtl_input_first          csrc/mtl_input_first.cu    (multi_table_lookup.py)
   K9  fused_cross_v2           csrc/fused_cross.cu        (fused_cross.py)
   K10 fused_cross_v1           csrc/fused_cross.cu        (fused_cross.py)
   K11 fused_fm_second_order    csrc/fused_fm.cu           (fused_fm.py)
+  K12 dmm_q8                   csrc/dense_matmul_q8.cu    (dense_matmul.py)
 
 Each wrapper counts its launches in ``<wrapper>.launches``; a run can
 reset and read them all with :func:`reset_launch_counts` and
@@ -17,13 +20,15 @@ reset and read them all with :func:`reset_launch_counts` and
 libraries are compiled at the first launch (``_build``).
 """
 
+from .dense_matmul import dmm_q8
 from .fused_cross import fused_cross_v1, fused_cross_v2
 from .fused_fm import fused_fm_second_order
 from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
                                  mtl_gather_three_level,
                                  mtl_gather_three_level_q8,
                                  mtl_gather_two_level,
-                                 mtl_gather_two_level_q8)
+                                 mtl_gather_two_level_q8, mtl_input_first,
+                                 mtl_onehot)
 
 KERNELS = {
     "mtl_gather": mtl_gather,
@@ -32,9 +37,12 @@ KERNELS = {
     "mtl_gather_two_level_q8": mtl_gather_two_level_q8,
     "mtl_gather_three_level": mtl_gather_three_level,
     "mtl_gather_three_level_q8": mtl_gather_three_level_q8,
+    "mtl_onehot": mtl_onehot,
+    "mtl_input_first": mtl_input_first,
     "fused_cross_v2": fused_cross_v2,
     "fused_cross_v1": fused_cross_v1,
     "fused_fm_second_order": fused_fm_second_order,
+    "dmm_q8": dmm_q8,
 }
 
 
@@ -50,5 +58,6 @@ def reset_launch_counts() -> None:
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "mtl_gather",
            "mtl_gather_multihot", "mtl_gather_two_level",
            "mtl_gather_two_level_q8", "mtl_gather_three_level",
-           "mtl_gather_three_level_q8", "fused_cross_v2", "fused_cross_v1",
-           "fused_fm_second_order"]
+           "mtl_gather_three_level_q8", "mtl_onehot", "mtl_input_first",
+           "fused_cross_v2", "fused_cross_v1", "fused_fm_second_order",
+           "dmm_q8"]

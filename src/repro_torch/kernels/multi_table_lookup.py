@@ -8,6 +8,8 @@ Counterparts of ``repro.kernels.multi_table_lookup``:
   K4 ``mtl_gather_two_level_q8``  ``csrc/mtl_gather_tiered.cu``
   K5 ``mtl_gather_three_level``   ``csrc/mtl_gather_tiered.cu``
   K6 ``mtl_gather_three_level_q8`` ``csrc/mtl_gather_tiered.cu``
+  K7 ``mtl_onehot``               ``csrc/mtl_onehot.cu``
+  K8 ``mtl_input_first``          ``csrc/mtl_input_first.cu``
 
 The reference kernels take precomputed global rows (and, for the tiered
 ones, a slot vector gathered in a separate pass); these take the local
@@ -21,8 +23,17 @@ Global rows are clamped into ``[0, N)`` and a slot outside ``[0, C)``
 (or the staging buffer's ``[0, S)``) counts as a miss: an out-of-range id
 reads some row of the table, never memory past it. K5/K6 have no backing
 operand (the host tier keeps it in host memory); ``N`` is the length of
-their two maps, and a row in neither tier reads zero. The plain versions clamp, select and sum (in slot order)
-the same way, so kernel and plain version are bitwise equal on any input.
+their two maps, and a row in neither tier reads zero. The plain versions
+clamp, select and sum (in slot order) the same way, so kernel and plain
+version are bitwise equal on any input.
+
+K8 is the Fig.-11 strawman: the same lookup as K1 (the same ids,
+offsets and clamp, bitwise the same result), but laid out by input — one
+thread per (sample, field), writing a field-major ``(k, b, d)`` buffer
+that a PyTorch transpose turns into ``(b, k*d)``. K7 is the reference's
+one-hot lookup over small per-field tables stacked to one padded height:
+a gather where an id outside ``[0, n_pad)`` gives a zero row (the
+one-hot row matches nothing), not a clamped one.
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
            "mtl_gather_two_level_plain", "mtl_gather_two_level_q8",
            "mtl_gather_two_level_q8_plain", "mtl_gather_three_level",
            "mtl_gather_three_level_plain", "mtl_gather_three_level_q8",
-           "mtl_gather_three_level_q8_plain"]
+           "mtl_gather_three_level_q8_plain", "mtl_input_first",
+           "mtl_input_first_plain", "mtl_onehot", "mtl_onehot_plain"]
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -503,3 +515,156 @@ mtl_gather_two_level.launches = 0
 mtl_gather_two_level_q8.launches = 0
 mtl_gather_three_level.launches = 0
 mtl_gather_three_level_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: input-first gather (csrc/mtl_input_first.cu)
+# ---------------------------------------------------------------------------
+
+def _sample_major(out_fmajor: torch.Tensor) -> torch.Tensor:
+    """(k, b, d) field-major -> (b, k*d): the transpose pass input-first
+    designs pay for (a plain copy, as in the reference)."""
+    k, b, d = out_fmajor.shape
+    return out_fmajor.permute(1, 0, 2).reshape(b, k * d)
+
+
+def mtl_input_first_plain(ids: torch.Tensor, offsets: torch.Tensor,
+                          table: torch.Tensor, *,
+                          field_major: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K8 (the same clamp, one gather into the
+    field-major buffer)."""
+    b, k = ids.shape
+    rows = ids.to(torch.int64) + offsets.to(torch.int64)[None, :]
+    rows = rows.clamp_(0, table.shape[0] - 1).t().reshape(-1)
+    out = table.index_select(0, rows).reshape(k, b, table.shape[1])
+    return out if field_major else _sample_major(out)
+
+
+@functools.cache
+def _input_first_kernel():
+    fn = _build.library("mtl_input_first").mtl_input_first
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mtl_input_first(ids: torch.Tensor, offsets: torch.Tensor,
+                    table: torch.Tensor, *,
+                    field_major: bool = False) -> torch.Tensor:
+    """K8: input-first multi-table gather (the Fig.-11 strawman).
+
+    Args:
+        ids:         (b, k) int32 per-field local ids.
+        offsets:     (k,) int32 starting row of each field in ``table``.
+        table:       (N, d) float32 mega-table.
+        field_major: return the kernel's own (k, b, d) buffer, before the
+                     transpose (to time the kernel alone).
+
+    Returns:
+        (b, k*d) float32, bitwise :func:`mtl_gather`'s (or (k, b, d)).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream, then transpose with PyTorch.
+    """
+    dev = table.device
+    _build.check_tensor("ids", ids, torch.int32, 2, dev)
+    _build.check_tensor("offsets", offsets, torch.int32, 1, dev)
+    _build.check_tensor("table", table, torch.float32, 2, dev)
+    b, k = ids.shape
+    n_rows, d = table.shape
+    if offsets.shape[0] != k:
+        raise ValueError(f"offsets has {offsets.shape[0]} entries for "
+                         f"{k} fields")
+    if n_rows == 0:
+        raise ValueError("table has no rows")
+    if dev.type == "cpu":
+        return mtl_input_first_plain(ids, offsets, table,
+                                     field_major=field_major)
+    out = torch.empty((k, b, d), dtype=table.dtype, device=dev)
+    if out.numel() > 0:
+        code = _input_first_kernel()(ids.data_ptr(), offsets.data_ptr(),
+                                     table.data_ptr(), out.data_ptr(), b, k,
+                                     d, n_rows, _build.current_stream(dev))
+        _build.check_launch("mtl_input_first", code)
+        mtl_input_first.launches += 1
+    return out if field_major else _sample_major(out)
+
+
+mtl_input_first.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: one-hot lookup over small padded tables (csrc/mtl_onehot.cu)
+# ---------------------------------------------------------------------------
+
+_ONEHOT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def mtl_onehot_plain(ids: torch.Tensor,
+                     stacked_tables: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7: per field, the id's row of that
+    field's table, or zeros for an id outside ``[0, n_pad)``."""
+    k, n_pad, d = stacked_tables.shape
+    ids = ids.to(torch.int64)
+    valid = (ids >= 0) & (ids < n_pad)
+    field = torch.arange(k, device=ids.device)[None, :]
+    rows = stacked_tables[field, ids.clamp(0, n_pad - 1)]     # (b, k, d)
+    return torch.where(valid[..., None], rows,
+                       torch.zeros((), dtype=stacked_tables.dtype,
+                                   device=ids.device))
+
+
+@functools.cache
+def _onehot_kernel():
+    fn = _build.library("mtl_onehot").mtl_onehot
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mtl_onehot(ids: torch.Tensor, stacked_tables: torch.Tensor
+               ) -> torch.Tensor:
+    """K7: one-hot lookup for a group of small fields.
+
+    Args:
+        ids:            (b, k) int32 per-field local ids.
+        stacked_tables: (k, n_pad, d) float32 or bfloat16, each field's
+                        table padded to one height.
+
+    Returns:
+        (b, k, d) in the tables' dtype; a row is zero where the id lies
+        outside ``[0, n_pad)``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream.
+    """
+    dev = stacked_tables.device
+    if stacked_tables.dtype not in _ONEHOT_DTYPES:
+        raise TypeError(f"stacked_tables must be one of {_ONEHOT_DTYPES}, "
+                        f"got {stacked_tables.dtype}")
+    _build.check_tensor("stacked_tables", stacked_tables,
+                        stacked_tables.dtype, 3, dev)
+    _build.check_tensor("ids", ids, torch.int32, 2, dev)
+    b, k = ids.shape
+    k_t, n_pad, d = stacked_tables.shape
+    if k_t != k:
+        raise ValueError(f"stacked_tables has {k_t} fields, ids {k}")
+    if n_pad == 0:
+        raise ValueError("stacked_tables has no rows")
+    if dev.type == "cpu":
+        return mtl_onehot_plain(ids, stacked_tables)
+    out = torch.empty((b, k, d), dtype=stacked_tables.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    code = _onehot_kernel()(ids.data_ptr(), stacked_tables.data_ptr(),
+                            out.data_ptr(), b, k, n_pad, d,
+                            stacked_tables.element_size(),
+                            _build.current_stream(dev))
+    _build.check_launch("mtl_onehot", code)
+    mtl_onehot.launches += 1
+    return out
+
+
+mtl_onehot.launches = 0

@@ -8,29 +8,38 @@ Counterpart of ``repro.kernels.ops``. Strategies for
   "kernel"      the same wrapper, named explicitly        [C2+C3]
   "torch"       one ``index_select`` over the mega-table  [C2 in PyTorch]
   "serial"      per-field gathers + concat (the paper's PyTorch baseline)
+  "input_first" the Fig.-11 strawman: the K8 wrapper (field-major writes
+                + transpose)
 
 The multi-hot, cached-tier and host-tier lookups take "auto"/"kernel"
 (the K2–K6 wrapper, which redirects masked slots to the table's zero row
 ``N - 1`` and reads the slot maps in the kernel; the reference's
 "pallas") and "torch" (the reference's "jnp" oracle path: one gather,
-then mask-multiply-sum for multi-hot). The reference's "input_first" and "onehot" strategies wait
-for their kernels. The fused-tail wrappers dispatch on the tensor's
-device the same way: the kernel for CUDA tensors, the plain version for
-CPU tensors.
+then mask-multiply-sum for multi-hot); "input_first" is a dense-table
+strategy only, as in the reference. The one-hot lookup over small padded
+tables (K7) has its own entry, :func:`multi_table_lookup_onehot`: like
+the reference's, ``multi_table_lookup`` has no "onehot" branch.
+:func:`dense_matmul_q8` is the int8 MLP layer (K12). The fused-tail
+wrappers dispatch on the tensor's device the same way: the kernel for
+CUDA tensors, the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import quant
+
 from . import ref
+from .dense_matmul import dmm_q8
 from .fused_cross import fused_cross_v1, fused_cross_v2
 from .fused_fm import fused_fm_second_order
 from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
                                  mtl_gather_three_level,
                                  mtl_gather_three_level_q8,
                                  mtl_gather_two_level,
-                                 mtl_gather_two_level_q8)
+                                 mtl_gather_two_level_q8, mtl_input_first,
+                                 mtl_onehot)
 
 __all__ = ["STRATEGIES", "POOLED_STRATEGIES", "multi_table_lookup",
            "multi_table_lookup_multihot", "multi_table_lookup_cached",
@@ -39,10 +48,11 @@ __all__ = ["STRATEGIES", "POOLED_STRATEGIES", "multi_table_lookup",
            "multi_table_lookup_cached_q8_multihot",
            "multi_table_lookup_host", "multi_table_lookup_host_multihot",
            "multi_table_lookup_host_q8",
-           "multi_table_lookup_host_q8_multihot", "fused_cross_v1",
+           "multi_table_lookup_host_q8_multihot",
+           "multi_table_lookup_onehot", "dense_matmul_q8", "fused_cross_v1",
            "fused_cross_v2", "fused_fm_second_order"]
 
-STRATEGIES = ("auto", "kernel", "torch", "serial")
+STRATEGIES = ("auto", "kernel", "torch", "serial", "input_first")
 #: strategies of the multi-hot and cached-tier lookups
 POOLED_STRATEGIES = ("auto", "kernel", "torch")
 
@@ -70,6 +80,8 @@ def multi_table_lookup(ids: torch.Tensor, mega_table: torch.Tensor,
         cols = [mega_table.index_select(0, ids[:, i] + offsets[i])
                 for i in range(ids.shape[1])]
         return torch.cat(cols, dim=1)
+    if strategy == "input_first":
+        return mtl_input_first(ids, offsets, mega_table)
     raise ValueError(f"unknown strategy {strategy!r}; expected one of "
                      f"{STRATEGIES}")
 
@@ -404,3 +416,46 @@ def multi_table_lookup_host_q8_multihot(ids: torch.Tensor, mask: torch.Tensor,
             staging, staging_scale)
         return _mask_pool(vals, mask)
     raise _unknown(strategy)
+
+
+def multi_table_lookup_onehot(ids: torch.Tensor,
+                              stacked_tables: torch.Tensor) -> torch.Tensor:
+    """One-hot lookup for a group of small fields (K7).
+
+    Args:
+        ids:            (b, k) int32 per-field local ids.
+        stacked_tables: (k, n_pad, d) float32 or bfloat16 tables padded to
+                        one height.
+
+    Returns:
+        (b, k, d); zero rows for ids outside ``[0, n_pad)``.
+    """
+    return mtl_onehot(ids, stacked_tables)
+
+
+def dense_matmul_q8(h: torch.Tensor, wq_t: torch.Tensor,
+                    wscale: torch.Tensor, bias: torch.Tensor, *,
+                    relu: bool = True) -> torch.Tensor:
+    """Quantized dense layer: dynamic per-row int8 activations × static
+    per-channel int8 weights, int32 sum, dequant + bias (+ ReLU) in the
+    epilogue.
+
+    The activation quantizer (``absmax_scale`` then ``quantize``) runs
+    here, outside the kernel, as in the reference; the weight arrives
+    quantized once at graph build (``quant.quantize_channels``) and laid
+    out for the kernel (``dense_matmul.pack_weight``).
+
+    Args:
+        h:        (b, fan_in) float32 activations.
+        wq_t:     (fan_out, fan_in) int8 per-channel quantized weights.
+        wscale:   (1, fan_out) float32 per-channel scales.
+        bias:     (fan_out,) float32.
+        relu:     apply the ReLU epilogue.
+
+    Returns:
+        (b, fan_out) float32: K12 for a CUDA tensor, its plain version
+        for a CPU tensor.
+    """
+    hscale = quant.absmax_scale(h, dim=-1)
+    return dmm_q8(quant.quantize(h, hscale), hscale, wq_t, wscale,
+                  bias.reshape(1, -1), relu=relu)

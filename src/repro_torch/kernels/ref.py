@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.ref``, limited to the ported paths: the
 multi-table lookup (Alg. 1 and its serial baseline), the multi-hot pooled
 lookup, the two-level (cache + backing) gathers of the cached tier and
 the three-level (cache / staging / zero) gathers of the host tier, in
-fp32 and int8, the DCN / DCNv2 cross tails and the FM second-order term.
+fp32 and int8, the int8 dense layer, the DCN / DCNv2 cross tails and the
+FM second-order term.
 The kernel modules' plain versions and the ``torch``/``serial`` lookup
 strategies are built on these.
 
@@ -21,8 +22,8 @@ __all__ = ["multi_table_lookup_alg1", "ref_multi_table_lookup",
            "ref_serial_lookup", "ref_multi_hot_lookup",
            "ref_two_level_gather", "ref_two_level_gather_q8",
            "ref_three_level_gather", "ref_three_level_gather_q8",
-           "ref_cross_v2_elementwise", "ref_cross_v1_elementwise",
-           "ref_fm_second_order"]
+           "ref_dense_matmul_q8", "ref_cross_v2_elementwise",
+           "ref_cross_v1_elementwise", "ref_fm_second_order"]
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +253,40 @@ def ref_three_level_gather_q8(flat_rows: torch.Tensor,
     s = torch.where(hit, cache_scale.index_select(0, cslots),
                     staging_scale.index_select(0, sslots))
     return torch.where(hit | st, q * s, torch.zeros((), dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Quantized dense layer (int8 MLP compute)
+# ---------------------------------------------------------------------------
+
+def ref_dense_matmul_q8(hq: torch.Tensor, hscale: torch.Tensor,
+                        wq: torch.Tensor, wscale: torch.Tensor,
+                        bias: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """Quantized dense layer: int8 x int8 -> int32, then
+    ``fma(fp32(acc) * hscale, wscale, bias)`` and an optional ReLU.
+
+    The int32 sum is an fp64 product of the codes, exact below 2**53 (an
+    fp32 one is not: |acc| reaches 127² · fan_in > 2**24) and usable on
+    the card, where integer matmuls are not. The fma is emulated in fp64:
+    the product of two floats is exact there, so only the final sum
+    rounds twice, and that differs from one rounding only when the fp64
+    sum lands on an fp32 midpoint.
+
+    Args:
+        hq:     (b, fan_in) int8 per-row quantized activations.
+        hscale: (b, 1) float32 per-row scales.
+        wq:     (fan_in, fan_out) int8 per-channel quantized weights.
+        wscale: (1, fan_out) float32 per-channel scales.
+        bias:   (1, fan_out) float32.
+
+    Returns:
+        (b, fan_out) float32.
+    """
+    f64 = torch.float64
+    acc = (hq.to(f64) @ wq.to(f64)).to(torch.int32)
+    out = ((acc.to(torch.float32) * hscale).to(f64) * wscale.to(f64)
+           + bias.to(f64)).to(torch.float32)
+    return out.clamp_min(0.0) if relu else out
 
 
 # ---------------------------------------------------------------------------

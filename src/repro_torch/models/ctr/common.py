@@ -6,7 +6,9 @@ Counterpart of ``repro.models.ctr.common``. Every model is an
   spec                 CTRModelSpec (embedding schema + net sizes)
   init(generator)      fill every tensor with the reference's
                        distributions, drawn from ``generator``
-  build_graph(level)   -> OpGraph (consumed by DualParallelExecutor)
+  build_graph(level, compute_dtype="fp32")
+                       -> OpGraph (consumed by DualParallelExecutor);
+                       "int8" runs the MLP's matmuls in int8 (K12)
   forward(ids)         -> logits (b, 1): the graph in its own order
 
 Graph modules: "embedding" -> ("explicit" ∥ "implicit") -> "head", with
@@ -23,12 +25,14 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.core import Op, OpGraph
+from repro_torch.core import COMPUTE_DTYPES, Op, OpGraph
 from repro_torch.core.opgraph import register_fused_kernel
 from repro_torch.device import resolve_device
 from repro_torch.embedding import (FusedEmbeddingCollection,
                                    FusedEmbeddingSpec, runtime_edge)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.dense_matmul import pack_weight
+from repro_torch.quant import quantize_channels
 
 __all__ = ["CTRModelSpec", "CTRModel", "Dense", "mlp_layers",
            "emit_embedding_ops", "emit_mlp_ops"]
@@ -143,13 +147,47 @@ def emit_embedding_ops(g: OpGraph, emb: FusedEmbeddingCollection,
 
 
 def emit_mlp_ops(g: OpGraph, layers: nn.ModuleList, src: str, module: str,
-                 prefix: str = "mlp", final_act: bool = False) -> str:
-    """Per-layer GEMM (flagged) + ReLU (non-GEMM, fusable)."""
+                 prefix: str = "mlp", final_act: bool = False,
+                 compute_dtype: str = "fp32") -> str:
+    """Per-layer GEMM (flagged) + ReLU (non-GEMM, fusable).
+
+    ``compute_dtype="int8"`` makes each GEMM + ReLU pair ONE quantized op
+    (``kops.dense_matmul_q8``, the K12 kernel on CUDA) with the same edge
+    names: the weight is quantized per output channel here, once at graph
+    build, and laid out for the kernel, so the fp32 weight is never read
+    at serve time and no store refresh touches it; activations quantize
+    per row inside the op. The counters land in ``g.meta`` and surface as
+    the ``mlp_quant_*`` fields of ``ExecutorStats``, counted as the
+    reference counts them.
+    """
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     cur = src
     n = len(layers)
     for li, layer in enumerate(layers):
         w, b = layer.w, layer.b
         act = li < n - 1 or final_act
+        if compute_dtype == "int8":
+            qw, wscale = quantize_channels(w)
+            out_edge = f"{prefix}_a{li}" if act else f"{prefix}_h{li}"
+            g.add(Op(f"{prefix}_q8gemm{li}",
+                     lambda h, _qw=pack_weight(qw), _ws=wscale, _b=b,
+                     _act=act: kops.dense_matmul_q8(h, _qw, _ws, _b,
+                                                    relu=_act),
+                     (cur,), out_edge, is_gemm=True, module=module))
+            cur = out_edge
+            fan_in, fan_out = w.shape
+            # int8 payload + one fp32 scale per output channel, vs 4 B/elt
+            q8_bytes = fan_in * fan_out + 4 * fan_out
+            g.meta["compute_dtype"] = "int8"
+            g.meta["mlp_quant_matmuls"] = \
+                g.meta.get("mlp_quant_matmuls", 0) + 1
+            g.meta["mlp_quant_weight_bytes"] = \
+                g.meta.get("mlp_quant_weight_bytes", 0) + q8_bytes
+            g.meta["mlp_quant_weight_bytes_saved"] = \
+                g.meta.get("mlp_quant_weight_bytes_saved", 0) \
+                + 4 * fan_in * fan_out - q8_bytes
+            continue
         g.add(Op(f"{prefix}_gemm{li}",
                  lambda h, _w=w, _b=b: h @ _w + _b,
                  (cur,), f"{prefix}_h{li}", is_gemm=True, module=module))
@@ -231,7 +269,8 @@ class CTRModel(nn.Module):
                 module.reset_parameters(generator)
         return self
 
-    def build_graph(self, level: str) -> OpGraph:
+    def build_graph(self, level: str,
+                    compute_dtype: str = "fp32") -> OpGraph:
         raise NotImplementedError
 
     def embedding_collections(self) -> dict[str, FusedEmbeddingCollection]:

@@ -50,7 +50,8 @@ class DCN(CTRModel):
         self.cross = nn.ModuleList(CrossV1(d_in, **kw)
                                    for _ in range(spec.cross_layers))
 
-    def build_graph(self, level: str) -> OpGraph:
+    def build_graph(self, level: str,
+                    compute_dtype: str = "fp32") -> OpGraph:
         g = OpGraph(["ids"])
         emit_embedding_ops(g, self.embedding, level)
 
@@ -79,7 +80,8 @@ class DCN(CTRModel):
 
         # implicit: deep MLP
         deep_out = emit_mlp_ops(g, self.mlp, "x_embed", "implicit",
-                                prefix="deep", final_act=True)
+                                prefix="deep", final_act=True,
+                                compute_dtype=compute_dtype)
 
         # head
         hw, hb = self.head.w, self.head.b

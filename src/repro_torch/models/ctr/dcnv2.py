@@ -27,7 +27,8 @@ class DCNv2(CTRModel):
         self.cross = nn.ModuleList(Dense(d_in, d_in, **kw)
                                    for _ in range(spec.cross_layers))
 
-    def build_graph(self, level: str) -> OpGraph:
+    def build_graph(self, level: str,
+                    compute_dtype: str = "fp32") -> OpGraph:
         g = OpGraph(["ids"])
         emit_embedding_ops(g, self.embedding, level)
 
@@ -53,7 +54,8 @@ class DCNv2(CTRModel):
 
         # implicit: deep MLP
         deep_out = emit_mlp_ops(g, self.mlp, "x_embed", "implicit",
-                                prefix="deep", final_act=True)
+                                prefix="deep", final_act=True,
+                                compute_dtype=compute_dtype)
 
         # head
         hw, hb = self.head.w, self.head.b

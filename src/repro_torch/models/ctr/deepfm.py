@@ -33,7 +33,8 @@ class DeepFM(CTRModel):
         return {self.main_embedding_key: self.embedding,
                 "fm_w": self.wide_embedding}
 
-    def build_graph(self, level: str) -> OpGraph:
+    def build_graph(self, level: str,
+                    compute_dtype: str = "fp32") -> OpGraph:
         spec = self.spec
         g = OpGraph(["ids"])
         emit_embedding_ops(g, self.embedding, level)
@@ -74,7 +75,8 @@ class DeepFM(CTRModel):
 
         # implicit: deep MLP
         deep_out = emit_mlp_ops(g, self.mlp, "x_embed", "implicit",
-                                prefix="deep", final_act=True)
+                                prefix="deep", final_act=True,
+                                compute_dtype=compute_dtype)
         hw, hb = self.deep_head.w, self.deep_head.b
         g.add(Op("deep_head", lambda h: h @ hw + hb, (deep_out,),
                  "implicit_out", is_gemm=True, module="implicit"))

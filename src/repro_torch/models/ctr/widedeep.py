@@ -31,7 +31,8 @@ class WideDeep(CTRModel):
         return {self.main_embedding_key: self.embedding,
                 "wide": self.wide_embedding}
 
-    def build_graph(self, level: str) -> OpGraph:
+    def build_graph(self, level: str,
+                    compute_dtype: str = "fp32") -> OpGraph:
         g = OpGraph(["ids"])
         emit_embedding_ops(g, self.embedding, level)
 
@@ -59,7 +60,8 @@ class WideDeep(CTRModel):
 
         # implicit: deep MLP + its own head GEMM to a logit
         deep_out = emit_mlp_ops(g, self.mlp, "x_embed", "implicit",
-                                prefix="deep", final_act=True)
+                                prefix="deep", final_act=True,
+                                compute_dtype=compute_dtype)
         hw, hb = self.deep_head.w, self.deep_head.b
         g.add(Op("deep_head", lambda h: h @ hw + hb, (deep_out,),
                  "implicit_out", is_gemm=True, module="implicit"))

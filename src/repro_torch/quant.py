@@ -1,10 +1,15 @@
-"""Symmetric int8 (absmax) quantization of embedding rows.
+"""Symmetric int8 (absmax) quantization of embedding rows, MLP weights
+and MLP activations.
 
-Counterpart of ``repro.quant`` (``quant.py:41-89``), on torch tensors.
+Counterpart of ``repro.quant`` (``quant.py:41-111``), on torch tensors.
 Stores built with ``row_dtype="int8"`` hold their rows as int8 with one
 fp32 scale per row; the tiered gathers dequantize inside the kernel
 (``kernels/csrc/mtl_gather_tiered.cu``), so the fp32 row exists only in
-registers.
+registers. Plans compiled with ``compute_dtype="int8"`` hold each MLP
+weight as int8 with one fp32 scale per output channel
+(:func:`quantize_channels`) and quantize activations per row at every
+step; the int8 dense kernel (``kernels/csrc/dense_matmul_q8.cu``)
+dequantizes in its epilogue.
 
 Symmetric absmax: ``scale = max|x| / 127`` (the -128 code is never
 emitted, so the grid is symmetric around an exact zero) and
@@ -13,9 +18,6 @@ emitted, so the grid is symmetric around an exact zero) and
 exactly ``0.0`` — the multi-hot masking zero row stays a true zero.
 ``torch.round`` rounds half to even, like ``jnp.round``, so codes and
 scales are bitwise those of the reference on the same fp32 table.
-
-The per-output-channel helpers of the reference (int8 MLP compute) come
-with that slice.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["QMAX", "SCALE_EPS", "absmax_scale", "quantize", "dequantize",
-           "quantize_rows", "dequantize_rows"]
+           "quantize_rows", "dequantize_rows", "quantize_channels",
+           "dequantize_channels"]
 
 #: symmetric int8 range [-127, 127]; -128 is deliberately unused
 QMAX = 127.0
@@ -36,8 +39,11 @@ def absmax_scale(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     ``SCALE_EPS`` so all-zero slices round-trip to exact zero."""
     # divide by a tensor on x's device: PyTorch's CUDA kernel turns a
     # division by a Python number into a multiply by its reciprocal, which
-    # can round the last bit differently from the reference's division
-    qmax = torch.tensor(QMAX, dtype=x.dtype, device=x.device)
+    # can round the last bit differently from the reference's division.
+    # A device fill, not torch.tensor: that would copy from pageable host
+    # memory and hold the stream on every call (int8 plans call this at
+    # every layer of every step)
+    qmax = torch.full((), QMAX, dtype=x.dtype, device=x.device)
     s = x.abs().amax(dim=dim, keepdim=True) / qmax
     return s.clamp_min(SCALE_EPS).to(torch.float32)
 
@@ -63,4 +69,18 @@ def quantize_rows(table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_rows`: (rows, d) int8 × (rows, 1) f32
     -> (rows, d) float32."""
+    return dequantize(q, scale)
+
+
+def quantize_channels(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize a (fan_in, fan_out) dense weight per output channel (the
+    column-wise twin of :func:`quantize_rows`): ``(q, scale)`` with ``q``
+    (fan_in, fan_out) int8 and ``scale`` (1, fan_out) float32."""
+    scale = absmax_scale(w, dim=0)
+    return quantize(w, scale), scale
+
+
+def dequantize_channels(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_channels`: (fan_in, fan_out) int8 ×
+    (1, fan_out) f32 -> (fan_in, fan_out) float32."""
     return dequantize(q, scale)

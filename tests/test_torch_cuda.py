@@ -7,10 +7,12 @@ imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py -q
 
-K1–K6, K9 and K10 are bitwise (copies, pools summed in slot order, and
-arithmetic rounded in the plain order without FMA); K11 sums in another
-order than ``torch.sum`` (``rtol=atol=1e-5``). Whole models cross devices at ``rtol=1e-4,
-atol=1e-5``: cuBLAS and the CPU BLAS sum the GEMMs in different orders.
+K1–K10 and K12 are bitwise (copies, pools summed in slot order,
+arithmetic rounded in the plain order without FMA, and K12's exact int32
+sum with the plain version's fma epilogue); K11 sums in another order than
+``torch.sum`` (``rtol=atol=1e-5``). Whole models cross devices at
+``rtol=1e-4, atol=1e-5``: cuBLAS and the CPU BLAS sum the GEMMs in
+different orders.
 """
 
 import numpy as np
@@ -22,6 +24,8 @@ from repro_torch.configs import ctr_spec  # noqa: E402
 from repro_torch.core import LEVELS, compile_plan  # noqa: E402
 from repro_torch.data import CRITEO, sample_ids  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.dense_matmul import (  # noqa: E402
+    dmm_q8, dmm_q8_plain, pack_weight)
 from repro_torch.kernels.fused_cross import (  # noqa: E402
     fused_cross_v1, fused_cross_v1_plain, fused_cross_v2, fused_cross_v2_plain)
 from repro_torch.kernels.fused_fm import (  # noqa: E402
@@ -31,10 +35,12 @@ from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather_plain, mtl_gather_three_level, mtl_gather_three_level_plain,
     mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
     mtl_gather_two_level, mtl_gather_two_level_plain,
-    mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain)
+    mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain, mtl_input_first,
+    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain)
 from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
 from repro_torch.models.ctr import CTR_MODELS  # noqa: E402
-from repro_torch.quant import quantize_rows  # noqa: E402
+from repro_torch.quant import (absmax_scale, quantize,  # noqa: E402
+                               quantize_channels, quantize_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -431,3 +437,138 @@ def test_every_level_on_cuda_matches_the_cpu_path(cuda, model_name):
     for level, out in outs.items():
         torch.testing.assert_close(out, outs["naive"], rtol=1e-5, atol=1e-6,
                                    msg=lambda m: f"{level}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# K12 dmm_q8, K8 mtl_input_first, K7 mtl_onehot
+# ---------------------------------------------------------------------------
+
+def _q8_args(rng, b, fan_in, fan_out, device, saturate=False):
+    """Quantized layer inputs as the int8 plan makes them: per-row codes
+    of ``h``, per-channel codes of ``w`` in the kernel's layout."""
+    h = rng.normal(size=(b, fan_in)).astype(np.float32)
+    w = (rng.normal(size=(fan_in, fan_out)) * 0.03).astype(np.float32)
+    if saturate:                      # every code ±127, |acc| up to 127²·K
+        h = np.sign(h) + (h == 0)
+        w = np.sign(w) * 0.03 + (w == 0) * 0.03
+        w[:, 0] = 0.03 * h[0]
+    hc, wc = torch.from_numpy(h), torch.from_numpy(w)
+    hs = absmax_scale(hc)
+    wq, ws = quantize_channels(wc)
+    bias = torch.from_numpy(rng.normal(size=(1, fan_out)).astype(np.float32))
+    return [x.to(device) for x in (quantize(hc, hs), hs, pack_weight(wq), ws,
+                                   bias)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("b,fan_in,fan_out,saturate", [
+    (256, 1248, 1024, False), (1024, 1024, 1024, False),
+    (1, 1, 1, False), (33, 7, 5, False), (64, 1248, 96, True),
+])
+def test_dmm_q8_bitwise(cuda, relu, b, fan_in, fan_out, saturate):
+    rng = np.random.default_rng(b + fan_in)
+    args = _q8_args(rng, b, fan_in, fan_out, cuda, saturate)
+    before = dmm_q8.launches
+    got = dmm_q8(*args, relu=relu)
+    torch.cuda.synchronize()
+    assert dmm_q8.launches == before + 1
+    assert torch.equal(got, dmm_q8_plain(*args, relu=relu))
+    cpu = dmm_q8_plain(*[a.cpu() for a in args], relu=relu)
+    assert torch.equal(got.cpu(), cpu)
+    if saturate:
+        acc = args[0][0].cpu().long() @ args[2][0].cpu().long()
+        assert int(acc) == 127 * 127 * fan_in > 2**24
+
+
+def test_dmm_q8_launches_on_the_current_stream(cuda):
+    rng = np.random.default_rng(0)
+    hq, hs, wq_t, ws, bias = _q8_args(rng, 64, 256, 128, cuda)
+    want = dmm_q8_plain(hq, hs, wq_t, ws, bias)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    src = hq.clone()
+    hq.zero_()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        hq.copy_(src)
+        out = dmm_q8(hq, hs, wq_t, ws, bias)
+    side.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("d", [1, 32])
+def test_mtl_input_first_bitwise(cuda, d):
+    rng = np.random.default_rng(d + 7)
+    sizes = rng.integers(2, 5000, size=39)
+    mega = rng.normal(size=(int(sizes.sum()), d)).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    ids = np.stack([rng.integers(0, n, size=512) for n in sizes],
+                   axis=1).astype(np.int32)
+    ids[0, :3] = [-5, 2**31 - 1, 10**6]                   # clamped rows
+    args = [torch.from_numpy(a).to(cuda) for a in (ids, offsets, mega)]
+    before = mtl_input_first.launches
+    got = mtl_input_first(*args)
+    fmajor = mtl_input_first(*args, field_major=True)
+    torch.cuda.synchronize()
+    assert mtl_input_first.launches == before + 2
+    assert torch.equal(got, mtl_input_first_plain(*args))
+    assert torch.equal(got, mtl_gather(*args))
+    assert torch.equal(fmajor, mtl_input_first_plain(*args,
+                                                     field_major=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mtl_onehot_bitwise(cuda, dtype):
+    rng = np.random.default_rng(3)
+    sizes = rng.integers(2, 107, size=18)
+    k, n_pad, d, b = len(sizes), 128, 32, 1024
+    stacked = np.zeros((k, n_pad, d), np.float32)
+    for f, n in enumerate(sizes):
+        stacked[f, :n] = rng.normal(size=(n, d))
+    ids = np.stack([rng.integers(0, n, size=b) for n in sizes],
+                   axis=1).astype(np.int32)
+    ids[0, :4] = [-1, n_pad, 10**6, -2**31]               # zero rows
+    tables = torch.from_numpy(stacked).to(cuda, dtype)
+    ids_c = torch.from_numpy(ids).to(cuda)
+    before = mtl_onehot.launches
+    got = mtl_onehot(ids_c, tables)
+    torch.cuda.synchronize()
+    assert mtl_onehot.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, k, d)
+    assert torch.equal(got, mtl_onehot_plain(ids_c, tables))
+    assert torch.equal(got.cpu(), mtl_onehot_plain(torch.from_numpy(ids),
+                                                   tables.cpu()))
+    assert not got[0, :4].any()
+    if dtype == torch.float32:
+        mega = torch.cat([tables[f, :n] for f, n in enumerate(sizes)])
+        offsets = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(sizes)[:-1]]).astype(np.int32)).to(cuda)
+        ok = ids_c.clone()
+        ok[0, :4] = 0
+        assert torch.equal(mtl_onehot(ok, tables).reshape(b, -1),
+                           mtl_gather(ok, offsets, mega))
+
+
+def test_full_width_int8_dcnv2_matches_the_cpu_path(cuda):
+    """The configuration of record at full width (uncapped Criteo, d = 32,
+    MLP 1248 -> 1024 x 3) through compute_dtype="int8": three K12 launches
+    a step, and the card's logits those of the CPU int8 path."""
+    spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024)
+    model = CTR_MODELS["dcnv2"](spec, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    cpu_model = CTR_MODELS["dcnv2"](spec, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    ids = sample_ids(CRITEO, 256, seed=5)
+    plan = compile_plan(model, "dual", 256, device=cuda, compute_dtype="int8")
+    assert plan.stats.mlp_quant_weight_bytes == 3_387_392
+    reset_launch_counts()
+    got = plan(torch.from_numpy(ids).to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["dmm_q8"] == 3
+    want = compile_plan(cpu_model, "dual", 16, device="cpu",
+                        compute_dtype="int8")(torch.from_numpy(ids[:16]))
+    torch.testing.assert_close(got[:16].cpu(), want, rtol=1e-4, atol=1e-5)
+    fp32 = compile_plan(model, "dual", 256, device=cuda)(
+        torch.from_numpy(ids).to(cuda))
+    assert (torch.sigmoid(got) - torch.sigmoid(fp32)).abs().max() < 1e-2
