@@ -33,11 +33,16 @@ Phases (any failure raises; the script then exits non-zero):
    versions (ids -7, 2**31-1 and 10**8, a cache slot past C, a staging
    slot past S and rows in neither tier, which read exactly 0.0), K5
    against K1 (h = 1) and K2 (h = 5), K6 against K4; timed the same way.
-   Then K12 ``dmm_q8`` at DCNv2's MLP shapes (1248 -> 1024, 1024 -> 1024)
-   at b = 256 and 1024, plus (1, 1, 1), (33, 7, 5) and ±127 codes at
-   fan_in 1248, bitwise against its plain version on the card and on the
-   CPU; K8 ``mtl_input_first`` at Fig. 11's shapes (39 fields of 100,000
-   rows, d = 32 at b = 2048, 16,384, 65,536 and d = 60 at b = 2048) and
+   Then K12 ``dmm_q8`` (int8 ``wgmma`` on TMA-fed shared memory) at
+   DCNv2's MLP shapes (1248 -> 1024, 1024 -> 1024) at b = 256 and 1024,
+   plus (1, 1, 1), (33, 7, 5), (200, 1248, 1000), a misaligned ``hq``
+   view and ±127 codes at fan_in 1248, bitwise against its plain version
+   on the card and on the CPU, timed beside ``torch._int_mm``; the
+   activation quantizer ``quantize_rows_q8`` at the same b × fan_in
+   (a zero row and half-way values among them), bitwise against its
+   plain version on the card and on the CPU, timed beside that ~10-op
+   plain path; K8 ``mtl_input_first`` at Fig. 11's shapes (39 fields of
+   100,000 rows, d = 32 at b = 2048, 16,384, 65,536 and d = 60 at b = 2048) and
    on the full Criteo table, bitwise against K1, with the input-first /
    output-first ratio; K7 ``mtl_onehot`` over Criteo's 18 fields of at
    most 128 rows (fp32 and bf16, out-of-range ids giving zero rows),
@@ -74,13 +79,15 @@ Phases (any failure raises; the script then exits non-zero):
    ``CachedStore`` (K3) and the fp32 ``HostBackedStore`` (K5), bitwise
    equal.
 7. int8 dense compute: full-width DCNv2, DCN, DeepFM and Wide&Deep
-   compiled with ``compute_dtype="int8"`` (the MLP's three matmuls through
-   K12 ``dmm_q8``; the cross and head GEMMs stay fp32): the four levels
-   agree on the card, the card agrees with the CPU int8 path, the MLP
-   weight counters are the reference's (3,387,392 B int8 for DCNv2), and
-   "dual" plans serve requests with three K12 launches a step, scores
-   within 1e-2 of the fp32 plan's; DCNv2's int8 and fp32 plans timed in
-   turns and traced. Then the full int8 stack: DCNv2 over an int8-row
+   compiled with ``compute_dtype="int8"`` (the MLP's three layers each
+   ``quantize_rows_q8`` + K12 ``dmm_q8``; the cross and head GEMMs stay
+   fp32): the four levels agree on the card, the card agrees with the CPU
+   int8 path, the MLP weight counters are the reference's (3,387,392 B
+   int8 for DCNv2), and "dual" plans serve requests with three quantizer
+   and three K12 launches a step, scores within 1e-2 of the fp32 plan's;
+   DCNv2's int8 and fp32 plans timed in turns and traced, the int8 trace
+   free of the eager quantizer's abs/amax/div/round/clamp. Then the full
+   int8 stack: DCNv2 over an int8-row
    ``CachedStore`` with int8 compute, refreshed and updated between
    requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
    fp32-row twin bitwise the dense int8-compute plan.
@@ -277,8 +284,10 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
 
 
 def phase_q8_kernels(torch, dev, record):
-    """K12 ``dmm_q8`` at DCNv2's MLP shapes (1248 -> 1024 and 1024 ->
-    1024) at b = 256 and 1024, ReLU on and off, plus (1, 1, 1), (33, 7, 5)
+    """K12 ``dmm_q8`` (int8 ``wgmma`` fed by TMA) at DCNv2's MLP shapes
+    (1248 -> 1024 and 1024 -> 1024) at b = 256 and 1024, ReLU on and off,
+    plus (1, 1, 1), (33, 7, 5), (200, 1248, 1000) (M and N off every
+    tile), an ``hq`` view 3 bytes into its storage (padded by the wrapper)
     and codes of ±127 at fan_in 1248 (the largest |acc|, 127² · 1248 >
     2**24): bitwise against its plain version on the card and on the CPU;
     timed (ReLU on, as the plan runs it) beside the plain version,
@@ -312,6 +321,7 @@ def phase_q8_kernels(torch, dev, record):
         return (out - want).abs().max().item()
 
     for b, fan_in, fan_out, sat in ((1, 1, 1, False), (33, 7, 5, False),
+                                    (200, 1248, 1000, False),
                                     (256, 1248, 1024, True)):
         args, _ = make(b, fan_in, fan_out, sat)
         for relu in (True, False):
@@ -321,7 +331,17 @@ def phase_q8_kernels(torch, dev, record):
             assert acc == 127 * 127 * fan_in > 2**24, acc
             log(f"[q8] codes of ±127 at fan_in {fan_in}: |acc| = {acc} > "
                 f"2**24, bitwise against the plain version (card and CPU)")
-    log("[q8] (1, 1, 1) and (33, 7, 5): bitwise, ReLU on and off")
+    log("[q8] (1, 1, 1), (33, 7, 5) and (200, 1248, 1000): bitwise, ReLU "
+        "on and off")
+    args, _ = make(200, 1248, 96)
+    buf = torch.zeros(3 + args[0].numel(), dtype=torch.int8, device=dev)
+    view = buf[3:].view(args[0].shape)
+    view.copy_(args[0])
+    before = dmm_q8.launches
+    out = dmm_q8(view, *args[1:])
+    assert dmm_q8.launches == before + 1
+    assert torch.equal(out, dmm_q8_plain(*args)), "dmm_q8 offset view"
+    log("[q8] an hq view 3 bytes into its storage: launched, bitwise")
 
     for b in (256, 1024):
         for fan_in in (1248, 1024):
@@ -351,6 +371,55 @@ def phase_q8_kernels(torch, dev, record):
             log(f"[q8] {shape}: library_ms is torch._int_mm, the int32 "
                 f"product only; the fp32 plan's addmm + relu takes "
                 f"{fp32_ms:.5f} ms")
+
+
+def phase_quantizer(torch, dev, record):
+    """``quantize_rows_q8``, the int8 MLP's activation quantizer, at the
+    MLP's shapes (b = 256 and 1024, fan_in 1248 and 1024) on activations of
+    mixed row scales with an all-zero row and a row of half-way values
+    (every other ``x / scale`` is ``k + 0.5``): codes and scales bitwise
+    against the plain version on the card and on the CPU; timed beside the
+    plain version, which is the ~10-op path the int8 plan ran before (no
+    single PyTorch call quantizes per row, so ``library_ms`` is none)."""
+    from repro_torch.kernels.quantize import (quantize_rows_q8,
+                                              quantize_rows_q8_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def make(b, fan_in):
+        h = torch.randn((b, fan_in), device=dev, generator=g) * (
+            torch.rand((b, 1), device=dev, generator=g) * 10 + 1e-3)
+        h[1] = 0.0
+        half = ((torch.arange(fan_in, device=dev) % 254) - 126.5) / 16
+        h[2] = half
+        h[2, 0] = 127 / 16
+        return h
+
+    for b in (256, 1024):
+        for fan_in in (1248, 1024):
+            sets = [(make(b, fan_in),)
+                    for _ in range(n_sets(5 * b * fan_in + 4 * b))]
+            h = sets[0][0]
+            hq, hs = quantize_rows_q8(h)
+            want_q, want_s = quantize_rows_q8_plain(h)
+            assert torch.equal(hq, want_q) and torch.equal(hs, want_s), \
+                f"quantize_rows_q8 b={b},in={fan_in}"
+            cpu_q, cpu_s = quantize_rows_q8_plain(h.cpu())
+            assert torch.equal(hq.cpu(), cpu_q) and \
+                torch.equal(hs.cpu(), cpu_s), "quantize_rows_q8 vs CPU"
+            assert hs[1, 0].item() == torch.tensor(1e-12).item() \
+                and not hq[1].any(), "zero row"
+            assert hs[2, 0].item() == 1 / 16 and \
+                hq[2, 1].item() == -126, "half-way row"
+            err = max((hq.float() - want_q.float()).abs().max().item(),
+                      (hs - want_s).abs().max().item())
+            shape = f"b={b},in={fan_in}"
+            ms = device_ms(torch, quantize_rows_q8, sets)
+            plain_ms = device_ms(torch, quantize_rows_q8_plain, sets)
+            record("quantize_rows_q8", shape, err, ms, plain_ms, None,
+                   4 * b * fan_in + b * fan_in + 4 * b, 3 * b * fan_in)
+            log(f"[quant] {shape}: library_ms none (the plain version is "
+                f"the ~10-op path: {plain_ms:.5f} ms)")
 
 
 def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
@@ -836,7 +905,7 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
 
 
 def trace_step(torch, name, plan, ids, n_steps: int = 20,
-               prepare=None) -> None:
+               prepare=None) -> dict:
     """Profile ``n_steps`` calls of ``plan`` and print, per step: device
     busy time (union of kernel and copy intervals), the share of the
     traced window with nothing running on the device, the time kernels
@@ -844,7 +913,9 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20,
     five kernels that took the most device time. ``prepare(i)``, when
     given, runs before step i (a host store stages that step's batch
     there) and returns its device ids; otherwise every step runs on
-    ``ids``. The Chrome trace lands in ``build/traces/``."""
+    ``ids``. The Chrome trace lands in ``build/traces/``. Returns the
+    traced window's device time by kernel name (``kernels``, µs over all
+    ``steps``) and its host-side PyTorch ops by name (``ops``, counts)."""
     from torch.profiler import ProfilerActivity, profile
 
     def step_ids(i):
@@ -861,12 +932,16 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20,
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"{name}_{plan.level}_b{plan.batch_size}.json"
     prof.export_chrome_trace(str(path))
-    events = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("ph") == "X"
+    trace = json.loads(path.read_text())["traceEvents"]
+    events = [e for e in trace if e.get("ph") == "X"
               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ops: dict = {}
+    for e in trace:
+        if e.get("ph") == "X" and e.get("cat") == "cpu_op":
+            ops[e["name"]] = ops.get(e["name"], 0) + 1
     if not events:
         log(f"[{name}] trace: no device events recorded")
-        return
+        return {"kernels": {}, "ops": ops, "steps": n_steps}
     spans = sorted((e["ts"], e["ts"] + e["dur"], e["args"].get("stream", -1))
                    for e in events)
     busy = overlap = 0.0
@@ -901,6 +976,7 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20,
         f"{sum(e['dur'] for e in h2d) / n_steps:.1f} us/step")
     for kname, dur in top:
         log(f"[{name}]   {dur / n_steps:8.1f} us/step  {kname[:90]}")
+    return {"kernels": by_kernel, "ops": ops, "steps": n_steps}
 
 
 def latency(torch, name, plan, schema, sample_ids) -> None:
@@ -923,7 +999,7 @@ def latency(torch, name, plan, schema, sample_ids) -> None:
 
 
 def paired_latency(torch, plans: dict, schema, sample_ids,
-                   stores: dict | None = None) -> None:
+                   stores: dict | None = None) -> dict:
     """Request latency of several "dual" plans of one batch size, measured
     in turns (a, b, c, c, b, a, ...) so host and clock drift fall on all
     alike, each round on a fresh batch: p50/p80 of a request (``stage`` +
@@ -931,7 +1007,7 @@ def paired_latency(torch, plans: dict, schema, sample_ids,
     stage each batch first; ``predict`` for the others) and p50 of the
     host's enqueue of one step (``plan(ids)`` returning, before the device
     finishes); then a trace of each plan (staging each step's batch for
-    the host stores)."""
+    the host stores). Returns each plan's ``trace_step`` result."""
     import numpy as np
 
     stores = stores or {}
@@ -965,6 +1041,7 @@ def paired_latency(torch, plans: dict, schema, sample_ids,
             f"{len(tags) - 1} other plans): p50 {np.percentile(la, 50):.3f} "
             f"ms, p80 {np.percentile(la, 80):.3f} ms, host enqueue of a step "
             f"p50 {np.percentile(en, 50):.3f} ms ({la.size} requests)")
+    traces = {}
     for tag, plan in plans.items():
         prepare = None
         if tag in stores:
@@ -973,7 +1050,8 @@ def paired_latency(torch, plans: dict, schema, sample_ids,
             def prepare(i, store=stores[tag], feed=feed):
                 store.stage(feed[i])
                 return torch.from_numpy(feed[i]).to(dev)
-        trace_step(torch, tag, plan, ids_dev, prepare=prepare)
+        traces[tag] = trace_step(torch, tag, plan, ids_dev, prepare=prepare)
+    return traces
 
 
 def serve(plan, schema, sample_ids, n_requests: int, step0: int):
@@ -1390,16 +1468,19 @@ def run_tiered(torch, dev, spec, schema, sample_ids, *, batches,
     return launches
 
 
-def run_int8_models(torch, dev, schema, sample_ids) -> int:
+def run_int8_models(torch, dev, schema, sample_ids) -> dict:
     """Full-width DCNv2, then DCN, DeepFM and Wide&Deep, compiled with
     ``compute_dtype="int8"``: the four levels agree on the card, the card
     agrees with the CPU int8 path on the same weights, the weight counters
     are the reference's, and "dual" plans serve a few dozen requests
     (partial batches among them) with the counters reset just before and
-    read just after: three K12 launches a step, scores finite, in (0, 1)
-    and within ``Q8_SCORE_GATE`` of the fp32 plan's on the same requests.
-    DCNv2's int8 and fp32 plans are then timed in turns and traced.
-    Returns K12's launches in DCNv2's run."""
+    read just after: three quantizer and three K12 launches a step, scores
+    finite, in (0, 1) and within ``Q8_SCORE_GATE`` of the fp32 plan's on
+    the same requests. DCNv2's int8 and fp32 plans are then timed in turns
+    and traced; the int8 step's trace must hold no ``abs``/``amax``/
+    ``div``/``round``/``clamp`` op or kernel (the MLP layers' quantizer
+    was those ops before it was a kernel). Returns the quantizer's and
+    K12's launches in DCNv2's run."""
     import numpy as np
 
     from repro_torch.configs import ctr_spec
@@ -1407,7 +1488,7 @@ def run_int8_models(torch, dev, schema, sample_ids) -> int:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.ctr import CTR_MODELS
 
-    launches = 0
+    launches = {}
     for name, batches, n_requests in (("dcnv2", (256, 1024), 16),
                                       ("dcn", (256,), 24),
                                       ("deepfm", (256,), 24),
@@ -1464,7 +1545,8 @@ def run_int8_models(torch, dev, schema, sample_ids) -> int:
         torch.cuda.synchronize()
         counts = launch_counts()
         n_steps = len(batches) * n_requests
-        assert counts["dmm_q8"] == 3 * n_steps, counts
+        assert counts["dmm_q8"] == counts["quantize_rows_q8"] \
+            == 3 * n_steps, counts
         s32 = np.concatenate([np.concatenate(serve(
             p32[b], schema, sample_ids, n_requests, 40_000 + b))
             for b in batches])
@@ -1476,14 +1558,37 @@ def run_int8_models(torch, dev, schema, sample_ids) -> int:
             f"[{s8.min():.4f}, {s8.max():.4f}]; max|int8 - fp32| = "
             f"{err:.3e}; launches {counts}")
         if name == "dcnv2":
-            launches = counts["dmm_q8"]
+            launches = {k: counts[k] for k in ("quantize_rows_q8", "dmm_q8")}
             for b in batches:
-                paired_latency(torch, {"dcnv2-fp32": p32[b],
-                                       "dcnv2-int8": p8[b]},
-                               schema, sample_ids)
+                traces = paired_latency(torch, {"dcnv2-fp32": p32[b],
+                                                "dcnv2-int8": p8[b]},
+                                        schema, sample_ids)
+                check_no_quantizer_ops(traces["dcnv2-int8"], f"{tag} b={b}")
         del model, p8, p32
         torch.cuda.empty_cache()
     return launches
+
+
+QUANT_OPS = ("aten::abs", "aten::amax", "aten::div", "aten::round",
+             "aten::clamp", "aten::clamp_", "aten::clamp_min")
+QUANT_KERNELS = ("abs_kernel", "MaxNanFunctor", "MaxOps", "div_true",
+                 "round_kernel", "clamp")
+
+
+def check_no_quantizer_ops(trace: dict, tag: str) -> None:
+    """Fail if a traced int8 step ran any op or kernel of the eager
+    activation quantizer (``quant.absmax_scale`` + ``quant.quantize``)."""
+    ops = {op: n for op, n in trace["ops"].items() if op in QUANT_OPS}
+    kernels = [k for k in trace["kernels"]
+               if any(p in k for p in QUANT_KERNELS)]
+    assert not ops and not kernels, f"{tag}: quantizer ops {ops} {kernels}"
+    per_step = {k: sum(us for name, us in trace["kernels"].items()
+                       if k in name) / trace["steps"]
+                for k in ("quantize_rows_q8", "dmm_q8")}
+    log(f"[{tag}] trace: no abs/amax/div/round/clamp op or kernel "
+        f"({len(trace['ops'])} op names, {len(trace['kernels'])} kernels); "
+        f"quantize_rows_q8 {per_step['quantize_rows_q8']:.1f} us/step, "
+        f"dmm_q8 {per_step['dmm_q8']:.1f} us/step")
 
 
 def run_int8_stack(torch, dev, spec, schema, sample_ids, *, batches,
@@ -1640,6 +1745,7 @@ def main() -> int:
     phase_tiered_kernels(torch, dev, emb, CRITEO, sample_ids, record)
     phase_host_kernels(torch, dev, emb, CRITEO, sample_ids, record)
     phase_q8_kernels(torch, dev, record)
+    phase_quantizer(torch, dev, record)
     launches = phase_lookup_variants(torch, dev, emb, CRITEO, sample_ids,
                                      record)
     del emb, wide
@@ -1669,8 +1775,9 @@ def main() -> int:
         torch, dev, ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024),
         CRITEO, sample_ids, batches=(256, 1024), n_requests=16))
 
-    # 7. int8 dense compute (K12): the four models, then the full int8 stack
-    launches["dmm_q8"] = run_int8_models(torch, dev, CRITEO, sample_ids)
+    # 7. int8 dense compute (the quantizer + K12): the four models, then the
+    # full int8 stack
+    launches.update(run_int8_models(torch, dev, CRITEO, sample_ids))
     run_int8_stack(torch, dev,
                    ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024),
                    CRITEO, sample_ids, batches=(256, 1024), n_requests=16)
@@ -1710,7 +1817,10 @@ def main() -> int:
                                          "b=1024,k=39,d=32"),
                "dmm_q8": ("dense_matmul_q8.cu",
                           "src/repro/kernels/dense_matmul.py:42",
-                          "b=1024,in=1248,out=1024")}
+                          "b=1024,in=1248,out=1024"),
+               "quantize_rows_q8": ("quantize_rows_q8.cu",
+                                    "src/repro/quant.py:52,60 (jnp)",
+                                    "b=1024,in=1248")}
     kernels = []
     for name, (src, replaces, shape) in sources.items():
         row = next(r for r in rows if r["name"] == name

@@ -13,6 +13,10 @@ plain PyTorch versions.
   K10 fused_cross_v1           csrc/fused_cross.cu        (fused_cross.py)
   K11 fused_fm_second_order    csrc/fused_fm.cu           (fused_fm.py)
   K12 dmm_q8                   csrc/dense_matmul_q8.cu    (dense_matmul.py)
+      quantize_rows_q8         csrc/quantize_rows_q8.cu   (quantize.py)
+
+``quantize_rows_q8`` has no TPU counterpart: it fuses the reference's jnp
+activation quantizer, which feeds K12, into one launch.
 
 Each wrapper counts its launches in ``<wrapper>.launches``; a run can
 reset and read them all with :func:`reset_launch_counts` and
@@ -29,6 +33,7 @@ from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
                                  mtl_gather_two_level,
                                  mtl_gather_two_level_q8, mtl_input_first,
                                  mtl_onehot)
+from .quantize import quantize_rows_q8
 
 KERNELS = {
     "mtl_gather": mtl_gather,
@@ -43,6 +48,7 @@ KERNELS = {
     "fused_cross_v1": fused_cross_v1,
     "fused_fm_second_order": fused_fm_second_order,
     "dmm_q8": dmm_q8,
+    "quantize_rows_q8": quantize_rows_q8,
 }
 
 
@@ -60,4 +66,4 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "mtl_gather",
            "mtl_gather_two_level_q8", "mtl_gather_three_level",
            "mtl_gather_three_level_q8", "mtl_onehot", "mtl_input_first",
            "fused_cross_v2", "fused_cross_v1", "fused_fm_second_order",
-           "dmm_q8"]
+           "dmm_q8", "quantize_rows_q8"]

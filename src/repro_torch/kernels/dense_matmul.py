@@ -9,8 +9,12 @@ int8 activations (one scale per row) times int8 weights (one scale per
 output channel), summed in int32, then widened, scaled, biased and
 rectified in the same pass. The kernel takes the weight transposed,
 ``wq_t`` (fan_out, fan_in), so that both operands are contiguous along
-the summed axis; :func:`pack_weight` makes it once, when the graph is
-built, as the reference bakes its int8 weight at compile time.
+the summed axis (K-major, as int8 ``wgmma`` reads them); :func:`pack_weight`
+makes it once, when the graph is built, as the reference bakes its int8
+weight at compile time. The kernel's TMA copies need rows whose length
+is a multiple of 16 bytes and a 16-byte-aligned base: :func:`pad_k`
+copies any other operand once into a zero-padded buffer, which adds
+nothing to the int32 sum.
 
 The epilogue is ``fma(fp32(acc) * hscale, wscale, bias)`` with the
 product rounded once and the multiply-add fused — what the reference's
@@ -30,7 +34,8 @@ import torch
 from . import _build
 from .ref import ref_dense_matmul_q8
 
-__all__ = ["dmm_q8", "dmm_q8_plain", "pack_weight", "MAX_FAN_IN"]
+__all__ = ["dmm_q8", "dmm_q8_plain", "pack_weight", "pad_k",
+           "MAX_FAN_IN"]
 
 #: largest fan_in whose int32 sum of int8 products cannot overflow
 MAX_FAN_IN = (2**31 - 1) // (127 * 127)
@@ -40,6 +45,19 @@ def pack_weight(wq: torch.Tensor) -> torch.Tensor:
     """The kernel's weight layout: (fan_in, fan_out) int8 codes ->
     (fan_out, fan_in), contiguous."""
     return wq.t().contiguous()
+
+
+def pad_k(t: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """``t`` (rows, K) int8 as the kernel's TMA copies take it: contiguous
+    rows of ``k_pad`` bytes (a multiple of 16, at least K) from a
+    16-byte-aligned base. Returns ``t`` itself when it already is, else a
+    copy whose columns past K are zero."""
+    rows, k = t.shape
+    if k == k_pad and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((rows, k_pad))
+    out[:, :k] = t
+    return out
 
 
 def dmm_q8_plain(hq: torch.Tensor, hscale: torch.Tensor, wq_t: torch.Tensor,
@@ -84,7 +102,7 @@ def dmm_q8(hq: torch.Tensor, hscale: torch.Tensor, wq_t: torch.Tensor,
         (b, fan_out) float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream.
+    the current stream, at any shape (ragged ones through :func:`pad_k`).
     """
     dev = hq.device
     _build.check_tensor("hq", hq, torch.int8, 2, dev)
@@ -105,9 +123,11 @@ def dmm_q8(hq: torch.Tensor, hscale: torch.Tensor, wq_t: torch.Tensor,
     out = torch.empty((b, fan_out), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    k_pad = max(16, -(-fan_in // 16) * 16)     # fan_in 0: a zero sum
+    hq, wq_t = pad_k(hq, k_pad), pad_k(wq_t, k_pad)
     code = _kernel()(hq.data_ptr(), hscale.data_ptr(), wq_t.data_ptr(),
                      wscale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                     b, fan_out, fan_in, int(relu), _build.current_stream(dev))
+                     b, fan_out, k_pad, int(relu), _build.current_stream(dev))
     _build.check_launch("dmm_q8", code)
     dmm_q8.launches += 1
     return out

@@ -28,8 +28,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import quant
-
 from . import ref
 from .dense_matmul import dmm_q8
 from .fused_cross import fused_cross_v1, fused_cross_v2
@@ -40,6 +38,7 @@ from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
                                  mtl_gather_two_level,
                                  mtl_gather_two_level_q8, mtl_input_first,
                                  mtl_onehot)
+from .quantize import quantize_rows_q8
 
 __all__ = ["STRATEGIES", "POOLED_STRATEGIES", "multi_table_lookup",
            "multi_table_lookup_multihot", "multi_table_lookup_cached",
@@ -440,10 +439,11 @@ def dense_matmul_q8(h: torch.Tensor, wq_t: torch.Tensor,
     per-channel int8 weights, int32 sum, dequant + bias (+ ReLU) in the
     epilogue.
 
-    The activation quantizer (``absmax_scale`` then ``quantize``) runs
-    here, outside the kernel, as in the reference; the weight arrives
-    quantized once at graph build (``quant.quantize_channels``) and laid
-    out for the kernel (``dense_matmul.pack_weight``).
+    Two launches on CUDA: the per-row activation quantizer
+    (``quantize_rows_q8``, one fused kernel where the reference's jnp
+    ``absmax_scale`` + ``quantize`` fuse under jit), then K12. The weight
+    arrives quantized once at graph build (``quant.quantize_channels``)
+    and laid out for the kernel (``dense_matmul.pack_weight``).
 
     Args:
         h:        (b, fan_in) float32 activations.
@@ -456,6 +456,5 @@ def dense_matmul_q8(h: torch.Tensor, wq_t: torch.Tensor,
         (b, fan_out) float32: K12 for a CUDA tensor, its plain version
         for a CPU tensor.
     """
-    hscale = quant.absmax_scale(h, dim=-1)
-    return dmm_q8(quant.quantize(h, hscale), hscale, wq_t, wscale,
-                  bias.reshape(1, -1), relu=relu)
+    hq, hscale = quantize_rows_q8(h)
+    return dmm_q8(hq, hscale, wq_t, wscale, bias.reshape(1, -1), relu=relu)

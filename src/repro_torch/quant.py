@@ -8,8 +8,10 @@ fp32 scale per row; the tiered gathers dequantize inside the kernel
 registers. Plans compiled with ``compute_dtype="int8"`` hold each MLP
 weight as int8 with one fp32 scale per output channel
 (:func:`quantize_channels`) and quantize activations per row at every
-step; the int8 dense kernel (``kernels/csrc/dense_matmul_q8.cu``)
-dequantizes in its epilogue.
+step (on a card in one kernel, ``kernels/csrc/quantize_rows_q8.cu``,
+whose plain version is :func:`absmax_scale` then :func:`quantize`); the
+int8 dense kernel (``kernels/csrc/dense_matmul_q8.cu``) dequantizes in its
+epilogue.
 
 Symmetric absmax: ``scale = max|x| / 127`` (the -128 code is never
 emitted, so the grid is symmetric around an exact zero) and
@@ -41,8 +43,8 @@ def absmax_scale(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     # division by a Python number into a multiply by its reciprocal, which
     # can round the last bit differently from the reference's division.
     # A device fill, not torch.tensor: that would copy from pageable host
-    # memory and hold the stream on every call (int8 plans call this at
-    # every layer of every step)
+    # memory and hold the stream on every call (the stores quantize every
+    # refresh and delta batch with it)
     qmax = torch.full((), QMAX, dtype=x.dtype, device=x.device)
     s = x.abs().amax(dim=dim, keepdim=True) / qmax
     return s.clamp_min(SCALE_EPS).to(torch.float32)

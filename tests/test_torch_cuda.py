@@ -7,12 +7,13 @@ imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py -q
 
-K1–K10 and K12 are bitwise (copies, pools summed in slot order,
-arithmetic rounded in the plain order without FMA, and K12's exact int32
-sum with the plain version's fma epilogue); K11 sums in another order than
-``torch.sum`` (``rtol=atol=1e-5``). Whole models cross devices at
-``rtol=1e-4, atol=1e-5``: cuBLAS and the CPU BLAS sum the GEMMs in
-different orders.
+K1–K10, K12 and the activation quantizer are bitwise (copies, pools
+summed in slot order, arithmetic rounded in the plain order without FMA,
+K12's exact int32 sum with the plain version's fma epilogue, and the
+quantizer's codes rounded half to even from the true quotient); K11 sums
+in another order than ``torch.sum`` (``rtol=atol=1e-5``). Whole models
+cross devices at ``rtol=1e-4, atol=1e-5``: cuBLAS and the CPU BLAS sum
+the GEMMs in different orders.
 """
 
 import numpy as np
@@ -25,7 +26,7 @@ from repro_torch.core import LEVELS, compile_plan  # noqa: E402
 from repro_torch.data import CRITEO, sample_ids  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.dense_matmul import (  # noqa: E402
-    dmm_q8, dmm_q8_plain, pack_weight)
+    dmm_q8, dmm_q8_plain, pack_weight, pad_k)
 from repro_torch.kernels.fused_cross import (  # noqa: E402
     fused_cross_v1, fused_cross_v1_plain, fused_cross_v2, fused_cross_v2_plain)
 from repro_torch.kernels.fused_fm import (  # noqa: E402
@@ -37,6 +38,8 @@ from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather_two_level, mtl_gather_two_level_plain,
     mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain, mtl_input_first,
     mtl_input_first_plain, mtl_onehot, mtl_onehot_plain)
+from repro_torch.kernels.quantize import (  # noqa: E402
+    quantize_rows_q8, quantize_rows_q8_plain)
 from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
 from repro_torch.models.ctr import CTR_MODELS  # noqa: E402
 from repro_torch.quant import (absmax_scale, quantize,  # noqa: E402
@@ -464,6 +467,9 @@ def _q8_args(rng, b, fan_in, fan_out, device, saturate=False):
 @pytest.mark.parametrize("b,fan_in,fan_out,saturate", [
     (256, 1248, 1024, False), (1024, 1024, 1024, False),
     (1, 1, 1, False), (33, 7, 5, False), (64, 1248, 96, True),
+    # M not a multiple of the 64-row tile, N not a multiple of any N-tile
+    (200, 1248, 1024, False), (256, 1024, 96, False),
+    (1024, 1248, 1000, False), (200, 1152, 1000, True),
 ])
 def test_dmm_q8_bitwise(cuda, relu, b, fan_in, fan_out, saturate):
     rng = np.random.default_rng(b + fan_in)
@@ -495,6 +501,96 @@ def test_dmm_q8_launches_on_the_current_stream(cuda):
         out = dmm_q8(hq, hs, wq_t, ws, bias)
     side.synchronize()
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 16])
+def test_dmm_q8_takes_an_offset_view(cuda, offset):
+    """An ``hq`` that starts ``offset`` bytes into its storage (16-byte
+    misaligned for 1 and 3) goes through the kernel all the same, padded
+    into an aligned copy first."""
+    rng = np.random.default_rng(offset)
+    hq, hs, wq_t, ws, bias = _q8_args(rng, 200, 1248, 96, cuda)
+    buf = torch.zeros(offset + hq.numel(), dtype=torch.int8, device=cuda)
+    view = buf[offset:].view(hq.shape)
+    view.copy_(hq)
+    assert (view.data_ptr() % 16 == 0) == (offset % 16 == 0)
+    before = dmm_q8.launches
+    got = dmm_q8(view, hs, wq_t, ws, bias)
+    torch.cuda.synchronize()
+    assert dmm_q8.launches == before + 1
+    assert torch.equal(got, dmm_q8_plain(hq, hs, wq_t, ws, bias))
+    assert pad_k(view, 1248).data_ptr() % 16 == 0
+    assert (pad_k(view, 1248) is view) == (offset % 16 == 0)
+
+
+def _activation_rows(rng, b, fan_in):
+    """Activations as the MLP feeds the quantizer, rows of very different
+    scales, plus (where there are rows for them) an all-zero row and a
+    row whose every ``x / scale`` lands on ``k + 0.5``."""
+    h = (rng.normal(size=(b, fan_in))
+         * rng.uniform(1e-3, 10.0, size=(b, 1))).astype(np.float32)
+    if b > 1:
+        h[1] = 0.0
+    if b > 2:
+        h[2] = _half_way_row(fan_in)
+    return h
+
+
+def _half_way_row(fan_in):
+    """A row with max|x| = 127 s for s = 2**-4, so its scale is exactly s,
+    and every other value (k + 0.5) s: round half to even decides each
+    code."""
+    s = np.float32(2.0**-4)
+    k = (np.arange(fan_in) % 254) - 127 + 0.5            # -126.5 .. 126.5
+    row = (k * s).astype(np.float32)
+    row[0] = 127 * s
+    return row
+
+
+@pytest.mark.parametrize("b", [1, 33, 256, 1024])
+@pytest.mark.parametrize("fan_in", [1248, 1024, 7, 1])
+def test_quantize_rows_q8_bitwise(cuda, b, fan_in):
+    rng = np.random.default_rng(b * 7 + fan_in)
+    h = torch.from_numpy(_activation_rows(rng, b, fan_in))
+    hc = h.to(cuda)
+    before = quantize_rows_q8.launches
+    hq, hs = quantize_rows_q8(hc)
+    torch.cuda.synchronize()
+    assert quantize_rows_q8.launches == before + 1
+    assert hq.dtype == torch.int8 and tuple(hq.shape) == (b, fan_in)
+    assert hs.dtype == torch.float32 and tuple(hs.shape) == (b, 1)
+    want_q, want_s = quantize_rows_q8_plain(hc)
+    assert torch.equal(hq, want_q) and torch.equal(hs, want_s)
+    cpu_q, cpu_s = quantize_rows_q8_plain(h)
+    assert torch.equal(hq.cpu(), cpu_q) and torch.equal(hs.cpu(), cpu_s)
+    if b > 1:                                  # the all-zero row
+        assert hs[1, 0].item() == np.float32(1e-12) and not hq[1].any()
+
+
+@pytest.mark.parametrize("fan_in", [1248, 7])
+def test_quantize_rows_q8_rounds_half_to_even(cuda, fan_in):
+    row = _half_way_row(fan_in)
+    hq, hs = quantize_rows_q8(torch.from_numpy(row[None]).to(cuda))
+    assert hs.item() == 2.0**-4
+    want = np.rint(row / np.float32(2.0**-4)).astype(np.int8)   # half-even
+    np.testing.assert_array_equal(hq[0].cpu().numpy(), want)
+    assert hq[0, 1].item() == -126          # -125.5 goes to the even code
+
+
+def test_quantize_rows_q8_launches_on_the_current_stream(cuda):
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(_activation_rows(rng, 256, 1248)).to(cuda)
+    want = quantize_rows_q8_plain(h)
+    side = torch.cuda.Stream()
+    src = h.clone()
+    h.zero_()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        h.copy_(src)
+        hq, hs = quantize_rows_q8(h)
+    side.synchronize()
+    assert torch.equal(hq, want[0]) and torch.equal(hs, want[1])
 
 
 @pytest.mark.parametrize("d", [1, 32])
@@ -552,8 +648,9 @@ def test_mtl_onehot_bitwise(cuda, dtype):
 
 def test_full_width_int8_dcnv2_matches_the_cpu_path(cuda):
     """The configuration of record at full width (uncapped Criteo, d = 32,
-    MLP 1248 -> 1024 x 3) through compute_dtype="int8": three K12 launches
-    a step, and the card's logits those of the CPU int8 path."""
+    MLP 1248 -> 1024 x 3) through compute_dtype="int8": three quantizer
+    and three K12 launches a step, and the card's logits those of the CPU
+    int8 path."""
     spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024)
     model = CTR_MODELS["dcnv2"](spec, device=cuda).init(
         torch.Generator(device=cuda).manual_seed(0))
@@ -565,7 +662,8 @@ def test_full_width_int8_dcnv2_matches_the_cpu_path(cuda):
     reset_launch_counts()
     got = plan(torch.from_numpy(ids).to(cuda))
     torch.cuda.synchronize()
-    assert launch_counts()["dmm_q8"] == 3
+    counts = launch_counts()
+    assert counts["dmm_q8"] == counts["quantize_rows_q8"] == 3, counts
     want = compile_plan(cpu_model, "dual", 16, device="cpu",
                         compute_dtype="int8")(torch.from_numpy(ids[:16]))
     torch.testing.assert_close(got[:16].cpu(), want, rtol=1e-4, atol=1e-5)

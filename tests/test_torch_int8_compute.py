@@ -1,5 +1,5 @@
-"""repro_torch's int8 dense compute (K12 and ``compute_dtype="int8"``)
-against the reference.
+"""repro_torch's int8 dense compute (K12, the activation quantizer and
+``compute_dtype="int8"``) against the reference.
 
 ``quant.quantize_channels`` and the plain version of the int8 dense layer
 (what ``ops.dense_matmul_q8`` runs on CPU tensors) are held bitwise against
@@ -38,7 +38,10 @@ from repro_torch.data import CRITEO, sample_ids  # noqa: E402
 from repro_torch.embedding import CachedStore  # noqa: E402
 from repro_torch.kernels import KERNELS, ops  # noqa: E402
 from repro_torch.kernels.dense_matmul import (MAX_FAN_IN, dmm_q8,  # noqa: E402
-                                              dmm_q8_plain, pack_weight)
+                                              dmm_q8_plain, pack_weight,
+                                              pad_k)
+from repro_torch.kernels.quantize import (quantize_rows_q8,  # noqa: E402
+                                          quantize_rows_q8_plain)
 from repro_torch.models.ctr import CTR_MODELS  # noqa: E402
 from repro_torch.models.ctr.common import emit_mlp_ops, mlp_layers  # noqa: E402
 
@@ -110,6 +113,77 @@ def test_absmax_scale_is_unchanged_a_true_division():
     recip = np.abs(x).max(axis=-1, keepdims=True) * np.float32(1.0 / 127.0)
     got = quant.absmax_scale(torch.from_numpy(x)).numpy()
     assert np.any(got != recip)      # the division shows on these rows
+
+
+# ---------------------------------------------------------------------------
+# the activation quantizer (kernels/quantize.py) == the reference's, bitwise
+# ---------------------------------------------------------------------------
+
+def activations(rng, b, fan_in):
+    """Rows of very different scales; row 1 all zero, row 2 a row whose
+    scale is exactly 2**-4 and whose every other ``x / scale`` is
+    ``k + 0.5``, so round half to even decides each code."""
+    h = (rng.normal(size=(b, fan_in))
+         * rng.uniform(1e-3, 10.0, size=(b, 1))).astype(np.float32)
+    h[1] = 0.0
+    s = np.float32(2.0**-4)
+    h[2] = (((np.arange(fan_in) % 254) - 127 + 0.5) * s).astype(np.float32)
+    h[2, 0] = 127 * s
+    return h
+
+
+@pytest.mark.parametrize("b,fan_in", [(3, 1), (5, 7), (33, 80), (64, 1248)])
+def test_quantize_rows_q8_bitwise_vs_reference(b, fan_in):
+    h = activations(np.random.default_rng(b + fan_in), b, fan_in)
+    hq, hs = quantize_rows_q8(torch.from_numpy(h))
+    assert quantize_rows_q8.launches == 0           # CPU: no kernel launch
+    assert hq.dtype == torch.int8 and tuple(hq.shape) == (b, fan_in)
+    assert hs.dtype == torch.float32 and tuple(hs.shape) == (b, 1)
+    js = jquant.absmax_scale(jnp.asarray(h), axis=-1)
+    jq = jquant.quantize(jnp.asarray(h), js)
+    np.testing.assert_array_equal(hs.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(hq.numpy(), np.asarray(jq))
+    assert hs[1, 0] == np.float32(quant.SCALE_EPS) and not hq[1].any()
+    assert hs[2, 0] == 2.0**-4
+    np.testing.assert_array_equal(hq[2].numpy(),
+                                  np.rint(h[2] * 16).astype(np.int8))
+
+
+def test_quantize_rows_q8_checks_its_inputs():
+    h = torch.randn((4, 16), generator=torch.Generator().manual_seed(0))
+    with pytest.raises(TypeError):
+        quantize_rows_q8(h.double())
+    with pytest.raises(ValueError, match="rank"):
+        quantize_rows_q8(h.reshape(-1))
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_rows_q8(h.t())
+    with pytest.raises(ValueError, match="columns"):
+        quantize_rows_q8(h[:, :0])
+    with pytest.raises(ValueError, match="meta"):
+        quantize_rows_q8(h.to("meta"))
+    assert "quantize_rows_q8" in KERNELS
+
+
+def test_dense_matmul_q8_quantizes_through_the_wrapper(monkeypatch):
+    """``ops.dense_matmul_q8`` quantizes its activations with
+    ``quantize_rows_q8`` (one kernel launch on CUDA) and nothing else."""
+    seen = []
+
+    def spy(h):
+        seen.append(tuple(h.shape))
+        return quantize_rows_q8_plain(h)
+
+    monkeypatch.setattr(ops, "quantize_rows_q8", spy)
+    rng = np.random.default_rng(4)
+    h, w, bias = q8_layer(rng, 6, 40, 24)
+    wq, ws = jquant.quantize_channels(jnp.asarray(w))
+    got = ops.dense_matmul_q8(torch.from_numpy(h),
+                              pack_weight(torch.from_numpy(np.array(wq))),
+                              torch.from_numpy(np.array(ws)),
+                              torch.from_numpy(bias))
+    assert seen == [(6, 40)]
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref_layer(h, w, bias, True, "jnp"))
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +273,32 @@ def test_dmm_q8_checks_its_inputs():
         dmm_q8(hq.float(), hs, wq_t, ws, b)
     assert MAX_FAN_IN * 127 * 127 < 2**31 <= (MAX_FAN_IN + 1) * 127 * 127
     assert "dmm_q8" in KERNELS
+
+
+@pytest.mark.parametrize("b,fan_in,fan_out", [(33, 7, 5), (1, 1, 1)])
+def test_pad_k_keeps_the_int32_sum(b, fan_in, fan_out):
+    """The wrapper's padding (rows of 16 bytes for the kernel's TMA
+    copies): zero columns past K leave the layer unchanged, bitwise."""
+    rng = np.random.default_rng(b + fan_in)
+    hq = torch.from_numpy(rng.integers(-127, 128, size=(b, fan_in))
+                          .astype(np.int8))
+    wq_t = torch.from_numpy(rng.integers(-127, 128, size=(fan_out, fan_in))
+                            .astype(np.int8))
+    hs = torch.from_numpy(rng.uniform(0.01, 1, size=(b, 1))
+                          .astype(np.float32))
+    ws = torch.from_numpy(rng.uniform(0.01, 1, size=(1, fan_out))
+                          .astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(1, fan_out)).astype(np.float32))
+    hp, wp = pad_k(hq, 16), pad_k(wq_t, 16)
+    assert tuple(hp.shape) == (b, 16) and tuple(wp.shape) == (fan_out, 16)
+    assert hp.is_contiguous() and hp.data_ptr() % 16 == 0
+    assert not hp[:, fan_in:].any() and torch.equal(hp[:, :fan_in], hq)
+    for relu in (True, False):
+        assert torch.equal(dmm_q8_plain(hp, hs, wp, ws, bias, relu=relu),
+                           dmm_q8_plain(hq, hs, wq_t, ws, bias, relu=relu))
+    assert pad_k(hp, 16) is hp                       # already as TMA takes it
+    view = torch.zeros(3 + b * 16, dtype=torch.int8)[3:].view(b, 16)
+    assert view.data_ptr() % 16 != 0 and pad_k(view, 16) is not view
 
 
 # ---------------------------------------------------------------------------

@@ -203,4 +203,5 @@ def test_build_dir_tracks_sources():
     assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
         "mtl_gather", "mtl_gather_tiered", "fused_cross", "fused_fm",
-        "mtl_onehot", "mtl_input_first", "dense_matmul_q8"}
+        "mtl_onehot", "mtl_input_first", "dense_matmul_q8",
+        "quantize_rows_q8"}
