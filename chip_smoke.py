@@ -41,10 +41,16 @@ Phases (any failure raises; the script then exits non-zero):
    activation quantizer ``quantize_rows_q8`` at the same b × fan_in
    (a zero row and half-way values among them), bitwise against its
    plain version on the card and on the CPU, timed beside that ~10-op
-   plain path; K8 ``mtl_input_first`` at Fig. 11's shapes (39 fields of
-   100,000 rows, d = 32 at b = 2048, 16,384, 65,536 and d = 60 at b = 2048) and
-   on the full Criteo table, bitwise against K1, with the input-first /
-   output-first ratio; K7 ``mtl_onehot`` over Criteo's 18 fields of at
+   plain path, and on a row holding a NaN and one holding an inf (scale
+   NaN and inf, codes 0 as on the CPU, K12's output rows all NaN, every
+   other value bitwise); K8 ``mtl_input_first`` and K1 at Fig. 11's
+   shapes (39 fields of 100,000 rows, d = 32 at b = 2048, 16,384, 65,536
+   and d = 60 at b = 2048) and K8 on the full Criteo table, both also on
+   a table view 4 bytes into its storage (their 4-byte path; Criteo
+   b = 1024 and Fig. 11's d = 60), bitwise against each other and their
+   plain versions, each timed beside ``index_select`` on its own row
+   order, with the input-first / output-first ratio and each launch
+   shape; K7 ``mtl_onehot`` over Criteo's 18 fields of at
    most 128 rows (fp32 and bf16, out-of-range ids giving zero rows),
    bitwise against its plain version and a K1 gather; then K8's path
    (``FusedEmbeddingCollection.forward(strategy="input_first")``) and
@@ -126,6 +132,7 @@ Q8_SCORE_GATE = 1e-2        # per-score |int8 - fp32| (accuracy_parity.py:13)
 # of 100,000 rows, uniform ids, (b, d)
 FIG11_FIELDS, FIG11_ROWS = 39, 100_000
 FIG11_CASES = ((2048, 32), (16_384, 32), (65_536, 32), (2048, 60))
+MISALIGNED_FIG11 = (2048, 60)   # K1 and K8 also on a view 4 bytes in
 ONEHOT_MAX_ROWS, ONEHOT_PAD = 128, 128  # Criteo's fields of <= 128 rows
 
 
@@ -196,6 +203,65 @@ def recorder(rows: list):
     return record
 
 
+def launch_sweep(torch, table, offsets, sets, shape: str) -> None:
+    """Time K1 at one and two rows a thread and K8, each at 32, 64, 128
+    and 256 threads a block, by calling their C entries with each launch
+    shape (every one checked bitwise against the plain version first):
+    the measurements behind ``gather_launch`` and ``input_first_launch``.
+    ``sets`` hold the ids first."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import multi_table_lookup as mtl
+
+    ids0 = sets[0][0]
+    b, k = ids0.shape
+    n_rows, d = table.shape
+    stream = _build.current_stream(table.device)
+    vec = mtl.vector_words(d, table.data_ptr())
+    lanes = mtl.gather_launch(b, k, d, vec).lanes
+
+    def k1(rows, threads):
+        blocks = math.ceil(math.ceil(b * k / rows) * lanes / threads)
+
+        def run(ids, *_):
+            out = torch.empty((b, k * d), device=table.device)
+            code = mtl._kernel()(
+                ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+                out.data_ptr(), b, k, d, n_rows, int(vec),
+                lanes.bit_length() - 1, rows, threads, blocks, stream)
+            assert code == 0, code
+            return out
+        return run
+
+    def k8(threads):
+        def run(ids, *_):
+            out = torch.empty((k, b, d), device=table.device)
+            code = mtl._input_first_kernel()(
+                ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+                out.data_ptr(), b, k, d, n_rows, int(vec), threads,
+                math.ceil(b * k / threads), stream)
+            assert code == 0, code
+            return out
+        return run
+
+    want = mtl.mtl_gather_plain(ids0, offsets, table)
+    want_f = mtl.mtl_input_first_plain(ids0, offsets, table,
+                                       field_major=True)
+    t1, t8 = {}, {}
+    for threads in (32, 64, 128, 256):
+        for rows in (1, 2):
+            assert torch.equal(k1(rows, threads)(ids0), want), shape
+            t1[f"r{rows}t{threads}"] = round(
+                device_ms(torch, k1(rows, threads), sets) * 1e3, 2)
+        assert torch.equal(k8(threads)(ids0), want_f), shape
+        t8[f"t{threads}"] = round(device_ms(torch, k8(threads), sets) * 1e3,
+                                  2)
+    k1_pick = mtl.gather_launch(b, k, d, vec)
+    k8_pick = mtl.input_first_launch(b, k, vec)
+    log(f"[sweep] {shape}: mtl_gather us {t1} (picked r{k1_pick.rows}"
+        f"t{k1_pick.threads}); mtl_input_first us {t8} (picked "
+        f"t{k8_pick.threads})")
+
+
 def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
                   record):
     from repro_torch.kernels.fused_cross import (
@@ -204,7 +270,7 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
     from repro_torch.kernels.fused_fm import (
         fused_fm_second_order, fused_fm_second_order_plain)
     from repro_torch.kernels.multi_table_lookup import (
-        mtl_gather, mtl_gather_plain)
+        gather_launch, mtl_gather, mtl_gather_plain, vector_words)
 
     k = schema.k
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -238,6 +304,10 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
             moved = b * k * 4 + k * 4 + uniq * d * 4 + b * k * d * 4
             record("mtl_gather", f"b={b},k={k},d={d}", err, ms, plain_ms,
                    lib_ms, moved, 0)
+            log(f"[launch] mtl_gather b={b},k={k},d={d}: "
+                f"{gather_launch(b, k, d, vector_words(d, table.data_ptr()))}")
+            if d == 1:
+                launch_sweep(torch, table, offsets, sets, f"b={b},k={k},d=1")
 
         dim = k * 32
         # K9 fused_cross_v2
@@ -421,6 +491,44 @@ def phase_quantizer(torch, dev, record):
             log(f"[quant] {shape}: library_ms none (the plain version is "
                 f"the ~10-op path: {plain_ms:.5f} ms)")
 
+    # rows holding a NaN and an inf at fan_in 1248: the scale is NaN for
+    # the NaN row (the plain version's amax and clamp_min propagate it) and
+    # inf for the inf row, codes 0 in both, as on the CPU; K12 then gives
+    # both rows NaN outputs through its ReLU, and every other value stays
+    # bitwise the plain version's
+    from repro_torch.kernels.dense_matmul import (dmm_q8, dmm_q8_plain,
+                                                  pack_weight)
+    from repro_torch.quant import quantize_channels
+    h = make(256, 1248)
+    h[3, 5] = float("nan")
+    h[4, 0] = float("inf")
+    hq, hs = quantize_rows_q8(h)
+    want_q, want_s = quantize_rows_q8_plain(h)
+    cpu_q, cpu_s = quantize_rows_q8_plain(h.cpu())
+    nan = torch.isnan(hs)
+    assert nan[:, 0].nonzero().flatten().tolist() == [3], "NaN scale"
+    assert torch.equal(nan, torch.isnan(want_s)) and \
+        torch.equal(nan.cpu(), torch.isnan(cpu_s)), "NaN scale vs plain"
+    assert torch.equal(hs[~nan].view(torch.int32),
+                       want_s[~nan].view(torch.int32)), "scales vs plain"
+    assert torch.equal(hs.cpu()[~nan.cpu()].view(torch.int32),
+                       cpu_s[~nan.cpu()].view(torch.int32)), "scales vs CPU"
+    assert math.isinf(hs[4, 0].item()), "inf scale"
+    assert torch.equal(hq.cpu(), cpu_q) and not hq[3:5].any(), "codes vs CPU"
+    wq, ws = quantize_channels(torch.randn((1248, 1024), device=dev,
+                                           generator=g))
+    bias = torch.randn((1, 1024), device=dev, generator=g)
+    out = dmm_q8(hq, hs, pack_weight(wq), ws, bias)
+    want = dmm_q8_plain(hq, hs, pack_weight(wq), ws, bias)
+    rows = torch.isnan(out).all(dim=1)
+    assert rows.nonzero().flatten().tolist() == [3, 4], "K12 NaN rows"
+    assert not torch.isnan(out[~rows]).any() and \
+        torch.equal(out[~rows], want[~rows]) and \
+        torch.isnan(want[rows]).all(), "K12 vs plain"
+    log(f"[quant] NaN row: scale {hs[3, 0].item()}, codes all 0, K12 row "
+        f"all NaN; inf row: scale {hs[4, 0].item()}, K12 row all NaN; the "
+        f"other 254 rows bitwise the plain version")
+
 
 def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
                           record) -> dict:
@@ -438,39 +546,68 @@ def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
                                        FusedEmbeddingSpec)
     from repro_torch.kernels import launch_counts, ops, reset_launch_counts
     from repro_torch.kernels.multi_table_lookup import (
-        mtl_gather, mtl_input_first, mtl_input_first_plain, mtl_onehot,
-        mtl_onehot_plain)
+        gather_launch, input_first_launch, mtl_gather, mtl_gather_plain,
+        mtl_input_first, mtl_input_first_plain, mtl_onehot, mtl_onehot_plain,
+        vector_words)
 
-    def fmajor_rows(ids, offsets):
-        rows = ids.long() + offsets.long()[None, :]
-        return rows.t().reshape(-1)
+    def lookup_sets(ids_list, offsets):
+        """(ids, field-major rows, sample-major rows) per batch of ids: the
+        rows ``index_select`` takes to build K8's and K1's outputs."""
+        sets = []
+        for ids in ids_list:
+            rows = ids.long() + offsets.long()[None, :]
+            sets.append((ids, rows.t().reshape(-1), rows.reshape(-1)))
+        return sets
 
-    def k8_case(table, offsets, sets, shape):
-        """Check K8 on ``sets[0]`` and time it: the kernel alone (its
-        (k, b, d) buffer), with the transpose, and K1 beside it."""
+    def misaligned(table):
+        """A copy of ``table`` 4 bytes into its storage: K1's and K8's
+        4-byte path."""
+        n, d = table.shape
+        view = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
+        view.copy_(table)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    def k8_case(table, offsets, sets, shape, k1_too: bool):
+        """Check K8 and K1 on ``sets[0]``, bitwise, and time them: K8 alone
+        (its (k, b, d) buffer) and with the transpose, K1 beside it; each
+        beside its plain version and ``index_select`` on its own row
+        order. ``k1_too`` records K1's row as well."""
         ids0 = sets[0][0]
         b, k = ids0.shape
         d = table.shape[1]
         out = mtl_input_first(ids0, offsets, table)
         assert torch.equal(out, mtl_input_first_plain(ids0, offsets, table))
         assert torch.equal(out, mtl_gather(ids0, offsets, table)), shape
+        assert torch.equal(out, mtl_gather_plain(ids0, offsets, table))
         assert torch.equal(mtl_input_first(ids0, offsets, table,
                                            field_major=True),
                            mtl_input_first_plain(ids0, offsets, table,
                                                  field_major=True))
-        kernel_ms = device_ms(torch, lambda i, r: mtl_input_first(
+        kernel_ms = device_ms(torch, lambda i, fr, r: mtl_input_first(
             i, offsets, table, field_major=True), sets)
-        full_ms = device_ms(torch, lambda i, r: mtl_input_first(
+        full_ms = device_ms(torch, lambda i, fr, r: mtl_input_first(
             i, offsets, table), sets)
-        k1_ms = device_ms(torch, lambda i, r: mtl_gather(i, offsets, table),
-                          sets)
-        plain_ms = device_ms(torch, lambda i, r: mtl_input_first_plain(
+        k1_ms = device_ms(torch, lambda i, fr, r: mtl_gather(
+            i, offsets, table), sets)
+        plain_ms = device_ms(torch, lambda i, fr, r: mtl_input_first_plain(
             i, offsets, table, field_major=True), sets)
-        lib_ms = device_ms(torch, lambda i, r: torch.index_select(
-            table, 0, r), sets)
+        lib_ms = device_ms(torch, lambda i, fr, r: torch.index_select(
+            table, 0, fr), sets)
         uniq = torch.unique(sets[0][1]).numel()
+        moved = b * k * 4 + k * 4 + uniq * d * 4 + b * k * d * 4
         record("mtl_input_first", shape, 0.0, kernel_ms, plain_ms, lib_ms,
-               b * k * 4 + k * 4 + uniq * d * 4 + b * k * d * 4, 0)
+               moved, 0)
+        vec = vector_words(d, table.data_ptr())
+        if k1_too:
+            record("mtl_gather", shape, 0.0, k1_ms,
+                   device_ms(torch, lambda i, fr, r: mtl_gather_plain(
+                       i, offsets, table), sets),
+                   device_ms(torch, lambda i, fr, r: torch.index_select(
+                       table, 0, r), sets), moved, 0)
+        log(f"[launch] {shape}: mtl_gather {gather_launch(b, k, d, vec)}, "
+            f"mtl_input_first {input_first_launch(b, k, vec)}")
+        launch_sweep(torch, table, offsets, sets, shape)
         log(f"[fig11] {shape}: input-first kernel {kernel_ms:.5f} ms, with "
             f"its transpose {full_ms:.5f} ms; output-first K1 {k1_ms:.5f} "
             f"ms; input-first / output-first = {full_ms / k1_ms:.3f} "
@@ -485,30 +622,43 @@ def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
         coll.store.reset_parameters(
             torch.Generator(device=dev).manual_seed(SEED))
         table, offsets = coll.dense_view(), coll.offsets
-        sets = []
-        for _ in range(n_sets(2 * b * FIG11_FIELDS * d * 4)):
-            ids = torch.from_numpy(rng.integers(
-                0, FIG11_ROWS, size=(b, FIG11_FIELDS)).astype(np.int32)
-                ).to(dev)
-            sets.append((ids, fmajor_rows(ids, offsets)))
-        k8_case(table, offsets, sets, f"b={b},k={FIG11_FIELDS},d={d},fig11")
-        del coll, table, sets
+        sets = lookup_sets([torch.from_numpy(rng.integers(
+            0, FIG11_ROWS, size=(b, FIG11_FIELDS)).astype(np.int32)).to(dev)
+            for _ in range(n_sets(2 * b * FIG11_FIELDS * d * 4))], offsets)
+        shape = f"b={b},k={FIG11_FIELDS},d={d},fig11"
+        k8_case(table, offsets, sets, shape, k1_too=True)
+        if (b, d) == MISALIGNED_FIG11:
+            view = misaligned(table)
+            del coll, table
+            k8_case(view, offsets, sets, shape + ",misaligned", k1_too=True)
+            del view
+        else:
+            del coll, table
+        del sets
         torch.cuda.empty_cache()
 
     # the full Criteo table
     table, offsets = emb.dense_view(), emb.offsets
     k = schema.k
+    view = misaligned(table)
     for b in (256, 1024):
-        sets = []
-        for s in range(n_sets(2 * b * k * 32 * 4)):
-            ids = torch.from_numpy(sample_ids(schema, b, step=55_000 + s)
-                                   ).to(dev)
-            sets.append((ids, fmajor_rows(ids, offsets)))
+        sets = lookup_sets([torch.from_numpy(
+            sample_ids(schema, b, step=55_000 + s)).to(dev)
+            for s in range(n_sets(2 * b * k * 32 * 4))], offsets)
         bad = sets[0][0].clone()
         bad[0, :3] = torch.tensor([-7, 2**31 - 1, 10**8], device=dev)
-        assert torch.equal(mtl_input_first(bad, offsets, table),
-                           mtl_gather(bad, offsets, table)), "clamped ids"
-        k8_case(table, offsets, sets, f"b={b},k={k},d=32")
+        for t in (table, view):
+            assert torch.equal(mtl_input_first(bad, offsets, t),
+                               mtl_gather(bad, offsets, t)), "clamped ids"
+            assert torch.equal(mtl_gather(bad, offsets, t),
+                               mtl_gather_plain(bad, offsets, t))
+        # K1 at Criteo's shapes is the kernel phase's row
+        k8_case(table, offsets, sets, f"b={b},k={k},d=32", k1_too=False)
+        if b == 1024:
+            k8_case(view, offsets, sets, f"b={b},k={k},d=32,misaligned",
+                    k1_too=True)
+    del view
+    torch.cuda.empty_cache()
 
     # K7 over Criteo's small fields, rows taken from the main table
     small = [f for f, n in enumerate(schema.field_sizes)

@@ -59,6 +59,9 @@
 // to (m, n) and is written out with intrinsics as
 // fma(round(fp32(acc) * hs), ws, bias) -- the form the reference's jitted
 // epilogue compiles to -- so nvcc's --fmad contraction cannot pick another.
+// The ReLU is PTX max.NaN.f32, so a row whose scale is NaN (a NaN in the
+// activation) stays NaN through it, as the plain version's clamp_min and
+// the reference's jnp.maximum keep it; fmaxf would turn it into 0.
 
 #include <cstdint>
 #include <cuda.h>            // CUtensorMap and its enums: types only
@@ -71,6 +74,13 @@ constexpr int kThreads = 128;      // one warpgroup
 constexpr int kRingBudget = 220 * 1024;   // of the 227 KB a block may use
 constexpr int kMaxStages = 12;
 constexpr uint32_t kTileA = kBM * kBK;
+
+// max(a, b), NaN if either is NaN (fmaxf returns the other operand)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return m;
+}
 
 template <int BN>
 __host__ __device__ constexpr uint32_t stage_bytes() {
@@ -328,7 +338,7 @@ dmm_q8_kernel(const __grid_constant__ CUtensorMap map_a,
             __fmul_rn(__int2float_rn(acc[4 * j + 2 * half + e]),
                       row_hs[half]),
             tile_ws[c + e], tile_bias[c + e]);
-        if (relu) v[e] = fmaxf(v[e], 0.0f);
+        if (relu) v[e] = max_nan(v[e], 0.0f);
       }
       if (pairs && n + 1 < N) {
         *reinterpret_cast<float2*>(orow + n) = make_float2(v[0], v[1]);

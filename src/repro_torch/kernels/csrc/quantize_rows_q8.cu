@@ -43,6 +43,10 @@
 // to even (rintf) as torch.round does. The multiply also keeps zeros --
 // half of a ReLU output -- off IEEE division's slow path. The maximum is
 // exact in any order. An all-zero row gets the 1e-12 floor and codes of 0.
+// Every maximum, the floor included, is PTX max.NaN.f32: a row holding a
+// NaN gets a NaN scale and codes of 0, as the plain version's amax and
+// clamp_min give (fmaxf would drop the NaN and give the row a finite
+// scale). On NaN-free operands it is fmaxf, so finite rows are unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -74,8 +78,16 @@ __device__ __forceinline__ uint32_t codes4(float4 v, float scale, float rcp) {
   return word;
 }
 
+// max(a, b), NaN if either is NaN (fmaxf returns the other operand)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return m;
+}
+
 __device__ __forceinline__ float abs_max4(float4 v) {
-  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+  return max_nan(max_nan(fabsf(v.x), fabsf(v.y)),
+                 max_nan(fabsf(v.z), fabsf(v.w)));
 }
 
 // the row's scale from each thread's partial max|x|; every thread gets it
@@ -83,12 +95,12 @@ __device__ __forceinline__ float row_scale(float amax) {
   __shared__ float part[kWarps];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
   __syncthreads();
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, part[w]);
-  return fmaxf(__fdiv_rn(amax, kQmax), kScaleEps);
+  for (int w = 0; w < kWarps; ++w) amax = max_nan(amax, part[w]);
+  return max_nan(__fdiv_rn(amax, kQmax), kScaleEps);
 }
 
 // rows of at most kThreads * 4 * kVec floats, K % 4 == 0, 16-byte-aligned
@@ -107,7 +119,7 @@ quantize_rows_q8_regs(const float* __restrict__ h, int8_t* __restrict__ hq,
   }
   float amax = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) amax = fmaxf(amax, abs_max4(v[j]));
+  for (int j = 0; j < kVec; ++j) amax = max_nan(amax, abs_max4(v[j]));
   const float scale = row_scale(amax);
   const float rcp = __frcp_rn(scale);
   if (t == 0) hscale[m] = scale;
@@ -131,9 +143,10 @@ quantize_rows_q8_kernel(const float* __restrict__ h, int8_t* __restrict__ hq,
   float amax = 0.0f;
   if (vec) {
     for (int64_t i = t; i < K / 4; i += kThreads)
-      amax = fmaxf(amax, abs_max4(x4[i]));
+      amax = max_nan(amax, abs_max4(x4[i]));
   } else {
-    for (int64_t i = t; i < K; i += kThreads) amax = fmaxf(amax, fabsf(x[i]));
+    for (int64_t i = t; i < K; i += kThreads)
+      amax = max_nan(amax, fabsf(x[i]));
   }
   const float scale = row_scale(amax);
   const float rcp = __frcp_rn(scale);

@@ -30,7 +30,10 @@ version are bitwise equal on any input.
 K8 is the Fig.-11 strawman: the same lookup as K1 (the same ids,
 offsets and clamp, bitwise the same result), but laid out by input — one
 thread per (sample, field), writing a field-major ``(k, b, d)`` buffer
-that a PyTorch transpose turns into ``(b, k*d)``. K7 is the reference's
+that a PyTorch transpose turns into ``(b, k*d)``. K1 and K8 copy 16-byte
+words when ``d % 4 == 0`` and the table and output are 16-byte aligned,
+else 4-byte words; :func:`gather_launch` and :func:`input_first_launch`
+give their launch shapes as pure functions of the call. K7 is the reference's
 one-hot lookup over small per-field tables stacked to one padded height:
 a gather where an id outside ``[0, n_pad)`` gives a zero row (the
 one-hot row matches nothing), not a clamped one.
@@ -40,6 +43,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -53,7 +58,61 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
            "mtl_gather_two_level_q8_plain", "mtl_gather_three_level",
            "mtl_gather_three_level_plain", "mtl_gather_three_level_q8",
            "mtl_gather_three_level_q8_plain", "mtl_input_first",
-           "mtl_input_first_plain", "mtl_onehot", "mtl_onehot_plain"]
+           "mtl_input_first_plain", "mtl_onehot", "mtl_onehot_plain",
+           "Launch", "GATHER_THREADS", "INPUT_FIRST_THREADS",
+           "vector_words", "gather_launch", "input_first_launch"]
+
+
+# ---------------------------------------------------------------------------
+# K1 and K8 launch shapes: pure functions of the call, checked again by the
+# C entries before they launch
+# ---------------------------------------------------------------------------
+
+#: threads a block: within 6% (K1) and 8% (K8) of the best of 32-256 at
+#: every shape ``chip_smoke.py``'s launch sweep times on the H100 (Criteo
+#: b = 256 and 1024 at d = 1 and 32, a misaligned view, Fig. 11's four)
+GATHER_THREADS, INPUT_FIRST_THREADS = 128, 64
+_MAX_BLOCKS = 1 << 20      # the kernels stride over the rows past it
+
+
+class Launch(NamedTuple):
+    """How a K1 or K8 launch copies: ``vec`` 16-byte words (else 4-byte),
+    ``lanes`` threads a row and ``rows`` rows a thread (K1; 1 and 1 for
+    K8), ``threads`` a block, ``blocks`` in the grid."""
+    vec: bool
+    lanes: int
+    rows: int
+    threads: int
+    blocks: int
+
+
+def vector_words(d: int, *pointers: int) -> bool:
+    """Whether rows of ``d`` float32 at these base addresses can move as
+    16-byte words: ``d % 4 == 0`` and every pointer 16-byte aligned (a
+    table view at a 4-byte storage offset is not)."""
+    return d % 4 == 0 and all(ptr % 16 == 0 for ptr in pointers)
+
+
+def _grid(work: int, threads: int) -> int:
+    return min(_MAX_BLOCKS, max(1, math.ceil(work / threads)))
+
+
+def gather_launch(b: int, k: int, d: int, vec: bool) -> Launch:
+    """K1's launch: ``lanes``, the power of two up to 32 that covers a
+    row's words; two rows a thread where the words are floats and a row
+    takes a whole warp, else one; a grid with a group of lanes for every
+    row (for every two rows)."""
+    words = d // 4 if vec else d
+    lanes = min(32, 1 << max(0, words - 1).bit_length())
+    rows = 2 if not vec and lanes == 32 else 1
+    return Launch(vec, lanes, rows, GATHER_THREADS,
+                  _grid(math.ceil(b * k / rows) * lanes, GATHER_THREADS))
+
+
+def input_first_launch(b: int, k: int, vec: bool) -> Launch:
+    """K8's launch: one thread per (sample, field), 64 a block."""
+    return Launch(vec, 1, 1, INPUT_FIRST_THREADS,
+                  _grid(b * k, INPUT_FIRST_THREADS))
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -69,7 +128,7 @@ def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
 def _kernel():
     fn = _build.library("mtl_gather").mtl_gather
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,8 +164,12 @@ def mtl_gather(ids: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k * d), dtype=table.dtype, device=dev)
     if out.numel() == 0:
         return out
+    launch = gather_launch(
+        b, k, d, vector_words(d, table.data_ptr(), out.data_ptr()))
     code = _kernel()(ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-                     out.data_ptr(), b, k, d, n_rows,
+                     out.data_ptr(), b, k, d, n_rows, int(launch.vec),
+                     launch.lanes.bit_length() - 1, launch.rows,
+                     launch.threads, launch.blocks,
                      _build.current_stream(dev))
     _build.check_launch("mtl_gather", code)
     mtl_gather.launches += 1
@@ -544,7 +607,7 @@ def mtl_input_first_plain(ids: torch.Tensor, offsets: torch.Tensor,
 def _input_first_kernel():
     fn = _build.library("mtl_input_first").mtl_input_first
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -583,9 +646,12 @@ def mtl_input_first(ids: torch.Tensor, offsets: torch.Tensor,
                                      field_major=field_major)
     out = torch.empty((k, b, d), dtype=table.dtype, device=dev)
     if out.numel() > 0:
-        code = _input_first_kernel()(ids.data_ptr(), offsets.data_ptr(),
-                                     table.data_ptr(), out.data_ptr(), b, k,
-                                     d, n_rows, _build.current_stream(dev))
+        launch = input_first_launch(
+            b, k, vector_words(d, table.data_ptr(), out.data_ptr()))
+        code = _input_first_kernel()(
+            ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+            out.data_ptr(), b, k, d, n_rows, int(launch.vec), launch.threads,
+            launch.blocks, _build.current_stream(dev))
         _build.check_launch("mtl_input_first", code)
         mtl_input_first.launches += 1
     return out if field_major else _sample_major(out)

@@ -37,7 +37,7 @@ from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
     mtl_gather_two_level, mtl_gather_two_level_plain,
     mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain, mtl_input_first,
-    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain)
+    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain, vector_words)
 from repro_torch.kernels.quantize import (  # noqa: E402
     quantize_rows_q8, quantize_rows_q8_plain)
 from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
@@ -60,21 +60,84 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("d", [1, 32])
-def test_mtl_gather_bitwise(cuda, d):
-    rng = np.random.default_rng(d)
-    sizes = rng.integers(2, 5000, size=39)
-    mega = rng.normal(size=(int(sizes.sum()) + 1, d)).astype(np.float32)
+def _lookup_inputs(rng, b, k, d, device, misaligned=False):
+    """(ids, offsets, table) on ``device``: k fields of random heights, the
+    first three ids out of range (clamped), and the table 16-byte aligned
+    or a view 4 bytes into its storage."""
+    sizes = rng.integers(2, 5000, size=k)
+    n = int(sizes.sum()) + 1
+    mega = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    table = mega.to(device)
+    if misaligned:
+        table = torch.empty(n * d + 1, device=device)[1:].view(n, d)
+        table.copy_(mega)
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
-    ids = np.stack([rng.integers(0, n, size=256) for n in sizes],
+    ids = np.stack([rng.integers(0, s, size=b) for s in sizes],
                    axis=1).astype(np.int32)
-    ids[0, :3] = [-5, 2**31 - 1, 10**6]                   # clamped rows
-    args = [torch.from_numpy(a).to(cuda) for a in (ids, offsets, mega)]
+    bad = [-5, 2**31 - 1, 10**6][:ids.size]
+    ids.reshape(-1)[:len(bad)] = bad                     # clamped rows
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(offsets).to(device), table)
+
+
+LOOKUP_SHAPES = [(d, b, k) for d in (1, 3, 32, 60) for b in (1, 7, 256, 1024)
+                 for k in (1, 39)]
+
+
+@pytest.mark.parametrize("d,b,k", LOOKUP_SHAPES)
+def test_mtl_gather_bitwise(cuda, d, b, k):
+    args = _lookup_inputs(np.random.default_rng(d * 1000 + b + k), b, k, d,
+                          cuda)
     before = mtl_gather.launches
     got = mtl_gather(*args)
     torch.cuda.synchronize()
     assert mtl_gather.launches == before + 1
     assert torch.equal(got, mtl_gather_plain(*args))
+
+
+@pytest.mark.parametrize("d", [32, 60])
+def test_lookups_take_a_misaligned_view(cuda, d):
+    """A table 4 bytes into its storage goes through K1's and K8's 4-byte
+    path, bitwise the plain version and the aligned table's result."""
+    rng = np.random.default_rng(d)
+    args = _lookup_inputs(rng, 1024, 39, d, cuda, misaligned=True)
+    table = args[2]
+    assert table.data_ptr() % 16 == 4
+    assert not vector_words(d, table.data_ptr())
+    before = (mtl_gather.launches, mtl_input_first.launches)
+    k1 = mtl_gather(*args)
+    k8 = mtl_input_first(*args)
+    fmajor = mtl_input_first(*args, field_major=True)
+    torch.cuda.synchronize()
+    assert (mtl_gather.launches, mtl_input_first.launches) == \
+        (before[0] + 1, before[1] + 2)
+    want = mtl_gather_plain(*args)
+    assert torch.equal(k1, want) and torch.equal(k8, want)
+    assert torch.equal(fmajor, mtl_input_first_plain(*args,
+                                                     field_major=True))
+    aligned = table.clone()
+    assert aligned.data_ptr() % 16 == 0
+    assert torch.equal(mtl_gather(args[0], args[1], aligned), want)
+
+
+@pytest.mark.parametrize("kernel", ["mtl_gather", "mtl_input_first"])
+@pytest.mark.parametrize("d", [1, 32])
+def test_lookups_launch_on_the_current_stream(cuda, kernel, d):
+    """Launched on a side stream behind a sleep and a copy into the table,
+    K1 and K8 must read the copied rows once that stream has synced."""
+    ids, offsets, src = _lookup_inputs(np.random.default_rng(d), 256, 39, d,
+                                       cuda)
+    table = torch.zeros_like(src)
+    want = mtl_gather_plain(ids, offsets, src)
+    fn = mtl_gather if kernel == "mtl_gather" else mtl_input_first
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        table.copy_(src)
+        out = fn(ids, offsets, table)
+    side.synchronize()
+    assert torch.equal(out, want)
 
 
 def _tiered_inputs(rng, h, device, b=256, d=32, capacity=4096):
@@ -577,6 +640,45 @@ def test_quantize_rows_q8_rounds_half_to_even(cuda, fan_in):
     assert hq[0, 1].item() == -126          # -125.5 goes to the even code
 
 
+@pytest.mark.parametrize("fan_in", [1248, 1024, 7])
+def test_quantize_rows_q8_propagates_nan(cuda, fan_in):
+    """A row holding a NaN gets a NaN scale, as the plain version's amax
+    and clamp_min give it, and codes of 0, as on the CPU; inf rows get an
+    inf scale. K12 then gives those rows NaN outputs, through its ReLU too.
+    Every other scale, code and output is bitwise the plain version's."""
+    rng = np.random.default_rng(fan_in)
+    h = _activation_rows(rng, 256, fan_in)
+    h[3, min(5, fan_in - 1)] = np.nan
+    h[4, 0] = np.inf
+    h[5, fan_in // 2] = -np.inf
+    hq, hs = quantize_rows_q8(torch.from_numpy(h).to(cuda))
+    want_q, want_s = quantize_rows_q8_plain(torch.from_numpy(h).to(cuda))
+    cpu_q, cpu_s = quantize_rows_q8_plain(torch.from_numpy(h))
+    torch.cuda.synchronize()
+    nan = torch.isnan(hs)
+    assert nan[:, 0].nonzero().flatten().tolist() == [3]
+    assert torch.equal(nan, torch.isnan(want_s))
+    assert torch.equal(hs[~nan].view(torch.int32),
+                       want_s[~nan].view(torch.int32))
+    assert torch.equal(hs.cpu()[~nan.cpu()].view(torch.int32),
+                       cpu_s[~nan.cpu()].view(torch.int32))
+    assert torch.isinf(hs[4:6]).all()
+    assert torch.equal(hq.cpu(), cpu_q) and not hq[3:6].any()
+    w = torch.from_numpy(rng.normal(size=(fan_in, 96)).astype(np.float32))
+    wq, ws = quantize_channels(w)
+    bias = torch.from_numpy(rng.normal(size=(1, 96)).astype(np.float32))
+    wq_t, ws, bias = pack_weight(wq).to(cuda), ws.to(cuda), bias.to(cuda)
+    for relu in (True, False):
+        out = dmm_q8(hq, hs, wq_t, ws, bias, relu=relu)
+        want = dmm_q8_plain(hq, hs, wq_t, ws, bias, relu=relu)
+        torch.cuda.synchronize()
+        rows = torch.isnan(out).all(dim=1)
+        assert rows.nonzero().flatten().tolist() == [3, 4, 5], relu
+        assert not torch.isnan(out[~rows]).any()
+        assert torch.equal(out[~rows], want[~rows])
+        assert torch.isnan(want[rows]).all()
+
+
 def test_quantize_rows_q8_launches_on_the_current_stream(cuda):
     rng = np.random.default_rng(1)
     h = torch.from_numpy(_activation_rows(rng, 256, 1248)).to(cuda)
@@ -593,16 +695,10 @@ def test_quantize_rows_q8_launches_on_the_current_stream(cuda):
     assert torch.equal(hq, want[0]) and torch.equal(hs, want[1])
 
 
-@pytest.mark.parametrize("d", [1, 32])
-def test_mtl_input_first_bitwise(cuda, d):
-    rng = np.random.default_rng(d + 7)
-    sizes = rng.integers(2, 5000, size=39)
-    mega = rng.normal(size=(int(sizes.sum()), d)).astype(np.float32)
-    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
-    ids = np.stack([rng.integers(0, n, size=512) for n in sizes],
-                   axis=1).astype(np.int32)
-    ids[0, :3] = [-5, 2**31 - 1, 10**6]                   # clamped rows
-    args = [torch.from_numpy(a).to(cuda) for a in (ids, offsets, mega)]
+@pytest.mark.parametrize("d,b,k", LOOKUP_SHAPES)
+def test_mtl_input_first_bitwise(cuda, d, b, k):
+    args = _lookup_inputs(np.random.default_rng(d * 1000 + b + k + 7), b, k,
+                          d, cuda)
     before = mtl_input_first.launches
     got = mtl_input_first(*args)
     fmajor = mtl_input_first(*args, field_major=True)

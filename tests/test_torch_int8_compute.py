@@ -149,6 +149,30 @@ def test_quantize_rows_q8_bitwise_vs_reference(b, fan_in):
                                   np.rint(h[2] * 16).astype(np.int8))
 
 
+@pytest.mark.parametrize("relu", [True, False])
+def test_nan_and_inf_rows_match_the_reference(relu):
+    """A row holding a NaN gets a NaN scale, an inf row an inf scale, and
+    codes of 0 in both, as in the reference; the int8 layer then gives
+    both rows NaN outputs (``0 · inf``), through the ReLU too. The CUDA
+    kernels are held to this plain version on a card."""
+    rng = np.random.default_rng(11)
+    h, w, bias = q8_layer(rng, 8, 40, 24)
+    h[3, 5] = np.nan
+    h[4, 0] = np.inf
+    h[5, 9] = -np.inf
+    hq, hs = quantize_rows_q8(torch.from_numpy(h))
+    js = jquant.absmax_scale(jnp.asarray(h), axis=-1)
+    np.testing.assert_array_equal(hs.numpy(), np.asarray(js))  # NaN == NaN
+    np.testing.assert_array_equal(
+        hq.numpy(), np.asarray(jquant.quantize(jnp.asarray(h), js)))
+    assert np.isnan(hs[3, 0].item()) and np.isinf(hs.numpy()[4:6, 0]).all()
+    assert not hq[3:6].any()
+    got = port_layer(h, w, bias, relu)
+    np.testing.assert_array_equal(got, ref_layer(h, w, bias, relu, "jnp"))
+    assert np.isnan(got[3:6]).all() and np.isfinite(np.delete(got, [3, 4, 5],
+                                                              axis=0)).all()
+
+
 def test_quantize_rows_q8_checks_its_inputs():
     h = torch.randn((4, 16), generator=torch.Generator().manual_seed(0))
     with pytest.raises(TypeError):

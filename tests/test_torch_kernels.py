@@ -27,7 +27,8 @@ from repro_torch.kernels.fused_cross import (  # noqa: E402
 from repro_torch.kernels.fused_fm import (  # noqa: E402
     fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
-    mtl_gather, mtl_gather_plain)
+    Launch, gather_launch, input_first_launch, mtl_gather, mtl_gather_plain,
+    vector_words)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -72,6 +73,61 @@ def test_mtl_gather_clamps_out_of_range_rows():
     rows = np.clip(ids.astype(np.int64) + offsets[None, :], 0,
                    mega.shape[0] - 1)
     np.testing.assert_array_equal(got, mega[rows.reshape(-1)].reshape(3, -1))
+
+
+def test_vector_words_needs_d_a_multiple_of_4_and_aligned_bases():
+    n, d = 10, 32
+    table = torch.empty(n * d)
+    view = torch.empty(n * d + 1)[1:].view(n, d)  # 4 bytes into its storage
+    assert table.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 4
+    assert vector_words(32, table.data_ptr(), 256)
+    assert vector_words(60, 0, 16)
+    assert not vector_words(32, view.data_ptr(), 256)
+    assert not vector_words(32, 256, 8)                  # the output too
+    assert not vector_words(1, 0, 0) and not vector_words(3, 0, 0)
+    assert not vector_words(30, 0, 0)
+
+
+@pytest.mark.parametrize("b,k,d,vec,want", [
+    # the main path: Criteo k = 39, d = 32 rows as 8 float4 words, 8 lanes
+    (1024, 39, 32, True, Launch(True, 8, 1, 128, 2496)),
+    (256, 39, 32, True, Launch(True, 8, 1, 128, 624)),
+    # the wide/FM tables: one lane a row
+    (1024, 39, 1, False, Launch(False, 1, 1, 128, 312)),
+    (256, 39, 1, False, Launch(False, 1, 1, 128, 78)),
+    # a misaligned d = 32 view: 4-byte words, a warp a row, two rows a lane
+    (1024, 39, 32, False, Launch(False, 32, 2, 128, 4992)),
+    (7, 39, 60, False, Launch(False, 32, 2, 128, 35)),
+    # Fig. 11: d = 60 is 15 words on 16 lanes; the largest batch
+    (2048, 39, 60, True, Launch(True, 16, 1, 128, 9984)),
+    (65_536, 39, 32, True, Launch(True, 8, 1, 128, 159_744)),
+    (1, 1, 3, False, Launch(False, 4, 1, 128, 1)),
+])
+def test_gather_launch(b, k, d, vec, want):
+    got = gather_launch(b, k, d, vec)
+    assert got == want
+    words = d // 4 if vec else d
+    assert got.lanes & (got.lanes - 1) == 0 and got.lanes <= 32
+    assert got.lanes >= min(words, 32) > got.lanes // 2
+    # a group of lanes for every `rows` rows, and no block without one
+    groups = -(-b * k // got.rows)
+    assert got.blocks * got.threads >= groups * got.lanes \
+        > (got.blocks - 1) * got.threads
+
+
+@pytest.mark.parametrize("b,k,want", [
+    # Criteo b = 256: 9,984 threads in 156 blocks, a block or two on each
+    # of an H100's 132 SMs (39 blocks of 256 threads before)
+    (256, 39, Launch(True, 1, 1, 64, 156)),
+    (1024, 39, Launch(True, 1, 1, 64, 624)),
+    (2048, 39, Launch(True, 1, 1, 64, 1248)),
+    (65_536, 39, Launch(True, 1, 1, 64, 39_936)),
+])
+def test_input_first_launch(b, k, want):
+    got = input_first_launch(b, k, True)
+    assert got == want
+    assert got.blocks * got.threads >= b * k > (got.blocks - 1) * got.threads
+    assert got.blocks >= 132
 
 
 def test_alg1_literal_matches_every_strategy():
