@@ -23,8 +23,12 @@ Phases (any failure raises; the script then exits non-zero):
    a 65,536-row cache whose hot set comes from one observe + refresh on
    quadratic-skew traffic, at b = 256 and 1024 and h = 1 and 5: bitwise
    against their plain versions (out-of-range ids included), K3 at h = 1
-   bitwise against K1, timed the same way; K3 at h = 1 also through a
-   cold cache (rows 0..C-1, nearly all misses), its miss path.
+   bitwise against K1, timed the same way; K3 and K4 at h = 1 also
+   through a cold cache (rows 0..C-1, nearly all misses), their miss
+   path; K4 on int8 tiers 1 byte into their storage (its byte path),
+   bitwise; and K4's launch sweep (1-, 4- and 16-byte words of codes,
+   one or two rows a thread, 32-256 threads a block, streaming stores),
+   every setting bitwise against the plain version before it is timed.
    Then K5 ``mtl_gather_three_level`` and K6
    ``mtl_gather_three_level_q8`` on the same table under the same kind
    of 65,536-row cache (its hot set from one observe + refresh of a
@@ -32,7 +36,8 @@ Phases (any failure raises; the script then exits non-zero):
    b = 256 and 1024 and h = 1 and 5: bitwise against their plain
    versions (ids -7, 2**31-1 and 10**8, a cache slot past C, a staging
    slot past S and rows in neither tier, which read exactly 0.0), K5
-   against K1 (h = 1) and K2 (h = 5), K6 against K4; timed the same way.
+   against K1 (h = 1) and K2 (h = 5), K6 against K4; timed the same way;
+   K6 also on its byte path and through its launch sweep, as K4.
    Then K12 ``dmm_q8`` (int8 ``wgmma`` on TMA-fed shared memory) at
    DCNv2's MLP shapes (1248 -> 1024, 1024 -> 1024) at b = 256 and 1024,
    plus (1, 1, 1), (33, 7, 5), (200, 1248, 1000), a misaligned ``hq``
@@ -260,6 +265,56 @@ def launch_sweep(torch, table, offsets, sets, shape: str) -> None:
     log(f"[sweep] {shape}: mtl_gather us {t1} (picked r{k1_pick.rows}"
         f"t{k1_pick.threads}); mtl_input_first us {t8} (picked "
         f"t{k8_pick.threads})")
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equal float32 tensors (+0.0 and -0.0 differ); no NaN."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def q8_sweep(torch, name, with_launch, want, sets, b, k, h, d,
+             shape: str) -> None:
+    """Time K4 or K6 (``name``) with 1-, 4- and 16-byte words of codes (a
+    1-byte word is the byte path), one and two rows a thread, at 32, 64,
+    128 and 256 threads a block, and with streaming stores at the picked
+    rows and block size: ``with_launch(launch)`` gives
+    a call of the C entry with that launch, each checked bitwise against
+    ``want`` (the plain version on ``sets[0]``) first. The measurements
+    behind ``tiered_q8_launch``."""
+    from repro_torch.kernels import multi_table_lookup as mtl
+
+    def run(word, rows, threads, streaming):
+        lanes = mtl._lanes(d // word)
+        launch = mtl.Launch(True, lanes, rows, threads,
+                            mtl._grid(math.ceil(b * k / rows) * lanes,
+                                      threads), word, streaming)
+        fn = with_launch(launch)
+        assert same_bits(torch, fn(*sets[0]), want), (name, shape, launch)
+        return round(device_ms(torch, fn, sets) * 1e3, 2)
+
+    pick = mtl.tiered_q8_launch(b, k, h, d, 16)
+    times = {}
+    for word in (1, 4, 16):
+        for rows in (1, 2):
+            for threads in (32, 64, 128, 256):
+                times[f"w{word}r{rows}t{threads}"] = run(word, rows,
+                                                         threads, False)
+        if word > 1:
+            times[f"w{word}r{pick.rows}t{pick.threads}cs"] = run(
+                word, pick.rows, pick.threads, True)
+    log(f"[sweep] {name} {shape}: us {times} (picked w{pick.word}"
+        f"r{pick.rows}t{pick.threads}{'cs' if pick.streaming else ''})")
+
+
+def byte_offset(torch, t, offset: int = 1):
+    """int8 ``t`` copied into a view ``offset`` bytes past a 16-byte
+    boundary of its storage (a tier the kernels must read code by code)."""
+    assert t.dtype == torch.int8, t.dtype
+    buf = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
+    start = (-buf.data_ptr()) % 16 + offset
+    view = buf[start:start + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
@@ -741,11 +796,14 @@ def slot_ids(schema, sample_ids, b: int, h: int, step: int):
 def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
     """K2, K3 and K4 on the full-width table of collection ``emb`` under a
     65,536-row cache (fp32 and int8), against their plain versions and
-    K1, timed."""
+    K1, timed; K3 and K4 also on a cold cache, K4 also on int8 tiers 1
+    byte into their storage (its byte path), and K4's launch sweep."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.embedding import CachedStore
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import multi_table_lookup as mtl
     from repro_torch.kernels.multi_table_lookup import (
         mtl_gather, mtl_gather_multihot, mtl_gather_multihot_plain,
         mtl_gather_two_level, mtl_gather_two_level_plain,
@@ -807,6 +865,53 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
     def k3_cold_plain(i, m, rows):
         return mtl_gather_two_level_plain(i, offsets, cold_map, cold_cache,
                                           table32, mask=m)
+
+    # K4's miss path: the same cold map over the int8 tiers (the 213 MB
+    # backing); and its byte path: every int8 tier 1 byte into its storage
+    cold_q8 = (q8.backing[:CACHE_CAPACITY].clone(),
+               q8.backing_scale[:CACHE_CAPACITY].clone())
+    odd_cache, odd_backing = (byte_offset(torch, q8.cache),
+                              byte_offset(torch, q8.backing))
+    assert mtl.q8_word(d, 0, odd_cache.data_ptr(),
+                       odd_backing.data_ptr()) == 1
+
+    def k4_cold(i, m, rows):
+        return mtl_gather_two_level_q8(i, offsets, cold_map, *cold_q8,
+                                       q8.backing, q8.backing_scale, mask=m)
+
+    def k4_cold_plain(i, m, rows):
+        return mtl_gather_two_level_q8_plain(
+            i, offsets, cold_map, *cold_q8, q8.backing, q8.backing_scale,
+            mask=m)
+
+    def k4_odd(i, m, rows):
+        return mtl_gather_two_level_q8(i, offsets, q8.slot_of_row,
+                                       odd_cache, q8.cache_scale,
+                                       odd_backing, q8.backing_scale, mask=m)
+
+    def k4_odd_plain(i, m, rows):
+        return mtl_gather_two_level_q8_plain(
+            i, offsets, q8.slot_of_row, odd_cache, q8.cache_scale,
+            odd_backing, q8.backing_scale, mask=m)
+
+    def k4_launch(b, h):
+        """K4 through its C entry with a given launch (the sweep)."""
+        entry = mtl._tiered("mtl_gather_two_level_q8", 9, 12)
+        stream = _build.current_stream(dev)
+
+        def with_launch(launch):
+            def run(i, m, rows):
+                out = torch.empty((b, k * d), device=dev)
+                code = entry(
+                    i.data_ptr(), mtl._ptr(m), offsets.data_ptr(),
+                    q8.slot_of_row.data_ptr(), q8.cache.data_ptr(),
+                    q8.cache_scale.data_ptr(), q8.backing.data_ptr(),
+                    q8.backing_scale.data_ptr(), out.data_ptr(), b, k, h, d,
+                    q8.cache.shape[0], n_rows, *mtl._q8_args(launch), stream)
+                assert code == 0, code
+                return out
+            return run
+        return with_launch
 
     def bag(table):                          # one pooled PyTorch call
         return lambda i, m, rows: F.embedding_bag(rows, table, mode="sum")
@@ -887,7 +992,27 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                        device_ms(torch, k3_cold_plain, sets),
                        device_ms(torch, take, sets),
                        ids_bytes + uniq * (4 + 4 * d) + out_bytes, 0)
-    del stores, f32, q8, cold_map, cold_cache
+                out = k4_cold(ids0, mask0, rows0)
+                assert same_bits(torch, out, k4_cold_plain(ids0, mask0,
+                                                           rows0))
+                assert same_bits(torch, out, outs["mtl_gather_two_level_q8"])
+                record("mtl_gather_two_level_q8", shape + ",cold", 0.0,
+                       device_ms(torch, k4_cold, sets),
+                       device_ms(torch, k4_cold_plain, sets), None,
+                       ids_bytes + uniq * (4 + d + 4) + out_bytes, 0)
+            # the byte path, bitwise the plain version and the aligned tiers
+            out = k4_odd(ids0, mask0, rows0)
+            assert same_bits(torch, out, outs["mtl_gather_two_level_q8"])
+            assert same_bits(torch, out, k4_odd_plain(ids0, mask0, rows0))
+            record("mtl_gather_two_level_q8", shape + ",misaligned", 0.0,
+                   device_ms(torch, k4_odd, sets),
+                   device_ms(torch, k4_odd_plain, sets), None,
+                   ids_bytes + uniq * (4 + d + 4) + out_bytes, 0)
+            q8_sweep(torch, "mtl_gather_two_level_q8", k4_launch(b, h),
+                     outs["mtl_gather_two_level_q8"], sets, b, k, h, d,
+                     shape)
+    del stores, f32, q8, cold_map, cold_cache, cold_q8, odd_cache, \
+        odd_backing
     torch.cuda.empty_cache()
 
 
@@ -896,11 +1021,14 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
     65,536-row cache whose hot set comes from one observe + refresh of a
     fp32 ``HostBackedStore``, with every miss of the timed batches staged
     (fp32 and int8 tiers), against their plain versions, K1/K2 and K4,
-    timed."""
+    timed; K6 also on int8 tiers 1 byte into their storage (its byte
+    path), and K6's launch sweep."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.embedding import HostBackedStore
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import multi_table_lookup as mtl
     from repro_torch.kernels.multi_table_lookup import (
         mtl_gather, mtl_gather_multihot, mtl_gather_three_level,
         mtl_gather_three_level_plain, mtl_gather_three_level_q8,
@@ -925,7 +1053,10 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
     q, scale = quantize_rows(table32)
     qcache = q.index_select(0, cached_rows)
     qcscale = scale.index_select(0, cached_rows)
+    odd_qcache = byte_offset(torch, qcache)
     rng = np.random.default_rng(SEED + 5)
+    entry = mtl._tiered("mtl_gather_three_level_q8", 10, 13)
+    stream = _build.current_stream(dev)
 
     def staged_tiers(rows):
         """Staging map and tiers holding every uncached row of ``rows``."""
@@ -975,6 +1106,33 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
                 return mtl_gather_three_level_q8_plain(
                     i, offsets, som, sm, qcache, qcscale, qstaging, qsscale,
                     mask=m)
+
+            odd_qstaging = byte_offset(torch, qstaging)
+
+            def k6_odd(i, m, rows, sm=smap, qs=odd_qstaging):
+                return mtl_gather_three_level_q8(i, offsets, slot_of_row, sm,
+                                                 odd_qcache, qcscale, qs,
+                                                 qsscale, mask=m)
+
+            def k6_odd_plain(i, m, rows, sm=smap, qs=odd_qstaging):
+                return mtl_gather_three_level_q8_plain(
+                    i, offsets, slot_of_row, sm, odd_qcache, qcscale, qs,
+                    qsscale, mask=m)
+
+            def k6_launch(launch, b=b, h=h, sm=smap, qs=qstaging):
+                """K6 through its C entry with a given launch (the sweep)."""
+                def run(i, m, rows):
+                    out = torch.empty((b, k * d), device=dev)
+                    code = entry(
+                        i.data_ptr(), mtl._ptr(m), offsets.data_ptr(),
+                        slot_of_row.data_ptr(), sm.data_ptr(),
+                        qcache.data_ptr(), qcscale.data_ptr(), qs.data_ptr(),
+                        qsscale.data_ptr(), out.data_ptr(), b, k, h, d,
+                        qcache.shape[0], qs.shape[0], n_rows,
+                        *mtl._q8_args(launch), stream)
+                    assert code == 0, code
+                    return out
+                return run
 
             ids0, mask0, rows0 = sets[0]
             bad = ids0.clone()
@@ -1050,7 +1208,19 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
                                                              sets),
                        ids_bytes + maps + uniq.numel() * row_bytes
                        + out_bytes, 0)
-    del q, scale, qcache, qcscale, cache, slot_of_row
+            # the byte path, bitwise the plain version and the aligned tiers
+            want = k6(ids0, mask0, rows0)
+            out = k6_odd(ids0, mask0, rows0)
+            assert same_bits(torch, out, want)
+            assert same_bits(torch, out, k6_odd_plain(ids0, mask0, rows0))
+            record("mtl_gather_three_level_q8", shape + ",misaligned", 0.0,
+                   device_ms(torch, k6_odd, sets),
+                   device_ms(torch, k6_odd_plain, sets), None,
+                   ids_bytes + maps + uniq.numel() * (d + 4) + out_bytes, 0)
+            q8_sweep(torch, "mtl_gather_three_level_q8", k6_launch, want,
+                     sets, b, k, h, d, shape)
+            del odd_qstaging
+    del q, scale, qcache, qcscale, odd_qcache, cache, slot_of_row
     torch.cuda.empty_cache()
 
 
@@ -1059,8 +1229,9 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20,
     """Profile ``n_steps`` calls of ``plan`` and print, per step: device
     busy time (union of kernel and copy intervals), the share of the
     traced window with nothing running on the device, the time kernels
-    on two or more streams overlapped, the host-to-device copies, and the
-    five kernels that took the most device time. ``prepare(i)``, when
+    on two or more streams overlapped, the host-to-device copies, the
+    five kernels that took the most device time, and the embedding
+    gathers' time. ``prepare(i)``, when
     given, runs before step i (a host store stages that step's batch
     there) and returns its device ids; otherwise every step runs on
     ``ids``. The Chrome trace lands in ``build/traces/``. Returns the
@@ -1126,6 +1297,13 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20,
         f"{sum(e['dur'] for e in h2d) / n_steps:.1f} us/step")
     for kname, dur in top:
         log(f"[{name}]   {dur / n_steps:8.1f} us/step  {kname[:90]}")
+    gathers: dict = {}
+    for kname, dur in by_kernel.items():
+        if "gather" in kname or "tiered" in kname:
+            short = kname.split("<")[0].split("::")[-1].split()[-1]
+            gathers[short] = gathers.get(short, 0.0) + dur / n_steps
+    log(f"[{name}]   embedding gathers, us/step: "
+        f"{ {k: round(v, 2) for k, v in gathers.items()} }")
     return {"kernels": by_kernel, "ops": ops, "steps": n_steps}
 
 

@@ -6,16 +6,16 @@
 //   K2 `mtl_gather_multihot`       (:106) sum of `hot` rows per output row;
 //   K3 `mtl_gather_two_level`      (:164) hit -> cache[slot], miss ->
 //                                         backing[row], pooled over `hot`;
-//   K4 `mtl_gather_two_level_q8`   (:241) K3 on int8 rows with one fp32
-//                                         scale per row, dequantized before
-//                                         the pool;
+//   K4 `mtl_gather_two_level_q8`   (:241/:284) K3 on int8 rows with one fp32
+//                                         scale per row, dequantized
+//                                         before the pool;
 //   K5 `mtl_gather_three_level`    (:323) hit -> cache[slot], else staged ->
 //                                         staging[slot], else 0 (the guard);
 //                                         there is no backing operand: the
 //                                         backing lives in host memory;
-//   K6 `mtl_gather_three_level_q8` (:403) K5 on int8 rows, the scale from the
-//                                         winning tier; a row in neither tier
-//                                         gives exactly 0.0.
+//   K6 `mtl_gather_three_level_q8` (:403/:446) K5 on int8 rows, the scale
+//                                         from the winning tier; a row in
+//                                         neither tier gives exactly 0.0.
 // Each of those copies one (1, d) row per grid step; the tier is picked by
 // scalar-prefetch index maps over slot vectors gathered in a separate pass,
 // and every tier's block is fetched before the body selects one.
@@ -24,23 +24,45 @@
 // one slot per distinct row touched (two for K5/K6 on a cache miss), each
 // distinct row once (4*d bytes fp32, d + 4 bytes int8), and write b*k*d
 // floats; the arithmetic (one add per slot, one multiply more for int8) is
-// far below the card's rate.
+// far below the card's rate. For K4 and K6 at b = 1024, h = 1, d = 32 the
+// output write is 5.11 MB of the ~5.8 MB.
 //
-// Design: K1's (mtl_gather.cu) output-first layout, one thread per output
-// element, so every warp's stores are one coalesced segment and with d = 32
-// a warp's loads are one contiguous row. Each thread adds its field's offset
-// to the id (Alg. 1 lines 6-8), redirects a masked slot to row n_rows - 1
-// (the zero row), reads slot_of_row[row] itself, and loads only the winning
-// tier's element: no separate slot pass, no load of the losing tier. The h
-// slots are summed in slot order starting from slot 0's value, the order of
-// the reference's output-block revisiting and of the plain versions, with
-// __fadd_rn; K4 rounds q * s with __fmul_rn before the add, so nvcc cannot
-// contract the two into one FMA. Hence bitwise equality with the plain
-// PyTorch versions, and K3 at h = 1 with K1 (a cache row is a verbatim copy
-// of its backing row).
+// Design of K2, K3 and K5: K1's first output-first layout, one thread per
+// output element, so every warp's stores are one coalesced segment and with
+// d = 32 a warp's loads are one contiguous row. Each thread adds its field's
+// offset to the id (Alg. 1 lines 6-8), redirects a masked slot to row
+// n_rows - 1 (the zero row), reads slot_of_row[row] itself, and loads only
+// the winning tier's element: no separate slot pass, no load of the losing
+// tier. The h slots are summed in slot order starting from slot 0's value,
+// the order of the reference's output-block revisiting and of the plain
+// versions, with __fadd_rn. Hence bitwise equality with the plain PyTorch
+// versions, and K3 at h = 1 with K1 (a cache row is a verbatim copy of its
+// backing row). K5 reads the staging map only on a cache miss, so a hit
+// costs what K3's does; a staged row costs one more dependent load.
 //
-// K5/K6 read the staging map only on a cache miss, so a hit costs what K3's
-// does; a staged row costs one more dependent load.
+// Design of K4 and K6 (`tiered_q8_kernel`): the fp32 output is most of
+// their bytes, so the write has to be coalesced and the reads issued as
+// early as their dependences allow. A group of `lanes`
+// consecutive threads (a power of two, at most 32) builds one (sample,
+// field) output row, and consecutive groups take consecutive rows of the
+// (b, k) id matrix, so a warp's stores are one contiguous run. The group
+// does the row's index work once per slot, not once per element: one id
+// load, the field's offset, the clamp, the masked-slot redirect, the map
+// load(s) and one scale load; no division per element. K6 issues its two
+// map loads together (both depend only on the row), then picks cache, else
+// staging, else exactly +0.0 (q = 0 times a scale of +0.0, no load), so a
+// staged row waits for no third round trip. Each lane then loads a word of
+// int8 codes of the winning tier's row -- 4 codes (one 4-byte load, one
+// float4 store) or 16 (one 16-byte load, four float4 stores) -- or, for an
+// odd d or a tier 1 byte into its storage, one code, the byte path the
+// kernel takes itself. Pooling (h > 1) issues the loads of up to CH slots
+// (ids and masks, then maps, then payloads and scales) before it sums them
+// in slot order from slot 0's value with __fadd_rn; each code is dequantized
+// with __fmul_rn((float)q, s), so nvcc cannot contract the two into an FMA
+// and the result is bitwise the plain versions'. The word, lanes, rows a
+// thread, block size and store kind come from the wrapper
+// (multi_table_lookup.py, `tiered_q8_launch`), and the entries check them
+// before they launch.
 //
 // Out-of-range input: the global row is clamped into [0, n_rows) as in K1,
 // and a slot outside [0, n_cache) (or [0, n_staging)) counts as a miss, so no
@@ -75,30 +97,6 @@ struct TwoLevelRows {
   }
 };
 
-// K4: as K3 on int8 payloads; the scale comes from the same tier.
-struct TwoLevelRowsQ8 {
-  const int32_t* slot_of_row;
-  const int8_t* cache;
-  const float* cache_scale;
-  const int8_t* backing;
-  const float* backing_scale;
-  int64_t n_cache;
-  __device__ __forceinline__ float operator()(int64_t r, int64_t e,
-                                              int64_t d) const {
-    const int64_t s = __ldg(slot_of_row + r);
-    int8_t q;
-    float scale;
-    if (s >= 0 && s < n_cache) {
-      q = __ldg(cache + s * d + e);
-      scale = __ldg(cache_scale + s);
-    } else {
-      q = __ldg(backing + r * d + e);
-      scale = __ldg(backing_scale + r);
-    }
-    return __fmul_rn(static_cast<float>(q), scale);
-  }
-};
-
 // K5: cache, else staging, else the zero guard; only the winning tier's
 // element is loaded, and the staging map only on a cache miss.
 struct ThreeLevelRows {
@@ -114,32 +112,6 @@ struct ThreeLevelRows {
     if (s >= 0 && s < n_cache) return __ldg(cache + s * d + e);
     const int64_t t = __ldg(staging_slot_of_row + r);
     if (t >= 0 && t < n_staging) return __ldg(staging + t * d + e);
-    return 0.0f;
-  }
-};
-
-// K6: as K5 on int8 payloads; the scale comes from the winning tier.
-struct ThreeLevelRowsQ8 {
-  const int32_t* slot_of_row;
-  const int32_t* staging_slot_of_row;
-  const int8_t* cache;
-  const float* cache_scale;
-  const int8_t* staging;
-  const float* staging_scale;
-  int64_t n_cache;
-  int64_t n_staging;
-  __device__ __forceinline__ float operator()(int64_t r, int64_t e,
-                                              int64_t d) const {
-    const int64_t s = __ldg(slot_of_row + r);
-    if (s >= 0 && s < n_cache) {
-      return __fmul_rn(static_cast<float>(__ldg(cache + s * d + e)),
-                       __ldg(cache_scale + s));
-    }
-    const int64_t t = __ldg(staging_slot_of_row + r);
-    if (t >= 0 && t < n_staging) {
-      return __fmul_rn(static_cast<float>(__ldg(staging + t * d + e)),
-                       __ldg(staging_scale + t));
-    }
     return 0.0f;
   }
 };
@@ -206,6 +178,285 @@ int launch(const void* ids, const void* mask, const void* offsets, Rows rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K4 and K6: int8 tiers, a group of lanes a row
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 8;   // slots of a pooled row whose loads go together
+
+// The tier row one slot reads: its int8 codes and its scale, or neither
+// (K6's zero guard).
+struct Pick {
+  const int8_t* row;
+  const float* scale;
+};
+
+// K4: a slot inside [0, n_cache) reads the cache, anything else the backing.
+struct TwoLevelQ8 {
+  const int32_t* slot_of_row;
+  const int8_t* cache;
+  const float* cache_scale;
+  const int8_t* backing;
+  const float* backing_scale;
+  int64_t n_cache;
+  using Maps = int32_t;
+  __device__ __forceinline__ Maps maps(int64_t r) const {
+    return __ldg(slot_of_row + r);
+  }
+  __device__ __forceinline__ Pick pick(int64_t r, Maps s, int64_t d) const {
+    if (s >= 0 && s < n_cache) return {cache + s * d, cache_scale + s};
+    return {backing + r * d, backing_scale + r};
+  }
+};
+
+// K6: cache, else staging, else nothing; both maps load at once.
+struct ThreeLevelQ8 {
+  const int32_t* slot_of_row;
+  const int32_t* staging_slot_of_row;
+  const int8_t* cache;
+  const float* cache_scale;
+  const int8_t* staging;
+  const float* staging_scale;
+  int64_t n_cache;
+  int64_t n_staging;
+  using Maps = int2;
+  __device__ __forceinline__ Maps maps(int64_t r) const {
+    return make_int2(__ldg(slot_of_row + r), __ldg(staging_slot_of_row + r));
+  }
+  __device__ __forceinline__ Pick pick(int64_t, Maps m, int64_t d) const {
+    if (m.x >= 0 && m.x < n_cache) return {cache + m.x * d, cache_scale + m.x};
+    if (m.y >= 0 && m.y < n_staging)
+      return {staging + m.y * d, staging_scale + m.y};
+    return {nullptr, nullptr};
+  }
+};
+
+// W int8 codes of a row: one 16- or 4-byte load, or one byte (W = 1).
+template <int W>
+struct Codes {
+  int v[W >= 4 ? W / 4 : 1];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < (W >= 4 ? W / 4 : 1); ++i) v[i] = 0;
+  }
+  __device__ __forceinline__ void load(const int8_t* p) {
+    if constexpr (W == 16) {
+      const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else if constexpr (W == 4) {
+      v[0] = __ldg(reinterpret_cast<const int*>(p));
+    } else {
+      v[0] = __ldg(p);
+    }
+  }
+  __device__ __forceinline__ float at(int e) const {
+    if constexpr (W == 1) return static_cast<float>(v[0]);
+    return static_cast<float>(static_cast<int8_t>(v[e / 4] >> (8 * (e % 4))));
+  }
+};
+
+template <bool CS>
+__device__ __forceinline__ void put(float* p, float v) {
+  if constexpr (CS) __stcs(p, v); else *p = v;
+}
+
+template <bool CS>
+__device__ __forceinline__ void put(float4* p, float4 v) {
+  if constexpr (CS) __stcs(p, v); else *p = v;
+}
+
+// A group of 2^lane_bits lanes builds output row p = (sample, field); lane
+// l takes its words l, l + lanes, ... (one word when lanes cover the row).
+// A thread builds R rows one grid of groups apart; a pooled row takes its
+// slots CH at a time, every load of a chunk issued before the sum.
+template <typename Tiers, int W, int R, int CH, bool CS>
+__global__ void __launch_bounds__(256)
+tiered_q8_kernel(const int32_t* __restrict__ ids,
+                 const float* __restrict__ mask,
+                 const int32_t* __restrict__ offsets, Tiers tiers,
+                 float* __restrict__ out, int64_t pairs, int64_t k, int64_t h,
+                 int64_t d, int lane_bits, int64_t n_rows) {
+  const int lanes = 1 << lane_bits;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int64_t words = d / W;
+  const int64_t group =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x)
+      >> lane_bits;
+  const int64_t groups =
+      (static_cast<int64_t>(gridDim.x) * blockDim.x) >> lane_bits;
+  const bool narrow = pairs < (int64_t{1} << 32);
+  for (int64_t first = group; first < pairs; first += groups * R) {
+    int64_t p[R], offset[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      p[i] = first + i * groups;
+      offset[i] = 0;
+      if (p[i] < pairs) {
+        const int64_t f = narrow ? static_cast<int64_t>(
+            static_cast<uint32_t>(p[i]) % static_cast<uint32_t>(k))
+                                 : p[i] % k;
+        offset[i] = __ldg(offsets + f);
+      }
+    }
+    for (int64_t w = lane; w < words; w += lanes) {
+      float acc[R][W];
+      for (int64_t j0 = 0; j0 < h; j0 += CH) {
+        // ids and masks -> the slots' global rows (-1: no such slot)
+        int64_t r[R][CH];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            r[i][c] = -1;
+            if (p[i] < pairs && j0 + c < h) {
+              const int64_t slot = p[i] * h + j0 + c;
+              int64_t row = n_rows - 1;               // masked: the zero row
+              if (mask == nullptr || __ldg(mask + slot) != 0.0f) {
+                row = static_cast<int64_t>(__ldg(ids + slot)) + offset[i];
+                row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
+              }
+              r[i][c] = row;
+            }
+          }
+        }
+        // rows -> maps
+        typename Tiers::Maps m[R][CH];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            m[i][c] = r[i][c] >= 0 ? tiers.maps(r[i][c])
+                                   : typename Tiers::Maps{};
+          }
+        }
+        // maps -> the winning tier's codes and scale; none: q = 0, s = +0
+        Codes<W> q[R][CH];
+        float s[R][CH];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            q[i][c].zero();
+            s[i][c] = 0.0f;
+            if (r[i][c] >= 0) {
+              const Pick t = tiers.pick(r[i][c], m[i][c], d);
+              if (t.row != nullptr) {
+                s[i][c] = __ldg(t.scale);
+                q[i][c].load(t.row + w * W);
+              }
+            }
+          }
+        }
+        // dequantize, and sum in slot order from slot 0's value
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            if (r[i][c] < 0) continue;
+#pragma unroll
+            for (int e = 0; e < W; ++e) {
+              const float v = __fmul_rn(q[i][c].at(e), s[i][c]);
+              acc[i][e] = j0 + c == 0 ? v : __fadd_rn(acc[i][e], v);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (p[i] >= pairs) continue;
+        float* dst = out + p[i] * d + w * W;
+        if constexpr (W == 1) {
+          put<CS>(dst, acc[i][0]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < W; e += 4) {
+            put<CS>(reinterpret_cast<float4*>(dst + e),
+                    make_float4(acc[i][e], acc[i][e + 1], acc[i][e + 2],
+                                acc[i][e + 3]));
+          }
+        }
+      }
+    }
+  }
+}
+
+struct Q8Call {
+  const int32_t* ids;
+  const float* mask;
+  const int32_t* offsets;
+  float* out;
+  int64_t pairs, k, h, d, n_rows;
+  int lane_bits, threads;
+  unsigned blocks;
+  cudaStream_t stream;
+};
+
+template <typename Tiers, int W, int R, int CH, bool CS>
+void run_q8(const Q8Call& c, const Tiers& t) {
+  tiered_q8_kernel<Tiers, W, R, CH, CS><<<c.blocks, c.threads, 0, c.stream>>>(
+      c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
+      c.lane_bits, c.n_rows);
+}
+
+template <typename Tiers, int W, int R>
+void run_q8_chunk(const Q8Call& c, const Tiers& t, bool cs) {
+  if (c.h == 1) {
+    cs ? run_q8<Tiers, W, R, 1, true>(c, t)
+       : run_q8<Tiers, W, R, 1, false>(c, t);
+  } else {
+    cs ? run_q8<Tiers, W, R, kChunk, true>(c, t)
+       : run_q8<Tiers, W, R, kChunk, false>(c, t);
+  }
+}
+
+template <typename Tiers, int W>
+void run_q8_rows(const Q8Call& c, const Tiers& t, int rows, bool cs) {
+  rows == 2 ? run_q8_chunk<Tiers, W, 2>(c, t, cs)
+            : run_q8_chunk<Tiers, W, 1>(c, t, cs);
+}
+
+// word: bytes of codes a lane loads (16, 4 or 1; 16 and 4 need d a multiple
+// of the word, both code tiers aligned to it and out 16-byte aligned);
+// lane_bits: log2 of the lanes per row (0..5); rows: rows per thread (1 or
+// 2); threads: a multiple of 32 up to 256; blocks: 1..2^31-1; streaming:
+// store the output with __stcs (evict-first) instead of a plain store.
+template <typename Tiers>
+int launch_q8(const void* ids, const void* mask, const void* offsets,
+              const Tiers& tiers, const void* codes_a, const void* codes_b,
+              void* out, int64_t b, int64_t k, int64_t h, int64_t d,
+              int64_t n_rows, int64_t word, int64_t lane_bits, int64_t rows,
+              int64_t threads, int64_t blocks, int64_t streaming,
+              void* stream) {
+  const int64_t pairs = b * k;
+  if (pairs == 0 || d == 0) return 0;
+  if ((word != 1 && word != 4 && word != 16) || lane_bits < 0
+      || lane_bits > 5 || (rows != 1 && rows != 2) || threads < 32
+      || threads > 256 || threads % 32 != 0 || blocks < 1
+      || blocks > 0x7fffffff || h < 1 || n_rows < 1)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (word > 1 && (d % word != 0
+                   || reinterpret_cast<uintptr_t>(codes_a) % word != 0
+                   || reinterpret_cast<uintptr_t>(codes_b) % word != 0
+                   || reinterpret_cast<uintptr_t>(out) % 16 != 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Q8Call c{static_cast<const int32_t*>(ids),
+                 static_cast<const float*>(mask),
+                 static_cast<const int32_t*>(offsets), static_cast<float*>(out),
+                 pairs, k, h, d, n_rows, static_cast<int>(lane_bits),
+                 static_cast<int>(threads), static_cast<unsigned>(blocks),
+                 static_cast<cudaStream_t>(stream)};
+  const int r = static_cast<int>(rows);
+  const bool cs = streaming != 0;
+  if (word == 16) {
+    run_q8_rows<Tiers, 16>(c, tiers, r, cs);
+  } else if (word == 4) {
+    run_q8_rows<Tiers, 4>(c, tiers, r, cs);
+  } else {
+    run_q8_rows<Tiers, 1>(c, tiers, r, cs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // ids (b, k, h) int32, mask (b, k, h) float32 or null (all slots valid),
@@ -239,15 +490,17 @@ extern "C" int mtl_gather_two_level_q8(
     const void* slot_of_row, const void* cache, const void* cache_scale,
     const void* backing, const void* backing_scale, void* out, int64_t b,
     int64_t k, int64_t h, int64_t d, int64_t n_cache, int64_t n_rows,
-    void* stream) {
-  return launch(ids, mask, offsets,
-                TwoLevelRowsQ8{static_cast<const int32_t*>(slot_of_row),
-                               static_cast<const int8_t*>(cache),
-                               static_cast<const float*>(cache_scale),
-                               static_cast<const int8_t*>(backing),
-                               static_cast<const float*>(backing_scale),
-                               n_cache},
-                out, b, k, h, d, n_rows, stream);
+    int64_t word, int64_t lane_bits, int64_t rows, int64_t threads,
+    int64_t blocks, int64_t streaming, void* stream) {
+  return launch_q8(ids, mask, offsets,
+                   TwoLevelQ8{static_cast<const int32_t*>(slot_of_row),
+                              static_cast<const int8_t*>(cache),
+                              static_cast<const float*>(cache_scale),
+                              static_cast<const int8_t*>(backing),
+                              static_cast<const float*>(backing_scale),
+                              n_cache},
+                   cache, backing, out, b, k, h, d, n_rows, word, lane_bits,
+                   rows, threads, blocks, streaming, stream);
 }
 
 // K5/K6: n_rows is the length of both maps (the host backing's height).
@@ -274,15 +527,17 @@ extern "C" int mtl_gather_three_level_q8(
     const void* cache, const void* cache_scale, const void* staging,
     const void* staging_scale, void* out, int64_t b, int64_t k, int64_t h,
     int64_t d, int64_t n_cache, int64_t n_staging, int64_t n_rows,
-    void* stream) {
-  return launch(ids, mask, offsets,
-                ThreeLevelRowsQ8{static_cast<const int32_t*>(slot_of_row),
-                                 static_cast<const int32_t*>(
-                                     staging_slot_of_row),
-                                 static_cast<const int8_t*>(cache),
-                                 static_cast<const float*>(cache_scale),
-                                 static_cast<const int8_t*>(staging),
-                                 static_cast<const float*>(staging_scale),
-                                 n_cache, n_staging},
-                out, b, k, h, d, n_rows, stream);
+    int64_t word, int64_t lane_bits, int64_t rows, int64_t threads,
+    int64_t blocks, int64_t streaming, void* stream) {
+  return launch_q8(ids, mask, offsets,
+                   ThreeLevelQ8{static_cast<const int32_t*>(slot_of_row),
+                                static_cast<const int32_t*>(
+                                    staging_slot_of_row),
+                                static_cast<const int8_t*>(cache),
+                                static_cast<const float*>(cache_scale),
+                                static_cast<const int8_t*>(staging),
+                                static_cast<const float*>(staging_scale),
+                                n_cache, n_staging},
+                   cache, staging, out, b, k, h, d, n_rows, word, lane_bits,
+                   rows, threads, blocks, streaming, stream);
 }

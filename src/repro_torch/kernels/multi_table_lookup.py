@@ -33,10 +33,13 @@ thread per (sample, field), writing a field-major ``(k, b, d)`` buffer
 that a PyTorch transpose turns into ``(b, k*d)``. K1 and K8 copy 16-byte
 words when ``d % 4 == 0`` and the table and output are 16-byte aligned,
 else 4-byte words; :func:`gather_launch` and :func:`input_first_launch`
-give their launch shapes as pure functions of the call. K7 is the reference's
-one-hot lookup over small per-field tables stacked to one padded height:
-a gather where an id outside ``[0, n_pad)`` gives a zero row (the
-one-hot row matches nothing), not a clamped one.
+give their launch shapes as pure functions of the call. K4 and K6 build a
+row with a group of lanes, each loading a word of int8 codes (16 or 4
+bytes, or 1 byte for an odd ``d`` or a tier view 1 byte into its storage:
+:func:`q8_word`), in the shape :func:`tiered_q8_launch` gives. K7 is the
+reference's one-hot lookup over small per-field tables stacked to one
+padded height: a gather where an id outside ``[0, n_pad)`` gives a zero
+row (the one-hot row matches nothing), not a clamped one.
 """
 
 from __future__ import annotations
@@ -60,30 +63,41 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
            "mtl_gather_three_level_q8_plain", "mtl_input_first",
            "mtl_input_first_plain", "mtl_onehot", "mtl_onehot_plain",
            "Launch", "GATHER_THREADS", "INPUT_FIRST_THREADS",
-           "vector_words", "gather_launch", "input_first_launch"]
+           "TIERED_Q8_THREADS", "vector_words", "gather_launch",
+           "input_first_launch", "q8_word", "tiered_q8_launch"]
 
 
 # ---------------------------------------------------------------------------
-# K1 and K8 launch shapes: pure functions of the call, checked again by the
-# C entries before they launch
+# K1, K8, K4 and K6 launch shapes: pure functions of the call, checked again
+# by the C entries before they launch
 # ---------------------------------------------------------------------------
 
 #: threads a block: within 6% (K1) and 8% (K8) of the best of 32-256 at
 #: every shape ``chip_smoke.py``'s launch sweep times on the H100 (Criteo
 #: b = 256 and 1024 at d = 1 and 32, a misaligned view, Fig. 11's four)
 GATHER_THREADS, INPUT_FIRST_THREADS = 128, 64
+#: K4 and K6: within 2% of the best of 32-256, at the word
+#: ``tiered_q8_launch`` picks, at every shape of ``chip_smoke.py``'s launch
+#: sweep on the H100 (Criteo b = 256 and 1024, h = 1 and 5)
+TIERED_Q8_THREADS = 128
+#: K4 and K6: output rows (b*k) from which pooled rows take 16-byte words
+_WIDE_POOLED_ROWS = 1 << 15
 _MAX_BLOCKS = 1 << 20      # the kernels stride over the rows past it
 
 
 class Launch(NamedTuple):
-    """How a K1 or K8 launch copies: ``vec`` 16-byte words (else 4-byte),
-    ``lanes`` threads a row and ``rows`` rows a thread (K1; 1 and 1 for
-    K8), ``threads`` a block, ``blocks`` in the grid."""
+    """How a gather launch copies: ``vec`` wide words (K1 and K8: 16-byte
+    words, else 4-byte; K4 and K6: ``word`` bytes of int8 codes, 16 or 4,
+    else 1), ``lanes`` threads a row and ``rows`` rows a thread (1 and 1
+    for K8), ``threads`` a block, ``blocks`` in the grid; K4 and K6 also
+    ``streaming`` (evict-first) stores of the output."""
     vec: bool
     lanes: int
     rows: int
     threads: int
     blocks: int
+    word: int = 0
+    streaming: bool = False
 
 
 def vector_words(d: int, *pointers: int) -> bool:
@@ -97,13 +111,17 @@ def _grid(work: int, threads: int) -> int:
     return min(_MAX_BLOCKS, max(1, math.ceil(work / threads)))
 
 
+def _lanes(words: int) -> int:
+    """Lanes a row: the power of two up to 32 that covers ``words``."""
+    return min(32, 1 << max(0, words - 1).bit_length())
+
+
 def gather_launch(b: int, k: int, d: int, vec: bool) -> Launch:
     """K1's launch: ``lanes``, the power of two up to 32 that covers a
     row's words; two rows a thread where the words are floats and a row
     takes a whole warp, else one; a grid with a group of lanes for every
     row (for every two rows)."""
-    words = d // 4 if vec else d
-    lanes = min(32, 1 << max(0, words - 1).bit_length())
+    lanes = _lanes(d // 4 if vec else d)
     rows = 2 if not vec and lanes == 32 else 1
     return Launch(vec, lanes, rows, GATHER_THREADS,
                   _grid(math.ceil(b * k / rows) * lanes, GATHER_THREADS))
@@ -113,6 +131,44 @@ def input_first_launch(b: int, k: int, vec: bool) -> Launch:
     """K8's launch: one thread per (sample, field), 64 a block."""
     return Launch(vec, 1, 1, INPUT_FIRST_THREADS,
                   _grid(b * k, INPUT_FIRST_THREADS))
+
+
+def q8_word(d: int, out: int, *codes: int) -> int:
+    """The widest word of int8 codes K4 and K6 can load from rows of ``d``
+    codes at the tiers' base addresses ``codes`` into the fp32 output at
+    ``out``: 16 bytes where ``d % 16 == 0`` and every tier is 16-byte
+    aligned, else 4 where ``d % 4 == 0`` and every tier is 4-byte aligned,
+    either with a 16-byte aligned output (its float4 stores); else 1, the
+    byte path (an odd ``d``, or a tier view 1 byte into its storage)."""
+    if out % 16 == 0:
+        for word in (16, 4):
+            if d % word == 0 and all(ptr % word == 0 for ptr in codes):
+                return word
+    return 1
+
+
+def tiered_q8_launch(b: int, k: int, h: int, d: int, word: int) -> Launch:
+    """K4's and K6's launch for ``(b, k, h)`` ids and rows of ``d`` codes,
+    given the widest ``word`` the tiers allow (:func:`q8_word`): 16-byte
+    words for pooled rows (h > 1) once there are ``_WIDE_POOLED_ROWS``
+    output rows, else 4-byte words, where the tiers allow them; ``lanes``,
+    the power of two up to 32 that covers a row's words; one row a thread;
+    plain stores; a grid with a group of lanes for every row.
+
+    Every lane of a group repeats its row's index work (each slot's id,
+    mask, map and scale), so fewer, wider lanes pay once a row has several
+    slots: on the H100 at Criteo b = 1024, h = 5, 16-byte words took
+    9.8-10.1 against 13.4-13.6 us over three runs of ``chip_smoke.py``'s
+    launch sweep. They lose at h = 1 (7.0-7.1 against 5.5-5.7 us: with two
+    lanes a row a warp's float4 store fills half of each 32-byte sector it
+    touches) and at b = 256, h = 5 (6.5-6.7 against 5.9-6.0 us: 156 blocks
+    of two lanes a row leave about one block an SM). A second row a thread
+    and streaming stores paid nowhere."""
+    wide = h > 1 and b * k >= _WIDE_POOLED_ROWS
+    word = min(word, 16 if wide else 4)
+    lanes = _lanes(d // word)
+    return Launch(word > 1, lanes, 1, TIERED_Q8_THREADS,
+                  _grid(b * k * lanes, TIERED_Q8_THREADS), word, False)
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -180,7 +236,8 @@ mtl_gather.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2–K4: pooled and two-level gathers (csrc/mtl_gather_tiered.cu)
+# K2–K6: pooled, two-level and three-level gathers
+# (csrc/mtl_gather_tiered.cu)
 # ---------------------------------------------------------------------------
 
 def _slot_rows(ids: torch.Tensor, offsets: torch.Tensor,
@@ -295,7 +352,7 @@ def _tiered(name: str, n_pointers: int, n_sizes: int):
 def _check_slots(ids: torch.Tensor, mask: torch.Tensor | None,
                  offsets: torch.Tensor, dev: torch.device
                  ) -> tuple[torch.Tensor, int, int, int]:
-    """Check the id/mask/offset inputs of K2–K4; returns the ids as
+    """Check the id/mask/offset inputs of K2–K6; returns the ids as
     (b, k, h) with b, k, h."""
     if not isinstance(ids, torch.Tensor) or ids.dim() not in (2, 3):
         raise ValueError("ids must be a (b, k) or (b, k, h) tensor")
@@ -355,6 +412,12 @@ def _check_maps(slot_of_row: torch.Tensor, staging_slot_of_row: torch.Tensor,
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def _q8_args(launch: Launch) -> tuple[int, ...]:
+    """K4's and K6's launch arguments, in their C entries' order."""
+    return (launch.word, launch.lanes.bit_length() - 1, launch.rows,
+            launch.threads, launch.blocks, int(launch.streaming))
 
 
 def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
@@ -467,11 +530,14 @@ def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    code = _tiered("mtl_gather_two_level_q8", 9, 6)(
+    launch = tiered_q8_launch(b, k, h, d, q8_word(
+        d, out.data_ptr(), cache.data_ptr(), backing.data_ptr()))
+    code = _tiered("mtl_gather_two_level_q8", 9, 12)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), cache.data_ptr(), cache_scale.data_ptr(),
         backing.data_ptr(), backing_scale.data_ptr(), out.data_ptr(),
-        b, k, h, d, cache.shape[0], n_rows, _build.current_stream(dev))
+        b, k, h, d, cache.shape[0], n_rows, *_q8_args(launch),
+        _build.current_stream(dev))
     _build.check_launch("mtl_gather_two_level_q8", code)
     mtl_gather_two_level_q8.launches += 1
     return out
@@ -562,12 +628,15 @@ def mtl_gather_three_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    code = _tiered("mtl_gather_three_level_q8", 10, 7)(
+    launch = tiered_q8_launch(b, k, h, d, q8_word(
+        d, out.data_ptr(), cache.data_ptr(), staging.data_ptr()))
+    code = _tiered("mtl_gather_three_level_q8", 10, 13)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
         cache.data_ptr(), cache_scale.data_ptr(), staging.data_ptr(),
         staging_scale.data_ptr(), out.data_ptr(), b, k, h, d, cache.shape[0],
-        staging.shape[0], n_rows, _build.current_stream(dev))
+        staging.shape[0], n_rows, *_q8_args(launch),
+        _build.current_stream(dev))
     _build.check_launch("mtl_gather_three_level_q8", code)
     mtl_gather_three_level_q8.launches += 1
     return out

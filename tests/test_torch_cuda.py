@@ -37,7 +37,8 @@ from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
     mtl_gather_two_level, mtl_gather_two_level_plain,
     mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain, mtl_input_first,
-    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain, vector_words)
+    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain, q8_word,
+    tiered_q8_launch, vector_words)
 from repro_torch.kernels.quantize import (  # noqa: E402
     quantize_rows_q8, quantize_rows_q8_plain)
 from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
@@ -297,6 +298,140 @@ def test_three_level_gathers_bitwise(cuda, h):
                                    t["full_map"], t["cache"],
                                    t["full_staging"]),
             mtl_gather(ids, t["offsets"], t["mega"]))
+
+
+def _byte_offset(t, offset):
+    """int8 ``t`` copied into a view ``offset`` bytes past a 16-byte
+    boundary of its storage."""
+    assert t.dtype == torch.int8, t.dtype
+    buf = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
+    start = (-buf.data_ptr()) % 16 + offset
+    view = buf[start:start + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _same_bits(a, b):
+    """Bitwise equal, NaN for NaN (+0.0 and -0.0 differ)."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
+
+
+def _q8_tier_inputs(rng, b, h, d, offset, device, k=7, capacity=512):
+    """int8 cache, backing and staging tiers over a random table: ids with
+    out-of-range entries, a random mask, a cache slot past C, a staging
+    slot past S, a cached row also staged, half the uncached rows in
+    neither tier, a NaN and an inf scale on rows the ids read, and every
+    int8 tier a view ``offset`` bytes into its storage."""
+    sizes = rng.integers(2, 3000, size=k)
+    n = int(sizes.sum()) + 1
+    mega = rng.normal(size=(n, d)).astype(np.float32)
+    mega[-1] = 0.0
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    ids = np.stack([rng.integers(0, s, size=(b, h)) for s in sizes],
+                   axis=1).astype(np.int32)
+    ids.reshape(-1)[:3] = [-7, 2**31 - 1, 10**8][:ids.size]
+    mask = rng.integers(0, 2, size=ids.shape).astype(np.float32)
+    mask[-1, -1, 0] = mask[-1, 0, 0] = 1.0
+    hot = np.sort(rng.choice(n, size=capacity, replace=False))
+    som = np.full(n, -1, np.int32)
+    som[hot] = np.arange(capacity, dtype=np.int32)
+    som[hot[0]] = capacity + 5                          # past the cache
+    uncached = np.flatnonzero(som < 0)
+    warm = np.sort(rng.choice(uncached, size=uncached.size // 2,
+                              replace=False))
+    smap = np.full(n, -1, np.int32)
+    smap[warm] = np.arange(warm.size, dtype=np.int32)
+    smap[warm[0]] = warm.size + 9                       # past staging
+    smap[hot[1]] = 0                                    # the cache wins
+    q, scale = quantize_rows(torch.from_numpy(mega))
+    for f, value in ((-1, float("nan")), (0, float("inf"))):
+        scale[min(max(int(ids[-1, f, 0]) + int(offsets[f]), 0), n - 1)] = \
+            value
+    t = {name: torch.from_numpy(v).to(device) for name, v in dict(
+        ids=ids, mask=mask, offsets=offsets, slot_of_row=som,
+        smap=smap).items()}
+    hot_t, warm_t = torch.from_numpy(hot), torch.from_numpy(warm)
+    for name, codes in (("q", q), ("qcache", q[hot_t]),
+                        ("qstaging", q[warm_t])):
+        t[name] = _byte_offset(codes.to(device), offset)
+    t["scale"] = scale.to(device)
+    t["qscale"] = scale[hot_t].to(device)
+    t["qsscale"] = scale[warm_t].to(device)
+    return t
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b", [1, 37, 256])
+@pytest.mark.parametrize("h", [1, 5])
+@pytest.mark.parametrize("d", [1, 3, 16, 32, 60])
+def test_int8_tiered_gathers_bitwise(cuda, d, h, b, offset):
+    """K4 and K6 on every word path (16- and 4-byte words, and the byte
+    path for odd d or tiers 1 byte into their storage) are bitwise their
+    plain versions, one launch a call; K6 gives +0.0 for a row in neither
+    tier."""
+    t = _q8_tier_inputs(np.random.default_rng(d * 100 + h * 10 + b), b, h,
+                        d, offset, cuda)
+    word = q8_word(d, 0, t["q"].data_ptr(), t["qcache"].data_ptr(),
+                   t["qstaging"].data_ptr())
+    assert word == (1 if offset or d % 4 else 16 if d % 16 == 0 else 4)
+    k4_args = (t["offsets"], t["slot_of_row"], t["qcache"], t["qscale"],
+               t["q"], t["scale"])
+    k6_args = (t["offsets"], t["slot_of_row"], t["smap"], t["qcache"],
+               t["qscale"], t["qstaging"], t["qsscale"])
+    for ids, mask in ((t["ids"], t["mask"]),
+                      (t["ids"][..., 0].contiguous(), None)):
+        before = (mtl_gather_two_level_q8.launches,
+                  mtl_gather_three_level_q8.launches)
+        k4 = mtl_gather_two_level_q8(ids, *k4_args, mask=mask)
+        k6 = mtl_gather_three_level_q8(ids, *k6_args, mask=mask)
+        torch.cuda.synchronize()
+        assert (mtl_gather_two_level_q8.launches,
+                mtl_gather_three_level_q8.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert _same_bits(k4, mtl_gather_two_level_q8_plain(
+            ids, *k4_args, mask=mask))
+        assert _same_bits(k6, mtl_gather_three_level_q8_plain(
+            ids, *k6_args, mask=mask))
+    # h slots of the last call: one; rows in neither tier read +0.0
+    rows = (ids.long() + t["offsets"].long()[None, :]).clamp(
+        0, t["slot_of_row"].numel() - 1).reshape(-1)
+    c, s = t["slot_of_row"][rows], t["smap"][rows]
+    neither = ~((c >= 0) & (c < t["qcache"].shape[0])) \
+        & ~((s >= 0) & (s < t["qstaging"].shape[0]))
+    zero = k6.view(-1, d)[neither]
+    assert torch.all(zero == 0) and not torch.signbit(zero).any()
+    if b > 1:
+        assert neither.any() and k4.isnan().any()
+
+
+def test_int8_tiered_entries_refuse_bad_launches(cuda):
+    """The C entries check the word, alignment and shape they are given
+    and return a CUDA error code before launching."""
+    from repro_torch.kernels import multi_table_lookup as mtl
+    from repro_torch.kernels import _build
+    t = _q8_tier_inputs(np.random.default_rng(0), 4, 1, 32, 1, cuda)
+    out = torch.empty((4, 7 * 32), device=cuda)
+    good = tiered_q8_launch(4, 7, 1, 32, 1)
+    fn = mtl._tiered("mtl_gather_two_level_q8", 9, 12)
+
+    def call(word, lane_bits, threads):
+        return fn(t["ids"].data_ptr(), None, t["offsets"].data_ptr(),
+                  t["slot_of_row"].data_ptr(), t["qcache"].data_ptr(),
+                  t["qscale"].data_ptr(), t["q"].data_ptr(),
+                  t["scale"].data_ptr(), out.data_ptr(), 4, 7, 1, 32,
+                  t["qcache"].shape[0], t["slot_of_row"].numel(), word,
+                  lane_bits, 1, threads, good.blocks, 0,
+                  _build.current_stream(cuda))
+    assert call(1, 5, 128) == 0
+    assert call(4, 3, 128) == 716          # cudaErrorMisalignedAddress
+    assert call(16, 1, 128) == 716
+    assert call(2, 5, 128) == 9            # cudaErrorInvalidConfiguration
+    assert call(1, 6, 128) == 9
+    assert call(1, 5, 96 + 1) == 9
+    torch.cuda.synchronize()
 
 
 def _host_model(cuda, row_dtype, staging_capacity):

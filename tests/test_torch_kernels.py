@@ -28,7 +28,7 @@ from repro_torch.kernels.fused_fm import (  # noqa: E402
     fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     Launch, gather_launch, input_first_launch, mtl_gather, mtl_gather_plain,
-    vector_words)
+    q8_word, tiered_q8_launch, vector_words)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -128,6 +128,85 @@ def test_input_first_launch(b, k, want):
     assert got == want
     assert got.blocks * got.threads >= b * k > (got.blocks - 1) * got.threads
     assert got.blocks >= 132
+
+
+# ---------------------------------------------------------------------------
+# K4 and K6 launch shapes
+# ---------------------------------------------------------------------------
+
+def test_q8_word_needs_d_and_every_tier_aligned_to_the_word():
+    n, d = 10, 32
+    codes = torch.empty(n * d, dtype=torch.int8)
+    view = torch.empty(n * d + 1, dtype=torch.int8)[1:].view(n, d)
+    assert codes.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 1
+    assert q8_word(32, 0, codes.data_ptr(), 256) == 16
+    assert q8_word(16, 0, 0, 0) == 16
+    assert q8_word(32, 0, view.data_ptr(), 256) == 1   # 1 byte in
+    assert q8_word(32, 0, 4, 256) == 4                 # 4 bytes in
+    assert q8_word(60, 0, 0, 0) == 4                   # 60 % 16 != 0
+    assert q8_word(60, 0, 0, 2) == 1
+    assert q8_word(3, 0, 0, 0) == 1 and q8_word(1, 0, 0, 0) == 1
+    assert q8_word(32, 4, 0, 0) == 1                   # the output too
+
+
+@pytest.mark.parametrize("d,word,h,want", [
+    # Criteo d = 32: one-hot rows as 8 lanes of 4-byte words, pooled rows
+    # as 2 lanes of 16-byte words (aligned tiers allow 16 for both)
+    (32, 16, 1, Launch(True, 8, 1, 128, 2496, 4, False)),
+    (32, 16, 5, Launch(True, 2, 1, 128, 624, 16, False)),
+    (32, 4, 1, Launch(True, 8, 1, 128, 2496, 4, False)),
+    (32, 4, 5, Launch(True, 8, 1, 128, 2496, 4, False)),
+    # a tier 1 byte into its storage: the byte path, a warp a row
+    (32, 1, 1, Launch(False, 32, 1, 128, 9984, 1, False)),
+    (32, 1, 5, Launch(False, 32, 1, 128, 9984, 1, False)),
+    (16, 16, 1, Launch(True, 4, 1, 128, 1248, 4, False)),
+    (16, 16, 5, Launch(True, 1, 1, 128, 312, 16, False)),
+    (16, 1, 1, Launch(False, 16, 1, 128, 4992, 1, False)),
+    (16, 1, 5, Launch(False, 16, 1, 128, 4992, 1, False)),
+    # d = 60: 15 words on 16 lanes; 60 codes on 32 lanes, two a lane
+    (60, 4, 1, Launch(True, 16, 1, 128, 4992, 4, False)),
+    (60, 4, 5, Launch(True, 16, 1, 128, 4992, 4, False)),
+    (60, 1, 1, Launch(False, 32, 1, 128, 9984, 1, False)),
+    (60, 1, 5, Launch(False, 32, 1, 128, 9984, 1, False)),
+    (3, 1, 1, Launch(False, 4, 1, 128, 1248, 1, False)),
+    (3, 1, 5, Launch(False, 4, 1, 128, 1248, 1, False)),
+    (1, 1, 1, Launch(False, 1, 1, 128, 312, 1, False)),
+    (1, 1, 5, Launch(False, 1, 1, 128, 312, 1, False)),
+])
+def test_tiered_q8_launch(d, word, h, want):
+    got = tiered_q8_launch(1024, 39, h, d, word)
+    assert got == want
+    assert got.word <= word and d % got.word == 0
+    words = d // got.word
+    assert got.lanes & (got.lanes - 1) == 0 and got.lanes <= 32
+    assert got.lanes >= min(words, 32) > got.lanes // 2
+    assert got.vec == (got.word > 1)
+
+
+@pytest.mark.parametrize("b,h,word", [
+    # pooled rows take 16-byte words from 2**15 output rows (b * k) on
+    (256, 5, 4), (1024, 5, 16), (840, 5, 4), (841, 5, 16), (1024, 2, 16),
+    (65_536, 1, 4),                        # one-hot rows never
+])
+def test_tiered_q8_launch_widens_pooled_rows_at_large_batches(b, h, word):
+    got = tiered_q8_launch(b, 39, h, 32, 16)
+    assert got.word == word and got.lanes == 32 // word
+    assert tiered_q8_launch(b, 39, h, 32, 4).word == 4
+
+
+@pytest.mark.parametrize("b,k,blocks", [
+    # 8 lanes a row, 16 rows a 128-thread block: one block on each of an
+    # H100's 132 SMs, and one row more takes a 133rd
+    (2112, 1, 132), (2113, 1, 133), (1, 1, 1), (256, 39, 624),
+    (10**6, 39, 1 << 20),                  # capped; the kernel strides on
+])
+def test_tiered_q8_launch_grid(b, k, blocks):
+    got = tiered_q8_launch(b, k, 1, 32, 4)
+    assert got.blocks == blocks
+    groups = -(-b * k // got.rows)
+    if blocks < 1 << 20:
+        assert got.blocks * got.threads >= groups * got.lanes \
+            > (got.blocks - 1) * got.threads
 
 
 def test_alg1_literal_matches_every_strategy():

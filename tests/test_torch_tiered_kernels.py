@@ -34,6 +34,17 @@ from test_kernels import _q8_split_cache, _split_cache  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SIZES, D = [13, 29, 6], 16
+# K4 and K6 on the card load words of 16 or 4 codes where d allows them
+# and single codes at an odd d: their plain versions are held at a width
+# of each kind
+
+
+def with_widths(name, values, widths=(3, 32)):
+    """``name`` x ``d`` parameters: the values at ``D`` keep their own ids,
+    the other widths add ``-d<width>``."""
+    return pytest.mark.parametrize(f"{name},d", [
+        pytest.param(v, D, id=str(v)) for v in values] + [
+        pytest.param(v, d, id=f"{v}-d{d}") for d in widths for v in values])
 
 
 def t(x):
@@ -41,12 +52,12 @@ def t(x):
     return torch.from_numpy(np.array(x))
 
 
-def make_mega(rng, zero_row=True):
+def make_mega(rng, zero_row=True, d=D):
     """The mega-table of ``SIZES`` (with the trailing zero row the pooled
-    lookups mask into), its offsets, as jnp arrays."""
-    mega = rng.normal(size=(sum(SIZES), D)).astype(np.float32)
+    lookups mask into) at width ``d``, its offsets, as jnp arrays."""
+    mega = rng.normal(size=(sum(SIZES), d)).astype(np.float32)
     if zero_row:
-        mega = np.concatenate([mega, np.zeros((1, D), np.float32)])
+        mega = np.concatenate([mega, np.zeros((1, d), np.float32)])
     offsets = np.concatenate([[0], np.cumsum(SIZES)[:-1]]).astype(np.int32)
     return jnp.asarray(mega), jnp.asarray(offsets)
 
@@ -110,10 +121,10 @@ def test_two_level_pooled_plain_bitwise_vs_pallas_and_k2(h):
                                                       t(offsets), t(mega)))
 
 
-@pytest.mark.parametrize("capacity", [1, 16, 48])
-def test_two_level_q8_plain_bitwise_vs_pallas(capacity):
+@with_widths("capacity", [1, 16, 48])
+def test_two_level_q8_plain_bitwise_vs_pallas(capacity, d):
     rng = np.random.default_rng(capacity)
-    mega, offsets = make_mega(rng, zero_row=False)
+    mega, offsets = make_mega(rng, zero_row=False, d=d)
     q, scale, cache, cscale, slot_of_row = _q8_split_cache(rng, mega,
                                                            capacity)
     ids = make_onehot(rng, 24)
@@ -125,10 +136,10 @@ def test_two_level_q8_plain_bitwise_vs_pallas(capacity):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("h", [1, 3, 5])
-def test_two_level_q8_pooled_plain_bitwise_vs_pallas(h):
+@with_widths("h", [1, 3, 5])
+def test_two_level_q8_pooled_plain_bitwise_vs_pallas(h, d):
     rng = np.random.default_rng(20 + h)
-    mega, offsets = make_mega(rng)
+    mega, offsets = make_mega(rng, d=d)
     q, scale, cache, cscale, slot_of_row = _q8_split_cache(rng, mega, 16)
     ids, mask = make_slots(rng, 12, h)
     want = jops.multi_table_lookup_cached_q8_multihot(
@@ -388,9 +399,9 @@ def make_tiers(rng, mega, case):
                                 np.ones((extra.size, 1), np.float32)]))
 
 
-def _host_args(h, case, seed):
+def _host_args(h, case, seed, d=D):
     rng = np.random.default_rng(seed)
-    mega, offsets = (np.asarray(a) for a in make_mega(rng))
+    mega, offsets = (np.asarray(a) for a in make_mega(rng, d=d))
     tiers = make_tiers(rng, mega, case)
     ids, mask = (np.asarray(a) for a in make_slots(rng, 12, h))
     if h == 1:
@@ -427,9 +438,9 @@ def test_three_level_plain_bitwise_vs_pallas(h, case):
 
 
 @pytest.mark.parametrize("case", TIER_CASES)
-@pytest.mark.parametrize("h", [1, 3])
-def test_three_level_q8_plain_bitwise_vs_pallas(h, case):
-    _, offsets, tr, ids, mask = _host_args(h, case, 40 + h)
+@with_widths("h", [1, 3])
+def test_three_level_q8_plain_bitwise_vs_pallas(h, d, case):
+    _, offsets, tr, ids, mask = _host_args(h, case, 40 + h, d)
     args = (tr["qcache"], tr["qscale"], tr["qstaging"], tr["qsscale"],
             tr["slot_of_row"], tr["smap"], offsets)
     if h == 1:
