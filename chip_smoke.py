@@ -26,9 +26,9 @@ Phases (any failure raises; the script then exits non-zero):
    bitwise against K1, timed the same way; K3 and K4 at h = 1 also
    through a cold cache (rows 0..C-1, nearly all misses), their miss
    path; K4 on int8 tiers 1 byte into their storage (its byte path),
-   bitwise; and K4's launch sweep (1-, 4- and 16-byte words of codes,
-   one or two rows a thread, 32-256 threads a block, streaming stores),
-   every setting bitwise against the plain version before it is timed.
+   bitwise; and K4's launch sweep (codes loaded as 4-byte words or byte
+   by byte, 32-256 threads a block), every setting bitwise against the
+   plain version before it is timed.
    Then K5 ``mtl_gather_three_level`` and K6
    ``mtl_gather_three_level_q8`` on the same table under the same kind
    of 65,536-row cache (its hot set from one observe + refresh of a
@@ -274,36 +274,27 @@ def same_bits(torch, a, b) -> bool:
 
 def q8_sweep(torch, name, with_launch, want, sets, b, k, h, d,
              shape: str) -> None:
-    """Time K4 or K6 (``name``) with 1-, 4- and 16-byte words of codes (a
-    1-byte word is the byte path), one and two rows a thread, at 32, 64,
-    128 and 256 threads a block, and with streaming stores at the picked
-    rows and block size: ``with_launch(launch)`` gives
-    a call of the C entry with that launch, each checked bitwise against
-    ``want`` (the plain version on ``sets[0]``) first. The measurements
-    behind ``tiered_q8_launch``."""
+    """Time K4 or K6 (``name``) with its codes loaded as 4-byte words and
+    byte by byte (the byte path's loads, here on aligned tiers), at 32,
+    64, 128 and 256 threads a block: ``with_launch(launch)`` gives a call
+    of the C entry with that launch, each checked bitwise against ``want``
+    (the plain version on ``sets[0]``) first. The measurements behind
+    ``tiered_q8_launch``."""
     from repro_torch.kernels import multi_table_lookup as mtl
 
-    def run(word, rows, threads, streaming):
-        lanes = mtl._lanes(d // word)
-        launch = mtl.Launch(True, lanes, rows, threads,
-                            mtl._grid(math.ceil(b * k / rows) * lanes,
-                                      threads), word, streaming)
+    def run(word, threads):
+        launch = mtl.tiered_q8_launch(b, k, h, d, word)
+        launch = launch._replace(threads=threads, blocks=mtl._grid(
+            b * k * launch.lanes, threads))
         fn = with_launch(launch)
         assert same_bits(torch, fn(*sets[0]), want), (name, shape, launch)
         return round(device_ms(torch, fn, sets) * 1e3, 2)
 
-    pick = mtl.tiered_q8_launch(b, k, h, d, 16)
-    times = {}
-    for word in (1, 4, 16):
-        for rows in (1, 2):
-            for threads in (32, 64, 128, 256):
-                times[f"w{word}r{rows}t{threads}"] = run(word, rows,
-                                                         threads, False)
-        if word > 1:
-            times[f"w{word}r{pick.rows}t{pick.threads}cs"] = run(
-                word, pick.rows, pick.threads, True)
+    pick = mtl.tiered_q8_launch(b, k, h, d, 4)
+    times = {f"w{word}t{threads}": run(word, threads)
+             for word in (4, 1) for threads in (32, 64, 128, 256)}
     log(f"[sweep] {name} {shape}: us {times} (picked w{pick.word}"
-        f"r{pick.rows}t{pick.threads}{'cs' if pick.streaming else ''})")
+        f"t{pick.threads})")
 
 
 def byte_offset(torch, t, offset: int = 1):
@@ -872,8 +863,7 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                q8.backing_scale[:CACHE_CAPACITY].clone())
     odd_cache, odd_backing = (byte_offset(torch, q8.cache),
                               byte_offset(torch, q8.backing))
-    assert mtl.q8_word(d, 0, odd_cache.data_ptr(),
-                       odd_backing.data_ptr()) == 1
+    assert mtl.q8_word(d, odd_cache.data_ptr(), odd_backing.data_ptr()) == 1
 
     def k4_cold(i, m, rows):
         return mtl_gather_two_level_q8(i, offsets, cold_map, *cold_q8,
@@ -896,7 +886,7 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
 
     def k4_launch(b, h):
         """K4 through its C entry with a given launch (the sweep)."""
-        entry = mtl._tiered("mtl_gather_two_level_q8", 9, 12)
+        entry = mtl._tiered("mtl_gather_two_level_q8", 9, 11)
         stream = _build.current_stream(dev)
 
         def with_launch(launch):
@@ -1055,7 +1045,7 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
     qcscale = scale.index_select(0, cached_rows)
     odd_qcache = byte_offset(torch, qcache)
     rng = np.random.default_rng(SEED + 5)
-    entry = mtl._tiered("mtl_gather_three_level_q8", 10, 13)
+    entry = mtl._tiered("mtl_gather_three_level_q8", 10, 12)
     stream = _build.current_stream(dev)
 
     def staged_tiers(rows):

@@ -42,27 +42,32 @@
 //
 // Design of K4 and K6 (`tiered_q8_kernel`): the fp32 output is most of
 // their bytes, so the write has to be coalesced and the reads issued as
-// early as their dependences allow. A group of `lanes`
-// consecutive threads (a power of two, at most 32) builds one (sample,
-// field) output row, and consecutive groups take consecutive rows of the
-// (b, k) id matrix, so a warp's stores are one contiguous run. The group
-// does the row's index work once per slot, not once per element: one id
-// load, the field's offset, the clamp, the masked-slot redirect, the map
-// load(s) and one scale load; no division per element. K6 issues its two
-// map loads together (both depend only on the row), then picks cache, else
-// staging, else exactly +0.0 (q = 0 times a scale of +0.0, no load), so a
-// staged row waits for no third round trip. Each lane then loads a word of
-// int8 codes of the winning tier's row -- 4 codes (one 4-byte load, one
-// float4 store) or 16 (one 16-byte load, four float4 stores) -- or, for an
-// odd d or a tier 1 byte into its storage, one code, the byte path the
-// kernel takes itself. Pooling (h > 1) issues the loads of up to CH slots
-// (ids and masks, then maps, then payloads and scales) before it sums them
-// in slot order from slot 0's value with __fadd_rn; each code is dequantized
-// with __fmul_rn((float)q, s), so nvcc cannot contract the two into an FMA
-// and the result is bitwise the plain versions'. The word, lanes, rows a
-// thread, block size and store kind come from the wrapper
-// (multi_table_lookup.py, `tiered_q8_launch`), and the entries check them
-// before they launch.
+// early as their dependences allow. A group of `lanes` consecutive threads
+// (a power of two, at most 32) builds one (sample, field) output row, and
+// consecutive groups take consecutive rows of the (b, k) id matrix, so a
+// warp's stores are one contiguous run. Each lane of the group does the
+// row's index work once per slot, not once per element: one id load, the
+// field's offset, the clamp, the masked-slot redirect, the map load(s) and
+// one scale load; no division per element. The group's lanes repeat that
+// work on the same addresses, so each of its loads is a broadcast. K6
+// issues its two map loads together (both depend only on the row), then
+// picks cache, else staging, else exactly +0.0 (q = 0 times a scale of
+// +0.0, no load), so a staged row waits for no third round trip. Each lane
+// then takes 4 codes of the winning tier's row a piece -- one 4-byte load,
+// or four byte loads where a tier lies 1 byte into its storage (the byte
+// path, which keeps the 4-byte path's lanes and float4 stores) -- and one
+// code a piece for d % 4 != 0; the kernel takes those paths itself. A lane
+// takes one piece up to 128 codes a row (32 for d % 4 != 0) and repeats
+// the index work for each further piece: keeping a chunk's tier pointers
+// live across the pieces instead took the pooled kernels up to 91
+// registers (74 without) and K4 at h = 5, b = 1024 from 13.6 to 19.1 us on
+// an H100. Pooling (h > 1) issues the loads of up to CH slots (ids and
+// masks, then maps, then codes and scales) before it sums them in slot
+// order from slot 0's value with __fadd_rn; each code is dequantized with
+// __fmul_rn((float)q, s), so nvcc cannot contract the two into an FMA and
+// the result is bitwise the plain versions'. The piece width, load width,
+// lanes and block size come from the wrapper (multi_table_lookup.py,
+// `tiered_q8_launch`), and the entries check them before they launch.
 //
 // Out-of-range input: the global row is clamped into [0, n_rows) as in K1,
 // and a slot outside [0, n_cache) (or [0, n_staging)) counts as a miss, so no
@@ -231,45 +236,33 @@ struct ThreeLevelQ8 {
   }
 };
 
-// W int8 codes of a row: one 16- or 4-byte load, or one byte (W = 1).
-template <int W>
+// V int8 codes of a row a lane: 4, loaded as one 4-byte word (WORD) or
+// byte by byte (a tier not 4-byte aligned), or 1 (d % 4 != 0).
+template <int V, bool WORD>
 struct Codes {
-  int v[W >= 4 ? W / 4 : 1];
+  int8_t c[V];
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < (W >= 4 ? W / 4 : 1); ++i) v[i] = 0;
+    for (int e = 0; e < V; ++e) c[e] = 0;
   }
   __device__ __forceinline__ void load(const int8_t* p) {
-    if constexpr (W == 16) {
-      const int4 t = __ldg(reinterpret_cast<const int4*>(p));
-      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-    } else if constexpr (W == 4) {
-      v[0] = __ldg(reinterpret_cast<const int*>(p));
+    if constexpr (WORD) {
+      static_assert(V == 4, "a word is 4 codes");
+      const int x = __ldg(reinterpret_cast<const int*>(p));
+#pragma unroll
+      for (int e = 0; e < V; ++e) c[e] = static_cast<int8_t>(x >> (8 * e));
     } else {
-      v[0] = __ldg(p);
+#pragma unroll
+      for (int e = 0; e < V; ++e) c[e] = __ldg(p + e);
     }
-  }
-  __device__ __forceinline__ float at(int e) const {
-    if constexpr (W == 1) return static_cast<float>(v[0]);
-    return static_cast<float>(static_cast<int8_t>(v[e / 4] >> (8 * (e % 4))));
   }
 };
 
-template <bool CS>
-__device__ __forceinline__ void put(float* p, float v) {
-  if constexpr (CS) __stcs(p, v); else *p = v;
-}
-
-template <bool CS>
-__device__ __forceinline__ void put(float4* p, float4 v) {
-  if constexpr (CS) __stcs(p, v); else *p = v;
-}
-
 // A group of 2^lane_bits lanes builds output row p = (sample, field); lane
-// l takes its words l, l + lanes, ... (one word when lanes cover the row).
-// A thread builds R rows one grid of groups apart; a pooled row takes its
-// slots CH at a time, every load of a chunk issued before the sum.
-template <typename Tiers, int W, int R, int CH, bool CS>
+// l takes the row's V-code pieces l, l + lanes, ... (one piece when the
+// lanes cover the row). A pooled row takes its slots CH at a time, every
+// load of a chunk issued before the sum.
+template <typename Tiers, int V, bool WORD, int CH>
 __global__ void __launch_bounds__(256)
 tiered_q8_kernel(const int32_t* __restrict__ ids,
                  const float* __restrict__ mask,
@@ -278,103 +271,72 @@ tiered_q8_kernel(const int32_t* __restrict__ ids,
                  int64_t d, int lane_bits, int64_t n_rows) {
   const int lanes = 1 << lane_bits;
   const int lane = threadIdx.x & (lanes - 1);
-  const int64_t words = d / W;
+  const int64_t pieces = d / V;
   const int64_t group =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x)
       >> lane_bits;
   const int64_t groups =
       (static_cast<int64_t>(gridDim.x) * blockDim.x) >> lane_bits;
   const bool narrow = pairs < (int64_t{1} << 32);
-  for (int64_t first = group; first < pairs; first += groups * R) {
-    int64_t p[R], offset[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      p[i] = first + i * groups;
-      offset[i] = 0;
-      if (p[i] < pairs) {
-        const int64_t f = narrow ? static_cast<int64_t>(
-            static_cast<uint32_t>(p[i]) % static_cast<uint32_t>(k))
-                                 : p[i] % k;
-        offset[i] = __ldg(offsets + f);
-      }
-    }
-    for (int64_t w = lane; w < words; w += lanes) {
-      float acc[R][W];
+  for (int64_t p = group; p < pairs; p += groups) {
+    const int64_t f = narrow ? static_cast<int64_t>(
+        static_cast<uint32_t>(p) % static_cast<uint32_t>(k)) : p % k;
+    const int64_t offset = __ldg(offsets + f);
+    for (int64_t w = lane; w < pieces; w += lanes) {
+      float acc[V] = {};
       for (int64_t j0 = 0; j0 < h; j0 += CH) {
         // ids and masks -> the slots' global rows (-1: no such slot)
-        int64_t r[R][CH];
+        int64_t r[CH];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-#pragma unroll
-          for (int c = 0; c < CH; ++c) {
-            r[i][c] = -1;
-            if (p[i] < pairs && j0 + c < h) {
-              const int64_t slot = p[i] * h + j0 + c;
-              int64_t row = n_rows - 1;               // masked: the zero row
-              if (mask == nullptr || __ldg(mask + slot) != 0.0f) {
-                row = static_cast<int64_t>(__ldg(ids + slot)) + offset[i];
-                row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
-              }
-              r[i][c] = row;
+        for (int c = 0; c < CH; ++c) {
+          r[c] = -1;
+          if (j0 + c < h) {
+            const int64_t slot = p * h + j0 + c;
+            int64_t row = n_rows - 1;                 // masked: the zero row
+            if (mask == nullptr || __ldg(mask + slot) != 0.0f) {
+              row = static_cast<int64_t>(__ldg(ids + slot)) + offset;
+              row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
             }
+            r[c] = row;
           }
         }
         // rows -> maps
-        typename Tiers::Maps m[R][CH];
+        typename Tiers::Maps m[CH];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-#pragma unroll
-          for (int c = 0; c < CH; ++c) {
-            m[i][c] = r[i][c] >= 0 ? tiers.maps(r[i][c])
-                                   : typename Tiers::Maps{};
-          }
-        }
+        for (int c = 0; c < CH; ++c)
+          m[c] = r[c] >= 0 ? tiers.maps(r[c]) : typename Tiers::Maps{};
         // maps -> the winning tier's codes and scale; none: q = 0, s = +0
-        Codes<W> q[R][CH];
-        float s[R][CH];
+        Codes<V, WORD> q[CH];
+        float s[CH];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-#pragma unroll
-          for (int c = 0; c < CH; ++c) {
-            q[i][c].zero();
-            s[i][c] = 0.0f;
-            if (r[i][c] >= 0) {
-              const Pick t = tiers.pick(r[i][c], m[i][c], d);
-              if (t.row != nullptr) {
-                s[i][c] = __ldg(t.scale);
-                q[i][c].load(t.row + w * W);
-              }
+        for (int c = 0; c < CH; ++c) {
+          q[c].zero();
+          s[c] = 0.0f;
+          if (r[c] >= 0) {
+            const Pick t = tiers.pick(r[c], m[c], d);
+            if (t.row != nullptr) {
+              s[c] = __ldg(t.scale);
+              q[c].load(t.row + w * V);
             }
           }
         }
         // dequantize, and sum in slot order from slot 0's value
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
+        for (int c = 0; c < CH; ++c) {
+          if (r[c] < 0) continue;
 #pragma unroll
-          for (int c = 0; c < CH; ++c) {
-            if (r[i][c] < 0) continue;
-#pragma unroll
-            for (int e = 0; e < W; ++e) {
-              const float v = __fmul_rn(q[i][c].at(e), s[i][c]);
-              acc[i][e] = j0 + c == 0 ? v : __fadd_rn(acc[i][e], v);
-            }
+          for (int e = 0; e < V; ++e) {
+            const float v = __fmul_rn(static_cast<float>(q[c].c[e]), s[c]);
+            acc[e] = j0 + c == 0 ? v : __fadd_rn(acc[e], v);
           }
         }
       }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        if (p[i] >= pairs) continue;
-        float* dst = out + p[i] * d + w * W;
-        if constexpr (W == 1) {
-          put<CS>(dst, acc[i][0]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < W; e += 4) {
-            put<CS>(reinterpret_cast<float4*>(dst + e),
-                    make_float4(acc[i][e], acc[i][e + 1], acc[i][e + 2],
-                                acc[i][e + 3]));
-          }
-        }
+      float* const dst = out + p * d + w * V;
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+        *dst = acc[0];
       }
     }
   }
@@ -391,53 +353,40 @@ struct Q8Call {
   cudaStream_t stream;
 };
 
-template <typename Tiers, int W, int R, int CH, bool CS>
+template <typename Tiers, int V, bool WORD>
 void run_q8(const Q8Call& c, const Tiers& t) {
-  tiered_q8_kernel<Tiers, W, R, CH, CS><<<c.blocks, c.threads, 0, c.stream>>>(
-      c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
-      c.lane_bits, c.n_rows);
-}
-
-template <typename Tiers, int W, int R>
-void run_q8_chunk(const Q8Call& c, const Tiers& t, bool cs) {
   if (c.h == 1) {
-    cs ? run_q8<Tiers, W, R, 1, true>(c, t)
-       : run_q8<Tiers, W, R, 1, false>(c, t);
+    tiered_q8_kernel<Tiers, V, WORD, 1><<<c.blocks, c.threads, 0, c.stream>>>(
+        c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
+        c.lane_bits, c.n_rows);
   } else {
-    cs ? run_q8<Tiers, W, R, kChunk, true>(c, t)
-       : run_q8<Tiers, W, R, kChunk, false>(c, t);
+    tiered_q8_kernel<Tiers, V, WORD, kChunk>
+        <<<c.blocks, c.threads, 0, c.stream>>>(
+            c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
+            c.lane_bits, c.n_rows);
   }
 }
 
-template <typename Tiers, int W>
-void run_q8_rows(const Q8Call& c, const Tiers& t, int rows, bool cs) {
-  rows == 2 ? run_q8_chunk<Tiers, W, 2>(c, t, cs)
-            : run_q8_chunk<Tiers, W, 1>(c, t, cs);
-}
-
-// word: bytes of codes a lane loads (16, 4 or 1; 16 and 4 need d a multiple
-// of the word, both code tiers aligned to it and out 16-byte aligned);
-// lane_bits: log2 of the lanes per row (0..5); rows: rows per thread (1 or
-// 2); threads: a multiple of 32 up to 256; blocks: 1..2^31-1; streaming:
-// store the output with __stcs (evict-first) instead of a plain store.
+// vec: 4 codes a lane and one float4 store (needs d % 4 == 0 and out
+// 16-byte aligned), else 1; word: bytes a code load takes, 4 (needs vec
+// and both code tiers 4-byte aligned) or 1; lane_bits: log2 of the lanes
+// a row (0..5); threads: a multiple of 32 up to 256; blocks: 1..2^31-1.
 template <typename Tiers>
 int launch_q8(const void* ids, const void* mask, const void* offsets,
               const Tiers& tiers, const void* codes_a, const void* codes_b,
               void* out, int64_t b, int64_t k, int64_t h, int64_t d,
-              int64_t n_rows, int64_t word, int64_t lane_bits, int64_t rows,
-              int64_t threads, int64_t blocks, int64_t streaming,
-              void* stream) {
+              int64_t n_rows, int64_t vec, int64_t word, int64_t lane_bits,
+              int64_t threads, int64_t blocks, void* stream) {
   const int64_t pairs = b * k;
   if (pairs == 0 || d == 0) return 0;
-  if ((word != 1 && word != 4 && word != 16) || lane_bits < 0
-      || lane_bits > 5 || (rows != 1 && rows != 2) || threads < 32
-      || threads > 256 || threads % 32 != 0 || blocks < 1
-      || blocks > 0x7fffffff || h < 1 || n_rows < 1)
+  if ((vec != 0 && vec != 1) || (word != 1 && word != 4)
+      || (word == 4 && !vec) || (vec && d % 4 != 0) || lane_bits < 0
+      || lane_bits > 5 || threads < 32 || threads > 256 || threads % 32 != 0
+      || blocks < 1 || blocks > 0x7fffffff || h < 1 || n_rows < 1)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (word > 1 && (d % word != 0
-                   || reinterpret_cast<uintptr_t>(codes_a) % word != 0
-                   || reinterpret_cast<uintptr_t>(codes_b) % word != 0
-                   || reinterpret_cast<uintptr_t>(out) % 16 != 0))
+  if ((vec && reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      || (word == 4 && (reinterpret_cast<uintptr_t>(codes_a) % 4 != 0
+                        || reinterpret_cast<uintptr_t>(codes_b) % 4 != 0)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Q8Call c{static_cast<const int32_t*>(ids),
                  static_cast<const float*>(mask),
@@ -445,14 +394,12 @@ int launch_q8(const void* ids, const void* mask, const void* offsets,
                  pairs, k, h, d, n_rows, static_cast<int>(lane_bits),
                  static_cast<int>(threads), static_cast<unsigned>(blocks),
                  static_cast<cudaStream_t>(stream)};
-  const int r = static_cast<int>(rows);
-  const bool cs = streaming != 0;
-  if (word == 16) {
-    run_q8_rows<Tiers, 16>(c, tiers, r, cs);
-  } else if (word == 4) {
-    run_q8_rows<Tiers, 4>(c, tiers, r, cs);
+  if (word == 4) {
+    run_q8<Tiers, 4, true>(c, tiers);
+  } else if (vec) {
+    run_q8<Tiers, 4, false>(c, tiers);
   } else {
-    run_q8_rows<Tiers, 1>(c, tiers, r, cs);
+    run_q8<Tiers, 1, false>(c, tiers);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -490,8 +437,8 @@ extern "C" int mtl_gather_two_level_q8(
     const void* slot_of_row, const void* cache, const void* cache_scale,
     const void* backing, const void* backing_scale, void* out, int64_t b,
     int64_t k, int64_t h, int64_t d, int64_t n_cache, int64_t n_rows,
-    int64_t word, int64_t lane_bits, int64_t rows, int64_t threads,
-    int64_t blocks, int64_t streaming, void* stream) {
+    int64_t vec, int64_t word, int64_t lane_bits, int64_t threads,
+    int64_t blocks, void* stream) {
   return launch_q8(ids, mask, offsets,
                    TwoLevelQ8{static_cast<const int32_t*>(slot_of_row),
                               static_cast<const int8_t*>(cache),
@@ -499,8 +446,8 @@ extern "C" int mtl_gather_two_level_q8(
                               static_cast<const int8_t*>(backing),
                               static_cast<const float*>(backing_scale),
                               n_cache},
-                   cache, backing, out, b, k, h, d, n_rows, word, lane_bits,
-                   rows, threads, blocks, streaming, stream);
+                   cache, backing, out, b, k, h, d, n_rows, vec, word,
+                   lane_bits, threads, blocks, stream);
 }
 
 // K5/K6: n_rows is the length of both maps (the host backing's height).
@@ -527,8 +474,8 @@ extern "C" int mtl_gather_three_level_q8(
     const void* cache, const void* cache_scale, const void* staging,
     const void* staging_scale, void* out, int64_t b, int64_t k, int64_t h,
     int64_t d, int64_t n_cache, int64_t n_staging, int64_t n_rows,
-    int64_t word, int64_t lane_bits, int64_t rows, int64_t threads,
-    int64_t blocks, int64_t streaming, void* stream) {
+    int64_t vec, int64_t word, int64_t lane_bits, int64_t threads,
+    int64_t blocks, void* stream) {
   return launch_q8(ids, mask, offsets,
                    ThreeLevelQ8{static_cast<const int32_t*>(slot_of_row),
                                 static_cast<const int32_t*>(
@@ -538,6 +485,6 @@ extern "C" int mtl_gather_three_level_q8(
                                 static_cast<const int8_t*>(staging),
                                 static_cast<const float*>(staging_scale),
                                 n_cache, n_staging},
-                   cache, staging, out, b, k, h, d, n_rows, word, lane_bits,
-                   rows, threads, blocks, streaming, stream);
+                   cache, staging, out, b, k, h, d, n_rows, vec, word,
+                   lane_bits, threads, blocks, stream);
 }

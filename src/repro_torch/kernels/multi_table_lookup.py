@@ -34,9 +34,10 @@ that a PyTorch transpose turns into ``(b, k*d)``. K1 and K8 copy 16-byte
 words when ``d % 4 == 0`` and the table and output are 16-byte aligned,
 else 4-byte words; :func:`gather_launch` and :func:`input_first_launch`
 give their launch shapes as pure functions of the call. K4 and K6 build a
-row with a group of lanes, each loading a word of int8 codes (16 or 4
-bytes, or 1 byte for an odd ``d`` or a tier view 1 byte into its storage:
-:func:`q8_word`), in the shape :func:`tiered_q8_launch` gives. K7 is the
+row with a group of lanes, each taking 4 int8 codes as one 4-byte word,
+or byte by byte from a tier view 1 byte into its storage
+(:func:`q8_word`), or one code for ``d % 4 != 0``, in the shape
+:func:`tiered_q8_launch` gives. K7 is the
 reference's one-hot lookup over small per-field tables stacked to one
 padded height: a gather where an id outside ``[0, n_pad)`` gives a zero
 row (the one-hot row matches nothing), not a clamped one.
@@ -76,28 +77,26 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
 #: every shape ``chip_smoke.py``'s launch sweep times on the H100 (Criteo
 #: b = 256 and 1024 at d = 1 and 32, a misaligned view, Fig. 11's four)
 GATHER_THREADS, INPUT_FIRST_THREADS = 128, 64
-#: K4 and K6: within 2% of the best of 32-256, at the word
-#: ``tiered_q8_launch`` picks, at every shape of ``chip_smoke.py``'s launch
-#: sweep on the H100 (Criteo b = 256 and 1024, h = 1 and 5)
+#: K4 and K6: within 2% of the best of 32-256 at every shape of
+#: ``chip_smoke.py``'s launch sweep on the H100 (Criteo b = 256 and 1024,
+#: h = 1 and 5)
 TIERED_Q8_THREADS = 128
-#: K4 and K6: output rows (b*k) from which pooled rows take 16-byte words
-_WIDE_POOLED_ROWS = 1 << 15
 _MAX_BLOCKS = 1 << 20      # the kernels stride over the rows past it
 
 
 class Launch(NamedTuple):
     """How a gather launch copies: ``vec`` wide words (K1 and K8: 16-byte
-    words, else 4-byte; K4 and K6: ``word`` bytes of int8 codes, 16 or 4,
-    else 1), ``lanes`` threads a row and ``rows`` rows a thread (1 and 1
-    for K8), ``threads`` a block, ``blocks`` in the grid; K4 and K6 also
-    ``streaming`` (evict-first) stores of the output."""
+    words, else 4-byte; K4 and K6: 4 int8 codes a lane and a float4
+    store, else one code), ``lanes`` threads a row and ``rows`` rows a
+    thread (1 and 1 for K8 and K4/K6), ``threads`` a block, ``blocks`` in
+    the grid; K4 and K6 also ``word``, the bytes a code load takes (4 or
+    1)."""
     vec: bool
     lanes: int
     rows: int
     threads: int
     blocks: int
     word: int = 0
-    streaming: bool = False
 
 
 def vector_words(d: int, *pointers: int) -> bool:
@@ -133,42 +132,27 @@ def input_first_launch(b: int, k: int, vec: bool) -> Launch:
                   _grid(b * k, INPUT_FIRST_THREADS))
 
 
-def q8_word(d: int, out: int, *codes: int) -> int:
-    """The widest word of int8 codes K4 and K6 can load from rows of ``d``
-    codes at the tiers' base addresses ``codes`` into the fp32 output at
-    ``out``: 16 bytes where ``d % 16 == 0`` and every tier is 16-byte
-    aligned, else 4 where ``d % 4 == 0`` and every tier is 4-byte aligned,
-    either with a 16-byte aligned output (its float4 stores); else 1, the
-    byte path (an odd ``d``, or a tier view 1 byte into its storage)."""
-    if out % 16 == 0:
-        for word in (16, 4):
-            if d % word == 0 and all(ptr % word == 0 for ptr in codes):
-                return word
-    return 1
+def q8_word(d: int, *codes: int) -> int:
+    """The bytes a K4 or K6 load of int8 codes takes, from rows of ``d``
+    codes at the tiers' base addresses ``codes``: 4 where ``d % 4 == 0``
+    and every tier is 4-byte aligned, else 1 (the byte path: a tier view
+    1 byte into its storage, or ``d % 4 != 0``)."""
+    return 4 if d % 4 == 0 and all(ptr % 4 == 0 for ptr in codes) else 1
 
 
 def tiered_q8_launch(b: int, k: int, h: int, d: int, word: int) -> Launch:
-    """K4's and K6's launch for ``(b, k, h)`` ids and rows of ``d`` codes,
-    given the widest ``word`` the tiers allow (:func:`q8_word`): 16-byte
-    words for pooled rows (h > 1) once there are ``_WIDE_POOLED_ROWS``
-    output rows, else 4-byte words, where the tiers allow them; ``lanes``,
-    the power of two up to 32 that covers a row's words; one row a thread;
-    plain stores; a grid with a group of lanes for every row.
-
-    Every lane of a group repeats its row's index work (each slot's id,
-    mask, map and scale), so fewer, wider lanes pay once a row has several
-    slots: on the H100 at Criteo b = 1024, h = 5, 16-byte words took
-    9.8-10.1 against 13.4-13.6 us over three runs of ``chip_smoke.py``'s
-    launch sweep. They lose at h = 1 (7.0-7.1 against 5.5-5.7 us: with two
-    lanes a row a warp's float4 store fills half of each 32-byte sector it
-    touches) and at b = 256, h = 5 (6.5-6.7 against 5.9-6.0 us: 156 blocks
-    of two lanes a row leave about one block an SM). A second row a thread
-    and streaming stores paid nowhere."""
-    wide = h > 1 and b * k >= _WIDE_POOLED_ROWS
-    word = min(word, 16 if wide else 4)
-    lanes = _lanes(d // word)
-    return Launch(word > 1, lanes, 1, TIERED_Q8_THREADS,
-                  _grid(b * k * lanes, TIERED_Q8_THREADS), word, False)
+    """K4's and K6's launch for ``(b, k, h)`` ids and rows of ``d`` codes
+    loaded ``word`` bytes at a time (:func:`q8_word`): 4 codes a lane
+    (``vec``) where ``d % 4 == 0``, else one; ``lanes``, the power of two
+    up to 32 that covers a row's pieces; one row a thread; a grid with a
+    group of lanes for every row. In ``chip_smoke.py``'s sweep on the H100
+    a second row a thread and streaming stores paid at no shape, and
+    16-byte words only for pooled rows at b = 1024, which no served plan
+    sends (``PERF.md``)."""
+    vec = d % 4 == 0
+    lanes = _lanes(d // 4 if vec else d)
+    return Launch(vec, lanes, 1, TIERED_Q8_THREADS,
+                  _grid(b * k * lanes, TIERED_Q8_THREADS), word)
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -416,8 +400,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 def _q8_args(launch: Launch) -> tuple[int, ...]:
     """K4's and K6's launch arguments, in their C entries' order."""
-    return (launch.word, launch.lanes.bit_length() - 1, launch.rows,
-            launch.threads, launch.blocks, int(launch.streaming))
+    return (int(launch.vec), launch.word, launch.lanes.bit_length() - 1,
+            launch.threads, launch.blocks)
 
 
 def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
@@ -531,8 +515,8 @@ def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     if out.numel() == 0:
         return out
     launch = tiered_q8_launch(b, k, h, d, q8_word(
-        d, out.data_ptr(), cache.data_ptr(), backing.data_ptr()))
-    code = _tiered("mtl_gather_two_level_q8", 9, 12)(
+        d, cache.data_ptr(), backing.data_ptr()))
+    code = _tiered("mtl_gather_two_level_q8", 9, 11)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), cache.data_ptr(), cache_scale.data_ptr(),
         backing.data_ptr(), backing_scale.data_ptr(), out.data_ptr(),
@@ -629,8 +613,8 @@ def mtl_gather_three_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     if out.numel() == 0:
         return out
     launch = tiered_q8_launch(b, k, h, d, q8_word(
-        d, out.data_ptr(), cache.data_ptr(), staging.data_ptr()))
-    code = _tiered("mtl_gather_three_level_q8", 10, 13)(
+        d, cache.data_ptr(), staging.data_ptr()))
+    code = _tiered("mtl_gather_three_level_q8", 10, 12)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
         cache.data_ptr(), cache_scale.data_ptr(), staging.data_ptr(),

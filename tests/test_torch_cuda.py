@@ -365,18 +365,24 @@ def _q8_tier_inputs(rng, b, h, d, offset, device, k=7, capacity=512):
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("b", [1, 37, 256])
-@pytest.mark.parametrize("h", [1, 5])
-@pytest.mark.parametrize("d", [1, 3, 16, 32, 60])
+@pytest.mark.parametrize("h", [1, 5, 17])
+@pytest.mark.parametrize("d", [1, 3, 16, 32, 35, 60, 136])
 def test_int8_tiered_gathers_bitwise(cuda, d, h, b, offset):
-    """K4 and K6 on every word path (16- and 4-byte words, and the byte
-    path for odd d or tiers 1 byte into their storage) are bitwise their
+    """K4 and K6 on every path they launch -- 4 codes a lane as one 4-byte
+    word or, from tiers 1 byte into their storage, byte by byte; a code a
+    lane for d % 4 != 0; several pieces a lane past 128 codes (32 for
+    d % 4 != 0); a second chunk of slots (h = 17) -- are bitwise their
     plain versions, one launch a call; K6 gives +0.0 for a row in neither
     tier."""
     t = _q8_tier_inputs(np.random.default_rng(d * 100 + h * 10 + b), b, h,
                         d, offset, cuda)
-    word = q8_word(d, 0, t["q"].data_ptr(), t["qcache"].data_ptr(),
+    word = q8_word(d, t["q"].data_ptr(), t["qcache"].data_ptr(),
                    t["qstaging"].data_ptr())
-    assert word == (1 if offset or d % 4 else 16 if d % 16 == 0 else 4)
+    assert word == (1 if offset or d % 4 else 4)
+    launch = tiered_q8_launch(b, 7, h, d, word)
+    assert launch.vec == (d % 4 == 0)
+    pieces = d // 4 if launch.vec else d
+    assert (launch.lanes < pieces) == (d in (35, 136))
     k4_args = (t["offsets"], t["slot_of_row"], t["qcache"], t["qscale"],
                t["q"], t["scale"])
     k6_args = (t["offsets"], t["slot_of_row"], t["smap"], t["qcache"],
@@ -415,22 +421,24 @@ def test_int8_tiered_entries_refuse_bad_launches(cuda):
     t = _q8_tier_inputs(np.random.default_rng(0), 4, 1, 32, 1, cuda)
     out = torch.empty((4, 7 * 32), device=cuda)
     good = tiered_q8_launch(4, 7, 1, 32, 1)
-    fn = mtl._tiered("mtl_gather_two_level_q8", 9, 12)
+    fn = mtl._tiered("mtl_gather_two_level_q8", 9, 11)
 
-    def call(word, lane_bits, threads):
+    def call(vec, word, lane_bits, threads, d=32, dst=out):
         return fn(t["ids"].data_ptr(), None, t["offsets"].data_ptr(),
                   t["slot_of_row"].data_ptr(), t["qcache"].data_ptr(),
                   t["qscale"].data_ptr(), t["q"].data_ptr(),
-                  t["scale"].data_ptr(), out.data_ptr(), 4, 7, 1, 32,
-                  t["qcache"].shape[0], t["slot_of_row"].numel(), word,
-                  lane_bits, 1, threads, good.blocks, 0,
+                  t["scale"].data_ptr(), dst.data_ptr(), 4, 7, 1, d,
+                  t["qcache"].shape[0], t["slot_of_row"].numel(), vec,
+                  word, lane_bits, threads, good.blocks,
                   _build.current_stream(cuda))
-    assert call(1, 5, 128) == 0
-    assert call(4, 3, 128) == 716          # cudaErrorMisalignedAddress
-    assert call(16, 1, 128) == 716
-    assert call(2, 5, 128) == 9            # cudaErrorInvalidConfiguration
-    assert call(1, 6, 128) == 9
-    assert call(1, 5, 96 + 1) == 9
+    assert call(1, 1, 3, 128) == 0
+    assert call(1, 4, 3, 128) == 716       # cudaErrorMisalignedAddress
+    assert call(1, 1, 3, 128, dst=out.view(-1)[1:]) == 716
+    assert call(1, 2, 3, 128) == 9         # cudaErrorInvalidConfiguration
+    assert call(0, 4, 5, 128) == 9         # a 4-byte word needs vec
+    assert call(1, 1, 3, 128, d=30) == 9   # vec needs d % 4 == 0
+    assert call(1, 1, 6, 128) == 9
+    assert call(1, 1, 3, 96 + 1) == 9
     torch.cuda.synchronize()
 
 

@@ -139,59 +139,58 @@ def test_q8_word_needs_d_and_every_tier_aligned_to_the_word():
     codes = torch.empty(n * d, dtype=torch.int8)
     view = torch.empty(n * d + 1, dtype=torch.int8)[1:].view(n, d)
     assert codes.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 1
-    assert q8_word(32, 0, codes.data_ptr(), 256) == 16
-    assert q8_word(16, 0, 0, 0) == 16
-    assert q8_word(32, 0, view.data_ptr(), 256) == 1   # 1 byte in
-    assert q8_word(32, 0, 4, 256) == 4                 # 4 bytes in
-    assert q8_word(60, 0, 0, 0) == 4                   # 60 % 16 != 0
-    assert q8_word(60, 0, 0, 2) == 1
-    assert q8_word(3, 0, 0, 0) == 1 and q8_word(1, 0, 0, 0) == 1
-    assert q8_word(32, 4, 0, 0) == 1                   # the output too
+    assert q8_word(32, codes.data_ptr(), 256) == 4
+    assert q8_word(16, 0, 0) == 4
+    assert q8_word(32, view.data_ptr(), 256) == 1      # 1 byte in
+    assert q8_word(32, 4, 256) == 4                    # 4 bytes in
+    assert q8_word(32, 0, 2) == 1                      # 2 bytes in
+    assert q8_word(60, 0, 0) == 4
+    assert q8_word(3, 0, 0) == 1 and q8_word(1, 0, 0) == 1
 
 
 @pytest.mark.parametrize("d,word,h,want", [
-    # Criteo d = 32: one-hot rows as 8 lanes of 4-byte words, pooled rows
-    # as 2 lanes of 16-byte words (aligned tiers allow 16 for both)
-    (32, 16, 1, Launch(True, 8, 1, 128, 2496, 4, False)),
-    (32, 16, 5, Launch(True, 2, 1, 128, 624, 16, False)),
-    (32, 4, 1, Launch(True, 8, 1, 128, 2496, 4, False)),
-    (32, 4, 5, Launch(True, 8, 1, 128, 2496, 4, False)),
-    # a tier 1 byte into its storage: the byte path, a warp a row
-    (32, 1, 1, Launch(False, 32, 1, 128, 9984, 1, False)),
-    (32, 1, 5, Launch(False, 32, 1, 128, 9984, 1, False)),
-    (16, 16, 1, Launch(True, 4, 1, 128, 1248, 4, False)),
-    (16, 16, 5, Launch(True, 1, 1, 128, 312, 16, False)),
-    (16, 1, 1, Launch(False, 16, 1, 128, 4992, 1, False)),
-    (16, 1, 5, Launch(False, 16, 1, 128, 4992, 1, False)),
-    # d = 60: 15 words on 16 lanes; 60 codes on 32 lanes, two a lane
-    (60, 4, 1, Launch(True, 16, 1, 128, 4992, 4, False)),
-    (60, 4, 5, Launch(True, 16, 1, 128, 4992, 4, False)),
-    (60, 1, 1, Launch(False, 32, 1, 128, 9984, 1, False)),
-    (60, 1, 5, Launch(False, 32, 1, 128, 9984, 1, False)),
-    (3, 1, 1, Launch(False, 4, 1, 128, 1248, 1, False)),
-    (3, 1, 5, Launch(False, 4, 1, 128, 1248, 1, False)),
-    (1, 1, 1, Launch(False, 1, 1, 128, 312, 1, False)),
-    (1, 1, 5, Launch(False, 1, 1, 128, 312, 1, False)),
+    # Criteo d = 32: 8 lanes a row of 4 codes each, one-hot or pooled
+    (32, 4, 1, Launch(True, 8, 1, 128, 2496, 4)),
+    (32, 4, 5, Launch(True, 8, 1, 128, 2496, 4)),
+    # a tier 1 byte into its storage: the same lanes, codes byte by byte
+    (32, 1, 1, Launch(True, 8, 1, 128, 2496, 1)),
+    (32, 1, 5, Launch(True, 8, 1, 128, 2496, 1)),
+    (16, 4, 1, Launch(True, 4, 1, 128, 1248, 4)),
+    (16, 4, 5, Launch(True, 4, 1, 128, 1248, 4)),
+    (16, 1, 1, Launch(True, 4, 1, 128, 1248, 1)),
+    (16, 1, 5, Launch(True, 4, 1, 128, 1248, 1)),
+    # d = 60: 15 pieces on 16 lanes
+    (60, 4, 1, Launch(True, 16, 1, 128, 4992, 4)),
+    (60, 4, 5, Launch(True, 16, 1, 128, 4992, 4)),
+    (60, 1, 1, Launch(True, 16, 1, 128, 4992, 1)),
+    (60, 1, 5, Launch(True, 16, 1, 128, 4992, 1)),
+    # d % 4 != 0: a code a lane
+    (3, 1, 1, Launch(False, 4, 1, 128, 1248, 1)),
+    (3, 1, 5, Launch(False, 4, 1, 128, 1248, 1)),
+    (1, 1, 1, Launch(False, 1, 1, 128, 312, 1)),
+    (1, 1, 5, Launch(False, 1, 1, 128, 312, 1)),
+    # past 128 codes (32 for d % 4 != 0) a lane takes several pieces
+    (136, 4, 1, Launch(True, 32, 1, 128, 9984, 4)),
+    (35, 1, 5, Launch(False, 32, 1, 128, 9984, 1)),
 ])
 def test_tiered_q8_launch(d, word, h, want):
     got = tiered_q8_launch(1024, 39, h, d, word)
     assert got == want
-    assert got.word <= word and d % got.word == 0
-    words = d // got.word
+    assert got.vec == (d % 4 == 0) and got.word == word
+    pieces = d // 4 if got.vec else d
     assert got.lanes & (got.lanes - 1) == 0 and got.lanes <= 32
-    assert got.lanes >= min(words, 32) > got.lanes // 2
-    assert got.vec == (got.word > 1)
+    assert got.lanes >= min(pieces, 32) > got.lanes // 2
 
 
-@pytest.mark.parametrize("b,h,word", [
-    # pooled rows take 16-byte words from 2**15 output rows (b * k) on
-    (256, 5, 4), (1024, 5, 16), (840, 5, 4), (841, 5, 16), (1024, 2, 16),
-    (65_536, 1, 4),                        # one-hot rows never
+@pytest.mark.parametrize("b,h", [
+    # one launch rule for one-hot and pooled rows at every batch
+    (256, 5), (1024, 5), (840, 5), (841, 5), (1024, 2), (65_536, 1),
 ])
-def test_tiered_q8_launch_widens_pooled_rows_at_large_batches(b, h, word):
-    got = tiered_q8_launch(b, 39, h, 32, 16)
-    assert got.word == word and got.lanes == 32 // word
-    assert tiered_q8_launch(b, 39, h, 32, 4).word == 4
+def test_tiered_q8_launch_is_the_same_for_pooled_rows(b, h):
+    got = tiered_q8_launch(b, 39, h, 32, 4)
+    assert got == tiered_q8_launch(b, 39, 1, 32, 4)
+    assert (got.vec, got.word, got.lanes, got.rows) == (True, 4, 8, 1)
+    assert tiered_q8_launch(b, 39, h, 32, 1).word == 1
 
 
 @pytest.mark.parametrize("b,k,blocks", [
