@@ -25,10 +25,12 @@ Phases (any failure raises; the script then exits non-zero):
    against their plain versions (out-of-range ids included), K3 at h = 1
    bitwise against K1, timed the same way; K3 and K4 at h = 1 also
    through a cold cache (rows 0..C-1, nearly all misses), their miss
-   path; K4 on int8 tiers 1 byte into their storage (its byte path),
-   bitwise; and K4's launch sweep (codes loaded as 4-byte words or byte
-   by byte, 32-256 threads a block), every setting bitwise against the
-   plain version before it is timed.
+   path; K3 on an fp32 cache 4 bytes into its storage (its 4-byte path)
+   and K4 on int8 tiers 1 byte into their storage (its byte path),
+   bitwise; and K3's launch sweep (16-byte or 4-byte words, 64-256
+   threads a block) and K4's (codes loaded as 4-byte words or byte by
+   byte, 32-256 threads), every setting bitwise against the plain version
+   before it is timed.
    Then K5 ``mtl_gather_three_level`` and K6
    ``mtl_gather_three_level_q8`` on the same table under the same kind
    of 65,536-row cache (its hot set from one observe + refresh of a
@@ -37,7 +39,8 @@ Phases (any failure raises; the script then exits non-zero):
    versions (ids -7, 2**31-1 and 10**8, a cache slot past C, a staging
    slot past S and rows in neither tier, which read exactly 0.0), K5
    against K1 (h = 1) and K2 (h = 5), K6 against K4; timed the same way;
-   K6 also on its byte path and through its launch sweep, as K4.
+   K5 also on fp32 tiers 4 bytes into their storage and K6 on its byte
+   path, and both through their launch sweeps, as K3 and K4.
    Then K12 ``dmm_q8`` (int8 ``wgmma`` on TMA-fed shared memory) at
    DCNv2's MLP shapes (1248 -> 1024, 1024 -> 1024) at b = 256 and 1024,
    plus (1, 1, 1), (33, 7, 5), (200, 1248, 1000), a misaligned ``hq``
@@ -272,39 +275,72 @@ def same_bits(torch, a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def q8_sweep(torch, name, with_launch, want, sets, b, k, h, d,
-             shape: str) -> None:
-    """Time K4 or K6 (``name``) with its codes loaded as 4-byte words and
-    byte by byte (the byte path's loads, here on aligned tiers), at 32,
-    64, 128 and 256 threads a block: ``with_launch(launch)`` gives a call
-    of the C entry with that launch, each checked bitwise against ``want``
-    (the plain version on ``sets[0]``) first. The measurements behind
-    ``tiered_q8_launch``."""
+def entry_call(torch, name, offsets, tensors, sizes, b, k, h, d):
+    """``with_launch`` for :func:`tiered_sweep`: ``with_launch(launch)``
+    gives a call of K3–K6's C entry ``name`` on ``(ids, mask, offsets,
+    *tensors, out, b, k, h, d, *sizes)`` with that launch."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import multi_table_lookup as mtl
 
-    def run(word, threads):
-        launch = mtl.tiered_q8_launch(b, k, h, d, word)
-        launch = launch._replace(threads=threads, blocks=mtl._grid(
-            b * k * launch.lanes, threads))
-        fn = with_launch(launch)
-        assert same_bits(torch, fn(*sets[0]), want), (name, shape, launch)
-        return round(device_ms(torch, fn, sets) * 1e3, 2)
+    dev = offsets.device
+    stream = _build.current_stream(dev)
 
-    pick = mtl.tiered_q8_launch(b, k, h, d, 4)
-    times = {f"w{word}t{threads}": run(word, threads)
-             for word in (4, 1) for threads in (32, 64, 128, 256)}
-    log(f"[sweep] {name} {shape}: us {times} (picked w{pick.word}"
-        f"t{pick.threads})")
+    def with_launch(launch):
+        args = mtl._tiered_args(launch)
+        entry = mtl._tiered(name, 4 + len(tensors),
+                            4 + len(sizes) + len(args))
+
+        def run(i, m, rows):
+            out = torch.empty((b, k * d), device=dev)
+            code = entry(i.data_ptr(), mtl._ptr(m), offsets.data_ptr(),
+                         *(t.data_ptr() for t in tensors), out.data_ptr(),
+                         b, k, h, d, *sizes, *args, stream)
+            assert code == 0, (name, code)
+            return out
+        return run
+    return with_launch
+
+
+def tiered_sweep(torch, name, with_launch, want, sets, b, k, h, d,
+                 shape: str) -> None:
+    """Time K3–K6 (``name``) at each launch of their sweep: K3 and K5 with
+    their floats loaded as 16-byte words and one by one (the 4-byte path's
+    loads, here on aligned tiers) at 64, 128 and 256 threads a block; K4
+    and K6 with their codes loaded as 4-byte words and byte by byte (the
+    byte path's loads) at 32, 64, 128 and 256. ``with_launch(launch)``
+    gives a call of the C entry with that launch, each checked bitwise
+    against ``want`` (the plain version on ``sets[0]``) first. The
+    measurements behind ``tiered_launch``."""
+    from repro_torch.kernels import multi_table_lookup as mtl
+
+    words, sizes = ((4, 1), (32, 64, 128, 256)) if name.endswith("_q8") \
+        else ((16, 4), (64, 128, 256))
+    times = {}
+    for word in words:
+        for threads in sizes:
+            launch = mtl.tiered_launch(b, k, h, d, word)
+            launch = launch._replace(threads=threads, blocks=mtl._grid(
+                b * k * launch.lanes, threads))
+            fn = with_launch(launch)
+            assert same_bits(torch, fn(*sets[0]), want), (name, shape, launch)
+            times[f"w{word}t{threads}"] = round(
+                device_ms(torch, fn, sets) * 1e3, 2)
+    log(f"[sweep] {name} {shape}: us {times} (picked w{words[0]}"
+        f"t{mtl.TIERED_THREADS})")
 
 
 def byte_offset(torch, t, offset: int = 1):
-    """int8 ``t`` copied into a view ``offset`` bytes past a 16-byte
-    boundary of its storage (a tier the kernels must read code by code)."""
-    assert t.dtype == torch.int8, t.dtype
-    buf = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
-    start = (-buf.data_ptr()) % 16 + offset
+    """``t`` copied into a view ``offset`` bytes past a 16-byte boundary of
+    its storage: an int8 tier 1 byte in, which the kernels must read code
+    by code, or an fp32 table or tier 4 bytes in, which they must read a
+    float at a time."""
+    el = t.element_size()
+    assert offset % el == 0, (t.dtype, offset)
+    buf = torch.empty(t.numel() + 32 // el, dtype=t.dtype, device=t.device)
+    start = ((-buf.data_ptr()) % 16 + offset) // el
     view = buf[start:start + t.numel()].view(t.shape)
     view.copy_(t)
+    assert view.data_ptr() % 16 == offset
     return view
 
 
@@ -605,15 +641,6 @@ def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
             sets.append((ids, rows.t().reshape(-1), rows.reshape(-1)))
         return sets
 
-    def misaligned(table):
-        """A copy of ``table`` 4 bytes into its storage: K1's and K8's
-        4-byte path."""
-        n, d = table.shape
-        view = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
-        view.copy_(table)
-        assert view.data_ptr() % 16 == 4
-        return view
-
     def k8_case(table, offsets, sets, shape, k1_too: bool):
         """Check K8 and K1 on ``sets[0]``, bitwise, and time them: K8 alone
         (its (k, b, d) buffer) and with the transpose, K1 beside it; each
@@ -674,7 +701,7 @@ def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
         shape = f"b={b},k={FIG11_FIELDS},d={d},fig11"
         k8_case(table, offsets, sets, shape, k1_too=True)
         if (b, d) == MISALIGNED_FIG11:
-            view = misaligned(table)
+            view = byte_offset(torch, table, 4)    # K1's and K8's 4-byte path
             del coll, table
             k8_case(view, offsets, sets, shape + ",misaligned", k1_too=True)
             del view
@@ -686,7 +713,7 @@ def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
     # the full Criteo table
     table, offsets = emb.dense_view(), emb.offsets
     k = schema.k
-    view = misaligned(table)
+    view = byte_offset(torch, table, 4)
     for b in (256, 1024):
         sets = lookup_sets([torch.from_numpy(
             sample_ids(schema, b, step=55_000 + s)).to(dev)
@@ -787,13 +814,13 @@ def slot_ids(schema, sample_ids, b: int, h: int, step: int):
 def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
     """K2, K3 and K4 on the full-width table of collection ``emb`` under a
     65,536-row cache (fp32 and int8), against their plain versions and
-    K1, timed; K3 and K4 also on a cold cache, K4 also on int8 tiers 1
-    byte into their storage (its byte path), and K4's launch sweep."""
+    K1, timed; K3 and K4 also on a cold cache, K3 on an fp32 cache 4 bytes
+    into its storage (its 4-byte path), K4 on int8 tiers 1 byte into their
+    storage (its byte path), and K3's and K4's launch sweeps."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.embedding import CachedStore
-    from repro_torch.kernels import _build
     from repro_torch.kernels import multi_table_lookup as mtl
     from repro_torch.kernels.multi_table_lookup import (
         mtl_gather, mtl_gather_multihot, mtl_gather_multihot_plain,
@@ -857,13 +884,27 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
         return mtl_gather_two_level_plain(i, offsets, cold_map, cold_cache,
                                           table32, mask=m)
 
+    # K3's 4-byte path: the fp32 cache 4 bytes into its storage (one tier
+    # off 16 bytes is enough; the 851 MB backing stays where it is)
+    odd32 = byte_offset(torch, f32.cache, 4)
+    assert mtl.tier_word(d, 4, odd32.data_ptr(), f32.backing.data_ptr()) == 4
+
+    def k3_odd(i, m, rows):
+        return mtl_gather_two_level(i, offsets, f32.slot_of_row, odd32,
+                                    f32.backing, mask=m)
+
+    def k3_odd_plain(i, m, rows):
+        return mtl_gather_two_level_plain(i, offsets, f32.slot_of_row, odd32,
+                                          f32.backing, mask=m)
+
     # K4's miss path: the same cold map over the int8 tiers (the 213 MB
     # backing); and its byte path: every int8 tier 1 byte into its storage
     cold_q8 = (q8.backing[:CACHE_CAPACITY].clone(),
                q8.backing_scale[:CACHE_CAPACITY].clone())
     odd_cache, odd_backing = (byte_offset(torch, q8.cache),
                               byte_offset(torch, q8.backing))
-    assert mtl.q8_word(d, odd_cache.data_ptr(), odd_backing.data_ptr()) == 1
+    assert mtl.tier_word(d, 1, odd_cache.data_ptr(),
+                         odd_backing.data_ptr()) == 1
 
     def k4_cold(i, m, rows):
         return mtl_gather_two_level_q8(i, offsets, cold_map, *cold_q8,
@@ -883,25 +924,6 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
         return mtl_gather_two_level_q8_plain(
             i, offsets, q8.slot_of_row, odd_cache, q8.cache_scale,
             odd_backing, q8.backing_scale, mask=m)
-
-    def k4_launch(b, h):
-        """K4 through its C entry with a given launch (the sweep)."""
-        entry = mtl._tiered("mtl_gather_two_level_q8", 9, 11)
-        stream = _build.current_stream(dev)
-
-        def with_launch(launch):
-            def run(i, m, rows):
-                out = torch.empty((b, k * d), device=dev)
-                code = entry(
-                    i.data_ptr(), mtl._ptr(m), offsets.data_ptr(),
-                    q8.slot_of_row.data_ptr(), q8.cache.data_ptr(),
-                    q8.cache_scale.data_ptr(), q8.backing.data_ptr(),
-                    q8.backing_scale.data_ptr(), out.data_ptr(), b, k, h, d,
-                    q8.cache.shape[0], n_rows, *mtl._q8_args(launch), stream)
-                assert code == 0, code
-                return out
-            return run
-        return with_launch
 
     def bag(table):                          # one pooled PyTorch call
         return lambda i, m, rows: F.embedding_bag(rows, table, mode="sum")
@@ -990,6 +1012,22 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                        device_ms(torch, k4_cold, sets),
                        device_ms(torch, k4_cold_plain, sets), None,
                        ids_bytes + uniq * (4 + d + 4) + out_bytes, 0)
+            # the 4-byte path, bitwise the plain version and the aligned
+            # cache; then the launch sweep
+            out = k3_odd(ids0, mask0, rows0)
+            assert torch.equal(out, outs["mtl_gather_two_level"])
+            assert torch.equal(out, k3_odd_plain(ids0, mask0, rows0))
+            record("mtl_gather_two_level", shape + ",misaligned", 0.0,
+                   device_ms(torch, k3_odd, sets),
+                   device_ms(torch, k3_odd_plain, sets),
+                   device_ms(torch, take if h == 1 else bag(f32.backing),
+                             sets),
+                   ids_bytes + uniq * (4 + 4 * d) + out_bytes, 0)
+            tiered_sweep(torch, "mtl_gather_two_level", entry_call(
+                torch, "mtl_gather_two_level", offsets,
+                (f32.slot_of_row, f32.cache, f32.backing),
+                (f32.cache.shape[0], n_rows), b, k, h, d),
+                outs["mtl_gather_two_level"], sets, b, k, h, d, shape)
             # the byte path, bitwise the plain version and the aligned tiers
             out = k4_odd(ids0, mask0, rows0)
             assert same_bits(torch, out, outs["mtl_gather_two_level_q8"])
@@ -998,10 +1036,12 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                    device_ms(torch, k4_odd, sets),
                    device_ms(torch, k4_odd_plain, sets), None,
                    ids_bytes + uniq * (4 + d + 4) + out_bytes, 0)
-            q8_sweep(torch, "mtl_gather_two_level_q8", k4_launch(b, h),
-                     outs["mtl_gather_two_level_q8"], sets, b, k, h, d,
-                     shape)
-    del stores, f32, q8, cold_map, cold_cache, cold_q8, odd_cache, \
+            tiered_sweep(torch, "mtl_gather_two_level_q8", entry_call(
+                torch, "mtl_gather_two_level_q8", offsets,
+                (q8.slot_of_row, q8.cache, q8.cache_scale, q8.backing,
+                 q8.backing_scale), (q8.cache.shape[0], n_rows), b, k, h, d),
+                outs["mtl_gather_two_level_q8"], sets, b, k, h, d, shape)
+    del stores, f32, q8, cold_map, cold_cache, cold_q8, odd32, odd_cache, \
         odd_backing
     torch.cuda.empty_cache()
 
@@ -1011,14 +1051,13 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
     65,536-row cache whose hot set comes from one observe + refresh of a
     fp32 ``HostBackedStore``, with every miss of the timed batches staged
     (fp32 and int8 tiers), against their plain versions, K1/K2 and K4,
-    timed; K6 also on int8 tiers 1 byte into their storage (its byte
-    path), and K6's launch sweep."""
+    timed; K5 also on fp32 tiers 4 bytes into their storage (its 4-byte
+    path), K6 on int8 tiers 1 byte into their storage (its byte path), and
+    K5's and K6's launch sweeps."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.embedding import HostBackedStore
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import multi_table_lookup as mtl
     from repro_torch.kernels.multi_table_lookup import (
         mtl_gather, mtl_gather_multihot, mtl_gather_three_level,
         mtl_gather_three_level_plain, mtl_gather_three_level_q8,
@@ -1044,9 +1083,8 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
     qcache = q.index_select(0, cached_rows)
     qcscale = scale.index_select(0, cached_rows)
     odd_qcache = byte_offset(torch, qcache)
+    odd_cache = byte_offset(torch, cache, 4)
     rng = np.random.default_rng(SEED + 5)
-    entry = mtl._tiered("mtl_gather_three_level_q8", 10, 12)
-    stream = _build.current_stream(dev)
 
     def staged_tiers(rows):
         """Staging map and tiers holding every uncached row of ``rows``."""
@@ -1097,7 +1135,16 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
                     i, offsets, som, sm, qcache, qcscale, qstaging, qsscale,
                     mask=m)
 
+            odd_staging = byte_offset(torch, staging, 4)
             odd_qstaging = byte_offset(torch, qstaging)
+
+            def k5_odd(i, m, rows, sm=smap, st=odd_staging):
+                return mtl_gather_three_level(i, offsets, slot_of_row, sm,
+                                              odd_cache, st, mask=m)
+
+            def k5_odd_plain(i, m, rows, sm=smap, st=odd_staging):
+                return mtl_gather_three_level_plain(i, offsets, slot_of_row,
+                                                    sm, odd_cache, st, mask=m)
 
             def k6_odd(i, m, rows, sm=smap, qs=odd_qstaging):
                 return mtl_gather_three_level_q8(i, offsets, slot_of_row, sm,
@@ -1108,21 +1155,6 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
                 return mtl_gather_three_level_q8_plain(
                     i, offsets, slot_of_row, sm, odd_qcache, qcscale, qs,
                     qsscale, mask=m)
-
-            def k6_launch(launch, b=b, h=h, sm=smap, qs=qstaging):
-                """K6 through its C entry with a given launch (the sweep)."""
-                def run(i, m, rows):
-                    out = torch.empty((b, k * d), device=dev)
-                    code = entry(
-                        i.data_ptr(), mtl._ptr(m), offsets.data_ptr(),
-                        slot_of_row.data_ptr(), sm.data_ptr(),
-                        qcache.data_ptr(), qcscale.data_ptr(), qs.data_ptr(),
-                        qsscale.data_ptr(), out.data_ptr(), b, k, h, d,
-                        qcache.shape[0], qs.shape[0], n_rows,
-                        *mtl._q8_args(launch), stream)
-                    assert code == 0, code
-                    return out
-                return run
 
             ids0, mask0, rows0 = sets[0]
             bad = ids0.clone()
@@ -1198,6 +1230,22 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
                                                              sets),
                        ids_bytes + maps + uniq.numel() * row_bytes
                        + out_bytes, 0)
+            # the 4-byte path, bitwise the plain version and the aligned
+            # tiers; then the launch sweep
+            want = k5(ids0, mask0, rows0)
+            out = k5_odd(ids0, mask0, rows0)
+            assert torch.equal(out, want)
+            assert torch.equal(out, k5_odd_plain(ids0, mask0, rows0))
+            record("mtl_gather_three_level", shape + ",misaligned", 0.0,
+                   device_ms(torch, k5_odd, sets),
+                   device_ms(torch, k5_odd_plain, sets),
+                   device_ms(torch, lib, sets),
+                   ids_bytes + maps + uniq.numel() * 4 * d + out_bytes, 0)
+            tiered_sweep(torch, "mtl_gather_three_level", entry_call(
+                torch, "mtl_gather_three_level", offsets,
+                (slot_of_row, smap, cache, staging),
+                (cache.shape[0], staging.shape[0], n_rows), b, k, h, d),
+                want, sets, b, k, h, d, shape)
             # the byte path, bitwise the plain version and the aligned tiers
             want = k6(ids0, mask0, rows0)
             out = k6_odd(ids0, mask0, rows0)
@@ -1207,10 +1255,13 @@ def phase_host_kernels(torch, dev, emb, schema, sample_ids, record):
                    device_ms(torch, k6_odd, sets),
                    device_ms(torch, k6_odd_plain, sets), None,
                    ids_bytes + maps + uniq.numel() * (d + 4) + out_bytes, 0)
-            q8_sweep(torch, "mtl_gather_three_level_q8", k6_launch, want,
-                     sets, b, k, h, d, shape)
-            del odd_qstaging
-    del q, scale, qcache, qcscale, odd_qcache, cache, slot_of_row
+            tiered_sweep(torch, "mtl_gather_three_level_q8", entry_call(
+                torch, "mtl_gather_three_level_q8", offsets,
+                (slot_of_row, smap, qcache, qcscale, qstaging, qsscale),
+                (qcache.shape[0], qstaging.shape[0], n_rows), b, k, h, d),
+                want, sets, b, k, h, d, shape)
+            del odd_staging, odd_qstaging
+    del q, scale, qcache, qcscale, odd_qcache, odd_cache, cache, slot_of_row
     torch.cuda.empty_cache()
 
 

@@ -27,47 +27,49 @@
 // far below the card's rate. For K4 and K6 at b = 1024, h = 1, d = 32 the
 // output write is 5.11 MB of the ~5.8 MB.
 //
-// Design of K2, K3 and K5: K1's first output-first layout, one thread per
-// output element, so every warp's stores are one coalesced segment and with
-// d = 32 a warp's loads are one contiguous row. Each thread adds its field's
-// offset to the id (Alg. 1 lines 6-8), redirects a masked slot to row
-// n_rows - 1 (the zero row), reads slot_of_row[row] itself, and loads only
-// the winning tier's element: no separate slot pass, no load of the losing
-// tier. The h slots are summed in slot order starting from slot 0's value,
-// the order of the reference's output-block revisiting and of the plain
-// versions, with __fadd_rn. Hence bitwise equality with the plain PyTorch
-// versions, and K3 at h = 1 with K1 (a cache row is a verbatim copy of its
-// backing row). K5 reads the staging map only on a cache miss, so a hit
-// costs what K3's does; a staged row costs one more dependent load.
+// Design of K2 (`pooled_gather_kernel`): K1's first output-first layout,
+// one thread per output element, so every warp's stores are one coalesced
+// segment and with d = 32 a warp's loads are one contiguous row. Each
+// thread adds its field's offset to the id (Alg. 1 lines 6-8) and
+// redirects a masked slot to row n_rows - 1 (the zero row). The h slots
+// are summed in slot order starting from slot 0's value, the order of the
+// reference's output-block revisiting and of the plain version, with
+// __fadd_rn: bitwise equality with the plain PyTorch version.
 //
-// Design of K4 and K6 (`tiered_q8_kernel`): the fp32 output is most of
-// their bytes, so the write has to be coalesced and the reads issued as
-// early as their dependences allow. A group of `lanes` consecutive threads
-// (a power of two, at most 32) builds one (sample, field) output row, and
+// Design of K3-K6 (`tiered_kernel`): the fp32 output is most of their
+// bytes, so the write has to be coalesced and the reads issued as early as
+// their dependences allow. A group of `lanes` consecutive threads (a power
+// of two, at most 32) builds one (sample, field) output row, and
 // consecutive groups take consecutive rows of the (b, k) id matrix, so a
 // warp's stores are one contiguous run. Each lane of the group does the
 // row's index work once per slot, not once per element: one id load, the
-// field's offset, the clamp, the masked-slot redirect, the map load(s) and
-// one scale load; no division per element. The group's lanes repeat that
-// work on the same addresses, so each of its loads is a broadcast. K6
-// issues its two map loads together (both depend only on the row), then
-// picks cache, else staging, else exactly +0.0 (q = 0 times a scale of
-// +0.0, no load), so a staged row waits for no third round trip. Each lane
-// then takes 4 codes of the winning tier's row a piece -- one 4-byte load,
-// or four byte loads where a tier lies 1 byte into its storage (the byte
-// path, which keeps the 4-byte path's lanes and float4 stores) -- and one
-// code a piece for d % 4 != 0; the kernel takes those paths itself. A lane
-// takes one piece up to 128 codes a row (32 for d % 4 != 0) and repeats
-// the index work for each further piece: keeping a chunk's tier pointers
-// live across the pieces instead took the pooled kernels up to 91
-// registers (74 without) and K4 at h = 5, b = 1024 from 13.6 to 19.1 us on
-// an H100. Pooling (h > 1) issues the loads of up to CH slots (ids and
-// masks, then maps, then codes and scales) before it sums them in slot
-// order from slot 0's value with __fadd_rn; each code is dequantized with
-// __fmul_rn((float)q, s), so nvcc cannot contract the two into an FMA and
-// the result is bitwise the plain versions'. The piece width, load width,
-// lanes and block size come from the wrapper (multi_table_lookup.py,
-// `tiered_q8_launch`), and the entries check them before they launch.
+// field's offset, the clamp, the masked-slot redirect, the map load(s) and,
+// for int8 rows, one scale load; no division per element. The group's
+// lanes repeat that work on the same addresses, so each of its loads is a
+// broadcast. K5 and K6 issue their two map loads together (both depend
+// only on the row), then pick cache, else staging, else exactly +0.0 (no
+// load), so a staged row waits for no third round trip. Each lane then
+// takes a piece of 4 elements of the winning tier's row, loaded as one
+// word where d % 4 == 0 and both tiers are aligned to it -- 4 floats as one
+// 16-byte load (K3, K5), 4 int8 codes as one 4-byte load (K4, K6) -- else
+// element by element where a tier lies off that alignment (a tier view 4
+// bytes, or 1 byte, into its storage): this path keeps the pieces, the
+// lanes and the float4 stores, since a lane per element redoes the row's
+// index chain 4 times as often (one float a lane took K3 at h = 5, b =
+// 1024 from 11.5 to 28.5 us on an H100). One element a piece for
+// d % 4 != 0. An fp32 value is summed as loaded, so K3 at h = 1 is a copy,
+// bitwise K1; an int8 code is dequantized with __fmul_rn((float)q, s), so
+// nvcc cannot contract it into the sum's FMA. A lane takes one piece up to
+// 128 elements a row (32 for a one-element piece) and repeats the index
+// work for each further piece: keeping a chunk's tier pointers live across
+// the pieces instead took the pooled kernels up to 91 registers (74
+// without) and K4 at h = 5, b = 1024 from 13.6 to 19.1 us on an H100.
+// Pooling (h > 1) issues the loads of up to CH slots (ids and masks, then
+// maps, then rows and scales) before it sums them in slot order from slot
+// 0's value with __fadd_rn, so the result is bitwise the plain versions'.
+// The piece width, load width, lanes and block size come from the wrapper
+// (multi_table_lookup.py, `tiered_launch`), and the entries check them
+// before they launch.
 //
 // Out-of-range input: the global row is clamped into [0, n_rows) as in K1,
 // and a slot outside [0, n_cache) (or [0, n_staging)) counts as a miss, so no
@@ -75,58 +77,22 @@
 // the staging buffer. The plain versions clamp and select the same way.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-// K2: every slot reads the one table.
-struct DenseRows {
-  const float* table;
-  __device__ __forceinline__ float operator()(int64_t r, int64_t e,
-                                              int64_t d) const {
-    return __ldg(table + r * d + e);
-  }
-};
+// ---------------------------------------------------------------------------
+// K2: one thread per output element
+// ---------------------------------------------------------------------------
 
-// K3: the row's slot picks the tier; only that tier's element is loaded.
-struct TwoLevelRows {
-  const int32_t* slot_of_row;
-  const float* cache;
-  const float* backing;
-  int64_t n_cache;
-  __device__ __forceinline__ float operator()(int64_t r, int64_t e,
-                                              int64_t d) const {
-    const int64_t s = __ldg(slot_of_row + r);
-    if (s >= 0 && s < n_cache) return __ldg(cache + s * d + e);
-    return __ldg(backing + r * d + e);
-  }
-};
-
-// K5: cache, else staging, else the zero guard; only the winning tier's
-// element is loaded, and the staging map only on a cache miss.
-struct ThreeLevelRows {
-  const int32_t* slot_of_row;
-  const int32_t* staging_slot_of_row;
-  const float* cache;
-  const float* staging;
-  int64_t n_cache;
-  int64_t n_staging;
-  __device__ __forceinline__ float operator()(int64_t r, int64_t e,
-                                              int64_t d) const {
-    const int64_t s = __ldg(slot_of_row + r);
-    if (s >= 0 && s < n_cache) return __ldg(cache + s * d + e);
-    const int64_t t = __ldg(staging_slot_of_row + r);
-    if (t >= 0 && t < n_staging) return __ldg(staging + t * d + e);
-    return 0.0f;
-  }
-};
-
-template <typename Index, typename Rows>
+template <typename Index>
 __global__ void pooled_gather_kernel(const int32_t* __restrict__ ids,
                                      const float* __restrict__ mask,
                                      const int32_t* __restrict__ offsets,
-                                     Rows rows, float* __restrict__ out,
-                                     Index b, Index k, Index h, Index d,
+                                     const float* __restrict__ table,
+                                     float* __restrict__ out, Index b,
+                                     Index k, Index h, Index d,
                                      int64_t n_rows) {
   const Index total = b * k * d;
   const Index row_width = k * d;
@@ -146,18 +112,16 @@ __global__ void pooled_gather_kernel(const int32_t* __restrict__ ids,
         r = static_cast<int64_t>(__ldg(ids + slot0 + j)) + offset;
         r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
       }
-      const float v = rows(r, static_cast<int64_t>(e),
-                           static_cast<int64_t>(d));
+      const float v = __ldg(table + r * static_cast<int64_t>(d) + e);
       acc = j == 0 ? v : __fadd_rn(acc, v);
     }
     out[idx] = acc;
   }
 }
 
-template <typename Rows>
-int launch(const void* ids, const void* mask, const void* offsets, Rows rows,
-           void* out, int64_t b, int64_t k, int64_t h, int64_t d,
-           int64_t n_rows, void* stream) {
+int launch_multihot(const void* ids, const void* mask, const void* offsets,
+                    const void* table, void* out, int64_t b, int64_t k,
+                    int64_t h, int64_t d, int64_t n_rows, void* stream) {
   const int64_t total = b * k * d;
   if (total == 0) return 0;
   const int threads = 256;
@@ -167,85 +131,139 @@ int launch(const void* ids, const void* mask, const void* offsets, Rows rows,
   auto i = static_cast<const int32_t*>(ids);
   auto m = static_cast<const float*>(mask);
   auto o = static_cast<const int32_t*>(offsets);
+  auto t = static_cast<const float*>(table);
   auto y = static_cast<float*>(out);
   // 32-bit element math when every index (output and id slots) fits
   const int64_t limit = (int64_t{1} << 31) - int64_t{threads} * blocks;
   if (total < limit && b * k * h < limit) {
-    pooled_gather_kernel<int32_t, Rows><<<static_cast<unsigned>(blocks),
-                                          threads, 0, s>>>(
-        i, m, o, rows, y, static_cast<int32_t>(b), static_cast<int32_t>(k),
+    pooled_gather_kernel<int32_t><<<static_cast<unsigned>(blocks), threads,
+                                    0, s>>>(
+        i, m, o, t, y, static_cast<int32_t>(b), static_cast<int32_t>(k),
         static_cast<int32_t>(h), static_cast<int32_t>(d), n_rows);
   } else {
-    pooled_gather_kernel<int64_t, Rows><<<static_cast<unsigned>(blocks),
-                                          threads, 0, s>>>(
-        i, m, o, rows, y, b, k, h, d, n_rows);
+    pooled_gather_kernel<int64_t><<<static_cast<unsigned>(blocks), threads,
+                                    0, s>>>(i, m, o, t, y, b, k, h, d,
+                                            n_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// K4 and K6: int8 tiers, a group of lanes a row
+// K3-K6: tiered rows (fp32 or int8), a group of lanes a row
 // ---------------------------------------------------------------------------
 
 constexpr int kChunk = 8;   // slots of a pooled row whose loads go together
 
-// The tier row one slot reads: its int8 codes and its scale, or neither
-// (K6's zero guard).
+// The tier row one slot reads and, for int8 rows, its scale; no row: K5's
+// and K6's zero guard.
+template <typename T>
 struct Pick {
-  const int8_t* row;
+  const T* row;
   const float* scale;
 };
 
-// K4: a slot inside [0, n_cache) reads the cache, anything else the backing.
-struct TwoLevelQ8 {
+// Entry i of a tier's scales: int8 tiers hold one per row, fp32 tiers none.
+template <typename T>
+__device__ __forceinline__ const float* scale_at(const float* scale,
+                                                 int64_t i) {
+  if constexpr (std::is_same_v<T, int8_t>) {
+    return scale + i;
+  } else {
+    return nullptr;
+  }
+}
+
+// K3/K4: a slot inside [0, n_cache) reads the cache, anything else the
+// backing.
+template <typename T>
+struct TwoLevel {
+  using Elem = T;
   const int32_t* slot_of_row;
-  const int8_t* cache;
-  const float* cache_scale;
-  const int8_t* backing;
-  const float* backing_scale;
+  const T* cache;
+  const float* cache_scale;        // int8 rows only
+  const T* backing;
+  const float* backing_scale;      // int8 rows only
   int64_t n_cache;
   using Maps = int32_t;
   __device__ __forceinline__ Maps maps(int64_t r) const {
     return __ldg(slot_of_row + r);
   }
-  __device__ __forceinline__ Pick pick(int64_t r, Maps s, int64_t d) const {
-    if (s >= 0 && s < n_cache) return {cache + s * d, cache_scale + s};
-    return {backing + r * d, backing_scale + r};
+  __device__ __forceinline__ Pick<T> pick(int64_t r, Maps s,
+                                          int64_t d) const {
+    if (s >= 0 && s < n_cache)
+      return {cache + s * d, scale_at<T>(cache_scale, s)};
+    return {backing + r * d, scale_at<T>(backing_scale, r)};
   }
 };
 
-// K6: cache, else staging, else nothing; both maps load at once.
-struct ThreeLevelQ8 {
+// K5/K6: cache, else staging, else nothing; both maps load at once.
+template <typename T>
+struct ThreeLevel {
+  using Elem = T;
   const int32_t* slot_of_row;
   const int32_t* staging_slot_of_row;
-  const int8_t* cache;
-  const float* cache_scale;
-  const int8_t* staging;
-  const float* staging_scale;
+  const T* cache;
+  const float* cache_scale;        // int8 rows only
+  const T* staging;
+  const float* staging_scale;      // int8 rows only
   int64_t n_cache;
   int64_t n_staging;
   using Maps = int2;
   __device__ __forceinline__ Maps maps(int64_t r) const {
     return make_int2(__ldg(slot_of_row + r), __ldg(staging_slot_of_row + r));
   }
-  __device__ __forceinline__ Pick pick(int64_t, Maps m, int64_t d) const {
-    if (m.x >= 0 && m.x < n_cache) return {cache + m.x * d, cache_scale + m.x};
+  __device__ __forceinline__ Pick<T> pick(int64_t, Maps m, int64_t d) const {
+    if (m.x >= 0 && m.x < n_cache)
+      return {cache + m.x * d, scale_at<T>(cache_scale, m.x)};
     if (m.y >= 0 && m.y < n_staging)
-      return {staging + m.y * d, staging_scale + m.y};
+      return {staging + m.y * d, scale_at<T>(staging_scale, m.y)};
     return {nullptr, nullptr};
   }
 };
 
-// V int8 codes of a row a lane: 4, loaded as one 4-byte word (WORD) or
-// byte by byte (a tier not 4-byte aligned), or 1 (d % 4 != 0).
+// A lane's piece of a tier row: V elements (4, or 1 for d % 4 != 0) of
+// type T, loaded as one word of all V (WORD) or element by element.
+template <typename T, int V, bool WORD>
+struct Piece;
+
+// fp32 rows: a value is summed as loaded.
 template <int V, bool WORD>
-struct Codes {
+struct Piece<float, V, WORD> {
+  static constexpr int kWidth = V;
+  float x[V];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = 0.0f;
+  }
+  __device__ __forceinline__ void load(const float* p, const float*) {
+    if constexpr (WORD) {
+      static_assert(V == 4, "a word is 4 floats");
+      const float4 w = __ldg(reinterpret_cast<const float4*>(p));
+      x[0] = w.x;
+      x[1] = w.y;
+      x[2] = w.z;
+      x[3] = w.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[e] = __ldg(p + e);
+    }
+  }
+  __device__ __forceinline__ float value(int e) const { return x[e]; }
+};
+
+// int8 rows and the row's scale: a code is dequantized as it is summed.
+template <int V, bool WORD>
+struct Piece<int8_t, V, WORD> {
+  static constexpr int kWidth = V;
   int8_t c[V];
+  float s;
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int e = 0; e < V; ++e) c[e] = 0;
+    s = 0.0f;
   }
-  __device__ __forceinline__ void load(const int8_t* p) {
+  __device__ __forceinline__ void load(const int8_t* p, const float* scale) {
+    s = __ldg(scale);
     if constexpr (WORD) {
       static_assert(V == 4, "a word is 4 codes");
       const int x = __ldg(reinterpret_cast<const int*>(p));
@@ -256,19 +274,23 @@ struct Codes {
       for (int e = 0; e < V; ++e) c[e] = __ldg(p + e);
     }
   }
+  __device__ __forceinline__ float value(int e) const {
+    return __fmul_rn(static_cast<float>(c[e]), s);
+  }
 };
 
 // A group of 2^lane_bits lanes builds output row p = (sample, field); lane
-// l takes the row's V-code pieces l, l + lanes, ... (one piece when the
-// lanes cover the row). A pooled row takes its slots CH at a time, every
-// load of a chunk issued before the sum.
-template <typename Tiers, int V, bool WORD, int CH>
+// l takes the row's pieces l, l + lanes, ... (one piece when the lanes
+// cover the row). A pooled row takes its slots CH at a time, every load of
+// a chunk issued before the sum.
+template <typename Tiers, typename P, int CH>
 __global__ void __launch_bounds__(256)
-tiered_q8_kernel(const int32_t* __restrict__ ids,
-                 const float* __restrict__ mask,
-                 const int32_t* __restrict__ offsets, Tiers tiers,
-                 float* __restrict__ out, int64_t pairs, int64_t k, int64_t h,
-                 int64_t d, int lane_bits, int64_t n_rows) {
+tiered_kernel(const int32_t* __restrict__ ids,
+              const float* __restrict__ mask,
+              const int32_t* __restrict__ offsets, Tiers tiers,
+              float* __restrict__ out, int64_t pairs, int64_t k, int64_t h,
+              int64_t d, int lane_bits, int64_t n_rows) {
+  constexpr int V = P::kWidth;
   const int lanes = 1 << lane_bits;
   const int lane = threadIdx.x & (lanes - 1);
   const int64_t pieces = d / V;
@@ -305,29 +327,24 @@ tiered_q8_kernel(const int32_t* __restrict__ ids,
 #pragma unroll
         for (int c = 0; c < CH; ++c)
           m[c] = r[c] >= 0 ? tiers.maps(r[c]) : typename Tiers::Maps{};
-        // maps -> the winning tier's codes and scale; none: q = 0, s = +0
-        Codes<V, WORD> q[CH];
-        float s[CH];
+        // maps -> the winning tier's piece (and scale); none: +0.0
+        P v[CH];
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
-          q[c].zero();
-          s[c] = 0.0f;
+          v[c].zero();
           if (r[c] >= 0) {
-            const Pick t = tiers.pick(r[c], m[c], d);
-            if (t.row != nullptr) {
-              s[c] = __ldg(t.scale);
-              q[c].load(t.row + w * V);
-            }
+            const auto t = tiers.pick(r[c], m[c], d);
+            if (t.row != nullptr) v[c].load(t.row + w * V, t.scale);
           }
         }
-        // dequantize, and sum in slot order from slot 0's value
+        // sum in slot order from slot 0's value
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
           if (r[c] < 0) continue;
 #pragma unroll
           for (int e = 0; e < V; ++e) {
-            const float v = __fmul_rn(static_cast<float>(q[c].c[e]), s[c]);
-            acc[e] = j0 + c == 0 ? v : __fadd_rn(acc[e], v);
+            const float x = v[c].value(e);
+            acc[e] = j0 + c == 0 ? x : __fadd_rn(acc[e], x);
           }
         }
       }
@@ -342,7 +359,7 @@ tiered_q8_kernel(const int32_t* __restrict__ ids,
   }
 }
 
-struct Q8Call {
+struct Call {
   const int32_t* ids;
   const float* mask;
   const int32_t* offsets;
@@ -353,53 +370,57 @@ struct Q8Call {
   cudaStream_t stream;
 };
 
-template <typename Tiers, int V, bool WORD>
-void run_q8(const Q8Call& c, const Tiers& t) {
+template <typename Tiers, typename P>
+void run(const Call& c, const Tiers& t) {
   if (c.h == 1) {
-    tiered_q8_kernel<Tiers, V, WORD, 1><<<c.blocks, c.threads, 0, c.stream>>>(
+    tiered_kernel<Tiers, P, 1><<<c.blocks, c.threads, 0, c.stream>>>(
         c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
         c.lane_bits, c.n_rows);
   } else {
-    tiered_q8_kernel<Tiers, V, WORD, kChunk>
-        <<<c.blocks, c.threads, 0, c.stream>>>(
-            c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
-            c.lane_bits, c.n_rows);
+    tiered_kernel<Tiers, P, kChunk><<<c.blocks, c.threads, 0, c.stream>>>(
+        c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
+        c.lane_bits, c.n_rows);
   }
 }
 
-// vec: 4 codes a lane and one float4 store (needs d % 4 == 0 and out
-// 16-byte aligned), else 1; word: bytes a code load takes, 4 (needs vec
-// and both code tiers 4-byte aligned) or 1; lane_bits: log2 of the lanes
+// vec: a piece of 4 elements a lane and one float4 store (needs d % 4 == 0
+// and out 16-byte aligned), else 1 element; word: the bytes one load takes
+// from a tier, 4 elements (needs vec and both tiers aligned to it: 16
+// bytes of fp32, 4 of int8) or one element; lane_bits: log2 of the lanes
 // a row (0..5); threads: a multiple of 32 up to 256; blocks: 1..2^31-1.
 template <typename Tiers>
-int launch_q8(const void* ids, const void* mask, const void* offsets,
-              const Tiers& tiers, const void* codes_a, const void* codes_b,
-              void* out, int64_t b, int64_t k, int64_t h, int64_t d,
-              int64_t n_rows, int64_t vec, int64_t word, int64_t lane_bits,
-              int64_t threads, int64_t blocks, void* stream) {
+int launch_tiered(const void* ids, const void* mask, const void* offsets,
+                  const Tiers& tiers, const void* rows_a, const void* rows_b,
+                  void* out, int64_t b, int64_t k, int64_t h, int64_t d,
+                  int64_t n_rows, int64_t vec, int64_t word,
+                  int64_t lane_bits, int64_t threads, int64_t blocks,
+                  void* stream) {
+  using T = typename Tiers::Elem;
+  constexpr int64_t kElem = sizeof(T), kWord = 4 * kElem;
   const int64_t pairs = b * k;
   if (pairs == 0 || d == 0) return 0;
-  if ((vec != 0 && vec != 1) || (word != 1 && word != 4)
-      || (word == 4 && !vec) || (vec && d % 4 != 0) || lane_bits < 0
-      || lane_bits > 5 || threads < 32 || threads > 256 || threads % 32 != 0
-      || blocks < 1 || blocks > 0x7fffffff || h < 1 || n_rows < 1)
+  if ((vec != 0 && vec != 1) || (word != kElem && word != kWord)
+      || (word == kWord && !vec) || (vec && d % 4 != 0)
+      || lane_bits < 0 || lane_bits > 5 || threads < 32 || threads > 256
+      || threads % 32 != 0 || blocks < 1 || blocks > 0x7fffffff || h < 1
+      || n_rows < 1)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if ((vec && reinterpret_cast<uintptr_t>(out) % 16 != 0)
-      || (word == 4 && (reinterpret_cast<uintptr_t>(codes_a) % 4 != 0
-                        || reinterpret_cast<uintptr_t>(codes_b) % 4 != 0)))
+      || reinterpret_cast<uintptr_t>(rows_a) % word != 0
+      || reinterpret_cast<uintptr_t>(rows_b) % word != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const Q8Call c{static_cast<const int32_t*>(ids),
-                 static_cast<const float*>(mask),
-                 static_cast<const int32_t*>(offsets), static_cast<float*>(out),
-                 pairs, k, h, d, n_rows, static_cast<int>(lane_bits),
-                 static_cast<int>(threads), static_cast<unsigned>(blocks),
-                 static_cast<cudaStream_t>(stream)};
-  if (word == 4) {
-    run_q8<Tiers, 4, true>(c, tiers);
+  const Call c{static_cast<const int32_t*>(ids),
+               static_cast<const float*>(mask),
+               static_cast<const int32_t*>(offsets), static_cast<float*>(out),
+               pairs, k, h, d, n_rows, static_cast<int>(lane_bits),
+               static_cast<int>(threads), static_cast<unsigned>(blocks),
+               static_cast<cudaStream_t>(stream)};
+  if (word == kWord) {
+    run<Tiers, Piece<T, 4, true>>(c, tiers);
   } else if (vec) {
-    run_q8<Tiers, 4, false>(c, tiers);
+    run<Tiers, Piece<T, 4, false>>(c, tiers);
   } else {
-    run_q8<Tiers, 1, false>(c, tiers);
+    run<Tiers, Piece<T, 1, false>>(c, tiers);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -408,28 +429,32 @@ int launch_q8(const void* ids, const void* mask, const void* offsets,
 
 // ids (b, k, h) int32, mask (b, k, h) float32 or null (all slots valid),
 // offsets (k,) int32, out (b, k*d) float32; every pointer on the device.
+// K3-K6 take their launch from the wrapper: vec, word, lane_bits, threads
+// and blocks (see launch_tiered).
 
 extern "C" int mtl_gather_multihot(const void* ids, const void* mask,
                                    const void* offsets, const void* table,
                                    void* out, int64_t b, int64_t k, int64_t h,
                                    int64_t d, int64_t n_rows, void* stream) {
-  return launch(ids, mask, offsets,
-                DenseRows{static_cast<const float*>(table)}, out, b, k, h, d,
-                n_rows, stream);
+  return launch_multihot(ids, mask, offsets, table, out, b, k, h, d, n_rows,
+                         stream);
 }
 
-extern "C" int mtl_gather_two_level(const void* ids, const void* mask,
-                                    const void* offsets,
-                                    const void* slot_of_row,
-                                    const void* cache, const void* backing,
-                                    void* out, int64_t b, int64_t k,
-                                    int64_t h, int64_t d, int64_t n_cache,
-                                    int64_t n_rows, void* stream) {
-  return launch(ids, mask, offsets,
-                TwoLevelRows{static_cast<const int32_t*>(slot_of_row),
-                             static_cast<const float*>(cache),
-                             static_cast<const float*>(backing), n_cache},
-                out, b, k, h, d, n_rows, stream);
+extern "C" int mtl_gather_two_level(
+    const void* ids, const void* mask, const void* offsets,
+    const void* slot_of_row, const void* cache, const void* backing,
+    void* out, int64_t b, int64_t k, int64_t h, int64_t d, int64_t n_cache,
+    int64_t n_rows, int64_t vec, int64_t word, int64_t lane_bits,
+    int64_t threads, int64_t blocks, void* stream) {
+  return launch_tiered(ids, mask, offsets,
+                       TwoLevel<float>{static_cast<const int32_t*>(
+                                           slot_of_row),
+                                       static_cast<const float*>(cache),
+                                       nullptr,
+                                       static_cast<const float*>(backing),
+                                       nullptr, n_cache},
+                       cache, backing, out, b, k, h, d, n_rows, vec, word,
+                       lane_bits, threads, blocks, stream);
 }
 
 extern "C" int mtl_gather_two_level_q8(
@@ -439,15 +464,18 @@ extern "C" int mtl_gather_two_level_q8(
     int64_t k, int64_t h, int64_t d, int64_t n_cache, int64_t n_rows,
     int64_t vec, int64_t word, int64_t lane_bits, int64_t threads,
     int64_t blocks, void* stream) {
-  return launch_q8(ids, mask, offsets,
-                   TwoLevelQ8{static_cast<const int32_t*>(slot_of_row),
-                              static_cast<const int8_t*>(cache),
-                              static_cast<const float*>(cache_scale),
-                              static_cast<const int8_t*>(backing),
-                              static_cast<const float*>(backing_scale),
-                              n_cache},
-                   cache, backing, out, b, k, h, d, n_rows, vec, word,
-                   lane_bits, threads, blocks, stream);
+  return launch_tiered(ids, mask, offsets,
+                       TwoLevel<int8_t>{static_cast<const int32_t*>(
+                                            slot_of_row),
+                                        static_cast<const int8_t*>(cache),
+                                        static_cast<const float*>(
+                                            cache_scale),
+                                        static_cast<const int8_t*>(backing),
+                                        static_cast<const float*>(
+                                            backing_scale),
+                                        n_cache},
+                       cache, backing, out, b, k, h, d, n_rows, vec, word,
+                       lane_bits, threads, blocks, stream);
 }
 
 // K5/K6: n_rows is the length of both maps (the host backing's height).
@@ -457,15 +485,19 @@ extern "C" int mtl_gather_three_level(
     const void* slot_of_row, const void* staging_slot_of_row,
     const void* cache, const void* staging, void* out, int64_t b, int64_t k,
     int64_t h, int64_t d, int64_t n_cache, int64_t n_staging, int64_t n_rows,
-    void* stream) {
-  return launch(ids, mask, offsets,
-                ThreeLevelRows{static_cast<const int32_t*>(slot_of_row),
-                               static_cast<const int32_t*>(
-                                   staging_slot_of_row),
-                               static_cast<const float*>(cache),
-                               static_cast<const float*>(staging), n_cache,
-                               n_staging},
-                out, b, k, h, d, n_rows, stream);
+    int64_t vec, int64_t word, int64_t lane_bits, int64_t threads,
+    int64_t blocks, void* stream) {
+  return launch_tiered(ids, mask, offsets,
+                       ThreeLevel<float>{static_cast<const int32_t*>(
+                                             slot_of_row),
+                                         static_cast<const int32_t*>(
+                                             staging_slot_of_row),
+                                         static_cast<const float*>(cache),
+                                         nullptr,
+                                         static_cast<const float*>(staging),
+                                         nullptr, n_cache, n_staging},
+                       cache, staging, out, b, k, h, d, n_rows, vec, word,
+                       lane_bits, threads, blocks, stream);
 }
 
 extern "C" int mtl_gather_three_level_q8(
@@ -476,15 +508,18 @@ extern "C" int mtl_gather_three_level_q8(
     int64_t d, int64_t n_cache, int64_t n_staging, int64_t n_rows,
     int64_t vec, int64_t word, int64_t lane_bits, int64_t threads,
     int64_t blocks, void* stream) {
-  return launch_q8(ids, mask, offsets,
-                   ThreeLevelQ8{static_cast<const int32_t*>(slot_of_row),
-                                static_cast<const int32_t*>(
-                                    staging_slot_of_row),
-                                static_cast<const int8_t*>(cache),
-                                static_cast<const float*>(cache_scale),
-                                static_cast<const int8_t*>(staging),
-                                static_cast<const float*>(staging_scale),
-                                n_cache, n_staging},
-                   cache, staging, out, b, k, h, d, n_rows, vec, word,
-                   lane_bits, threads, blocks, stream);
+  return launch_tiered(ids, mask, offsets,
+                       ThreeLevel<int8_t>{static_cast<const int32_t*>(
+                                              slot_of_row),
+                                          static_cast<const int32_t*>(
+                                              staging_slot_of_row),
+                                          static_cast<const int8_t*>(cache),
+                                          static_cast<const float*>(
+                                              cache_scale),
+                                          static_cast<const int8_t*>(staging),
+                                          static_cast<const float*>(
+                                              staging_scale),
+                                          n_cache, n_staging},
+                       cache, staging, out, b, k, h, d, n_rows, vec, word,
+                       lane_bits, threads, blocks, stream);
 }

@@ -33,11 +33,12 @@ thread per (sample, field), writing a field-major ``(k, b, d)`` buffer
 that a PyTorch transpose turns into ``(b, k*d)``. K1 and K8 copy 16-byte
 words when ``d % 4 == 0`` and the table and output are 16-byte aligned,
 else 4-byte words; :func:`gather_launch` and :func:`input_first_launch`
-give their launch shapes as pure functions of the call. K4 and K6 build a
-row with a group of lanes, each taking 4 int8 codes as one 4-byte word,
-or byte by byte from a tier view 1 byte into its storage
-(:func:`q8_word`), or one code for ``d % 4 != 0``, in the shape
-:func:`tiered_q8_launch` gives. K7 is the
+give their launch shapes as pure functions of the call. K3–K6 build a
+row with a group of lanes in the shape :func:`tiered_launch` gives, each
+lane taking 4 elements of a row -- loaded as one word (16 bytes of fp32
+for K3 and K5, 4 bytes of int8 codes for K4 and K6), or element by
+element from a tier view off that alignment (:func:`tier_word`) -- or one
+element for ``d % 4 != 0``. K7 is the
 reference's one-hot lookup over small per-field tables stacked to one
 padded height: a gather where an id outside ``[0, n_pad)`` gives a zero
 row (the one-hot row matches nothing), not a clamped one.
@@ -64,12 +65,12 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
            "mtl_gather_three_level_q8_plain", "mtl_input_first",
            "mtl_input_first_plain", "mtl_onehot", "mtl_onehot_plain",
            "Launch", "GATHER_THREADS", "INPUT_FIRST_THREADS",
-           "TIERED_Q8_THREADS", "vector_words", "gather_launch",
-           "input_first_launch", "q8_word", "tiered_q8_launch"]
+           "TIERED_THREADS", "vector_words", "gather_launch",
+           "input_first_launch", "tier_word", "tiered_launch"]
 
 
 # ---------------------------------------------------------------------------
-# K1, K8, K4 and K6 launch shapes: pure functions of the call, checked again
+# K1, K8 and K3–K6 launch shapes: pure functions of the call, checked again
 # by the C entries before they launch
 # ---------------------------------------------------------------------------
 
@@ -77,20 +78,20 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
 #: every shape ``chip_smoke.py``'s launch sweep times on the H100 (Criteo
 #: b = 256 and 1024 at d = 1 and 32, a misaligned view, Fig. 11's four)
 GATHER_THREADS, INPUT_FIRST_THREADS = 128, 64
-#: K4 and K6: within 2% of the best of 32-256 at every shape of
+#: K3–K6: within 2% of the best block size at every shape of
 #: ``chip_smoke.py``'s launch sweep on the H100 (Criteo b = 256 and 1024,
-#: h = 1 and 5)
-TIERED_Q8_THREADS = 128
+#: h = 1 and 5; K3 and K5 over 64-256, K4 and K6 over 32-256)
+TIERED_THREADS = 128
 _MAX_BLOCKS = 1 << 20      # the kernels stride over the rows past it
 
 
 class Launch(NamedTuple):
     """How a gather launch copies: ``vec`` wide words (K1 and K8: 16-byte
-    words, else 4-byte; K4 and K6: 4 int8 codes a lane and a float4
-    store, else one code), ``lanes`` threads a row and ``rows`` rows a
-    thread (1 and 1 for K8 and K4/K6), ``threads`` a block, ``blocks`` in
-    the grid; K4 and K6 also ``word``, the bytes a code load takes (4 or
-    1)."""
+    words, else 4-byte; K3–K6: 4 elements a lane and a float4 store, else
+    one element), ``lanes`` threads a row and ``rows`` rows a thread (1 and
+    1 for K8 and K3–K6), ``threads`` a block, ``blocks`` in the grid;
+    K3–K6 also ``word``, the bytes a load from a tier takes
+    (:func:`tier_word`)."""
     vec: bool
     lanes: int
     rows: int
@@ -132,27 +133,31 @@ def input_first_launch(b: int, k: int, vec: bool) -> Launch:
                   _grid(b * k, INPUT_FIRST_THREADS))
 
 
-def q8_word(d: int, *codes: int) -> int:
-    """The bytes a K4 or K6 load of int8 codes takes, from rows of ``d``
-    codes at the tiers' base addresses ``codes``: 4 where ``d % 4 == 0``
-    and every tier is 4-byte aligned, else 1 (the byte path: a tier view
-    1 byte into its storage, or ``d % 4 != 0``)."""
-    return 4 if d % 4 == 0 and all(ptr % 4 == 0 for ptr in codes) else 1
+def tier_word(d: int, itemsize: int, *tiers: int) -> int:
+    """The bytes a K3–K6 load takes from rows of ``d`` elements of
+    ``itemsize`` bytes (4 fp32, 1 int8) at the tiers' base addresses
+    ``tiers``: a word of 4 elements (16 bytes fp32, 4 int8) where
+    ``d % 4 == 0`` and every tier is aligned to it, else one element (a
+    tier view 4 bytes, or 1 byte, into its storage, or ``d % 4 != 0``)."""
+    word = 4 * itemsize
+    aligned = d % 4 == 0 and all(ptr % word == 0 for ptr in tiers)
+    return word if aligned else itemsize
 
 
-def tiered_q8_launch(b: int, k: int, h: int, d: int, word: int) -> Launch:
-    """K4's and K6's launch for ``(b, k, h)`` ids and rows of ``d`` codes
-    loaded ``word`` bytes at a time (:func:`q8_word`): 4 codes a lane
+def tiered_launch(b: int, k: int, h: int, d: int, word: int) -> Launch:
+    """K3–K6's launch for ``(b, k, h)`` ids and rows of ``d`` elements
+    loaded ``word`` bytes at a time (:func:`tier_word`): 4 elements a lane
     (``vec``) where ``d % 4 == 0``, else one; ``lanes``, the power of two
     up to 32 that covers a row's pieces; one row a thread; a grid with a
-    group of lanes for every row. In ``chip_smoke.py``'s sweep on the H100
-    a second row a thread and streaming stores paid at no shape, and
-    16-byte words only for pooled rows at b = 1024, which no served plan
-    sends (``PERF.md``)."""
+    group of lanes for every row; the same for one-hot and pooled rows.
+    In ``chip_smoke.py``'s sweep on the H100 a second row a thread and
+    streaming stores paid at no shape, and 16-byte words of int8 codes
+    only for pooled rows at b = 1024, which no served plan sends
+    (``PERF.md``)."""
     vec = d % 4 == 0
     lanes = _lanes(d // 4 if vec else d)
-    return Launch(vec, lanes, 1, TIERED_Q8_THREADS,
-                  _grid(b * k * lanes, TIERED_Q8_THREADS), word)
+    return Launch(vec, lanes, 1, TIERED_THREADS,
+                  _grid(b * k * lanes, TIERED_THREADS), word)
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -398,8 +403,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _q8_args(launch: Launch) -> tuple[int, ...]:
-    """K4's and K6's launch arguments, in their C entries' order."""
+def _tiered_args(launch: Launch) -> tuple[int, ...]:
+    """K3–K6's launch arguments, in their C entries' order."""
     return (int(launch.vec), launch.word, launch.lanes.bit_length() - 1,
             launch.threads, launch.blocks)
 
@@ -470,11 +475,13 @@ def mtl_gather_two_level(ids: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    code = _tiered("mtl_gather_two_level", 7, 6)(
+    launch = tiered_launch(b, k, h, d, tier_word(
+        d, cache.element_size(), cache.data_ptr(), backing.data_ptr()))
+    code = _tiered("mtl_gather_two_level", 7, 11)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), cache.data_ptr(), backing.data_ptr(),
         out.data_ptr(), b, k, h, d, cache.shape[0], n_rows,
-        _build.current_stream(dev))
+        *_tiered_args(launch), _build.current_stream(dev))
     _build.check_launch("mtl_gather_two_level", code)
     mtl_gather_two_level.launches += 1
     return out
@@ -514,13 +521,13 @@ def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    launch = tiered_q8_launch(b, k, h, d, q8_word(
-        d, cache.data_ptr(), backing.data_ptr()))
+    launch = tiered_launch(b, k, h, d, tier_word(
+        d, cache.element_size(), cache.data_ptr(), backing.data_ptr()))
     code = _tiered("mtl_gather_two_level_q8", 9, 11)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), cache.data_ptr(), cache_scale.data_ptr(),
         backing.data_ptr(), backing_scale.data_ptr(), out.data_ptr(),
-        b, k, h, d, cache.shape[0], n_rows, *_q8_args(launch),
+        b, k, h, d, cache.shape[0], n_rows, *_tiered_args(launch),
         _build.current_stream(dev))
     _build.check_launch("mtl_gather_two_level_q8", code)
     mtl_gather_two_level_q8.launches += 1
@@ -564,11 +571,14 @@ def mtl_gather_three_level(ids: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    code = _tiered("mtl_gather_three_level", 8, 7)(
+    launch = tiered_launch(b, k, h, d, tier_word(
+        d, cache.element_size(), cache.data_ptr(), staging.data_ptr()))
+    code = _tiered("mtl_gather_three_level", 8, 12)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
         cache.data_ptr(), staging.data_ptr(), out.data_ptr(), b, k, h, d,
-        cache.shape[0], staging.shape[0], n_rows, _build.current_stream(dev))
+        cache.shape[0], staging.shape[0], n_rows, *_tiered_args(launch),
+        _build.current_stream(dev))
     _build.check_launch("mtl_gather_three_level", code)
     mtl_gather_three_level.launches += 1
     return out
@@ -612,14 +622,14 @@ def mtl_gather_three_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    launch = tiered_q8_launch(b, k, h, d, q8_word(
-        d, cache.data_ptr(), staging.data_ptr()))
+    launch = tiered_launch(b, k, h, d, tier_word(
+        d, cache.element_size(), cache.data_ptr(), staging.data_ptr()))
     code = _tiered("mtl_gather_three_level_q8", 10, 12)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
         slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
         cache.data_ptr(), cache_scale.data_ptr(), staging.data_ptr(),
         staging_scale.data_ptr(), out.data_ptr(), b, k, h, d, cache.shape[0],
-        staging.shape[0], n_rows, *_q8_args(launch),
+        staging.shape[0], n_rows, *_tiered_args(launch),
         _build.current_stream(dev))
     _build.check_launch("mtl_gather_three_level_q8", code)
     mtl_gather_three_level_q8.launches += 1

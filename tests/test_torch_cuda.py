@@ -37,8 +37,8 @@ from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
     mtl_gather_two_level, mtl_gather_two_level_plain,
     mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain, mtl_input_first,
-    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain, q8_word,
-    tiered_q8_launch, vector_words)
+    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain, tier_word,
+    tiered_launch, vector_words)
 from repro_torch.kernels.quantize import (  # noqa: E402
     quantize_rows_q8, quantize_rows_q8_plain)
 from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
@@ -301,13 +301,15 @@ def test_three_level_gathers_bitwise(cuda, h):
 
 
 def _byte_offset(t, offset):
-    """int8 ``t`` copied into a view ``offset`` bytes past a 16-byte
-    boundary of its storage."""
-    assert t.dtype == torch.int8, t.dtype
-    buf = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
-    start = (-buf.data_ptr()) % 16 + offset
+    """``t`` (int8 or fp32) copied into a view ``offset`` bytes past a
+    16-byte boundary of its storage."""
+    el = t.element_size()
+    assert offset % el == 0, (t.dtype, offset)
+    buf = torch.empty(t.numel() + 32 // el, dtype=t.dtype, device=t.device)
+    start = ((-buf.data_ptr()) % 16 + offset) // el
     view = buf[start:start + t.numel()].view(t.shape)
     view.copy_(t)
+    assert view.data_ptr() % 16 == offset
     return view
 
 
@@ -376,10 +378,10 @@ def test_int8_tiered_gathers_bitwise(cuda, d, h, b, offset):
     tier."""
     t = _q8_tier_inputs(np.random.default_rng(d * 100 + h * 10 + b), b, h,
                         d, offset, cuda)
-    word = q8_word(d, t["q"].data_ptr(), t["qcache"].data_ptr(),
-                   t["qstaging"].data_ptr())
+    word = tier_word(d, 1, t["q"].data_ptr(), t["qcache"].data_ptr(),
+                     t["qstaging"].data_ptr())
     assert word == (1 if offset or d % 4 else 4)
-    launch = tiered_q8_launch(b, 7, h, d, word)
+    launch = tiered_launch(b, 7, h, d, word)
     assert launch.vec == (d % 4 == 0)
     pieces = d // 4 if launch.vec else d
     assert (launch.lanes < pieces) == (d in (35, 136))
@@ -420,7 +422,7 @@ def test_int8_tiered_entries_refuse_bad_launches(cuda):
     from repro_torch.kernels import _build
     t = _q8_tier_inputs(np.random.default_rng(0), 4, 1, 32, 1, cuda)
     out = torch.empty((4, 7 * 32), device=cuda)
-    good = tiered_q8_launch(4, 7, 1, 32, 1)
+    good = tiered_launch(4, 7, 1, 32, 1)
     fn = mtl._tiered("mtl_gather_two_level_q8", 9, 11)
 
     def call(vec, word, lane_bits, threads, d=32, dst=out):
@@ -439,6 +441,149 @@ def test_int8_tiered_entries_refuse_bad_launches(cuda):
     assert call(1, 1, 3, 128, d=30) == 9   # vec needs d % 4 == 0
     assert call(1, 1, 6, 128) == 9
     assert call(1, 1, 3, 96 + 1) == 9
+    torch.cuda.synchronize()
+
+
+def _f32_tier_inputs(rng, b, h, d, offset, device, k=7, capacity=512):
+    """fp32 cache, backing and staging tiers over a random table (-0.0 in
+    a third of its rows): ids with out-of-range entries, a random mask, a
+    cache slot past C, a staging slot past S, a cached row also staged,
+    half the uncached rows in neither tier; the cache and staging rows
+    differ from their backing rows (a wrong tier shows), and the cache
+    and staging area are views ``offset`` bytes into their storage."""
+    sizes = rng.integers(2, 3000, size=k)
+    n = int(sizes.sum()) + 1
+    mega = rng.normal(size=(n, d)).astype(np.float32)
+    mega[::3, 0] = -0.0
+    mega[-1] = 0.0
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    ids = np.stack([rng.integers(0, s, size=(b, h)) for s in sizes],
+                   axis=1).astype(np.int32)
+    ids.reshape(-1)[:3] = [-7, 2**31 - 1, 10**8][:ids.size]
+    mask = rng.integers(0, 2, size=ids.shape).astype(np.float32)
+    hot = np.sort(rng.choice(n - 1, size=capacity, replace=False))
+    som = np.full(n, -1, np.int32)
+    som[hot] = np.arange(capacity, dtype=np.int32)
+    som[hot[0]] = capacity + 5                          # past the cache
+    uncached = np.flatnonzero(som < 0)
+    warm = np.sort(rng.choice(uncached, size=uncached.size // 2,
+                              replace=False))
+    smap = np.full(n, -1, np.int32)
+    smap[warm] = np.arange(warm.size, dtype=np.int32)
+    smap[warm[0]] = warm.size + 9                       # past staging
+    smap[hot[1]] = 0                                    # the cache wins
+    f = int(np.searchsorted(offsets, hot[1], side="right")) - 1
+    ids[-1, f, 0], mask[-1, f, 0] = hot[1] - offsets[f], 1.0  # read it
+    t = {name: torch.from_numpy(v).to(device) for name, v in dict(
+        ids=ids, mask=mask, offsets=offsets, slot_of_row=som, smap=smap,
+        mega=mega).items()}
+    t["cache"] = _byte_offset(t["mega"][torch.from_numpy(hot).to(device)]
+                               * 2.0, offset)
+    t["staging"] = _byte_offset(
+        t["mega"][torch.from_numpy(warm).to(device)] * 3.0, offset)
+    return t
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("b", [1, 256])
+@pytest.mark.parametrize("h", [1, 5, 17])
+@pytest.mark.parametrize("d", [3, 32, 35, 136])
+def test_fp32_tiered_gathers_bitwise(cuda, d, h, b, offset, monkeypatch):
+    """K3 and K5 on every path they launch -- 4 floats a lane as one
+    16-byte load or, from a tier 4 bytes into its storage, four 4-byte
+    loads; a float a lane at d % 4 != 0; several pieces a lane past 128
+    floats (32 for d % 4 != 0); a second chunk of slots (h = 17) -- are
+    bitwise their plain versions, one launch a call, with the launch
+    ``tiered_launch`` gives for ``tier_word`` over the tiers. K5 gives
+    +0.0 for a row in neither tier and reads the cache's copy of a row in
+    both."""
+    from repro_torch.kernels import multi_table_lookup as mtl
+    t = _f32_tier_inputs(np.random.default_rng(d * 100 + h * 10 + b + offset),
+                         b, h, d, offset, cuda)
+    picked = []
+
+    def spy(*args):
+        picked.append(tiered_launch(*args))
+        return picked[-1]
+    monkeypatch.setattr(mtl, "tiered_launch", spy)
+    k3_args = (t["offsets"], t["slot_of_row"], t["cache"], t["mega"])
+    k5_args = (t["offsets"], t["slot_of_row"], t["smap"], t["cache"],
+               t["staging"])
+    word = 16 if d % 4 == 0 and offset == 0 else 4
+    for ids, mask in ((t["ids"], t["mask"]),
+                      (t["ids"][..., 0].contiguous(), None)):
+        before = (mtl_gather_two_level.launches,
+                  mtl_gather_three_level.launches)
+        k3 = mtl_gather_two_level(ids, *k3_args, mask=mask)
+        k5 = mtl_gather_three_level(ids, *k5_args, mask=mask)
+        torch.cuda.synchronize()
+        assert (mtl_gather_two_level.launches,
+                mtl_gather_three_level.launches) == \
+            (before[0] + 1, before[1] + 1)
+        slots = ids.shape[2] if ids.dim() == 3 else 1
+        assert picked[-2:] == [tiered_launch(b, 7, slots, d, word)] * 2
+        assert _same_bits(k3, mtl_gather_two_level_plain(
+            ids, *k3_args, mask=mask))
+        assert _same_bits(k5, mtl_gather_three_level_plain(
+            ids, *k5_args, mask=mask))
+    # h slots of the last call: one; rows in neither tier read +0.0 and a
+    # row in both tiers the cache's copy
+    rows = (ids.long() + t["offsets"].long()[None, :]).clamp(
+        0, t["slot_of_row"].numel() - 1).reshape(-1)
+    c, s = t["slot_of_row"][rows], t["smap"][rows]
+    cached = (c >= 0) & (c < t["cache"].shape[0])
+    staged = (s >= 0) & (s < t["staging"].shape[0])
+    neither = ~cached & ~staged
+    zero = k5.view(-1, d)[neither]
+    assert torch.all(zero == 0) and not torch.signbit(zero).any()
+    assert _same_bits(k5.view(-1, d)[cached], t["cache"][c[cached].long()])
+    assert (cached & staged).any()
+    if b > 1:
+        assert neither.any()
+
+
+@pytest.mark.parametrize("kernel", ["two_level", "three_level"])
+def test_fp32_tiered_entries_refuse_bad_launches(cuda, kernel):
+    """K3's and K5's C entries check the launch, width and alignment they
+    are given and return a CUDA error code before launching."""
+    from repro_torch.kernels import multi_table_lookup as mtl
+    from repro_torch.kernels import _build
+    t = _f32_tier_inputs(np.random.default_rng(1), 4, 1, 32, 0, cuda)
+    odd = {name: _byte_offset(t[name], 4) for name in ("cache", "staging")}
+    out = torch.empty((4, 7 * 32 + 4), device=cuda)
+    good = tiered_launch(4, 7, 1, 32, 16)
+    fn = mtl._tiered(f"mtl_gather_{kernel}", 7 if kernel == "two_level"
+                     else 8, 11 if kernel == "two_level" else 12)
+
+    def call(vec, word, lane_bits, threads, blocks=good.blocks, d=32,
+             dst=out, tiers=t):
+        if kernel == "two_level":
+            ptrs = (t["slot_of_row"], tiers["cache"], t["mega"])
+            sizes = (tiers["cache"].shape[0], t["slot_of_row"].numel())
+        else:
+            ptrs = (t["slot_of_row"], t["smap"], tiers["cache"],
+                    tiers["staging"])
+            sizes = (tiers["cache"].shape[0], tiers["staging"].shape[0],
+                     t["slot_of_row"].numel())
+        return fn(t["ids"].data_ptr(), None, t["offsets"].data_ptr(),
+                  *(p.data_ptr() for p in ptrs), dst.data_ptr(), 4, 7, 1, d,
+                  *sizes, vec, word, lane_bits, threads, blocks,
+                  _build.current_stream(cuda))
+    assert call(1, 16, 3, 128) == 0
+    assert call(1, 4, 3, 128) == 0 and call(0, 4, 5, 128) == 0
+    assert call(1, 4, 3, 128, tiers=odd) == 0  # the 4-byte path takes it
+    assert call(1, 16, 3, 128, tiers=odd) == 716  # cudaErrorMisalignedAddress
+    assert call(1, 4, 3, 128, dst=out.view(-1)[1:]) == 716
+    if kernel == "three_level":                # the staging area alone
+        assert call(1, 16, 3, 128,
+                    tiers=dict(t, staging=odd["staging"])) == 716
+    assert call(2, 16, 3, 128) == 9       # cudaErrorInvalidConfiguration
+    assert call(0, 16, 5, 128) == 9       # a 16-byte word needs vec
+    assert call(1, 8, 3, 128) == 9 and call(1, 1, 3, 128) == 9
+    assert call(1, 16, 3, 128, d=30) == 9      # vec needs d % 4 == 0
+    assert call(1, 16, 6, 128) == 9 and call(1, 16, -1, 128) == 9
+    assert call(1, 16, 3, 96 + 1) == 9 and call(1, 16, 3, 512) == 9
+    assert call(1, 16, 3, 16) == 9 and call(1, 16, 3, 128, blocks=0) == 9
     torch.cuda.synchronize()
 
 

@@ -27,8 +27,8 @@ from repro_torch.kernels.fused_cross import (  # noqa: E402
 from repro_torch.kernels.fused_fm import (  # noqa: E402
     fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
-    Launch, gather_launch, input_first_launch, mtl_gather, mtl_gather_plain,
-    q8_word, tiered_q8_launch, vector_words)
+    TIERED_THREADS, Launch, _tiered_args, gather_launch, input_first_launch,
+    mtl_gather, mtl_gather_plain, tier_word, tiered_launch, vector_words)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -131,21 +131,81 @@ def test_input_first_launch(b, k, want):
 
 
 # ---------------------------------------------------------------------------
-# K4 and K6 launch shapes
+# K3–K6 launch shapes
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b", [1, 256, 1024])
+@pytest.mark.parametrize("d,word,lanes", [
+    # Criteo d = 32: 8 lanes of 4 floats, one 16-byte load each or, from a
+    # tier 4 bytes into its storage, four 4-byte loads
+    (32, 16, 8), (32, 4, 8),
+    (16, 16, 4), (16, 4, 4),
+    # d = 60: 15 pieces on 16 lanes
+    (60, 16, 16), (60, 4, 16),
+    # past 128 floats (32 for d % 4 != 0) a lane takes several pieces
+    (136, 16, 32), (136, 4, 32), (35, 4, 32),
+    # d % 4 != 0: a float a lane
+    (3, 4, 4), (1, 4, 1),
+])
+def test_tiered_launch(d, word, lanes, b):
+    """K3's and K5's launch: a piece of 4 floats a lane where d % 4 == 0
+    (``vec``), else one; the power of two up to 32 lanes that covers a
+    row's pieces; one row a thread; a group of lanes for every row; one
+    launch rule for one-hot and pooled rows, and for K4 and K6."""
+    k = 39
+    got = tiered_launch(b, k, 1, d, word)
+    vec = d % 4 == 0
+    pieces = d // 4 if vec else d
+    assert got == Launch(vec, lanes, 1, TIERED_THREADS,
+                         -(-b * k * lanes // TIERED_THREADS), word)
+    assert got.lanes >= min(pieces, 32) > got.lanes // 2
+    assert got.blocks * got.threads >= b * k * got.lanes \
+        > (got.blocks - 1) * got.threads
+    for h in (5, 17):
+        assert tiered_launch(b, k, h, d, word) == got
+    assert tiered_launch(b, k, 5, d, word // 4) == got._replace(
+        word=word // 4)                         # K4/K6: the same shape
+
+
+def test_tier_word_takes_4_byte_loads_for_a_misaligned_fp32_tier():
+    """The K3 and K5 wrappers give ``tiered_launch`` :func:`tier_word` over
+    both tiers: one tier 4 bytes into its storage, or an odd width, takes
+    the 4-byte path."""
+    n, d = 10, 32
+    cache, backing = (torch.empty(n * d).view(n, d) for _ in range(2))
+    view = torch.empty(n * d + 1)[1:].view(n, d)
+    assert cache.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 4
+    assert tier_word(d, 4, cache.data_ptr(), backing.data_ptr()) == 16
+    assert tier_word(d, 4, view.data_ptr(), backing.data_ptr()) == 4
+    assert tier_word(d, 4, backing.data_ptr(), view.data_ptr()) == 4
+    assert tier_word(d, 4, 0, 8) == 4                  # 8 bytes in
+    assert tier_word(60, 4, 0, 16) == 16
+    assert tier_word(35, 4, 0, 0) == 4 and tier_word(1, 4, 0, 0) == 4
+
+
+def test_tiered_args_follow_the_c_entries():
+    """The launch's arguments in the C entries' order: ``vec, word,
+    lane_bits, threads, blocks``."""
+    assert _tiered_args(tiered_launch(1024, 39, 1, 32, 16)) == \
+        (1, 16, 3, 128, 2496)
+    assert _tiered_args(tiered_launch(1024, 39, 1, 32, 4)) == \
+        (1, 4, 3, 128, 2496)
+    assert _tiered_args(tiered_launch(1024, 39, 5, 3, 1)) == \
+        (0, 1, 2, 128, 1248)
+
 
 def test_q8_word_needs_d_and_every_tier_aligned_to_the_word():
     n, d = 10, 32
     codes = torch.empty(n * d, dtype=torch.int8)
     view = torch.empty(n * d + 1, dtype=torch.int8)[1:].view(n, d)
     assert codes.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 1
-    assert q8_word(32, codes.data_ptr(), 256) == 4
-    assert q8_word(16, 0, 0) == 4
-    assert q8_word(32, view.data_ptr(), 256) == 1      # 1 byte in
-    assert q8_word(32, 4, 256) == 4                    # 4 bytes in
-    assert q8_word(32, 0, 2) == 1                      # 2 bytes in
-    assert q8_word(60, 0, 0) == 4
-    assert q8_word(3, 0, 0) == 1 and q8_word(1, 0, 0) == 1
+    assert tier_word(32, 1, codes.data_ptr(), 256) == 4
+    assert tier_word(16, 1, 0, 0) == 4
+    assert tier_word(32, 1, view.data_ptr(), 256) == 1      # 1 byte in
+    assert tier_word(32, 1, 4, 256) == 4                    # 4 bytes in
+    assert tier_word(32, 1, 0, 2) == 1                      # 2 bytes in
+    assert tier_word(60, 1, 0, 0) == 4
+    assert tier_word(3, 1, 0, 0) == 1 and tier_word(1, 1, 0, 0) == 1
 
 
 @pytest.mark.parametrize("d,word,h,want", [
@@ -174,7 +234,7 @@ def test_q8_word_needs_d_and_every_tier_aligned_to_the_word():
     (35, 1, 5, Launch(False, 32, 1, 128, 9984, 1)),
 ])
 def test_tiered_q8_launch(d, word, h, want):
-    got = tiered_q8_launch(1024, 39, h, d, word)
+    got = tiered_launch(1024, 39, h, d, word)
     assert got == want
     assert got.vec == (d % 4 == 0) and got.word == word
     pieces = d // 4 if got.vec else d
@@ -187,10 +247,10 @@ def test_tiered_q8_launch(d, word, h, want):
     (256, 5), (1024, 5), (840, 5), (841, 5), (1024, 2), (65_536, 1),
 ])
 def test_tiered_q8_launch_is_the_same_for_pooled_rows(b, h):
-    got = tiered_q8_launch(b, 39, h, 32, 4)
-    assert got == tiered_q8_launch(b, 39, 1, 32, 4)
+    got = tiered_launch(b, 39, h, 32, 4)
+    assert got == tiered_launch(b, 39, 1, 32, 4)
     assert (got.vec, got.word, got.lanes, got.rows) == (True, 4, 8, 1)
-    assert tiered_q8_launch(b, 39, h, 32, 1).word == 1
+    assert tiered_launch(b, 39, h, 32, 1).word == 1
 
 
 @pytest.mark.parametrize("b,k,blocks", [
@@ -200,7 +260,7 @@ def test_tiered_q8_launch_is_the_same_for_pooled_rows(b, h):
     (10**6, 39, 1 << 20),                  # capped; the kernel strides on
 ])
 def test_tiered_q8_launch_grid(b, k, blocks):
-    got = tiered_q8_launch(b, k, 1, 32, 4)
+    got = tiered_launch(b, k, 1, 32, 4)
     assert got.blocks == blocks
     groups = -(-b * k // got.rows)
     if blocks < 1 << 20:

@@ -34,9 +34,9 @@ from test_kernels import _q8_split_cache, _split_cache  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SIZES, D = [13, 29, 6], 16
-# K4 and K6 on the card load words of 16 or 4 codes where d allows them
-# and single codes at an odd d: their plain versions are held at a width
-# of each kind
+# K3–K6 on the card load a piece of 4 elements a lane where d % 4 == 0
+# and single elements at an odd d: their plain versions are held at a
+# width of each kind
 
 
 def with_widths(name, values, widths=(3, 32)):
@@ -89,10 +89,10 @@ def test_multihot_plain_bitwise_vs_pallas(h):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("capacity", [1, 16, 48])
-def test_two_level_plain_bitwise_vs_pallas_and_k1(capacity):
+@with_widths("capacity", [1, 16, 48])
+def test_two_level_plain_bitwise_vs_pallas_and_k1(capacity, d):
     rng = np.random.default_rng(capacity)
-    mega, offsets = make_mega(rng, zero_row=False)
+    mega, offsets = make_mega(rng, zero_row=False, d=d)
     cache, slot_of_row = _split_cache(rng, mega, capacity)
     ids = make_onehot(rng, 24)
     want = jops.multi_table_lookup_cached(ids, cache, mega, slot_of_row,
@@ -105,10 +105,10 @@ def test_two_level_plain_bitwise_vs_pallas_and_k1(capacity):
     assert torch.equal(got, mtl_gather_plain(t(ids), t(offsets), t(mega)))
 
 
-@pytest.mark.parametrize("h", [1, 3, 5])
-def test_two_level_pooled_plain_bitwise_vs_pallas_and_k2(h):
+@with_widths("h", [1, 3, 5])
+def test_two_level_pooled_plain_bitwise_vs_pallas_and_k2(h, d):
     rng = np.random.default_rng(10 + h)
-    mega, offsets = make_mega(rng)
+    mega, offsets = make_mega(rng, d=d)
     cache, slot_of_row = _split_cache(rng, mega, 16)
     ids, mask = make_slots(rng, 12, h)
     want = jops.multi_table_lookup_cached_multihot(
@@ -410,9 +410,9 @@ def _host_args(h, case, seed, d=D):
 
 
 @pytest.mark.parametrize("case", TIER_CASES)
-@pytest.mark.parametrize("h", [1, 3])
-def test_three_level_plain_bitwise_vs_pallas(h, case):
-    mega, offsets, tr, ids, mask = _host_args(h, case, 30 + h)
+@with_widths("h", [1, 3])
+def test_three_level_plain_bitwise_vs_pallas(h, d, case):
+    mega, offsets, tr, ids, mask = _host_args(h, case, 30 + h, d)
     args = (tr["cache"], tr["staging"], tr["slot_of_row"], tr["smap"],
             offsets)
     if h == 1:
