@@ -16,21 +16,25 @@ Phases (any failure raises; the script then exits non-zero):
    and timed with CUDA events beside the plain version, the one PyTorch
    call that computes the same function where there is one
    (``library_ms``), and the least time the card could take
-   (``bound_ms``).
+   (``bound_ms``). K11 also through its launch sweep (32-256 threads a
+   block at b = 256 and 1024, every setting within ``FM_TOL`` before it
+   is timed), at d = 1, 3 and 60, at b = 1, on a ``v`` 4 bytes into its
+   storage (a float a lane), and on rows holding a NaN, an inf and a
+   -inf (NaN in those rows, every other row bitwise unchanged).
    Then K2 ``mtl_gather_multihot``, K3 ``mtl_gather_two_level`` and K4
    ``mtl_gather_two_level_q8`` on the full Criteo table at d = 32 (an
    851 MB fp32 backing; a 213 MB int8 one plus 26.6 MB of scales) under
    a 65,536-row cache whose hot set comes from one observe + refresh on
    quadratic-skew traffic, at b = 256 and 1024 and h = 1 and 5: bitwise
-   against their plain versions (out-of-range ids included), K3 at h = 1
-   bitwise against K1, timed the same way; K3 and K4 at h = 1 also
-   through a cold cache (rows 0..C-1, nearly all misses), their miss
-   path; K3 on an fp32 cache 4 bytes into its storage (its 4-byte path)
-   and K4 on int8 tiers 1 byte into their storage (its byte path),
-   bitwise; and K3's launch sweep (16-byte or 4-byte words, 64-256
-   threads a block) and K4's (codes loaded as 4-byte words or byte by
-   byte, 32-256 threads), every setting bitwise against the plain version
-   before it is timed.
+   against their plain versions (out-of-range ids included), K2 and K3
+   at h = 1 bitwise against K1, timed the same way; K3 and K4 at h = 1
+   also through a cold cache (rows 0..C-1, nearly all misses), their miss
+   path; K2 on a copy of the table and K3 on an fp32 cache 4 bytes into
+   their storage (their 4-byte path) and K4 on int8 tiers 1 byte into
+   their storage (its byte path), bitwise; and K2's and K3's launch
+   sweeps (16-byte or 4-byte words, 64-256 threads a block) and K4's
+   (codes loaded as 4-byte words or byte by byte, 32-256 threads), every
+   setting bitwise against the plain version before it is timed.
    Then K5 ``mtl_gather_three_level`` and K6
    ``mtl_gather_three_level_q8`` on the same table under the same kind
    of 65,536-row cache (its hot set from one observe + refresh of a
@@ -72,7 +76,8 @@ Phases (any failure raises; the script then exits non-zero):
    after. Scores must be finite and in (0, 1); the four levels must agree
    on the card, and the card must agree with the CPU path on the same
    weights.
-5. DCN, DeepFM and Wide&Deep at the same width, the same way.
+5. DCN, DeepFM and Wide&Deep at the same width, the same way; DeepFM's
+   trace logs K11's device time a step.
 6. The tiered stores: the same DCNv2 weights adopted into a
    ``CachedStore`` (C = 65,536) and a ``HostBackedStore`` (C = S =
    65,536; the backing in host memory), each with fp32 and with int8
@@ -277,7 +282,7 @@ def same_bits(torch, a, b) -> bool:
 
 def entry_call(torch, name, offsets, tensors, sizes, b, k, h, d):
     """``with_launch`` for :func:`tiered_sweep`: ``with_launch(launch)``
-    gives a call of K3–K6's C entry ``name`` on ``(ids, mask, offsets,
+    gives a call of K2–K6's C entry ``name`` on ``(ids, mask, offsets,
     *tensors, out, b, k, h, d, *sizes)`` with that launch."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import multi_table_lookup as mtl
@@ -303,9 +308,10 @@ def entry_call(torch, name, offsets, tensors, sizes, b, k, h, d):
 
 def tiered_sweep(torch, name, with_launch, want, sets, b, k, h, d,
                  shape: str) -> None:
-    """Time K3–K6 (``name``) at each launch of their sweep: K3 and K5 with
-    their floats loaded as 16-byte words and one by one (the 4-byte path's
-    loads, here on aligned tiers) at 64, 128 and 256 threads a block; K4
+    """Time K2–K6 (``name``) at each launch of their sweep: K2, K3 and K5
+    with their floats loaded as 16-byte words and one by one (the 4-byte
+    path's loads, here on aligned tiers) at 64, 128 and 256 threads a
+    block; K4
     and K6 with their codes loaded as 4-byte words and byte by byte (the
     byte path's loads) at 32, 64, 128 and 256. ``with_launch(launch)``
     gives a call of the C entry with that launch, each checked bitwise
@@ -342,6 +348,54 @@ def byte_offset(torch, t, offset: int = 1):
     view.copy_(t)
     assert view.data_ptr() % 16 == offset
     return view
+
+
+def fm_case(torch, sets, record, shape: str) -> None:
+    """K11 on ``sets[0]`` within ``FM_TOL`` of its plain version, then
+    timed over ``sets`` beside the plain version and its bound; its launch
+    logged."""
+    from repro_torch.kernels.fused_fm import (
+        fm_launch, fused_fm_second_order, fused_fm_second_order_plain)
+
+    v0 = sets[0][0]
+    b, k, d = v0.shape
+    out = fused_fm_second_order(v0)
+    want = fused_fm_second_order_plain(v0)
+    torch.testing.assert_close(out, want, **FM_TOL)
+    record("fused_fm_second_order", shape, (out - want).abs().max().item(),
+           device_ms(torch, fused_fm_second_order, sets),
+           device_ms(torch, fused_fm_second_order_plain, sets), None,
+           b * k * d * 4 + b * 4, 4 * b * k * d)
+    log(f"[launch] fused_fm_second_order {shape}: "
+        f"{fm_launch(b, d, v0.data_ptr() % 16 == 0)}")
+
+
+def fm_sweep(torch, sets, shape: str) -> None:
+    """Time K11 at 32, 64, 128 and 256 threads a block by calling its C
+    entry with each (every setting within ``FM_TOL`` of the plain version
+    first): the measurements behind ``FM_THREADS``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_fm as fm
+
+    v0 = sets[0][0]
+    b, k, d = v0.shape
+    stream = _build.current_stream(v0.device)
+    launch = fm.fm_launch(b, d, v0.data_ptr() % 16 == 0)
+    want = fm.fused_fm_second_order_plain(v0)
+    times = {}
+    for threads in (32, 64, 128, 256):
+        def run(v, threads=threads):
+            out = torch.empty((b, 1), device=v.device)
+            code = fm._kernel()(v.data_ptr(), out.data_ptr(), b, k, d,
+                                int(launch.vec),
+                                launch.lanes.bit_length() - 1, threads,
+                                math.ceil(b * 32 / threads), stream)
+            assert code == 0, code
+            return out
+        torch.testing.assert_close(run(v0), want, **FM_TOL)
+        times[f"t{threads}"] = round(device_ms(torch, run, sets) * 1e3, 2)
+    log(f"[sweep] fused_fm_second_order {shape}: us {times} (picked "
+        f"t{launch.threads})")
 
 
 def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
@@ -422,17 +476,38 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
                device_ms(torch, fused_cross_v1_plain, sets), None,
                3 * b * dim * 4 + b * 4 + dim * 4, 3 * b * dim)
 
-        # K11 fused_fm_second_order on embedding-scale values
+        # K11 fused_fm_second_order on embedding-scale values, then its
+        # launch sweep
         sets = [(torch.randn((b, k, 32), device=dev, generator=g) * 0.05,)
                 for _ in range(n_sets(b * k * 32 * 4))]
-        out = fused_fm_second_order(*sets[0])
-        want = fused_fm_second_order_plain(*sets[0])
-        torch.testing.assert_close(out, want, **FM_TOL)
-        record("fused_fm_second_order", f"b={b},k={k},d=32",
-               (out - want).abs().max().item(),
-               device_ms(torch, fused_fm_second_order, sets),
-               device_ms(torch, fused_fm_second_order_plain, sets), None,
-               b * k * 32 * 4 + b * 4, 4 * b * k * 32)
+        fm_case(torch, sets, record, f"b={b},k={k},d=32")
+        fm_sweep(torch, sets, f"b={b},k={k},d=32")
+
+    # K11's other paths: a float a lane (d = 1, 3; a v 4 bytes into its
+    # storage), a partial last group (d = 3, 60), one row; then NaN and
+    # inf rows
+    for b, d, offset in ((1024, 1, 0), (1024, 3, 0), (1024, 60, 0),
+                         (1024, 32, 4), (1, 32, 0)):
+        sets = [(byte_offset(torch, torch.randn(
+            (b, k, d), device=dev, generator=g) * 0.05, offset),)
+            for _ in range(n_sets(b * k * d * 4))]
+        fm_case(torch, sets, record, f"b={b},k={k},d={d}"
+                + (",misaligned" if offset else ""))
+    clean = torch.randn((256, k, 32), device=dev, generator=g) * 0.05
+    v = clean.clone()
+    bad = [3, 10, 11]
+    v[3, 5, 7], v[10, 0, 31], v[11, 38, 0] = (float("nan"), float("inf"),
+                                              float("-inf"))
+    got, want = fused_fm_second_order(v), fused_fm_second_order_plain(v)
+    rows = torch.zeros(256, dtype=torch.bool, device=dev)
+    rows[bad] = True
+    assert got[rows].isnan().all() and want[rows].isnan().all(), \
+        "fused_fm_second_order: NaN/inf rows"
+    assert same_bits(torch, got[~rows], fused_fm_second_order(clean)[~rows])
+    torch.testing.assert_close(got[~rows], want[~rows], **FM_TOL)
+    log(f"[kernels] fused_fm_second_order b=256: rows {bad} holding NaN, "
+        f"inf, -inf give NaN (kernel and plain), the other 253 rows "
+        f"bitwise their values without them")
 
 
 def phase_q8_kernels(torch, dev, record):
@@ -814,9 +889,10 @@ def slot_ids(schema, sample_ids, b: int, h: int, step: int):
 def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
     """K2, K3 and K4 on the full-width table of collection ``emb`` under a
     65,536-row cache (fp32 and int8), against their plain versions and
-    K1, timed; K3 and K4 also on a cold cache, K3 on an fp32 cache 4 bytes
-    into its storage (its 4-byte path), K4 on int8 tiers 1 byte into their
-    storage (its byte path), and K3's and K4's launch sweeps."""
+    K1, timed; K3 and K4 also on a cold cache, K2 on a copy of the table
+    and K3 on an fp32 cache 4 bytes into their storage (their 4-byte
+    path), K4 on int8 tiers 1 byte into their storage (its byte path),
+    and K2's, K3's and K4's launch sweeps."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -883,6 +959,16 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
     def k3_cold_plain(i, m, rows):
         return mtl_gather_two_level_plain(i, offsets, cold_map, cold_cache,
                                           table32, mask=m)
+
+    # K2's 4-byte path: a copy of the table 4 bytes into its storage
+    odd_table = byte_offset(torch, table32, 4)
+    assert mtl.tier_word(d, 4, odd_table.data_ptr()) == 4
+
+    def k2_odd(i, m, rows):
+        return mtl_gather_multihot(i, m, offsets, odd_table)
+
+    def k2_odd_plain(i, m, rows):
+        return mtl_gather_multihot_plain(i, m, offsets, odd_table)
 
     # K3's 4-byte path: the fp32 cache 4 bytes into its storage (one tier
     # off 16 bytes is enough; the 851 MB backing stays where it is)
@@ -966,11 +1052,11 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                     f"{name} out-of-range ids"
                 outs[name] = out
             # a cache row is a copy of its backing row: K3 == K2, and at
-            # h = 1 K3 == K1
+            # h = 1 K2 == K3 == K1
             assert torch.equal(outs["mtl_gather_two_level"],
                                outs["mtl_gather_multihot"])
             if h == 1:
-                assert torch.equal(outs["mtl_gather_two_level"],
+                assert torch.equal(outs["mtl_gather_multihot"],
                                    mtl_gather(ids0, offsets, table32))
             uniq = torch.unique(rows0).numel()
             hits = int((f32.slot_of_row.index_select(
@@ -1012,8 +1098,20 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                        device_ms(torch, k4_cold, sets),
                        device_ms(torch, k4_cold_plain, sets), None,
                        ids_bytes + uniq * (4 + d + 4) + out_bytes, 0)
-            # the 4-byte path, bitwise the plain version and the aligned
-            # cache; then the launch sweep
+            # the 4-byte paths, bitwise the plain versions and the aligned
+            # table or cache; then the launch sweeps
+            out = k2_odd(ids0, mask0, rows0)
+            assert torch.equal(out, outs["mtl_gather_multihot"])
+            assert torch.equal(out, k2_odd_plain(ids0, mask0, rows0))
+            record("mtl_gather_multihot", shape + ",misaligned", 0.0,
+                   device_ms(torch, k2_odd, sets),
+                   device_ms(torch, k2_odd_plain, sets),
+                   device_ms(torch, bag(odd_table), sets),
+                   ids_bytes + uniq * 4 * d + out_bytes, 0)
+            tiered_sweep(torch, "mtl_gather_multihot", entry_call(
+                torch, "mtl_gather_multihot", offsets, (table32,),
+                (n_rows,), b, k, h, d),
+                outs["mtl_gather_multihot"], sets, b, k, h, d, shape)
             out = k3_odd(ids0, mask0, rows0)
             assert torch.equal(out, outs["mtl_gather_two_level"])
             assert torch.equal(out, k3_odd_plain(ids0, mask0, rows0))
@@ -1041,8 +1139,8 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                 (q8.slot_of_row, q8.cache, q8.cache_scale, q8.backing,
                  q8.backing_scale), (q8.cache.shape[0], n_rows), b, k, h, d),
                 outs["mtl_gather_two_level_q8"], sets, b, k, h, d, shape)
-    del stores, f32, q8, cold_map, cold_cache, cold_q8, odd32, odd_cache, \
-        odd_backing
+    del stores, f32, q8, cold_map, cold_cache, cold_q8, odd_table, odd32, \
+        odd_cache, odd_backing
     torch.cuda.empty_cache()
 
 
@@ -1345,6 +1443,10 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20,
             gathers[short] = gathers.get(short, 0.0) + dur / n_steps
     log(f"[{name}]   embedding gathers, us/step: "
         f"{ {k: round(v, 2) for k, v in gathers.items()} }")
+    fm = [dur for kname, dur in by_kernel.items() if "fm_second_order" in kname]
+    if fm:
+        log(f"[{name}]   K11 fused_fm_second_order, us/step: "
+            f"{sum(fm) / n_steps:.2f}")
     return {"kernels": by_kernel, "ops": ops, "steps": n_steps}
 
 

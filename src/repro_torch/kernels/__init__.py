@@ -15,8 +15,14 @@ plain PyTorch versions.
   K12 dmm_q8                   csrc/dense_matmul_q8.cu    (dense_matmul.py)
       quantize_rows_q8         csrc/quantize_rows_q8.cu   (quantize.py)
 
-``quantize_rows_q8`` has no TPU counterpart: it fuses the reference's jnp
-activation quantizer, which feeds K12, into one launch.
+K2–K6 are one CUDA kernel, ``tiered_kernel``, over a tier policy (K2's
+one table, K3/K4's cache and backing, K5/K6's cache and staging area) and
+the row's element type, with one launch rule (``tier_word``,
+``tiered_launch``): a group of lanes builds a (sample, field) row, 4
+elements a lane. K11 gives a batch row a warp and a field's row a group
+of lanes (``fm_launch``), and copies a row's pieces into shared memory
+(``cp.async``, up to 16 fields a group at a time) before it sums them. ``quantize_rows_q8`` has no TPU counterpart: it fuses the
+reference's jnp activation quantizer, which feeds K12, into one launch.
 
 Each wrapper counts its launches in ``<wrapper>.launches``; a run can
 reset and read them all with :func:`reset_launch_counts` and

@@ -1,6 +1,6 @@
 // Pooled and tiered fused multi-table gathers: the multi-hot lookup, the
 // cached tier's two-level lookup and the host tier's three-level lookup, in
-// fp32 and int8.
+// fp32 and int8 -- five Pallas kernels, one CUDA kernel (`tiered_kernel`).
 //
 // Replaces five Pallas kernels of src/repro/kernels/multi_table_lookup.py:
 //   K2 `mtl_gather_multihot`       (:106) sum of `hot` rows per output row;
@@ -21,60 +21,60 @@
 // and every tier's block is fetched before the body selects one.
 //
 // Bound on an H100: bytes. Per call they read the b*k*h ids (and the mask),
-// one slot per distinct row touched (two for K5/K6 on a cache miss), each
-// distinct row once (4*d bytes fp32, d + 4 bytes int8), and write b*k*d
-// floats; the arithmetic (one add per slot, one multiply more for int8) is
-// far below the card's rate. For K4 and K6 at b = 1024, h = 1, d = 32 the
-// output write is 5.11 MB of the ~5.8 MB.
+// one slot per distinct row touched (none for K2, two for K5/K6 on a cache
+// miss), each distinct row once (4*d bytes fp32, d + 4 bytes int8), and
+// write b*k*d floats; the arithmetic (one add per slot, one multiply more
+// for int8) is far below the card's rate. For K4 and K6 at b = 1024,
+// h = 1, d = 32 the output write is 5.11 MB of the ~5.8 MB.
 //
-// Design of K2 (`pooled_gather_kernel`): K1's first output-first layout,
-// one thread per output element, so every warp's stores are one coalesced
-// segment and with d = 32 a warp's loads are one contiguous row. Each
-// thread adds its field's offset to the id (Alg. 1 lines 6-8) and
-// redirects a masked slot to row n_rows - 1 (the zero row). The h slots
-// are summed in slot order starting from slot 0's value, the order of the
-// reference's output-block revisiting and of the plain version, with
-// __fadd_rn: bitwise equality with the plain PyTorch version.
-//
-// Design of K3-K6 (`tiered_kernel`): the fp32 output is most of their
-// bytes, so the write has to be coalesced and the reads issued as early as
-// their dependences allow. A group of `lanes` consecutive threads (a power
-// of two, at most 32) builds one (sample, field) output row, and
-// consecutive groups take consecutive rows of the (b, k) id matrix, so a
-// warp's stores are one contiguous run. Each lane of the group does the
-// row's index work once per slot, not once per element: one id load, the
-// field's offset, the clamp, the masked-slot redirect, the map load(s) and,
-// for int8 rows, one scale load; no division per element. The group's
-// lanes repeat that work on the same addresses, so each of its loads is a
-// broadcast. K5 and K6 issue their two map loads together (both depend
-// only on the row), then pick cache, else staging, else exactly +0.0 (no
-// load), so a staged row waits for no third round trip. Each lane then
-// takes a piece of 4 elements of the winning tier's row, loaded as one
-// word where d % 4 == 0 and both tiers are aligned to it -- 4 floats as one
-// 16-byte load (K3, K5), 4 int8 codes as one 4-byte load (K4, K6) -- else
+// Design (`tiered_kernel`, one template over a tier policy -- K2's one
+// table, K3/K4's cache and backing, K5/K6's cache and staging -- and the
+// row's element type): the fp32 output is most of the bytes, so the write
+// has to be coalesced and the reads issued as early as their dependences
+// allow. A group of `lanes` consecutive threads (a power of two, at most
+// 32) builds one (sample, field) output row, and consecutive groups take
+// consecutive rows of the (b, k) id matrix, so a warp's stores are one
+// contiguous run. Each lane of the group does the row's index work once
+// per slot, not once per element: one id load, the field's offset, the
+// clamp, the masked-slot redirect, the map load(s) and, for int8 rows, one
+// scale load; no division per element. The group's lanes repeat that work
+// on the same addresses, so each of its loads is a broadcast. K2 has no
+// map: its policy's `Maps` is an empty struct and `maps()` loads nothing,
+// so the compiler drops the map stage and a slot's row load waits only on
+// its id. In the SASS for sm_90a, K2's instantiations load the id and the
+// mask of a slot and no map: a pooled chunk of 8 slots issues 8 fewer
+// 4-byte loads than K3's (17 against 25 with 16-byte words).
+// K5 and K6 issue their two map loads together (both depend only on the
+// row), then pick cache, else staging, else exactly +0.0 (no load), so a
+// staged row waits for no third round trip. Each lane then takes a piece
+// of 4 elements of the winning tier's row, loaded as one word where
+// d % 4 == 0 and every tier is aligned to it -- 4 floats as one 16-byte
+// load (K2, K3, K5), 4 int8 codes as one 4-byte load (K4, K6) -- else
 // element by element where a tier lies off that alignment (a tier view 4
 // bytes, or 1 byte, into its storage): this path keeps the pieces, the
 // lanes and the float4 stores, since a lane per element redoes the row's
 // index chain 4 times as often (one float a lane took K3 at h = 5, b =
 // 1024 from 11.5 to 28.5 us on an H100). One element a piece for
-// d % 4 != 0. An fp32 value is summed as loaded, so K3 at h = 1 is a copy,
-// bitwise K1; an int8 code is dequantized with __fmul_rn((float)q, s), so
-// nvcc cannot contract it into the sum's FMA. A lane takes one piece up to
-// 128 elements a row (32 for a one-element piece) and repeats the index
-// work for each further piece: keeping a chunk's tier pointers live across
-// the pieces instead took the pooled kernels up to 91 registers (74
-// without) and K4 at h = 5, b = 1024 from 13.6 to 19.1 us on an H100.
-// Pooling (h > 1) issues the loads of up to CH slots (ids and masks, then
-// maps, then rows and scales) before it sums them in slot order from slot
-// 0's value with __fadd_rn, so the result is bitwise the plain versions'.
-// The piece width, load width, lanes and block size come from the wrapper
-// (multi_table_lookup.py, `tiered_launch`), and the entries check them
-// before they launch.
+// d % 4 != 0. An fp32 value is summed as loaded, so K2 and K3 at h = 1 are
+// copies, bitwise K1; an int8 code is dequantized with
+// __fmul_rn((float)q, s), so nvcc cannot contract it into the sum's FMA. A
+// lane takes one piece up to 128 elements a row (32 for a one-element
+// piece) and repeats the index work for each further piece: keeping a
+// chunk's tier pointers live across the pieces instead took the pooled
+// kernels up to 91 registers (74 without) and K4 at h = 5, b = 1024 from
+// 13.6 to 19.1 us on an H100. Pooling (h > 1) issues the loads of up to CH
+// slots (ids and masks, then maps, then rows and scales) before it sums
+// them in slot order from slot 0's value with __fadd_rn -- the order of the
+// reference's output-block revisiting -- so the result is bitwise the
+// plain versions'. The piece width, load width, lanes and block size come
+// from the wrapper (multi_table_lookup.py, `tiered_launch`), and the
+// entries check them before they launch.
 //
 // Out-of-range input: the global row is clamped into [0, n_rows) as in K1,
-// and a slot outside [0, n_cache) (or [0, n_staging)) counts as a miss, so no
-// id and no map can make a thread read past the backing table, the cache or
-// the staging buffer. The plain versions clamp and select the same way.
+// a masked slot reads row n_rows - 1 (the zero row), and a slot outside
+// [0, n_cache) (or [0, n_staging)) counts as a miss, so no id and no map
+// can make a thread read past the table, the backing, the cache or the
+// staging buffer. The plain versions clamp and select the same way.
 
 #include <cstdint>
 #include <type_traits>
@@ -83,73 +83,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// K2: one thread per output element
-// ---------------------------------------------------------------------------
-
-template <typename Index>
-__global__ void pooled_gather_kernel(const int32_t* __restrict__ ids,
-                                     const float* __restrict__ mask,
-                                     const int32_t* __restrict__ offsets,
-                                     const float* __restrict__ table,
-                                     float* __restrict__ out, Index b,
-                                     Index k, Index h, Index d,
-                                     int64_t n_rows) {
-  const Index total = b * k * d;
-  const Index row_width = k * d;
-  const Index stride = static_cast<Index>(gridDim.x) * blockDim.x;
-  for (Index idx = static_cast<Index>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const Index row = idx / row_width;
-    const Index col = idx - row * row_width;
-    const Index f = col / d;
-    const Index e = col - f * d;
-    const int64_t offset = __ldg(offsets + f);
-    const Index slot0 = (row * k + f) * h;
-    float acc = 0.0f;
-    for (Index j = 0; j < h; ++j) {
-      int64_t r = n_rows - 1;                       // masked: the zero row
-      if (mask == nullptr || __ldg(mask + slot0 + j) != 0.0f) {
-        r = static_cast<int64_t>(__ldg(ids + slot0 + j)) + offset;
-        r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
-      }
-      const float v = __ldg(table + r * static_cast<int64_t>(d) + e);
-      acc = j == 0 ? v : __fadd_rn(acc, v);
-    }
-    out[idx] = acc;
-  }
-}
-
-int launch_multihot(const void* ids, const void* mask, const void* offsets,
-                    const void* table, void* out, int64_t b, int64_t k,
-                    int64_t h, int64_t d, int64_t n_rows, void* stream) {
-  const int64_t total = b * k * d;
-  if (total == 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride
-  auto s = static_cast<cudaStream_t>(stream);
-  auto i = static_cast<const int32_t*>(ids);
-  auto m = static_cast<const float*>(mask);
-  auto o = static_cast<const int32_t*>(offsets);
-  auto t = static_cast<const float*>(table);
-  auto y = static_cast<float*>(out);
-  // 32-bit element math when every index (output and id slots) fits
-  const int64_t limit = (int64_t{1} << 31) - int64_t{threads} * blocks;
-  if (total < limit && b * k * h < limit) {
-    pooled_gather_kernel<int32_t><<<static_cast<unsigned>(blocks), threads,
-                                    0, s>>>(
-        i, m, o, t, y, static_cast<int32_t>(b), static_cast<int32_t>(k),
-        static_cast<int32_t>(h), static_cast<int32_t>(d), n_rows);
-  } else {
-    pooled_gather_kernel<int64_t><<<static_cast<unsigned>(blocks), threads,
-                                    0, s>>>(i, m, o, t, y, b, k, h, d,
-                                            n_rows);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// K3-K6: tiered rows (fp32 or int8), a group of lanes a row
+// K2-K6: tiered rows (fp32 or int8), a group of lanes a row
 // ---------------------------------------------------------------------------
 
 constexpr int kChunk = 8;   // slots of a pooled row whose loads go together
@@ -172,6 +106,19 @@ __device__ __forceinline__ const float* scale_at(const float* scale,
     return nullptr;
   }
 }
+
+// K2: one table, no map.
+template <typename T>
+struct OneLevel {
+  using Elem = T;
+  const T* table;
+  struct Maps {};
+  __device__ __forceinline__ Maps maps(int64_t) const { return {}; }
+  __device__ __forceinline__ Pick<T> pick(int64_t r, Maps,
+                                          int64_t d) const {
+    return {table + r * d, nullptr};
+  }
+};
 
 // K3/K4: a slot inside [0, n_cache) reads the cache, anything else the
 // backing.
@@ -429,15 +376,20 @@ int launch_tiered(const void* ids, const void* mask, const void* offsets,
 
 // ids (b, k, h) int32, mask (b, k, h) float32 or null (all slots valid),
 // offsets (k,) int32, out (b, k*d) float32; every pointer on the device.
-// K3-K6 take their launch from the wrapper: vec, word, lane_bits, threads
+// K2-K6 take their launch from the wrapper: vec, word, lane_bits, threads
 // and blocks (see launch_tiered).
 
 extern "C" int mtl_gather_multihot(const void* ids, const void* mask,
                                    const void* offsets, const void* table,
                                    void* out, int64_t b, int64_t k, int64_t h,
-                                   int64_t d, int64_t n_rows, void* stream) {
-  return launch_multihot(ids, mask, offsets, table, out, b, k, h, d, n_rows,
-                         stream);
+                                   int64_t d, int64_t n_rows, int64_t vec,
+                                   int64_t word, int64_t lane_bits,
+                                   int64_t threads, int64_t blocks,
+                                   void* stream) {
+  return launch_tiered(ids, mask, offsets,
+                       OneLevel<float>{static_cast<const float*>(table)},
+                       table, table, out, b, k, h, d, n_rows, vec, word,
+                       lane_bits, threads, blocks, stream);
 }
 
 extern "C" int mtl_gather_two_level(

@@ -33,12 +33,13 @@ thread per (sample, field), writing a field-major ``(k, b, d)`` buffer
 that a PyTorch transpose turns into ``(b, k*d)``. K1 and K8 copy 16-byte
 words when ``d % 4 == 0`` and the table and output are 16-byte aligned,
 else 4-byte words; :func:`gather_launch` and :func:`input_first_launch`
-give their launch shapes as pure functions of the call. K3–K6 build a
-row with a group of lanes in the shape :func:`tiered_launch` gives, each
-lane taking 4 elements of a row -- loaded as one word (16 bytes of fp32
-for K3 and K5, 4 bytes of int8 codes for K4 and K6), or element by
-element from a tier view off that alignment (:func:`tier_word`) -- or one
-element for ``d % 4 != 0``. K7 is the
+give their launch shapes as pure functions of the call. K2–K6 are one
+kernel: it builds a row with a group of lanes in the shape
+:func:`tiered_launch` gives, each lane taking 4 elements of a row --
+loaded as one word (16 bytes of fp32 for K2, K3 and K5, 4 bytes of int8
+codes for K4 and K6), or element by element from a table or tier view off
+that alignment (:func:`tier_word`) -- or one element for ``d % 4 != 0``.
+K7 is the
 reference's one-hot lookup over small per-field tables stacked to one
 padded height: a gather where an id outside ``[0, n_pad)`` gives a zero
 row (the one-hot row matches nothing), not a clamped one.
@@ -70,7 +71,7 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
 
 
 # ---------------------------------------------------------------------------
-# K1, K8 and K3–K6 launch shapes: pure functions of the call, checked again
+# K1, K8 and K2–K6 launch shapes: pure functions of the call, checked again
 # by the C entries before they launch
 # ---------------------------------------------------------------------------
 
@@ -78,20 +79,22 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
 #: every shape ``chip_smoke.py``'s launch sweep times on the H100 (Criteo
 #: b = 256 and 1024 at d = 1 and 32, a misaligned view, Fig. 11's four)
 GATHER_THREADS, INPUT_FIRST_THREADS = 128, 64
-#: K3–K6: within 2% of the best block size at every shape of
+#: K2–K6: within 2% of the best block size at every shape of
 #: ``chip_smoke.py``'s launch sweep on the H100 (Criteo b = 256 and 1024,
-#: h = 1 and 5; K3 and K5 over 64-256, K4 and K6 over 32-256)
+#: h = 1 and 5; K2, K3 and K5 over 64-256, K4 and K6 over 32-256) but one:
+#: K2 at b = 256, h = 1, where 256 threads took 5-7% less
 TIERED_THREADS = 128
 _MAX_BLOCKS = 1 << 20      # the kernels stride over the rows past it
 
 
 class Launch(NamedTuple):
-    """How a gather launch copies: ``vec`` wide words (K1 and K8: 16-byte
-    words, else 4-byte; K3–K6: 4 elements a lane and a float4 store, else
-    one element), ``lanes`` threads a row and ``rows`` rows a thread (1 and
-    1 for K8 and K3–K6), ``threads`` a block, ``blocks`` in the grid;
-    K3–K6 also ``word``, the bytes a load from a tier takes
-    (:func:`tier_word`)."""
+    """How a launch covers its rows: ``vec`` wide words (K1 and K8: 16-byte
+    words, else 4-byte; K2–K6: 4 elements a lane and a float4 store, else
+    one element; K11: 4 floats a lane as one 16-byte load, else one
+    float), ``lanes`` threads a row (K11: a field's row) and ``rows`` rows
+    a thread (1 for K8, K2–K6 and K11), ``threads`` a block, ``blocks`` in
+    the grid; K2–K6 also ``word``, the bytes a load from a table or tier
+    takes (:func:`tier_word`)."""
     vec: bool
     lanes: int
     rows: int
@@ -134,18 +137,19 @@ def input_first_launch(b: int, k: int, vec: bool) -> Launch:
 
 
 def tier_word(d: int, itemsize: int, *tiers: int) -> int:
-    """The bytes a K3–K6 load takes from rows of ``d`` elements of
+    """The bytes a K2–K6 load takes from rows of ``d`` elements of
     ``itemsize`` bytes (4 fp32, 1 int8) at the tiers' base addresses
-    ``tiers``: a word of 4 elements (16 bytes fp32, 4 int8) where
-    ``d % 4 == 0`` and every tier is aligned to it, else one element (a
-    tier view 4 bytes, or 1 byte, into its storage, or ``d % 4 != 0``)."""
+    ``tiers`` (K2's one table, K3–K6's two tiers): a word of 4 elements
+    (16 bytes fp32, 4 int8) where ``d % 4 == 0`` and every tier is aligned
+    to it, else one element (a view 4 bytes, or 1 byte, into its storage,
+    or ``d % 4 != 0``)."""
     word = 4 * itemsize
     aligned = d % 4 == 0 and all(ptr % word == 0 for ptr in tiers)
     return word if aligned else itemsize
 
 
 def tiered_launch(b: int, k: int, h: int, d: int, word: int) -> Launch:
-    """K3–K6's launch for ``(b, k, h)`` ids and rows of ``d`` elements
+    """K2–K6's launch for ``(b, k, h)`` ids and rows of ``d`` elements
     loaded ``word`` bytes at a time (:func:`tier_word`): 4 elements a lane
     (``vec``) where ``d % 4 == 0``, else one; ``lanes``, the power of two
     up to 32 that covers a row's pieces; one row a thread; a grid with a
@@ -404,7 +408,7 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _tiered_args(launch: Launch) -> tuple[int, ...]:
-    """K3–K6's launch arguments, in their C entries' order."""
+    """K2–K6's launch arguments, in their C entries' order."""
     return (int(launch.vec), launch.word, launch.lanes.bit_length() - 1,
             launch.threads, launch.blocks)
 
@@ -436,9 +440,11 @@ def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    code = _tiered("mtl_gather_multihot", 5, 5)(
+    launch = tiered_launch(b, k, h, d, tier_word(d, 4, table.data_ptr()))
+    code = _tiered("mtl_gather_multihot", 5, 10)(
         ids.data_ptr(), _ptr(mask), offsets.data_ptr(), table.data_ptr(),
-        out.data_ptr(), b, k, h, d, n_rows, _build.current_stream(dev))
+        out.data_ptr(), b, k, h, d, n_rows, *_tiered_args(launch),
+        _build.current_stream(dev))
     _build.check_launch("mtl_gather_multihot", code)
     mtl_gather_multihot.launches += 1
     return out

@@ -30,7 +30,7 @@ from repro_torch.kernels.dense_matmul import (  # noqa: E402
 from repro_torch.kernels.fused_cross import (  # noqa: E402
     fused_cross_v1, fused_cross_v1_plain, fused_cross_v2, fused_cross_v2_plain)
 from repro_torch.kernels.fused_fm import (  # noqa: E402
-    fused_fm_second_order, fused_fm_second_order_plain)
+    fm_launch, fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather, mtl_gather_multihot, mtl_gather_multihot_plain,
     mtl_gather_plain, mtl_gather_three_level, mtl_gather_three_level_plain,
@@ -449,8 +449,9 @@ def _f32_tier_inputs(rng, b, h, d, offset, device, k=7, capacity=512):
     a third of its rows): ids with out-of-range entries, a random mask, a
     cache slot past C, a staging slot past S, a cached row also staged,
     half the uncached rows in neither tier; the cache and staging rows
-    differ from their backing rows (a wrong tier shows), and the cache
-    and staging area are views ``offset`` bytes into their storage."""
+    differ from their backing rows (a wrong tier shows), and the cache,
+    the staging area and a copy of the table (``table``, K2's) are views
+    ``offset`` bytes into their storage."""
     sizes = rng.integers(2, 3000, size=k)
     n = int(sizes.sum()) + 1
     mega = rng.normal(size=(n, d)).astype(np.float32)
@@ -481,6 +482,7 @@ def _f32_tier_inputs(rng, b, h, d, offset, device, k=7, capacity=512):
                                * 2.0, offset)
     t["staging"] = _byte_offset(
         t["mega"][torch.from_numpy(warm).to(device)] * 3.0, offset)
+    t["table"] = _byte_offset(t["mega"], offset)
     return t
 
 
@@ -489,14 +491,14 @@ def _f32_tier_inputs(rng, b, h, d, offset, device, k=7, capacity=512):
 @pytest.mark.parametrize("h", [1, 5, 17])
 @pytest.mark.parametrize("d", [3, 32, 35, 136])
 def test_fp32_tiered_gathers_bitwise(cuda, d, h, b, offset, monkeypatch):
-    """K3 and K5 on every path they launch -- 4 floats a lane as one
-    16-byte load or, from a tier 4 bytes into its storage, four 4-byte
-    loads; a float a lane at d % 4 != 0; several pieces a lane past 128
-    floats (32 for d % 4 != 0); a second chunk of slots (h = 17) -- are
-    bitwise their plain versions, one launch a call, with the launch
-    ``tiered_launch`` gives for ``tier_word`` over the tiers. K5 gives
-    +0.0 for a row in neither tier and reads the cache's copy of a row in
-    both."""
+    """K2, K3 and K5 on every path they launch -- 4 floats a lane as one
+    16-byte load or, from a table or tier 4 bytes into its storage, four
+    4-byte loads; a float a lane at d % 4 != 0; several pieces a lane past
+    128 floats (32 for d % 4 != 0); a second chunk of slots (h = 17) --
+    are bitwise their plain versions, one launch a call, with the launch
+    ``tiered_launch`` gives for ``tier_word`` over the table or the tiers.
+    K2 with one slot is bitwise K1. K5 gives +0.0 for a row in neither
+    tier and reads the cache's copy of a row in both."""
     from repro_torch.kernels import multi_table_lookup as mtl
     t = _f32_tier_inputs(np.random.default_rng(d * 100 + h * 10 + b + offset),
                          b, h, d, offset, cuda)
@@ -512,20 +514,24 @@ def test_fp32_tiered_gathers_bitwise(cuda, d, h, b, offset, monkeypatch):
     word = 16 if d % 4 == 0 and offset == 0 else 4
     for ids, mask in ((t["ids"], t["mask"]),
                       (t["ids"][..., 0].contiguous(), None)):
-        before = (mtl_gather_two_level.launches,
+        before = (mtl_gather_multihot.launches, mtl_gather_two_level.launches,
                   mtl_gather_three_level.launches)
+        k2 = mtl_gather_multihot(ids, mask, t["offsets"], t["table"])
         k3 = mtl_gather_two_level(ids, *k3_args, mask=mask)
         k5 = mtl_gather_three_level(ids, *k5_args, mask=mask)
         torch.cuda.synchronize()
-        assert (mtl_gather_two_level.launches,
+        assert (mtl_gather_multihot.launches, mtl_gather_two_level.launches,
                 mtl_gather_three_level.launches) == \
-            (before[0] + 1, before[1] + 1)
+            (before[0] + 1, before[1] + 1, before[2] + 1)
         slots = ids.shape[2] if ids.dim() == 3 else 1
-        assert picked[-2:] == [tiered_launch(b, 7, slots, d, word)] * 2
+        assert picked[-3:] == [tiered_launch(b, 7, slots, d, word)] * 3
+        assert _same_bits(k2, mtl_gather_multihot_plain(
+            ids, mask, t["offsets"], t["table"]))
         assert _same_bits(k3, mtl_gather_two_level_plain(
             ids, *k3_args, mask=mask))
         assert _same_bits(k5, mtl_gather_three_level_plain(
             ids, *k5_args, mask=mask))
+    assert _same_bits(k2, mtl_gather(ids, t["offsets"], t["mega"]))
     # h slots of the last call: one; rows in neither tier read +0.0 and a
     # row in both tiers the cache's copy
     rows = (ids.long() + t["offsets"].long()[None, :]).clamp(
@@ -542,22 +548,28 @@ def test_fp32_tiered_gathers_bitwise(cuda, d, h, b, offset, monkeypatch):
         assert neither.any()
 
 
-@pytest.mark.parametrize("kernel", ["two_level", "three_level"])
+@pytest.mark.parametrize("kernel", ["multihot", "two_level",
+                                    "three_level"])
 def test_fp32_tiered_entries_refuse_bad_launches(cuda, kernel):
-    """K3's and K5's C entries check the launch, width and alignment they
-    are given and return a CUDA error code before launching."""
+    """K2's, K3's and K5's C entries check the launch, width and alignment
+    they are given and return a CUDA error code before launching."""
     from repro_torch.kernels import multi_table_lookup as mtl
     from repro_torch.kernels import _build
     t = _f32_tier_inputs(np.random.default_rng(1), 4, 1, 32, 0, cuda)
-    odd = {name: _byte_offset(t[name], 4) for name in ("cache", "staging")}
+    odd = {name: _byte_offset(t[name], 4)
+           for name in ("table", "cache", "staging")}
     out = torch.empty((4, 7 * 32 + 4), device=cuda)
     good = tiered_launch(4, 7, 1, 32, 16)
-    fn = mtl._tiered(f"mtl_gather_{kernel}", 7 if kernel == "two_level"
-                     else 8, 11 if kernel == "two_level" else 12)
+    fn = mtl._tiered(f"mtl_gather_{kernel}",
+                     *{"multihot": (5, 10), "two_level": (7, 11),
+                       "three_level": (8, 12)}[kernel])
 
     def call(vec, word, lane_bits, threads, blocks=good.blocks, d=32,
              dst=out, tiers=t):
-        if kernel == "two_level":
+        if kernel == "multihot":
+            ptrs = (tiers["table"],)
+            sizes = (t["slot_of_row"].numel(),)
+        elif kernel == "two_level":
             ptrs = (t["slot_of_row"], tiers["cache"], t["mega"])
             sizes = (tiers["cache"].shape[0], t["slot_of_row"].numel())
         else:
@@ -746,6 +758,94 @@ def test_fused_tails_and_fm(cuda):
     v = torch.randn((b, 39, 32), device=cuda, generator=g) * 0.05
     torch.testing.assert_close(fused_fm_second_order(v),
                                fused_fm_second_order_plain(v), **TOL)
+
+
+FM_SHAPES = [(1, 1, 1), (3, 39, 1), (256, 39, 3), (256, 39, 32),
+             (1024, 39, 32), (64, 13, 60), (16, 7, 136)]
+
+
+def _fm_input(rng, shape, offset, device):
+    """Embedding-scale ``v`` on ``device``, a view ``offset`` bytes into
+    its storage."""
+    v = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.05)
+    return _byte_offset(v.to(device), offset)
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("b,k,d", FM_SHAPES)
+def test_fused_fm_within_tol(cuda, b, k, d, offset, monkeypatch):
+    """K11 on every path it launches -- 4 floats a lane as one 16-byte
+    load (d % 4 == 0 and ``v`` aligned), a float a lane (d % 4 != 0, or
+    ``v`` 4 bytes into its storage), a partial last group (d = 3, 60),
+    groups past the last field (k = 1), several pieces a lane past 128
+    floats (d = 136) -- within ``rtol=atol=1e-5`` of the plain version,
+    one launch a call, with the launch ``fm_launch`` gives."""
+    from repro_torch.kernels import fused_fm as fm
+    v = _fm_input(np.random.default_rng(b * 1000 + k * 10 + d + offset),
+                  (b, k, d), offset, cuda)
+    picked = []
+
+    def spy(*args):
+        picked.append(fm_launch(*args))
+        return picked[-1]
+    monkeypatch.setattr(fm, "fm_launch", spy)
+    before = fused_fm_second_order.launches
+    got = fused_fm_second_order(v)
+    torch.cuda.synchronize()
+    assert fused_fm_second_order.launches == before + 1
+    assert picked == [fm_launch(b, d, offset == 0)]
+    assert picked[0].vec == (d % 4 == 0 and offset == 0)
+    torch.testing.assert_close(got, fused_fm_second_order_plain(v), **TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+def test_fused_fm_keeps_nan_and_inf_to_their_rows(cuda, offset):
+    """A NaN, an inf or a -inf in a row gives NaN in that row, as in the
+    plain version; every other row is bitwise what it is without them."""
+    clean = _fm_input(np.random.default_rng(7 + offset), (64, 39, 32),
+                      offset, cuda)
+    v = _byte_offset(clean, offset)
+    bad = (3, 10, 11)
+    v[3, 5, 7], v[10, 0, 31], v[11, 38, 0] = (float("nan"), float("inf"),
+                                              float("-inf"))
+    got = fused_fm_second_order(v)
+    want = fused_fm_second_order_plain(v)
+    torch.cuda.synchronize()
+    rows = torch.zeros(64, dtype=torch.bool, device=cuda)
+    rows[list(bad)] = True
+    assert got[rows].isnan().all() and want[rows].isnan().all()
+    assert not got[~rows].isnan().any()
+    assert _same_bits(got[~rows], fused_fm_second_order(clean)[~rows])
+    torch.testing.assert_close(got[~rows], want[~rows], **TOL)
+
+
+def test_fused_fm_entry_refuses_bad_launches(cuda):
+    """K11's C entry checks the launch and alignment it is given and
+    returns a CUDA error code before launching; any lane count it takes
+    gives the row's sum."""
+    from repro_torch.kernels import fused_fm as fm
+    from repro_torch.kernels import _build
+    v = _fm_input(np.random.default_rng(3), (4, 39, 32), 0, cuda)
+    odd = _byte_offset(v, 4)
+    out = torch.empty((5, 1), device=cuda)
+    good = fm_launch(4, 32, True)
+
+    def call(vec, lane_bits, threads, blocks=good.blocks, d=32, src=v):
+        return fm._kernel()(src.data_ptr(), out.data_ptr(), 4, 39, d, vec,
+                            lane_bits, threads, blocks,
+                            _build.current_stream(cuda))
+    want = fused_fm_second_order_plain(v)
+    for vec, lane_bits, src in ((1, 3, v), (1, 0, v), (1, 5, v), (0, 3, odd),
+                                (0, 5, odd), (0, 0, v)):
+        assert call(vec, lane_bits, 64, src=src) == 0
+        torch.testing.assert_close(out[:4], want, **TOL)
+    assert call(1, 3, 64, src=odd) == 716   # cudaErrorMisalignedAddress
+    assert call(2, 3, 64) == 9              # cudaErrorInvalidConfiguration
+    assert call(1, 3, 64, d=30) == 9        # vec needs d % 4 == 0
+    assert call(1, 6, 64) == 9 and call(1, -1, 64) == 9
+    assert call(1, 3, 16) == 9 and call(1, 3, 96 + 1) == 9
+    assert call(1, 3, 512) == 9 and call(1, 3, 64, blocks=0) == 9
+    torch.cuda.synchronize()
 
 
 def test_kernels_launch_on_the_current_stream(cuda):

@@ -25,7 +25,7 @@ from repro_torch.kernels import (_build, launch_counts, ops,  # noqa: E402
 from repro_torch.kernels.fused_cross import (  # noqa: E402
     fused_cross_v1, fused_cross_v1_plain, fused_cross_v2, fused_cross_v2_plain)
 from repro_torch.kernels.fused_fm import (  # noqa: E402
-    fused_fm_second_order, fused_fm_second_order_plain)
+    FM_THREADS, fm_launch, fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     TIERED_THREADS, Launch, _tiered_args, gather_launch, input_first_launch,
     mtl_gather, mtl_gather_plain, tier_word, tiered_launch, vector_words)
@@ -169,8 +169,8 @@ def test_tiered_launch(d, word, lanes, b):
 
 def test_tier_word_takes_4_byte_loads_for_a_misaligned_fp32_tier():
     """The K3 and K5 wrappers give ``tiered_launch`` :func:`tier_word` over
-    both tiers: one tier 4 bytes into its storage, or an odd width, takes
-    the 4-byte path."""
+    both tiers, K2's over its one table: one tier 4 bytes into its storage,
+    or an odd width, takes the 4-byte path."""
     n, d = 10, 32
     cache, backing = (torch.empty(n * d).view(n, d) for _ in range(2))
     view = torch.empty(n * d + 1)[1:].view(n, d)
@@ -178,14 +178,17 @@ def test_tier_word_takes_4_byte_loads_for_a_misaligned_fp32_tier():
     assert tier_word(d, 4, cache.data_ptr(), backing.data_ptr()) == 16
     assert tier_word(d, 4, view.data_ptr(), backing.data_ptr()) == 4
     assert tier_word(d, 4, backing.data_ptr(), view.data_ptr()) == 4
+    assert tier_word(d, 4, backing.data_ptr()) == 16          # K2's table
+    assert tier_word(d, 4, view.data_ptr()) == 4
     assert tier_word(d, 4, 0, 8) == 4                  # 8 bytes in
     assert tier_word(60, 4, 0, 16) == 16
     assert tier_word(35, 4, 0, 0) == 4 and tier_word(1, 4, 0, 0) == 4
 
 
 def test_tiered_args_follow_the_c_entries():
-    """The launch's arguments in the C entries' order: ``vec, word,
-    lane_bits, threads, blocks``."""
+    """The launch's arguments in K2–K6's C entries' order: ``vec, word,
+    lane_bits, threads, blocks`` (K2's entry takes them too since it runs
+    on the tiered kernel)."""
     assert _tiered_args(tiered_launch(1024, 39, 1, 32, 16)) == \
         (1, 16, 3, 128, 2496)
     assert _tiered_args(tiered_launch(1024, 39, 1, 32, 4)) == \
@@ -316,7 +319,8 @@ def test_fused_cross_v1_vs_pallas(b, D):
 
 
 @pytest.mark.parametrize("b,k,d", [(4, 3, 8), (32, 13, 16), (16, 39, 32),
-                                   (8, 39, 1)])
+                                   (8, 39, 1), (8, 39, 3), (4, 13, 60),
+                                   (1, 39, 32)])
 def test_fused_fm_vs_pallas(b, k, d):
     rng = np.random.default_rng(b * k)
     v = rng.normal(size=(b, k, d)).astype(np.float32)
@@ -324,6 +328,52 @@ def test_fused_fm_vs_pallas(b, k, d):
     got = fused_fm_second_order(torch.from_numpy(v))
     assert got.shape == (b, 1)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_fused_fm_keeps_nan_as_the_reference_does():
+    """A NaN, an inf or a -inf in a row gives NaN in that row, in the plain
+    version as in the Pallas kernel; the other rows stay finite and
+    agree."""
+    rng = np.random.default_rng(19)
+    v = (rng.normal(size=(6, 39, 32)) * 0.05).astype(np.float32)
+    v[1, 5, 7], v[3, 0, 31], v[4, 38, 0] = np.nan, np.inf, -np.inf
+    want = np.asarray(pallas_fm(jnp.asarray(v), interpret=True))
+    got = fused_fm_second_order(torch.from_numpy(v)).numpy()
+    bad = np.isin(np.arange(6), [1, 3, 4])
+    assert np.isnan(want[bad]).all() and np.isnan(got[bad]).all()
+    assert np.isfinite(got[~bad]).all()
+    np.testing.assert_allclose(got[~bad], want[~bad], **TOL)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,k,d,lanes", [
+    # one field of one float: a lane a field, 32 fields a warp
+    (1, 1, 1, 1), (3, 39, 1, 1),
+    # a partial last group: 3 pieces on 4 lanes, 15 words on 16
+    (256, 39, 3, 4), (64, 13, 60, 16),
+    # the main path: 8 float4 words a field, 4 fields a warp
+    (256, 39, 32, 8), (1024, 39, 32, 8),
+    # past 128 floats a lane takes several pieces
+    (16, 7, 136, 32),
+])
+def test_fm_launch(b, k, d, lanes, aligned):
+    """K11's launch: 4 floats a lane (``vec``) where d % 4 == 0 and ``v``
+    is 16-byte aligned, else one; the power of two up to 32 lanes that
+    covers a field's pieces (32 // lanes fields a warp at a time); a warp
+    a row, ``FM_THREADS`` a block, a grid with a warp for every row."""
+    got = fm_launch(b, d, aligned)
+    vec = aligned and d % 4 == 0
+    pieces = d // 4 if vec else d
+    want_lanes = lanes if vec or d % 4 else min(32, lanes * 4)
+    assert got == Launch(vec, want_lanes, 1, FM_THREADS,
+                         -(-b * 32 // FM_THREADS))
+    assert got.lanes & (got.lanes - 1) == 0 and got.lanes <= 32
+    assert got.lanes >= min(pieces, 32) > got.lanes // 2
+    assert got.blocks * got.threads >= 32 * b \
+        > (got.blocks - 1) * got.threads
+    if (b, k, d) == (256, 39, 32):          # 10 loads a lane cover a row
+        assert -(-k // (32 // got.lanes)) == (10 if aligned else 39)
+        assert got.blocks >= 132            # no SM of an H100 left idle
 
 
 def test_plain_versions_match_reference_oracles():
