@@ -16,7 +16,13 @@ Phases (any failure raises; the script then exits non-zero):
    and timed with CUDA events beside the plain version, the one PyTorch
    call that computes the same function where there is one
    (``library_ms``), and the least time the card could take
-   (``bound_ms``). K11 also through its launch sweep (32-256 threads a
+   (``bound_ms``). K9 and K10 also in layer 0's form (``x`` is ``x0``,
+   one load stream fewer), on operands 4 bytes into their storage (four
+   4-byte loads a piece), at D = 117 (a float a piece) and b = 1, through
+   their launch sweep (1, 2, 4 pieces a thread × 32-256 threads a block at
+   b = 256 and 1024, every setting bitwise before it is timed), and on
+   NaN, inf and -inf entries (the plain version's bits). K11 also through
+   its launch sweep (32-256 threads a
    block at b = 256 and 1024, every setting within ``FM_TOL`` before it
    is timed), at d = 1, 3 and 60, at b = 1, on a ``v`` 4 bytes into its
    storage (a float a lane), and on rows holding a NaN, an inf and a
@@ -77,7 +83,8 @@ Phases (any failure raises; the script then exits non-zero):
    on the card, and the card must agree with the CPU path on the same
    weights.
 5. DCN, DeepFM and Wide&Deep at the same width, the same way; DeepFM's
-   trace logs K11's device time a step.
+   trace logs K11's device time a step, DCNv2's and DCN's the cross
+   tail's (K9, K10).
 6. The tiered stores: the same DCNv2 weights adopted into a
    ``CachedStore`` (C = 65,536) and a ``HostBackedStore`` (C = S =
    65,536; the backing in host memory), each with fp32 and with int8
@@ -398,11 +405,123 @@ def fm_sweep(torch, sets, shape: str) -> None:
         f"t{launch.threads})")
 
 
+def cross_sets(torch, dev, g, kind, b, dim, offset=0, same=False, n=None):
+    """Input sets of K9 (``kind`` "v2": ``(x0, xw_plus, x)``) or K10
+    ("v1": ``(x0, xlw, bias, x)``) at (b, dim), enough that their bytes
+    exceed the L2 (or ``n``): the (b, dim) operands and the bias
+    ``offset`` bytes past a 16-byte boundary of their storage, ``x`` the
+    tensor ``x0`` where ``same`` (layer 0)."""
+    def make(shape, off=offset):
+        return byte_offset(torch, torch.randn(shape, device=dev, generator=g),
+                           off)
+    sets = []
+    for _ in range(n or n_sets((4 if kind == "v2" else 3) * b * dim * 4)):
+        x0 = make((b, dim))
+        x = x0 if same else make((b, dim))
+        sets.append((x0, make((b, dim)), x) if kind == "v2"
+                    else (x0, make((b, 1), 0), make((dim,)), x))
+    return sets
+
+
+def cross_fns(kind):
+    """K9's or K10's wrapper, plain version and C entry."""
+    from repro_torch.kernels import fused_cross as fc
+    if kind == "v2":
+        return fc.fused_cross_v2, fc.fused_cross_v2_plain, fc._v2_kernel()
+    return fc.fused_cross_v1, fc.fused_cross_v1_plain, fc._v1_kernel()
+
+
+def cross_aligned(args) -> bool:
+    """Whether K9's or K10's operands (all but K10's ``xlw``) are 16-byte
+    aligned, as the wrappers ask."""
+    tensors = args if len(args) == 3 else (args[0], args[2], args[3])
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def cross_case(torch, kind, sets, record, shape: str) -> None:
+    """K9 or K10 on ``sets[0]`` bitwise its plain version, then timed over
+    ``sets`` beside the plain version, ``addcmul`` (K9) and its bound; its
+    launch logged. In layer 0 (``x`` is ``x0``) one load stream fewer."""
+    from repro_torch.kernels.fused_cross import cross_launch
+
+    fn, plain, _ = cross_fns(kind)
+    args = sets[0]
+    x0 = args[0]
+    b, dim = x0.shape
+    out, want = fn(*args), plain(*args)
+    assert same_bits(torch, out, want), (kind, shape)
+    reads = (3 if kind == "v2" else 2) \
+        - int(args[-1].data_ptr() == x0.data_ptr())
+    moved = (reads + 1) * b * dim * 4 + (0 if kind == "v2" else
+                                         b * 4 + dim * 4)
+    lib_ms = None
+    if kind == "v2":
+        lib_ms = device_ms(torch, lambda a, w, x: torch.addcmul(x, a, w),
+                           sets)
+    record(f"fused_cross_{kind}", shape, (out - want).abs().max().item(),
+           device_ms(torch, fn, sets), device_ms(torch, plain, sets), lib_ms,
+           moved, (2 if kind == "v2" else 3) * b * dim)
+    log(f"[launch] fused_cross_{kind} {shape}: "
+        f"{cross_launch(b, dim, cross_aligned(args))}")
+
+
+def cross_sweep(torch, kind, sets, shape: str) -> None:
+    """Time K9 or K10 at 1, 2, 4 pieces a thread and 32-256 threads a
+    block by calling its C entry with each launch (every one bitwise its
+    plain version first): the measurements behind ``cross_launch``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_cross as fc
+
+    _, plain, entry = cross_fns(kind)
+    args = sets[0]
+    x0 = args[0]
+    b, dim = x0.shape
+    stream = _build.current_stream(x0.device)
+    picked = fc.cross_launch(b, dim, cross_aligned(args))
+    pieces = b * dim // (4 if picked.vec else 1)
+    want = plain(*args)
+    times = {}
+    for words in (1, 2, 4):
+        for threads in (32, 64, 128, 256):
+            launch = picked._replace(rows=words, threads=threads,
+                                     blocks=math.ceil(pieces
+                                                      / (words * threads)))
+
+            def run(*a, launch=launch):
+                out = torch.empty_like(a[0])
+                code = entry(*(t.data_ptr() for t in a), out.data_ptr(), b,
+                             dim, int(a[-1].data_ptr() == a[0].data_ptr()),
+                             *fc.launch_args(launch), stream)
+                assert code == 0, code
+                return out
+            assert same_bits(torch, run(*args), want), (kind, shape, launch)
+            times[f"w{words}t{threads}"] = round(
+                device_ms(torch, run, sets) * 1e3, 2)
+    log(f"[sweep] fused_cross_{kind} {shape}: us {times} (picked "
+        f"w{picked.rows}t{picked.threads})")
+
+
+def cross_nan_inf(torch, kind, args) -> None:
+    """K9 or K10 with NaN, inf and -inf in every operand: NaN where the
+    plain version has NaN, its bits everywhere else."""
+    fn, plain, _ = cross_fns(kind)
+    args = [t.clone() for t in args]
+    x0 = args[0]
+    x0[0, 0], x0[5, 7], x0[9, -1] = float("nan"), float("inf"), float("-inf")
+    args[1][17, -1] = float("inf")       # xw_plus, or xlw's whole row
+    args[1 if kind == "v2" else 2][-1] = float("nan")   # a row, a column
+    args[-1][100, 100] = float("-inf")
+    got, want = fn(*args), plain(*args)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan) and nan.any(), kind
+    assert same_bits(torch, got.masked_fill(nan, 0), want.masked_fill(nan, 0))
+    log(f"[kernels] fused_cross_{kind} b=256: NaN, inf and -inf entries give "
+        f"the plain version's bits ({int(nan.sum())} NaN, "
+        f"{int(want.isinf().sum())} inf)")
+
+
 def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
                   record):
-    from repro_torch.kernels.fused_cross import (
-        fused_cross_v1, fused_cross_v1_plain, fused_cross_v2,
-        fused_cross_v2_plain)
     from repro_torch.kernels.fused_fm import (
         fused_fm_second_order, fused_fm_second_order_plain)
     from repro_torch.kernels.multi_table_lookup import (
@@ -446,35 +565,21 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
                 launch_sweep(torch, table, offsets, sets, f"b={b},k={k},d=1")
 
         dim = k * 32
-        # K9 fused_cross_v2
-        sets = [tuple(torch.randn((b, dim), device=dev, generator=g)
-                      for _ in range(3))
-                for _ in range(n_sets(4 * b * dim * 4))]
-        out = fused_cross_v2(*sets[0])
-        want = fused_cross_v2_plain(*sets[0])
-        assert torch.equal(out, want), f"fused_cross_v2 b={b}"
-        record("fused_cross_v2", f"b={b},D={dim}",
-               (out - want).abs().max().item(),
-               device_ms(torch, fused_cross_v2, sets),
-               device_ms(torch, fused_cross_v2_plain, sets),
-               device_ms(torch, lambda x0, xw, x: torch.addcmul(x, x0, xw),
-                         sets),
-               4 * b * dim * 4, 2 * b * dim)
-
-        # K10 fused_cross_v1
-        sets = [(torch.randn((b, dim), device=dev, generator=g),
-                 torch.randn((b, 1), device=dev, generator=g),
-                 torch.randn((dim,), device=dev, generator=g),
-                 torch.randn((b, dim), device=dev, generator=g))
-                for _ in range(n_sets(3 * b * dim * 4))]
-        out = fused_cross_v1(*sets[0])
-        want = fused_cross_v1_plain(*sets[0])
-        assert torch.equal(out, want), f"fused_cross_v1 b={b}"
-        record("fused_cross_v1", f"b={b},D={dim}",
-               (out - want).abs().max().item(),
-               device_ms(torch, fused_cross_v1, sets),
-               device_ms(torch, fused_cross_v1_plain, sets), None,
-               3 * b * dim * 4 + b * 4 + dim * 4, 3 * b * dim)
+        # K9 fused_cross_v2 and K10 fused_cross_v1: the main path's form,
+        # layer 0 (x is x0), the 4-byte path (operands 4 bytes into their
+        # storage) and a float a piece (D = 117), then the launch sweep
+        for kind in ("v2", "v1"):
+            sets = cross_sets(torch, dev, g, kind, b, dim)
+            cross_case(torch, kind, sets, record, f"b={b},D={dim}")
+            cross_sweep(torch, kind, sets, f"b={b},D={dim}")
+            cross_case(torch, kind,
+                       cross_sets(torch, dev, g, kind, b, dim, same=True),
+                       record, f"b={b},D={dim},layer0")
+            cross_case(torch, kind,
+                       cross_sets(torch, dev, g, kind, b, dim, offset=4),
+                       record, f"b={b},D={dim},misaligned")
+            cross_case(torch, kind, cross_sets(torch, dev, g, kind, b, 117),
+                       record, f"b={b},D=117")
 
         # K11 fused_fm_second_order on embedding-scale values, then its
         # launch sweep
@@ -482,6 +587,13 @@ def phase_kernels(torch, dev, table32, table1, offsets, schema, sample_ids,
                 for _ in range(n_sets(b * k * 32 * 4))]
         fm_case(torch, sets, record, f"b={b},k={k},d=32")
         fm_sweep(torch, sets, f"b={b},k={k},d=32")
+
+    # K9/K10 at b = 1, and on NaN, inf and -inf entries
+    for kind in ("v2", "v1"):
+        cross_case(torch, kind, cross_sets(torch, dev, g, kind, 1, k * 32),
+                   record, f"b=1,D={k * 32}")
+        cross_nan_inf(torch, kind, cross_sets(torch, dev, g, kind, 256,
+                                              k * 32, n=1)[0])
 
     # K11's other paths: a float a lane (d = 1, 3; a v 4 bytes into its
     # storage), a partial last group (d = 3, 60), one row; then NaN and
@@ -1447,6 +1559,11 @@ def trace_step(torch, name, plan, ids, n_steps: int = 20,
     if fm:
         log(f"[{name}]   K11 fused_fm_second_order, us/step: "
             f"{sum(fm) / n_steps:.2f}")
+    cross = [e["dur"] for e in events if "cross_v" in e["name"]]
+    if cross:
+        log(f"[{name}]   K9/K10 cross tail, us/step: "
+            f"{sum(cross) / n_steps:.2f} ({len(cross) / n_steps:.1f} "
+            f"launches/step)")
     return {"kernels": by_kernel, "ops": ops, "steps": n_steps}
 
 

@@ -91,10 +91,11 @@ class Launch(NamedTuple):
     """How a launch covers its rows: ``vec`` wide words (K1 and K8: 16-byte
     words, else 4-byte; K2–K6: 4 elements a lane and a float4 store, else
     one element; K11: 4 floats a lane as one 16-byte load, else one
-    float), ``lanes`` threads a row (K11: a field's row) and ``rows`` rows
-    a thread (1 for K8, K2–K6 and K11), ``threads`` a block, ``blocks`` in
-    the grid; K2–K6 also ``word``, the bytes a load from a table or tier
-    takes (:func:`tier_word`)."""
+    float; K9/K10: pieces of 4 floats, else of one), ``lanes`` threads a
+    row (K11: a field's row; 1 for K9/K10) and ``rows`` rows a thread (1
+    for K8, K2–K6 and K11; K9/K10: pieces a thread), ``threads`` a block,
+    ``blocks`` in the grid; K2–K6 and K9/K10 also ``word``, the bytes a
+    load takes (:func:`tier_word`, ``fused_cross.cross_launch``)."""
     vec: bool
     lanes: int
     rows: int

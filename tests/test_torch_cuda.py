@@ -28,7 +28,8 @@ from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.dense_matmul import (  # noqa: E402
     dmm_q8, dmm_q8_plain, pack_weight, pad_k)
 from repro_torch.kernels.fused_cross import (  # noqa: E402
-    fused_cross_v1, fused_cross_v1_plain, fused_cross_v2, fused_cross_v2_plain)
+    cross_launch, fused_cross_v1, fused_cross_v1_plain, fused_cross_v2,
+    fused_cross_v2_plain, launch_args)
 from repro_torch.kernels.fused_fm import (  # noqa: E402
     fm_launch, fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
@@ -758,6 +759,162 @@ def test_fused_tails_and_fm(cuda):
     v = torch.randn((b, 39, 32), device=cuda, generator=g) * 0.05
     torch.testing.assert_close(fused_fm_second_order(v),
                                fused_fm_second_order_plain(v), **TOL)
+
+
+CROSS_SHAPES = [(b, D) for b in (1, 7, 256, 1024) for D in (4, 117, 1248)]
+
+
+def _cross_inputs(rng, b, D, offset, same, device):
+    """K9's ``(x0, xw_plus, x)`` and K10's ``(x0, xlw, bias, x)`` on
+    ``device``: the (b, D) operands and the bias ``offset`` bytes into
+    their storage, ``x`` is ``x0`` where ``same`` (layer 0)."""
+    def make(shape, off=offset):
+        t = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return _byte_offset(t.to(device), off)
+    x0, xw, x = make((b, D)), make((b, D)), make((b, D))
+    if same:
+        x = x0
+    return (x0, xw, x), (x0, make((b, 1), 0), make((D,)), x)
+
+
+def _cross_call(monkeypatch, kind, args):
+    """Call K9 or K10's wrapper on ``args``; return its output, the launch
+    count it added and the C entry's ``same`` and launch arguments."""
+    from repro_torch.kernels import fused_cross as fc
+    wrapper = fused_cross_v2 if kind == "v2" else fused_cross_v1
+    entry = fc._v2_kernel() if kind == "v2" else fc._v1_kernel()
+    seen = []
+
+    def spy(*a):
+        seen.append(a[-7:-1])
+        return entry(*a)
+    monkeypatch.setattr(fc, f"_{kind}_kernel", lambda: spy)
+    before = wrapper.launches
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    return out, wrapper.launches - before, seen
+
+
+def _cross_plain(kind, args):
+    return (fused_cross_v2_plain if kind == "v2" else fused_cross_v1_plain)(
+        *args)
+
+
+@pytest.mark.parametrize("same", [False, True])
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("b,D", CROSS_SHAPES)
+@pytest.mark.parametrize("kind", ["v2", "v1"])
+def test_fused_cross_bitwise(cuda, kind, b, D, offset, same, monkeypatch):
+    """K9 and K10 on every path they launch -- pieces of 4 floats as one
+    16-byte word (D % 4 == 0, every operand aligned), as four 4-byte words
+    (operands 4 bytes into their storage), a float a piece (D = 117); x
+    read, or skipped where it is x0 (layer 0) -- bitwise their plain
+    versions, one launch a call, with the launch ``cross_launch`` gives."""
+    rng = np.random.default_rng(b * 10_000 + D * 10 + offset + same)
+    v2_args, v1_args = _cross_inputs(rng, b, D, offset, same, cuda)
+    args = v2_args if kind == "v2" else v1_args
+    out, launches, seen = _cross_call(monkeypatch, kind, args)
+    launch = cross_launch(b, D, offset == 0)
+    assert launches == 1
+    assert seen == [(int(same), *launch_args(launch))]
+    assert launch.word == (16 if D % 4 == 0 and offset == 0 else 4)
+    assert _same_bits(out, _cross_plain(kind, args))
+
+
+@pytest.mark.parametrize("same", [False, True])
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("kind", ["v2", "v1"])
+def test_fused_cross_keeps_nan_and_inf(cuda, kind, offset, same):
+    """NaN, inf and -inf entries in every operand give the plain version's
+    bits (NaN where it has NaN) and touch no other element."""
+    rng = np.random.default_rng(29 + offset + same)
+    v2_args, v1_args = _cross_inputs(rng, 256, 1248, offset, same, cuda)
+    args = v2_args if kind == "v2" else v1_args
+    clean = [t.clone() for t in args]
+    if same:
+        clean[-1] = clean[0]
+    x0 = args[0]
+    x0[0, 0], x0[5, 7], x0[9, 1247] = (float("nan"), float("inf"),
+                                       float("-inf"))
+    args[1][17, -1] = float("inf")           # xw_plus, or xlw's whole row
+    if kind == "v2":
+        args[1][-1] = float("nan")           # a row of xw_plus
+    else:
+        args[2][-1] = float("nan")           # a bias column
+    if not same:
+        args[-1][100, 100] = float("-inf")
+    wrapper = fused_cross_v2 if kind == "v2" else fused_cross_v1
+    got = wrapper(*args)
+    want = _cross_plain(kind, args)
+    torch.cuda.synchronize()
+    assert got.isnan().any() and got.isinf().any()
+    assert _same_bits(got, want)
+    touched = ~(_cross_plain(kind, clean) == want)
+    assert _same_bits(got[~touched], wrapper(*clean)[~touched])
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+@pytest.mark.parametrize("words", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["v2", "v1"])
+def test_fused_cross_entries_take_any_covering_launch(cuda, kind, words,
+                                                      threads):
+    """The C entries give the same bits at every pieces-a-thread and
+    block-size setting of ``chip_smoke.py``'s sweep, on each path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_cross as fc
+    for b, D, offset in ((256, 1248, 0), (7, 1248, 4), (33, 117, 0)):
+        rng = np.random.default_rng(words * 1000 + threads + b)
+        v2_args, v1_args = _cross_inputs(rng, b, D, offset, False, cuda)
+        args = v2_args if kind == "v2" else v1_args
+        launch = cross_launch(b, D, offset == 0)
+        pieces = b * D // (4 if launch.vec else 1)
+        launch = launch._replace(rows=words, threads=threads,
+                                 blocks=-(-pieces // (words * threads)))
+        out = torch.empty((b, D), device=cuda)
+        entry = fc._v2_kernel() if kind == "v2" else fc._v1_kernel()
+        code = entry(*(t.data_ptr() for t in args), out.data_ptr(), b, D, 0,
+                     *launch_args(launch), _build.current_stream(cuda))
+        assert code == 0, (b, D, offset)
+        assert _same_bits(out, _cross_plain(kind, args)), (b, D, offset)
+
+
+@pytest.mark.parametrize("kind", ["v2", "v1"])
+def test_fused_cross_entries_refuse_bad_launches(cuda, kind):
+    """K9's and K10's C entries check the launch, the alignment and the
+    ``same`` flag they are given and return a CUDA error code before
+    launching."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_cross as fc
+    rng = np.random.default_rng(11)
+    b, D = 8, 16
+    (x0, xw, x), v1_args = _cross_inputs(rng, b, D, 0, False, cuda)
+    odd = _byte_offset(x0, 4)
+    out = torch.empty((b, D), device=cuda)
+    entry = fc._v2_kernel() if kind == "v2" else fc._v1_kernel()
+
+    def call(same=0, vec=1, word=16, words=1, threads=32, blocks=1, a=x0,
+             r=None, y=out, dim=D, rows=b):
+        r = x if r is None else r
+        ins = (a, xw, r) if kind == "v2" else (a, v1_args[1], v1_args[2], r)
+        return entry(*(t.data_ptr() for t in ins), y.data_ptr(), rows, dim,
+                     same, vec, word, words, threads, blocks,
+                     _build.current_stream(cuda))
+    assert call() == 0                                # 32 pieces, 32 threads
+    assert call(a=odd) == 716               # cudaErrorMisalignedAddress
+    assert call(a=odd, r=odd, word=4) == 0
+    assert call(y=_byte_offset(out, 4), word=4) == 716  # a float4 store
+    assert call(y=_byte_offset(out, 4), word=4, vec=0, blocks=4) == 0
+    assert call(same=1) == 1                # cudaErrorInvalidValue: x != x0
+    assert call(same=1, r=x0) == 0 and call(same=2) == 1
+    assert call(vec=0) == 9                 # cudaErrorInvalidConfiguration
+    assert call(word=8) == 9 and call(dim=14, rows=8) == 9
+    assert call(words=0) == 9 and call(words=3) == 9
+    assert call(words=8) == 9
+    assert call(threads=16) == 9 and call(threads=48) == 9
+    assert call(threads=512) == 9 and call(blocks=0) == 9
+    assert call(rows=9) == 9                # 36 pieces, 32 covered
+    assert call(rows=-1) == 9 and call(rows=0) == 0
+    torch.cuda.synchronize()
 
 
 FM_SHAPES = [(1, 1, 1), (3, 39, 1), (256, 39, 3), (256, 39, 32),

@@ -22,8 +22,11 @@ from repro.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather as pallas_gather)
 from repro_torch.kernels import (_build, launch_counts, ops,  # noqa: E402
                                  ref, reset_launch_counts)
+from repro.models.ctr import common as jcommon, dcn as jdcn  # noqa: E402
 from repro_torch.kernels.fused_cross import (  # noqa: E402
-    fused_cross_v1, fused_cross_v1_plain, fused_cross_v2, fused_cross_v2_plain)
+    CROSS_THREADS, CROSS_WORDS, cross_launch, fused_cross_v1,
+    fused_cross_v1_plain, fused_cross_v2, fused_cross_v2_plain, launch_args)
+from repro_torch.models.ctr import common as tcommon, dcn as tdcn  # noqa: E402
 from repro_torch.kernels.fused_fm import (  # noqa: E402
     FM_THREADS, fm_launch, fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
@@ -295,7 +298,9 @@ def test_alg1_literal_matches_every_strategy():
 # K9 / K10 / K11
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,D", [(4, 16), (32, 80), (7, 200)])
+# D = 117 (39 fields of 3): a float a piece on the card; b = 1: one row
+@pytest.mark.parametrize("b,D", [(4, 16), (32, 80), (7, 200), (1, 117),
+                                 (33, 117), (1, 1248)])
 def test_fused_cross_v2_vs_pallas(b, D):
     rng = np.random.default_rng(b * D)
     x0, xw, x = (rng.normal(size=(b, D)).astype(np.float32)
@@ -305,7 +310,8 @@ def test_fused_cross_v2_vs_pallas(b, D):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("b,D", [(4, 16), (32, 80)])
+@pytest.mark.parametrize("b,D", [(4, 16), (32, 80), (1, 117), (33, 117),
+                                 (1, 1248)])
 def test_fused_cross_v1_vs_pallas(b, D):
     rng = np.random.default_rng(b + D)
     x0 = rng.normal(size=(b, D)).astype(np.float32)
@@ -316,6 +322,64 @@ def test_fused_cross_v1_vs_pallas(b, D):
                            interpret=True)
     got = fused_cross_v1(*map(torch.from_numpy, (x0, xlw, bias, x)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("b,D", [(1, 117), (33, 80), (7, 1248)])
+@pytest.mark.parametrize("kind", ["v2", "v1"])
+def test_layer0_cross_tail_vs_reference(kind, b, D):
+    """Layer 0 passes ``x0`` as ``x`` too (the kernels then skip ``x``'s
+    loads): the port's tail closures, which hand the wrapper the same
+    tensor twice, against the reference's closures and its Pallas kernel
+    given the same array twice."""
+    rng = np.random.default_rng(100 * b + D)
+    x0, xw = (rng.normal(size=(b, D)).astype(np.float32) for _ in range(2))
+    xlw = rng.normal(size=(b, 1)).astype(np.float32)
+    bias = rng.normal(size=(D,)).astype(np.float32)
+    j, t = jnp.asarray, torch.from_numpy
+    if kind == "v2":
+        got = tcommon._cross_v2_tail(t(x0), t(xw))
+        want = jcommon._cross_v2_tail(j(x0), j(xw))
+        pallas = pallas_cross_v2(j(x0), j(xw), j(x0), interpret=True)
+    else:
+        got = tdcn._make_v1_kernel(t(bias))(t(x0), t(xlw))
+        want = jdcn._make_v1_kernel(j(bias), first=True)(j(x0), j(xlw))
+        pallas = pallas_cross_v1(j(x0), j(xlw), j(bias), j(x0),
+                                 interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("b,D,aligned,want", [
+    # the main path, D = 1248 = 312 pieces of 4 floats, 2 a thread: 16-byte
+    # words where every operand is aligned, else four 4-byte words a piece
+    (256, 1248, True, Launch(True, 1, 2, CROSS_THREADS, 312, 16)),
+    (256, 1248, False, Launch(True, 1, 2, CROSS_THREADS, 312, 4)),
+    (1024, 1248, True, Launch(True, 1, 2, CROSS_THREADS, 1248, 16)),
+    (1024, 1248, False, Launch(True, 1, 2, CROSS_THREADS, 1248, 4)),
+    # D % 4 != 0: a float a piece, 4-byte words whatever the alignment
+    (256, 117, True, Launch(False, 1, 2, CROSS_THREADS, 117, 4)),
+    (1024, 117, False, Launch(False, 1, 2, CROSS_THREADS, 468, 4)),
+    # a ragged last block; one row; no rows
+    (7, 1248, True, Launch(True, 1, 2, CROSS_THREADS, 9, 16)),
+    (1, 1248, False, Launch(True, 1, 2, CROSS_THREADS, 2, 4)),
+    (1, 4, True, Launch(True, 1, 2, CROSS_THREADS, 1, 16)),
+    (0, 1248, True, Launch(True, 1, 2, CROSS_THREADS, 1, 16)),
+])
+def test_cross_launch(b, D, aligned, want):
+    """K9's and K10's launch: pieces of 4 floats where D % 4 == 0, 16-byte
+    words where the operands are also aligned; ``CROSS_WORDS`` pieces a
+    thread; a grid that covers the pieces once, in one wave of the H100
+    (132 SMs of 2048 threads) and on every SM at the main path's b."""
+    got = cross_launch(b, D, aligned)
+    assert got == want and got.rows == CROSS_WORDS
+    pieces = b * D // (4 if got.vec else 1)
+    per_block = got.threads * got.rows
+    assert got.blocks * per_block >= pieces
+    assert pieces == 0 or pieces > (got.blocks - 1) * per_block
+    if D == 1248 and b >= 256:
+        assert 132 <= got.blocks and got.blocks * got.threads <= 132 * 2048
+    assert launch_args(got) == (int(got.vec), got.word, got.rows,
+                                got.threads, got.blocks)
 
 
 @pytest.mark.parametrize("b,k,d", [(4, 3, 8), (32, 13, 16), (16, 39, 32),
