@@ -69,8 +69,13 @@ Phases (any failure raises; the script then exits non-zero):
    plain versions, each timed beside ``index_select`` on its own row
    order, with the input-first / output-first ratio and each launch
    shape; K7 ``mtl_onehot`` over Criteo's 18 fields of at
-   most 128 rows (fp32 and bf16, out-of-range ids giving zero rows),
-   bitwise against its plain version and a K1 gather; then K8's path
+   most 128 rows (fp32 and bf16 at b = 1, 256 and 1024; at b = 1024 also
+   at d = 1 and 3 and on tables 4 bytes, and bf16 2 bytes, into their
+   storage; ids -1, n_pad, 10**6, -2**31 and 2**31-1 giving +0.0 rows),
+   bitwise against its plain version and (fp32, d = 32) a K1 gather, and
+   through its launch sweep (1 and 2 rows a thread × 32-256 threads a
+   block at b = 256 and 1024 and on the views, every setting bitwise
+   before it is timed); then K8's path
    (``FusedEmbeddingCollection.forward(strategy="input_first")``) and
    K7's (``ops.multi_table_lookup_onehot``) with the counters reset.
 4. Main path: full-width DCNv2 on the uncapped Criteo schema (k = 39,
@@ -154,6 +159,7 @@ FIG11_FIELDS, FIG11_ROWS = 39, 100_000
 FIG11_CASES = ((2048, 32), (16_384, 32), (65_536, 32), (2048, 60))
 MISALIGNED_FIG11 = (2048, 60)   # K1 and K8 also on a view 4 bytes in
 ONEHOT_MAX_ROWS, ONEHOT_PAD = 128, 128  # Criteo's fields of <= 128 rows
+ONEHOT_BAD_IDS = (-1, ONEHOT_PAD, 10**6, -2**31, 2**31 - 1)  # zero rows
 
 
 def log(msg: str) -> None:
@@ -282,9 +288,55 @@ def launch_sweep(torch, table, offsets, sets, shape: str) -> None:
         f"t{k8_pick.threads})")
 
 
+def onehot_sweep(torch, stacked, sets, shape: str) -> None:
+    """Time K7 at one and two rows a thread, each at 32, 64, 128 and 256
+    threads a block, by calling its C entry with each launch shape (every
+    one checked bitwise against the plain version first): the
+    measurements behind ``onehot_launch``'s rows a thread and
+    ``ONEHOT_THREADS``. ``sets`` hold the ids first."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import multi_table_lookup as mtl
+
+    ids0 = sets[0][0]
+    b, k = ids0.shape
+    _, n_pad, d = stacked.shape
+    el = stacked.element_size()
+    stream = _build.current_stream(stacked.device)
+    pick = mtl.onehot_launch(b, k, d, mtl.onehot_word(
+        d, el, stacked.data_ptr(), 0), el)
+
+    def k7(rows, threads):
+        launch = pick._replace(rows=rows, threads=threads, blocks=mtl._grid(
+            math.ceil(b * k / rows) * pick.lanes, threads))
+
+        def run(ids):
+            out = torch.empty((b, k, d), dtype=stacked.dtype,
+                              device=stacked.device)
+            assert out.data_ptr() % 16 == 0
+            code = mtl._onehot_kernel()(
+                ids.data_ptr(), stacked.data_ptr(), out.data_ptr(), b, k,
+                n_pad, d, el, *mtl._onehot_args(launch), stream)
+            assert code == 0, code
+            return out
+        return run
+
+    want = mtl.mtl_onehot_plain(ids0, stacked)
+    times = {}
+    for threads in (32, 64, 128, 256):
+        for rows in (1, 2):
+            assert same_bits(torch, k7(rows, threads)(ids0), want), \
+                (shape, rows, threads)
+            times[f"r{rows}t{threads}"] = round(
+                device_ms(torch, k7(rows, threads), sets) * 1e3, 2)
+    log(f"[sweep] mtl_onehot {shape}: us {times} (picked r{pick.rows}"
+        f"t{pick.threads}, word {pick.word}, {pick.lanes} lanes)")
+
+
 def same_bits(torch, a, b) -> bool:
-    """Bitwise equal float32 tensors (+0.0 and -0.0 differ); no NaN."""
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    """Bitwise equal float32 or bfloat16 tensors (+0.0 and -0.0 differ);
+    no NaN."""
+    bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
 
 
 def entry_call(torch, name, offsets, tensors, sizes, b, k, h, d):
@@ -803,12 +855,14 @@ def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
                           record) -> dict:
     """K8 ``mtl_input_first`` at Fig. 11's shapes and on the full Criteo
     table, and K7 ``mtl_onehot`` over Criteo's 18 fields of at most 128
-    rows padded to 128 (fp32 and bf16): bitwise against their plain
-    versions, K8 against K1 and K7 (fp32) against a K1 gather of the same
-    rows; timed. Then each one's path with the counters reset just before
-    and read just after: K8 through ``FusedEmbeddingCollection.forward(
-    strategy="input_first")``, K7 through ``ops.multi_table_lookup_onehot``.
-    Returns their launches there."""
+    rows padded to 128 (fp32 and bf16; d = 1, 3 and misaligned views at
+    b = 1024; b = 1; K7's launch sweep at b = 256 and 1024 and on the
+    views): bitwise against their plain versions, K8 against K1 and K7
+    (fp32) against a K1 gather of the same rows; timed. Then each one's
+    path with the counters reset just before and read just after: K8
+    through ``FusedEmbeddingCollection.forward(strategy="input_first")``,
+    K7 through ``ops.multi_table_lookup_onehot``. Returns their launches
+    there."""
     import numpy as np
 
     from repro_torch.embedding import (FusedEmbeddingCollection,
@@ -934,34 +988,71 @@ def phase_lookup_variants(torch, dev, emb, schema, sample_ids,
     field = torch.arange(ks, device=dev)[None, :]
     log(f"[onehot] {ks} Criteo fields of at most {ONEHOT_MAX_ROWS} rows "
         f"(sizes {min(sizes)}-{max(sizes)}), padded to n_pad = {ONEHOT_PAD}")
-    for b in (256, 1024):
-        for stacked in (stacked32, stacked32.to(torch.bfloat16)):
-            el = stacked.element_size()
-            sets = []
-            for s in range(n_sets(2 * b * ks * 32 * el)):
-                ids = torch.from_numpy(sample_ids(schema, b, step=56_000 + s)
-                                       ).to(dev).index_select(1, small_idx)
-                sets.append((ids.contiguous(),))
-            ids0 = sets[0][0]
-            out = mtl_onehot(ids0, stacked)
-            assert torch.equal(out, mtl_onehot_plain(ids0, stacked))
-            bad = ids0.clone()
-            bad[0, :3] = torch.tensor([-1, ONEHOT_PAD, 10**6], device=dev)
-            got = mtl_onehot(bad, stacked)
-            assert torch.equal(got, mtl_onehot_plain(bad, stacked))
-            assert not got[0, :3].any(), "out-of-range ids give zero rows"
-            if stacked.dtype == torch.float32:
+
+    def onehot_case(stacked, sets, shape, sweep=False):
+        """Check K7 on ``sets[0]`` bitwise against its plain version, its
+        out-of-range ids giving +0.0 rows, and time it beside the plain
+        version and ``stacked[field, ids]``; ``sweep`` also runs
+        :func:`onehot_sweep`."""
+        ids0 = sets[0][0]
+        b = ids0.shape[0]
+        d, el = stacked.shape[2], stacked.element_size()
+        out = mtl_onehot(ids0, stacked)
+        assert same_bits(torch, out, mtl_onehot_plain(ids0, stacked)), shape
+        bad = ids0.clone()
+        bad[0, :len(ONEHOT_BAD_IDS)] = torch.tensor(ONEHOT_BAD_IDS,
+                                                    device=dev)
+        got = mtl_onehot(bad, stacked)
+        assert same_bits(torch, got, mtl_onehot_plain(bad, stacked)), shape
+        assert same_bits(torch, got[0, :len(ONEHOT_BAD_IDS)], torch.zeros(
+            (len(ONEHOT_BAD_IDS), d), dtype=stacked.dtype, device=dev)), \
+            "out-of-range ids give +0.0 rows"
+        uniq = torch.unique(ids0.long() * ks + field).numel()
+        record("mtl_onehot", shape, 0.0,
+               device_ms(torch, lambda i: mtl_onehot(i, stacked), sets),
+               device_ms(torch, lambda i: mtl_onehot_plain(i, stacked),
+                         sets),
+               device_ms(torch, lambda i: stacked[field, i.long()], sets),
+               b * ks * 4 + uniq * d * el + b * ks * d * el, 0)
+        if sweep:
+            onehot_sweep(torch, stacked, sets, shape)
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    narrow = {}                     # d = 1 and 3 tables, rows past a field 0
+    for d in (1, 3):
+        t = torch.randn((ks, ONEHOT_PAD, d), generator=gen, device=dev)
+        for j, n in enumerate(sizes):
+            t[j, n:] = 0
+        narrow[d] = t
+    for b in (1, 256, 1024):
+        sets = []
+        for s in range(n_sets(2 * b * ks * 32 * 4)):
+            ids = torch.from_numpy(sample_ids(schema, b, step=56_000 + s)
+                                   ).to(dev).index_select(1, small_idx)
+            sets.append((ids.contiguous(),))
+        ids0 = sets[0][0]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            stacked = stacked32.to(dtype)
+            shape = f"b={b},k={ks},n_pad={ONEHOT_PAD},d=32,{name}"
+            out = onehot_case(stacked, sets, shape, sweep=b > 1)
+            if dtype == torch.float32:
                 assert torch.equal(out.reshape(b, -1), mtl_gather(
                     ids0, small_offsets, table)), "K7 != K1 gather"
-            uniq = torch.unique(ids0.long() * ks + field).numel()
-            shape = f"b={b},k={ks},n_pad={ONEHOT_PAD},d=32," \
-                f"{str(stacked.dtype).split('.')[-1]}"
-            record("mtl_onehot", shape, 0.0,
-                   device_ms(torch, lambda i: mtl_onehot(i, stacked), sets),
-                   device_ms(torch, lambda i: mtl_onehot_plain(i, stacked),
-                             sets),
-                   device_ms(torch, lambda i: stacked[field, i.long()], sets),
-                   b * ks * 4 + uniq * 32 * el + b * ks * 32 * el, 0)
+            if b < 1024:
+                continue
+            # the narrower words: a view 4 bytes (bf16: also 2 bytes) into
+            # its storage, and d = 1 and 3
+            for offset in (4, 2) if dtype == torch.bfloat16 else (4,):
+                view = byte_offset(torch, stacked, offset)
+                onehot_case(view, sets, f"{shape},misaligned{offset}",
+                            sweep=True)
+                del view
+            for d, t in narrow.items():
+                onehot_case(t.to(dtype), sets,
+                            f"b={b},k={ks},n_pad={ONEHOT_PAD},d={d},{name}")
+        del sets
 
     # each lookup's path, counters reset just before and read just after
     batches = [torch.from_numpy(sample_ids(schema, b, step=57_000 + r)

@@ -42,7 +42,9 @@ that alignment (:func:`tier_word`) -- or one element for ``d % 4 != 0``.
 K7 is the
 reference's one-hot lookup over small per-field tables stacked to one
 padded height: a gather where an id outside ``[0, n_pad)`` gives a zero
-row (the one-hot row matches nothing), not a clamped one.
+row (the one-hot row matches nothing), not a clamped one. It takes K1's
+layout, a group of lanes a row, with words of 16 bytes, 4 bytes or one
+element (:func:`onehot_word`) in the shape :func:`onehot_launch` gives.
 """
 
 from __future__ import annotations
@@ -66,13 +68,14 @@ __all__ = ["mtl_gather", "mtl_gather_plain", "mtl_gather_multihot",
            "mtl_gather_three_level_q8_plain", "mtl_input_first",
            "mtl_input_first_plain", "mtl_onehot", "mtl_onehot_plain",
            "Launch", "GATHER_THREADS", "INPUT_FIRST_THREADS",
-           "TIERED_THREADS", "vector_words", "gather_launch",
-           "input_first_launch", "tier_word", "tiered_launch"]
+           "TIERED_THREADS", "ONEHOT_THREADS", "vector_words",
+           "gather_launch", "input_first_launch", "tier_word",
+           "tiered_launch", "onehot_word", "onehot_launch"]
 
 
 # ---------------------------------------------------------------------------
-# K1, K8 and K2–K6 launch shapes: pure functions of the call, checked again
-# by the C entries before they launch
+# K1–K8 launch shapes: pure functions of the call, checked again by the C
+# entries before they launch
 # ---------------------------------------------------------------------------
 
 #: threads a block: within 6% (K1) and 8% (K8) of the best of 32-256 at
@@ -84,18 +87,25 @@ GATHER_THREADS, INPUT_FIRST_THREADS = 128, 64
 #: h = 1 and 5; K2, K3 and K5 over 64-256, K4 and K6 over 32-256) but one:
 #: K2 at b = 256, h = 1, where 256 threads took 5-7% less
 TIERED_THREADS = 128
+#: K7: with one row a thread, within 2% of the best of 32-256 threads ×
+#: 1-2 rows at every shape of ``chip_smoke.py``'s launch sweep on the H100
+#: (b = 256 and 1024, fp32 and bf16 at d = 32, views 4 and 2 bytes in);
+#: 128 threads took up to 27% more on the views
+ONEHOT_THREADS = 256
 _MAX_BLOCKS = 1 << 20      # the kernels stride over the rows past it
 
 
 class Launch(NamedTuple):
-    """How a launch covers its rows: ``vec`` wide words (K1 and K8: 16-byte
-    words, else 4-byte; K2–K6: 4 elements a lane and a float4 store, else
-    one element; K11: 4 floats a lane as one 16-byte load, else one
-    float; K9/K10: pieces of 4 floats, else of one), ``lanes`` threads a
-    row (K11: a field's row; 1 for K9/K10) and ``rows`` rows a thread (1
-    for K8, K2–K6 and K11; K9/K10: pieces a thread), ``threads`` a block,
-    ``blocks`` in the grid; K2–K6 and K9/K10 also ``word``, the bytes a
-    load takes (:func:`tier_word`, ``fused_cross.cross_launch``)."""
+    """How a launch covers its rows: ``vec`` wide words (K1, K7 and K8:
+    16-byte words, else 4-byte or, K7, the element's; K2–K6: 4 elements
+    a lane and a float4 store, else one element; K11: 4 floats a lane as
+    one 16-byte load, else one float; K9/K10: pieces of 4 floats, else of
+    one), ``lanes`` threads a row (K11: a field's row; 1 for K9/K10) and
+    ``rows`` rows a thread (1 for K2–K8 and K11; K9/K10: pieces a
+    thread), ``threads`` a block,
+    ``blocks`` in the grid; K2–K7 and K9/K10 also ``word``, the bytes a
+    load takes (:func:`tier_word`, :func:`onehot_word`,
+    ``fused_cross.cross_launch``)."""
     vec: bool
     lanes: int
     rows: int
@@ -163,6 +173,34 @@ def tiered_launch(b: int, k: int, h: int, d: int, word: int) -> Launch:
     lanes = _lanes(d // 4 if vec else d)
     return Launch(vec, lanes, 1, TIERED_THREADS,
                   _grid(b * k * lanes, TIERED_THREADS), word)
+
+
+def onehot_word(d: int, itemsize: int, table: int, out: int) -> int:
+    """The bytes a K7 load takes from rows of ``d`` elements of
+    ``itemsize`` bytes (4 fp32, 2 bf16), the stacked tables at address
+    ``table`` and the output at ``out``: the largest of 16, 4 and
+    ``itemsize`` that divides a row's bytes and both addresses (fp32 or
+    bf16 at d = 32: 16; fp32 on a view 4 bytes in: 4; bf16 on a view 2
+    bytes in, or at d = 3: 2)."""
+    for word in (16, 4):
+        if (d * itemsize) % word == 0 and table % word == 0 \
+                and out % word == 0:
+            return word
+    return itemsize
+
+
+def onehot_launch(b: int, k: int, d: int, word: int,
+                  itemsize: int) -> Launch:
+    """K7's launch for ``(b, k)`` ids and rows of ``d`` elements of
+    ``itemsize`` bytes moved ``word`` bytes at a time
+    (:func:`onehot_word`): ``lanes``, the power of two up to 32 that
+    covers a row's words; one row a thread (in the sweep a second row
+    paid only in blocks of 128 threads or fewer, and no more than 256
+    threads did); ``ONEHOT_THREADS`` a block; a grid with a group of
+    lanes for every row, striding over the rows past ``_MAX_BLOCKS``."""
+    lanes = _lanes(d * itemsize // word)
+    return Launch(word == 16, lanes, 1, ONEHOT_THREADS,
+                  _grid(b * k * lanes, ONEHOT_THREADS), word)
 
 
 def mtl_gather_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -754,10 +792,16 @@ def mtl_onehot_plain(ids: torch.Tensor,
 @functools.cache
 def _onehot_kernel():
     fn = _build.library("mtl_onehot").mtl_onehot
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 \
+        + [ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _onehot_args(launch: Launch) -> tuple[int, ...]:
+    """K7's launch arguments, in its C entry's order."""
+    return (launch.word, launch.lanes, launch.rows, launch.threads,
+            launch.blocks)
 
 
 def mtl_onehot(ids: torch.Tensor, stacked_tables: torch.Tensor
@@ -794,9 +838,12 @@ def mtl_onehot(ids: torch.Tensor, stacked_tables: torch.Tensor
     out = torch.empty((b, k, d), dtype=stacked_tables.dtype, device=dev)
     if out.numel() == 0:
         return out
+    itemsize = stacked_tables.element_size()
+    launch = onehot_launch(b, k, d, onehot_word(
+        d, itemsize, stacked_tables.data_ptr(), out.data_ptr()), itemsize)
     code = _onehot_kernel()(ids.data_ptr(), stacked_tables.data_ptr(),
-                            out.data_ptr(), b, k, n_pad, d,
-                            stacked_tables.element_size(),
+                            out.data_ptr(), b, k, n_pad, d, itemsize,
+                            *_onehot_args(launch),
                             _build.current_stream(dev))
     _build.check_launch("mtl_onehot", code)
     mtl_onehot.launches += 1

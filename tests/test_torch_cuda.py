@@ -38,8 +38,8 @@ from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
     mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
     mtl_gather_two_level, mtl_gather_two_level_plain,
     mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain, mtl_input_first,
-    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain, tier_word,
-    tiered_launch, vector_words)
+    mtl_input_first_plain, mtl_onehot, mtl_onehot_plain, onehot_launch,
+    onehot_word, tier_word, tiered_launch, vector_words)
 from repro_torch.kernels.quantize import (  # noqa: E402
     quantize_rows_q8, quantize_rows_q8_plain)
 from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
@@ -1255,36 +1255,96 @@ def test_mtl_input_first_bitwise(cuda, d, b, k):
                                                      field_major=True))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mtl_onehot_bitwise(cuda, dtype):
-    rng = np.random.default_rng(3)
+ONEHOT_BAD_IDS = [-1, 128, 10**6, -2**31, 2**31 - 1]    # n_pad = 128
+
+
+@pytest.mark.parametrize("b", [1, 256, 1024])
+@pytest.mark.parametrize("d", [1, 3, 32])
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.float32, 0), (torch.float32, 4),
+    (torch.bfloat16, 0), (torch.bfloat16, 4), (torch.bfloat16, 2)])
+def test_mtl_onehot_bitwise(cuda, dtype, offset, d, b):
+    """K7 bitwise its plain version over Criteo's 18 small fields, on
+    tables aligned or ``offset`` bytes into their storage (the narrower
+    word), out-of-range ids giving +0.0 rows, one launch a call; fp32
+    equal to K1 on the concatenated tables."""
+    rng = np.random.default_rng(d * 10_000 + b + offset)
     sizes = rng.integers(2, 107, size=18)
-    k, n_pad, d, b = len(sizes), 128, 32, 1024
+    k, n_pad = len(sizes), 128
     stacked = np.zeros((k, n_pad, d), np.float32)
     for f, n in enumerate(sizes):
         stacked[f, :n] = rng.normal(size=(n, d))
+    stacked[0, 0, 0] = -0.0
     ids = np.stack([rng.integers(0, n, size=b) for n in sizes],
                    axis=1).astype(np.int32)
-    ids[0, :4] = [-1, n_pad, 10**6, -2**31]               # zero rows
+    ids[0, 0] = 0                                         # the -0.0 row
+    ids[0, 1:1 + len(ONEHOT_BAD_IDS)] = ONEHOT_BAD_IDS    # zero rows
     tables = torch.from_numpy(stacked).to(cuda, dtype)
+    if offset:
+        tables = _byte_offset(tables, offset)
     ids_c = torch.from_numpy(ids).to(cuda)
     before = mtl_onehot.launches
     got = mtl_onehot(ids_c, tables)
     torch.cuda.synchronize()
     assert mtl_onehot.launches == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (b, k, d)
-    assert torch.equal(got, mtl_onehot_plain(ids_c, tables))
-    assert torch.equal(got.cpu(), mtl_onehot_plain(torch.from_numpy(ids),
-                                                   tables.cpu()))
-    assert not got[0, :4].any()
+    el = tables.element_size()
+    word = onehot_word(d, el, tables.data_ptr(), got.data_ptr())
+    assert word == (16 if offset == 0 and d == 32 else
+                    4 if (d * el) % 4 == 0 and offset != 2 else el)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    want = mtl_onehot_plain(ids_c, tables)
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(got.cpu().view(bits), mtl_onehot_plain(
+        torch.from_numpy(ids), tables.cpu()).view(bits))
+    zero = got[0, 1:1 + len(ONEHOT_BAD_IDS)]
+    assert not zero.view(bits).any(), "zero rows are +0.0 bits"
+    assert got[0, 0, 0].view(bits).item() == \
+        torch.tensor(-0.0, dtype=dtype).view(bits).item()
     if dtype == torch.float32:
         mega = torch.cat([tables[f, :n] for f, n in enumerate(sizes)])
         offsets = torch.from_numpy(np.concatenate(
             [[0], np.cumsum(sizes)[:-1]]).astype(np.int32)).to(cuda)
         ok = ids_c.clone()
-        ok[0, :4] = 0
+        ok[0, 1:1 + len(ONEHOT_BAD_IDS)] = 0
         assert torch.equal(mtl_onehot(ok, tables).reshape(b, -1),
                            mtl_gather(ok, offsets, mega))
+
+
+def test_mtl_onehot_entry_refuses_bad_launches(cuda):
+    """K7's C entry checks the launch it is given -- lanes a power of two
+    up to 32, rows 1 or 2, a word of 16, 4 or the element's bytes that
+    divides the row and both addresses, n_pad in [1, 2^31) -- and
+    returns cudaErrorInvalidValue (1) before launching."""
+    from repro_torch.kernels import multi_table_lookup as mtl
+    from repro_torch.kernels import _build
+    b, k, n_pad, d = 4, 3, 8, 32
+    ids = torch.zeros((b, k), dtype=torch.int32, device=cuda)
+    tables = torch.randn((k, n_pad, d), device=cuda)
+    view = _byte_offset(tables, 4)
+    out = torch.empty((b, k, d), device=cuda)
+    good = onehot_launch(b, k, d, 16, 4)
+
+    def call(word=16, lanes=good.lanes, rows=1, threads=128, t=tables,
+             dst=out, itemsize=4, d=d, n=n_pad):
+        return mtl._onehot_kernel()(
+            ids.data_ptr(), t.data_ptr(), dst.data_ptr(), b, k, n, d,
+            itemsize, word, lanes, rows, threads, good.blocks,
+            _build.current_stream(cuda))
+    assert call() == 0
+    assert call(lanes=3) == 1
+    assert call(lanes=64) == 1
+    assert call(t=view) == 1                 # a 16-byte word 4 bytes in
+    assert call(t=view, word=4, lanes=32) == 0
+    assert call(dst=out.view(-1)[1:]) == 1
+    assert call(word=8) == 1
+    assert call(word=16, d=3, lanes=1) == 1  # 12-byte rows
+    assert call(word=2, lanes=32) == 1       # 2 bytes is not fp32's element
+    assert call(rows=3) == 1
+    assert call(threads=96 + 1) == 1
+    assert call(itemsize=8) == 1
+    assert call(n=0) == 1 and call(n=2**31) == 1
+    torch.cuda.synchronize()
 
 
 def test_full_width_int8_dcnv2_matches_the_cpu_path(cuda):

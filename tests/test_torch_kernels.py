@@ -30,8 +30,9 @@ from repro_torch.models.ctr import common as tcommon, dcn as tdcn  # noqa: E402
 from repro_torch.kernels.fused_fm import (  # noqa: E402
     FM_THREADS, fm_launch, fused_fm_second_order, fused_fm_second_order_plain)
 from repro_torch.kernels.multi_table_lookup import (  # noqa: E402
-    TIERED_THREADS, Launch, _tiered_args, gather_launch, input_first_launch,
-    mtl_gather, mtl_gather_plain, tier_word, tiered_launch, vector_words)
+    ONEHOT_THREADS, TIERED_THREADS, Launch, _onehot_args, _tiered_args,
+    gather_launch, input_first_launch, mtl_gather, mtl_gather_plain,
+    onehot_launch, onehot_word, tier_word, tiered_launch, vector_words)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -131,6 +132,98 @@ def test_input_first_launch(b, k, want):
     assert got == want
     assert got.blocks * got.threads >= b * k > (got.blocks - 1) * got.threads
     assert got.blocks >= 132
+
+
+# ---------------------------------------------------------------------------
+# K7 launch shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("itemsize,d,offset,want", [
+    # fp32: 16-byte words where a row is a multiple of 16 bytes and both
+    # bases are aligned to them; else the element's 4 bytes
+    (4, 1, 0, 4), (4, 3, 0, 4), (4, 4, 0, 16), (4, 8, 0, 16),
+    (4, 32, 0, 16),
+    (4, 1, 4, 4), (4, 3, 4, 4), (4, 4, 4, 4), (4, 8, 4, 4), (4, 32, 4, 4),
+    # bf16: 16 bytes from d = 8, 4 bytes for an even d (or a view 4 bytes
+    # in), else the element's 2 bytes
+    (2, 1, 0, 2), (2, 3, 0, 2), (2, 4, 0, 4), (2, 8, 0, 16), (2, 32, 0, 16),
+    (2, 1, 4, 2), (2, 3, 4, 2), (2, 4, 4, 4), (2, 8, 4, 4), (2, 32, 4, 4),
+    (2, 1, 2, 2), (2, 3, 2, 2), (2, 4, 2, 2), (2, 8, 2, 2), (2, 32, 2, 2),
+])
+def test_onehot_word(itemsize, d, offset, want):
+    """K7's word: the largest of 16, 4 and the element's bytes that divides
+    a row's bytes and both base addresses -- the tables ``offset`` bytes
+    past a 16-byte boundary, or the output there."""
+    assert onehot_word(d, itemsize, 4096 + offset, 8192) == want
+    assert onehot_word(d, itemsize, 4096, 8192 + offset) == want
+    assert onehot_word(d, itemsize, 4096, 8192) == \
+        onehot_word(d, itemsize, 0, 0)
+
+
+@pytest.mark.parametrize("dtype,offset,want", [
+    (torch.float32, 0, 16), (torch.float32, 4, 4),
+    (torch.bfloat16, 0, 16), (torch.bfloat16, 4, 4), (torch.bfloat16, 2, 2),
+])
+def test_onehot_word_on_table_views(dtype, offset, want):
+    """A contiguous (k, n_pad, 32) view ``offset`` bytes into its storage
+    passes the wrapper's checks but takes the narrower word."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    k, n_pad, d = 3, 8, 32
+    buf = torch.empty(k * n_pad * d + 16 // el, dtype=dtype)
+    start = ((-buf.data_ptr()) % 16 + offset) // el
+    view = buf[start:start + k * n_pad * d].view(k, n_pad, d)
+    out = torch.empty((5, k, d), dtype=dtype)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    assert onehot_word(d, el, view.data_ptr(), out.data_ptr()) == want
+
+
+@pytest.mark.parametrize("b", [1, 256, 1024])
+@pytest.mark.parametrize("d,itemsize,word,lanes,rows", [
+    # Criteo's small fields at d = 32: 8 words of fp32 or 4 of bf16 a row
+    (32, 4, 16, 8, 1), (32, 2, 16, 4, 1),
+    # a view 4 bytes in: 32 fp32 words (a warp a row) or 16 bf16 word
+    # pairs; 2 bytes in: 32 bf16 elements
+    (32, 4, 4, 32, 1), (32, 2, 4, 16, 1), (32, 2, 2, 32, 1),
+    # the element a word: d = 1 and d = 3
+    (1, 4, 4, 1, 1), (1, 2, 2, 1, 1), (3, 4, 4, 4, 1), (3, 2, 2, 4, 1),
+    # d = 60: 15 words on 16 lanes
+    (60, 4, 16, 16, 1),
+])
+def test_onehot_launch(b, d, itemsize, word, lanes, rows):
+    """K7's launch: the power of two up to 32 lanes that covers a row's
+    words, one row a thread, ``ONEHOT_THREADS`` a block, and a grid with a
+    group of lanes for every row."""
+    k = 18
+    got = onehot_launch(b, k, d, word, itemsize)
+    groups = -(-b * k // rows)
+    assert got == Launch(word == 16, lanes, rows, ONEHOT_THREADS,
+                         -(-groups * lanes // ONEHOT_THREADS), word)
+    words = d * itemsize // word
+    assert got.lanes & (got.lanes - 1) == 0 and got.lanes <= 32
+    assert got.lanes >= min(words, 32) > got.lanes // 2
+    assert got.blocks * got.threads >= groups * got.lanes \
+        > (got.blocks - 1) * got.threads
+
+
+@pytest.mark.parametrize("b,k,d,itemsize,word,want", [
+    # the kernel table's shapes: b = 1024 and 256 over 18 fields
+    (1024, 18, 32, 4, 16, Launch(True, 8, 1, 256, 576, 16)),
+    (256, 18, 32, 4, 16, Launch(True, 8, 1, 256, 144, 16)),
+    (1024, 18, 32, 2, 16, Launch(True, 4, 1, 256, 288, 16)),
+    (256, 18, 32, 2, 16, Launch(True, 4, 1, 256, 72, 16)),
+    (1024, 18, 32, 4, 4, Launch(False, 32, 1, 256, 2304, 4)),
+    # b = 1: one block
+    (1, 18, 32, 4, 16, Launch(True, 8, 1, 256, 1, 16)),
+    (1, 18, 32, 2, 16, Launch(True, 4, 1, 256, 1, 16)),
+    (1, 18, 3, 4, 4, Launch(False, 4, 1, 256, 1, 4)),
+    # past 2^20 blocks the kernel strides over the rows
+    (1 << 22, 18, 32, 4, 16, Launch(True, 8, 1, 256, 1 << 20, 16)),
+])
+def test_onehot_launch_grid(b, k, d, itemsize, word, want):
+    got = onehot_launch(b, k, d, word, itemsize)
+    assert got == want
+    assert _onehot_args(got) == (want.word, want.lanes, want.rows,
+                                 want.threads, want.blocks)
 
 
 # ---------------------------------------------------------------------------

@@ -130,7 +130,7 @@ def as_f32(x):
     return np.array(x, dtype=np.float32)
 
 
-@pytest.mark.parametrize("d", [8, 32])
+@pytest.mark.parametrize("d", [1, 3, 8, 32])
 @pytest.mark.parametrize("n_pad", [16, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_onehot_plain_bitwise_vs_pallas(d, n_pad, dtype):
