@@ -122,8 +122,37 @@ Phases (any failure raises; the script then exits non-zero):
    ``CachedStore`` with int8 compute, refreshed and updated between
    requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
    fp32-row twin bitwise the dense int8-compute plan.
-8. One JSON line of every ported kernel, then the card's name and power
-   limit, then ``{"ok": true, "device": {...}}`` as the last line.
+8. Summary, printed last (after phase 9): one JSON line of every ported
+   kernel (its launches from its path in phases 3-7), then the card's
+   name and power limit, then ``{"ok": true, "device": {...}}`` as the
+   last line.
+9. Serving at full width through ``repro_torch.serving`` (DCNv2, d = 32,
+   hidden 1024, the uncapped Criteo table): (a) a sync
+   ``InferenceEngine`` over an fp32 ``CachedStore`` (C = 65,536,
+   ``BucketedBatch((64, 256, 1024))``, ``refresh_every=8``) drained by
+   ``serve_pending`` wave by wave (quadratic-skew rows), one
+   ``SyntheticTrainer`` batch of 1,024 delta rows pulled halfway: every
+   wave's scores bitwise a ``DenseStore`` plan of each batch's bucket
+   replaying the rows and deltas, plan-cache misses = the three buckets,
+   all at ``warmup()``, one K3 and three K9 launches a batch, the host
+   time of the push and of one more refresh logged; (b) the same
+   through a ``HostBackedStore`` (C = S = 65,536) in the engine's staged
+   loop, then S = 256 (batches overflow and are served in chunks):
+   bitwise the dense plans, one K5 launch a plan step, the prefetch hit
+   rate and p50/p99 logged; (c) a ``ServingRuntime`` (``refresh_every=
+   256``, the reference CLI's ladder 16-256) hosting DCNv2 over an fp32
+   ``CachedStore`` and a dense DeepFM, 2,048 requests from four submitter
+   threads round-robin over the two, with ``scheduler="shared"``
+   (``pool_size=2``), then ``"per-engine"``, then shared again with no
+   runtime refresh: every future resolves
+   within ``FUTURE_TIMEOUT_S``, every score finite, in (0, 1) and within
+   ``LADDER_TOL`` of a one-bucket plan's, launches = each engine's batches
+   times its step's (DCNv2 one K3 and three K9, DeepFM two K1 and one
+   K11); p50/p99, batches per bucket, padding waste, device-time share,
+   dispatches and the compute share of latency logged per model; (d)
+   ``repro_torch.launch.serve.main`` at its defaults with ``--models
+   dcnv2,deepfm --async --store cached --refresh-every 4 --delta-every
+   100``, its lines logged.
 """
 
 from __future__ import annotations
@@ -160,6 +189,15 @@ FIG11_CASES = ((2048, 32), (16_384, 32), (65_536, 32), (2048, 60))
 MISALIGNED_FIG11 = (2048, 60)   # K1 and K8 also on a view 4 bytes in
 ONEHOT_MAX_ROWS, ONEHOT_PAD = 128, 128  # Criteo's fields of <= 128 rows
 ONEHOT_BAD_IDS = (-1, ONEHOT_PAD, 10**6, -2**31, 2**31 - 1)  # zero rows
+# phase 9: rows per wave of the sync engines (every bucket of the ladder
+# full and partial), the overflow run's shorter traffic, the reference
+# CLI's ladder (serve.py --buckets) and the async runs' requests
+SERVE_LADDER = (64, 256, 1024)
+SERVE_WAVES = (1300, 350, 2048, 90, 1100, 300, 1024, 70)
+OVERFLOW_WAVES = (300, 90)
+CLI_LADDER = (16, 32, 64, 128, 256)
+ASYNC_REQUESTS, ASYNC_THREADS = 2048, 4
+FUTURE_TIMEOUT_S = 120.0
 
 
 def log(msg: str) -> None:
@@ -2368,6 +2406,310 @@ def run_int8_stack(torch, dev, spec, schema, sample_ids, *, batches,
     torch.cuda.empty_cache()
 
 
+def drain_batches(policy, n: int) -> list[tuple[int, int]]:
+    """The (take, bucket) batches ``serve_pending`` drains ``n`` queued
+    rows into under ``policy`` (partials allowed)."""
+    out = []
+    while n:
+        d = policy.decide(n, 0.0, allow_partial=True)
+        out.append((d.take, d.bucket))
+        n -= d.take
+    return out
+
+
+def serve_waves(torch, tag, eng, dense, dplans, waves, trainer) -> dict:
+    """Drive a sync engine wave by wave (submit, ``serve_pending``), the
+    trainer's one delta batch pulled halfway and replayed on ``dense``;
+    each wave's scores bitwise the dense plans of its batches' buckets.
+    Returns the launches of the engine's own waves (the dense replay's
+    are not counted) and the host ms of the halfway push, and restores
+    ``dense``'s table."""
+    import numpy as np
+
+    from repro_torch.embedding import validate_deltas
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    table = dense.embedding.store.mega_table
+    counts, undo = {}, None
+    for w, ids in enumerate(waves):
+        if w == len(waves) // 2:
+            t0 = time.perf_counter()
+            assert eng.pull_updates() > 0
+            push_ms = (time.perf_counter() - t0) * 1e3
+            rows, vals = validate_deltas(dense.embedding.spec,
+                                         *trainer.replay().next_batch())
+            idx = torch.from_numpy(rows).to(table.device)
+            undo = (idx, table[idx].clone())
+            table[idx] = torch.from_numpy(vals).to(table.device)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        eng.submit_many(list(ids))
+        got = eng.serve_pending()
+        torch.cuda.synchronize()
+        for name, n in launch_counts().items():
+            counts[name] = counts.get(name, 0) + n
+        want, i = [], 0
+        for take, bucket in drain_batches(eng.policy, len(ids)):
+            want.append(dplans[bucket].predict(ids[i:i + take]))
+            i += take
+        assert np.array_equal(got, np.concatenate(want)), f"{tag} wave {w}"
+    table[undo[0]] = undo[1]
+    st = eng.stats
+    assert st.emb_version == 1 and st.rows_behind == 0, st
+    assert st.cache_misses == len(eng.policy.buckets), st.cache_misses
+    assert st.emb_cache_refreshes == st.n_batches // eng.refresh_every
+    return counts, push_ms
+
+
+def predict_in_threads(plans: dict, ids, n: int = 20) -> dict:
+    """Host ms of ``plan.predict(ids)`` in new threads: each plan alone in
+    its own thread, then all at once (a thread each): the first call of a
+    thread and the mean of the next ``n``. Separates a new thread's first
+    step from two threads' steps contending for the host."""
+    import threading
+
+    def run(plan, out):
+        times = []
+        for _ in range(n + 1):
+            t0 = time.perf_counter()
+            plan.predict(ids)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append((round(times[0], 3),
+                    round(sum(times[1:]) / n, 3)))
+
+    res = {}
+    for mode in ("alone", "together"):
+        outs = {name: [] for name in plans}
+        threads = [threading.Thread(target=run, args=(plan, outs[name]))
+                   for name, plan in plans.items()]
+        for th in threads:
+            th.start()
+            if mode == "alone":
+                th.join(timeout=FUTURE_TIMEOUT_S)
+        for th in threads:
+            th.join(timeout=FUTURE_TIMEOUT_S)
+            assert not th.is_alive(), "predict thread hung"
+        res[mode] = {name: out[0] for name, out in outs.items()}
+    return res
+
+
+def run_serving(torch, dev, schema, sample_ids) -> None:
+    """Phase 9: the serving stack at full width (see the docstring)."""
+    import contextlib
+    import io
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.core import compile_plan
+    from repro_torch.embedding import CachedStore, HostBackedStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.ctr import CTR_MODELS
+    from repro_torch.serving import (BucketedBatch, InferenceEngine,
+                                     ServingRuntime, SyntheticTrainer)
+
+    t_phase = time.perf_counter()
+    spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024)
+    emb_spec = spec.embedding_spec()
+    dense = CTR_MODELS["dcnv2"](spec, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+
+    def twin():
+        model = CTR_MODELS["dcnv2"](spec, device=dev)
+        model.load_state_dict(dense.state_dict())
+        return model
+
+    dplans = {b: compile_plan(dense, "dual", b, device=dev)
+              for b in SERVE_LADDER}
+    waves = [sample_ids(schema, n, step=95_000 + w)
+             for w, n in enumerate(SERVE_WAVES)]
+
+    # (a) and (b): sync engines over the cached and host tiers
+    hosts = []
+    runs = (("cached", CachedStore(emb_spec, CACHE_CAPACITY, device=dev),
+             "mtl_gather_two_level", waves),
+            ("host", HostBackedStore(emb_spec, CACHE_CAPACITY,
+                                     STAGING_CAPACITY, device=dev),
+             "mtl_gather_three_level", waves),
+            ("host-overflow", HostBackedStore(emb_spec, CACHE_CAPACITY,
+                                              OVERFLOW_STAGING, device=dev),
+             "mtl_gather_three_level",
+             [sample_ids(schema, n, step=96_000 + w)
+              for w, n in enumerate(OVERFLOW_WAVES)]))
+    try:
+        for tag, store, gather, traffic in runs:
+            if isinstance(store, HostBackedStore):
+                hosts.append(store)
+            eng = InferenceEngine(twin(), policy=BucketedBatch(SERVE_LADDER),
+                                  store=store, refresh_every=REFRESH_EVERY,
+                                  device=dev)
+            trainer = SyntheticTrainer(store.spec, rows_per_batch=DELTA_ROWS,
+                                       n_batches=1, seed=SEED)
+            eng.attach_delta_source(trainer)
+            eng.warmup()
+            misses = eng.stats.cache_misses
+            assert misses == len(SERVE_LADDER), misses
+            counts, push_ms = serve_waves(torch, tag, eng, dense, dplans,
+                                          traffic, trainer)
+            t0 = time.perf_counter()
+            eng.refresh_cache()
+            refresh_ms = (time.perf_counter() - t0) * 1e3
+            st = eng.stats
+            steps = counts[gather]
+            if tag == "host-overflow":
+                assert 0 < st.emb_staging_overflows <= st.n_batches, st
+                assert steps > st.n_batches, (steps, st.n_batches)
+            else:
+                assert st.emb_staging_overflows == 0, st
+                assert steps == st.n_batches, (counts, st.n_batches)
+            assert counts["fused_cross_v2"] == 3 * steps, counts
+            assert counts["mtl_gather"] == 0, counts
+            host = (f" prefetch_hit={st.emb_prefetch_hit_rate:.3f} "
+                    f"staged={st.emb_staged_rows} "
+                    f"prefetched={st.emb_prefetched_rows} "
+                    f"overflows={st.emb_staging_overflows}"
+                    if tag.startswith("host") else "")
+            log(f"[serve-{tag}] {store.describe()}: {st.n_requests} requests "
+                f"in {st.n_batches} batches {dict(st.batches_per_bucket)}, "
+                f"{steps} plan steps; p50 {st.p50_ms:.3f} ms, p99 "
+                f"{st.p99_ms:.3f} ms (submit to scores, a wave queued at "
+                f"once); compute {st.compute_ms_total / st.n_batches:.3f} "
+                f"ms a batch; pad_waste {st.padding_waste:.3f}; "
+                f"emb_hit {st.emb_cache_hit_rate:.3f}, refreshes "
+                f"{st.emb_cache_refreshes}, v{st.emb_version} "
+                f"({st.emb_delta_rows} delta rows){host}; host ms of a "
+                f"refresh {refresh_ms:.1f}, of the push {push_ms:.1f}; "
+                f"bitwise the dense "
+                f"plan per bucket; plan-cache misses {st.cache_misses} "
+                f"(all at warmup); launches {counts}")
+            del eng
+    finally:
+        for store in hosts:
+            store.pipeline.stop()
+    del runs, hosts, dplans
+    torch.cuda.empty_cache()
+
+    # (c) the async runtime: DCNv2 (fp32 cached) and DeepFM (dense)
+    fm_spec = ctr_spec("deepfm", "criteo", embed_dim=32, hidden=1024)
+    dcn = twin()
+    dcn.use_store(CachedStore(emb_spec, CACHE_CAPACITY, device=dev))
+    dfm = CTR_MODELS["deepfm"](fm_spec, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    models = {"dcnv2": dcn, "deepfm": dfm}
+    one_bucket = {"dcnv2": compile_plan(dense, "dual", 256, device=dev),
+                  "deepfm": compile_plan(dfm, "dual", 256, device=dev)}
+    per_thread = ASYNC_REQUESTS // ASYNC_THREADS
+    rows = [sample_ids(schema, per_thread, step=97_000 + t)
+            for t in range(ASYNC_THREADS)]
+    names = list(models)
+    t0 = time.perf_counter()
+    want = {(t, n): np.concatenate([
+        one_bucket[n].predict(rows[t][j::2][i:i + 256])
+        for i in range(0, per_thread // 2, 256)])
+        for t in range(ASYNC_THREADS) for j, n in enumerate(names)}
+    log(f"[serve-async] one caller, one thread: a b=256 predict takes "
+        f"{(time.perf_counter() - t0) * 1e3 / len(want):.3f} ms (mean of "
+        f"{len(want)}, DCNv2 and DeepFM in turns)")
+    threads_ms = predict_in_threads(one_bucket, rows[0][:256])
+    log(f"[serve-async] b=256 predicts in new threads: the first and the "
+        f"mean of the next 20 in a thread, alone "
+        f"{threads_ms['alone']}; two threads at once (DCNv2, DeepFM) "
+        f"{threads_ms['together']} ms")
+    per_step = {"dcnv2": {"mtl_gather_two_level": 1, "fused_cross_v2": 3},
+                "deepfm": {"mtl_gather": 2, "fused_fm_second_order": 1}}
+    # the shared pool again without the runtime's refresh cadence, to
+    # separate a refresh's hold on the DCNv2 engine from the pool's pick
+    for mode, every in (("shared", 256), ("per-engine", 256),
+                        ("shared", None)):
+        rt = ServingRuntime(scheduler=mode, pool_size=2, refresh_every=every)
+        for name, model in models.items():
+            rt.add_model(name, model, policy=BucketedBatch(CLI_LADDER),
+                         device=dev)
+        rt.warmup()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        futs = {}
+
+        def intake(t):
+            futs[t] = [rt.submit(names[i % 2], row)
+                       for i, row in enumerate(rows[t])]
+
+        threads = [threading.Thread(target=intake, args=(t,))
+                   for t in range(ASYNC_THREADS)]
+        t0 = time.perf_counter()
+        rt.start()
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=FUTURE_TIMEOUT_S)
+                assert not th.is_alive(), "submitter thread hung"
+            got = {t: np.array([f.result(timeout=FUTURE_TIMEOUT_S)
+                                for f in fs]) for t, fs in futs.items()}
+        finally:
+            rt.stop()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for t in range(ASYNC_THREADS):
+            s = got[t]
+            assert s.shape == (per_thread,) and np.all(np.isfinite(s)) \
+                and np.all((s > 0) & (s < 1)), (mode, t)
+            for j, name in enumerate(names):
+                np.testing.assert_allclose(s[j::2], want[(t, name)],
+                                           **LADDER_TOL,
+                                           err_msg=f"{mode} {name} t{t}")
+        agg = rt.stats()
+        assert agg.n_requests == ASYNC_REQUESTS and agg.queue_depth == 0
+        assert agg.n_worker_errors == 0
+        mode = mode if every else f"{mode}, no refresh"
+        expect = {}
+        for name in names:
+            n_b = rt.engine(name).stats.n_batches
+            for kernel, k in per_step[name].items():
+                expect[kernel] = expect.get(kernel, 0) + k * n_b
+        for kernel, n in expect.items():
+            assert counts[kernel] == n, (mode, kernel, counts, expect)
+        for name in names:
+            st = agg.per_model[name]
+            lat = np.asarray(st.latency_ms)
+            compute = st.compute_ms_total / st.n_batches
+            log(f"[serve-async:{mode}] {name}: {st.n_requests} requests in "
+                f"{st.n_batches} batches {dict(sorted(st.batches_per_bucket.items()))}; "
+                f"p50 {st.p50_ms:.3f} ms, p99 {st.p99_ms:.3f} ms; "
+                f"pad_waste {st.padding_waste:.3f}; device_time_share "
+                f"{st.device_time_share:.3f}; sched_dispatches "
+                f"{st.sched_dispatches}; compute {compute:.3f} ms a batch = "
+                f"{compute / lat.mean():.3f} of the mean latency "
+                f"({lat.mean():.3f} ms), queue {1 - compute / lat.mean():.3f}"
+                f"; refreshes {st.emb_cache_refreshes}")
+        log(f"[serve-async:{mode}] {ASYNC_REQUESTS} requests from "
+            f"{ASYNC_THREADS} threads in {wall:.3f} s; every future "
+            f"resolved; scores within {LADDER_TOL} of the one-bucket plans; "
+            f"launches {counts} = batches x step ({expect})")
+    del rt, models, dcn, dfm, one_bucket
+    torch.cuda.empty_cache()
+
+    # (d) the CLI, in this process, at its defaults
+    argv = ["--models", "dcnv2,deepfm", "--async", "--store", "cached",
+            "--refresh-every", "4", "--delta-every", "100"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_main(argv)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[serve-cli] {line}")
+    for prefix in ("[serve:async] dcnv2: 250 requests",
+                   "[serve:async] deepfm: 250 requests",
+                   "[serve:runtime] 2 models  500 requests",
+                   "[serve:delta] pushes=", "[serve:sched] pool=2"):
+        assert any(line.startswith(prefix) for line in lines), prefix
+    log(f"[serve-cli] python -m repro_torch.launch.serve {' '.join(argv)}")
+    log(f"[serve] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2460,6 +2802,11 @@ def main() -> int:
     run_int8_stack(torch, dev,
                    ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024),
                    CRITEO, sample_ids, batches=(256, 1024), n_requests=16)
+
+    # 9. serving: the engine (sync, cached and host stores), the runtime
+    # (shared pool and per-engine workers), the CLI; each run's counters
+    # reset just before it and read just after
+    run_serving(torch, dev, CRITEO, sample_ids)
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

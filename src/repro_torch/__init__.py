@@ -10,8 +10,11 @@ to find:
   core/         OpGraph + C5 fusion, Alg.-2 scheduler, the executor
                 (two CUDA streams at level "dual"), compile_plan
   models/ctr/   DCN, DCNv2, DeepFM, Wide&Deep as ``nn.Module``s
+  serving/      batching policies, InferenceEngine, DeviceScheduler,
+                ServingRuntime, delta sources
+  launch/       the serving CLI (``python -m repro_torch.launch.serve``)
   configs.py    ``ctr_spec``
-  data/         dataset schemas and a numpy-seeded id sampler
+  data/         dataset schemas, numpy-seeded id samplers (``zipf_ids``)
   bridge.py     loads a reference parameter tree (numpy leaves)
 
 Entry points take ``device=`` and default to ``torch.device("cuda")``;

@@ -2,8 +2,11 @@
 
 Counterpart of ``repro.data.synthetic``. The schemas are the reference's
 (the same heavy-tailed per-field cardinalities, from the same numpy
-seeds); the sampler is numpy's, so it follows the same popularity laws
+seeds); the samplers are numpy's, so they follow the same popularity laws
 but not the reference's exact ids (those come from ``jax.random``).
+:func:`zipf_ids` is the reference's zipf law; its map from uniforms to
+ids, :func:`zipf_ids_from_uniform`, is the reference's float32
+arithmetic, so the same uniforms give the same ids.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["DatasetSchema", "AVAZU", "CRITEO", "sample_ids", "SKEWS"]
+__all__ = ["DatasetSchema", "AVAZU", "CRITEO", "sample_ids", "SKEWS",
+           "zipf_ids", "zipf_ids_from_uniform"]
 
 SKEWS = ("quadratic", "uniform", "zipf")
 
@@ -90,3 +94,42 @@ def sample_ids(schema: DatasetSchema, batch: int, *, step: int = 0,
     else:
         raise ValueError(f"unknown skew {skew!r}; expected one of {SKEWS}")
     return np.clip(ids, 0, sizes - 1).astype(np.int32)
+
+
+def zipf_ids_from_uniform(u, field_sizes: tuple[int, ...],
+                          exponent: float = 1.1) -> np.ndarray:
+    """Uniforms ``u`` in [0, 1) of shape (b, k) -> zipf ids (b, k) int32.
+
+    P(id = r) ∝ (r+1)^-exponent, id < n_i, by inverse CDF on the
+    continuous bounded power law (exact for exponent 1: ``x = n^u``), in
+    float32 as the reference computes it (``synthetic.py:75-107``). Each
+    power is taken in float64 and rounded to float32: XLA's float32 power
+    is that close to correctly rounded, numpy's ``powf`` is not.
+    """
+    sizes = np.asarray(field_sizes, dtype=np.float32)[None, :]
+    u = np.asarray(u, dtype=np.float32)
+    s = float(exponent)
+    one = np.float32(1.0)
+
+    def power(a, b):
+        return np.power(np.float64(a), np.float64(b)).astype(np.float32)
+    if abs(s - 1.0) < 1e-9:
+        x = power(sizes, u)                          # cdf ∝ log x
+    else:
+        # inverse of F(x) = (x^(1-s) - 1) / (n^(1-s) - 1) on [1, n]
+        x = power(one + u * (power(sizes, np.float32(1.0 - s)) - one),
+                  np.float32(1.0 / (1.0 - s)))
+    ids = np.floor(x).astype(np.int32) - 1
+    return np.clip(ids, 0, np.asarray(field_sizes, np.int32)[None, :] - 1)
+
+
+def zipf_ids(rng: np.random.Generator | int, batch: int,
+             field_sizes: tuple[int, ...],
+             exponent: float = 1.1) -> np.ndarray:
+    """(batch, k) int32 zipf-skewed ids, field i in [0, field_sizes[i]),
+    from float32 uniforms of ``rng`` (a numpy Generator, or a seed for
+    one). Exponent 0 gives uniform traffic."""
+    if not isinstance(rng, np.random.Generator):
+        rng = np.random.default_rng(rng)
+    u = rng.random((batch, len(field_sizes)), dtype=np.float32)
+    return zipf_ids_from_uniform(u, field_sizes, exponent)

@@ -24,12 +24,14 @@ of lanes (``fm_launch``), and copies a row's pieces into shared memory
 (``cp.async``, up to 16 fields a group at a time) before it sums them. ``quantize_rows_q8`` has no TPU counterpart: it fuses the
 reference's jnp activation quantizer, which feeds K12, into one launch.
 
-Each wrapper counts its launches in ``<wrapper>.launches``; a run can
-reset and read them all with :func:`reset_launch_counts` and
-:func:`launch_counts`. Importing this package builds nothing: the CUDA
+Each wrapper counts its launches in ``<wrapper>.launches`` through one
+locked increment (``_build.count_launch``), so the count is exact when
+several threads launch; a run can reset and read them all with
+:func:`reset_launch_counts` and :func:`launch_counts`. Importing this package builds nothing: the CUDA
 libraries are compiled at the first launch (``_build``).
 """
 
+from . import _build
 from .dense_matmul import dmm_q8
 from .fused_cross import fused_cross_v1, fused_cross_v2
 from .fused_fm import fused_fm_second_order
@@ -59,12 +61,14 @@ KERNELS = {
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    with _build._count_lock:
+        return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with _build._count_lock:
+        for fn in KERNELS.values():
+            fn.launches = 0
 
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "mtl_gather",

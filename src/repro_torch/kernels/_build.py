@@ -123,6 +123,18 @@ def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: guards every wrapper's ``launches`` counter: the serving path launches
+#: from several threads at once (engine workers, a scheduler's pool)
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` (a wrapper's launch counter), exactly,
+    whichever thread launched."""
+    with _count_lock:
+        fn.launches += 1
+
+
 def check_launch(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "

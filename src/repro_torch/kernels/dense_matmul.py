@@ -129,7 +129,7 @@ def dmm_q8(hq: torch.Tensor, hscale: torch.Tensor, wq_t: torch.Tensor,
                      wscale.data_ptr(), bias.data_ptr(), out.data_ptr(),
                      b, fan_out, k_pad, int(relu), _build.current_stream(dev))
     _build.check_launch("dmm_q8", code)
-    dmm_q8.launches += 1
+    _build.count_launch(dmm_q8)
     return out
 
 

@@ -104,7 +104,7 @@ def fused_cross_v2(x0: torch.Tensor, xw_plus: torch.Tensor,
                         out.data_ptr(), b, dim, int(same),
                         *launch_args(launch), _build.current_stream(dev))
     _build.check_launch("fused_cross_v2", code)
-    fused_cross_v2.launches += 1
+    _build.count_launch(fused_cross_v2)
     return out
 
 
@@ -134,7 +134,7 @@ def fused_cross_v1(x0: torch.Tensor, xlw: torch.Tensor, bias: torch.Tensor,
                         x.data_ptr(), out.data_ptr(), b, dim, int(same),
                         *launch_args(launch), _build.current_stream(dev))
     _build.check_launch("fused_cross_v1", code)
-    fused_cross_v1.launches += 1
+    _build.count_launch(fused_cross_v1)
     return out
 
 

@@ -74,7 +74,7 @@ def fused_fm_second_order(v: torch.Tensor) -> torch.Tensor:
                      launch.lanes.bit_length() - 1, launch.threads,
                      launch.blocks, _build.current_stream(dev))
     _build.check_launch("fused_fm_second_order", code)
-    fused_fm_second_order.launches += 1
+    _build.count_launch(fused_fm_second_order)
     return out
 
 

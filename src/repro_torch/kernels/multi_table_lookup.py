@@ -260,7 +260,7 @@ def mtl_gather(ids: torch.Tensor, offsets: torch.Tensor,
                      launch.threads, launch.blocks,
                      _build.current_stream(dev))
     _build.check_launch("mtl_gather", code)
-    mtl_gather.launches += 1
+    _build.count_launch(mtl_gather)
     return out
 
 
@@ -485,7 +485,7 @@ def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
         out.data_ptr(), b, k, h, d, n_rows, *_tiered_args(launch),
         _build.current_stream(dev))
     _build.check_launch("mtl_gather_multihot", code)
-    mtl_gather_multihot.launches += 1
+    _build.count_launch(mtl_gather_multihot)
     return out
 
 
@@ -528,7 +528,7 @@ def mtl_gather_two_level(ids: torch.Tensor, offsets: torch.Tensor,
         out.data_ptr(), b, k, h, d, cache.shape[0], n_rows,
         *_tiered_args(launch), _build.current_stream(dev))
     _build.check_launch("mtl_gather_two_level", code)
-    mtl_gather_two_level.launches += 1
+    _build.count_launch(mtl_gather_two_level)
     return out
 
 
@@ -575,7 +575,7 @@ def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
         b, k, h, d, cache.shape[0], n_rows, *_tiered_args(launch),
         _build.current_stream(dev))
     _build.check_launch("mtl_gather_two_level_q8", code)
-    mtl_gather_two_level_q8.launches += 1
+    _build.count_launch(mtl_gather_two_level_q8)
     return out
 
 
@@ -625,7 +625,7 @@ def mtl_gather_three_level(ids: torch.Tensor, offsets: torch.Tensor,
         cache.shape[0], staging.shape[0], n_rows, *_tiered_args(launch),
         _build.current_stream(dev))
     _build.check_launch("mtl_gather_three_level", code)
-    mtl_gather_three_level.launches += 1
+    _build.count_launch(mtl_gather_three_level)
     return out
 
 
@@ -677,7 +677,7 @@ def mtl_gather_three_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
         staging.shape[0], n_rows, *_tiered_args(launch),
         _build.current_stream(dev))
     _build.check_launch("mtl_gather_three_level_q8", code)
-    mtl_gather_three_level_q8.launches += 1
+    _build.count_launch(mtl_gather_three_level_q8)
     return out
 
 
@@ -761,7 +761,7 @@ def mtl_input_first(ids: torch.Tensor, offsets: torch.Tensor,
             out.data_ptr(), b, k, d, n_rows, int(launch.vec), launch.threads,
             launch.blocks, _build.current_stream(dev))
         _build.check_launch("mtl_input_first", code)
-        mtl_input_first.launches += 1
+        _build.count_launch(mtl_input_first)
     return out if field_major else _sample_major(out)
 
 
@@ -846,7 +846,7 @@ def mtl_onehot(ids: torch.Tensor, stacked_tables: torch.Tensor
                             *_onehot_args(launch),
                             _build.current_stream(dev))
     _build.check_launch("mtl_onehot", code)
-    mtl_onehot.launches += 1
+    _build.count_launch(mtl_onehot)
     return out
 
 

@@ -71,7 +71,7 @@ def quantize_rows_q8(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     code = _kernel()(h.data_ptr(), hq.data_ptr(), hscale.data_ptr(), b,
                      fan_in, _build.current_stream(dev))
     _build.check_launch("quantize_rows_q8", code)
-    quantize_rows_q8.launches += 1
+    _build.count_launch(quantize_rows_q8)
     return hq, hscale
 
 

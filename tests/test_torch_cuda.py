@@ -16,6 +16,8 @@ cross devices at ``rtol=1e-4, atol=1e-5``: cuBLAS and the CPU BLAS sum
 the GEMMs in different orders.
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -44,6 +46,9 @@ from repro_torch.kernels.quantize import (  # noqa: E402
     quantize_rows_q8, quantize_rows_q8_plain)
 from repro_torch.embedding import CachedStore, HostBackedStore  # noqa: E402
 from repro_torch.models.ctr import CTR_MODELS  # noqa: E402
+from repro_torch.serving import (BucketedBatch, FixedBatch,  # noqa: E402
+                                 InferenceEngine, ServingRuntime,
+                                 SyntheticTrainer)
 from repro_torch.quant import (absmax_scale, quantize,  # noqa: E402
                                quantize_channels, quantize_rows)
 
@@ -1371,3 +1376,226 @@ def test_full_width_int8_dcnv2_matches_the_cpu_path(cuda):
     fp32 = compile_plan(model, "dual", 256, device=cuda)(
         torch.from_numpy(ids).to(cuda))
     assert (torch.sigmoid(got) - torch.sigmoid(fp32)).abs().max() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the serving stack on the card
+# ---------------------------------------------------------------------------
+
+SCHEMA = CRITEO.scaled(2_000)
+#: per "dual" step of each served model: (kernel, launches)
+STEP_LAUNCHES = {"dcnv2": {"fused_cross_v2": 3},
+                 "deepfm": {"fused_fm_second_order": 1},
+                 "dcn": {"fused_cross_v1": 3}, "widedeep": {}}
+GATHERS = {"dense": "mtl_gather", "cached": "mtl_gather_two_level",
+           "host": "mtl_gather_three_level"}
+
+
+def _serving_models(name, device, store=None, **store_kw):
+    """A model on ``device`` (weights from seed 0, drawn on the CPU) and
+    its CPU twin, with stores of one kind."""
+    spec = ctr_spec(name, "criteo", **SPEC_KW)
+    cpu = CTR_MODELS[name](spec, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    model = CTR_MODELS[name](spec, device=device)
+    model.load_state_dict(cpu.state_dict())
+
+    def make(dev):
+        if store == "cached":
+            return CachedStore(spec.embedding_spec(), 64, device=dev)
+        if store == "host":
+            return HostBackedStore(spec.embedding_spec(), 64,
+                                   store_kw.get("staging", 16 * 39),
+                                   device=dev)
+        return None
+    return model, cpu, make(device), make("cpu")
+
+
+def _step_launches(name, store):
+    want = dict(STEP_LAUNCHES[name])
+    gather = GATHERS[store]
+    want[gather] = want.get(gather, 0) + 1
+    if name in ("deepfm", "widedeep"):         # the d = 1 table: dense K1
+        want["mtl_gather"] = want.get("mtl_gather", 0) + 1
+    return want
+
+
+def _stop_host(*stores):
+    for s in stores:
+        if isinstance(s, HostBackedStore):
+            s.pipeline.stop()
+
+
+@pytest.mark.parametrize("name,store", [("dcnv2", "dense"),
+                                        ("deepfm", "dense"),
+                                        ("dcnv2", "cached"),
+                                        ("dcnv2", "host")])
+def test_engine_on_cuda_matches_the_cpu_engine(cuda, name, store):
+    """Same weights, same rows, same buckets: the card's engine serves the
+    CPU engine's batches with its counters, scores within the models'
+    cross-device tolerance, and launches each kernel of the step once per
+    plan step (three K9 / one K11; a host store's overflowing batch is a
+    step per chunk)."""
+    model, cpu, store_d, store_c = _serving_models(name, cuda, store)
+    try:
+        engs = [InferenceEngine(m, policy=BucketedBatch((8, 16, 32)),
+                                store=s, refresh_every=2, device=d)
+                for m, s, d in ((model, store_d, cuda),
+                                (cpu, store_c, "cpu"))]
+        outs, counts = [], None
+        for e in engs:
+            e.warmup()
+            reset_launch_counts()
+            got = []
+            for n, seed in ((43, 1), (7, 2), (20, 3)):
+                e.submit_many(list(sample_ids(SCHEMA, n, seed=seed,
+                                              skew="zipf")))
+                got.append(e.serve_pending())
+            outs.append(np.concatenate(got))
+            if counts is None:            # the card engine's launches only
+                counts = launch_counts()
+        np.testing.assert_allclose(outs[0], outs[1], rtol=1e-4, atol=1e-5)
+        on_card, on_cpu = (e.stats for e in engs)
+        for f in ("n_requests", "n_batches", "batches_per_bucket",
+                  "padded_rows_total", "cache_hits", "cache_misses",
+                  "emb_cache_hits", "emb_cache_misses",
+                  "emb_cache_refreshes", "emb_staging_overflows"):
+            assert getattr(on_card, f) == getattr(on_cpu, f), f
+        steps = on_card.n_batches
+        if store == "host":               # overflowing batches: a chunk a step
+            steps = counts["mtl_gather_three_level"]
+            assert (steps > on_card.n_batches) == (
+                on_card.emb_staging_overflows > 0)
+        for kernel, per_step in _step_launches(name, store).items():
+            assert counts[kernel] == per_step * steps, counts
+    finally:
+        _stop_host(store_d, store_c)
+
+
+@pytest.mark.parametrize("mode", ["worker", "shared", "per-engine"])
+def test_async_serving_on_cuda_resolves_every_future(cuda, mode):
+    """Four submitter threads into a running worker / shared pool /
+    per-engine runtime on the card: every future resolves, each score
+    within 1e-5 of a one-bucket plan's score for its row, and the launch
+    counts are n_batches times the step's."""
+    model, _, store, _ = _serving_models("dcnv2", cuda, "cached")
+    rows = {t: list(sample_ids(SCHEMA, 40, seed=10 + t, skew="zipf"))
+            for t in range(4)}
+    policy = BucketedBatch((8, 16, 32))
+    if mode == "worker":
+        eng = InferenceEngine(model, policy=policy, store=store,
+                              worker_tick_ms=0.5, device=cuda)
+        submit, rt = eng.submit, None
+    else:
+        rt = ServingRuntime(scheduler=mode, pool_size=2)
+        eng = rt.add_model("dcnv2", model, policy=policy, store=store,
+                           worker_tick_ms=0.5, device=cuda)
+
+        def submit(row):
+            return rt.submit("dcnv2", row)
+    eng.warmup()
+    ref = compile_plan(model, "dual", 40, device=cuda,
+                       runtime_provider=model.store_runtime_env)
+    want = {t: ref.predict(np.stack(r)) for t, r in rows.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    futs = {}
+
+    def intake(t):
+        futs[t] = [submit(r) for r in rows[t]]
+
+    (rt or eng).start()
+    threads = [threading.Thread(target=intake, args=(t,)) for t in rows]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60.0)
+            assert not th.is_alive()
+        got = {t: np.array([f.result(timeout=60.0) for f in fs])
+               for t, fs in futs.items()}
+    finally:
+        (rt or eng).stop()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for t in rows:
+        np.testing.assert_allclose(got[t], want[t], rtol=1e-5, atol=1e-6)
+    st = eng.stats
+    assert st.n_requests == 160 and eng.pending() == 0
+    assert counts["mtl_gather_two_level"] == st.n_batches, counts
+    assert counts["fused_cross_v2"] == 3 * st.n_batches, counts
+    if mode == "shared":
+        assert rt.scheduler.n_dispatches == st.n_batches
+
+
+@pytest.mark.parametrize("store", ["cached", "host"])
+def test_refresh_and_push_under_running_worker_bitwise_dense(cuda, store):
+    """A worker on the card serves while the engine refreshes every 2
+    batches and takes a push between waves: every score is bitwise a
+    DenseStore plan of the same bucket replaying the same deltas."""
+    model, _, store_d, _ = _serving_models("dcnv2", cuda, store)
+    dense = CTR_MODELS["dcnv2"](model.spec, device=cuda)
+    dense.load_state_dict(model.state_dict())
+    dplan = compile_plan(dense, "dual", 8, device=cuda)
+    trainer = SyntheticTrainer(store_d.spec, rows_per_batch=64, n_batches=3,
+                               seed=1)
+    eng = InferenceEngine(model, policy=FixedBatch(8), store=store_d,
+                          refresh_every=2, device=cuda)
+    eng.warmup()
+    eng.start()
+    try:
+        for wave in range(3):
+            rows = sample_ids(SCHEMA, 32, seed=30 + wave, skew="zipf")
+            got = np.array([f.result(timeout=60.0)
+                            for f in eng.submit_many(list(rows))])
+            want = np.concatenate([dplan.predict(rows[i:i + 8])
+                                   for i in range(0, 32, 8)])
+            np.testing.assert_array_equal(got, want, f"wave {wave}")
+            ids, vals = trainer.next_batch()
+            eng.push_update(ids, vals)
+            dense.embedding.store.mega_table[
+                torch.from_numpy(ids).to(cuda)] = torch.from_numpy(vals).to(
+                    cuda)
+    finally:
+        eng.stop()
+        _stop_host(store_d)
+    assert eng.stats.emb_version == 3
+    assert eng.stats.emb_cache_refreshes >= 4
+    assert eng.stats.cache_misses == 1
+
+
+@pytest.mark.parametrize("staging", [256, 16 * 39])
+def test_host_store_staged_loop_through_the_engine(cuda, staging):
+    """The engine's staged loop on the card (hint t+1, stage, predict,
+    observe; S = 256 overflows and serves in chunks through the same
+    plan): scores bitwise a dense plan of each bucket, one K5 launch per
+    plan step."""
+    model, _, store_d, _ = _serving_models("dcnv2", cuda, "host",
+                                           staging=staging)
+    dense = CTR_MODELS["dcnv2"](model.spec, device=cuda)
+    dense.load_state_dict(model.state_dict())
+    dplans = {b: compile_plan(dense, "dual", b, device=cuda)
+              for b in (8, 16)}
+    eng = InferenceEngine(model, policy=BucketedBatch((8, 16)),
+                          store=store_d, refresh_every=3, device=cuda)
+    try:
+        eng.warmup()
+        reset_launch_counts()
+        rows = sample_ids(SCHEMA, 40, seed=40, skew="zipf")
+        eng.submit_many(list(rows))
+        got = eng.serve_pending()
+        counts = launch_counts()
+        want, i = [], 0
+        for b in (16, 16, 8):            # the ladder's drain of 40 rows
+            want.append(dplans[b].predict(rows[i:i + b]))
+            i += b
+        np.testing.assert_array_equal(got, np.concatenate(want))
+        st = eng.stats
+        assert (st.emb_staging_overflows > 0) == (staging == 256)
+        steps = counts["mtl_gather_three_level"]
+        assert steps >= st.n_batches == 3
+        if staging != 256:
+            assert steps == st.n_batches
+        assert counts["fused_cross_v2"] == 3 * steps
+    finally:
+        _stop_host(store_d)
