@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's CTR inference path on one NVIDIA card.
+"""Run the PyTorch/CUDA port's CTR inference and training paths on one
+NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -122,10 +123,10 @@ Phases (any failure raises; the script then exits non-zero):
    ``CachedStore`` with int8 compute, refreshed and updated between
    requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
    fp32-row twin bitwise the dense int8-compute plan.
-8. Summary, printed last (after phase 9): one JSON line of every ported
-   kernel (its launches from its path in phases 3-7), then the card's
-   name and power limit, then ``{"ok": true, "device": {...}}`` as the
-   last line.
+8. Summary, printed last (after phases 9 and 10): one JSON line of every
+   ported kernel (its launches from its paths in phases 3-7 and 10), then
+   the card's name and power limit, then ``{"ok": true, "device":
+   {...}}`` as the last line.
 9. Serving at full width through ``repro_torch.serving`` (DCNv2, d = 32,
    hidden 1024, the uncapped Criteo table): (a) a sync
    ``InferenceEngine`` over an fp32 ``CachedStore`` (C = 65,536,
@@ -153,6 +154,27 @@ Phases (any failure raises; the script then exits non-zero):
    ``repro_torch.launch.serve.main`` at its defaults with ``--models
    dcnv2,deepfm --async --store cached --refresh-every 4 --delta-every
    100``, its lines logged.
+10. Training (``repro_torch.training``), with K1, K9, K10 and K11 under
+   autograd through their ``torch.autograd.Function``s: (a) full-width
+   DCNv2 (the configuration of record: the uncapped 6,648,548-row d = 32
+   table, hidden 1024) trained 300 steps at b = 1024 with AdamW lr 1e-3
+   through ``run_train_loop`` and one checkpoint (~2.6 GB with ``m`` and
+   ``v``, written under ``build/`` and deleted): every loss finite, the
+   last 10 losses' mean below the first 10's, one K1 and three K9
+   launches a step, the checkpoint restored bitwise, validation AUC and
+   LogLoss through a "dual" plan at b = 8,192; (b) one backward of small
+   DCNv2, DCN, DeepFM and Wide&Deep (hidden 64, fields capped at 2,000)
+   on the card and on the CPU from the same weights and batch: every
+   leaf's gradient within ``CPU_TOL``, the mega-table's nonzero; (c) each
+   Function's backward on the card against autograd through its plain
+   version on the card (K1 at d = 32 and d = 1 on the full tables, ids
+   repeated; K9 and K10 with ``x`` being ``x0`` and apart; K11), K1's
+   table gradient bitwise across two calls; (d) 6 steps unbroken equal 3
+   steps, a restore and 3 more, bitwise; (e) the full-width step's p50
+   over 50 steps and a profiler trace of 5 steps split by the host range
+   that launched each kernel (forward, backward, K1's table gradient,
+   optimizer), with the idle share. The summary's launch counts add
+   (a)'s K1 and K9 and (b)'s K10 and K11.
 """
 
 from __future__ import annotations
@@ -198,6 +220,12 @@ OVERFLOW_WAVES = (300, 90)
 CLI_LADDER = (16, 32, 64, 128, 256)
 ASYNC_REQUESTS, ASYNC_THREADS = 2048, 4
 FUTURE_TIMEOUT_S = 120.0
+# phase 10: training (``examples/train_ctr.py``: AdamW lr 1e-3, b = 1024,
+# 300 steps, an 8,192-row validation batch at step 10,000)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 300, 1024, 1e-3
+VAL_STEP, VAL_ROWS = 10_000, 8192
+TRAIN_SMALL_FIELD = 2_000   # the scaled schema of (b) and (d)
+STEP_TIMES, TRACE_STEPS = 50, 5
 
 
 def log(msg: str) -> None:
@@ -2710,6 +2738,359 @@ def run_serving(torch, dev, schema, sample_ids) -> None:
     log(f"[serve] phase 9 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+def _leaf_map(tree) -> dict:
+    from repro_torch.training.optimizer import tree_flatten
+    return {"/".join(map(str, p)): t for p, t in tree_flatten(tree)}
+
+
+def _backward(torch, fn, inputs, g):
+    """fn(*leaves) and the floating leaves' gradients for output grad g."""
+    leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
+              for t in inputs]
+    out = fn(*leaves)
+    out.backward(g)
+    return out.detach(), [t.grad for t in leaves if t.is_floating_point()]
+
+
+def train_functions(torch, dev, emb, wide, schema, sample_ids) -> None:
+    """Phase 10 (c): each kernel's autograd Function on the card against
+    autograd through its plain version on the card, at the training
+    path's shapes; K1's table gradient bitwise across two calls."""
+    from repro_torch.kernels import autograd as kad
+    from repro_torch.kernels.fused_cross import (fused_cross_v1_plain,
+                                                 fused_cross_v2_plain)
+    from repro_torch.kernels.fused_fm import fused_fm_second_order_plain
+    from repro_torch.kernels.multi_table_lookup import mtl_gather_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ids = torch.from_numpy(sample_ids(schema, TRAIN_BATCH,
+                                      step=120_000)).to(dev)
+    offsets = emb.offsets
+    for name, table in (("d=32", emb.dense_view()),
+                        ("d=1", wide.dense_view())):
+        d = table.shape[1]
+        grad = torch.randn((TRAIN_BATCH, schema.k * d), device=dev,
+                           generator=g)
+        out, (tg,) = _backward(
+            torch, lambda t: kad.mtl_gather(ids, offsets, t), [table], grad)
+        want_out, (want,) = _backward(
+            torch, lambda t: mtl_gather_plain(ids, offsets, t), [table],
+            grad)
+        assert torch.equal(out, want_out), name
+        # a row's gradient sums up to b of the N(0, 1) output gradients
+        # (Criteo's 2-row fields: ~512 each, |sum| up to ~60), in another
+        # order than index_select's backward: a few float32 ulps there
+        torch.testing.assert_close(tg, want, rtol=1e-5, atol=1e-4)
+        _, (again,) = _backward(
+            torch, lambda t: kad.mtl_gather(ids, offsets, t), [table], grad)
+        assert torch.equal(tg, again), f"K1 {name}: table gradient differs"
+        log(f"[train] (c) K1 {name} backward: rows touched "
+            f"{int((tg != 0).any(dim=1).sum())}, max|fn-plain|="
+            f"{(tg - want).abs().max().item():.3e}, bitwise across calls")
+        del tg, want, again
+    b, dim = TRAIN_BATCH, schema.k * 32
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+    for kind, same in (("v2", True), ("v2", False), ("v1", True),
+                       ("v1", False)):
+        if kind == "v2":
+            args = [rand(b, dim), rand(b, dim)]
+            fn, plain = kad.fused_cross_v2, fused_cross_v2_plain
+        else:
+            args = [rand(b, dim), rand(b, 1), rand(dim)]
+            fn, plain = kad.fused_cross_v1, fused_cross_v1_plain
+        if not same:
+            args.append(rand(b, dim))
+
+        def call(f, _same=same):
+            return (lambda *a: f(*a, a[0])) if _same else f
+        grad = rand(b, dim)
+        out, grads = _backward(torch, call(fn), args, grad)
+        want_out, want = _backward(torch, call(plain), args, grad)
+        assert torch.equal(out, want_out), kind
+        err = 0.0
+        for got, exp in zip(grads, want):
+            torch.testing.assert_close(got, exp, **LADDER_TOL)
+            err = max(err, (got - exp).abs().max().item())
+        log(f"[train] (c) K{9 if kind == 'v2' else 10} backward, "
+            f"{'x is x0' if same else 'x apart'}: max|fn-plain|={err:.3e}")
+    v = rand(b, schema.k, 32) * 0.05          # embedding scale, as phase 3
+    grad = rand(b, 1)
+    out, (dv,) = _backward(torch, kad.fused_fm_second_order, [v], grad)
+    want_out, (want,) = _backward(torch, fused_fm_second_order_plain, [v],
+                                  grad)
+    torch.testing.assert_close(out, want_out, **FM_TOL)
+    torch.testing.assert_close(dv, want, **FM_TOL)
+    log(f"[train] (c) K11 backward: max|fn-plain|="
+        f"{(dv - want).abs().max().item():.3e}")
+
+
+def train_vs_cpu(torch, dev, schema) -> dict:
+    """Phase 10 (b): one backward of small DCNv2, DCN, DeepFM and
+    Wide&Deep on the same weights and batch on the card and on the CPU;
+    every leaf's gradient within ``CPU_TOL``. Returns the card runs'
+    launch counts."""
+    from repro_torch.configs import ctr_spec
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ctr import CTR_MODELS
+
+    small = schema.scaled(TRAIN_SMALL_FIELD)
+    batch = synthetic_batch(small, 0, TRAIN_BATCH, device="cpu")
+    launches: dict = {}
+    for name in CTR_MODELS:
+        spec = ctr_spec(name, "criteo", embed_dim=32, hidden=64,
+                        max_field=TRAIN_SMALL_FIELD)
+        cpu_model = CTR_MODELS[name](spec, device="cpu").init(
+            torch.Generator().manual_seed(SEED))
+        model = CTR_MODELS[name](spec, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        grads = {}
+        for where, m in (("cpu", cpu_model), ("cuda", model)):
+            tree = m.param_tree()
+            reset_launch_counts()
+            m.loss({k: v.to(m.device) for k, v in batch.items()}).backward()
+            counts = launch_counts()
+            grads[where] = {k: t.grad for k, t in _leaf_map(tree).items()}
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        err = 0.0
+        for key, want in grads["cpu"].items():
+            got = grads["cuda"][key]
+            assert got is not None and want is not None, f"{name} {key}"
+            torch.testing.assert_close(got.cpu(), want, **CPU_TOL)
+            err = max(err, (got.cpu() - want).abs().max().item())
+        table = grads["cuda"]["emb/mega_table"]
+        assert table.abs().sum().item() > 0, name
+        log(f"[train] (b) {name}: {len(grads['cpu'])} leaves, every one "
+            f"with a gradient, max|card-cpu|={err:.3e}; launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+    return launches
+
+
+def train_resume(torch, dev, schema) -> None:
+    """Phase 10 (d): 6 steps unbroken equal 3 steps, a restore from the
+    checkpoint into a fresh model, then 3 more — bitwise on the card."""
+    import tempfile
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.data import CTRLoader
+    from repro_torch.models.ctr import CTR_MODELS
+    from repro_torch.training import (AdamWConfig, TrainLoopConfig,
+                                      adamw_init, make_ctr_step,
+                                      run_train_loop)
+
+    small = schema.scaled(TRAIN_SMALL_FIELD)
+    spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024,
+                    max_field=TRAIN_SMALL_FIELD)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        def run(total, sub):
+            model = CTR_MODELS["dcnv2"](spec, device=dev).init(
+                torch.Generator(device=dev).manual_seed(SEED))
+            cfg = TrainLoopConfig(total_steps=total, ckpt_every=3,
+                                  ckpt_dir=f"{tmp}/{sub}", log_every=1000)
+            state, hist = run_train_loop(
+                make_ctr_step(model, opt),
+                adamw_init(model.param_tree(), opt),
+                CTRLoader(small, TRAIN_BATCH, device=dev), cfg)
+            return state, hist
+        whole, h1 = run(6, "a")
+        run(3, "b")
+        resumed, h2 = run(6, "b")
+    assert [r["loss"] for r in h1[3:]] == [r["loss"] for r in h2]
+    for (key, a), (_, b) in zip(_leaf_map(whole).items(),
+                                _leaf_map(resumed).items()):
+        assert torch.equal(a, b), f"resumed {key} differs"
+    log(f"[train] (d) 6 steps == 3 + restore + 3, bitwise: every one of "
+        f"{len(_leaf_map(whole))} leaves; losses {[round(r['loss'], 6) for r in h2]}")
+
+
+def trace_train(torch, step_fn, state, loader, start: int):
+    """Phase 10 (e), second half: a profiler trace of ``TRACE_STEPS``
+    steps; device time per step split by the host range each kernel was
+    launched from (``train/forward``, ``train/backward`` — less K1's table
+    gradient, ``mtl_gather_backward`` —, ``train/optimizer``, the rest:
+    the batch's copies), and the idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(TRACE_STEPS):
+            state, m = step_fn(state, loader(start + i))
+            float(m["loss"])
+        torch.cuda.synchronize()
+    out = ROOT / "build" / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"train_dcnv2_b{TRAIN_BATCH}.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())["traceEvents"]
+    xs = [e for e in trace if e.get("ph") == "X"]
+    device = [e for e in xs if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in xs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    ranges = {name: [(e["ts"], e["ts"] + e["dur"]) for e in xs
+                     if e.get("cat") == "user_annotation"
+                     and e["name"] == name]
+              for name in ("mtl_gather_backward", "train/forward",
+                           "train/backward", "train/optimizer")}
+    split: dict = {}
+    for e in device:
+        t = launch_ts.get(e["args"].get("correlation"))
+        part = "other"
+        for name, spans in ranges.items():
+            if t is not None and any(a <= t <= b for a, b in spans):
+                part = name
+                break
+        split[part] = split.get(part, 0.0) + e["dur"]
+    if not device:
+        raise RuntimeError("the training trace recorded no device events")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, cur = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > cur:
+            busy += b - max(a, cur)
+            cur = b
+    window = spans[-1][1] - spans[0][0]
+    host = {name: sum(b - a for a, b in s) / TRACE_STEPS / 1e3
+            for name, s in ranges.items()}
+    per_step = {k: v / TRACE_STEPS for k, v in split.items()}
+    log(f"[train] (e) trace {TRACE_STEPS} steps: device busy "
+        f"{busy / TRACE_STEPS:.1f} us/step, idle share of window "
+        f"{1 - busy / window:.3f}; device us/step by launching range "
+        f"{ {k: round(v, 1) for k, v in sorted(per_step.items())} }; host "
+        f"ms/step per range { {k: round(v, 3) for k, v in host.items()} }")
+    by_kernel: dict = {}
+    for e in device:
+        by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
+    for kname, dur in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[train]   {dur / TRACE_STEPS:9.1f} us/step  {kname[:90]}")
+    return state
+
+
+def run_training(torch, dev, schema, sample_ids) -> dict:
+    """Phase 10: training (see the docstring). Returns the launch counts of
+    its runs, each read just after the counters were reset for it."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.core import compile_plan
+    from repro_torch.data import CTRLoader, synthetic_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ctr import CTR_MODELS
+    from repro_torch.training import (AdamWConfig, TrainLoopConfig,
+                                      adamw_init, logloss, make_ctr_step,
+                                      restore_checkpoint, roc_auc,
+                                      run_train_loop)
+    from repro_torch.training.optimizer import tree_map
+
+    t_phase = time.perf_counter()
+    # (a) full width: the configuration of record, 300 steps, one checkpoint
+    spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024)
+    model = CTR_MODELS["dcnv2"](spec, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    opt = AdamWConfig(lr=TRAIN_LR)
+    state = adamw_init(model.param_tree(), opt)
+    n_params = sum(t.numel() for t in _leaf_map(state.params).values())
+    step_fn = make_ctr_step(model, opt)
+    loader = CTRLoader(schema, TRAIN_BATCH, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        cfg = TrainLoopConfig(total_steps=TRAIN_STEPS,
+                              ckpt_every=TRAIN_STEPS, ckpt_dir=tmp,
+                              log_every=50)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = run_train_loop(step_fn, state, loader, cfg)
+        loop_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ckpt = Path(tmp) / f"step_{TRAIN_STEPS}"
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+        target = tree_map(torch.empty_like, state)
+        t0 = time.perf_counter()
+        restore_checkpoint(tmp, TRAIN_STEPS, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = _leaf_map(state)
+        for key, t in _leaf_map(target).items():
+            assert torch.equal(t, want[key]), f"checkpoint leaf {key} differs"
+        del target, want
+    losses = np.array([r["loss"] for r in hist])
+    secs = np.array([r["sec"] for r in hist])
+    assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+    first, last = losses[:10].mean(), losses[-10:].mean()
+    assert last < first, f"loss did not fall: {first} -> {last}"
+    assert counts["mtl_gather"] == TRAIN_STEPS, counts
+    assert counts["fused_cross_v2"] == 3 * TRAIN_STEPS, counts
+    launches = {"mtl_gather": counts["mtl_gather"],
+                "fused_cross_v2": counts["fused_cross_v2"]}
+    log(f"[train] (a) dcnv2 full width, {n_params / 1e6:.1f}M parameters, "
+        f"b={TRAIN_BATCH}, AdamW lr={TRAIN_LR}: {TRAIN_STEPS} steps in "
+        f"{loop_s:.2f} s with one checkpoint; loss mean of the first 10 "
+        f"{first:.6f} -> last 10 {last:.6f}; loop step p50 "
+        f"{np.median(secs[50:]) * 1e3:.3f} ms (batch made on the host "
+        f"included); launches {counts['mtl_gather']} K1, "
+        f"{counts['fused_cross_v2']} K9; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[train] (a) checkpoint {ckpt_bytes / 1e9:.3f} GB, restored "
+        f"bitwise in {restore_s:.2f} s")
+    plan = compile_plan(model, "dual", VAL_ROWS, device=dev)
+    val = synthetic_batch(schema, VAL_STEP, VAL_ROWS, device="cpu")
+    probs = plan.predict(val["ids"].numpy())
+    labels = val["labels"].numpy()
+    assert np.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()
+    log(f"[train] (a) val AUC = {roc_auc(labels, probs):.4f}   LogLoss = "
+        f"{logloss(labels, probs):.4f} (dual plan, b={VAL_ROWS})")
+
+    # (e) step time at full width, then a trace
+    times = []
+    for i in range(STEP_TIMES):
+        batch = loader(TRAIN_STEPS + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    log(f"[train] (e) step p50 {np.median(times) * 1e3:.3f} ms, p90 "
+        f"{np.percentile(times, 90) * 1e3:.3f} ms over {STEP_TIMES} steps "
+        f"(batch on the card before the clock starts)")
+    state = trace_train(torch, step_fn, state, loader,
+                        TRAIN_STEPS + STEP_TIMES)
+    del state, step_fn, model, plan
+    torch.cuda.empty_cache()
+
+    # (b) card against CPU, (c) the Functions, (d) resume
+    for k, n in train_vs_cpu(torch, dev, schema).items():
+        if k in ("fused_cross_v1", "fused_fm_second_order"):
+            launches[k] = n
+    from repro_torch.embedding import FusedEmbeddingCollection
+    emb = FusedEmbeddingCollection(spec.embedding_spec(), device=dev)
+    wide = FusedEmbeddingCollection(spec.wide_spec(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    emb.store.reset_parameters(gen)
+    wide.store.reset_parameters(gen)
+    train_functions(torch, dev, emb, wide, schema, sample_ids)
+    del emb, wide
+    torch.cuda.empty_cache()
+    train_resume(torch, dev, schema)
+    log(f"[train] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2807,6 +3188,12 @@ def main() -> int:
     # (shared pool and per-engine workers), the CLI; each run's counters
     # reset just before it and read just after
     run_serving(torch, dev, CRITEO, sample_ids)
+
+    # 10. training: full-width DCNv2 (K1 and K9 under autograd), the four
+    # models' gradients against the CPU (K10 and K11 too), each kernel's
+    # Function against its plain version, resume
+    for name, n in run_training(torch, dev, CRITEO, sample_ids).items():
+        launches[name] += n
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

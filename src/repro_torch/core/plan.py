@@ -21,6 +21,11 @@ built; activations per row at every step. It is part of the plan's
 identity, and with a ``runtime_provider`` it combines with an int8-row
 tiered store into one plan that no refresh rebuilds. Mesh placement and
 CUDA-graph capture of the "dual" step come in later slices.
+
+A plan never records an autograd graph: its step runs under
+``torch.no_grad()``, so a model whose buffers require grad (a trainer's
+``param_tree()``) serves through it without building a graph or holding
+activations, and its outputs do not require grad.
 """
 
 from __future__ import annotations
@@ -173,6 +178,7 @@ def compile_plan(model, level: str = "dual", batch_size: int = 256, *,
         raise ValueError(f"runtime_provider gives {sorted(provider())}; the "
                          f"graph takes {sorted(runtime)}")
 
+    @torch.no_grad()
     def step(ids: torch.Tensor) -> torch.Tensor:
         return step_env({"ids": ids}, provider())
 

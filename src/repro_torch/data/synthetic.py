@@ -7,6 +7,13 @@ but not the reference's exact ids (those come from ``jax.random``).
 :func:`zipf_ids` is the reference's zipf law; its map from uniforms to
 ids, :func:`zipf_ids_from_uniform`, is the reference's float32
 arithmetic, so the same uniforms give the same ids.
+
+:func:`synthetic_batch` is the reference's labelled training batch: ids
+of one skew law, and labels drawn as ``u < sigmoid(planted_effect(ids))``
+(a hidden per-(field, id) logit effect), so AUC and LogLoss measure
+something. It is a pure function of ``(seed, step)``: everything is drawn
+on the CPU, then moved to the device, so the card and the CPU see the
+same batches and a restarted run replays the same stream.
 """
 
 from __future__ import annotations
@@ -14,9 +21,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 __all__ = ["DatasetSchema", "AVAZU", "CRITEO", "sample_ids", "SKEWS",
-           "zipf_ids", "zipf_ids_from_uniform"]
+           "zipf_ids", "zipf_ids_from_uniform", "skewed_ids_from_uniform",
+           "planted_effect", "planted_labels", "synthetic_batch"]
 
 SKEWS = ("quadratic", "uniform", "zipf")
 
@@ -133,3 +144,86 @@ def zipf_ids(rng: np.random.Generator | int, batch: int,
         rng = np.random.default_rng(rng)
     u = rng.random((batch, len(field_sizes)), dtype=np.float32)
     return zipf_ids_from_uniform(u, field_sizes, exponent)
+
+
+def skewed_ids_from_uniform(u, field_sizes: tuple[int, ...],
+                            skew: str = "quadratic",
+                            zipf_exponent: float = 1.1) -> np.ndarray:
+    """float32 uniforms ``u`` (b, k) -> (b, k) int32 ids of one skew law,
+    in the reference's float32 arithmetic (``synthetic.py:136-147``):
+    "quadratic" ``min(int(u·u·n), n - 1)``, "uniform" ``min(int(u·n),
+    n - 1)``, "zipf" :func:`zipf_ids_from_uniform`."""
+    u = np.asarray(u, dtype=np.float32)
+    if skew == "zipf":
+        return zipf_ids_from_uniform(u, field_sizes, zipf_exponent)
+    n = np.asarray(field_sizes, dtype=np.int32)[None, :]
+    if skew == "quadratic":
+        x = u * u * n.astype(np.float32)
+    elif skew == "uniform":
+        x = u * n.astype(np.float32)
+    else:
+        raise ValueError(f"unknown skew {skew!r}; expected one of {SKEWS}")
+    return np.minimum(x.astype(np.int32), n - 1)
+
+
+def planted_effect(ids: torch.Tensor, k: int) -> torch.Tensor:
+    """Hidden per-(field, id) logit effects summed over the k fields,
+    (b, k) ids -> (b,) float32: the reference's ``_planted_effect``, a
+    deterministic, wide-spectrum function of the id scaled by 1/√k."""
+    f = torch.arange(k, dtype=torch.float32, device=ids.device)
+    phase = ids.to(torch.float32) * (0.618033988 + 0.1 * f)[None, :]
+    effects = torch.sin(phase * 12.9898) + 0.5 * torch.cos(phase * 78.233)
+    return _field_sum(effects) / torch.sqrt(
+        torch.tensor(k, dtype=torch.float32, device=ids.device))
+
+
+def _field_sum(effects: torch.Tensor) -> torch.Tensor:
+    """(b, k) -> (b,): the sum over fields in the order the reference's
+    CPU backend (XLA) reduces a row, so the sums round alike: a row longer
+    than 32 splits into windows of 32 with the padding spread evenly
+    (k = 39: fields 0-19 and 20-38), each window summed in order, then the
+    windows' sums in order."""
+    k = effects.shape[-1]
+    bounds = [0, k]
+    if k > 32:
+        n = -(-k // 32)
+        left = (32 * n - k) // 2
+        bounds = [0] + [32 * i - left for i in range(1, n)] + [k]
+    total = None
+    for lo, hi in zip(bounds, bounds[1:]):
+        part = effects[:, lo]
+        for i in range(lo + 1, hi):
+            part = part + effects[:, i]
+        total = part if total is None else total + part
+    return total
+
+
+def planted_labels(ids: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """(b,) float32 labels ``u < sigmoid(planted_effect(ids))`` for
+    uniforms ``u`` (b,)."""
+    logits = planted_effect(ids, ids.shape[-1])
+    return (u < torch.sigmoid(logits)).to(torch.float32)
+
+
+def synthetic_batch(schema: DatasetSchema, step: int, batch: int, *,
+                    seed: int | None = None, skew: str = "quadratic",
+                    zipf_exponent: float = 1.1,
+                    device: torch.device | str | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """Pure function (schema, step) -> ``{"ids": (b, k) int32, "labels":
+    (b,) float32}`` on ``device`` (CUDA unless the caller says "cpu").
+
+    The id and label uniforms come from one numpy generator seeded with
+    ``[seed, step]`` (``seed`` defaults to the schema's), on the CPU;
+    ``skew`` takes the reference's three laws (see
+    :func:`skewed_ids_from_uniform`).
+    """
+    device = resolve_device(device)
+    seed = schema.seed if seed is None else seed
+    rng = np.random.default_rng([seed, step])
+    u_ids = rng.random((batch, schema.k), dtype=np.float32)
+    u_lab = rng.random((batch,), dtype=np.float32)
+    ids = torch.from_numpy(skewed_ids_from_uniform(
+        u_ids, schema.field_sizes, skew, zipf_exponent))
+    labels = planted_labels(ids, torch.from_numpy(u_lab))
+    return {"ids": ids.to(device), "labels": labels.to(device)}

@@ -24,6 +24,10 @@ of lanes (``fm_launch``), and copies a row's pieces into shared memory
 (``cp.async``, up to 16 fields a group at a time) before it sums them. ``quantize_rows_q8`` has no TPU counterpart: it fuses the
 reference's jnp activation quantizer, which feeds K12, into one launch.
 
+K1, K9, K10 and K11 carry the training path too: ``autograd.py`` wraps
+each in a ``torch.autograd.Function`` whose backward is a plain PyTorch
+formula.
+
 Each wrapper counts its launches in ``<wrapper>.launches`` through one
 locked increment (``_build.count_launch``), so the count is exact when
 several threads launch; a run can reset and read them all with

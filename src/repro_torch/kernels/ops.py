@@ -21,7 +21,10 @@ tables (K7) has its own entry, :func:`multi_table_lookup_onehot`: like
 the reference's, ``multi_table_lookup`` has no "onehot" branch.
 :func:`dense_matmul_q8` is the int8 MLP layer (K12). The fused-tail
 wrappers dispatch on the tensor's device the same way: the kernel for
-CUDA tensors, the plain version for CPU tensors.
+CUDA tensors, the plain version for CPU tensors. The fused-tail entries
+and the "auto"/"kernel" dense lookup are differentiable
+(``kernels/autograd.py``): with autograd on and an input requiring
+grad, they run through a ``torch.autograd.Function`` around the kernel.
 """
 
 from __future__ import annotations
@@ -29,10 +32,10 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .autograd import (fused_cross_v1, fused_cross_v2, fused_fm_second_order,
+                       mtl_gather)
 from .dense_matmul import dmm_q8
-from .fused_cross import fused_cross_v1, fused_cross_v2
-from .fused_fm import fused_fm_second_order
-from .multi_table_lookup import (mtl_gather, mtl_gather_multihot,
+from .multi_table_lookup import (mtl_gather_multihot,
                                  mtl_gather_three_level,
                                  mtl_gather_three_level_q8,
                                  mtl_gather_two_level,

@@ -9,7 +9,12 @@ Counterpart of ``repro.models.ctr.common``. Every model is an
   build_graph(level, compute_dtype="fp32")
                        -> OpGraph (consumed by DualParallelExecutor);
                        "int8" runs the MLP's matmuls in int8 (K12)
-  forward(ids)         -> logits (b, 1): the graph in its own order
+  forward(ids)         -> logits (b, 1): the "dual" graph, tails fused,
+                       in its own order; differentiable (the training
+                       path)
+  loss(batch)          -> mean binary cross entropy of the logits
+  param_tree()         -> the reference's parameter tree over the
+                       model's own buffers (a trainer's ``params``)
 
 Graph modules: "embedding" -> ("explicit" ∥ "implicit") -> "head", with
 GEMMs flagged and non-GEMM tails carrying ``fused_hint`` so the C5 pass
@@ -25,17 +30,18 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.bridge import _leaves
 from repro_torch.core import COMPUTE_DTYPES, Op, OpGraph
-from repro_torch.core.opgraph import register_fused_kernel
+from repro_torch.core.opgraph import fuse_non_gemm, register_fused_kernel
 from repro_torch.device import resolve_device
-from repro_torch.embedding import (FusedEmbeddingCollection,
+from repro_torch.embedding import (DenseStore, FusedEmbeddingCollection,
                                    FusedEmbeddingSpec, runtime_edge)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.dense_matmul import pack_weight
 from repro_torch.quant import quantize_channels
 
 __all__ = ["CTRModelSpec", "CTRModel", "Dense", "mlp_layers",
-           "emit_embedding_ops", "emit_mlp_ops"]
+           "emit_embedding_ops", "emit_mlp_ops", "bce_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +207,29 @@ def emit_mlp_ops(g: OpGraph, layers: nn.ModuleList, src: str, module: str,
 
 
 # ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically-stable binary cross entropy from logits
+    (``common.py:193-199`` of the reference)."""
+    logits = logits.reshape(-1).to(torch.float32)
+    labels = labels.reshape(-1).to(torch.float32)
+    return torch.mean(torch.clamp_min(logits, 0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def _as_lists(tree: dict):
+    """Nested dicts whose keys are all list indices become lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {key: _as_lists(sub) for key, sub in tree.items()}
+    if out and all(key.isdigit() for key in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernel registration for the C5 pattern registry
 # ---------------------------------------------------------------------------
 
@@ -302,7 +331,55 @@ class CTRModel(nn.Module):
         return self
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        """Logits (b, 1): the "dual" graph run in its own op order."""
-        g = self.build_graph("dual")
+        """Logits (b, 1): the "dual" graph with its non-GEMM tails fused
+        (C5), run in its own op order — on CUDA the K1 gather and the
+        fused-tail kernels. Each kernel is differentiable
+        (``kernels/autograd.py``), so this is the training path, as the
+        reference's ``apply`` is; serving goes through ``compile_plan``."""
+        g = fuse_non_gemm(self.build_graph("dual"))
         env = g.execute({"ids": ids, **self.store_runtime_env()})
         return env["logit"]
+
+    def predict_proba(self, ids: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self(ids).reshape(-1))
+
+    def _dense_stores(self) -> None:
+        for key, coll in self.embedding_collections().items():
+            if not isinstance(coll.store, DenseStore):
+                raise TypeError(
+                    f"training needs a DenseStore; {key!r} is held by "
+                    f"{coll.store.describe()} (tiered stores serve, the "
+                    "reference trains only the dense table)")
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean binary cross entropy of ``self(batch["ids"])`` against
+        ``batch["labels"]``. With autograd on, every embedding table must
+        be a ``DenseStore``'s."""
+        if torch.is_grad_enabled():
+            self._dense_stores()
+        return bce_loss(self(batch["ids"]), batch["labels"])
+
+    def param_tree(self) -> dict:
+        """The reference's parameter tree (``{"emb": {"mega_table": t},
+        "mlp": [{"w", "b"}, ...], ...}``) whose leaves are this model's
+        own buffers, each marked ``requires_grad`` for training. A trainer
+        updates them in place; the tree holds the buffers present now, so
+        take it again after a store swap. Needs ``DenseStore`` tables."""
+        self._dense_stores()
+        collections = self.embedding_collections()
+        tree: dict = {key: {"mega_table": coll.store.mega_table}
+                      for key, coll in collections.items()}
+        owned = {id(t) for coll in collections.values()
+                 for t in coll.buffers()}
+        for name, t in self.named_buffers():
+            if id(t) in owned:
+                continue
+            *parents, leaf = name.split(".")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = t
+        tree = _as_lists(tree)
+        for _, t in _leaves(tree):
+            t.requires_grad_(True)
+        return tree

@@ -169,6 +169,11 @@ def test_port_never_imports_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {path.relative_to(REPO).as_posix() for path in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "training/__init__", "training/metrics", "training/optimizer",
+        "training/checkpoint", "training/train_loop", "data/pipeline",
+        "kernels/autograd", "launch/train_ctr")} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

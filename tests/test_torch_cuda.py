@@ -1599,3 +1599,166 @@ def test_host_store_staged_loop_through_the_engine(cuda, staging):
         assert counts["fused_cross_v2"] == 3 * steps
     finally:
         _stop_host(store_d)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd Functions, a step against the CPU, resume
+# ---------------------------------------------------------------------------
+
+def _backward(fn, inputs, g):
+    """fn(*leaves) and the leaves' gradients for the output gradient g."""
+    leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
+              for t in inputs]
+    out = fn(*leaves)
+    out.backward(g)
+    return out.detach(), [t.grad for t in leaves if t.is_floating_point()]
+
+
+@pytest.mark.parametrize("d", [32, 1])
+def test_gather_function_backward_on_cuda(cuda, d):
+    """K1's Function: the table gradient against autograd through the
+    plain version (``index_select``'s backward) on the card, ids repeated
+    and out of range; bitwise equal across two calls; one forward launch
+    a call."""
+    from repro_torch.kernels import autograd as kad
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.standard_normal((3000, d)).astype(
+        np.float32)).to(cuda)
+    offsets = torch.tensor([0, 1000, 2000], dtype=torch.int32, device=cuda)
+    ids = torch.from_numpy(rng.integers(-3, 40, (1024, 3)).astype(
+        np.int32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((1024, 3 * d)).astype(
+        np.float32)).to(cuda)
+    before = mtl_gather.launches
+    out, (grad,) = _backward(lambda t: kad.mtl_gather(ids, offsets, t),
+                             [table], g)
+    assert mtl_gather.launches == before + 1
+    want_out, (want,) = _backward(
+        lambda t: mtl_gather_plain(ids, offsets, t), [table], g)
+    assert torch.equal(out, want_out)
+    torch.testing.assert_close(grad, want, rtol=1e-5, atol=1e-5)
+    _, (again,) = _backward(lambda t: kad.mtl_gather(ids, offsets, t),
+                            [table], g)
+    assert torch.equal(grad, again)
+
+
+@pytest.mark.parametrize("layer0", [True, False])
+@pytest.mark.parametrize("kind", ["v2", "v1"])
+def test_cross_function_backward_on_cuda(cuda, kind, layer0):
+    """K9's and K10's Functions against autograd through their plain
+    versions on the card; in layer 0 (``x`` is ``x0``) both gradients
+    reach ``x0`` and the kernel takes its layer-0 form."""
+    from repro_torch.kernels import autograd as kad
+    rng = np.random.default_rng(1)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+    b, dim = 1024, 1248
+    if kind == "v2":
+        args, fn, plain = [t(b, dim), t(b, dim)], kad.fused_cross_v2, \
+            fused_cross_v2_plain
+    else:
+        args, fn, plain = [t(b, dim), t(b, 1), t(dim)], kad.fused_cross_v1, \
+            fused_cross_v1_plain
+    if not layer0:
+        args.append(t(b, dim))
+
+    def call(f):
+        return (lambda *a: f(*a, a[0])) if layer0 else f
+    g = t(b, dim)
+    wrapper = fused_cross_v2 if kind == "v2" else fused_cross_v1
+    before = wrapper.launches
+    out, grads = _backward(call(fn), args, g)
+    assert wrapper.launches == before + 1
+    want_out, want = _backward(call(plain), args, g)
+    assert torch.equal(out, want_out)
+    for got, exp in zip(grads, want):
+        torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+
+
+def test_fm_function_backward_on_cuda(cuda):
+    from repro_torch.kernels import autograd as kad
+    rng = np.random.default_rng(2)
+    v = _fm_input(rng, (1024, 39, 32), 0, cuda)
+    g = torch.from_numpy(rng.standard_normal((1024, 1)).astype(
+        np.float32)).to(cuda)
+    out, (grad,) = _backward(kad.fused_fm_second_order, [v], g)
+    want_out, (want,) = _backward(fused_fm_second_order_plain, [v], g)
+    torch.testing.assert_close(out, want_out, **TOL)
+    torch.testing.assert_close(grad, want, **TOL)
+
+
+def _train_pair(model_name, cuda):
+    spec = ctr_spec(model_name, "criteo", **SPEC_KW)
+    cpu_model = CTR_MODELS[model_name](spec, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    model = CTR_MODELS[model_name](spec, device=cuda)
+    model.load_state_dict(cpu_model.state_dict())
+    return cpu_model, model
+
+
+@pytest.mark.parametrize("model_name", list(CTR_MODELS))
+def test_loss_gradients_on_cuda_match_the_cpu(cuda, model_name):
+    """One backward through the card's kernels (their Functions) against
+    the CPU's plain versions on the same weights and batch: every leaf gets
+    a gradient, within the card-vs-CPU tolerance, the tables' nonzero."""
+    from repro_torch.data import synthetic_batch
+    cpu_model, model = _train_pair(model_name, cuda)
+    batch = synthetic_batch(CRITEO.scaled(2_000), 0, 256, device="cpu")
+    grads = {}
+    for dev, m in (("cpu", cpu_model), ("cuda", model)):
+        tree = m.param_tree()
+        reset_launch_counts()
+        m.loss({k: v.to(m.device) for k, v in batch.items()}).backward()
+        counts = launch_counts()
+        grads[dev] = {name: t.grad for name, t in _named_leaves(tree)}
+    assert counts["mtl_gather"] == (1 if model_name.startswith("dcn")
+                                    else 2)
+    assert counts["fused_cross_v2"] == (3 if model_name == "dcnv2" else 0)
+    assert counts["fused_cross_v1"] == (3 if model_name == "dcn" else 0)
+    assert counts["fused_fm_second_order"] == int(model_name == "deepfm")
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None and want is not None, name
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"{name}: {m}")
+    assert grads["cuda"]["emb/mega_table"].abs().sum() > 0
+
+
+def _named_leaves(tree):
+    from repro_torch.training.optimizer import tree_flatten
+    return [("/".join(map(str, p)), t) for p, t in tree_flatten(tree)]
+
+
+def test_plans_on_cuda_record_no_autograd_graph(cuda):
+    _, model = _train_pair("dcnv2", cuda)
+    model.param_tree()
+    ids = torch.from_numpy(sample_ids(CRITEO.scaled(2_000), 64)).to(cuda)
+    out = compile_plan(model, "dual", 64, device=cuda)(ids)
+    assert not out.requires_grad and out.grad_fn is None
+    assert model(ids).grad_fn is not None
+
+
+def test_resumed_training_on_cuda_is_bitwise_unbroken(cuda, tmp_path):
+    from repro_torch.data import CTRLoader
+    from repro_torch.training import (AdamWConfig, TrainLoopConfig,
+                                      adamw_init, make_ctr_step,
+                                      run_train_loop)
+    from repro_torch.training.optimizer import tree_flatten
+    opt = AdamWConfig(lr=1e-3)
+
+    def run(total, ckpt):
+        _, model = _train_pair("dcnv2", cuda)
+        cfg = TrainLoopConfig(total_steps=total, ckpt_every=3,
+                              ckpt_dir=str(tmp_path / ckpt), log_every=100)
+        state, _ = run_train_loop(
+            make_ctr_step(model, opt), adamw_init(model.param_tree(), opt),
+            CTRLoader(CRITEO.scaled(2_000), 256, device=cuda), cfg)
+        return state
+
+    whole = run(6, "a")
+    run(3, "b")
+    resumed = run(6, "b")
+    for (key, a), (_, b) in zip(tree_flatten(whole), tree_flatten(resumed)):
+        assert torch.equal(a, b), key
