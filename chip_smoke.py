@@ -123,9 +123,9 @@ Phases (any failure raises; the script then exits non-zero):
    ``CachedStore`` with int8 compute, refreshed and updated between
    requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
    fp32-row twin bitwise the dense int8-compute plan.
-8. Summary, printed last (after phases 9 and 10): one JSON line of every
-   ported kernel (its launches from its paths in phases 3-7 and 10), then
-   the card's name and power limit, then ``{"ok": true, "device":
+8. Summary, printed last (after phases 9-11): one JSON line of every
+   ported kernel (its launches from its paths in phases 3-7, 10 and 11),
+   then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 9. Serving at full width through ``repro_torch.serving`` (DCNv2, d = 32,
    hidden 1024, the uncapped Criteo table): (a) a sync
@@ -175,6 +175,27 @@ Phases (any failure raises; the script then exits non-zero):
    that launched each kernel (forward, backward, K1's table gradient,
    optimizer), with the idle share. The summary's launch counts add
    (a)'s K1 and K9 and (b)'s K10 and K11.
+11. Multi-device (``repro_torch.distributed``, single-controller) at full
+   width, every mesh position on cuda:0 unless there are as many cards
+   as positions: (a) dense DCNv2 "dual" on (1, 4) (212.8 MB row shards,
+   bitwise the mesh-less plan), (2, 2) and (4, 1) at b = 256 and 1024,
+   DCN, DeepFM and int8-compute DCNv2 on (2, 2) (within ``LADDER_TOL``
+   of their mesh-less plans), with exact launches a step (K1: model
+   shards × batch shards a table; K9/K10 three, K11 one, K12 and the
+   quantizer three a batch shard); (b) cached fp32 and int8 and (c) host
+   fp32 DCNv2 engines on (2, 2) against mesh-less twins over 32 requests
+   with a refresh every 8 (bitwise across each swap) and one 1,024-row
+   delta push halfway, zero recompiles, each backing shard half the rows
+   on its position's device, the host tiers replicated, K3/K4 four and
+   K5 two launches a step; (d) a ``ServingRuntime(mesh=(2, 2))`` hosting
+   cached DCNv2 and dense DeepFM, served in waves with a ``refresh_all``
+   between, within mesh-less engines; pooled (h = 5) sharded lookups
+   through K2 and K3 on (1, 4); (e) the compressed data-parallel step on
+   full-width DCNv2, b = 1024, over data = 2, against the exact step
+   (loss within 1e-5, gradient relative error below 0.02), both timed;
+   (f) p50 and host enqueue of every mesh plan beside its mesh-less plan
+   in turns, at both batch sizes. On one card that is the cost of
+   orchestration, not scaling.
 """
 
 from __future__ import annotations
@@ -1379,7 +1400,7 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
                    ids_bytes + uniq * 4 * d + out_bytes, 0)
             tiered_sweep(torch, "mtl_gather_multihot", entry_call(
                 torch, "mtl_gather_multihot", offsets, (table32,),
-                (n_rows,), b, k, h, d),
+                (n_rows, 0, n_rows), b, k, h, d),
                 outs["mtl_gather_multihot"], sets, b, k, h, d, shape)
             out = k3_odd(ids0, mask0, rows0)
             assert torch.equal(out, outs["mtl_gather_two_level"])
@@ -1393,7 +1414,7 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
             tiered_sweep(torch, "mtl_gather_two_level", entry_call(
                 torch, "mtl_gather_two_level", offsets,
                 (f32.slot_of_row, f32.cache, f32.backing),
-                (f32.cache.shape[0], n_rows), b, k, h, d),
+                (f32.cache.shape[0], n_rows, 0, n_rows), b, k, h, d),
                 outs["mtl_gather_two_level"], sets, b, k, h, d, shape)
             # the byte path, bitwise the plain version and the aligned tiers
             out = k4_odd(ids0, mask0, rows0)
@@ -1406,7 +1427,8 @@ def phase_tiered_kernels(torch, dev, emb, schema, sample_ids, record):
             tiered_sweep(torch, "mtl_gather_two_level_q8", entry_call(
                 torch, "mtl_gather_two_level_q8", offsets,
                 (q8.slot_of_row, q8.cache, q8.cache_scale, q8.backing,
-                 q8.backing_scale), (q8.cache.shape[0], n_rows), b, k, h, d),
+                 q8.backing_scale), (q8.cache.shape[0], n_rows, 0, n_rows),
+                b, k, h, d),
                 outs["mtl_gather_two_level_q8"], sets, b, k, h, d, shape)
     del stores, f32, q8, cold_map, cold_cache, cold_q8, odd_table, odd32, \
         odd_cache, odd_backing
@@ -3091,6 +3113,480 @@ def run_training(torch, dev, schema, sample_ids) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: multi-device at full width
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = ((1, 4), (2, 2), (4, 1))
+MESH_BATCHES = (256, 1024)
+MESH_REQUESTS = 16          # full-batch requests a plan serves in (a)
+MESH_SERVE = 32             # requests an engine serves in (b) and (c)
+MESH_REFRESH = 8            # (b): a refresh every 8 requests
+MESH_DELTA_ROWS = 1024      # (b): one delta batch halfway
+
+
+def mesh_of(torch, shape, axes=("data", "model")):
+    """A mesh: one card a position where there are enough cards, else
+    every position explicitly on cuda:0."""
+    import math
+
+    from repro_torch.distributed import make_mesh
+    n = math.prod(shape)
+    if torch.cuda.device_count() >= n:
+        return make_mesh(shape, axes)
+    return make_mesh(shape, axes, [torch.device("cuda", 0)] * n)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def serve_counted(torch, plan, ids_list) -> tuple[list, dict]:
+    """``plan.predict`` on each batch of ``ids_list`` with the launch
+    counters reset just before and read just after."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = [plan.predict(ids) for ids in ids_list]
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def per_step(counts: dict, steps: int, want: dict, tag: str) -> None:
+    """Every kernel of ``want`` launched exactly ``want[k]`` times a step,
+    every other kernel never."""
+    for name, n in counts.items():
+        assert n == want.get(name, 0) * steps, (tag, name, n, want, steps)
+
+
+def mesh_turns(torch, plans: dict, feeds: dict) -> dict:
+    """p50 of ``predict`` and of the host enqueue of one step
+    (``plan(ids)`` returning) for each plan, measured in turns (a, b, c,
+    c, b, a, ...), each on its own batches (``feeds[tag]``: a callable
+    giving round r's ids, made before the clock starts)."""
+    import numpy as np
+
+    tags = list(plans)
+    lat = {t: [] for t in tags}
+    enq = {t: [] for t in tags}
+    for r in range(LATENCY_WARMUP + LATENCY_SAMPLES):
+        for tag in (tags if r % 2 == 0 else tags[::-1]):
+            plan = plans[tag]
+            ids = feeds[tag](r)
+            t0 = time.perf_counter()
+            plan.predict(ids)
+            lat[tag].append((time.perf_counter() - t0) * 1e3)
+            ids_dev = torch.from_numpy(ids).to(plan.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan(ids_dev)
+            enq[tag].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    return {t: (float(np.percentile(lat[t][LATENCY_WARMUP:], 50)),
+                float(np.percentile(enq[t][LATENCY_WARMUP:], 50)))
+            for t in tags}
+
+
+def log_turns(label: str, times: dict) -> None:
+    base = times["meshless"]
+    for tag, (p50, enq) in times.items():
+        log(f"[mesh] (f) {label} {tag}: p50 {p50:.3f} ms ({p50 / base[0]:.2f}x"
+            f" the mesh-less plan), host enqueue p50 {enq:.3f} ms "
+            f"({enq / base[1]:.2f}x)")
+
+
+def mesh_dense(torch, dev, schema, sample_ids, launches: dict) -> None:
+    """(a) dense plans: DCNv2 on (1, 4), (2, 2), (4, 1) at b = 256 and
+    1024; DCN, DeepFM and int8-compute DCNv2 on (2, 2)."""
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.core import compile_plan, place_params
+    from repro_torch.models.ctr import CTR_MODELS
+
+    runs = [("dcnv2", "fp32", MESH_SHAPES), ("dcn", "fp32", ((2, 2),)),
+            ("deepfm", "fp32", ((2, 2),)), ("dcnv2", "int8", ((2, 2),))]
+    for name, cd, shapes in runs:
+        spec = ctr_spec(name, "criteo", embed_dim=32, hidden=1024)
+        model = CTR_MODELS[name](spec, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        rows = spec.embedding_spec().rows
+        tables = 2 if name == "deepfm" else 1
+        for b in MESH_BATCHES:
+            base = compile_plan(model, "dual", b, device=dev,
+                                compute_dtype=cd)
+            feed = [sample_ids(schema, b, step=40_000 + r)
+                    for r in range(MESH_REQUESTS)]
+            want = [base.predict(ids) for ids in feed]
+            plans = {"meshless": base}
+            for shape in shapes:
+                mesh = mesh_of(torch, shape)
+                placed = place_params(model, mesh)
+                table = placed["emb"]["mega_table"]
+                assert tuple(table.sharding.spec) == ("model", None)
+                shard = table.local((0, shape[1] - 1))
+                assert shard.shape[0] == rows // shape[1]
+                plan = compile_plan(model, "dual", b, mesh=mesh,
+                                    placed=placed, compute_dtype=cd)
+                got, counts = serve_counted(torch, plan, feed)
+                d, m = shape
+                step = {"mtl_gather": tables * d * m}
+                if name == "dcnv2":
+                    step["fused_cross_v2"] = 3 * d
+                elif name == "dcn":
+                    step["fused_cross_v1"] = 3 * d
+                else:
+                    step["fused_fm_second_order"] = d
+                if cd == "int8":
+                    step["dmm_q8"] = step["quantize_rows_q8"] = 3 * d
+                tag = f"{name} {cd} {shape} b={b}"
+                per_step(counts, MESH_REQUESTS, step, tag)
+                add_counts(launches, counts)
+                err = max(float(np.abs(g - w).max())
+                          for g, w in zip(got, want))
+                for g, w in zip(got, want):
+                    assert np.isfinite(g).all() and g.shape == (b,), tag
+                    if d == 1:
+                        assert np.array_equal(g, w), tag
+                    else:
+                        np.testing.assert_allclose(g, w, **LADDER_TOL,
+                                                   err_msg=tag)
+                log(f"[mesh] (a) {tag}: {'bitwise' if d == 1 else 'within'}"
+                    f" the mesh-less plan (max |diff| {err:.3e}); shard "
+                    f"{shard.numel() * shard.element_size() / 1e6:.1f} MB; "
+                    f"launches a step {step}; compile "
+                    f"{plan.compile_ms:.0f} ms")
+                plans[str(shape)] = plan
+            feeds = {t: (lambda r, b=b: sample_ids(schema, b,
+                                                   step=41_000 + r))
+                     for t in plans}
+            log_turns(f"{name} {cd} b={b}", mesh_turns(torch, plans, feeds))
+        del model, base, plans, placed
+        torch.cuda.empty_cache()
+
+
+def mesh_engines(torch, dev, schema, sample_ids, launches: dict) -> None:
+    """(b) cached fp32 and int8 DCNv2 engines and (c) the host fp32 one,
+    on (2, 2): against a mesh-less twin engine given the same requests,
+    refreshes and deltas."""
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.embedding import CachedStore, HostBackedStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ctr import CTR_MODELS
+    from repro_torch.serving import BucketedBatch, InferenceEngine
+
+    spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024)
+    es = spec.embedding_spec()
+    shape = (2, 2)
+    mesh = mesh_of(torch, shape)
+    for kind in ("cached", "cached_int8", "host"):
+        engs, stores = [], []
+        for m in (mesh, None):
+            model = CTR_MODELS["dcnv2"](spec, device=dev).init(
+                torch.Generator(device=dev).manual_seed(SEED))
+            if kind == "host":
+                store = HostBackedStore(es, CACHE_CAPACITY, STAGING_CAPACITY,
+                                        device=dev)
+            else:
+                store = CachedStore(es, CACHE_CAPACITY, "int8" if kind
+                                    == "cached_int8" else None, device=dev)
+            stores.append(store)
+            engs.append(InferenceEngine(model, store=store, mesh=m,
+                                        device=dev,
+                                        policy=BucketedBatch(MESH_BATCHES)))
+            del model
+        eng, twin = engs
+        try:
+            eng.warmup()
+            twin.warmup()
+            compiles = eng.stats.cache_misses
+            pub = eng.published
+            if kind == "host":          # the store's own buffers, or
+                for edge, t in pub.items():     # its replicas on other cards
+                    assert t.sharding.is_fully_replicated, edge
+                    own = getattr(stores[0], edge.split(":")[1])
+                    for pos in np.ndindex(*shape):
+                        local = t.local(pos)
+                        assert local.device == mesh.devices[pos], edge
+                        assert (local is own) == (local.device
+                                                  == own.device), edge
+            else:
+                backing = pub["emb:backing"]
+                assert tuple(backing.sharding.spec) == ("model", None)
+                for pos in np.ndindex(*shape):
+                    local = backing.local(pos)
+                    assert local.shape[0] == es.rows // 2, local.shape
+                    assert local.device == mesh.devices[pos]
+            rng = np.random.default_rng(SEED)
+            rows = rng.choice(es.zero_row, MESH_DELTA_ROWS, replace=False)
+            vals = (rng.normal(size=(MESH_DELTA_ROWS, es.dim))
+                    * 0.05).astype(np.float32)
+            counts, err, swaps = {}, 0.0, 0
+            for r in range(MESH_SERVE):
+                b = MESH_BATCHES[r % 2]
+                ids = sample_ids(schema, b, step=42_000 + r)
+                if r == MESH_SERVE // 2:
+                    assert eng.push_update(rows, vals) == MESH_DELTA_ROWS
+                    assert twin.push_update(rows, vals) == MESH_DELTA_ROWS
+                want = twin.predict(ids)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                got = eng.predict(ids)
+                torch.cuda.synchronize()
+                add_counts(counts, launch_counts())
+                assert np.isfinite(got).all() and got.shape == (b,)
+                np.testing.assert_allclose(got, want, **LADDER_TOL,
+                                           err_msg=f"{kind} request {r}")
+                err = max(err, float(np.abs(got - want).max()))
+                if (r + 1) % MESH_REFRESH == 0:
+                    probe = sample_ids(schema, 256, step=43_000 + r)
+                    pre = eng.predict(probe)
+                    eng.refresh_cache()
+                    twin.refresh_cache()
+                    assert np.array_equal(eng.predict(probe), pre), kind
+                    swaps += 1
+            assert eng.stats.cache_misses == compiles == 2, eng.stats
+            assert eng.stats.emb_cache_refreshes == swaps
+            gather = {"cached": "mtl_gather_two_level",
+                      "cached_int8": "mtl_gather_two_level_q8",
+                      "host": "mtl_gather_three_level"}[kind]
+            d, m = shape
+            step = {gather: d * (m if kind != "host" else 1),
+                    "fused_cross_v2": 3 * d}
+            per_step(counts, MESH_SERVE, step, kind)
+            add_counts(launches, counts)
+            log(f"[mesh] ({'c' if kind == 'host' else 'b'}) {kind} DCNv2 "
+                f"{shape}: {MESH_SERVE} requests within the mesh-less "
+                f"engine (max |diff| {err:.3e}), {swaps} refreshes bitwise "
+                f"across the swap, one {MESH_DELTA_ROWS}-row push, "
+                f"{eng.stats.cache_misses} compiles (the two buckets at "
+                f"warmup); launches a step {step}")
+            for b in MESH_BATCHES:
+                ids = sample_ids(schema, b, step=44_000)
+                if kind == "host":
+                    stores[0].stage(ids)
+                    stores[1].stage(ids)
+                plans = {"meshless": twin.plan_for(b), "(2, 2)":
+                         eng.plan_for(b)}
+                log_turns(f"dcnv2 {kind} b={b}", mesh_turns(
+                    torch, plans, {t: (lambda r, i=ids: i) for t in plans}))
+        finally:
+            for store in stores:
+                if kind == "host":
+                    store.pipeline.stop()
+        del engs, eng, twin, stores
+        torch.cuda.empty_cache()
+
+
+def mesh_runtime(torch, dev, schema, sample_ids, launches: dict) -> None:
+    """(d) ServingRuntime(mesh=(2, 2)) hosting cached DCNv2 and dense
+    DeepFM, served in waves, then refresh_all: within tolerance of
+    mesh-less engines."""
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.embedding import CachedStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.ctr import CTR_MODELS
+    from repro_torch.serving import (BucketedBatch, InferenceEngine,
+                                     ServingRuntime)
+
+    mesh = mesh_of(torch, (2, 2))
+    rt = ServingRuntime(mesh=mesh)
+    twins = {}
+    for name in ("dcnv2", "deepfm"):
+        spec = ctr_spec(name, "criteo", embed_dim=32, hidden=1024)
+        for host in (rt, None):
+            model = CTR_MODELS[name](spec, device=dev).init(
+                torch.Generator(device=dev).manual_seed(SEED))
+            store = (CachedStore(spec.embedding_spec(), CACHE_CAPACITY,
+                                 device=dev) if name == "dcnv2" else None)
+            kw = dict(policy=BucketedBatch(MESH_BATCHES), store=store,
+                      device=dev)
+            if host is rt:
+                rt.add_model(name, model, **kw)
+            else:
+                twins[name] = InferenceEngine(model, **kw)
+    assert all(rt.engine(n).mesh is mesh for n in rt.models)
+    rt.warmup()
+    counts, err, served = {}, 0.0, 0
+    for w, n in enumerate((300, 1024, 90, 700)):
+        if w == 2:
+            pre = {name: rt.predict(name, sample_ids(schema, 64, step=45_999))
+                   for name in rt.models}
+            assert rt.refresh_all() == 1
+            for name, twin in twins.items():
+                twin.refresh_cache()
+                assert np.array_equal(rt.predict(name, sample_ids(
+                    schema, 64, step=45_999)), pre[name]), name
+        for name in rt.models:
+            ids = sample_ids(schema, n, step=45_000 + w)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            rt.submit_many(name, list(ids))
+            got = rt.engine(name).serve_pending()
+            torch.cuda.synchronize()
+            add_counts(counts, launch_counts())
+            want = twins[name].predict(ids)
+            np.testing.assert_allclose(got, want, **LADDER_TOL,
+                                       err_msg=f"runtime {name} wave {w}")
+            err = max(err, float(np.abs(got - want).max()))
+            served += n
+    add_counts(launches, counts)
+    stats = {n: rt.engine(n).stats for n in rt.models}
+    log(f"[mesh] (d) ServingRuntime(mesh=(2, 2)): {served} requests over "
+        f"cached DCNv2 and dense DeepFM in waves, one refresh_all, within "
+        f"mesh-less engines (max |diff| {err:.3e}); batches "
+        f"{ {n: s.n_batches for n, s in stats.items()} }, compiles "
+        f"{ {n: s.cache_misses for n, s in stats.items()} }; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del rt, twins
+    torch.cuda.empty_cache()
+
+
+def mesh_pooled(torch, dev, schema, launches: dict) -> None:
+    """Pooled (h = 5) vocab-parallel lookups on (1, 4): K2 over the dense
+    table's shards, K3 over a cached store's, within rtol 1e-5, atol 1e-5
+    of the 1-device pooled lookup."""
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.embedding import CachedStore, FusedEmbeddingCollection
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024)
+    es = spec.embedding_spec()
+    emb = FusedEmbeddingCollection(es, device=dev)
+    emb.store.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    cached = FusedEmbeddingCollection(es, store=CachedStore(
+        es, CACHE_CAPACITY, device=dev))
+    cached.store.adopt(dict(emb.store.named_buffers()))
+    mesh = mesh_of(torch, (1, 4))
+    rng = np.random.default_rng(SEED)
+    for coll, kernel in ((emb, "mtl_gather_multihot"),
+                         (cached, "mtl_gather_two_level")):
+        tensors = coll.store.place(coll.store.device_tensors(), mesh)
+        for b in MESH_BATCHES:
+            ids = torch.from_numpy(np.stack(
+                [rng.integers(0, n, size=(b, HOT))
+                 for n in schema.field_sizes], axis=1).astype(np.int32)
+            ).to(dev)
+            mask = torch.from_numpy(rng.integers(
+                0, 2, size=ids.shape).astype(np.float32)).to(dev)
+            want = coll.forward_multihot(ids, mask)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = coll.apply_multihot_sharded(ids, mask, mesh,
+                                              tensors=tensors)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            assert counts[kernel] == 4, counts
+            add_counts(launches, counts)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            log(f"[mesh] pooled h={HOT} b={b} over (1, 4) through {kernel}: "
+                f"4 shard launches, max |diff| "
+                f"{float((got - want).abs().max()):.3e} from the 1-device "
+                "pooled lookup")
+    del emb, cached, tensors
+    torch.cuda.empty_cache()
+
+
+def mesh_compressed(torch, dev, schema) -> None:
+    """(e) the compressed data-parallel step on full-width DCNv2, b = 1024,
+    over data = 2, against the exact step: loss within 1e-5, the gradient
+    within relative error 0.02 (max |compressed - exact| over max |exact|,
+    every leaf together, as tests/distributed_inner.py:48-51 takes it for
+    its one leaf); both timed."""
+    import numpy as np
+
+    from repro_torch.configs import ctr_spec
+    from repro_torch.data import synthetic_batch
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.models.ctr import CTR_MODELS
+    from repro_torch.models.ctr.common import bce_loss
+    from repro_torch.training import make_compressed_dp_step
+
+    spec = ctr_spec("dcnv2", "criteo", embed_dim=32, hidden=1024)
+    model = CTR_MODELS["dcnv2"](spec, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    leaves = []
+    params = model.param_tree()
+    tree_map(leaves.append, params)
+    names = {id(t): n for n, t in model.named_buffers()}
+    order = [names[id(t)] for t in leaves]
+    # the buffers outside the tree (the collections' field offsets), on
+    # each rank's card
+    others = {n: t for n, t in model.named_buffers() if n not in order}
+
+    def loss_fn(p, batch):
+        flat = []
+        tree_map(flat.append, p)
+        subs = {n: t.to(flat[0].device) for n, t in others.items()}
+        subs.update(zip(order, flat))
+        logits = torch.func.functional_call(model, subs, (batch["ids"],))
+        return bce_loss(logits, batch["labels"])
+    batch = synthetic_batch(schema, 0, 1024, device=dev)
+    step = make_compressed_dp_step(loss_fn, mesh_of(torch, (2,), ("data",)))
+
+    def exact():
+        loss = loss_fn(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def timed(fn):
+        out, ms = None, []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.percentile(ms[1:], 50))
+    (loss_c, grads_c), ms_c = timed(lambda: step(params, batch))
+    (loss_e, grads_e), ms_e = timed(exact)
+    assert abs(float(loss_c) - float(loss_e)) < 1e-5, (loss_c, loss_e)
+    flat_c = []
+    tree_map(flat_c.append, grads_c)
+    diff = max(float((gc - ge).abs().max())
+               for gc, ge in zip(flat_c, grads_e))
+    top = max(float(ge.abs().max()) for ge in grads_e)
+    rel = diff / top
+    assert rel < 0.02, (diff, top)
+    worst = max((float((gc - ge).abs().max()) / float(ge.abs().max()), n)
+                for n, gc, ge in zip(order, flat_c, grads_e)
+                if ge.abs().max() > 0)
+    for t in leaves:
+        t.requires_grad_(False)
+    log(f"[mesh] (e) compressed DP step, full-width DCNv2 b=1024 over "
+        f"data=2 ({len(leaves)} leaves, {sum(t.numel() for t in leaves):,} "
+        f"values): loss {float(loss_c):.6f} vs exact {float(loss_e):.6f}, "
+        f"gradient relative error {rel:.5f} (< 0.02; the worst leaf alone "
+        f"{worst[0]:.4f}, {worst[1]}); step p50 "
+        f"{ms_c:.2f} ms against the exact step's {ms_e:.2f} ms")
+    del model, params, leaves, grads_c, grads_e, flat_c
+    torch.cuda.empty_cache()
+
+
+def run_mesh(torch, dev, schema, sample_ids) -> dict:
+    """Phase 11. Returns the launches of its paths."""
+    t_phase = time.perf_counter()
+    launches = {}
+    mesh_dense(torch, dev, schema, sample_ids, launches)
+    mesh_engines(torch, dev, schema, sample_ids, launches)
+    mesh_runtime(torch, dev, schema, sample_ids, launches)
+    mesh_pooled(torch, dev, schema, launches)
+    mesh_compressed(torch, dev, schema)
+    cards = torch.cuda.device_count()
+    log(f"[mesh] on {cards} card(s): " + (
+        "one card a position, cross-card copies included" if cards >= 4
+        else "every mesh position on one card times orchestration, not "
+        "scaling"))
+    log(f"[mesh] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3193,6 +3689,11 @@ def main() -> int:
     # models' gradients against the CPU (K10 and K11 too), each kernel's
     # Function against its plain version, resume
     for name, n in run_training(torch, dev, CRITEO, sample_ids).items():
+        launches[name] += n
+
+    # 11. multi-device: the mesh paths on every position of the card (or
+    # one card a position), each run's counters reset just before it
+    for name, n in run_mesh(torch, dev, CRITEO, sample_ids).items():
         launches[name] += n
 
     # 8. summary

@@ -5,7 +5,8 @@
   dual_parallel.py    C1: the dual-parallel executor (Fig.-8 levels)
   plan.py             compile_plan → InferencePlan
 
-The C2 embedding path lives in ``repro_torch.embedding``.
+The C2 embedding path lives in ``repro_torch.embedding`` (re-exported
+here, as the reference does, with ``sharded_vocab_lookup``).
 """
 
 from .dual_parallel import (BRANCH_ORDERS, LEVELS, DualParallelExecutor,
@@ -13,7 +14,11 @@ from .dual_parallel import (BRANCH_ORDERS, LEVELS, DualParallelExecutor,
 from .opgraph import (FusedOp, Op, OpGraph, fuse_non_gemm,
                       register_fused_kernel)
 from .plan import (COMPUTE_DTYPES, InferencePlan, PlanKey, compile_plan,
-                   plan_key_for)
+                   place_params, plan_key_for)
+from repro_torch.embedding import (CachedStore, DenseStore, EmbeddingStore,
+                                   FusedEmbeddingCollection,
+                                   FusedEmbeddingSpec, HostBackedStore,
+                                   StoreStats, sharded_vocab_lookup)
 from .scheduler import (breadth_first_schedule, depth_first_schedule,
                         full_order)
 
@@ -26,7 +31,16 @@ __all__ = [
     "InferencePlan",
     "PlanKey",
     "compile_plan",
+    "place_params",
     "plan_key_for",
+    "FusedEmbeddingCollection",
+    "FusedEmbeddingSpec",
+    "EmbeddingStore",
+    "DenseStore",
+    "CachedStore",
+    "HostBackedStore",
+    "StoreStats",
+    "sharded_vocab_lookup",
     "Op",
     "FusedOp",
     "OpGraph",

@@ -20,7 +20,9 @@ every per-op jit). Level "dual" runs the embedding ops on the caller's
 current stream, records an event, and launches the queue on two side
 streams, ``S_explicit`` and ``S_implicit``, each waiting on that event;
 the head waits on both branches' final events. On the CPU, "dual" runs
-the same queue in order on the one CPU stream.
+the same queue in order on the one CPU stream. Each step is built for
+one device: its two side streams live there, and it runs with that card
+current, so a mesh plan's batch shards each keep their own streams.
 
 Every level computes the same function (paper Table I).
 """
@@ -199,21 +201,22 @@ def _two_stream_step(ops_in_order: list, out_edge: str,
 
     def step(env, runtime_env=None):
         env = {**env, **(runtime_env or {})}
-        main = torch.cuda.current_stream(device)
-        for op in pre:
-            _run(op, env)
-        embedded = main.record_event()
-        for s in streams.values():
-            s.wait_event(embedded)
-        for op, edges in zip(queue, crossing):
-            with torch.cuda.stream(streams[op.module]):
+        with torch.cuda.device(device):
+            main = torch.cuda.current_stream(device)
+            for op in pre:
                 _run(op, env)
-            for e in edges:
-                env[e].record_stream(main)
-        for s in streams.values():
-            main.wait_event(s.record_event())
-        for op in post:
-            _run(op, env)
+            embedded = main.record_event()
+            for s in streams.values():
+                s.wait_event(embedded)
+            for op, edges in zip(queue, crossing):
+                with torch.cuda.stream(streams[op.module]):
+                    _run(op, env)
+                for e in edges:
+                    env[e].record_stream(main)
+            for s in streams.values():
+                main.wait_event(s.record_event())
+            for op in post:
+                _run(op, env)
         return env[out_edge]
 
     return step

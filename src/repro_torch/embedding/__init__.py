@@ -2,7 +2,8 @@
 collection."""
 
 from .cached import CachedStore
-from .collection import FusedEmbeddingCollection
+from .collection import (FusedEmbeddingCollection, GroupLookup,
+                         sharded_vocab_lookup)
 from .host import HostBackedStore
 from .prefetch import PrefetchPipeline, StagingOverflowError
 from .spec import FusedEmbeddingSpec
@@ -12,4 +13,5 @@ from .store import (DenseStore, EmbeddingStore, StoreStats, runtime_edge,
 __all__ = ["FusedEmbeddingSpec", "EmbeddingStore", "DenseStore",
            "CachedStore", "HostBackedStore", "PrefetchPipeline",
            "StagingOverflowError", "StoreStats", "FusedEmbeddingCollection",
-           "runtime_edge", "validate_deltas"]
+           "runtime_edge", "validate_deltas", "GroupLookup",
+           "sharded_vocab_lookup"]

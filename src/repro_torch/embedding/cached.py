@@ -30,8 +30,15 @@ publish them in one swap of the buffers. Before the swap drops the old
 tensors, the device is synchronized: the caching allocator may hand a
 dropped tensor's memory to the next allocation on its stream, and a plan
 step queued on another stream could otherwise still be reading it.
-Mesh placement (``partition_spec``/``place``) comes with the multi-device
-slice.
+
+Over a mesh, ``partition_spec`` row-shards ``backing`` over ``model``
+and replicates the cache, the index map and the scales (the reference's
+``cached.py:155-164``). Each model shard then serves its own rows, hit
+or miss: a hit from its replica of the cache, a miss from its backing
+shard, through K3/K4 over that row range, so every row comes from
+exactly one shard. ``refresh`` and ``apply_deltas`` build whole tensors
+as before; an engine on a mesh places them (``place``) before it
+publishes them.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import torch
 
 from repro_torch import quant
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import P
+from repro_torch.kernels import multi_table_lookup as mtl
 from repro_torch.kernels import ops as kops
 
 from .spec import FusedEmbeddingSpec
@@ -62,6 +71,7 @@ class CachedStore(EmbeddingStore):
 
     refreshable = True
     runtime_keys = ("cache", "backing", "slot_of_row")
+    sharded_leaf = "backing"
 
     def __init__(self, spec: FusedEmbeddingSpec, capacity: int,
                  row_dtype: str | None = None, *,
@@ -204,6 +214,40 @@ class CachedStore(EmbeddingStore):
         return kops.multi_table_lookup_cached_multihot(
             ids, mask, t["cache"], t["backing"], t["slot_of_row"], offsets,
             strategy=strategy)
+
+    # -- mesh placement ----------------------------------------------------
+    def partition_spec(self, model_axis: str | None = "model") -> dict:
+        """Backing row-sharded (vocab-parallel); the hot cache, the index
+        map and the per-row scales are small and latency-critical:
+        replicated."""
+        spec = {"backing": P(model_axis, None), "cache": P(),
+                "slot_of_row": P()}
+        if self.quantized:
+            spec["backing_scale"] = P()
+            spec["cache_scale"] = P()
+        return spec
+
+    def lookup_shard(self, tensors: dict[str, torch.Tensor],
+                     ids: torch.Tensor, offsets: torch.Tensor, *,
+                     mask: torch.Tensor | None = None,
+                     shard: tuple[int, int] | None = None) -> torch.Tensor:
+        """K3 (K4 for int8 rows) over the local tensors; on a row shard,
+        over the shard's rows of the replicated index map and scales."""
+        t = tensors
+        if shard is not None:
+            rows = slice(shard[0], shard[0] + t["backing"].shape[0])
+            t = dict(t, slot_of_row=t["slot_of_row"][rows])
+            if self.quantized:
+                t["backing_scale"] = t["backing_scale"][rows]
+        if mask is not None:
+            mask = mask.to(torch.float32)
+        if self.quantized:
+            return mtl.mtl_gather_two_level_q8(
+                ids, offsets, t["slot_of_row"], t["cache"], t["cache_scale"],
+                t["backing"], t["backing_scale"], mask, shard=shard)
+        return mtl.mtl_gather_two_level(ids, offsets, t["slot_of_row"],
+                                        t["cache"], t["backing"], mask,
+                                        shard=shard)
 
     # -- traffic / cache management ---------------------------------------
     def observe(self, global_rows: np.ndarray) -> None:

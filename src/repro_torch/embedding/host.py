@@ -43,6 +43,15 @@ recompile. Two ways of publishing:
   does; the staging changes they cause (rows promoted out of staging,
   staged rows re-gathered) then go through the staging upload.
 
+Over a mesh every device buffer replicates (``partition_spec``; the
+backing is host state, not a parameter). ``bind_mesh`` keeps a replica
+of each buffer on every other device of the mesh, and every publish
+reaches them all: a staging upload is copied to each device once and
+scattered into its replica there, and a refresh or delta swaps each
+device's replicas after that device's sync. ``place`` hands out the
+store's own buffers and those replicas, never fresh copies, so an
+engine's placed tensors see every staging upload.
+
 When one batch's distinct miss set exceeds ``S``, ``stage`` raises
 ``StagingOverflowError`` and the caller serves the batch in chunks
 (:meth:`split_for_staging`): slower, never wrong. The caller's loop is the
@@ -52,6 +61,7 @@ batch t (or its chunks), predict, observe.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -60,7 +70,10 @@ import torch
 
 from repro_torch import quant
 from repro_torch.device import resolve_device
+from repro_torch.kernels import multi_table_lookup as mtl
 from repro_torch.kernels import ops as kops
+
+from repro_torch.distributed.sharding import NamedSharding, P, Placed
 
 from .prefetch import PrefetchPipeline, StagingOverflowError
 from .spec import FusedEmbeddingSpec
@@ -155,8 +168,9 @@ class HostBackedStore(EmbeddingStore):
         self.upload_bytes = 0
         self._pinned: torch.Tensor | None = None   # packed upload buffer
         self._pending: tuple | None = None         # what _pack packed
-        self._uploaded = None      # event after the last staging upload
-        self._readers: dict = {}   # stream handle -> event after a lookup
+        self._uploaded: dict = {}  # device -> event after its last upload
+        self._readers: dict = {}   # (device, stream) -> event after a lookup
+        self._replicas: dict = {}  # other mesh device -> {leaf: tensor}
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module.resync())
 
@@ -323,6 +337,52 @@ class HostBackedStore(EmbeddingStore):
         self.pipeline.load(self.staging.cpu().numpy(), sbuf,
                            self.staging_slot_of_row.cpu().numpy())
 
+    # -- mesh placement ------------------------------------------------------
+    def partition_spec(self, model_axis: str | None = "model") -> dict:
+        """Every device buffer is small and latency-critical: replicated.
+        The backing never appears: it is host state, not a parameter."""
+        return {k: P() for k in self.runtime_keys}
+
+    @torch.no_grad()
+    def bind_mesh(self, mesh, model_axis: str | None = "model") -> None:
+        """Keep a replica of every device buffer on each other device of
+        ``mesh`` (once a device, whatever its number of positions), which
+        every later staging upload, refresh and delta reaches; ``None``
+        drops them."""
+        devices = () if mesh is None else mesh.device_set
+        self._replicas = {
+            dev: {name: t.to(dev, copy=True)
+                  for name, t in self._device_leaves()[self.device].items()}
+            for dev in devices if dev != self.device}
+
+    def place(self, tensors: dict[str, torch.Tensor], mesh,
+              model_axis: str | None = "model") -> dict[str, Placed]:
+        """Replicated over ``mesh``: a tensor that is this store's own
+        buffer takes its replica on each bound device (so it sees every
+        staging upload); anything else is copied as for any store."""
+        leaves = self._device_leaves()
+        sharding = NamedSharding(mesh, P())
+        out = {}
+        for name, t in tensors.items():
+            mine = t is leaves[self.device].get(name)
+            if mine and all(d in leaves for d in mesh.device_set):
+                out[name] = Placed(t.shape, t.dtype, sharding, {
+                    pos: leaves[mesh.devices[pos]][name]
+                    for pos in np.ndindex(mesh.devices.shape)})
+            else:
+                out.update(super().place({name: t}, mesh, model_axis))
+        return out
+
+    def _publish(self, tensors: dict[str, torch.Tensor]) -> None:
+        """Swap the buffers, then each mesh replica of them, that device
+        synchronized first."""
+        super()._publish(tensors)
+        for dev, leaves in self._replicas.items():
+            fresh = {name: t.to(dev, copy=True)
+                     for name, t in tensors.items()}
+            torch.cuda.synchronize(dev)
+            leaves.update(fresh)
+
     def dense_view(self) -> torch.Tensor:
         raise NotImplementedError(
             "HostBackedStore keeps the backing table in host memory; there "
@@ -440,8 +500,8 @@ class HostBackedStore(EmbeddingStore):
     def _host_buffer(self, nbytes: int) -> torch.Tensor:
         """The pinned upload buffer, at least ``nbytes`` long, once the
         copy that last read it has finished."""
-        if self._uploaded is not None:
-            self._uploaded.synchronize()
+        for event in self._uploaded.values():
+            event.synchronize()
         if self._pinned is None or self._pinned.numel() < nbytes:
             size = max(nbytes, 2 * (0 if self._pinned is None
                                     else self._pinned.numel()))
@@ -450,41 +510,50 @@ class HostBackedStore(EmbeddingStore):
                 pin_memory=self.device.type == "cuda")
         return self._pinned
 
+    def _device_leaves(self) -> dict:
+        """Device -> the staging leaves there: this store's own buffers,
+        then each mesh replica's."""
+        own = {name: getattr(self, name) for name in self.runtime_keys}
+        return {self.device: own, **self._replicas}
+
     def _upload(self) -> None:
-        """Copy what :meth:`_pack` packed to the device in one transfer and
-        scatter it into the staging tensors, on the current stream, after
-        every lookup queued so far."""
+        """Copy what :meth:`_pack` packed to each device in one transfer
+        and scatter it into that device's staging tensors, on its current
+        stream, after every lookup queued there so far."""
         if self._pending is None:
             return
         layout, total = self._pending
         self._pending = None
-        dev = self.device
-        cuda = dev.type == "cuda"
-        if cuda:
-            stream = torch.cuda.current_stream(dev)
-            for event in self._readers.values():
-                stream.wait_event(event)
-        packed = torch.empty(total, dtype=torch.uint8, device=dev)
-        packed.copy_(self._pinned[:total], non_blocking=True)
+        for dev, leaves in self._device_leaves().items():
+            cuda = dev.type == "cuda"
+            with torch.cuda.device(dev) if cuda else contextlib.nullcontext():
+                if cuda:
+                    stream = torch.cuda.current_stream(dev)
+                    for (where, _), event in self._readers.items():
+                        if where == dev:
+                            stream.wait_event(event)
+                packed = torch.empty(total, dtype=torch.uint8, device=dev)
+                packed.copy_(self._pinned[:total], non_blocking=True)
 
-        def view(name, dtype):
-            off, _, shape = layout[name]
-            n = int(np.prod(shape)) * dtype.itemsize
-            return packed[off:off + n].view(dtype).view(shape)
-        slots = view("slots", torch.int64)
-        if slots.numel():
-            self.staging.index_copy_(0, slots, view("rows",
-                                                    self.staging.dtype))
-            if self.quantized:
-                self.staging_scale.index_copy_(0, slots,
-                                               view("scales", torch.float32))
-        rows = view("map_rows", torch.int64)
-        if rows.numel():
-            self.staging_slot_of_row.index_copy_(
-                0, rows, view("map_slots", torch.int32))
-        if cuda:
-            self._uploaded = stream.record_event()
-        self.upload_bytes += total
+                def view(name, dtype):
+                    off, _, shape = layout[name]
+                    n = int(np.prod(shape)) * dtype.itemsize
+                    return packed[off:off + n].view(dtype).view(shape)
+                slots = view("slots", torch.int64)
+                if slots.numel():
+                    staging = leaves["staging"]
+                    staging.index_copy_(0, slots,
+                                        view("rows", staging.dtype))
+                    if self.quantized:
+                        leaves["staging_scale"].index_copy_(
+                            0, slots, view("scales", torch.float32))
+                rows = view("map_rows", torch.int64)
+                if rows.numel():
+                    leaves["staging_slot_of_row"].index_copy_(
+                        0, rows, view("map_slots", torch.int32))
+                if cuda:
+                    self._uploaded[dev] = stream.record_event()
+            self.upload_bytes += total
 
     def _upload_changes(self) -> None:
         """Upload the staging changes a refresh or delta caused."""
@@ -492,17 +561,40 @@ class HostBackedStore(EmbeddingStore):
         self._upload()
 
     # -- lookup --------------------------------------------------------------
-    def _read(self, lookup):
-        """Run ``lookup()`` ordered after the last staging upload, and
-        remember where it ran, so the next upload waits for it."""
-        if self.device.type != "cuda":
+    def _read(self, lookup, dev: torch.device | None = None):
+        """Run ``lookup()`` on ``dev`` (the store's device by default)
+        ordered after that device's last staging upload, and remember
+        where it ran, so the next upload there waits for it."""
+        dev = self.device if dev is None else dev
+        if dev.type != "cuda":
             return lookup()
-        stream = torch.cuda.current_stream(self.device)
-        if self._uploaded is not None:
-            stream.wait_event(self._uploaded)
+        stream = torch.cuda.current_stream(dev)
+        if dev in self._uploaded:
+            stream.wait_event(self._uploaded[dev])
         out = lookup()
-        self._readers[stream.cuda_stream] = stream.record_event()
+        self._readers[dev, stream.cuda_stream] = stream.record_event()
         return out
+
+    def lookup_shard(self, tensors: dict[str, torch.Tensor],
+                     ids: torch.Tensor, offsets: torch.Tensor, *,
+                     mask: torch.Tensor | None = None,
+                     shard: tuple[int, int] | None = None) -> torch.Tensor:
+        """K5 (K6 for int8 rows) over one device's replicas, ordered after
+        that device's last staging upload. Nothing here is row-sharded."""
+        if shard is not None:
+            raise ValueError("a HostBackedStore's tiers replicate; there is "
+                             "no row shard to look up")
+        t = tensors
+        if mask is not None:
+            mask = mask.to(torch.float32)
+        if self.quantized:
+            return self._read(lambda: mtl.mtl_gather_three_level_q8(
+                ids, offsets, t["slot_of_row"], t["staging_slot_of_row"],
+                t["cache"], t["cache_scale"], t["staging"],
+                t["staging_scale"], mask), ids.device)
+        return self._read(lambda: mtl.mtl_gather_three_level(
+            ids, offsets, t["slot_of_row"], t["staging_slot_of_row"],
+            t["cache"], t["staging"], mask), ids.device)
 
     def lookup(self, ids: torch.Tensor, offsets: torch.Tensor, *,
                strategy: str = "auto",

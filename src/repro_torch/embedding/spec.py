@@ -23,6 +23,8 @@ class FusedEmbeddingSpec:
         dim:         shared embedding dimension d.
         multi_hot:   max ids per field (1 = one-hot fields).
         dtype:       parameter dtype name (a ``torch`` attribute).
+        pad_rows_to: pad the mega-table height to a multiple (so a
+                     mesh's model axis divides it).
         row_dtype:   wire dtype of stored rows: ``None`` keeps rows in
                      ``dtype`` (bit-exact); ``"int8"`` stores them
                      quantized with one fp32 scale per row
@@ -34,6 +36,7 @@ class FusedEmbeddingSpec:
     dim: int
     multi_hot: int = 1
     dtype: str = "float32"
+    pad_rows_to: int = 1
     row_dtype: str | None = None
 
     def __post_init__(self):
@@ -47,8 +50,10 @@ class FusedEmbeddingSpec:
 
     @property
     def rows(self) -> int:
-        """Mega-table height: all fields + 1 zero row."""
-        return int(sum(self.field_sizes)) + 1
+        """Mega-table height: all fields + 1 zero row, padded up to a
+        multiple of ``pad_rows_to`` (the padding rows are zero too)."""
+        n = int(sum(self.field_sizes)) + 1
+        return -(-n // self.pad_rows_to) * self.pad_rows_to
 
     @property
     def offsets(self) -> np.ndarray:

@@ -15,6 +15,13 @@ inputs (edge names from :func:`runtime_edge`) instead of closing over
 them. ``DenseStore`` lists none. Where the reference's store methods take
 and return a parameter subtree, the port's read and replace the store's
 own buffers.
+
+Over a device mesh (``repro_torch.distributed``) a store says how its
+buffers lie (``partition_spec``: the vocab-parallel table row-sharded
+over ``model``, every small tier replicated), ``place`` lays a set of
+its tensors out that way, and ``lookup_shard`` runs one position's part
+of a lookup on that position's tensors: the masked local gather over a
+row shard, whose outputs summed over the model shards are the lookup.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from torch import nn
 
 from repro_torch import quant
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import P, Placed, fit_spec, place
+from repro_torch.kernels import multi_table_lookup as mtl
 from repro_torch.kernels import ops as kops
 
 from .spec import FusedEmbeddingSpec
@@ -150,6 +159,9 @@ class EmbeddingStore(nn.Module):
     #: the caller must :meth:`stage` each batch's ids before its lookup
     #: (and may :meth:`prefetch_hint` upcoming batches)
     needs_staging: bool = False
+    #: the buffer that holds the whole table, row-sharded over a mesh's
+    #: model axis (vocab-parallel); None when every buffer replicates
+    sharded_leaf: str | None = None
 
     def __init__(self, spec: FusedEmbeddingSpec):
         super().__init__()
@@ -210,6 +222,42 @@ class EmbeddingStore(nn.Module):
     def runtime_tensors(self) -> dict[str, torch.Tensor]:
         """Leaf name -> tensor for every ``runtime_keys`` buffer."""
         return {leaf: getattr(self, leaf) for leaf in self.runtime_keys}
+
+    def device_tensors(self) -> dict[str, torch.Tensor]:
+        """Leaf name -> tensor for every buffer: the reference's parameter
+        subtree of this store."""
+        return dict(self.named_buffers(recurse=False))
+
+    # -- mesh placement ----------------------------------------------------
+    def partition_spec(self, model_axis: str | None = "model") -> dict:
+        """Leaf name -> :class:`P` of every buffer over a mesh."""
+        raise NotImplementedError
+
+    def place(self, tensors: dict[str, torch.Tensor], mesh,
+              model_axis: str | None = "model") -> dict[str, Placed]:
+        """Lay ``tensors`` (some of this store's leaves, by name) out over
+        ``mesh`` per :meth:`partition_spec`, dropping the mesh axes a
+        leaf's dim does not divide (``fit_spec``): the placement every
+        mesh plan reads its store tensors in, so a refresh or delta
+        published through here matches the plans' ``runtime_shardings``.
+        On a mesh without ``model_axis`` everything replicates."""
+        axis = model_axis if model_axis in mesh.axis_names else None
+        specs = self.partition_spec(axis)
+        return {k: place(v, mesh, fit_spec(mesh, specs[k], v.shape))
+                for k, v in tensors.items()}
+
+    def lookup_shard(self, tensors: dict[str, torch.Tensor],
+                     ids: torch.Tensor, offsets: torch.Tensor, *,
+                     mask: torch.Tensor | None = None,
+                     shard: tuple[int, int] | None = None) -> torch.Tensor:
+        """One mesh position's lookup over its local ``tensors`` (one-hot
+        ``(b, k)`` ids, or ``(b, k, h)`` ids pooled under ``mask``), on
+        their device. ``shard=(row_lo, n_rows)``: the
+        :attr:`sharded_leaf` holds global rows ``[row_lo, row_lo +
+        its height)`` of ``n_rows``, every other leaf is whole, and rows
+        outside the shard give zeros. ``None``: whole tensors, the
+        1-device lookup."""
+        raise NotImplementedError
 
     def _tensors(self, runtime: dict[str, torch.Tensor] | None
                  ) -> dict[str, torch.Tensor]:
@@ -299,6 +347,8 @@ class DenseStore(EmbeddingStore):
     """The monolithic mega-table: one ``mega_table`` buffer of shape
     ``(spec.rows, spec.dim)`` on ``device``."""
 
+    sharded_leaf = "mega_table"
+
     def __init__(self, spec: FusedEmbeddingSpec, *,
                  device: torch.device | str | None = None):
         super().__init__(spec)
@@ -341,6 +391,34 @@ class DenseStore(EmbeddingStore):
                         ) -> torch.Tensor:
         return kops.multi_table_lookup_multihot(ids, mask, self.mega_table,
                                                 offsets, strategy=strategy)
+
+    def partition_spec(self, model_axis: str | None = "model") -> dict:
+        """Row-sharded (vocab-parallel) placement of the mega-table."""
+        return {"mega_table": P(model_axis, None)}
+
+    def lookup_shard(self, tensors: dict[str, torch.Tensor],
+                     ids: torch.Tensor, offsets: torch.Tensor, *,
+                     mask: torch.Tensor | None = None,
+                     shard: tuple[int, int] | None = None) -> torch.Tensor:
+        """K1 (one-hot) or K2 (pooled) on the local table. A one-hot row
+        shard is K1 over the shard (rows clamped into it) with the rows
+        outside ``[row_lo, row_lo + height)`` set to zero after; K2 takes
+        the shard itself."""
+        table = tensors["mega_table"]
+        if mask is not None:
+            return mtl.mtl_gather_multihot(ids, mask.to(torch.float32),
+                                           offsets, table, shard=shard)
+        if shard is None:
+            return mtl.mtl_gather(ids, offsets, table)
+        lo, n_rows = shard
+        n_local, d = table.shape
+        rows = (ids.to(torch.int64) + offsets.to(torch.int64)) \
+            .clamp_(0, n_rows - 1)
+        valid = (rows >= lo) & (rows < lo + n_local)
+        vals = mtl.mtl_gather(ids, offsets - lo, table)
+        b, k = ids.shape
+        return torch.where(valid.unsqueeze(-1), vals.view(b, k, d),
+                           0.0).view(b, k * d)
 
     def describe(self) -> str:
         return f"dense(rows={self.spec.rows},d={self.spec.dim})"

@@ -116,7 +116,10 @@ def library(name: str) -> ctypes.CDLL:
 
 def current_stream(device: torch.device) -> int:
     """Handle of PyTorch's current stream on ``device``, read at call
-    time — inside ``with torch.cuda.stream(s)`` that is ``s``."""
+    time — inside ``with torch.cuda.stream(s)`` that is ``s``. Every
+    wrapper launches inside ``with torch.cuda.device(t.device)``, so the
+    kernel lands on its tensors' card whichever card the caller made
+    current; the check below catches a launch outside that block."""
     if device.index is not None and device.index != torch.cuda.current_device():
         raise RuntimeError(f"tensor on {device} but the current device is "
                            f"cuda:{torch.cuda.current_device()}")

@@ -63,6 +63,7 @@
 // activation) stays NaN through it, as the plain version's clamp_min and
 // the reference's jnp.maximum keep it; fmaxf would turn it into 0.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>            // CUtensorMap and its enums: types only
 #include <cuda_runtime.h>
@@ -387,6 +388,25 @@ bool encode(CUtensorMap* map, const void* base, int64_t rows, int64_t K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// cudaFuncSetAttribute sets the limit on the current device only, so it is
+// set once on each device a launch lands on (a mesh's batch shards launch
+// on several cards from one process).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       std::atomic<int> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && known) done[dev].store(1, std::memory_order_release);
+  return e;
+}
+
 template <int BN>
 int launch(const void* hq, const void* hscale, const void* wt,
            const void* wscale, const void* bias, void* out, int64_t M,
@@ -395,9 +415,9 @@ int launch(const void* hq, const void* hscale, const void* wt,
   if (!encode(&map_a, hq, M, K, kBM) || !encode(&map_b, wt, N, K, BN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      dmm_q8_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<BN>());
+  static std::atomic<int> smem_set[kMaxDevices];
+  const cudaError_t attr =
+      allow_smem(dmm_q8_kernel<BN>, smem_bytes<BN>(), smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>((N + BN - 1) / BN),
                   static_cast<unsigned>((M + kBM - 1) / kBM));

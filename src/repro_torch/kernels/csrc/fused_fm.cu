@@ -42,6 +42,7 @@
 // not bitwise. A NaN or inf in a row makes that row's result NaN (an inf
 // column gives inf - inf), as in the plain version; no other row reads it.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -135,13 +136,32 @@ fm_second_order_kernel(const float* __restrict__ v, float* __restrict__ out,
   }
 }
 
+// cudaFuncSetAttribute sets the limit on the current device only, so it is
+// set once on each device a launch lands on (a mesh's batch shards launch
+// on several cards from one process).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       std::atomic<int> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && known) done[dev].store(1, std::memory_order_release);
+  return e;
+}
+
 template <int V>
 int launch(const float* v, float* out, int64_t b, int64_t k, int64_t d,
            int lane_bits, int64_t threads, int64_t blocks,
            cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      fm_second_order_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      stage_bytes(256));
+  static std::atomic<int> smem_set[kMaxDevices];
+  const cudaError_t attr =
+      allow_smem(fm_second_order_kernel<V>, stage_bytes(256), smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   fm_second_order_kernel<V><<<static_cast<unsigned>(blocks),
                               static_cast<unsigned>(threads),

@@ -75,6 +75,15 @@
 // [0, n_cache) (or [0, n_staging)) counts as a miss, so no id and no map
 // can make a thread read past the table, the backing, the cache or the
 // staging buffer. The plain versions clamp and select the same way.
+//
+// Row shards (K2-K4, the vocab-parallel lookup over a mesh): the table,
+// backing, index map and backing scales may hold only global rows
+// [row_lo, row_lo + n_local) of an n_rows-row table, indexed from 0. A
+// slot whose (clamped or redirected) global row lies outside that range
+// loads nothing and adds +0.0 in its place in the slot order (the plain
+// versions zero it the same way), so summing the shards' outputs gives
+// the whole lookup, each row from exactly one shard. The whole table is
+// row_lo = 0, n_local = n_rows (K5 and K6 always).
 
 #include <cstdint>
 #include <type_traits>
@@ -111,6 +120,7 @@ __device__ __forceinline__ const float* scale_at(const float* scale,
 template <typename T>
 struct OneLevel {
   using Elem = T;
+  static constexpr bool kShards = true;
   const T* table;
   struct Maps {};
   __device__ __forceinline__ Maps maps(int64_t) const { return {}; }
@@ -125,6 +135,7 @@ struct OneLevel {
 template <typename T>
 struct TwoLevel {
   using Elem = T;
+  static constexpr bool kShards = true;
   const int32_t* slot_of_row;
   const T* cache;
   const float* cache_scale;        // int8 rows only
@@ -147,6 +158,7 @@ struct TwoLevel {
 template <typename T>
 struct ThreeLevel {
   using Elem = T;
+  static constexpr bool kShards = false;   // the host tiers replicate
   const int32_t* slot_of_row;
   const int32_t* staging_slot_of_row;
   const T* cache;
@@ -230,13 +242,14 @@ struct Piece<int8_t, V, WORD> {
 // l takes the row's pieces l, l + lanes, ... (one piece when the lanes
 // cover the row). A pooled row takes its slots CH at a time, every load of
 // a chunk issued before the sum.
-template <typename Tiers, typename P, int CH>
+template <typename Tiers, typename P, int CH, bool SHARD>
 __global__ void __launch_bounds__(256)
 tiered_kernel(const int32_t* __restrict__ ids,
               const float* __restrict__ mask,
               const int32_t* __restrict__ offsets, Tiers tiers,
               float* __restrict__ out, int64_t pairs, int64_t k, int64_t h,
-              int64_t d, int lane_bits, int64_t n_rows) {
+              int64_t d, int lane_bits, int64_t n_rows, int64_t row_lo,
+              int64_t n_local) {
   constexpr int V = P::kWidth;
   const int lanes = 1 << lane_bits;
   const int lane = threadIdx.x & (lanes - 1);
@@ -254,7 +267,8 @@ tiered_kernel(const int32_t* __restrict__ ids,
     for (int64_t w = lane; w < pieces; w += lanes) {
       float acc[V] = {};
       for (int64_t j0 = 0; j0 < h; j0 += CH) {
-        // ids and masks -> the slots' global rows (-1: no such slot)
+        // ids and masks -> the slots' rows in the shard (-1: no such
+        // slot; -2: a row outside the shard)
         int64_t r[CH];
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
@@ -265,6 +279,10 @@ tiered_kernel(const int32_t* __restrict__ ids,
             if (mask == nullptr || __ldg(mask + slot) != 0.0f) {
               row = static_cast<int64_t>(__ldg(ids + slot)) + offset;
               row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
+            }
+            if constexpr (SHARD) {          // outside the shard: +0.0
+              row -= row_lo;
+              row = row >= 0 && row < n_local ? row : -2;
             }
             r[c] = row;
           }
@@ -284,10 +302,11 @@ tiered_kernel(const int32_t* __restrict__ ids,
             if (t.row != nullptr) v[c].load(t.row + w * V, t.scale);
           }
         }
-        // sum in slot order from slot 0's value
+        // sum in slot order from slot 0's value (+0.0 for a slot outside
+        // the row shard, as the plain version zeroes it)
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
-          if (r[c] < 0) continue;
+          if (SHARD ? r[c] == -1 : r[c] < 0) continue;
 #pragma unroll
           for (int e = 0; e < V; ++e) {
             const float x = v[c].value(e);
@@ -311,23 +330,39 @@ struct Call {
   const float* mask;
   const int32_t* offsets;
   float* out;
-  int64_t pairs, k, h, d, n_rows;
+  int64_t pairs, k, h, d, n_rows, row_lo, n_local;
   int lane_bits, threads;
   unsigned blocks;
   cudaStream_t stream;
 };
 
+template <typename Tiers, typename P, bool SHARD>
+void run_shard(const Call& c, const Tiers& t) {
+  if (c.h == 1) {
+    tiered_kernel<Tiers, P, 1, SHARD><<<c.blocks, c.threads, 0, c.stream>>>(
+        c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
+        c.lane_bits, c.n_rows, c.row_lo, c.n_local);
+  } else {
+    tiered_kernel<Tiers, P, kChunk, SHARD>
+        <<<c.blocks, c.threads, 0, c.stream>>>(
+            c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
+            c.lane_bits, c.n_rows, c.row_lo, c.n_local);
+  }
+}
+
+// The row shard is a template argument: read at run time, its two
+// compares took the pooled gathers from 11.5 to 15.1 us (K3, h = 5, b =
+// 1024) on an H100, whole tables included. A whole table runs the kernel
+// without them.
 template <typename Tiers, typename P>
 void run(const Call& c, const Tiers& t) {
-  if (c.h == 1) {
-    tiered_kernel<Tiers, P, 1><<<c.blocks, c.threads, 0, c.stream>>>(
-        c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
-        c.lane_bits, c.n_rows);
-  } else {
-    tiered_kernel<Tiers, P, kChunk><<<c.blocks, c.threads, 0, c.stream>>>(
-        c.ids, c.mask, c.offsets, t, c.out, c.pairs, c.k, c.h, c.d,
-        c.lane_bits, c.n_rows);
+  if constexpr (Tiers::kShards) {
+    if (c.row_lo != 0 || c.n_local != c.n_rows) {
+      run_shard<Tiers, P, true>(c, t);
+      return;
+    }
   }
+  run_shard<Tiers, P, false>(c, t);
 }
 
 // vec: a piece of 4 elements a lane and one float4 store (needs d % 4 == 0
@@ -339,7 +374,8 @@ template <typename Tiers>
 int launch_tiered(const void* ids, const void* mask, const void* offsets,
                   const Tiers& tiers, const void* rows_a, const void* rows_b,
                   void* out, int64_t b, int64_t k, int64_t h, int64_t d,
-                  int64_t n_rows, int64_t vec, int64_t word,
+                  int64_t n_rows, int64_t row_lo, int64_t n_local,
+                  int64_t vec, int64_t word,
                   int64_t lane_bits, int64_t threads, int64_t blocks,
                   void* stream) {
   using T = typename Tiers::Elem;
@@ -350,7 +386,8 @@ int launch_tiered(const void* ids, const void* mask, const void* offsets,
       || (word == kWord && !vec) || (vec && d % 4 != 0)
       || lane_bits < 0 || lane_bits > 5 || threads < 32 || threads > 256
       || threads % 32 != 0 || blocks < 1 || blocks > 0x7fffffff || h < 1
-      || n_rows < 1)
+      || n_rows < 1 || row_lo < 0 || n_local < 1
+      || n_local > n_rows - row_lo)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if ((vec && reinterpret_cast<uintptr_t>(out) % 16 != 0)
       || reinterpret_cast<uintptr_t>(rows_a) % word != 0
@@ -359,7 +396,8 @@ int launch_tiered(const void* ids, const void* mask, const void* offsets,
   const Call c{static_cast<const int32_t*>(ids),
                static_cast<const float*>(mask),
                static_cast<const int32_t*>(offsets), static_cast<float*>(out),
-               pairs, k, h, d, n_rows, static_cast<int>(lane_bits),
+               pairs, k, h, d, n_rows, row_lo, n_local,
+               static_cast<int>(lane_bits),
                static_cast<int>(threads), static_cast<unsigned>(blocks),
                static_cast<cudaStream_t>(stream)};
   if (word == kWord) {
@@ -377,27 +415,32 @@ int launch_tiered(const void* ids, const void* mask, const void* offsets,
 // ids (b, k, h) int32, mask (b, k, h) float32 or null (all slots valid),
 // offsets (k,) int32, out (b, k*d) float32; every pointer on the device.
 // K2-K6 take their launch from the wrapper: vec, word, lane_bits, threads
-// and blocks (see launch_tiered).
+// and blocks (see launch_tiered). K2-K4 also take a row shard: their
+// table, backing, map and backing scales hold global rows [row_lo, row_lo
+// + n_local) of n_rows (0 and n_rows for the whole table).
 
 extern "C" int mtl_gather_multihot(const void* ids, const void* mask,
                                    const void* offsets, const void* table,
                                    void* out, int64_t b, int64_t k, int64_t h,
-                                   int64_t d, int64_t n_rows, int64_t vec,
+                                   int64_t d, int64_t n_rows, int64_t row_lo,
+                                   int64_t n_local, int64_t vec,
                                    int64_t word, int64_t lane_bits,
                                    int64_t threads, int64_t blocks,
                                    void* stream) {
   return launch_tiered(ids, mask, offsets,
                        OneLevel<float>{static_cast<const float*>(table)},
-                       table, table, out, b, k, h, d, n_rows, vec, word,
-                       lane_bits, threads, blocks, stream);
+                       table, table, out, b, k, h, d, n_rows, row_lo,
+                       n_local, vec, word, lane_bits, threads, blocks,
+                       stream);
 }
 
 extern "C" int mtl_gather_two_level(
     const void* ids, const void* mask, const void* offsets,
     const void* slot_of_row, const void* cache, const void* backing,
     void* out, int64_t b, int64_t k, int64_t h, int64_t d, int64_t n_cache,
-    int64_t n_rows, int64_t vec, int64_t word, int64_t lane_bits,
-    int64_t threads, int64_t blocks, void* stream) {
+    int64_t n_rows, int64_t row_lo, int64_t n_local, int64_t vec,
+    int64_t word, int64_t lane_bits, int64_t threads, int64_t blocks,
+    void* stream) {
   return launch_tiered(ids, mask, offsets,
                        TwoLevel<float>{static_cast<const int32_t*>(
                                            slot_of_row),
@@ -405,8 +448,9 @@ extern "C" int mtl_gather_two_level(
                                        nullptr,
                                        static_cast<const float*>(backing),
                                        nullptr, n_cache},
-                       cache, backing, out, b, k, h, d, n_rows, vec, word,
-                       lane_bits, threads, blocks, stream);
+                       cache, backing, out, b, k, h, d, n_rows, row_lo,
+                       n_local, vec, word, lane_bits, threads, blocks,
+                       stream);
 }
 
 extern "C" int mtl_gather_two_level_q8(
@@ -414,8 +458,8 @@ extern "C" int mtl_gather_two_level_q8(
     const void* slot_of_row, const void* cache, const void* cache_scale,
     const void* backing, const void* backing_scale, void* out, int64_t b,
     int64_t k, int64_t h, int64_t d, int64_t n_cache, int64_t n_rows,
-    int64_t vec, int64_t word, int64_t lane_bits, int64_t threads,
-    int64_t blocks, void* stream) {
+    int64_t row_lo, int64_t n_local, int64_t vec, int64_t word,
+    int64_t lane_bits, int64_t threads, int64_t blocks, void* stream) {
   return launch_tiered(ids, mask, offsets,
                        TwoLevel<int8_t>{static_cast<const int32_t*>(
                                             slot_of_row),
@@ -426,8 +470,9 @@ extern "C" int mtl_gather_two_level_q8(
                                         static_cast<const float*>(
                                             backing_scale),
                                         n_cache},
-                       cache, backing, out, b, k, h, d, n_rows, vec, word,
-                       lane_bits, threads, blocks, stream);
+                       cache, backing, out, b, k, h, d, n_rows, row_lo,
+                       n_local, vec, word, lane_bits, threads, blocks,
+                       stream);
 }
 
 // K5/K6: n_rows is the length of both maps (the host backing's height).
@@ -448,8 +493,8 @@ extern "C" int mtl_gather_three_level(
                                          nullptr,
                                          static_cast<const float*>(staging),
                                          nullptr, n_cache, n_staging},
-                       cache, staging, out, b, k, h, d, n_rows, vec, word,
-                       lane_bits, threads, blocks, stream);
+                       cache, staging, out, b, k, h, d, n_rows, 0, n_rows,
+                       vec, word, lane_bits, threads, blocks, stream);
 }
 
 extern "C" int mtl_gather_three_level_q8(
@@ -472,6 +517,6 @@ extern "C" int mtl_gather_three_level_q8(
                                           static_cast<const float*>(
                                               staging_scale),
                                           n_cache, n_staging},
-                       cache, staging, out, b, k, h, d, n_rows, vec, word,
-                       lane_bits, threads, blocks, stream);
+                       cache, staging, out, b, k, h, d, n_rows, 0, n_rows,
+                       vec, word, lane_bits, threads, blocks, stream);
 }

@@ -125,9 +125,11 @@ def dmm_q8(hq: torch.Tensor, hscale: torch.Tensor, wq_t: torch.Tensor,
         return out
     k_pad = max(16, -(-fan_in // 16) * 16)     # fan_in 0: a zero sum
     hq, wq_t = pad_k(hq, k_pad), pad_k(wq_t, k_pad)
-    code = _kernel()(hq.data_ptr(), hscale.data_ptr(), wq_t.data_ptr(),
-                     wscale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                     b, fan_out, k_pad, int(relu), _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _kernel()(hq.data_ptr(), hscale.data_ptr(), wq_t.data_ptr(),
+                         wscale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                         b, fan_out, k_pad, int(relu),
+                         _build.current_stream(dev))
     _build.check_launch("dmm_q8", code)
     _build.count_launch(dmm_q8)
     return out

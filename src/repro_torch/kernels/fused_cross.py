@@ -100,9 +100,10 @@ def fused_cross_v2(x0: torch.Tensor, xw_plus: torch.Tensor,
     same = x.data_ptr() == x0.data_ptr()
     launch = cross_launch(b, dim, vector_words(
         dim, x0.data_ptr(), xw_plus.data_ptr(), x.data_ptr()))
-    code = _v2_kernel()(x0.data_ptr(), xw_plus.data_ptr(), x.data_ptr(),
-                        out.data_ptr(), b, dim, int(same),
-                        *launch_args(launch), _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _v2_kernel()(x0.data_ptr(), xw_plus.data_ptr(), x.data_ptr(),
+                            out.data_ptr(), b, dim, int(same),
+                            *launch_args(launch), _build.current_stream(dev))
     _build.check_launch("fused_cross_v2", code)
     _build.count_launch(fused_cross_v2)
     return out
@@ -130,9 +131,10 @@ def fused_cross_v1(x0: torch.Tensor, xlw: torch.Tensor, bias: torch.Tensor,
     same = x.data_ptr() == x0.data_ptr()
     launch = cross_launch(b, dim, vector_words(
         dim, x0.data_ptr(), bias.data_ptr(), x.data_ptr()))
-    code = _v1_kernel()(x0.data_ptr(), xlw.data_ptr(), bias.data_ptr(),
-                        x.data_ptr(), out.data_ptr(), b, dim, int(same),
-                        *launch_args(launch), _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _v1_kernel()(x0.data_ptr(), xlw.data_ptr(), bias.data_ptr(),
+                            x.data_ptr(), out.data_ptr(), b, dim, int(same),
+                            *launch_args(launch), _build.current_stream(dev))
     _build.check_launch("fused_cross_v1", code)
     _build.count_launch(fused_cross_v1)
     return out

@@ -70,9 +70,11 @@ def fused_fm_second_order(v: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     launch = fm_launch(b, d, v.data_ptr() % 16 == 0)
-    code = _kernel()(v.data_ptr(), out.data_ptr(), b, k, d, int(launch.vec),
-                     launch.lanes.bit_length() - 1, launch.threads,
-                     launch.blocks, _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _kernel()(v.data_ptr(), out.data_ptr(), b, k, d,
+                         int(launch.vec), launch.lanes.bit_length() - 1,
+                         launch.threads, launch.blocks,
+                         _build.current_stream(dev))
     _build.check_launch("fused_fm_second_order", code)
     _build.count_launch(fused_fm_second_order)
     return out

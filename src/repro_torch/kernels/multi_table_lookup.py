@@ -254,11 +254,12 @@ def mtl_gather(ids: torch.Tensor, offsets: torch.Tensor,
         return out
     launch = gather_launch(
         b, k, d, vector_words(d, table.data_ptr(), out.data_ptr()))
-    code = _kernel()(ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-                     out.data_ptr(), b, k, d, n_rows, int(launch.vec),
-                     launch.lanes.bit_length() - 1, launch.rows,
-                     launch.threads, launch.blocks,
-                     _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _kernel()(ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+                         out.data_ptr(), b, k, d, n_rows, int(launch.vec),
+                         launch.lanes.bit_length() - 1, launch.rows,
+                         launch.threads, launch.blocks,
+                         _build.current_stream(dev))
     _build.check_launch("mtl_gather", code)
     _build.count_launch(mtl_gather)
     return out
@@ -283,6 +284,41 @@ def _slot_rows(ids: torch.Tensor, offsets: torch.Tensor,
     return rows.clamp_(0, n_rows - 1)
 
 
+def _shard_rows(rows: torch.Tensor, shard: tuple[int, int] | None,
+                n_local: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Global rows -> rows of a row shard holding global rows
+    ``[shard[0], shard[0] + n_local)``, indexed from 0, and which rows lie
+    in it (``None``: the whole table, every row). Rows outside it read
+    local row 0 and are zeroed by :func:`_in_shard`."""
+    if shard is None:
+        return rows, None
+    local = rows - shard[0]
+    valid = (local >= 0) & (local < n_local)
+    return torch.where(valid, local, 0), valid
+
+
+def _in_shard(vals: torch.Tensor, valid: torch.Tensor | None
+              ) -> torch.Tensor:
+    """(n, d) values with the rows outside the shard set to +0.0."""
+    if valid is None:
+        return vals
+    return torch.where(valid.reshape(-1, 1), vals, 0.0)
+
+
+def _check_shard(shard: tuple[int, int] | None, n_local: int
+                 ) -> tuple[int, int]:
+    """``(n_rows, row_lo)`` of a shard argument: the whole table's height
+    and the shard's first global row (``None``: a whole table of
+    ``n_local`` rows)."""
+    if shard is None:
+        return n_local, 0
+    row_lo, n_rows = (int(v) for v in shard)
+    if row_lo < 0 or row_lo + n_local > n_rows:
+        raise ValueError(f"a shard of {n_local} rows from row {row_lo} does "
+                         f"not fit a {n_rows}-row table")
+    return n_rows, row_lo
+
+
 def _pool(vals: torch.Tensor, b: int, k: int, h: int) -> torch.Tensor:
     """(b*k*h, d) slot values -> (b, k*d), summed over the h slots in slot
     order starting from slot 0 (the kernels' order, not ``sum``'s)."""
@@ -299,26 +335,34 @@ def _as_slots(ids: torch.Tensor) -> torch.Tensor:
 
 
 def mtl_gather_multihot_plain(ids: torch.Tensor, mask: torch.Tensor | None,
-                              offsets: torch.Tensor,
-                              table: torch.Tensor) -> torch.Tensor:
+                              offsets: torch.Tensor, table: torch.Tensor, *,
+                              shard: tuple[int, int] | None = None
+                              ) -> torch.Tensor:
     """Plain PyTorch version of K2."""
     ids = _as_slots(ids)
     b, k, h = ids.shape
-    rows = _slot_rows(ids, offsets, mask, table.shape[0])
-    return _pool(table.index_select(0, rows.reshape(-1)), b, k, h)
+    n_local = table.shape[0]
+    rows = _slot_rows(ids, offsets, mask,
+                      _check_shard(shard, n_local)[0]).reshape(-1)
+    rows, valid = _shard_rows(rows, shard, n_local)
+    return _pool(_in_shard(table.index_select(0, rows), valid), b, k, h)
 
 
 def mtl_gather_two_level_plain(ids: torch.Tensor, offsets: torch.Tensor,
                                slot_of_row: torch.Tensor,
                                cache: torch.Tensor, backing: torch.Tensor,
-                               mask: torch.Tensor | None = None
+                               mask: torch.Tensor | None = None, *,
+                               shard: tuple[int, int] | None = None
                                ) -> torch.Tensor:
     """Plain PyTorch version of K3."""
     ids = _as_slots(ids)
     b, k, h = ids.shape
-    rows = _slot_rows(ids, offsets, mask, backing.shape[0]).reshape(-1)
-    return _pool(ref_two_level_gather(rows, slot_of_row, cache, backing),
-                 b, k, h)
+    n_local = backing.shape[0]
+    rows = _slot_rows(ids, offsets, mask,
+                      _check_shard(shard, n_local)[0]).reshape(-1)
+    rows, valid = _shard_rows(rows, shard, n_local)
+    return _pool(_in_shard(ref_two_level_gather(rows, slot_of_row, cache,
+                                                backing), valid), b, k, h)
 
 
 def mtl_gather_two_level_q8_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -327,15 +371,19 @@ def mtl_gather_two_level_q8_plain(ids: torch.Tensor, offsets: torch.Tensor,
                                   cache_scale: torch.Tensor,
                                   backing: torch.Tensor,
                                   backing_scale: torch.Tensor,
-                                  mask: torch.Tensor | None = None
+                                  mask: torch.Tensor | None = None, *,
+                                  shard: tuple[int, int] | None = None
                                   ) -> torch.Tensor:
     """Plain PyTorch version of K4."""
     ids = _as_slots(ids)
     b, k, h = ids.shape
-    rows = _slot_rows(ids, offsets, mask, backing.shape[0]).reshape(-1)
-    return _pool(ref_two_level_gather_q8(rows, slot_of_row, cache,
-                                         cache_scale, backing, backing_scale),
-                 b, k, h)
+    n_local = backing.shape[0]
+    rows = _slot_rows(ids, offsets, mask,
+                      _check_shard(shard, n_local)[0]).reshape(-1)
+    rows, valid = _shard_rows(rows, shard, n_local)
+    return _pool(_in_shard(ref_two_level_gather_q8(
+        rows, slot_of_row, cache, cache_scale, backing, backing_scale),
+        valid), b, k, h)
 
 
 def mtl_gather_three_level_plain(ids: torch.Tensor, offsets: torch.Tensor,
@@ -453,8 +501,9 @@ def _tiered_args(launch: Launch) -> tuple[int, ...]:
 
 
 def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
-                        offsets: torch.Tensor,
-                        table: torch.Tensor) -> torch.Tensor:
+                        offsets: torch.Tensor, table: torch.Tensor, *,
+                        shard: tuple[int, int] | None = None
+                        ) -> torch.Tensor:
     """K2: pooled (sum) gather of ``h`` ids per (row, field).
 
     Args:
@@ -463,6 +512,10 @@ def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
                  valid. A masked slot reads row ``N - 1``, the zero row.
         offsets: (k,) int32 starting row of each field in ``table``.
         table:   (N, d) float32 mega-table whose last row is all zero.
+        shard:   optional ``(row_lo, n_rows)``: ``table`` holds only global
+                 rows ``[row_lo, row_lo + table.shape[0])`` of an
+                 ``n_rows``-row table (a vocab-parallel row shard); a slot
+                 whose global row lies outside them adds +0.0.
 
     Returns:
         (b, k*d) float32 pooled rows.
@@ -473,17 +526,20 @@ def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
     dev = table.device
     ids, b, k, h = _check_slots(ids, mask, offsets, dev)
     _check_table("table", table, torch.float32, dev)
-    n_rows, d = table.shape
+    n_local, d = table.shape
+    n_rows, row_lo = _check_shard(shard, n_local)
     if dev.type == "cpu":
-        return mtl_gather_multihot_plain(ids, mask, offsets, table)
+        return mtl_gather_multihot_plain(ids, mask, offsets, table,
+                                         shard=shard)
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     launch = tiered_launch(b, k, h, d, tier_word(d, 4, table.data_ptr()))
-    code = _tiered("mtl_gather_multihot", 5, 10)(
-        ids.data_ptr(), _ptr(mask), offsets.data_ptr(), table.data_ptr(),
-        out.data_ptr(), b, k, h, d, n_rows, *_tiered_args(launch),
-        _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _tiered("mtl_gather_multihot", 5, 12)(
+            ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+            table.data_ptr(), out.data_ptr(), b, k, h, d, n_rows, row_lo,
+            n_local, *_tiered_args(launch), _build.current_stream(dev))
     _build.check_launch("mtl_gather_multihot", code)
     _build.count_launch(mtl_gather_multihot)
     return out
@@ -492,7 +548,9 @@ def mtl_gather_multihot(ids: torch.Tensor, mask: torch.Tensor | None,
 def mtl_gather_two_level(ids: torch.Tensor, offsets: torch.Tensor,
                          slot_of_row: torch.Tensor, cache: torch.Tensor,
                          backing: torch.Tensor,
-                         mask: torch.Tensor | None = None) -> torch.Tensor:
+                         mask: torch.Tensor | None = None, *,
+                         shard: tuple[int, int] | None = None
+                         ) -> torch.Tensor:
     """K3: two-level gather — cache hits from ``cache``, misses from
     ``backing`` — pooled over ``h`` ids per (row, field) (h = 1 is the
     one-hot lookup).
@@ -504,6 +562,11 @@ def mtl_gather_two_level(ids: torch.Tensor, offsets: torch.Tensor,
         cache:       (C, d) float32 hot-row copies.
         backing:     (N, d) float32 full mega-table (last row all zero).
         mask:        optional (b, k, h) float32; masked slots read row N-1.
+        shard:       optional ``(row_lo, n_rows)``: ``backing`` and
+                     ``slot_of_row`` hold only global rows ``[row_lo,
+                     row_lo + backing.shape[0])`` of an ``n_rows``-row
+                     table (a vocab-parallel row shard; ``cache`` whole); a
+                     slot whose global row lies outside them adds +0.0.
 
     Returns:
         (b, k*d) float32.
@@ -511,22 +574,24 @@ def mtl_gather_two_level(ids: torch.Tensor, offsets: torch.Tensor,
     dev = backing.device
     ids, b, k, h = _check_slots(ids, mask, offsets, dev)
     _check_table("backing", backing, torch.float32, dev)
-    n_rows, d = backing.shape
+    n_local, d = backing.shape
+    n_rows, row_lo = _check_shard(shard, n_local)
     _check_table("cache", cache, torch.float32, dev, d)
-    _check_map(slot_of_row, n_rows, dev)
+    _check_map(slot_of_row, n_local, dev)
     if dev.type == "cpu":
         return mtl_gather_two_level_plain(ids, offsets, slot_of_row, cache,
-                                          backing, mask)
+                                          backing, mask, shard=shard)
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     launch = tiered_launch(b, k, h, d, tier_word(
         d, cache.element_size(), cache.data_ptr(), backing.data_ptr()))
-    code = _tiered("mtl_gather_two_level", 7, 11)(
-        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
-        slot_of_row.data_ptr(), cache.data_ptr(), backing.data_ptr(),
-        out.data_ptr(), b, k, h, d, cache.shape[0], n_rows,
-        *_tiered_args(launch), _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _tiered("mtl_gather_two_level", 7, 13)(
+            ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+            slot_of_row.data_ptr(), cache.data_ptr(), backing.data_ptr(),
+            out.data_ptr(), b, k, h, d, cache.shape[0], n_rows, row_lo,
+            n_local, *_tiered_args(launch), _build.current_stream(dev))
     _build.check_launch("mtl_gather_two_level", code)
     _build.count_launch(mtl_gather_two_level)
     return out
@@ -536,13 +601,16 @@ def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
                             slot_of_row: torch.Tensor, cache: torch.Tensor,
                             cache_scale: torch.Tensor, backing: torch.Tensor,
                             backing_scale: torch.Tensor,
-                            mask: torch.Tensor | None = None
+                            mask: torch.Tensor | None = None, *,
+                            shard: tuple[int, int] | None = None
                             ) -> torch.Tensor:
     """K4: K3 on int8 rows, each dequantized (``q * scale``, the scale from
     the same tier) before the fp32 pool.
 
     Args:
-        ids, offsets, slot_of_row, mask: as :func:`mtl_gather_two_level`.
+        ids, offsets, slot_of_row, mask, shard: as
+            :func:`mtl_gather_two_level` (a shard's ``backing_scale`` holds
+            its rows' scales).
         cache:         (C, d) int8 hot-row copies.
         cache_scale:   (C, 1) float32 per-row scales.
         backing:       (N, d) int8 full mega-table.
@@ -554,26 +622,30 @@ def mtl_gather_two_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
     dev = backing.device
     ids, b, k, h = _check_slots(ids, mask, offsets, dev)
     _check_table("backing", backing, torch.int8, dev)
-    n_rows, d = backing.shape
+    n_local, d = backing.shape
+    n_rows, row_lo = _check_shard(shard, n_local)
     _check_table("cache", cache, torch.int8, dev, d)
-    _check_scale("backing_scale", backing_scale, n_rows, dev)
+    _check_scale("backing_scale", backing_scale, n_local, dev)
     _check_scale("cache_scale", cache_scale, cache.shape[0], dev)
-    _check_map(slot_of_row, n_rows, dev)
+    _check_map(slot_of_row, n_local, dev)
     if dev.type == "cpu":
         return mtl_gather_two_level_q8_plain(ids, offsets, slot_of_row,
                                              cache, cache_scale, backing,
-                                             backing_scale, mask)
+                                             backing_scale, mask,
+                                             shard=shard)
     out = torch.empty((b, k * d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     launch = tiered_launch(b, k, h, d, tier_word(
         d, cache.element_size(), cache.data_ptr(), backing.data_ptr()))
-    code = _tiered("mtl_gather_two_level_q8", 9, 11)(
-        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
-        slot_of_row.data_ptr(), cache.data_ptr(), cache_scale.data_ptr(),
-        backing.data_ptr(), backing_scale.data_ptr(), out.data_ptr(),
-        b, k, h, d, cache.shape[0], n_rows, *_tiered_args(launch),
-        _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _tiered("mtl_gather_two_level_q8", 9, 13)(
+            ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+            slot_of_row.data_ptr(), cache.data_ptr(),
+            cache_scale.data_ptr(), backing.data_ptr(),
+            backing_scale.data_ptr(), out.data_ptr(), b, k, h, d,
+            cache.shape[0], n_rows, row_lo, n_local, *_tiered_args(launch),
+            _build.current_stream(dev))
     _build.check_launch("mtl_gather_two_level_q8", code)
     _build.count_launch(mtl_gather_two_level_q8)
     return out
@@ -618,12 +690,13 @@ def mtl_gather_three_level(ids: torch.Tensor, offsets: torch.Tensor,
         return out
     launch = tiered_launch(b, k, h, d, tier_word(
         d, cache.element_size(), cache.data_ptr(), staging.data_ptr()))
-    code = _tiered("mtl_gather_three_level", 8, 12)(
-        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
-        slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
-        cache.data_ptr(), staging.data_ptr(), out.data_ptr(), b, k, h, d,
-        cache.shape[0], staging.shape[0], n_rows, *_tiered_args(launch),
-        _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _tiered("mtl_gather_three_level", 8, 12)(
+            ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+            slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
+            cache.data_ptr(), staging.data_ptr(), out.data_ptr(), b, k, h,
+            d, cache.shape[0], staging.shape[0], n_rows,
+            *_tiered_args(launch), _build.current_stream(dev))
     _build.check_launch("mtl_gather_three_level", code)
     _build.count_launch(mtl_gather_three_level)
     return out
@@ -669,13 +742,14 @@ def mtl_gather_three_level_q8(ids: torch.Tensor, offsets: torch.Tensor,
         return out
     launch = tiered_launch(b, k, h, d, tier_word(
         d, cache.element_size(), cache.data_ptr(), staging.data_ptr()))
-    code = _tiered("mtl_gather_three_level_q8", 10, 12)(
-        ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
-        slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
-        cache.data_ptr(), cache_scale.data_ptr(), staging.data_ptr(),
-        staging_scale.data_ptr(), out.data_ptr(), b, k, h, d, cache.shape[0],
-        staging.shape[0], n_rows, *_tiered_args(launch),
-        _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _tiered("mtl_gather_three_level_q8", 10, 12)(
+            ids.data_ptr(), _ptr(mask), offsets.data_ptr(),
+            slot_of_row.data_ptr(), staging_slot_of_row.data_ptr(),
+            cache.data_ptr(), cache_scale.data_ptr(), staging.data_ptr(),
+            staging_scale.data_ptr(), out.data_ptr(), b, k, h, d,
+            cache.shape[0], staging.shape[0], n_rows, *_tiered_args(launch),
+            _build.current_stream(dev))
     _build.check_launch("mtl_gather_three_level_q8", code)
     _build.count_launch(mtl_gather_three_level_q8)
     return out
@@ -756,10 +830,11 @@ def mtl_input_first(ids: torch.Tensor, offsets: torch.Tensor,
     if out.numel() > 0:
         launch = input_first_launch(
             b, k, vector_words(d, table.data_ptr(), out.data_ptr()))
-        code = _input_first_kernel()(
-            ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-            out.data_ptr(), b, k, d, n_rows, int(launch.vec), launch.threads,
-            launch.blocks, _build.current_stream(dev))
+        with torch.cuda.device(dev):
+            code = _input_first_kernel()(
+                ids.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+                out.data_ptr(), b, k, d, n_rows, int(launch.vec),
+                launch.threads, launch.blocks, _build.current_stream(dev))
         _build.check_launch("mtl_input_first", code)
         _build.count_launch(mtl_input_first)
     return out if field_major else _sample_major(out)
@@ -841,10 +916,11 @@ def mtl_onehot(ids: torch.Tensor, stacked_tables: torch.Tensor
     itemsize = stacked_tables.element_size()
     launch = onehot_launch(b, k, d, onehot_word(
         d, itemsize, stacked_tables.data_ptr(), out.data_ptr()), itemsize)
-    code = _onehot_kernel()(ids.data_ptr(), stacked_tables.data_ptr(),
-                            out.data_ptr(), b, k, n_pad, d, itemsize,
-                            *_onehot_args(launch),
-                            _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _onehot_kernel()(ids.data_ptr(), stacked_tables.data_ptr(),
+                                out.data_ptr(), b, k, n_pad, d, itemsize,
+                                *_onehot_args(launch),
+                                _build.current_stream(dev))
     _build.check_launch("mtl_onehot", code)
     _build.count_launch(mtl_onehot)
     return out

@@ -68,8 +68,9 @@ def quantize_rows_q8(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     hscale = torch.empty((b, 1), dtype=torch.float32, device=dev)
     if b == 0:
         return hq, hscale
-    code = _kernel()(h.data_ptr(), hq.data_ptr(), hscale.data_ptr(), b,
-                     fan_in, _build.current_stream(dev))
+    with torch.cuda.device(dev):
+        code = _kernel()(h.data_ptr(), hq.data_ptr(), hscale.data_ptr(), b,
+                         fan_in, _build.current_stream(dev))
     _build.check_launch("quantize_rows_q8", code)
     _build.count_launch(quantize_rows_q8)
     return hq, hscale

@@ -14,6 +14,10 @@ output lines, plus ``--device``:
     PYTHONPATH=src python -m repro_torch.launch.serve --store cached \\
         --delta-every 100 --delta-rows 256
 
+    # multi-device: batches over data, embedding tables over model
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --mesh data=4,model=2 --store cached
+
 The CTR path is the compile→plan→engine→runtime flow: a ``ServingRuntime``
 hosting one ``InferenceEngine`` (plan cache + batching policy picked by
 ``--policy``) per ``--models`` entry, each model's weights drawn from seed
@@ -21,9 +25,11 @@ hosting one ``InferenceEngine`` (plan cache + batching policy picked by
 ``DeviceScheduler`` pool, or a worker per engine with ``--sched
 per-engine``); without it the driver drains synchronously. ``--device``
 defaults to ``cuda`` and raises without a card; ``--device cpu`` runs the
-plain versions of the kernels. ``--mode lm`` (the LM zoo, ROADMAP Queue A
-item 6) and ``--mesh`` (multi-device serving, item 4) are not ported and
-exit with an error.
+plain versions of the kernels. ``--mesh data=N[,model=M]`` serves every
+model over a device mesh (``repro_torch.distributed``): one card a
+position, and an error naming the count where there are fewer cards;
+with ``--device cpu`` every position is on the CPU. ``--mode lm`` (the
+LM zoo, ROADMAP Queue A item 6) is not ported and exits with an error.
 """
 
 from __future__ import annotations
@@ -47,6 +53,30 @@ def _make_policy(args):
     if args.policy == "bucketed":
         return BucketedBatch(ladder)
     return TimeoutBatch(BucketedBatch(ladder), max_wait_ms=args.max_wait_ms)
+
+
+def _make_mesh(spec: str | None, dev: torch.device):
+    """``"data=4,model=2"`` -> a mesh (``None`` passes through): one card
+    a position on CUDA (fewer cards than positions exit, naming the
+    count), every position on the CPU with ``--device cpu``."""
+    if not spec:
+        return None
+    from repro_torch.distributed import make_mesh
+    axes, sizes = [], []
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        if not size:
+            raise SystemExit(f"--mesh: expected axis=N, got {part!r}")
+        axes.append(name.strip())
+        sizes.append(int(size))
+    if dev.type == "cpu":
+        return make_mesh(sizes, axes, devices="cpu")
+    need = int(np.prod(sizes))
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if need > have:
+        raise SystemExit(f"--mesh {spec} needs {need} devices, found {have} "
+                         "CUDA device(s); --device cpu runs it on the CPU")
+    return make_mesh(sizes, axes)
 
 
 def _traffic(args, schema):
@@ -88,12 +118,18 @@ def serve_ctr(args) -> None:
     from repro_torch.embedding import CachedStore, HostBackedStore
     from repro_torch.models.ctr import CTR_MODELS
     from repro_torch.serving import ServingRuntime
+    # the mesh first: without the cards it asks for, the error names them
+    mesh = _make_mesh(args.mesh, torch.device(args.device))
     dev = resolve_device(args.device)
     names = [n.strip() for n in
              (args.models.split(",") if args.models else [args.model])]
     schema = CRITEO.scaled(100_000)
+    if mesh is not None:
+        print(f"[serve] mesh {dict(mesh.shape)} over "
+              f"{mesh.devices.size} devices")
     rt = ServingRuntime(refresh_every=args.runtime_refresh_every,
-                        scheduler=args.sched, pool_size=args.pool_size,
+                        mesh=mesh, scheduler=args.sched,
+                        pool_size=args.pool_size,
                         delta_every=args.delta_every)
     row_dtype = None if args.emb_dtype == "fp32" else args.emb_dtype
     if args.store == "dense" and row_dtype is not None:
@@ -229,7 +265,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--mesh", default=None,
-                    help="device mesh for multi-chip serving (not ported)")
+                    help="device mesh for multi-device serving, e.g. "
+                         "'data=8' or 'data=4,model=2' (batches shard "
+                         "over data, embedding tables over model)")
     ap.add_argument("--store", default="dense",
                     choices=["dense", "cached", "host"],
                     help="embedding store tier (repro_torch.embedding); "
@@ -270,9 +308,6 @@ def main(argv: list[str] | None = None) -> None:
     if args.mode == "lm":
         raise SystemExit("--mode lm is not ported yet: the LM zoo and "
                          "serving/generate.py are ROADMAP Queue A item 6")
-    if args.mesh:
-        raise SystemExit("--mesh is not ported yet: multi-device serving "
-                         "is ROADMAP Queue A item 4")
     serve_ctr(args)
 
 

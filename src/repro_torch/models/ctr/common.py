@@ -15,6 +15,10 @@ Counterpart of ``repro.models.ctr.common``. Every model is an
   loss(batch)          -> mean binary cross entropy of the logits
   param_tree()         -> the reference's parameter tree over the
                        model's own buffers (a trainer's ``params``)
+  tensor_tree()        -> the same tree for any store (no grad marks)
+  partition_spec(model_axis)
+                       -> its placement over a mesh: embedding subtrees
+                       per their store, everything else replicated
 
 Graph modules: "embedding" -> ("explicit" ∥ "implicit") -> "head", with
 GEMMs flagged and non-GEMM tails carrying ``fused_hint`` so the C5 pass
@@ -34,6 +38,7 @@ from repro_torch.bridge import _leaves
 from repro_torch.core import COMPUTE_DTYPES, Op, OpGraph
 from repro_torch.core.opgraph import fuse_non_gemm, register_fused_kernel
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import P, tree_map
 from repro_torch.embedding import (DenseStore, FusedEmbeddingCollection,
                                    FusedEmbeddingSpec, runtime_edge)
 from repro_torch.kernels import ops as kops
@@ -307,14 +312,29 @@ class CTRModel(nn.Module):
         subtree this model owns."""
         return {self.main_embedding_key: self.embedding}
 
-    def store_runtime_env(self) -> dict[str, torch.Tensor]:
+    def store_runtime_env(self, mesh=None, model_axis: str = "model"
+                          ) -> dict:
         """Edge name -> tensor for every runtime store input this model's
-        graphs declare. Empty for all-dense models."""
+        graphs declare. Empty for all-dense models. With a ``mesh``, each
+        tensor placed over it as its store places it (``Placed``)."""
         env = {}
         for key, coll in self.embedding_collections().items():
-            for leaf, t in coll.store.runtime_tensors().items():
+            tensors = coll.store.runtime_tensors()
+            if mesh is not None and tensors:
+                tensors = coll.store.place(tensors, mesh, model_axis)
+            for leaf, t in tensors.items():
                 env[runtime_edge(key, leaf)] = t
         return env
+
+    def partition_spec(self, model_axis: str | None = "model") -> dict:
+        """Mesh placement of :meth:`tensor_tree`: embedding subtrees per
+        their store's ``partition_spec`` (vocab-parallel tables,
+        replicated cache tiers), everything else replicated (CTR dense
+        nets are latency-bound)."""
+        specs = tree_map(lambda _: P(), self.tensor_tree())
+        for key, coll in self.embedding_collections().items():
+            specs[key] = coll.partition_spec(model_axis)
+        return specs
 
     @torch.no_grad()
     def use_store(self, store) -> "CTRModel":
@@ -366,8 +386,18 @@ class CTRModel(nn.Module):
         updates them in place; the tree holds the buffers present now, so
         take it again after a store swap. Needs ``DenseStore`` tables."""
         self._dense_stores()
+        tree = self.tensor_tree()
+        for _, t in _leaves(tree):
+            t.requires_grad_(True)
+        return tree
+
+    def tensor_tree(self) -> dict:
+        """The reference's parameter tree over this model's own buffers,
+        whatever its stores: each embedding subtree is its store's
+        buffers by name (``mega_table``; ``backing``, ``cache``,
+        ``slot_of_row``, ...), the rest the dense layers'."""
         collections = self.embedding_collections()
-        tree: dict = {key: {"mega_table": coll.store.mega_table}
+        tree: dict = {key: coll.store.device_tensors()
                       for key, coll in collections.items()}
         owned = {id(t) for coll in collections.values()
                  for t in coll.buffers()}
@@ -379,7 +409,4 @@ class CTRModel(nn.Module):
             for part in parents:
                 node = node.setdefault(part, {})
             node[leaf] = t
-        tree = _as_lists(tree)
-        for _, t in _leaves(tree):
-            t.requires_grad_(True)
-        return tree
+        return _as_lists(tree)

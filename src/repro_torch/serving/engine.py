@@ -63,9 +63,17 @@ stream is the default stream: the "dual" step forks its branch streams
 from it and joins back onto it, and a store's publish synchronizes the
 device from whichever thread publishes.
 
-Not ported: ``mesh=`` (multi-device serving, ROADMAP Queue A item 4) and
-``donate=`` (buffer donation has no PyTorch meaning: a step's inputs are
-ordinary tensors the caller keeps).
+**Mesh.** ``mesh=`` (a ``repro_torch.distributed.Mesh``) serves every
+plan over many devices from this one process. The model's tensors are
+placed once, at construction (``place_params``: tables row-sharded over
+``model``, dense layers and cache tiers replicated), every plan is
+compiled with the mesh against that placement, and every publish (a
+stage, a refresh, a push) is of tensors placed the way the plans record
+(``store.place``; ``runtime_shardings``), so no step re-places anything.
+A host store is bound to the mesh (``bind_mesh``): its staging uploads
+land on every device of the mesh. ``donate=`` is not taken: buffer
+donation has no PyTorch meaning (a step's inputs are ordinary tensors
+the caller keeps).
 """
 
 from __future__ import annotations
@@ -82,7 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import (InferencePlan, PlanKey, compile_plan,
-                                   plan_key_for)
+                                   place_params, plan_key_for)
 from repro_torch.device import resolve_device
 from repro_torch.embedding import StagingOverflowError
 
@@ -382,10 +390,11 @@ class InferenceEngine:
         worker_tick_ms: how long the background worker waits between
             drain attempts while the policy holds requests back.
         device: where the plans run; CUDA unless the caller says "cpu"
-            (raises without a card).
+            (raises without a card). With a ``mesh``, its first device.
+        mesh: serve over this device mesh (see the module docstring).
 
-    The reference's ``mesh=`` and ``donate=`` are not taken: multi-device
-    serving is a later slice, and donation has no PyTorch meaning.
+    The reference's ``donate=`` is not taken: donation has no PyTorch
+    meaning.
     """
 
     def __init__(self, model, *, level: str = "dual",
@@ -397,7 +406,14 @@ class InferenceEngine:
                  max_queue_depth: int | None = None,
                  latency_window: int = 8192,
                  worker_tick_ms: float = 0.5,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 mesh=None):
+        if mesh is not None:
+            if device is not None and resolve_device(device).type \
+                    != mesh.first_device.type:
+                raise ValueError(f"device {device} is not where the mesh "
+                                 f"{mesh} lives")
+            device = mesh.first_device
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}; the engine "
@@ -405,6 +421,14 @@ class InferenceEngine:
         self.model = model
         if store is not None:
             model.use_store(store)
+        self.mesh = mesh
+        # placed once: every plan compiles against it, and every publish
+        # places the store tensors the same way
+        self._placed = (place_params(model, mesh) if mesh is not None
+                        else None)
+        staging = self._staging_store
+        if staging is not None and mesh is not None:
+            staging.bind_mesh(mesh)
         self.max_queue_depth = max_queue_depth
         self.level = level
         self.policy = policy if policy is not None else BucketedBatch()
@@ -446,9 +470,16 @@ class InferenceEngine:
         published set. Caller holds ``_drain_lock`` (or is the
         constructor); the old dict is dropped here, after every step that
         read it has returned."""
-        env = self.model.store_runtime_env()
+        env = self.model.store_runtime_env(self.mesh)
         with self.stats.lock:
             self._env = env
+
+    @property
+    def published(self) -> dict:
+        """The store tensors of this engine's last publish, by graph edge
+        (placed over the mesh when there is one): what every step reads."""
+        with self.stats.lock:
+            return dict(self._env)
 
     def _runtime_env(self) -> dict:
         """This engine's published runtime store tensors, read by every
@@ -607,7 +638,7 @@ class InferenceEngine:
             n = store.apply_deltas(row_ids, new_rows)
             if n == 0:
                 return 0
-            env = self.model.store_runtime_env()
+            env = self.model.store_runtime_env(self.mesh)
             with self.stats.lock:
                 self._env = env                       # publish
                 self.stats.emb_version += 1
@@ -655,7 +686,7 @@ class InferenceEngine:
     # -- plan cache ----------------------------------------------------------
     def _plan_key(self, bucket: int) -> PlanKey:
         return plan_key_for(self.model, self.level, bucket,
-                            self.branch_order,
+                            self.branch_order, sharded=self.mesh is not None,
                             compute_dtype=self.compute_dtype)
 
     def plan_for(self, bucket: int) -> InferencePlan:
@@ -668,7 +699,8 @@ class InferenceEngine:
                     self.stats.cache_hits += 1
                 return plan
             plan = compile_plan(self.model, self.level, bucket,
-                                device=self.device,
+                                device=self.device, mesh=self.mesh,
+                                placed=self._placed,
                                 branch_order=self.branch_order,
                                 runtime_provider=self._runtime_env,
                                 compute_dtype=self.compute_dtype)

@@ -1,8 +1,9 @@
 """ServingRuntime — one async intake over many named engines.
 
 Counterpart of ``repro.serving.runtime``. The port's models own their
-tensors, so ``add_model`` takes no parameter tree, and there is no shared
-``mesh`` (multi-device serving is ROADMAP Queue A item 4).
+tensors, so ``add_model`` takes no parameter tree. A runtime's ``mesh``
+is every hosted engine's default: each places its model on it, and
+``refresh_all`` republishes placed tensors through each engine.
 
 Production CTR serving rarely hosts a single model: ranking and
 pre-ranking models (e.g. ``deepfm`` + ``dcnv2``) sit behind one RPC
@@ -136,6 +137,9 @@ class ServingRuntime:
             refreshable store once per N submitted requests *across all
             models* (``None`` disables; engines may still run their own
             per-engine ``refresh_every``).
+        mesh: a ``repro_torch.distributed.Mesh`` every
+            :meth:`add_model` engine serves over unless its kwargs say
+            otherwise (``None``: one device).
         scheduler: how :meth:`start` drains the hosted queues.
             ``"shared"`` (default): one :class:`DeviceScheduler` —
             ``pool_size`` threads serve every engine least-slack-first
@@ -160,10 +164,12 @@ class ServingRuntime:
     """
 
     def __init__(self, *, refresh_every: int | None = None,
+                 mesh=None,
                  scheduler: str | DeviceScheduler = "shared",
                  pool_size: int = 2, delta_every: int | None = None):
         self._engines: dict[str, InferenceEngine] = {}
         self.refresh_every = refresh_every
+        self.mesh = mesh
         if isinstance(scheduler, DeviceScheduler):
             self.scheduler_mode = "shared"
             self._scheduler: DeviceScheduler | None = scheduler
@@ -195,7 +201,8 @@ class ServingRuntime:
                   **engine_kwargs) -> InferenceEngine:
         """Build and host an ``InferenceEngine`` for ``model`` — kwargs go
         straight to :class:`InferenceEngine` (policy, store, level,
-        device, ...)."""
+        device, ...); ``mesh`` defaults to the runtime's."""
+        engine_kwargs.setdefault("mesh", self.mesh)
         return self.add_engine(name, InferenceEngine(model,
                                                      **engine_kwargs))
 

@@ -173,7 +173,9 @@ def test_port_never_imports_jax_or_the_reference():
     assert {f"src/repro_torch/{m}.py" for m in (
         "training/__init__", "training/metrics", "training/optimizer",
         "training/checkpoint", "training/train_loop", "data/pipeline",
-        "kernels/autograd", "launch/train_ctr")} <= names
+        "kernels/autograd", "launch/train_ctr", "distributed/__init__",
+        "distributed/mesh", "distributed/sharding",
+        "training/compression")} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -429,16 +429,17 @@ def test_int8_tiered_entries_refuse_bad_launches(cuda):
     t = _q8_tier_inputs(np.random.default_rng(0), 4, 1, 32, 1, cuda)
     out = torch.empty((4, 7 * 32), device=cuda)
     good = tiered_launch(4, 7, 1, 32, 1)
-    fn = mtl._tiered("mtl_gather_two_level_q8", 9, 11)
+    fn = mtl._tiered("mtl_gather_two_level_q8", 9, 13)
+    n_rows = t["slot_of_row"].numel()
 
-    def call(vec, word, lane_bits, threads, d=32, dst=out):
+    def call(vec, word, lane_bits, threads, d=32, dst=out, shard=(0, 0)):
         return fn(t["ids"].data_ptr(), None, t["offsets"].data_ptr(),
                   t["slot_of_row"].data_ptr(), t["qcache"].data_ptr(),
                   t["qscale"].data_ptr(), t["q"].data_ptr(),
                   t["scale"].data_ptr(), dst.data_ptr(), 4, 7, 1, d,
-                  t["qcache"].shape[0], t["slot_of_row"].numel(), vec,
-                  word, lane_bits, threads, good.blocks,
-                  _build.current_stream(cuda))
+                  t["qcache"].shape[0], n_rows, shard[0],
+                  n_rows - shard[1], vec, word, lane_bits, threads,
+                  good.blocks, _build.current_stream(cuda))
     assert call(1, 1, 3, 128) == 0
     assert call(1, 4, 3, 128) == 716       # cudaErrorMisalignedAddress
     assert call(1, 1, 3, 128, dst=out.view(-1)[1:]) == 716
@@ -447,6 +448,8 @@ def test_int8_tiered_entries_refuse_bad_launches(cuda):
     assert call(1, 1, 3, 128, d=30) == 9   # vec needs d % 4 == 0
     assert call(1, 1, 6, 128) == 9
     assert call(1, 1, 3, 96 + 1) == 9
+    assert call(1, 1, 3, 128, shard=(1, 0)) == 9   # a shard past the table
+    assert call(1, 1, 3, 128, shard=(0, n_rows)) == 9   # an empty shard
     torch.cuda.synchronize()
 
 
@@ -567,17 +570,18 @@ def test_fp32_tiered_entries_refuse_bad_launches(cuda, kernel):
     out = torch.empty((4, 7 * 32 + 4), device=cuda)
     good = tiered_launch(4, 7, 1, 32, 16)
     fn = mtl._tiered(f"mtl_gather_{kernel}",
-                     *{"multihot": (5, 10), "two_level": (7, 11),
+                     *{"multihot": (5, 12), "two_level": (7, 13),
                        "three_level": (8, 12)}[kernel])
 
     def call(vec, word, lane_bits, threads, blocks=good.blocks, d=32,
              dst=out, tiers=t):
         if kernel == "multihot":
             ptrs = (tiers["table"],)
-            sizes = (t["slot_of_row"].numel(),)
+            sizes = (t["slot_of_row"].numel(), 0, t["slot_of_row"].numel())
         elif kernel == "two_level":
             ptrs = (t["slot_of_row"], tiers["cache"], t["mega"])
-            sizes = (tiers["cache"].shape[0], t["slot_of_row"].numel())
+            sizes = (tiers["cache"].shape[0], t["slot_of_row"].numel(), 0,
+                     t["slot_of_row"].numel())
         else:
             ptrs = (t["slot_of_row"], t["smap"], tiers["cache"],
                     tiers["staging"])
@@ -1762,3 +1766,264 @@ def test_resumed_training_on_cuda_is_bitwise_unbroken(cuda, tmp_path):
     resumed = run(6, "b")
     for (key, a), (_, b) in zip(tree_flatten(whole), tree_flatten(resumed)):
         assert torch.equal(a, b), key
+
+
+# ---------------------------------------------------------------------------
+# multi-device: mesh positions on one card, and launches on a second card
+# ---------------------------------------------------------------------------
+
+MESH_KW = dict(embed_dim=8, hidden=64, max_field=2_001)   # 27,728 rows
+
+
+def _card_mesh(cuda, shape):
+    """``shape`` positions, every one on the card (logical positions)."""
+    from repro_torch.distributed import make_mesh
+    n = int(np.prod(shape))
+    return make_mesh(shape, ("data", "model"),
+                     [torch.device("cuda", torch.cuda.current_device())] * n)
+
+
+@pytest.mark.parametrize("kernel", ["multihot", "two_level", "two_level_q8"])
+@pytest.mark.parametrize("h", [1, 5])
+def test_tiered_row_shards_on_the_card(cuda, kernel, h):
+    """K2-K4 with a row shard: bitwise their plain versions given the same
+    shard, and the shards of a split sum to the whole lookup (exactly at
+    h = 1, within TOL pooled)."""
+    t = (_f32_tier_inputs if kernel != "two_level_q8" else _q8_tier_inputs)(
+        np.random.default_rng(11), 64, h, 32, 0, cuda)
+    n = t["slot_of_row"].numel()
+    ids, mask, offsets = t["ids"], t["mask"], t["offsets"]
+    if h == 1:
+        ids, mask = ids[..., 0].contiguous(), None
+
+    def run(fn_kernel, fn_plain, lo, hi, shard):
+        r = slice(lo, hi)
+        out = []
+        for fn in (fn_kernel, fn_plain):
+            if kernel == "multihot":
+                out.append(fn(ids, mask, offsets, t["mega"][r].contiguous(),
+                              shard=shard))
+            elif kernel == "two_level":
+                out.append(fn(ids, offsets, t["slot_of_row"][r],
+                              t["cache"].contiguous(), t["mega"][r], mask,
+                              shard=shard))
+            else:
+                out.append(fn(ids, offsets, t["slot_of_row"][r],
+                              t["qcache"].contiguous(), t["qscale"],
+                              t["q"][r].contiguous(), t["scale"][r], mask,
+                              shard=shard))
+        return out
+    fns = {"multihot": (mtl_gather_multihot, mtl_gather_multihot_plain),
+           "two_level": (mtl_gather_two_level, mtl_gather_two_level_plain),
+           "two_level_q8": (mtl_gather_two_level_q8,
+                            mtl_gather_two_level_q8_plain)}[kernel]
+    whole, _ = run(*fns, 0, n, None)
+    for cuts in ((0, n // 2, n), (0, 1, n // 3, n - 1, n)):
+        total = None
+        for lo, hi in zip(cuts, cuts[1:]):
+            got, want = run(*fns, lo, hi, (lo, n))
+            assert _same_bits(got, want), (lo, hi)
+            total = got if total is None else total + got
+        finite = torch.isfinite(whole)
+        if h == 1:
+            assert torch.equal(total[finite], whole[finite])
+        torch.testing.assert_close(total[finite], whole[finite], **TOL)
+
+
+def _mesh_model(name, store, device):
+    spec = ctr_spec(name, "criteo", **MESH_KW)
+    model = CTR_MODELS[name](spec, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
+    if store == "cached":
+        model.use_store(CachedStore(spec.embedding_spec(), 256,
+                                    device=device))
+    elif store == "cached_int8":
+        model.use_store(CachedStore(spec.embedding_spec(), 256, "int8",
+                                    device=device))
+    return model
+
+
+@pytest.mark.parametrize("name,store,compute_dtype", [
+    ("dcnv2", "dense", "fp32"), ("dcnv2", "cached", "fp32"),
+    ("dcnv2", "cached_int8", "fp32"), ("dcnv2", "dense", "int8"),
+    ("dcn", "dense", "fp32"), ("deepfm", "dense", "fp32"),
+    ("widedeep", "cached", "int8")])
+def test_mesh_plans_on_logical_positions(cuda, name, store, compute_dtype):
+    """Four positions on the card: the (1, 4) plan is bitwise the
+    mesh-less plan, (2, 2) and (4, 1) within the level ladder's
+    tolerance; each step launches one gather a model shard a batch shard
+    a table, and the dense kernels once a batch shard."""
+    model = _mesh_model(name, store, cuda)
+    ids = sample_ids(CRITEO.scaled(2_001), 64, seed=5)
+    base = compile_plan(model, "dual", 64, device=cuda,
+                        compute_dtype=compute_dtype,
+                        runtime_provider=model.store_runtime_env)
+    want = base.predict(ids)
+    gather = {"dense": "mtl_gather", "cached": "mtl_gather_two_level",
+              "cached_int8": "mtl_gather_two_level_q8"}[store]
+    tables = 2 if name in ("deepfm", "widedeep") else 1
+    for shape in ((1, 4), (2, 2), (4, 1)):
+        plan = compile_plan(model, "dual", 64, mesh=_card_mesh(cuda, shape),
+                            compute_dtype=compute_dtype,
+                            runtime_provider=model.store_runtime_env)
+        reset_launch_counts()
+        got = plan.predict(ids)
+        counts = launch_counts()
+        if shape[0] == 1:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        shards = shape[0] * shape[1]
+        if tables == 2:                   # the d = 1 table: a dense store
+            assert counts["mtl_gather"] == shards * (
+                1 if store == "dense" else 0) + shards, counts
+            assert counts[gather] >= shards
+        else:
+            assert counts[gather] == shards, counts
+        if name == "dcnv2":
+            assert counts["fused_cross_v2"] == 3 * shape[0]
+        if compute_dtype == "int8":
+            assert counts["dmm_q8"] == 3 * shape[0]
+
+
+def test_mesh_engine_refresh_and_deltas_on_the_card(cuda):
+    """A cached engine over four positions on the card: a refresh is
+    bitwise across the swap, a push matches a mesh-less engine given the
+    same push, no recompile, the publish placed as the plans record."""
+    ids = sample_ids(CRITEO.scaled(2_001), 48, seed=6, skew="zipf")
+    engs = []
+    for mesh in (_card_mesh(cuda, (2, 2)), None):
+        model = _mesh_model("dcnv2", "cached", cuda)
+        engs.append(InferenceEngine(model, mesh=mesh, device=cuda,
+                                    policy=BucketedBatch((16,))))
+    eng, ref = engs
+    eng.warmup()
+    compiles = eng.stats.cache_misses
+    pre = eng.predict(ids)
+    eng.refresh_cache()
+    np.testing.assert_array_equal(eng.predict(ids), pre)
+    rng = np.random.default_rng(8)
+    rows = rng.choice(27_727, 500, replace=False)
+    vals = rng.normal(size=(500, 8)).astype(np.float32)
+    for e in engs:
+        e.predict(ids)
+        e.push_update(rows, vals)
+    np.testing.assert_allclose(eng.predict(ids), ref.predict(ids),
+                               rtol=1e-5, atol=1e-6)
+    assert eng.stats.cache_misses == compiles
+    plan = eng.plan_for(16)
+    for edge, placed in eng.published.items():
+        assert placed.sharding.is_equivalent_to(
+            plan.runtime_shardings[edge], placed.ndim), edge
+    backing = eng.published["emb:backing"]
+    assert backing.local((0, 1)).shape[0] == 27_728 // 2
+    assert backing.local((0, 1)).device == torch.device("cuda", 0)
+
+
+def test_host_store_mesh_plan_on_the_card(cuda):
+    """A host store on four positions of the card: the staged (2, 2) plan
+    within tolerance of the mesh-less plan, one K5 a batch shard."""
+    model = _mesh_model("dcnv2", "dense", cuda)
+    store = HostBackedStore(model.spec.embedding_spec(), 256, 8192,
+                            device=cuda)
+    model.use_store(store)
+    try:
+        ids = sample_ids(CRITEO.scaled(2_001), 64, seed=7)
+        store.stage(ids)
+        want = compile_plan(model, "dual", 64, device=cuda,
+                            runtime_provider=model.store_runtime_env
+                            ).predict(ids)
+        plan = compile_plan(model, "dual", 64, mesh=_card_mesh(cuda, (2, 2)),
+                            runtime_provider=model.store_runtime_env)
+        reset_launch_counts()
+        np.testing.assert_allclose(plan.predict(ids), want, rtol=1e-5,
+                                   atol=1e-6)
+        assert launch_counts()["mtl_gather_three_level"] == 2
+    finally:
+        store.pipeline.stop()
+
+
+def test_compressed_step_on_the_card(cuda):
+    from repro_torch.training import make_compressed_dp_step
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = {"w": torch.randn(1248, 64, device=cuda, generator=g)}
+    batch = {"x": torch.randn(64, 1248, device=cuda, generator=g),
+             "y": torch.randn(64, 64, device=cuda, generator=g)}
+
+    def loss_fn(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+    loss, grads = make_compressed_dp_step(
+        loss_fn, _card_mesh(cuda, (4, 2)))(params, batch)
+    w = params["w"].clone().requires_grad_(True)
+    exact = loss_fn({"w": w}, batch)
+    grad, = torch.autograd.grad(exact, w)
+    exact = float(exact.detach())
+    assert abs(float(loss) - exact) < 1e-5 * exact
+    assert float((grads["w"] - grad).abs().max() / grad.abs().max()) < 0.02
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a kernel launched on cuda:1 "
+                    "tensors while cuda:0 is current")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_every_kernel_launches_on_its_tensors_card(two_cards):
+    """With cuda:0 current, each wrapper given cuda:1 tensors launches on
+    cuda:1 (in ``torch.cuda.device(t.device)``) and matches its plain
+    version there."""
+    first, second = two_cards
+    t = _f32_tier_inputs(np.random.default_rng(12), 32, 1, 32, 0, second)
+    q = _q8_tier_inputs(np.random.default_rng(13), 32, 1, 32, 0, second)
+    ids, offsets = t["ids"][..., 0].contiguous(), t["offsets"]
+    x0, xw = (torch.randn(16, 64, device=second) for _ in range(2))
+    bias = torch.randn(64, device=second)
+    v = torch.randn(16, 7, 8, device=second)
+    h = torch.randn(16, 64, device=second)
+    qw, ws = quantize_channels(torch.randn(64, 32, device=second))
+    stacked = torch.randn(7, 16, 32, device=second)
+    small = torch.randint(0, 16, (32, 7), dtype=torch.int32, device=second)
+    cache = t["cache"].contiguous()
+    cases = [
+        (mtl_gather, mtl_gather_plain, (ids, offsets, t["mega"])),
+        (mtl_gather_multihot, mtl_gather_multihot_plain,
+         (t["ids"], t["mask"], offsets, t["mega"])),
+        (mtl_gather_two_level, mtl_gather_two_level_plain,
+         (ids, offsets, t["slot_of_row"], cache, t["mega"])),
+        (mtl_gather_two_level_q8, mtl_gather_two_level_q8_plain,
+         (ids, offsets, q["slot_of_row"], q["qcache"].contiguous(),
+          q["qscale"], q["q"].contiguous(), q["scale"])),
+        (mtl_gather_three_level, mtl_gather_three_level_plain,
+         (ids, offsets, t["slot_of_row"], t["smap"], cache,
+          t["staging"].contiguous())),
+        (mtl_gather_three_level_q8, mtl_gather_three_level_q8_plain,
+         (ids, offsets, q["slot_of_row"], q["smap"],
+          q["qcache"].contiguous(), q["qscale"],
+          q["qstaging"].contiguous(), q["qsscale"])),
+        (mtl_input_first, mtl_input_first_plain, (ids, offsets, t["mega"])),
+        (mtl_onehot, mtl_onehot_plain, (small, stacked)),
+        (fused_cross_v2, fused_cross_v2_plain, (x0, xw, h)),
+        (fused_cross_v1, fused_cross_v1_plain,
+         (x0, xw[:, :1].contiguous(), bias, h)),
+        (fused_fm_second_order, fused_fm_second_order_plain, (v,)),
+        (quantize_rows_q8, quantize_rows_q8_plain, (h,)),
+    ]
+    with torch.cuda.device(first):
+        for fn, plain, args in cases:
+            got, want = fn(*args), plain(*args)
+            for g_, w_ in zip(*(o if isinstance(o, tuple) else (o,)
+                                for o in (got, want))):
+                assert g_.device == second, fn.__name__
+                torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5,
+                                           equal_nan=True,
+                                           msg=fn.__name__)
+        hq, hs = quantize_rows_q8_plain(h)
+        wp, b32 = pack_weight(qw), bias[:32].reshape(1, 32)
+        got = dmm_q8(hq, hs, wp, ws, b32)
+        assert got.device == second
+        torch.testing.assert_close(got, dmm_q8_plain(hq, hs, wp, ws, b32))
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(second)

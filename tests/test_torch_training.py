@@ -187,8 +187,13 @@ def test_ctr_loader_is_the_step_indexed_stream():
         assert torch.equal(batch["ids"], want["ids"])
         assert torch.equal(loader(step)["labels"], want["labels"])
     assert steps == [5, 6, 7, 8]
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        CTRLoader(SCHEMA, 16, mesh=object(), device="cpu")
+    # over a mesh (ported): the same stream, rows split over data
+    from repro_torch.distributed import make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"), devices="cpu")
+    placed = CTRLoader(SCHEMA, 16, mesh=mesh, device="cpu")(5)
+    want = synthetic_batch(SCHEMA, 5, 16, device="cpu")
+    assert torch.equal(placed["ids"].full(), want["ids"])
+    assert torch.equal(placed["labels"].local((1, 0)), want["labels"][8:])
 
 
 def test_data_entry_points_never_fall_back_to_the_cpu(monkeypatch):
