@@ -123,7 +123,7 @@ Phases (any failure raises; the script then exits non-zero):
    ``CachedStore`` with int8 compute, refreshed and updated between
    requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
    fp32-row twin bitwise the dense int8-compute plan.
-8. Summary, printed last (after phases 9-11): one JSON line of every
+8. Summary, printed last (after phases 9-12): one JSON line of every
    ported kernel (its launches from its paths in phases 3-7, 10 and 11),
    then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -196,6 +196,29 @@ Phases (any failure raises; the script then exits non-zero):
    (f) p50 and host enqueue of every mesh plan beside its mesh-less plan
    in turns, at both batch sizes. On one card that is the cost of
    orchestration, not scaling.
+12. The LM zoo's serving path (``repro_torch.models.lm``,
+   ``serving.generate``; no hand kernel: attention is plain tensor ops,
+   the GEMMs cuBLAS), the ten archs one at a time at their published
+   widths in bf16, depth cut only to fit the card (``LM_ARCHS``:
+   phi3.5-moe 8 of 32 layers, llama4-maverick 1 of 48): (a) ``generate``
+   greedy at b = 4, a 512-token prompt (128 for rwkv6 and zamba2, whose
+   recurrences step in Python; pixtral with 256 random patch rows,
+   whisper with 1,500 random frames), 32 new tokens; (b) the reference's
+   invariant (tests/test_lm_smoke.py:70-104): prefill + one decode step
+   against the teacher-forced forward's last position, in bf16 for every
+   arch (max diff and greedy agreement logged) and for llama3-8b in fp32
+   within 5e-2; (c) every arch's ``reduced()`` fp32 model with the same
+   weights on the card and the CPU: forward, prefill and 4 decode steps
+   within ``CPU_TOL``; (d) a llama3-8b prefill at b = 1, s = 4,096 through
+   ``flash_attention`` in every layer, and ``flash_attention`` against
+   ``_sdpa`` on fp32 q, k, v (h = 32, kv = 8, hd = 128, s = 4,096,
+   causal) within ``CPU_TOL``; (e) weight GB, init s, prefill p50 (5
+   runs), decode p50 a token (32 steps, a sync each) and the same steps
+   queued back to back, tokens/s, peak memory, each beside its bound
+   (weights, and at decode the cache, read once at 3.35 TB/s; the
+   counted GEMM operations at 989 TFLOP/s bf16 and 67 fp32), and for
+   llama3-8b the device's idle share of 8 queued decode steps under
+   ``torch.profiler``. Numbers also go to ``chiprun_out/lm_phase12.json``.
 """
 
 from __future__ import annotations
@@ -283,6 +306,17 @@ def device_ms(torch, fn, arg_sets, iters: int = 100) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_busy(device_events) -> tuple[float, float]:
+    """(busy µs: the union of the events' intervals, window µs)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device_events)
+    busy, cur = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > cur:
+            busy += b - max(a, cur)
+            cur = b
+    return busy, spans[-1][1] - spans[0][0]
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -2976,13 +3010,7 @@ def trace_train(torch, step_fn, state, loader, start: int):
         split[part] = split.get(part, 0.0) + e["dur"]
     if not device:
         raise RuntimeError("the training trace recorded no device events")
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
-    busy, cur = 0.0, spans[0][0]
-    for a, b in spans:
-        if b > cur:
-            busy += b - max(a, cur)
-            cur = b
-    window = spans[-1][1] - spans[0][0]
+    busy, window = device_busy(device)
     host = {name: sum(b - a for a, b in s) / TRACE_STEPS / 1e3
             for name, s in ranges.items()}
     per_step = {k: v / TRACE_STEPS for k, v in split.items()}
@@ -3587,6 +3615,409 @@ def run_mesh(torch, dev, schema, sample_ids) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the LM zoo's serving path
+# ---------------------------------------------------------------------------
+
+# (arch, layers on the card or None for all, prompt length): every arch at
+# its published width in bf16; depth cut only where the weights would not
+# fit the card (all 32 phi3.5-moe layers take ~83 GB; one llama4-maverick
+# layer's experts alone are 16.1 B parameters). RWKV6's and Zamba2's
+# recurrences step in Python, so their prompts are shorter.
+LM_ARCHS = (("llama3-8b", None, 512), ("granite-8b", None, 512),
+            ("smollm-360m", None, 512), ("qwen3-4b", None, 512),
+            ("pixtral-12b", None, 512), ("phi3.5-moe-42b-a6.6b", 8, 512),
+            ("llama4-maverick-400b-a17b", 1, 512), ("rwkv6-7b", None, 128),
+            ("zamba2-1.2b", None, 128), ("whisper-small", None, 512))
+LM_BATCH, LM_NEW, LM_PREFILL_RUNS = 4, 32, 5
+LM_PATCHES, LM_FRAMES = 256, 1500     # pixtral's image rows; whisper's s_enc
+# (b): prefill 127 + one decode against forward over 128 (4 x 128 = 512
+# tokens: one MoE routing group, GROUP_SIZE)
+LM_CHECK_PROMPT = 127
+LM_CHECK_TOL = dict(rtol=5e-2, atol=5e-2)   # tests/test_lm_smoke.py:103
+LM_TRACE_STEPS = 8
+# (d): the flash branch (FLASH_THRESHOLD) and flash vs _sdpa at llama3's
+# attention shape
+LM_FLASH_SEQ = 4096
+LM_FLASH_CHECK = dict(h=32, kv=8, hd=128, s=4096)
+LM_CPU_DECODE = 4                   # (c): decode steps card vs CPU
+BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor-core rate, same sheet
+
+
+def lm_config(arch: str, layers):
+    """The configuration phase 12 runs: published, depth cut to
+    ``layers`` where given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def lm_inputs(torch, cfg, dev, b: int, s: int, seed: int):
+    """(tokens (b, s), the family's prefill extras) from ``seed``:
+    pixtral's ``LM_PATCHES`` patch rows × 0.02, whisper's ``LM_FRAMES``
+    frames × 0.1, in the model's dtype."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+    dtype = getattr(torch, cfg.dtype)
+    rows = {"vlm": ("patch_embeds", LM_PATCHES, 0.02),
+            "encdec": ("frames", LM_FRAMES, 0.1)}.get(cfg.family)
+    extra = {}
+    if rows:
+        name, n, scale = rows
+        extra[name] = (torch.randn((b, n, cfg.d_model), generator=g,
+                                   device=dev) * scale).to(dtype)
+    return tokens, extra
+
+
+def lm_prefill(model, tokens, extra, new: int):
+    """A cache for ``new`` more tokens and the prefill into it, as
+    ``generate`` makes them."""
+    b, s = tokens.shape
+    fam = model.cfg.family
+    if fam == "encdec":
+        cache = model.init_cache(b, s + new, extra["frames"].shape[1])
+        return model.prefill(tokens, extra["frames"], cache)
+    if fam == "ssm":
+        return model.prefill(tokens, model.init_cache(b, 0))
+    if fam == "vlm":
+        cache = model.init_cache(b, extra["patch_embeds"].shape[1] + s + new)
+        return model.prefill(tokens, cache, **extra)
+    return model.prefill(tokens, model.init_cache(b, s + new))
+
+
+def dispatch_counts(torch, fn) -> tuple[dict, int]:
+    """Run ``fn`` once; return 2·m·n·k of every GEMM it dispatches
+    (``mm``/``addmm``/``bmm``/``baddbmm``; ``matmul`` and ``einsum`` lower
+    to them) by operand dtype, and the number of ATen ops it dispatches
+    that are not views (each one host dispatch, nearly all a launch)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    first = {aten.mm: 0, aten.bmm: 0, aten.addmm: 1, aten.baddbmm: 1}
+    counts: dict = {}
+    ops = 0
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            nonlocal ops
+            out = func(*args, **(kwargs or {}))
+            ops += not func.is_view
+            i = first.get(func.overloadpacket)
+            if i is not None:
+                a = args[i]
+                counts[a.dtype] = (counts.get(a.dtype, 0)
+                                   + 2 * out.numel() * a.shape[-1])
+            return out
+
+    with Count():
+        fn()
+    return counts, ops
+
+
+def flops_ms(torch, counts: dict) -> float:
+    """The least time of ``counts``' GEMMs: bf16 at the tensor-core rate,
+    fp32 (TF32 off: attention logits, the MoE router) outside it."""
+    rate = {torch.bfloat16: BF16_FLOPS_PER_S, torch.float32: FP32_FLOPS_PER_S}
+    return sum(f / rate[dt] for dt, f in counts.items()) * 1e3
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+def trace_decode(torch, model, cache, nxt, n: int) -> float:
+    """The device's idle share over ``n`` decode steps run as ``generate``
+    runs them (argmax on the card, no sync between steps), under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            logits, cache = model.decode_step(nxt, cache)
+            nxt = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+    out = ROOT / "build" / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"lm_decode_{model.cfg.name}.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())["traceEvents"]
+    device = [e for e in trace if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise RuntimeError("the decode trace recorded no device events")
+    busy, window = device_busy(device)
+    return 1 - busy / window
+
+
+def lm_check(torch, model, dev) -> tuple[float, bool]:
+    """(b): prefill ``LM_CHECK_PROMPT`` tokens + one decode step against
+    the teacher-forced forward's last position (tests/test_lm_smoke.py:
+    70-104; MoE at capacity_factor = n_experts, so nothing drops). Returns
+    (max |diff|, greedy tokens agree)."""
+    import dataclasses
+
+    cfg = model.cfg
+    if cfg.family == "moe":
+        model.cfg = dataclasses.replace(cfg,
+                                        capacity_factor=float(cfg.n_experts))
+    try:
+        tokens, extra = lm_inputs(torch, cfg, dev, LM_BATCH,
+                                  LM_CHECK_PROMPT, SEED + 2)
+        lp, cache = lm_prefill(model, tokens, extra, 1)
+        nxt = lp.argmax(-1)[:, None]
+        ld, _ = model.decode_step(nxt, cache)
+        ref = model(torch.cat([tokens, nxt], 1), *extra.values())[:, -1]
+    finally:
+        model.cfg = cfg
+    assert torch.isfinite(ld.float()).all() and torch.isfinite(
+        ref.float()).all(), cfg.name
+    diff = float((ld.float() - ref.float()).abs().max())
+    agree = bool((ld.argmax(-1) == ref.argmax(-1)).all())
+    if cfg.dtype == "float32":
+        torch.testing.assert_close(ld, ref, **LM_CHECK_TOL)
+    return diff, agree
+
+
+def lm_vs_cpu(torch, dev, arch: str) -> float:
+    """(c): the arch's ``reduced()`` fp32 model with the same weights on
+    the card and on the CPU: forward, prefill and ``LM_CPU_DECODE`` decode
+    steps (the CPU's greedy tokens fed to both) within ``CPU_TOL``.
+    Returns the largest |card - CPU|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import make_lm_model
+
+    cfg = get_config(arch).reduced()
+    cpu = torch.device("cpu")
+    host = make_lm_model(cfg, device=cpu).init(
+        torch.Generator().manual_seed(SEED))
+    card = make_lm_model(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    tokens, extra = lm_inputs(torch, cfg, cpu, 2, 16, SEED + 3)
+    moved = {k: v.to(dev) for k, v in extra.items()}
+    worst = 0.0
+
+    def close(a, b):
+        nonlocal worst
+        torch.testing.assert_close(a.cpu(), b, **CPU_TOL)
+        worst = max(worst, float((a.cpu() - b).abs().max()))
+
+    close(card(tokens.to(dev), *moved.values()),
+          host(tokens, *extra.values()))
+    lh, ch = lm_prefill(host, tokens, extra, LM_CPU_DECODE)
+    lc, cc = lm_prefill(card, tokens.to(dev), moved, LM_CPU_DECODE)
+    close(lc, lh)
+    for _ in range(LM_CPU_DECODE):
+        nxt = lh.argmax(-1)[:, None]
+        lh, ch = host.decode_step(nxt, ch)
+        lc, cc = card.decode_step(nxt.to(dev), cc)
+        close(lc, lh)
+    return worst
+
+
+def lm_flash(torch, model, dev) -> dict:
+    """(d): one prefill at b = 1, s = ``LM_FLASH_SEQ`` (``_attend`` takes
+    ``flash_attention`` in every layer), then ``flash_attention`` against
+    ``_sdpa`` on the same fp32 q, k, v at ``LM_FLASH_CHECK``'s shape."""
+    from repro_torch.models.lm import layers as L
+
+    calls = []
+    flash = L.flash_attention
+    L.flash_attention = lambda *a, **kw: calls.append(1) or flash(*a, **kw)
+    try:
+        tokens, _ = lm_inputs(torch, model.cfg, dev, 1, LM_FLASH_SEQ,
+                              SEED + 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = lm_prefill(model, tokens, {}, 0)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        L.flash_attention = flash
+    assert len(calls) == model.cfg.n_layers, len(calls)
+    assert torch.isfinite(logits.float()).all()
+    c = LM_FLASH_CHECK
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    q = torch.randn((1, c["s"], c["h"], c["hd"]), generator=g, device=dev)
+    k, v = (torch.randn((1, c["s"], c["kv"], c["hd"]), generator=g,
+                        device=dev) for _ in range(2))
+    got = L.flash_attention(q, k, v, causal=True, q_chunk=L.FLASH_CHUNK,
+                            k_chunk=L.FLASH_CHUNK)
+    want = L._sdpa(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, **CPU_TOL)
+    return {"prefill_ms": prefill_ms, "layers": len(calls),
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def lm_arch(torch, dev, arch: str, layers, prompt: int, card: str) -> dict:
+    """Phase 12 for one arch: load it, serve it, hold it to (b) and (c),
+    measure (e); (d) and the idle share for llama3-8b."""
+    from repro_torch.models.lm import make_lm_model
+    from repro_torch.serving import generate
+
+    cfg = lm_config(arch, layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = make_lm_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = tensor_bytes(model.state_dict())
+    b = LM_BATCH
+    tokens, extra = lm_inputs(torch, cfg, dev, b, prompt, SEED + 1)
+
+    # (a) serve: generate, greedy
+    t0 = time.perf_counter()
+    out = generate(model, tokens, max_new=LM_NEW, **extra)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    assert tuple(out.shape) == (b, prompt + LM_NEW), out.shape
+    assert torch.equal(out[:, :prompt], tokens)
+    assert bool(((out >= 0) & (out < cfg.vocab)).all())
+
+    # (e) prefill p50 over LM_PREFILL_RUNS, decode p50 over LM_NEW steps
+    prefill_ms = []
+    for _ in range(LM_PREFILL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm_prefill(model, tokens, extra, LM_NEW)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    assert torch.isfinite(logits.float()).all(), arch
+    cache_bytes = tensor_bytes(cache)
+    nxt = logits.argmax(-1)[:, None]
+    decode_ms = []
+    for _ in range(LM_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(nxt, cache)
+        nxt = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    assert torch.isfinite(logits.float()).all(), arch
+    # the same steps queued back to back, as generate runs them
+    logits, cache = lm_prefill(model, tokens, extra, LM_NEW)
+    nxt = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_NEW):
+        logits, cache = model.decode_step(nxt, cache)
+        nxt = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    queued_ms = (time.perf_counter() - t0) * 1e3 / LM_NEW
+    peak = torch.cuda.max_memory_allocated() - base
+
+    # bounds: every weight byte read once (decode: and the cache), the
+    # GEMMs' operations at their dtype's rate, counted on this run
+    pre_ops, _ = dispatch_counts(
+        torch, lambda: lm_prefill(model, tokens, extra, 0))
+    logits, cache = lm_prefill(model, tokens, extra, 1)
+    dec_ops, step_ops = dispatch_counts(torch, lambda: model.decode_step(
+        logits.argmax(-1)[:, None], cache))
+    prefill_bound = max(weights / HBM_BYTES_PER_S * 1e3,
+                        flops_ms(torch, pre_ops))
+    decode_bound = max((weights + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+                       flops_ms(torch, dec_ops))
+    res = {
+        "arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+        "weights_gb": weights / 1e9, "init_s": init_s,
+        "generate_s": generate_s, "prompt": prompt,
+        "prefill_p50_ms": sorted(prefill_ms)[len(prefill_ms) // 2],
+        "prefill_bound_ms": prefill_bound,
+        "prefill_tflop": {str(k).split(".")[-1]: v / 1e12
+                          for k, v in pre_ops.items()},
+        "decode_p50_ms": sorted(decode_ms)[len(decode_ms) // 2],
+        "decode_queued_ms": queued_ms, "decode_bound_ms": decode_bound,
+        "decode_ops": step_ops,
+        "cache_gb": cache_bytes / 1e9,
+        "tokens_per_s": b / (sorted(decode_ms)[len(decode_ms) // 2] / 1e3),
+        "peak_gib": peak / 2**30}
+    del cache, logits
+
+    # (b) the reference's invariant, in bf16
+    res["check_diff"], res["check_agree"] = lm_check(torch, model, dev)
+    if arch == "llama3-8b":
+        res["flash"] = lm_flash(torch, model, dev)
+        logits, cache = lm_prefill(model, tokens, extra, LM_TRACE_STEPS)
+        res["decode_idle_share"] = trace_decode(
+            torch, model, cache, logits.argmax(-1)[:, None], LM_TRACE_STEPS)
+    log(f"[lm] {arch} ({cfg.family}, L={cfg.n_layers}, {cfg.dtype}): "
+        f"weights {res['weights_gb']:.2f} GB, init {init_s:.2f} s, "
+        f"generate b={b} s={prompt}+{LM_NEW} {generate_s:.2f} s | prefill "
+        f"p50 {res['prefill_p50_ms']:.2f} ms (bound {prefill_bound:.2f}: "
+        f"{ {k: round(v, 3) for k, v in res['prefill_tflop'].items()} } "
+        f"TFLOP) | decode p50 {res['decode_p50_ms']:.3f} ms/token (bound "
+        f"{decode_bound:.3f}; queued {queued_ms:.3f}; {step_ops} ops, "
+        f"{queued_ms / step_ops * 1e3:.1f} us an op queued), "
+        f"{res['tokens_per_s']:.1f} tokens/s | peak "
+        f"{res['peak_gib']:.2f} GiB above the phase's start | (b) "
+        f"max|decode-forward| "
+        f"{res['check_diff']:.4f}, greedy agree {res['check_agree']} | "
+        f"{card}")
+    if "flash" in res:
+        f = res["flash"]
+        log(f"[lm] (d) {arch} prefill b=1 s={LM_FLASH_SEQ}: flash_attention "
+            f"in {f['layers']} layers, {f['prefill_ms']:.1f} ms; flash vs "
+            f"_sdpa at {LM_FLASH_CHECK}: max|diff| {f['max_abs_err']:.3e} | "
+            f"{card}")
+        log(f"[lm] (e) {arch} idle share of {LM_TRACE_STEPS} queued decode "
+            f"steps under torch.profiler: {res['decode_idle_share']:.3f} | "
+            f"{card}")
+    return res
+
+
+def lm_fp32_check(torch, dev, card: str) -> float:
+    """(b) in fp32 for llama3-8b at full width (32.1 GB): within the
+    reference's 5e-2."""
+    import dataclasses
+
+    from repro_torch.models.lm import make_lm_model
+
+    cfg = dataclasses.replace(lm_config("llama3-8b", None), dtype="float32")
+    model = make_lm_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    diff, agree = lm_check(torch, model, dev)
+    gb = tensor_bytes(model.state_dict()) / 1e9
+    log(f"[lm] (b) llama3-8b fp32 ({gb:.2f} GB): max|decode-forward| "
+        f"{diff:.3e} within {LM_CHECK_TOL}, greedy agree {agree} | {card}")
+    return diff
+
+
+def run_lm(torch, dev, card: str) -> list:
+    """Phase 12: the LM zoo's serving path at full width (see the
+    docstring). Returns one dict of numbers an arch."""
+    t_phase = time.perf_counter()
+    log(f"[lm] {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated by earlier phases")
+    log("[lm] depth on the card: " + ", ".join(
+        f"{a} {lm_config(a, n).n_layers}/{lm_config(a, None).n_layers}"
+        for a, n, _ in LM_ARCHS))
+    results = []
+    for arch, layers, prompt in LM_ARCHS:
+        results.append(lm_arch(torch, dev, arch, layers, prompt, card))
+        torch.cuda.empty_cache()
+        if arch == "llama3-8b":
+            lm_fp32_check(torch, dev, card)
+            torch.cuda.empty_cache()
+    worst = {arch: lm_vs_cpu(torch, dev, arch) for arch, _, _ in LM_ARCHS}
+    log(f"[lm] (c) reduced fp32, card vs CPU within {CPU_TOL}: max|diff| "
+        f"{ {a: float(f'{w:.2e}') for a, w in worst.items()} }")
+    path = ROOT / "chiprun_out" / "lm_phase12.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps({"card": card, "archs": results}, indent=1))
+    log(f"[lm] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3695,6 +4126,10 @@ def main() -> int:
     # one card a position), each run's counters reset just before it
     for name, n in run_mesh(torch, dev, CRITEO, sample_ids).items():
         launches[name] += n
+
+    # 12. the LM zoo's serving path: ten archs at full width (no hand
+    # kernel runs there)
+    run_lm(torch, dev, card)
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

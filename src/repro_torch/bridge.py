@@ -24,8 +24,15 @@ same dense table or from the reference store's ``host_view()``, or for
 int8 rows ``store.adopt({"backing": host_view(), "backing_scale":
 host_scale_view()})``.
 
-Tests use this to hold the port against the reference on the same
-parameters; the port's own weights come from ``CTRModel.init``.
+:func:`load_lm_params` does the same for an LM of the zoo: the
+reference stacks every layer's leaves along a leading L
+(``layers``, ``mamba``, ``encoder``, ``decoder``), and each slice lands
+in the module of that index of the model's ``nn.ModuleList`` of the same
+name; the rest walks attributes (``shared.attn.wq``). Derived,
+non-persistent buffers (an attention's RoPE table) are not parameters.
+
+Tests use these to hold the port against the reference on the same
+parameters; the port's own weights come from each model's ``init``.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_lm_params"]
 
 
 def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -49,17 +56,35 @@ def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
         yield path, tree
 
 
-def _target(model, path: tuple) -> torch.Tensor:
-    head, *rest = path
-    collections = model.embedding_collections()
-    obj = collections[head].store if head in collections \
-        else getattr(model, head)
-    for key in rest:
+def _walk(obj, keys, path: tuple) -> torch.Tensor:
+    """``obj`` down ``keys`` (attributes, list indices); ``path`` names the
+    leaf in errors."""
+    for key in keys:
         obj = obj[key] if isinstance(key, int) else getattr(obj, key)
     if not isinstance(obj, torch.Tensor):
         raise TypeError(f"parameter path {path} names a "
                         f"{type(obj).__name__}, not a tensor")
     return obj
+
+
+def _target(model, path: tuple) -> torch.Tensor:
+    head, *rest = path
+    collections = model.embedding_collections()
+    obj = collections[head].store if head in collections \
+        else getattr(model, head)
+    return _walk(obj, rest, path)
+
+
+def _copy_once(pending: dict, path: tuple, t: torch.Tensor,
+               arr: np.ndarray) -> None:
+    """Copy ``arr`` into ``t``, which must have its shape and still be in
+    ``pending`` (buffer ids not yet written)."""
+    if tuple(arr.shape) != tuple(t.shape):
+        raise ValueError(f"parameter {path}: shape {arr.shape} != "
+                         f"{tuple(t.shape)}")
+    if pending.pop(id(t), None) is None:
+        raise ValueError(f"parameter {path} written twice")
+    t.copy_(torch.tensor(arr, dtype=t.dtype))
 
 
 @torch.no_grad()
@@ -75,16 +100,51 @@ def load_jax_params(model, params: dict):
         except (AttributeError, IndexError, KeyError) as err:
             raise KeyError(f"reference parameter {path} has no counterpart "
                            f"in {type(model).__name__}") from err
-        arr = np.asarray(leaf)
-        if tuple(arr.shape) != tuple(t.shape):
-            raise ValueError(f"parameter {path}: shape {arr.shape} != "
-                             f"{tuple(t.shape)}")
-        if pending.pop(id(t), None) is None:
-            raise ValueError(f"parameter {path} written twice")
-        t.copy_(torch.tensor(arr, dtype=t.dtype))
+        _copy_once(pending, path, t, np.asarray(leaf))
     if pending:
         raise ValueError(f"buffers missing from the reference tree: "
                          f"{sorted(pending.values())}")
     for coll in model.embedding_collections().values():
         coll.store.resync()
+    return model
+
+
+STACKED = ("layers", "mamba", "encoder", "decoder")
+
+
+def _host_array(leaf) -> np.ndarray:
+    arr = np.asarray(leaf)
+    # numpy has no bfloat16 of its own (ml_dtypes' is not torch's): widen
+    # to fp32, which the copy narrows back exactly
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
+
+
+@torch.no_grad()
+def load_lm_params(model, params: dict):
+    """Copy the reference LM parameter tree ``params`` into ``model``'s
+    buffers, unstacking the leading L of ``layers``, ``mamba``,
+    ``encoder`` and ``decoder`` into the per-layer modules. Every
+    parameter buffer is written exactly once. Returns ``model``."""
+    pending = {id(t): name
+               for name, t in model.state_dict(keep_vars=True).items()}
+    for path, leaf in _leaves(params):
+        arr = _host_array(leaf)
+        try:
+            if path[0] in STACKED:
+                mods = getattr(model, path[0])
+                if arr.shape[:1] != (len(mods),):
+                    raise ValueError(f"parameter {path}: shape {arr.shape} "
+                                     f"does not stack {len(mods)} layers")
+                targets = [(_walk(m, path[1:], path), arr[i])
+                           for i, m in enumerate(mods)]
+            else:
+                targets = [(_walk(model, path, path), arr)]
+        except (AttributeError, IndexError, KeyError) as err:
+            raise KeyError(f"reference parameter {path} has no counterpart "
+                           f"in {type(model).__name__}") from err
+        for t, a in targets:
+            _copy_once(pending, path, t, a)
+    if pending:
+        raise ValueError(f"buffers missing from the reference tree: "
+                         f"{sorted(pending.values())}")
     return model

@@ -4,7 +4,7 @@ Counterpart of the CTR subset of ``repro.distributed.sharding``:
 ``mesh_batch_axes``, ``ctr_param_specs``, ``batch_specs``, ``drop_axis``,
 ``fit_spec``, ``fit_spec_tree`` and ``input_shardings``, over a
 ``PartitionSpec``-like :class:`P`. The LM rules (``LOGICAL_RULES``,
-``param_specs`` and the rest) come with the LM zoo.
+``param_specs`` and the rest) come with the LM mesh.
 
 The port's counterpart of a ``jax.Array`` with a ``NamedSharding`` is a
 :class:`Placed` value: a global shape, a :class:`NamedSharding` (``mesh``,

@@ -28,8 +28,14 @@ defaults to ``cuda`` and raises without a card; ``--device cpu`` runs the
 plain versions of the kernels. ``--mesh data=N[,model=M]`` serves every
 model over a device mesh (``repro_torch.distributed``): one card a
 position, and an error naming the count where there are fewer cards;
-with ``--device cpu`` every position is on the CPU. ``--mode lm`` (the
-LM zoo, ROADMAP Queue A item 6) is not ported and exits with an error.
+with ``--device cpu`` every position is on the CPU.
+
+``--mode lm`` serves the LM zoo as the reference does: ``--arch``'s
+reduced config with random weights from seed 0, a (``--batch``, 8) prompt
+from seed 1, ``generate`` greedy for ``--max-new`` tokens, one line:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+        --arch smollm-360m --batch 2 --max-new 4 --device cpu
 """
 
 from __future__ import annotations
@@ -39,10 +45,10 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs import ctr_spec
+from repro_torch.configs import ARCH_NAMES, ctr_spec, get_config
 from repro_torch.device import resolve_device
 
-__all__ = ["main", "serve_ctr"]
+__all__ = ["main", "serve_ctr", "serve_lm"]
 
 
 def _make_policy(args):
@@ -232,6 +238,21 @@ def _serve(args, rt, names, schema) -> None:
               f"preempted_slack={slack:.1f}ms  device_time {shares}")
 
 
+def serve_lm(args) -> None:
+    from repro_torch.models.lm import make_lm_model
+    from repro_torch.serving import generate
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch).reduced()
+    model = make_lm_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab, (args.batch, 8), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+    out = generate(model, prompt, max_new=args.max_new)
+    print(f"[serve] {args.arch} (reduced): generated "
+          f"{tuple(out.shape)} tokens; head: {out[0, 8:14].tolist()}")
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["ctr", "lm"], default="ctr")
@@ -253,8 +274,7 @@ def main(argv: list[str] | None = None) -> None:
                          "'per-engine' keeps one worker thread per engine")
     ap.add_argument("--pool-size", type=int, default=2,
                     help="worker threads in the shared scheduler pool")
-    ap.add_argument("--arch", default="llama3-8b",
-                    help="LM architecture for --mode lm (not ported)")
+    ap.add_argument("--arch", default="llama3-8b", choices=list(ARCH_NAMES))
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--level", default="dual",
                     choices=["naive", "fused_emb", "fused_all", "dual"])
@@ -305,10 +325,10 @@ def main(argv: list[str] | None = None) -> None:
                          "uniform random ids)")
     ap.add_argument("--max-new", type=int, default=16)
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        raise SystemExit("--mode lm is not ported yet: the LM zoo and "
-                         "serving/generate.py are ROADMAP Queue A item 6")
-    serve_ctr(args)
+    if args.mode == "ctr":
+        serve_ctr(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Model zoo of the port (CTR models in this slice)."""
+"""Model zoo of the port: the CTR models (``ctr``) and the LM zoo (``lm``)."""

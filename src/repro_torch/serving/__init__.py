@@ -1,7 +1,8 @@
 """Serving substrate: plan-cached batched CTR engine + async runtime.
 
-Counterpart of ``repro.serving`` (its LM ``generate`` waits for the LM
-zoo, ROADMAP Queue A item 6). ``compile_plan`` (repro_torch.core.plan) →
+Counterpart of ``repro.serving``. ``generate`` drives an LM of
+``repro_torch.models.lm`` (prefill, then greedy or sampled decode).
+``compile_plan`` (repro_torch.core.plan) →
 ``InferencePlan`` → ``InferenceEngine`` (plan cache + pluggable batching
 policy + futures-based async intake) → ``ServingRuntime`` (multi-model
 router, shared admission cadence) draining through a ``DeviceScheduler``
@@ -16,11 +17,13 @@ from .batching import (BatchDecision, BatchPolicy, BucketedBatch, FixedBatch,
                        TimeoutBatch)
 from .engine import (EngineStats, InferenceEngine, QueueFullError,
                      ReadyBatch, RequestFuture)
+from .generate import generate
 from .runtime import RuntimeStats, ServingRuntime
 from .scheduler import DeviceScheduler
 from .updates import DeltaBuffer, DeltaSource, SyntheticTrainer
 
 __all__ = [
+    "generate",
     "InferenceEngine",
     "EngineStats",
     "RequestFuture",

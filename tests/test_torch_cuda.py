@@ -2027,3 +2027,86 @@ def test_every_kernel_launches_on_its_tensors_card(two_cards):
         torch.testing.assert_close(got, dmm_q8_plain(hq, hs, wp, ws, b32))
         assert torch.cuda.current_device() == 0
     torch.cuda.synchronize(second)
+
+
+# ---------------------------------------------------------------------------
+# the LM zoo's serving path (no hand kernel: plain tensor ops and cuBLAS)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b",
+                                  "rwkv6-7b", "zamba2-1.2b",
+                                  "whisper-small", "pixtral-12b"])
+def test_reduced_lm_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced fp32 model of each family with the same weights on the
+    card and on the CPU: forward, prefill (logits and cache) and three
+    decode steps fed the CPU's greedy tokens, at ``rtol=1e-4,
+    atol=1e-5``; then ``generate`` greedy token for token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import make_lm_model
+    from repro_torch.serving import generate
+
+    cfg = get_config(arch).reduced()
+    host = make_lm_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = make_lm_model(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)))
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(
+            rng.normal(size=(2, 10, cfg.d_model)).astype(np.float32) * 0.1)
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32) * 0.02)
+    moved = {k: v.to(cuda) for k, v in extra.items()}
+    tol = dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(card(tokens.to(cuda), *moved.values()).cpu(),
+                               host(tokens, *extra.values()), **tol)
+
+    def prefill(m, t, kw):
+        if cfg.family == "encdec":
+            return m.prefill(t, kw["frames"], m.init_cache(2, 16, 10))
+        if cfg.family == "vlm":
+            return m.prefill(t, m.init_cache(2, 20), **kw)
+        return m.prefill(t, m.init_cache(2, 16))
+
+    def same_cache(a, b):
+        for key, val in b.items():
+            if isinstance(val, dict):
+                same_cache(a[key], val)
+            elif key == "index":
+                assert a[key] == val
+            else:
+                torch.testing.assert_close(a[key].cpu(), val, **tol)
+
+    lh, ch = prefill(host, tokens, extra)
+    lc, cc = prefill(card, tokens.to(cuda), moved)
+    torch.testing.assert_close(lc.cpu(), lh, **tol)
+    same_cache(cc, ch)
+    for _ in range(3):
+        nxt = lh.argmax(-1)[:, None]
+        lh, ch = host.decode_step(nxt, ch)
+        lc, cc = card.decode_step(nxt.to(cuda), cc)
+        torch.testing.assert_close(lc.cpu(), lh, **tol)
+    same_cache(cc, ch)
+    torch.testing.assert_close(
+        generate(card, tokens.to(cuda), max_new=4, **moved).cpu(),
+        generate(host, tokens, max_new=4, **extra), rtol=0, atol=0)
+
+
+def test_lm_flash_attention_on_the_card_matches_sdpa(cuda):
+    from repro_torch.models.lm import layers as L
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 512, 8, 64), generator=g, device=cuda)
+    k, v = (torch.randn((2, 512, 2, 64), generator=g, device=cuda)
+            for _ in range(2))
+    for causal in (True, False):
+        got = L.flash_attention(q, k, v, causal=causal, q_chunk=128,
+                                k_chunk=64)
+        torch.testing.assert_close(got, L._sdpa(q, k, v, causal=causal),
+                                   rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(got.cpu(), L.flash_attention(
+            q.cpu(), k.cpu(), v.cpu(), causal=causal, q_chunk=128,
+            k_chunk=64), rtol=1e-4, atol=1e-5)

@@ -760,8 +760,8 @@ def test_runtime_shared_admission_refreshes_all_stores():
 
 def test_serving_surface_matches_reference():
     """The port exports the reference's serving names (its LM ``generate``
-    waits for the LM zoo), and nothing the reference removed."""
-    assert set(serving.__all__) == set(jserving.__all__) - {"generate"}
+    included), and nothing the reference removed."""
+    assert set(serving.__all__) == set(jserving.__all__)
     assert not hasattr(serving, "CTRServingEngine")
     assert not hasattr(serving, "ServeStats")
     assert serving.engine.AGGREGATED_COUNTERS == \

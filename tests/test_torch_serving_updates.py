@@ -539,14 +539,15 @@ def test_cli_prints_the_reference_counters(flags, capsys, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(SystemExit, match="item 6"):
-        cli.main(["--mode", "lm", "--device", "cpu"])
     with pytest.raises(SystemExit, match="DenseStore"):
         cli.main(["--device", "cpu", "--delta-every", "4",
                   "--requests", "8"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--requests", "8"])
+    # --mode lm is ported: on CUDA it needs a card, and says so
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--mode", "lm"])
     # --mesh is ported: on CUDA it needs a card a position, and says so
     with pytest.raises(SystemExit, match="needs 2 devices, found 0"):
         cli.main(["--mesh", "data=2"])
