@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's CTR inference and training paths on one
-NVIDIA card.
+"""Run the PyTorch/CUDA port's CTR inference and training paths, and the
+LM zoo's serving and training paths, on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -123,7 +123,7 @@ Phases (any failure raises; the script then exits non-zero):
    ``CachedStore`` with int8 compute, refreshed and updated between
    requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
    fp32-row twin bitwise the dense int8-compute plan.
-8. Summary, printed last (after phases 9-12): one JSON line of every
+8. Summary, printed last (after phases 9-13): one JSON line of every
    ported kernel (its launches from its paths in phases 3-7, 10 and 11),
    then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -219,6 +219,29 @@ Phases (any failure raises; the script then exits non-zero):
    counted GEMM operations at 989 TFLOP/s bf16 and 67 fp32), and for
    llama3-8b the device's idle share of 8 queued decode steps under
    ``torch.profiler``. Numbers also go to ``chiprun_out/lm_phase12.json``.
+13. LM training through ``repro_torch.launch.train``'s step
+   (``make_train_step``: the loss by autograd, then the eager AdamW; no
+   hand kernel): (a) smollm-360m at full width and depth in bf16 with
+   fp32 AdamW state, remat on as published, at b = 8 and s = 64 (the
+   launcher's defaults, one CE chunk) and s = 2,048 (two chunks): 3 warm
+   steps, the p50 and p90 of 20 timed steps (host clock to the loss on the
+   host), a trace of 3 more split by ``train/forward``, ``train/backward``
+   and ``train/optimizer``, the idle share, peak memory, the first and
+   last loss, and the bound (the weight GEMMs' 8·N·T and the attention's
+   operations at 989 TFLOP/s bf16 and 67 fp32, against the bytes of
+   parameters, gradients and moments); then the embedding's gradient
+   twice on one batch, bitwise; (b) every other arch at published width,
+   depth cut only for memory (``LM_TRAIN_ARCHS``, each cut on its own
+   line; llama4-maverick not at all: one layer is over the card), bf16
+   AdamW state where the reference picks it (over 30 B parameters): 3
+   steps at b = 8, s = 64, every loss finite, every parameter free of NaN
+   and every leaf not pinned by bf16 rounding (an element below 0.125)
+   changed; (c) every arch's ``reduced()`` fp32 model
+   with the same weights and batch on the card and on the CPU: the loss
+   and every gradient leaf within ``CPU_TOL``, the card's gradients twice
+   bitwise (smollm also with a tied head); (d) smollm reduced: 6 steps
+   through ``run_train_loop`` bitwise 3, a restore and 3 more. Numbers
+   also go to ``chiprun_out/lm_phase13.json``.
 """
 
 from __future__ import annotations
@@ -2968,37 +2991,38 @@ def train_resume(torch, dev, schema) -> None:
         f"{len(_leaf_map(whole))} leaves; losses {[round(r['loss'], 6) for r in h2]}")
 
 
-def trace_train(torch, step_fn, state, loader, start: int):
-    """Phase 10 (e), second half: a profiler trace of ``TRACE_STEPS``
-    steps; device time per step split by the host range each kernel was
-    launched from (``train/forward``, ``train/backward`` — less K1's table
-    gradient, ``mtl_gather_backward`` —, ``train/optimizer``, the rest:
-    the batch's copies), and the idle share of the window."""
+def trace_ranges(torch, run, n_steps: int, names, tag: str) -> dict:
+    """``run()`` (``n_steps`` steps) under ``torch.profiler``; its device
+    time split by the host range each kernel was launched from (the first
+    of ``names`` whose span holds the launch; "other" outside them all),
+    per step, with the busy time (the union of the device intervals) a
+    step, the idle share of the window, the host ms a step in each range
+    and the device time a step by kernel name. The trace goes to
+    ``build/traces/<tag>.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(TRACE_STEPS):
-            state, m = step_fn(state, loader(start + i))
-            float(m["loss"])
+        run()
         torch.cuda.synchronize()
     out = ROOT / "build" / "traces"
     out.mkdir(parents=True, exist_ok=True)
-    path = out / f"train_dcnv2_b{TRAIN_BATCH}.json"
+    path = out / f"{tag}.json"
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())["traceEvents"]
     xs = [e for e in trace if e.get("ph") == "X"]
     device = [e for e in xs if e.get("cat") in ("kernel", "gpu_memcpy",
                                                  "gpu_memset")]
+    if not device:
+        raise RuntimeError(f"the {tag} trace recorded no device events")
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in xs
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}
     ranges = {name: [(e["ts"], e["ts"] + e["dur"]) for e in xs
                      if e.get("cat") == "user_annotation"
                      and e["name"] == name]
-              for name in ("mtl_gather_backward", "train/forward",
-                           "train/backward", "train/optimizer")}
+              for name in names}
     split: dict = {}
     for e in device:
         t = launch_ts.get(e["args"].get("correlation"))
@@ -3007,23 +3031,46 @@ def trace_train(torch, step_fn, state, loader, start: int):
             if t is not None and any(a <= t <= b for a, b in spans):
                 part = name
                 break
-        split[part] = split.get(part, 0.0) + e["dur"]
-    if not device:
-        raise RuntimeError("the training trace recorded no device events")
+        split[part] = split.get(part, 0.0) + e["dur"] / n_steps
     busy, window = device_busy(device)
-    host = {name: sum(b - a for a, b in s) / TRACE_STEPS / 1e3
-            for name, s in ranges.items()}
-    per_step = {k: v / TRACE_STEPS for k, v in split.items()}
-    log(f"[train] (e) trace {TRACE_STEPS} steps: device busy "
-        f"{busy / TRACE_STEPS:.1f} us/step, idle share of window "
-        f"{1 - busy / window:.3f}; device us/step by launching range "
-        f"{ {k: round(v, 1) for k, v in sorted(per_step.items())} }; host "
-        f"ms/step per range { {k: round(v, 3) for k, v in host.items()} }")
     by_kernel: dict = {}
     for e in device:
-        by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
-    for kname, dur in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[train]   {dur / TRACE_STEPS:9.1f} us/step  {kname[:90]}")
+        by_kernel[e["name"]] = (by_kernel.get(e["name"], 0.0)
+                                + e["dur"] / n_steps)
+    return {"busy_us": busy / n_steps, "idle_share": 1 - busy / window,
+            "split_us": split,
+            "host_ms": {name: sum(b - a for a, b in spans) / n_steps / 1e3
+                        for name, spans in ranges.items()},
+            "by_kernel": by_kernel}
+
+
+TRAIN_RANGES = ("train/forward", "train/backward", "train/optimizer")
+
+
+def trace_train(torch, step_fn, state, loader, start: int):
+    """Phase 10 (e), second half: a profiler trace of ``TRACE_STEPS``
+    steps; device time per step split by the host range each kernel was
+    launched from (``train/forward``, ``train/backward`` — less K1's table
+    gradient, ``mtl_gather_backward`` —, ``train/optimizer``, the rest:
+    the batch's copies), and the idle share of the window."""
+    def run():
+        nonlocal state
+        for i in range(TRACE_STEPS):
+            state, m = step_fn(state, loader(start + i))
+            float(m["loss"])
+
+    t = trace_ranges(torch, run, TRACE_STEPS,
+                     ("mtl_gather_backward",) + TRAIN_RANGES,
+                     f"train_dcnv2_b{TRAIN_BATCH}")
+    log(f"[train] (e) trace {TRACE_STEPS} steps: device busy "
+        f"{t['busy_us']:.1f} us/step, idle share of window "
+        f"{t['idle_share']:.3f}; device us/step by launching range "
+        f"{ {k: round(v, 1) for k, v in sorted(t['split_us'].items())} }; "
+        f"host ms/step per range "
+        f"{ {k: round(v, 3) for k, v in t['host_ms'].items()} }")
+    for kname, dur in sorted(t["by_kernel"].items(),
+                             key=lambda kv: -kv[1])[:8]:
+        log(f"[train]   {dur:9.1f} us/step  {kname[:90]}")
     return state
 
 
@@ -4018,6 +4065,361 @@ def run_lm(torch, dev, card: str) -> list:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM training
+# ---------------------------------------------------------------------------
+
+# (a) smollm-360m at full width and depth, bf16 parameters and fp32 AdamW
+# state: the launcher's defaults (one CE chunk) and s = 2,048 (two chunks),
+# remat on as published; warm steps, then timed steps, then a trace
+LM_TRAIN_SHAPES = ((8, 64), (8, 2048))
+LM_TRAIN_WARM, LM_TRAIN_STEPS, LM_TRAIN_TRACE = 3, 20, 3
+# (b) every other arch at published width, b = 8, s = 64 (the launcher's
+# defaults), 3 steps; depth cut only so that parameters, gradients and
+# AdamW state (12 bytes a parameter with fp32 state, 8 with bf16 state),
+# plus the eager optimizer's ~8 fp32 temporaries of the largest leaf (the
+# embedding or an expert stack), stay near 60 GB. llama4-maverick trains
+# on no single card: one layer's 128 experts are 16.17 B parameters.
+LM_TRAIN_ARCHS = (("llama3-8b", 12), ("granite-8b", 18),
+                  ("qwen3-4b", 32), ("pixtral-12b", 7),
+                  ("phi3.5-moe-42b-a6.6b", 4), ("rwkv6-7b", 16),
+                  ("zamba2-1.2b", None), ("whisper-small", None))
+LM_TRAIN_SKIPPED = {"llama4-maverick-400b-a17b": (
+    "one layer holds 16.17 B parameters (128 experts of 5120 x 8192 x 3): "
+    "bf16 parameters, gradients and bf16 AdamW state take 8 bytes a "
+    "parameter, 146 GB with the embeddings, over one card's 80 GB; it "
+    "waits for the LM mesh")}
+# the reference picks bf16 AdamW state above 30 B parameters
+# (src/repro/launch/steps.py:83-86), counted on the published config
+BF16_STATE_PARAMS = 30_000_000_000
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_ARCH_STEPS = 8, 64, 3
+
+
+def lm_param_counts(cfg) -> tuple[int, int]:
+    """(parameters, parameters of the GEMMs) of ``cfg`` at its depth, from
+    its shapes on the meta device: every leaf, and the leaves of two or
+    more dimensions but an untied embedding table (gathered, not
+    multiplied)."""
+    from repro_torch.bridge import _leaves
+    from repro_torch.models.lm import layers as L
+    from repro_torch.models.lm import make_lm_model
+
+    add = L.add_buffers
+
+    def meta(module, device, dtype, **shapes):
+        add(module, "meta", dtype, **shapes)
+    L.add_buffers = meta
+    try:
+        tree = make_lm_model(cfg, device="cpu").tensor_tree()
+    finally:
+        L.add_buffers = add
+    total = gemm = 0
+    for path, t in _leaves(tree):
+        total += t.numel()
+        if t.dim() >= 2 and not (path == ("embed",)
+                                 and not cfg.tie_embeddings):
+            gemm += t.numel()
+    return total, gemm
+
+
+def lm_train_bound(cfg, n_params: int, n_gemm: int, b: int, s: int) -> dict:
+    """The least time of one training step of a dense decoder with remat:
+    the weight GEMMs' 8·N·T operations in bf16 (forward, recompute,
+    backward twice), the attention's q·kᵀ in fp32 and p·v in bf16, each
+    2·b·h·s²·hd a layer a pass over four passes, at the data sheet's rates;
+    against the bytes of parameters, AdamW moments and gradients, each read
+    or written once."""
+    t = b * s
+    bf16 = 8 * n_gemm * t
+    attn = 4 * 2 * b * cfg.n_heads * s * s * cfg.hd * cfg.n_layers
+    ops_ms = ((bf16 + attn) / BF16_FLOPS_PER_S
+              + attn / FP32_FLOPS_PER_S) * 1e3
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    # parameters read and written, gradients written and read, m and v
+    # read and written in fp32
+    moved = n_params * (4 * elem + 16)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"bf16_tflop": (bf16 + attn) / 1e12, "fp32_tflop": attn / 1e12,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def lm_train_setup(torch, cfg, dev, b: int, s: int, state_dtype: str):
+    """A model of ``cfg`` from seed ``SEED``, its AdamW state, the
+    launcher's step and batch function."""
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models.lm import make_lm_model
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      make_train_step)
+
+    model = make_lm_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    opt = AdamWConfig(lr=1e-3, state_dtype=state_dtype)
+    state = adamw_init(model.param_tree(), opt)
+    return model, state, make_train_step(model, opt), lm_batch_fn(
+        cfg, b, s, dev)
+
+
+def lm_train_smollm(torch, dev, card: str) -> list:
+    """(a): smollm-360m at full width and depth, each of
+    ``LM_TRAIN_SHAPES``: ``LM_TRAIN_WARM`` warm steps, ``LM_TRAIN_STEPS``
+    timed steps (host clock to the loss on the host), a trace of
+    ``LM_TRAIN_TRACE`` more split by range, peak memory, the first and
+    last loss, the bound; then, at the first shape, the embedding's
+    gradient twice on one batch, bitwise."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("smollm-360m")
+    n_params, n_gemm = lm_param_counts(cfg)
+    out = []
+    for b, s in LM_TRAIN_SHAPES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model, state, step_fn, batch_fn = lm_train_setup(
+            torch, cfg, dev, b, s, "float32")
+        losses, times = [], []
+        for i in range(LM_TRAIN_WARM + LM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch_fn(i))
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        timed = sorted(times[LM_TRAIN_WARM:])
+        assert all(math.isfinite(x) for x in losses), losses
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+        def run(start=len(losses)):
+            nonlocal state
+            for i in range(LM_TRAIN_TRACE):
+                state, m = step_fn(state, batch_fn(start + i))
+                float(m["loss"])
+        tr = trace_ranges(torch, run, LM_TRAIN_TRACE, TRAIN_RANGES,
+                          f"lm_train_smollm_b{b}_s{s}")
+        bnd = lm_train_bound(cfg, n_params, n_gemm, b, s)
+        by_kernel = tr.pop("by_kernel")
+        res = {"b": b, "s": s, "params": n_params,
+               "step_p50_ms": timed[len(timed) // 2],
+               "step_p90_ms": timed[int(0.9 * (len(timed) - 1))],
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "peak_gib": peak, **tr, **bnd}
+        out.append(res)
+        log(f"[lmtrain] (a) smollm-360m (L={cfg.n_layers}, {n_params / 1e9:.3f}"
+            f" B parameters, bf16, fp32 AdamW state, remat) b={b} s={s}: "
+            f"step p50 {res['step_p50_ms']:.2f} ms, p90 "
+            f"{res['step_p90_ms']:.2f} ms over {LM_TRAIN_STEPS} after "
+            f"{LM_TRAIN_WARM} warm; device busy {tr['busy_us']:.0f} us/step "
+            f"{ {k: round(v) for k, v in sorted(tr['split_us'].items())} }, "
+            f"idle share {tr['idle_share']:.3f}; host ms/step "
+            f"{ {k: round(v, 2) for k, v in tr['host_ms'].items()} }; peak "
+            f"{peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"bound {bnd['bound_ms']:.2f} ms by {bnd['bound_by']} (GEMMs "
+            f"{bnd['bf16_tflop']:.2f} TFLOP bf16 + {bnd['fp32_tflop']:.2f} "
+            f"fp32 = {bnd['ops_ms']:.2f} ms; bytes {bnd['bytes_ms']:.2f} ms)"
+            f" | {card}")
+        for kname, dur in sorted(by_kernel.items(),
+                                 key=lambda kv: -kv[1])[:6]:
+            log(f"[lmtrain]   {dur:10.1f} us/step  {kname[:90]}")
+        if s == LM_TRAIN_SHAPES[0][1]:
+            # the embedding's gradient (the gathered rows summed by id),
+            # twice on one batch: bitwise
+            batch = batch_fn(0)
+            grads = []
+            for _ in range(2):
+                loss = model.loss(batch)
+                loss.backward()
+                grads.append(model.embed.grad.clone())
+                for t in model.state_dict(keep_vars=True).values():
+                    t.grad = None
+            assert torch.equal(grads[0], grads[1]), \
+                "the embedding's gradient is not repeatable"
+            log(f"[lmtrain] (a) the embedding's gradient (rows gathered by "
+                f"id, summed) twice on one batch of {b}x{s}: bitwise")
+        del model, state, step_fn
+    return out
+
+
+def lm_train_arch(torch, dev, arch: str, layers, card: str) -> dict:
+    """(b): one arch at published width, depth cut to ``layers``: 3 steps,
+    every loss finite, no NaN in any parameter, and every leaf of at most
+    2**24 elements that holds an element below 0.125 changed (a bf16 gain
+    at 1.0 cannot move by lr 1e-3)."""
+    import dataclasses
+
+    from repro_torch.bridge import _leaves
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(
+        full, n_layers=layers,
+        encoder_layers=layers if full.encoder_layers else 0)
+    state_dtype = ("bfloat16" if lm_param_counts(full)[0] > BF16_STATE_PARAMS
+                   else "float32")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, state, step_fn, batch_fn = lm_train_setup(
+        torch, cfg, dev, LM_TRAIN_B, LM_TRAIN_S, state_dtype)
+    before = {p: t.detach().clone() for p, t in _leaves(state.params)
+              if t.numel() <= 2**24}
+    losses, times = [], []
+    for i in range(LM_TRAIN_ARCH_STEPS):
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch_fn(i))
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t1) * 1e3)
+    assert all(math.isfinite(x) for x in losses), (arch, losses)
+    changed = 0
+    for path, t in _leaves(state.params):
+        assert not torch.isnan(t).any(), (arch, path)
+        if path in before:
+            same = torch.equal(t, before[path])
+            changed += not same
+            # AdamW's first steps move an element by about lr = 1e-3: a
+            # bf16 leaf whose every element sits at 0.5 or further from 0
+            # (gains at 1.0, RWKV's mu at 0.5, w_base at -2.0) lies more
+            # than half a spacing from its neighbours and may not move
+            small = bool((before[path].abs() < 0.125).any())
+            assert not (same and small), (arch, path)
+    n = sum(t.numel() for _, t in _leaves(state.params))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    res = {"arch": arch, "layers": cfg.n_layers, "published": full.n_layers,
+           "params": n, "state_dtype": state_dtype, "losses": losses,
+           "leaves_changed": [changed, len(before)],
+           "step_ms": times, "peak_gib": peak,
+           "seconds": time.perf_counter() - t0}
+    log(f"[lmtrain] (b) {arch} ({cfg.family}, L={cfg.n_layers} of "
+        f"{full.n_layers}, {n / 1e9:.2f} B parameters, {state_dtype} AdamW "
+        f"state) b={LM_TRAIN_B} s={LM_TRAIN_S}: losses "
+        f"{[round(x, 4) for x in losses]}, steps "
+        f"{[round(x, 1) for x in times]} ms, peak {peak:.2f} GiB; every "
+        f"parameter finite; {changed} of the {len(before)} leaves of at most "
+        f"2**24 elements changed, every one holding an element below 0.125 "
+        f"among them | {card}")
+    del model, state, step_fn
+    return res
+
+
+def lm_train_vs_cpu(torch, dev) -> dict:
+    """(c): each arch's ``reduced()`` fp32 model with the same weights and
+    batch on the card and on the CPU (and smollm's with a tied head, which
+    no published config has): the loss and every gradient leaf within
+    ``CPU_TOL``; the card's gradients twice, bitwise. Returns the largest
+    |card - CPU| an arch."""
+    from repro_torch.bridge import _leaves
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models.lm import make_lm_model
+
+    def grads(model, batch):
+        tree = model.param_tree()
+        loss = model.loss(batch)
+        loss.backward()
+        out = {p: t.grad.detach().clone() for p, t in _leaves(tree)}
+        for _, t in _leaves(tree):
+            t.grad = None
+        return loss.detach(), out
+
+    worst = {}
+    for arch, tied in [(a, False) for a in ARCH_NAMES] + [
+            ("smollm-360m", True)]:
+        cfg = get_config(arch).reduced(tie_embeddings=tied)
+        arch = arch + (" tied" if tied else "")
+        host = make_lm_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(SEED))
+        card = make_lm_model(cfg, device=dev)
+        card.load_state_dict(host.state_dict())
+        batch = lm_batch_fn(cfg, 2, 16, "cpu")(SEED)
+        moved = {k: v.to(dev) for k, v in batch.items()}
+        lh, gh = grads(host, batch)
+        lc, gc = grads(card, moved)
+        lc2, gc2 = grads(card, moved)
+        torch.testing.assert_close(lc.cpu(), lh, **CPU_TOL)
+        w = float((lc.cpu() - lh).abs())
+        for path, g in gh.items():
+            torch.testing.assert_close(gc[path].cpu(), g, **CPU_TOL,
+                                       msg=f"{arch} {path}")
+            assert torch.equal(gc[path], gc2[path]), (arch, path)
+            w = max(w, float((gc[path].cpu() - g).abs().max()))
+        assert torch.equal(lc, lc2), arch
+        worst[arch] = w
+    return worst
+
+
+def lm_train_resume(torch, dev) -> int:
+    """(d): on smollm's ``reduced()`` config, 6 steps through
+    ``run_train_loop`` against 3, a fresh model's restore and 3 more:
+    parameters, moments and step bitwise. Returns the leaves compared."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models.lm import make_lm_model
+    from repro_torch.training import (AdamWConfig, TrainLoopConfig,
+                                      adamw_init, make_train_step,
+                                      run_train_loop)
+
+    cfg = get_config("smollm-360m").reduced()
+    opt = AdamWConfig(lr=1e-3)
+    root = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+
+    def run(total, ckpt):
+        model = make_lm_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        loop = TrainLoopConfig(total_steps=total, ckpt_every=3,
+                               ckpt_dir=str(root / ckpt), log_every=100)
+        return run_train_loop(make_train_step(model, opt),
+                              adamw_init(model.param_tree(), opt),
+                              lm_batch_fn(cfg, 8, 64, dev), loop)
+
+    try:
+        whole, h1 = run(6, "a")
+        run(3, "b")
+        resumed, h2 = run(6, "b")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert [r["loss"] for r in h1[3:]] == [r["loss"] for r in h2]
+    a, b = _leaf_map(whole), _leaf_map(resumed)
+    assert a.keys() == b.keys()
+    for key, t in a.items():
+        assert torch.equal(t, b[key]), f"resumed {key} differs"
+    return len(a)
+
+
+def run_lm_train(torch, dev, card: str) -> dict:
+    """Phase 13: LM training through ``launch/train.py``'s step (see the
+    docstring). Numbers also go to ``chiprun_out/lm_phase13.json``."""
+    t_phase = time.perf_counter()
+    res = {"card": card, "smollm": lm_train_smollm(torch, dev, card)}
+    for arch, reason in LM_TRAIN_SKIPPED.items():
+        log(f"[lmtrain] (b) {arch}: not run on one card: {reason}")
+    for arch, layers in LM_TRAIN_ARCHS:
+        if layers is not None:
+            log(f"[lmtrain] (b) depth cut: {arch} {layers} of "
+                f"{lm_config(arch, None).n_layers} layers, for memory")
+    res["archs"] = [lm_train_arch(torch, dev, arch, layers, card)
+                    for arch, layers in LM_TRAIN_ARCHS]
+    torch.cuda.empty_cache()
+    res["vs_cpu"] = lm_train_vs_cpu(torch, dev)
+    log(f"[lmtrain] (c) reduced fp32, loss and every gradient card vs CPU "
+        f"within {CPU_TOL}, the card's gradients repeatable bitwise: "
+        f"max|diff| "
+        f"{ {a: float(f'{w:.2e}') for a, w in res['vs_cpu'].items()} }")
+    n = lm_train_resume(torch, dev)
+    log(f"[lmtrain] (d) smollm reduced: 6 steps == 3 + restore + 3, "
+        f"bitwise in all {n} leaves")
+    res["seconds"] = time.perf_counter() - t_phase
+    path = ROOT / "chiprun_out" / "lm_phase13.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(res, indent=1))
+    log(f"[lmtrain] phase 13 took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4130,6 +4532,9 @@ def main() -> int:
     # 12. the LM zoo's serving path: ten archs at full width (no hand
     # kernel runs there)
     run_lm(torch, dev, card)
+
+    # 13. LM training: the launcher's step at full width (no hand kernel)
+    run_lm_train(torch, dev, card)
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

@@ -30,6 +30,11 @@ reference stacks every layer's leaves along a leading L
 in the module of that index of the model's ``nn.ModuleList`` of the same
 name; the rest walks attributes (``shared.attn.wq``). Derived,
 non-persistent buffers (an attention's RoPE table) are not parameters.
+:func:`stacked_lm_tree` is the inverse: a port LM tree
+(``param_tree()``, whose stacked groups are lists of per-layer dicts, or
+a tree of its gradients) in the reference's stacked numpy layout. An LM
+checkpoint of the port therefore keeps the port's per-layer layout; this
+mapping is how its leaves meet the reference's.
 
 Tests use these to hold the port against the reference on the same
 parameters; the port's own weights come from each model's ``init``.
@@ -42,7 +47,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "load_lm_params"]
+__all__ = ["load_jax_params", "load_lm_params", "stacked_lm_tree"]
 
 
 def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -54,6 +59,16 @@ def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
             yield from _leaves(sub, path + (i,))
     else:
         yield path, tree
+
+
+def _as_lists(tree: dict):
+    """Nested dicts whose keys are all list indices become lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {key: _as_lists(sub) for key, sub in tree.items()}
+    if out and all(key.isdigit() for key in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def _walk(obj, keys, path: tuple) -> torch.Tensor:
@@ -148,3 +163,38 @@ def load_lm_params(model, params: dict):
         raise ValueError(f"buffers missing from the reference tree: "
                          f"{sorted(pending.values())}")
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _nest(pairs) -> dict:
+    """{path: leaf} back into nested dicts."""
+    tree: dict = {}
+    for path, leaf in pairs:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def stacked_lm_tree(tree: dict) -> dict:
+    """A port LM tree in the reference's layout: each list of per-layer
+    dicts under a ``STACKED`` key stacked along a leading L, every leaf a
+    numpy array (bfloat16 widened to float32, exactly)."""
+    out: dict = {}
+    for key, sub in tree.items():
+        if key in STACKED and isinstance(sub, list):
+            per_layer = [dict(_leaves(layer)) for layer in sub]
+            out[key] = _nest((path, np.stack([_numpy(layer[path])
+                                              for layer in per_layer]))
+                             for path in per_layer[0])
+        elif isinstance(sub, dict):
+            out[key] = _nest((path, _numpy(leaf))
+                             for path, leaf in _leaves(sub))
+        else:
+            out[key] = _numpy(sub)
+    return out

@@ -41,6 +41,14 @@ class Schedule:
     queue: list[str]                  # launch order (the paper's Q)
     policy: str
 
+    def stream_of(self, op_name: str) -> str:
+        """The name of the stream ``op_name`` is queued on (KeyError when
+        no stream holds it)."""
+        for s in self.streams.values():
+            if op_name in s.ops:
+                return s.name
+        raise KeyError(op_name)
+
 
 def breadth_first_schedule(explicit: Sequence[Op | FusedOp],
                            implicit: Sequence[Op | FusedOp], *,

@@ -25,8 +25,9 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["DatasetSchema", "AVAZU", "CRITEO", "sample_ids", "SKEWS",
-           "zipf_ids", "zipf_ids_from_uniform", "skewed_ids_from_uniform",
+__all__ = ["DatasetSchema", "AVAZU", "CRITEO", "make_schema", "sample_ids",
+           "SKEWS", "zipf_ids", "zipf_ids_from_uniform",
+           "skewed_ids_from_uniform",
            "planted_effect", "planted_labels", "synthetic_batch"]
 
 SKEWS = ("quadratic", "uniform", "zipf")
@@ -71,6 +72,12 @@ CRITEO = DatasetSchema(
     field_sizes=_heavy_tail_sizes(39, big=[5_000_000, 1_300_000, 300_000, 10_000],
                                   seed=7),
     seed=7)
+
+
+def make_schema(name: str, k: int, n_per_field: int, seed: int = 0
+                ) -> DatasetSchema:
+    """Uniform schema for sensitivity sweeps (paper §V-F)."""
+    return DatasetSchema(name=name, field_sizes=(n_per_field,) * k, seed=seed)
 
 
 def sample_ids(schema: DatasetSchema, batch: int, *, step: int = 0,

@@ -76,3 +76,7 @@ class FusedEmbeddingSpec:
         if self.quantized:
             return self.dim + 4
         return self.dim * np.dtype(self.dtype).itemsize
+
+    @property
+    def n_params(self) -> int:
+        return self.rows * self.dim

@@ -23,7 +23,6 @@ import tempfile
 
 import torch
 
-from repro_torch.bridge import _leaves
 from repro_torch.configs import ctr_spec
 from repro_torch.core import compile_plan
 from repro_torch.data import CRITEO, CTRLoader, synthetic_batch
@@ -55,7 +54,7 @@ def main(argv: list[str] | None = None) -> None:
     model = DCNv2(spec, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
     params = model.param_tree()
-    n = sum(t.numel() for _, t in _leaves(params))
+    n = model.n_params(params)
     print(f"model: dcnv2/criteo  params = {n/1e6:.1f}M")
 
     opt = AdamWConfig(lr=1e-3)

@@ -13,5 +13,12 @@ CTR_MODELS = {
     "deepfm": DeepFM,
 }
 
-__all__ = ["CTRModel", "CTRModelSpec", "CTR_MODELS", "DCN", "DCNv2",
+
+def make_ctr_model(name: str, spec: CTRModelSpec, *, device=None) -> CTRModel:
+    """The model ``name`` of ``CTR_MODELS`` for ``spec`` on ``device``
+    (CUDA by default)."""
+    return CTR_MODELS[name](spec, device=device)
+
+__all__ = ["CTRModel", "CTRModelSpec", "CTR_MODELS", "make_ctr_model",
+           "DCN", "DCNv2",
            "WideDeep", "DeepFM"]

@@ -34,7 +34,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.bridge import _leaves
+from repro_torch.bridge import _as_lists, _leaves
 from repro_torch.core import COMPUTE_DTYPES, Op, OpGraph
 from repro_torch.core.opgraph import fuse_non_gemm, register_fused_kernel
 from repro_torch.device import resolve_device
@@ -224,16 +224,6 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
-def _as_lists(tree: dict):
-    """Nested dicts whose keys are all list indices become lists."""
-    if not isinstance(tree, dict):
-        return tree
-    out = {key: _as_lists(sub) for key, sub in tree.items()}
-    if out and all(key.isdigit() for key in out):
-        return [out[str(i)] for i in range(len(out))]
-    return out
-
-
 # ---------------------------------------------------------------------------
 # kernel registration for the C5 pattern registry
 # ---------------------------------------------------------------------------
@@ -378,6 +368,11 @@ class CTRModel(nn.Module):
         if torch.is_grad_enabled():
             self._dense_stores()
         return bce_loss(self(batch["ids"]), batch["labels"])
+
+    def n_params(self, params: dict) -> int:
+        """Elements over the leaves of a parameter tree
+        (``param_tree()``)."""
+        return sum(t.numel() for _, t in _leaves(params))
 
     def param_tree(self) -> dict:
         """The reference's parameter tree (``{"emb": {"mega_table": t},

@@ -4,8 +4,9 @@ Counterpart of ``repro.models.lm``. Families: dense GQA decoder,
 capacity-routed MoE, RWKV6 (attention-free), Zamba2 (Mamba2 + shared
 attention), Whisper (enc-dec), Pixtral (VLM). Each is an ``nn.Module``
 owning its tensors on one device: ``init(generator)`` draws them,
-``forward``, ``init_cache``, ``prefill`` and ``decode_step`` serve.
-Training (``loss``) and the LM mesh are still to be ported.
+``forward``, ``init_cache``, ``prefill`` and ``decode_step`` serve, and
+``loss(batch)`` trains through ``param_tree()``. The LM mesh is still to
+be ported.
 """
 
 from .config import LMConfig

@@ -1,9 +1,11 @@
 """LMConfig — one static description shared by every assigned architecture.
 
-Counterpart of ``repro.models.lm.config``, field for field. ``remat`` and
-``scan_layers`` are kept so configs compare equal with the reference's;
-they mean nothing to the port's eager inference (its layers are an
-``nn.ModuleList`` run in a Python loop, and nothing is rematerialized).
+Counterpart of ``repro.models.lm.config``, field for field. The port's
+layers are an ``nn.ModuleList`` run in a Python loop. ``remat`` keeps the
+reference's meaning under autograd: each layer is rematerialised in the
+backward (``layers.remat``); serving never records a graph, so it is
+unaffected. ``scan_layers`` only picks the order in which
+``MoETransformer.loss_terms`` averages the layers' aux terms.
 """
 
 from __future__ import annotations

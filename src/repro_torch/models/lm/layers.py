@@ -1,4 +1,4 @@
-"""Shared transformer building blocks of the LM zoo: the serving half.
+"""Shared transformer building blocks of the LM zoo, and its losses.
 
 Counterpart of ``repro.models.lm.layers``. The functions are the
 reference's, over ``nn.Module``s that own their tensors: ``p.wq`` where the
@@ -13,9 +13,18 @@ reference's head order (``_expand_gqa`` is ``jnp.repeat``: query head
 queries of one kv head side by side — so a KV cache is never repeated
 per group.
 
+Training: a model's tensors are buffers; ``LMParams.param_tree`` marks
+them ``requires_grad`` and hands them to the optimizer as the reference's
+tree. ``remat`` is the reference's ``jax.checkpoint``: under autograd a
+rematerialised function keeps only its inputs and runs again in the
+backward (``torch.utils.checkpoint``, non-reentrant). Nothing on the LM
+forward draws random numbers, so the recomputation is bitwise the first
+run and no RNG state is stashed. ``chunked_ce_loss`` rematerialises every
+chunk, ``flash_attention`` every k-block, and each family every layer when
+``cfg.remat`` is set; without autograd (serving) nothing is.
+
 The LM mesh (``DecodeShardCtx``, ``flash_decode_sharded``, the ``shard``
-callable) and the losses (``next_token_loss``, ``chunked_ce_loss``) are
-still to be ported.
+callable) is still to be ported.
 """
 
 from __future__ import annotations
@@ -27,11 +36,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["AttnDims", "Attention", "SwiGLU", "GeluMLP", "rms_norm",
-           "rope_freqs", "apply_rope", "attention", "attention_decode",
-           "flash_attention", "swiglu", "gelu_mlp", "FLASH_THRESHOLD",
-           "FLASH_CHUNK"]
+from repro_torch.bridge import _as_lists, _leaves
+
+__all__ = ["AttnDims", "Attention", "SwiGLU", "GeluMLP", "LMParams",
+           "rms_norm", "rope_freqs", "apply_rope", "attention",
+           "attention_decode", "flash_attention", "swiglu", "gelu_mlp",
+           "next_token_loss", "chunked_ce_loss", "remat", "take_rows",
+           "FLASH_THRESHOLD", "FLASH_CHUNK"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -51,6 +64,55 @@ def normal_(t: torch.Tensor, generator: torch.Generator,
     """``t`` <- N(0, 1) · ``scale``, drawn in ``t``'s dtype (the reference's
     ``jax.random.normal(key, shape, dtype) * scale``)."""
     t.normal_(generator=generator).mul_(scale)
+
+
+def take_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` (the reference's ``jnp.take``) as an embedding
+    lookup: the same rows, and a backward that sums a repeated id's rows
+    in a fixed order. The backward of ``table[tokens]``, an accumulating
+    ``index_put_``, sums them in a changing order on a many-threaded CPU,
+    so a resumed run would not be bitwise an unbroken one."""
+    return F.embedding(tokens, table)
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``; when ``enabled`` and autograd is recording, its
+    intermediates are dropped and recomputed in the backward (the
+    reference's ``jax.checkpoint``)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+class LMParams:
+    """The trainable view of an LM family's ``nn.Module``."""
+
+    def tensor_tree(self) -> dict:
+        """The reference's parameter tree by key (``embed``, ``layers``,
+        ``final_norm``, ``mamba``, ``shared``, ``encoder``, ...) over this
+        model's own buffers. A stacked group of the reference
+        (``bridge.STACKED``) is a list of per-layer dicts: the optimizer
+        writes in place, so a leaf is never a stacked copy. Derived
+        buffers (the RoPE tables) are not parameters."""
+        tree: dict = {}
+        for name, t in self.state_dict(keep_vars=True).items():
+            *parents, leaf = name.split(".")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = t
+        return _as_lists(tree)
+
+    def param_tree(self) -> dict:
+        """``tensor_tree()`` with every leaf marked ``requires_grad`` for
+        a trainer (``training.make_train_step``), which updates them in
+        place. Serving stays graph-free: ``prefill``, ``decode_step`` and
+        ``generate`` run without autograd."""
+        tree = self.tensor_tree()
+        for _, t in _leaves(tree):
+            t.requires_grad_(True)
+        return tree
 
 
 # ---------------------------------------------------------------------------
@@ -294,22 +356,35 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
         acc = torch.zeros((b, kv, g, qc, hd), device=dev)
         for ki in range(nk):
             ks = slice(ki * kc, (ki + 1) * kc)
-            logits = (torch.matmul(q_blk, kt[..., ks]) * scale).reshape(
-                b, kv, g, qc, kc)
+            mask = None
             if causal:
                 qpos = qi * qc + torch.arange(qc, device=dev)
                 kpos = ki * kc + torch.arange(kc, device=dev)
-                logits = logits.masked_fill(
-                    ~(qpos[:, None] >= kpos[None, :]), -1e30)
-            m_new = torch.maximum(m, logits.amax(dim=-1))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(logits - m_new[..., None])
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.matmul(p.reshape(b, kv, g * qc, kc), vf[:, :, ks])
-            acc = acc * corr[..., None] + pv.reshape(b, kv, g, qc, hd)
-            m = m_new
+                mask = qpos[:, None] >= kpos[None, :]
+            # the reference checkpoints every k-block (``layers.py:328``)
+            m, l, acc = remat(_flash_k_block, q_blk, kt[..., ks],
+                              vf[:, :, ks], m, l, acc, mask, scale)
         outs.append(acc / torch.clamp_min(l[..., None], 1e-30))
     return _ungrouped(torch.cat(outs, dim=3)).to(q.dtype)
+
+
+def _flash_k_block(q_blk, kt_blk, v_blk, m, l, acc, mask, scale: float):
+    """One k-block of the online softmax: q_blk (b, kv, g·qc, hd) fp32,
+    kt_blk (b, kv, hd, kc), v_blk (b, kv, kc, hd); the running max ``m``,
+    denominator ``l`` (b, kv, g, qc) and ``acc`` (b, kv, g, qc, hd)
+    updated; ``mask`` (qc, kc) or None."""
+    b, kv, g, qc, hd = acc.shape
+    kc = kt_blk.shape[-1]
+    logits = (torch.matmul(q_blk, kt_blk) * scale).reshape(b, kv, g, qc, kc)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e30)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(logits - m_new[..., None])
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.matmul(p.reshape(b, kv, g * qc, kc), v_blk)
+    acc = acc * corr[..., None] + pv.reshape(b, kv, g, qc, hd)
+    return m_new, l, acc
 
 
 # ---------------------------------------------------------------------------
@@ -359,3 +434,47 @@ def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p.w_in + p.b_in, approximate="tanh")
     return h @ p.w_out + p.b_out
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Shifted cross entropy; logits (b, s, v), tokens (b, s)."""
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (logz - tgt).mean()
+
+
+def _chunk_loss(xc, gamma, w_head, targets):
+    """Summed next-token CE of one chunk: norm, head GEMM, fp32 logits."""
+    logits = (rms_norm(xc, gamma) @ w_head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (logz - tgt).sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, gamma: torch.Tensor,
+                    w_head: torch.Tensor, tokens: torch.Tensor, *,
+                    chunk: int = 1024) -> torch.Tensor:
+    """Next-token CE directly from final hidden states x (b, s, d),
+    sequence-chunked so the (b, s, vocab) fp32 logits never exist at once.
+
+    A Python loop over [lo, hi) chunks of the s - 1 positions that have a
+    target; each chunk is rematerialised under autograd, so its (b, chunk,
+    vocab) fp32 logits are not kept for the backward across chunks. The
+    sum over chunks is divided by b·(s - 1), as in the reference.
+    """
+    b, s, _ = x.shape
+    s_eff = s - 1                              # last position has no target
+    chunk = min(chunk, s_eff)
+    targets = tokens.long()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s_eff, chunk):
+        hi = min(lo + chunk, s_eff)
+        total = total + remat(_chunk_loss, x[:, lo:hi], gamma, w_head,
+                              targets[:, lo + 1:hi + 1])
+    return total / (b * s_eff)

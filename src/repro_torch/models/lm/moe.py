@@ -5,7 +5,10 @@ the grouped-einsum form. Tokens are cut into GROUP_SIZE-token routing
 groups; each group routes on its own with capacity C = ceil(g·k·cf / E),
 and (token, slot) pairs past an expert's capacity are dropped (they fall
 through the residual). Every expert runs its C slots, empty or not. The
-router is fp32. ``MoETransformer.loss`` waits for the LM training port.
+router is fp32. Under autograd the routing (``topk``'s indices, the
+one-hots, the capacity cumsum, the keep mask) carries no gradient, as in
+the reference: the router learns through the kept pairs' gate values in
+``combine`` and through the aux term's mean probabilities.
 """
 
 from __future__ import annotations
@@ -128,3 +131,42 @@ class MoETransformer(DenseTransformer):
     def _mlp(self, layer, h):
         out, _aux = moe_ffn(layer.moe, h, self.cfg)
         return out
+
+    def _aux_block(self, x, layer, positions):
+        """``_block`` that also returns the layer's router aux loss."""
+        h = L.rms_norm(x, layer.ln1)
+        x = x + L.attention(layer.attn, self.dims, h, causal=True,
+                            positions=positions)
+        out, aux = moe_ffn(layer.moe, L.rms_norm(x, layer.ln2), self.cfg)
+        return x + out, aux
+
+    def loss_terms(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(next-token CE, the router load-balancing aux term averaged over
+        the layers). With ``cfg.scan_layers`` the mean is over the stacked
+        per-layer terms (the reference's ``jnp.mean`` of the scan's
+        outputs); without, ``aux / n_layers`` is added layer by layer, as
+        the reference's unrolled loop does."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self.embed_tokens(tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)[None]
+        auxes = []
+        for layer in self.layers:
+            x, a = L.remat(self._aux_block, x, layer, positions,
+                           enabled=cfg.remat)
+            auxes.append(a)
+        if cfg.scan_layers:
+            aux = torch.stack(auxes).mean()
+        else:
+            aux = 0.0
+            for a in auxes:
+                aux = aux + a / cfg.n_layers
+        ce = L.chunked_ce_loss(x, self.final_norm, self.head_weight(),
+                               tokens)
+        return ce, aux
+
+    def loss(self, batch: dict, aux_weight: float = 0.01) -> torch.Tensor:
+        """Next-token loss + router load-balancing aux term."""
+        ce, aux = self.loss_terms(batch)
+        return ce + aux_weight * aux

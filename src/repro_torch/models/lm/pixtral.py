@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from . import layers as L
 from .transformer import DenseTransformer
 
 
@@ -29,6 +30,19 @@ class Pixtral(DenseTransformer):
         return self.forward_from_x(self.fuse_inputs(tokens, patch_embeds),
                                    positions)
 
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Sequence-chunked next-token loss on the text region only."""
+        pe = batch.get("patch_embeds")
+        if pe is None:
+            return super().loss(batch)
+        x = self.fuse_inputs(batch["tokens"], pe)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None]
+        x = self._run_layers(x, positions)
+        return L.chunked_ce_loss(x[:, pe.shape[1]:], self.final_norm,
+                                 self.head_weight(), batch["tokens"])
+
+    @torch.no_grad()
     def prefill(self, tokens, cache, patch_embeds=None):
         if patch_embeds is None:
             return super().prefill(tokens, cache)

@@ -7,6 +7,9 @@ o_t = r_t·(S_{t−1} + u∘k_tᵀ v_t)  with an fp32 state, and the
 squared-ReLU channel mix. The recurrence is a Python loop over time (the
 reference's ``lax.scan``). Prefill and decode both run ``forward`` on the
 cache's state, which is updated in place: O(1) in sequence length.
+``loss`` carries each layer's state as a new tensor instead (autograd
+keeps what it read), from zeros, rematerialising each layer with
+``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ class RWKVLayer(nn.Module):
         self.u.zero_()
 
 
-class RWKV6(nn.Module):
+class RWKV6(L.LMParams, nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
@@ -150,15 +153,28 @@ class RWKV6(nn.Module):
         }
 
     # -- public ---------------------------------------------------------------
+    def _layers(self, x, state):
+        """``x`` through every layer from ``state`` (stacked per layer, as
+        ``init_cache``; None: zeros). Returns x and each layer's new
+        state, a list; nothing is written in place."""
+        new = []
+        for i, layer in enumerate(self.layers):
+            st = (self._zero_state(x.shape[0]) if state is None
+                  else {k: v[i] for k, v in state.items()})
+            x, st = L.remat(self._block, layer, x, st,
+                            enabled=self.cfg.remat)
+            new.append(st)
+        return x, new
+
     def hidden(self, tokens, state=None):
         """Final hidden states (pre-norm, pre-head) and the state after
-        ``tokens``. ``state`` (stacked per layer, as ``init_cache``) is
-        updated in place; None starts from zeros."""
+        ``tokens``, stacked per layer. A given ``state`` (a serving cache)
+        is updated in place; None starts from zeros and stacks a new
+        one."""
+        x, new = self._layers(L.take_rows(self.embed, tokens), state)
         if state is None:
-            state = self.init_cache(tokens.shape[0], 0)
-        x = self.embed[tokens]
-        for i, layer in enumerate(self.layers):
-            x, st = self._block(layer, x, {k: v[i] for k, v in state.items()})
+            return x, {k: torch.stack([st[k] for st in new]) for k in new[0]}
+        for i, st in enumerate(new):
             for key, val in st.items():
                 state[key][i] = val
         return x, state
@@ -170,16 +186,23 @@ class RWKV6(nn.Module):
             return logits, state
         return logits
 
+    def loss(self, batch: dict) -> torch.Tensor:
+        tokens = batch["tokens"]
+        x, _ = self._layers(L.take_rows(self.embed, tokens), None)
+        return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens)
+
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
         del max_len  # O(1) state!
         return {k: z.expand(self.cfg.n_layers, *z.shape).clone()
                 for k, z in self._zero_state(batch).items()}
 
+    @torch.no_grad()
     def prefill(self, tokens, cache):
         logits, state = self.forward(tokens, state=cache, return_state=True)
         return logits[:, -1], state
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache):
         logits, state = self.forward(tokens, state=cache, return_state=True)
         return logits[:, 0], state

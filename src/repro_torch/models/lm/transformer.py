@@ -6,7 +6,8 @@ its tensors, the layers an ``nn.ModuleList`` run in a Python loop. The
 methods drop the reference's ``params`` argument. A cache is a dict with
 the reference's keys and shapes; ``index`` is a Python int, so a decode
 step needs no host sync, and prefill and decode write their rows into the
-cache in place and return it.
+cache in place and return it, without autograd. ``loss`` trains through
+``param_tree()``; with ``cfg.remat`` each layer is rematerialised.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class DenseLayer(nn.Module):
         self.mlp.reset_parameters(generator)
 
 
-class DenseTransformer(nn.Module):
+class DenseTransformer(L.LMParams, nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
@@ -91,7 +92,8 @@ class DenseTransformer(nn.Module):
 
     def _run_layers(self, x, positions):
         for layer in self.layers:
-            x = self._block(x, layer, positions)
+            x = L.remat(self._block, x, layer, positions,
+                        enabled=self.cfg.remat)
         return x
 
     def _head(self, x):
@@ -99,7 +101,7 @@ class DenseTransformer(nn.Module):
 
     # -- public ---------------------------------------------------------------
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+        return L.take_rows(self.embed, tokens)
 
     def forward(self, tokens, positions=None):
         """tokens (b, s) -> logits (b, s, v)."""
@@ -115,6 +117,16 @@ class DenseTransformer(nn.Module):
     def head_weight(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Sequence-chunked CE — full (b, s, v) logits never materialize."""
+        tokens = batch["tokens"]
+        x = self.embed_tokens(tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)[None]
+        x = self._run_layers(x, positions)
+        return L.chunked_ce_loss(x, self.final_norm, self.head_weight(),
+                                 tokens)
+
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
@@ -125,12 +137,14 @@ class DenseTransformer(nn.Module):
             "index": 0,
         }
 
+    @torch.no_grad()
     def prefill(self, tokens, cache):
         """Full-sequence forward that also fills positions [0, s) of the
         cache (the rest zeroed). Returns (last-position logits (b, v),
         cache)."""
         return self.prefill_from_x(self.embed_tokens(tokens), cache)
 
+    @torch.no_grad()
     def prefill_from_x(self, x, cache):
         cfg = self.cfg
         b, s, _ = x.shape
@@ -153,6 +167,7 @@ class DenseTransformer(nn.Module):
         cache["index"] = s
         return self._head(x[:, -1:, :])[:, 0], cache
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache):
         """tokens (b, 1) + cache -> (logits (b, v), cache one row on)."""
         idx = cache["index"]

@@ -6,7 +6,10 @@ s_enc, d). Encoder: bidirectional MHA + tanh-GELU MLP with sinusoidal
 positions. Decoder: causal self-attention + cross-attention over the
 encoded memory + GELU MLP, learned positions (``pos_dec``, 65,536 rows).
 No RoPE anywhere. Prefill fills the self-attention cache and the
-cross-attention k/v (``xk``/``xv``) from the memory once.
+cross-attention k/v (``xk``/``xv``) from the memory once. ``loss`` is the
+encoder, the decoder's hidden states and ``chunked_ce_loss`` over
+``dec_norm`` and ``lm_head``; with ``cfg.remat`` every encoder and decoder
+block is rematerialised.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ class WhisperBlock(nn.Module):
             self.xattn.reset_parameters(generator)
 
 
-class Whisper(nn.Module):
+class Whisper(L.LMParams, nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
@@ -91,6 +94,13 @@ class Whisper(nn.Module):
         return self
 
     # -- encoder ----------------------------------------------------------------
+    def _enc_block(self, x, layer):
+        h = L.rms_norm(x, layer.ln1)
+        x = x + L.attention(layer.attn, self.dims, h, causal=False,
+                            rope=False)
+        h = L.rms_norm(x, layer.ln2)
+        return x + L.gelu_mlp(layer.mlp, h)
+
     def encode(self, frames):
         """frames (b, s_enc, d) — stub-frontend output — -> memory."""
         _, s, d = frames.shape
@@ -98,11 +108,7 @@ class Whisper(nn.Module):
                                                             frames.dtype)
         x = frames + pos[None]
         for layer in self.encoder:
-            h = L.rms_norm(x, layer.ln1)
-            x = x + L.attention(layer.attn, self.dims, h, causal=False,
-                                rope=False)
-            h = L.rms_norm(x, layer.ln2)
-            x = x + L.gelu_mlp(layer.mlp, h)
+            x = L.remat(self._enc_block, x, layer, enabled=self.cfg.remat)
         return L.rms_norm(x, self.enc_norm)
 
     # -- decoder ----------------------------------------------------------------
@@ -114,24 +120,40 @@ class Whisper(nn.Module):
         if not 0 <= pos0 <= POS_DEC_ROWS - s:
             raise IndexError(f"decoder positions [{pos0}, {pos0 + s}) are "
                              f"outside pos_dec's {POS_DEC_ROWS} rows")
-        return self.embed[tokens] + self.pos_dec[pos0:pos0 + s][None]
+        return (L.take_rows(self.embed, tokens)
+                + self.pos_dec[pos0:pos0 + s][None])
+
+    def _dec_block(self, x, layer, memory):
+        h = L.rms_norm(x, layer.ln1)
+        x = x + L.attention(layer.attn, self.dims, h, causal=True,
+                            rope=False)
+        h = L.rms_norm(x, layer.ln_x)
+        x = x + L.attention(layer.xattn, self.dims, h, memory=memory,
+                            rope=False)
+        h = L.rms_norm(x, layer.ln2)
+        return x + L.gelu_mlp(layer.mlp, h)
+
+    def _decoder_hidden(self, tokens, memory):
+        """Teacher-forced decoder hidden states (pre-norm, pre-head)."""
+        x = self._embed_dec(tokens)
+        for layer in self.decoder:
+            x = L.remat(self._dec_block, x, layer, memory,
+                        enabled=self.cfg.remat)
+        return x
 
     def decode_full(self, tokens, memory):
         """Teacher-forced decoder (prefill math)."""
-        x = self._embed_dec(tokens)
-        for layer in self.decoder:
-            h = L.rms_norm(x, layer.ln1)
-            x = x + L.attention(layer.attn, self.dims, h, causal=True,
-                                rope=False)
-            h = L.rms_norm(x, layer.ln_x)
-            x = x + L.attention(layer.xattn, self.dims, h, memory=memory,
-                                rope=False)
-            h = L.rms_norm(x, layer.ln2)
-            x = x + L.gelu_mlp(layer.mlp, h)
+        x = self._decoder_hidden(tokens, memory)
         return L.rms_norm(x, self.dec_norm) @ self.lm_head
 
     def forward(self, tokens, frames):
         return self.decode_full(tokens, self.encode(frames))
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        memory = self.encode(batch["frames"])
+        x = self._decoder_hidden(batch["tokens"], memory)
+        return L.chunked_ce_loss(x, self.dec_norm, self.lm_head,
+                                 batch["tokens"])
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, mem_len: int) -> dict:
@@ -143,6 +165,7 @@ class Whisper(nn.Module):
         return {"k": zeros(kv), "v": zeros(kv), "xk": zeros(xkv),
                 "xv": zeros(xkv), "index": 0}
 
+    @torch.no_grad()
     def prefill(self, tokens, frames, cache):
         """Encode + teacher-forced prefix + cache self/cross K/V."""
         cfg = self.cfg
@@ -178,6 +201,7 @@ class Whisper(nn.Module):
         x = L.rms_norm(x, self.dec_norm)
         return (x[:, -1:, :] @ self.lm_head)[:, 0], cache
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache):
         cfg = self.cfg
         b = tokens.shape[0]

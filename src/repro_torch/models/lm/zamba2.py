@@ -9,8 +9,10 @@ slices) → selective state-space recurrence with per-head scalar decay
 fp32, over a (head_dim × ssm_state) fp32 state → gated RMS-norm →
 out-proj. The recurrence is a Python loop over time. The shared block
 takes ``concat(h, x_embed)`` projected back to d_model; it has one set of
-weights but its own KV cache at each application. Cache states are
-updated in place.
+weights but its own KV cache at each application. A serving cache's
+states are updated in place; ``loss`` (from zero Mamba states, each Mamba
+layer rematerialised with ``cfg.remat``, as the reference's scan step)
+carries them as new tensors.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ class SharedBlock(nn.Module):
         self.mlp.reset_parameters(generator)
 
 
-class Zamba2(nn.Module):
+class Zamba2(L.LMParams, nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
@@ -200,13 +202,25 @@ class Zamba2(nn.Module):
         }
 
     def _mamba_layers(self, x, states, a, b):
-        """Layers [a, b) over ``states`` (stacked per layer), in place."""
+        """Layers [a, b) from ``states`` (stacked per layer; None: zeros).
+        Returns x and the layers' new states, a list; nothing is written
+        in place."""
+        new = []
         for i in range(a, b):
-            x, st = self._mamba_block(
-                self.mamba[i], x, {k: v[i] for k, v in states.items()})
+            st = (self._zero_mamba_state(x.shape[0]) if states is None
+                  else {k: v[i] for k, v in states.items()})
+            x, st = L.remat(self._mamba_block, self.mamba[i], x, st,
+                            enabled=self.cfg.remat)
+            new.append(st)
+        return x, new
+
+    @staticmethod
+    def _store_states(states, a: int, new: list) -> None:
+        """Write layers [a, a + len(new))'s new states into the stacked
+        ``states`` (a serving cache) in place."""
+        for j, st in enumerate(new):
             for key, val in st.items():
-                states[key][i] = val
-        return x
+                states[key][a + j] = val
 
     # -- shared attention block -------------------------------------------------
     def _shared_block(self, p, x, x0, kv=None, idx=None):
@@ -225,13 +239,15 @@ class Zamba2(nn.Module):
 
     # -- forward ----------------------------------------------------------------
     def _run(self, x, states, shared_kv=None, idx=None):
-        """``states``: stacked (L, ...) mamba states, updated in place;
-        ``shared_kv``: the n_shared k/v caches (decode at ``idx``, written
-        in place) or None for full-sequence attention."""
+        """``states``: stacked (L, ...) mamba states, updated in place, or
+        None for zeros; ``shared_kv``: the n_shared k/v caches (decode at
+        ``idx``, written in place) or None for full-sequence attention."""
         x0 = x
         si = 0
         for (a, b) in self.chunks():
-            x = self._mamba_layers(x, states, a, b)
+            x, new = self._mamba_layers(x, states, a, b)
+            if states is not None:
+                self._store_states(states, a, new)
             if self._shared_after(a, b):
                 kv = None if shared_kv is None else (shared_kv["k"][si],
                                                      shared_kv["v"][si])
@@ -240,10 +256,13 @@ class Zamba2(nn.Module):
         return x
 
     def forward(self, tokens, positions=None):
-        x = self.embed[tokens]
-        states = self.init_cache(tokens.shape[0], 0)["mamba"]
-        x = self._run(x, states)
+        x = self._run(L.take_rows(self.embed, tokens), None)
         return L.rms_norm(x, self.final_norm) @ self.lm_head
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        tokens = batch["tokens"]
+        x = self._run(L.take_rows(self.embed, tokens), None)
+        return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -264,12 +283,13 @@ class Zamba2(nn.Module):
                                  device=self.device)}
         return cache
 
+    @torch.no_grad()
     def prefill(self, tokens, cache):
         """Full-sequence mamba + full attention, writing each shared-block
         application's k/v at positions [0, s) of its cache (the rest
         zeroed)."""
         b, s = tokens.shape
-        x = self.embed[tokens]
+        x = L.take_rows(self.embed, tokens)
         x0 = x
         states = cache["mamba"]
         if self.n_shared() and s > cache["shared"]["k"].shape[2]:
@@ -278,7 +298,8 @@ class Zamba2(nn.Module):
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
         si = 0
         for (a, bnd) in self.chunks():
-            x = self._mamba_layers(x, states, a, bnd)
+            x, new = self._mamba_layers(x, states, a, bnd)
+            self._store_states(states, a, new)
             if self._shared_after(a, bnd):
                 p = self.shared
                 h = torch.cat([x, x0], dim=-1)
@@ -299,9 +320,10 @@ class Zamba2(nn.Module):
         cache["index"] = s
         return (x[:, -1:, :] @ self.lm_head)[:, 0], cache
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache):
         idx = cache["index"]
-        x = self.embed[tokens]
+        x = L.take_rows(self.embed, tokens)
         x = self._run(x, cache["mamba"], shared_kv=cache.get("shared"),
                       idx=idx)
         x = L.rms_norm(x, self.final_norm)

@@ -188,13 +188,13 @@ class RequestFuture:
     __slots__ = ("_event", "_lock", "_score", "_exc", "_callbacks",
                  "t_submit", "latency_ms")
 
-    def __init__(self):
+    def __init__(self, t_submit: float):
         self._event = threading.Event()
         self._lock = threading.Lock()   # guards _callbacks vs resolution
         self._score: float | None = None
         self._exc: BaseException | None = None
         self._callbacks: list[Callable[[RequestFuture], None]] = []
-        self.t_submit = time.perf_counter()
+        self.t_submit = t_submit        # the submitting call's arrival
         self.latency_ms: float | None = None
 
     def done(self) -> bool:
@@ -732,21 +732,31 @@ class InferenceEngine:
         returns a future resolving to its score when its batch serves —
         or an already-failed future (:class:`QueueFullError`) when the
         queue is at ``max_queue_depth`` (backpressure)."""
-        fut = RequestFuture()
-        row = np.asarray(ids_row, dtype=np.int32)
+        return self.submit_many([ids_row])[0]
+
+    def submit_many(self, rows: Sequence[np.ndarray]) -> list[RequestFuture]:
+        """Queue ``rows`` as one arrival: one ``t_submit`` for all of them,
+        enqueued under one hold of the queue lock with one wake-up, so
+        the worker never sees (or times) part of the call. Each row is
+        still refused on its own at ``max_queue_depth``."""
+        rows = [np.asarray(r, dtype=np.int32) for r in rows]
+        t_submit = time.perf_counter()
+        futs = [RequestFuture(t_submit) for _ in rows]
         with self._cv:
-            if (self.max_queue_depth is not None
-                    and len(self._queue) >= self.max_queue_depth):
+            for row, fut in zip(rows, futs):
+                if (self.max_queue_depth is not None
+                        and len(self._queue) >= self.max_queue_depth):
+                    with self.stats.lock:
+                        self.stats.n_rejected += 1
+                    fut._fail(QueueFullError(
+                        f"queue at max_queue_depth={self.max_queue_depth} "
+                        f"({self.stats.n_rejected} rejected so far); the "
+                        "device is not keeping up — shed load or raise "
+                        "the bound"))
+                    continue
+                self._queue.append((t_submit, row, fut))
                 with self.stats.lock:
-                    self.stats.n_rejected += 1
-                fut._fail(QueueFullError(
-                    f"queue at max_queue_depth={self.max_queue_depth} "
-                    f"({self.stats.n_rejected} rejected so far); the device "
-                    "is not keeping up — shed load or raise the bound"))
-                return fut
-            self._queue.append((fut.t_submit, row, fut))
-            with self.stats.lock:
-                self.stats.queue_depth = len(self._queue)
+                    self.stats.queue_depth = len(self._queue)
             self._cv.notify()
         # outside _cv: the scheduler's pick loop holds its own lock while
         # polling next_ready (which takes _cv) — notifying it from inside
@@ -754,10 +764,7 @@ class InferenceEngine:
         sched = self._scheduler
         if sched is not None:
             sched.notify()
-        return fut
-
-    def submit_many(self, rows: Sequence[np.ndarray]) -> list[RequestFuture]:
-        return [self.submit(r) for r in rows]
+        return futs
 
     def pending(self) -> int:
         with self._cv:

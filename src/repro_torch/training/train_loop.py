@@ -9,9 +9,12 @@ steps slower than ``straggler_factor`` × the running median are flagged.
 Reading each step's metrics as Python floats waits for the device, as
 ``jax.block_until_ready`` does in the reference.
 
-:func:`make_ctr_step` is the CTR step the reference's drivers write
-inline: ``loss.backward()`` through the model's own buffers, then
-:func:`adamw_update`.
+:func:`make_train_step` is the step the reference's drivers write inline
+(``jax.value_and_grad(model.loss)`` then ``adamw_update``):
+``loss.backward()`` through the model's own buffers, then
+:func:`adamw_update`. It serves any model with ``loss(batch)`` and a
+``param_tree()``: the CTR models (``make_ctr_step`` is its CTR name) and
+the LM zoo (``launch/train.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from torch.profiler import record_function
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .optimizer import AdamWConfig, TrainState, adamw_update, tree_map
 
-__all__ = ["TrainLoopConfig", "run_train_loop", "make_ctr_step"]
+__all__ = ["TrainLoopConfig", "run_train_loop", "make_train_step",
+           "make_ctr_step"]
 
 
 @dataclasses.dataclass
@@ -45,11 +49,11 @@ class TrainLoopConfig:
     keep_ckpts: int = 2
 
 
-def make_ctr_step(model, cfg: AdamWConfig) -> Callable:
+def make_train_step(model, cfg: AdamWConfig) -> Callable:
     """``step_fn(state, batch) -> (state, {"loss", "grad_norm"})`` for a
-    ``CTRModel`` whose buffers are ``state.params`` (its
-    ``param_tree()``): the loss and its gradients by autograd, then one
-    AdamW update in place. Every parameter must receive a gradient: one
+    model (a ``CTRModel``, an LM of the zoo) whose buffers are
+    ``state.params`` (its ``param_tree()``): ``model.loss(batch)`` and its
+    gradients by autograd, then one AdamW update in place. Every parameter must receive a gradient: one
     that gets none (a kernel output outside autograd) raises. The three
     parts run inside profiler ranges ``train/forward``,
     ``train/backward`` and ``train/optimizer``."""
@@ -70,6 +74,10 @@ def make_ctr_step(model, cfg: AdamWConfig) -> Callable:
             p.grad = None
         return state, {"loss": loss.detach(), **metrics}
     return step_fn
+
+
+#: the CTR drivers' name for the step (``launch/train_ctr.py``)
+make_ctr_step = make_train_step
 
 
 def _tensors(tree: Any) -> list:

@@ -2110,3 +2110,69 @@ def test_lm_flash_attention_on_the_card_matches_sdpa(cuda):
         torch.testing.assert_close(got.cpu(), L.flash_attention(
             q.cpu(), k.cpu(), v.cpu(), causal=causal, q_chunk=128,
             k_chunk=64), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# LM training (no hand kernel: autograd through plain tensor ops and cuBLAS)
+# ---------------------------------------------------------------------------
+
+def _lm_grads(model, batch):
+    """(loss, {path: gradient}) of ``model.loss(batch)``."""
+    from repro_torch.bridge import _leaves
+
+    tree = model.param_tree()
+    loss = model.loss(batch)
+    loss.backward()
+    grads = {path: t.grad.detach().clone() for path, t in _leaves(tree)}
+    for _, t in _leaves(tree):
+        t.grad = None
+    return loss.detach(), grads
+
+
+def _lm_pair(cuda, arch, **overrides):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models.lm import make_lm_model
+
+    cfg = get_config(arch).reduced(**overrides)
+    host = make_lm_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = make_lm_model(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    batch = lm_batch_fn(cfg, 2, 16, "cpu")(0)
+    return host, card, batch, {k: v.to(cuda) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "granite-8b", "smollm-360m",
+                                  "qwen3-4b", "pixtral-12b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b", "rwkv6-7b",
+                                  "zamba2-1.2b", "whisper-small"])
+def test_reduced_lm_loss_and_gradients_on_the_card_match_the_cpu(cuda,
+                                                                 arch):
+    """A reduced fp32 model of each arch with the same weights and batch
+    on the card and on the CPU: the loss and every gradient leaf at
+    ``rtol=1e-4, atol=1e-5``, with and without remat."""
+    for remat in (False, True):
+        host, card, batch, moved = _lm_pair(cuda, arch, remat=remat)
+        lh, gh = _lm_grads(host, batch)
+        lc, gc = _lm_grads(card, moved)
+        torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5)
+        assert gh.keys() == gc.keys()
+        for path, g in gh.items():
+            torch.testing.assert_close(gc[path].cpu(), g, rtol=1e-4,
+                                       atol=1e-5, msg=str(path))
+
+
+@pytest.mark.parametrize("arch,tied", [("smollm-360m", True),
+                                       ("phi3.5-moe-42b-a6.6b", False)])
+def test_lm_gradients_on_the_card_are_bitwise_repeatable(cuda, arch, tied):
+    """Two backward passes of the same loss on the card: every gradient
+    bitwise (the embedding's, gathered rows summed by id, and a tied
+    head's included), so a resumed run is bitwise an unbroken one."""
+    _, card, _, moved = _lm_pair(cuda, arch, tie_embeddings=tied)
+    l1, g1 = _lm_grads(card, moved)
+    l2, g2 = _lm_grads(card, moved)
+    assert torch.equal(l1, l2)
+    for path, g in g1.items():
+        assert torch.equal(g, g2[path]), path

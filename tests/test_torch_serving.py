@@ -539,6 +539,59 @@ def test_worker_fires_timeout_slo_without_polling():
     assert st.p50_ms >= 25.0            # the latency covers the SLO wait
 
 
+class _StalledRow:
+    """A request row whose conversion to an array stalls the submitting
+    thread, as a loaded host descheduling it between rows would."""
+
+    def __init__(self, row, stall_s):
+        self.row, self.stall_s = row, stall_s
+
+    def __array__(self, dtype=None, copy=None):
+        time.sleep(self.stall_s)
+        return np.asarray(self.row, dtype=dtype)
+
+
+def test_submit_many_rows_all_cover_the_slo_when_the_submitter_stalls():
+    """One ``submit_many`` is one arrival: a 10 ms stall of the caller
+    between its rows (the worker thread free to run meanwhile) leaves
+    every row's ``t_submit`` the same, so every row's latency covers the
+    25 ms SLO, not only the first's."""
+    eng, jeng = engine_pair(policy=("timeout", ("fixed", 8), 25.0),
+                            worker_tick_ms=1.0)
+    eng.warmup()
+    eng.start()
+    rows = rows_of(3)
+    try:
+        futs = eng.submit_many([rows[0], _StalledRow(rows[1], 0.010),
+                                _StalledRow(rows[2], 0.010)])
+        got = np.array([f.result(timeout=WAIT_S) for f in futs])
+    finally:
+        eng.stop()
+    assert len({f.t_submit for f in futs}) == 1
+    assert all(f.latency_ms >= 25.0 for f in futs), \
+        [f.latency_ms for f in futs]
+    assert eng.stats.n_batches == 1 and eng.stats.n_requests == 3
+    jeng.submit_many(rows)
+    np.testing.assert_allclose(got, jeng.flush(), **TOL)
+
+
+def test_submit_many_refuses_each_row_past_max_queue_depth():
+    """The depth bound stays per row inside one ``submit_many``: rows
+    past it fail alone, as the reference's row-by-row ``submit`` does."""
+    eng, jeng = engine_pair(policy=("fixed", 8), max_queue_depth=2)
+    rows = rows_of(4)
+    futs = eng.submit_many(rows)
+    jfuts = jeng.submit_many(rows)
+    assert [f.done() for f in futs] == [False, False, True, True]
+    with pytest.raises(QueueFullError):
+        futs[3].result(timeout=0)
+    assert eng.stats.n_rejected == jeng.stats.n_rejected == 2
+    assert eng.pending() == jeng.pending() == 2
+    np.testing.assert_allclose(eng.flush(), jeng.flush(), **TOL)
+    assert_same_counters(eng, jeng)
+    assert [f.done() for f in jfuts] == [f.done() for f in futs]
+
+
 def test_worker_drains_full_buckets_immediately():
     eng = InferenceEngine(port_model("widedeep"),
                           policy=TimeoutBatch(FixedBatch(8),
