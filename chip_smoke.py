@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's CTR inference and training paths, and the
-LM zoo's serving and training paths, on one NVIDIA card.
+LM zoo's serving, training and mesh paths, on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -242,6 +242,39 @@ Phases (any failure raises; the script then exits non-zero):
    bitwise (smollm also with a tied head); (d) smollm reduced: 6 steps
    through ``run_train_loop`` bitwise 3, a restore and 3 more. Numbers
    also go to ``chiprun_out/lm_phase13.json``.
+14. The LM mesh and the cell builder (``repro_torch.launch.steps``,
+   ``layers.flash_decode_sharded``; no hand kernel) on a (2, 2)
+   ("data", "model") mesh of four positions on the card: (a) llama3-8b,
+   all 32 layers, through ``build_cell("llama3-8b", "decode_32k",
+   mesh)``, its 32,768-slot KV cache (16,384 a sequence shard) filled
+   from a seed to 16,380, then 8 decode steps across the shards'
+   boundary on the cell and on the mesh-less ``decode_step`` over a copy
+   of the same cache; in bf16 at b = 4 (the batch of 128 cut): layer 0's
+   sharded attention within twice the mesh-less attention's error
+   against fp32, greedy tokens equal (a token that differs is logged
+   with its top-2 margin and fails unless that margin is within twice
+   the row's |diff|), the logits' gap logged (two bf16 paths drift apart
+   over 32 random layers), decode ms a token (p50, a sync each step)
+   beside the bound (weights and cache read once at 3.35 TB/s), ATen ops
+   a step, the bytes its copies of a cache shard write (no more than the
+   mesh-less step's) and peak memory; in fp32 at b = 2: logits and the
+   written slots within ``rtol 2e-4, atol 2e-4``; (b) qwen3-4b,
+   pixtral-12b, phi3.5-moe (8 of 32 layers), zamba2-1.2b (its shared
+   attention) and whisper-small (the cross-attention over a 1,500-frame
+   memory, 750 a shard) at published width in fp32, b = 4, a 4,096-slot
+   cache filled to 2,044: 8 steps against their mesh-less decode within
+   ``rtol 2e-4, atol 2e-4`` (MoE: the steps that route alike);
+   rwkv6-7b (no ``decode_ctx``, the hook only) bitwise; (c) every arch's
+   ``reduced()`` fp32 decode cell on the card against the same cell on
+   a CPU mesh within ``CPU_TOL`` and against the mesh-less decode within
+   ``rtol 2e-4, atol 2e-4``; (d) smollm-360m's train cell, all 32
+   layers, ``train_4k`` cut to b = 8, s = 256: 3 steps with ``n_micro``
+   1 and 3 with 2 from the same parameters and batches, losses within
+   1e-2, step p50 of each; (e) ``lower()`` of qwen3-4b's ``train_4k``,
+   ``prefill_32k`` and ``decode_32k`` cells on the (16, 16) production
+   mesh of meta positions, one worker process each, side by side: ops
+   and seconds of each trace. Numbers also go to
+   ``chiprun_out/lm_phase14.json``.
 """
 
 from __future__ import annotations
@@ -3735,21 +3768,24 @@ def lm_prefill(model, tokens, extra, new: int):
     return model.prefill(tokens, model.init_cache(b, s + new))
 
 
-def dispatch_counts(torch, fn) -> tuple[dict, int]:
+def dispatch_counts(torch, fn, min_copy: int = 0) -> tuple[dict, int, int]:
     """Run ``fn`` once; return 2·m·n·k of every GEMM it dispatches
     (``mm``/``addmm``/``bmm``/``baddbmm``; ``matmul`` and ``einsum`` lower
-    to them) by operand dtype, and the number of ATen ops it dispatches
-    that are not views (each one host dispatch, nearly all a launch)."""
+    to them) by operand dtype, the number of ATen ops it dispatches that
+    are not views (each one host dispatch, nearly all a launch), and the
+    bytes written by its copies (``_to_copy``, ``clone``, ``copy_``) of a
+    source of at least ``min_copy`` elements."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     aten = torch.ops.aten
     first = {aten.mm: 0, aten.bmm: 0, aten.addmm: 1, aten.baddbmm: 1}
+    copies = {aten._to_copy: 0, aten.clone: 0, aten.copy_: 1}
     counts: dict = {}
-    ops = 0
+    ops = copied = 0
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            nonlocal ops
+            nonlocal ops, copied
             out = func(*args, **(kwargs or {}))
             ops += not func.is_view
             i = first.get(func.overloadpacket)
@@ -3757,11 +3793,14 @@ def dispatch_counts(torch, fn) -> tuple[dict, int]:
                 a = args[i]
                 counts[a.dtype] = (counts.get(a.dtype, 0)
                                    + 2 * out.numel() * a.shape[-1])
+            i = copies.get(func.overloadpacket)
+            if i is not None and args[i].numel() >= min_copy:
+                copied += out.numel() * out.element_size()
             return out
 
     with Count():
         fn()
-    return counts, ops
+    return counts, ops, copied
 
 
 def flops_ms(torch, counts: dict) -> float:
@@ -3965,10 +4004,10 @@ def lm_arch(torch, dev, arch: str, layers, prompt: int, card: str) -> dict:
 
     # bounds: every weight byte read once (decode: and the cache), the
     # GEMMs' operations at their dtype's rate, counted on this run
-    pre_ops, _ = dispatch_counts(
+    pre_ops, _, _ = dispatch_counts(
         torch, lambda: lm_prefill(model, tokens, extra, 0))
     logits, cache = lm_prefill(model, tokens, extra, 1)
-    dec_ops, step_ops = dispatch_counts(torch, lambda: model.decode_step(
+    dec_ops, step_ops, _ = dispatch_counts(torch, lambda: model.decode_step(
         logits.argmax(-1)[:, None], cache))
     prefill_bound = max(weights / HBM_BYTES_PER_S * 1e3,
                         flops_ms(torch, pre_ops))
@@ -4420,6 +4459,594 @@ def run_lm_train(torch, dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM mesh and the cell builder
+# ---------------------------------------------------------------------------
+
+# a (2, 2) ("data", "model") mesh of four positions on the first card
+LM_MESH_SHAPE = (2, 2)
+LM_MESH_B = 4                 # decode_32k's batch of 128 cut to 4
+LM_MESH_FILL = 16_380         # (a): slots filled; 8 steps cross 16,384
+LM_MESH_STEPS = 8
+# (a) in fp32: the same cache at b = 2 (weights 32.1 GB, the cache and
+# its mesh-less copy 17.2 GB each)
+LM_MESH_FP32_B = 2
+# (b): the other families at published width in fp32, depths as phase
+# 12 cuts them, a 4,096-slot cache (2,048 a sequence shard) filled to
+# 2,044
+LM_MESH_ARCHS = (("qwen3-4b", None), ("pixtral-12b", None),
+                 ("phi3.5-moe-42b-a6.6b", 8), ("zamba2-1.2b", None),
+                 ("whisper-small", None), ("rwkv6-7b", None))
+LM_MESH_SEQ, LM_MESH_SEQ_FILL = 4096, 2044
+MESH_DECODE_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/distributed_inner.py:75
+# (a) in bf16: the sharded attention's error against fp32 at most this
+# many times the mesh-less attention's (both round q·k, p and p·v to
+# bf16, in other orders)
+LM_MESH_ATTN_RATIO = 2.0
+# (c): reduced fp32 archs, a prompt of 6 into 16 slots (8 a shard)
+LM_MESH_SMALL = dict(prompt=6, s_max=16, frames=8, patches=2, steps=6)
+# (d): smollm-360m whole, train_4k cut to b = 8, s = 256
+LM_MESH_TRAIN = ("smollm-360m", 8, 256, 3)
+LM_MESH_LOWER = ("train_4k", "prefill_32k", "decode_32k")
+
+
+class lm_cell_config:
+    """``repro_torch.configs``' config of ``arch`` replaced while inside
+    (depth cut to ``layers``, or ``reduced()``), as the reference's
+    tests/distributed_inner.py:102-104 patches it for a cell."""
+
+    def __init__(self, arch: str, layers=None, reduced: bool = False,
+                 dtype: str | None = None):
+        import dataclasses
+        import importlib
+
+        import repro_torch.configs as C
+        self.mod = importlib.import_module(
+            f"repro_torch.configs.{C._ARCH_MODULES[arch]}")
+        self.saved = self.mod.CONFIG
+        cfg = self.saved.reduced() if reduced else self.saved
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        self.cfg = cfg if dtype is None else dataclasses.replace(
+            cfg, dtype=dtype)
+
+    def __enter__(self):
+        self.mod.CONFIG = self.cfg
+        return self.cfg
+
+    def __exit__(self, *exc):
+        self.mod.CONFIG = self.saved
+
+
+def released(torch, base: int, tag: str) -> None:
+    """Fail unless the card's allocated memory is back within 256 MiB of
+    ``base``: a cell that outlived its section would hold its weights."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - base
+    assert held < 2**28, f"{tag}: {held / 2**30:.2f} GiB still held"
+
+
+def lm_mesh(torch, dev, shape=LM_MESH_SHAPE):
+    from repro_torch.distributed import make_mesh
+    return make_mesh(shape, ("data", "model"),
+                     [dev] * math.prod(shape))
+
+
+def fill_cache(torch, cache: dict, upto: int, g) -> dict:
+    """Seeded values in a fresh cache: a KV cache's slots [0, upto) ~
+    N(0, 1) (the rest stays zero), a cross memory whole, a recurrent
+    state × 0.1; ``index`` = ``upto``."""
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            fill_cache(torch, val, upto, g)
+        elif key == "index":
+            cache[key] = upto
+        elif key in ("k", "v"):
+            for layer in val:
+                layer[:, :upto].copy_(torch.randn(
+                    layer[:, :upto].shape, generator=g, device=val.device))
+        elif key in ("xk", "xv"):
+            for layer in val:
+                layer.copy_(torch.randn(layer.shape, generator=g,
+                                        device=val.device))
+        else:
+            val.copy_(torch.randn(val.shape, generator=g,
+                                  device=val.device) * 0.1)
+    return cache
+
+
+def whole_copy(torch, cache):
+    """A mesh-less copy of a (placed) cache: every ``Placed`` assembled
+    on the first device, every tensor cloned."""
+    from repro_torch.distributed import Placed
+    if isinstance(cache, dict):
+        return {k: whole_copy(torch, v) for k, v in cache.items()}
+    if isinstance(cache, Placed):
+        return cache.full()
+    return cache.clone() if torch.is_tensor(cache) else cache
+
+
+def mesh_step_pair(torch, cell, nxt, cache, plain):
+    """One decode step of ``cell`` (through its ``decode_ctx``, if any) on
+    ``cache`` and of its mesh-less twin on ``plain`` (the same model, no
+    ``decode_ctx``, the hook replaced by none): (sharded logits, mesh-less
+    logits, sharded ms, mesh-less ms), each call timed to a sync."""
+    from repro_torch.models.lm import layers as L
+
+    model = cell.model
+    ctx, shard = cell.decode_ctx, model.shard
+    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if ctx is not None:
+        model.decode_ctx = None
+    model.shard = L.no_shard
+    try:
+        lp, plain = model.decode_step(nxt, plain)
+    finally:
+        model.shard = shard
+        if ctx is not None:
+            model.decode_ctx = ctx
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    ls, cache = cell.decode_fn()({"tokens": nxt, "cache": cache})
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    return ls, lp, times[1], times[0]
+
+
+def check_tokens(torch, ls, lp, tag: str) -> int:
+    """Greedy tokens of the sharded (``ls``) and mesh-less (``lp``)
+    logits: where one differs, log the mesh-less top-2 margin; a margin
+    above twice that row's largest |diff| is not a near tie and fails.
+    Returns the number of tokens that differ."""
+    diff = (ls.float() - lp.float()).abs().amax(-1)
+    top = lp.float().topk(2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    differ = (ls.argmax(-1) != lp.argmax(-1)).nonzero().flatten().tolist()
+    for r in differ:
+        log(f"[lmmesh] {tag}: row {r} greedy token differs, top-2 margin "
+            f"{float(margin[r]):.3e}, max|diff| {float(diff[r]):.3e}")
+        assert float(margin[r]) <= 2 * float(diff[r]), (tag, r)
+    return len(differ)
+
+
+def attention_vs_fp32(torch, cell, nxt, plain) -> tuple[float, float]:
+    """Layer 0's attention for the next token, on a copy of layer 0's
+    cache with that token written, through ``flash_decode_sharded`` and
+    through the mesh-less ``_sdpa_decode``, each against ``_sdpa_decode``
+    in fp32 on the same q and cache: (sharded, mesh-less) relative norm
+    errors."""
+    from repro_torch.models.lm import layers as L
+
+    model, idx = cell.model, plain["index"]
+    layer = model.layers[0]
+    b = nxt.shape[0]
+    h = L.rms_norm(model.embed_tokens(nxt), layer.ln1)
+    pos = torch.full((b, 1), idx, dtype=torch.int32, device=nxt.device)
+    q, k, v = L._qkv(layer.attn, model.dims, h, pos)
+    kc, vc = plain["k"][0].clone(), plain["v"][0].clone()
+    kc[:, idx], vc[:, idx] = k[:, 0], v[:, 0]
+    valid = torch.arange(kc.shape[1], device=nxt.device) <= idx
+    truth = L._sdpa_decode(q.float(), kc.float(), vc.float(), valid)
+    mless = L._sdpa_decode(q, kc, vc, valid)
+    shd, _, _ = L.flash_decode_sharded(q, kc, vc, None, None, idx,
+                                       cell.decode_ctx)
+    err = lambda t: float((t.float() - truth).norm() / truth.norm())  # noqa
+    return err(shd), err(mless)
+
+
+def lm_mesh_llama(torch, dev, mesh, card: str, dtype: str, b: int) -> dict:
+    """(a): llama3-8b, all 32 layers, through ``build_cell("llama3-8b",
+    "decode_32k", mesh)``: a 32,768-slot cache (16,384 a sequence shard)
+    filled to ``LM_MESH_FILL``, ``LM_MESH_STEPS`` decode steps across the
+    shards' boundary on the cell and on the mesh-less ``decode_step``
+    over a copy of the same cache. In bf16 (the published dtype, timed):
+    layer 0's sharded attention within ``LM_MESH_ATTN_RATIO`` × the
+    mesh-less attention's error against fp32, the greedy tokens equal up
+    to near ties, the logit gap logged (two bf16 paths that round in
+    other orders drift apart over 32 random layers: PERF.md §6).
+    In fp32: logits within ``MESH_DECODE_TOL``."""
+    from repro_torch.launch.steps import build_cell
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with lm_cell_config("llama3-8b", dtype=dtype):
+        cell = build_cell("llama3-8b", "decode_32k", mesh)
+    assert cell.model.device == mesh.first_device
+    assert cell.decode_ctx.batch_axes == "data"
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    weights = tensor_bytes(cell.model.state_dict())
+    s_max = cell.cell.seq
+    cache = fill_cache(torch, cell.model.init_cache(b, s_max),
+                       LM_MESH_FILL, g)
+    cache_bytes = tensor_bytes(cache)
+    cell.place_cache(cache)           # the whole tensors go
+    torch.cuda.synchronize()
+    plain = whole_copy(torch, cache)
+    assert cache["k"].local((1, 1)).is_contiguous()
+    nxt = torch.randint(0, cell.cfg.vocab, (b, 1), generator=g, device=dev)
+    res = {"dtype": dtype, "layers": cell.cfg.n_layers, "b": b,
+           "s_max": s_max, "fill": LM_MESH_FILL}
+    if dtype == "bfloat16":
+        res["attn_err"], res["attn_err_mesh_less"] = attention_vs_fp32(
+            torch, cell, nxt, plain)
+        assert res["attn_err"] <= LM_MESH_ATTN_RATIO * max(
+            res["attn_err_mesh_less"], 1e-6), res
+    ms, plain_ms, worst, mean, differ = [], [], 0.0, 0.0, 0
+    for step in range(LM_MESH_STEPS):
+        ls, lp, t_s, t_p = mesh_step_pair(torch, cell, nxt, cache, plain)
+        assert torch.isfinite(ls.float()).all()
+        if dtype == "float32":
+            torch.testing.assert_close(ls, lp, **MESH_DECODE_TOL)
+        gap = (ls.float() - lp.float()).abs()
+        worst = max(worst, float(gap.max()))
+        mean = max(mean, float(gap.mean()))
+        differ += check_tokens(torch, ls, lp, f"(a) {dtype} step {step}")
+        ms.append(t_s)
+        plain_ms.append(t_p)
+        nxt = lp.argmax(-1)[:, None]
+    assert cache["index"] == plain["index"] == LM_MESH_FILL + LM_MESH_STEPS
+    for key in ("k", "v"):
+        # the written slots, in both shards, against the mesh-less ones
+        got = cache[key].full()[:, :, LM_MESH_FILL - 4:LM_MESH_FILL + 8]
+        want = plain[key][:, :, LM_MESH_FILL - 4:LM_MESH_FILL + 8]
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, **MESH_DECODE_TOL)
+        assert torch.equal(got[:, :, :4], want[:, :, :4])
+        assert not got[:, :, 4:].eq(0).all(dim=(0, 1, 3, 4)).any()
+        del got, want
+    peak = torch.cuda.max_memory_allocated() - base
+    # one more step of each, counted: ATen ops and the bytes of copies of
+    # a cache shard or more
+    model = cell.model
+    ctx = model.decode_ctx
+    shard_numel = cache["k"][0].local((0, 0)).numel()
+    model.decode_ctx = None
+    gemms, plain_ops, plain_copy = dispatch_counts(
+        torch, lambda: model.decode_step(nxt, plain), shard_numel)
+    model.decode_ctx = ctx
+    _, mesh_ops, mesh_copy = dispatch_counts(torch, lambda: cell.decode_fn()(
+        {"tokens": nxt, "cache": cache}), shard_numel)
+    # no copy of a cache shard beyond the mesh-less path's own
+    assert mesh_copy <= plain_copy, (mesh_copy, plain_copy)
+    bound = max((weights + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+                flops_ms(torch, gemms))
+    res.update({"weights_gb": weights / 1e9, "cache_gb": cache_bytes / 1e9,
+                "max_abs_diff": worst, "max_mean_abs_diff": mean,
+                "tokens_differ": differ,
+                "decode_p50_ms": sorted(ms)[len(ms) // 2],
+                "plain_decode_p50_ms": sorted(plain_ms)[len(plain_ms) // 2],
+                "bound_ms": bound, "ops": mesh_ops, "plain_ops": plain_ops,
+                "copy_gb": mesh_copy / 1e9,
+                "plain_copy_gb": plain_copy / 1e9, "peak_gib": peak / 2**30})
+    check = (f"layer-0 attention vs fp32: sharded {res['attn_err']:.3e}, "
+             f"mesh-less {res['attn_err_mesh_less']:.3e} (relative norm) | "
+             if dtype == "bfloat16" else f"within {MESH_DECODE_TOL} | ")
+    log(f"[lmmesh] (a) llama3-8b decode_32k ({dtype}, L={res['layers']}, "
+        f"b={b} of 128, S_max={s_max}, {s_max // mesh.shape['model']} a "
+        f"sequence shard, filled to {LM_MESH_FILL}, {LM_MESH_STEPS} steps "
+        f"across the boundary) on a {mesh.shape} mesh of one card: "
+        + check + f"logits max|sharded-mesh-less| {worst:.3e} (mean at most "
+        f"{mean:.3e}), {differ} greedy tokens differ | decode p50 "
+        f"{res['decode_p50_ms']:.2f} ms/token sharded, "
+        f"{res['plain_decode_p50_ms']:.2f} mesh-less (bound {bound:.2f}: "
+        f"{res['weights_gb']:.2f} GB weights + {res['cache_gb']:.2f} GB "
+        f"cache at 3.35 TB/s, or the GEMMs' operations if more) | "
+        f"{mesh_ops} ATen ops a step sharded, "
+        f"{plain_ops} mesh-less | copies {res['copy_gb']:.2f} GB a step "
+        f"sharded, {res['plain_copy_gb']:.2f} mesh-less | peak "
+        f"{res['peak_gib']:.2f} GiB | {card}")
+    del cell, cache, plain, model
+    released(torch, base, f"(a) {dtype}")
+    return res
+
+
+class routing_record:
+    """While inside, every ``moe_ffn`` call appends its top-k expert
+    choices (recomputed from the same fp32 router logits) to ``calls``."""
+
+    def __init__(self, torch):
+        from repro_torch.models.lm import moe
+        self.torch, self.moe, self.real, self.calls = torch, moe, \
+            moe.moe_ffn, []
+
+    def __enter__(self):
+        torch, real = self.torch, self.real
+
+        def recorded(p, x, cfg, *args):
+            probs = torch.softmax(x.float() @ p.router, dim=-1)
+            self.calls.append(torch.topk(probs, cfg.top_k, dim=-1)[1])
+            return real(p, x, cfg, *args)
+        self.moe.moe_ffn = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_ffn = self.real
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+def lm_mesh_arch(torch, dev, mesh, arch: str, layers, card: str) -> dict:
+    """(b): one arch at published width (depth ``layers``) in fp32, its
+    decode cell on ``mesh``, a ``LM_MESH_SEQ``-slot cache filled to
+    ``LM_MESH_SEQ_FILL`` (whisper's 1,500-frame memory whole, 750 a
+    shard), ``LM_MESH_STEPS`` steps against the mesh-less decode within
+    ``MESH_DECODE_TOL``; RWKV6 (no ``decode_ctx``, the hook only)
+    bitwise. MoE routing is a discontinuous function of the hidden state,
+    so for MoE each step starts both paths from the same (sharded) cache
+    and is held to the tolerance only where every layer routed every
+    token to the same experts on both; a step whose routing differs is
+    logged."""
+    from repro_torch.launch.steps import build_cell
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with lm_cell_config(arch, layers, dtype="float32"):
+        cell = build_cell(arch, "decode_32k", mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    model, fam = cell.model, cell.cfg.family
+    args = (LM_MESH_B, LM_MESH_SEQ) + ((LM_FRAMES,) if fam == "encdec"
+                                       else ())
+    if fam == "ssm":
+        args = (LM_MESH_B, 0)
+    cache = fill_cache(torch, model.init_cache(*args), LM_MESH_SEQ_FILL, g)
+    cell.place_cache(cache)
+    plain = whole_copy(torch, cache)
+    nxt = torch.randint(0, cell.cfg.vocab, (LM_MESH_B, 1), generator=g,
+                        device=dev)
+    ms, plain_ms, worst, differ, flips = [], [], 0.0, 0, 0
+    routes = routing_record(torch)
+    for step in range(LM_MESH_STEPS):
+        if fam == "moe":
+            plain = whole_copy(torch, cache)
+            with routes:
+                ls, lp, t_s, t_p = mesh_step_pair(torch, cell, nxt, cache,
+                                                  plain)
+        else:
+            ls, lp, t_s, t_p = mesh_step_pair(torch, cell, nxt, cache,
+                                              plain)
+        ms.append(t_s)
+        plain_ms.append(t_p)
+        calls = routes.take()
+        half = len(calls) // 2          # the mesh-less step's, then ours
+        same = all(torch.equal(a, b) for a, b in zip(calls[:half],
+                                                     calls[half:]))
+        assert torch.isfinite(ls.float()).all(), arch
+        if not same:
+            flips += 1
+            log(f"[lmmesh] (b) {arch} step {step}: the routing differs "
+                f"(max|diff| {float((ls.float() - lp.float()).abs().max()):.3e}"
+                f"), not held to the tolerance")
+            nxt = lp.argmax(-1)[:, None]
+            continue
+        if cell.decode_ctx is None:
+            assert torch.equal(ls, lp), arch
+        else:
+            torch.testing.assert_close(ls, lp, **MESH_DECODE_TOL)
+        worst = max(worst, float((ls.float() - lp.float()).abs().max()))
+        differ += check_tokens(torch, ls, lp, f"(b) {arch} step {step}")
+        nxt = lp.argmax(-1)[:, None]
+    res = {"arch": arch, "family": fam, "layers": cell.cfg.n_layers,
+           "sharded": cell.decode_ctx is not None, "max_abs_diff": worst,
+           "tokens_differ": differ, "routing_flips": flips,
+           "decode_p50_ms": sorted(ms)[len(ms) // 2],
+           "plain_decode_p50_ms": sorted(plain_ms)[len(plain_ms) // 2]}
+    assert flips < LM_MESH_STEPS, f"{arch}: no step held to the tolerance"
+    log(f"[lmmesh] (b) {arch} ({fam}, L={res['layers']}, fp32, b="
+        f"{LM_MESH_B}, cache {LM_MESH_SEQ} filled to {LM_MESH_SEQ_FILL}"
+        + (f", memory {LM_FRAMES}" if fam == "encdec" else "") + "): "
+        + ("flash_decode_sharded" if res["sharded"] else
+           "no decode_ctx, the hook only, bitwise")
+        + f": max|sharded-mesh-less| {worst:.3e}, {differ} greedy tokens "
+        f"differ" + (f", {flips} of {LM_MESH_STEPS} steps routed "
+                     "differently" if fam == "moe" else "")
+        + f" | decode p50 {res['decode_p50_ms']:.2f} ms sharded, "
+        f"{res['plain_decode_p50_ms']:.2f} mesh-less | {card}")
+    del cell, model, cache, plain
+    released(torch, base, f"(b) {arch}")
+    return res
+
+
+def lm_mesh_small(torch, dev, mesh, arch: str) -> tuple[float, float]:
+    """(c): the arch's ``reduced()`` fp32 decode cell on the card's mesh
+    and on a CPU mesh of the same shape with the same weights: a prompt
+    into 16 slots, 6 decode steps across the shard boundary. Returns
+    (max |card - CPU| sharded, max |sharded - mesh-less| on the card)."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.steps import build_cell
+
+    c = LM_MESH_SMALL
+    cpu = torch.device("cpu")
+    with lm_cell_config(arch, reduced=True):
+        host = build_cell(arch, "decode_32k",
+                          make_mesh(mesh.devices.shape, mesh.axis_names,
+                                    "cpu"))
+        card = build_cell(arch, "decode_32k", mesh)
+    host.model.init(torch.Generator().manual_seed(SEED))
+    card.model.load_state_dict(host.model.state_dict())
+    cfg, fam = host.cfg, host.cfg.family
+    g = torch.Generator().manual_seed(SEED + 6)
+    n_tok = c["prompt"] - (c["patches"] if fam == "vlm" else 0)
+    tokens = torch.randint(0, cfg.vocab, (LM_MESH_B, n_tok), generator=g)
+
+    def prefill(cell, to):
+        model = cell.model
+        t = tokens.to(to)
+        if fam == "encdec":
+            frames = (torch.randn((LM_MESH_B, c["frames"], cfg.d_model),
+                                  generator=torch.Generator().manual_seed(
+                                      SEED + 7)) * 0.1).to(to)
+            return model.prefill(t, frames, model.init_cache(
+                LM_MESH_B, c["s_max"], c["frames"]))
+        if fam == "ssm":
+            return model.prefill(t, model.init_cache(LM_MESH_B, 0))
+        cache = model.init_cache(LM_MESH_B, c["s_max"])
+        if fam == "vlm":
+            pe = (torch.randn((LM_MESH_B, c["patches"], cfg.d_model),
+                              generator=torch.Generator().manual_seed(
+                                  SEED + 7)) * 0.02).to(to)
+            return model.prefill(t, cache, patch_embeds=pe)
+        return model.prefill(t, cache)
+
+    lh, ch = prefill(host, cpu)
+    lc, cc = prefill(card, dev)
+    plain = whole_copy(torch, cc)
+    vs_cpu = vs_plain = 0.0
+    for _ in range(c["steps"]):
+        nxt = lh.argmax(-1)[:, None]
+        lh, ch = host.decode_fn()({"tokens": nxt, "cache": ch})
+        lc, lp, _, _ = mesh_step_pair(torch, card, nxt.to(dev), cc,
+                                      plain)
+        torch.testing.assert_close(lc.cpu(), lh, **CPU_TOL)
+        torch.testing.assert_close(lc, lp, **MESH_DECODE_TOL)
+        vs_cpu = max(vs_cpu, float((lc.cpu() - lh).abs().max()))
+        vs_plain = max(vs_plain, float((lc - lp).abs().max()))
+    return vs_cpu, vs_plain
+
+
+def lm_mesh_train(torch, dev, mesh, card: str) -> dict:
+    """(d): smollm-360m's train cell (all 32 layers, bf16, fp32 AdamW
+    state, remat as published), ``train_4k`` cut to b = 8, s = 256: 3
+    steps with ``n_micro`` 1 and 3 with 2 from the same parameters and
+    batches; the losses within 1e-2 (the microbatches' GEMMs run at
+    another M, so not bitwise)."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.training import adamw_init
+
+    arch, b, s, n_steps = LM_MESH_TRAIN
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cell = build_cell(arch, "train_4k", mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    start = {k: v.clone() for k, v in cell.model.state_dict().items()}
+    batches = [{"tokens": torch.randint(0, cell.cfg.vocab, (b, s),
+                                        generator=g, device=dev)}
+               for _ in range(n_steps)]
+    res = {"arch": arch, "policy": cell.policy,
+           "cell_n_micro": cell.n_micro, "b": b, "s": s, "runs": {}}
+    for n_micro in (1, 2):
+        cell.model.load_state_dict(start)
+        cell.n_micro = n_micro
+        state = adamw_init(cell.model.param_tree(), cell.opt_cfg)
+        step = cell.train_step_fn()
+        losses, times = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        assert all(math.isfinite(x) for x in losses), losses
+        res["runs"][n_micro] = {"losses": losses,
+                                "step_p50_ms": sorted(times)[1]}
+        del state, step
+    l1, l2 = res["runs"][1]["losses"], res["runs"][2]["losses"]
+    assert all(abs(a - b) <= 1e-2 for a, b in zip(l1, l2)), (l1, l2)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[lmmesh] (d) {arch} train cell ({res['policy']}; its own n_micro "
+        f"for train_4k {res['cell_n_micro']}), b={b}, s={s}, "
+        f"{n_steps} steps: losses n_micro=1 "
+        f"{[round(x, 5) for x in l1]}, n_micro=2 "
+        f"{[round(x, 5) for x in l2]} (within 1e-2) | step p50 "
+        f"{res['runs'][1]['step_p50_ms']:.1f} ms at n_micro=1, "
+        f"{res['runs'][2]['step_p50_ms']:.1f} at 2 | peak "
+        f"{res['peak_gib']:.2f} GiB | {card}")
+    del cell, start, batches
+    released(torch, base, "(d)")
+    return res
+
+
+def lower_cell(shape: str) -> dict:
+    """(e), in a worker process: ``build_cell("qwen3-4b", shape)`` on the
+    (16, 16) production mesh of meta positions, then ``lower()``."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.launch import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+
+    t0 = time.perf_counter()
+    cell = build_cell("qwen3-4b", shape,
+                      make_production_mesh(devices="meta"))
+    build_s = time.perf_counter() - t0
+    record, kind = cell.lower()
+    return {"shape": shape, "kind": kind, "policy": cell.policy,
+            "n_micro": cell.n_micro, "build_s": build_s,
+            "seconds": record.seconds, "ops": record.n_ops,
+            "top_ops": record.ops.most_common(4)}
+
+
+def lm_mesh_lower(torch) -> list:
+    """(e): the three traces, one worker process each, side by side (the
+    trace is host work on meta tensors, PyTorch's meta functions at ~150
+    µs an op)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(LM_MESH_LOWER), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        out = list(pool.map(lower_cell, LM_MESH_LOWER))
+    for r in out:
+        log(f"[lmmesh] (e) qwen3-4b {r['shape']} on the (16, 16) meta "
+            f"mesh: Cell {r['build_s']:.2f} s ({r['policy']}, n_micro "
+            f"{r['n_micro']}), lower() traced {r['kind']} in "
+            f"{r['seconds']:.1f} s, {r['ops']} ATen ops (most: "
+            f"{r['top_ops']})")
+    log(f"[lmmesh] (e) {len(out)} traces side by side in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def run_lm_mesh(torch, dev, card: str) -> dict:
+    """Phase 14: the LM mesh and the cell builder (see the docstring).
+    Numbers also go to ``chiprun_out/lm_phase14.json``."""
+    from repro_torch.configs import ARCH_NAMES
+
+    t_phase = time.perf_counter()
+    mesh = lm_mesh(torch, dev)
+    log(f"[lmmesh] mesh {mesh.shape} of {mesh.size} positions on "
+        f"{mesh.first_device}; cuts: decode_32k's batch 128 -> "
+        f"{LM_MESH_B}; (b) cache {LM_MESH_SEQ} slots; depth: "
+        + ", ".join(f"{a} {n}/{lm_config(a, None).n_layers}"
+                    for a, n in LM_MESH_ARCHS if n is not None)
+        + f"; (d) train_4k b=256, s=4096 -> b={LM_MESH_TRAIN[1]}, "
+        f"s={LM_MESH_TRAIN[2]}")
+    res = {"card": card,
+           "llama": lm_mesh_llama(torch, dev, mesh, card, "bfloat16",
+                                  LM_MESH_B),
+           "llama_fp32": lm_mesh_llama(torch, dev, mesh, card, "float32",
+                                       LM_MESH_FP32_B)}
+    res["archs"] = [lm_mesh_arch(torch, dev, mesh, arch, layers, card)
+                    for arch, layers in LM_MESH_ARCHS]
+    res["small"] = {a: lm_mesh_small(torch, dev, mesh, a)
+                    for a in ARCH_NAMES}
+    log(f"[lmmesh] (c) reduced fp32 decode cells: max|card-CPU| sharded "
+        f"within {CPU_TOL}, max|sharded-mesh-less| on the card within "
+        f"{MESH_DECODE_TOL}: "
+        f"{ {a: (float(f'{x:.2e}'), float(f'{y:.2e}')) for a, (x, y) in res['small'].items()} }")
+    res["train"] = lm_mesh_train(torch, dev, mesh, card)
+    res["lower"] = lm_mesh_lower(torch)
+    res["seconds"] = time.perf_counter() - t_phase
+    path = ROOT / "chiprun_out" / "lm_phase14.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(res, indent=1))
+    log(f"[lmmesh] phase 14 took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4535,6 +5162,11 @@ def main() -> int:
 
     # 13. LM training: the launcher's step at full width (no hand kernel)
     run_lm_train(torch, dev, card)
+
+    # 14. the LM mesh and the cell builder: sequence-parallel decode on
+    # four positions of the card, the train cell, meta traces (no hand
+    # kernel)
+    run_lm_mesh(torch, dev, card)
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

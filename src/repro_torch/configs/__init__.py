@@ -3,8 +3,9 @@ CTR configs.
 
 Counterpart of ``repro.configs``. Every LM arch lives in its own module
 (the exact published config, with ``[source; tier]`` provenance), copied
-as the reference has it. ``input_specs`` (the dry run's input stand-ins)
-is still to be ported.
+as the reference has it. ``input_specs(arch, shape)`` gives every step
+input of a cell as a ``meta`` tensor (shape and dtype, no storage), in
+place of the reference's ``ShapeDtypeStruct``.
 
 Shape cells (LM):
     train_4k     seq 4096   global_batch 256   train step
@@ -20,12 +21,14 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
+import torch
+
 from repro_torch.data.synthetic import AVAZU, CRITEO
 from repro_torch.models.ctr.common import CTRModelSpec
 from repro_torch.models.lm.config import LMConfig
 
 __all__ = ["ctr_spec", "ShapeCell", "SHAPES", "ARCH_NAMES", "get_config",
-           "get_source", "applicable_shapes"]
+           "get_source", "applicable_shapes", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +84,47 @@ def applicable_shapes(name: str) -> dict[str, str]:
         else:
             out[s] = "run"
     return out
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype: str | torch.dtype) -> torch.Tensor:
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(name: str, shape: str) -> dict:
+    """Step-function inputs for (arch, shape) as ``meta`` tensors: int32
+    tokens, the frontend stubs (whisper's frames, pixtral's patch
+    embeddings; a quarter of the sequence is image), and for decode
+    cells the cache, from the family's ``init_cache`` on a ``meta`` model
+    (its ``index`` a Python int, as a real cache's is)."""
+    from repro_torch.models.lm import make_lm_model
+
+    cfg = get_config(name)
+    cell = SHAPES[shape]
+    gb, s = cell.batch, cell.seq
+    d = cfg.d_model
+    tok = torch.int32
+
+    if cell.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            return {"tokens": _meta((gb, s), tok),
+                    "frames": _meta((gb, s, d), cfg.dtype)}
+        if cfg.family == "vlm":
+            s_img = s // 4
+            return {"tokens": _meta((gb, s - s_img), tok),
+                    "patch_embeds": _meta((gb, s_img, d), cfg.dtype)}
+        return {"tokens": _meta((gb, s), tok)}
+    model = make_lm_model(cfg, device="meta")
+    if cfg.family == "encdec":
+        # one token + a self-cache of length s + the cross memory cache
+        cache = model.init_cache(gb, s, s)
+    else:
+        cache = model.init_cache(gb, 0 if cfg.family == "ssm" else s)
+    return {"tokens": _meta((gb, 1), tok), "cache": cache}
 
 
 # ---------------------------------------------------------------------------

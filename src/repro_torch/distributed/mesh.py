@@ -13,7 +13,9 @@ and the CPU hosts any number of positions.
 On CUDA the default is one visible card per position; a mesh with more
 positions than cards raises, naming the count. Logical positions on one
 card come only from an explicit ``devices=[torch.device("cuda:0")] * n``.
-The production mesh of the LM zoo waits for that slice.
+``devices="meta"`` puts every position on the meta device: a mesh that
+holds no storage, as the LM zoo's production meshes
+(``repro_torch.launch.mesh``) are for the dry run and ``Cell.lower()``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ __all__ = ["Mesh", "make_mesh", "make_test_mesh"]
 def _indexed(dev: torch.device | str) -> torch.device:
     """``dev`` with an explicit card index (``cuda`` -> the current card),
     so positions compare equal exactly when they name one device."""
-    dev = resolve_device(dev)
+    dev = resolve_device(dev, meta=True)
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -96,7 +98,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     raises when there are fewer cards than positions; a sequence gives
     each position its device in row-major order (repeat a device for
     logical positions on one card); ``"cpu"`` puts every position on the
-    CPU.
+    CPU and ``"meta"`` on the meta device (no storage).
     """
     shape = tuple(int(n) for n in shape)
     n = math.prod(shape)
@@ -110,11 +112,11 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         devs = [torch.device("cuda", i) for i in range(n)]
     elif isinstance(devices, (str, torch.device)):
         dev = _indexed(devices)
-        if dev.type != "cpu":
+        if dev.type not in ("cpu", "meta"):
             raise ValueError(
-                f"one device for every position is for the CPU; pass "
-                f"devices=[{str(dev)!r}] * {n} for logical positions on "
-                "one card")
+                f"one device for every position is for the CPU or meta; "
+                f"pass devices=[{str(dev)!r}] * {n} for logical positions "
+                "on one card")
         devs = [dev] * n
     else:
         devs = [_indexed(d) for d in devices]
@@ -122,8 +124,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
             raise ValueError(f"{len(devs)} devices for a {shape} mesh of "
                              f"{n} positions")
         if len({d.type for d in devs}) > 1:
-            raise ValueError("a mesh's positions must all be CUDA or all "
-                             "CPU")
+            raise ValueError("a mesh's positions must all be CUDA, all "
+                             "CPU or all meta")
     arr = np.empty(n, dtype=object)
     arr[:] = devs
     return Mesh(arr.reshape(shape), axes)

@@ -1,10 +1,22 @@
-"""Sharding rules and placed tensors of the CTR path over a :class:`Mesh`.
+"""Sharding rules and placed tensors over a :class:`Mesh`.
 
-Counterpart of the CTR subset of ``repro.distributed.sharding``:
-``mesh_batch_axes``, ``ctr_param_specs``, ``batch_specs``, ``drop_axis``,
-``fit_spec``, ``fit_spec_tree`` and ``input_shardings``, over a
-``PartitionSpec``-like :class:`P`. The LM rules (``LOGICAL_RULES``,
-``param_specs`` and the rest) come with the LM mesh.
+Counterpart of ``repro.distributed.sharding``, over a
+``PartitionSpec``-like :class:`P`: the CTR path's ``ctr_param_specs``,
+``batch_specs``, ``drop_axis``, ``fit_spec``, ``fit_spec_tree`` and
+``input_shardings``, and the LM zoo's logical-axis rules
+(``LOGICAL_RULES``, ``LOGICAL_RULES_FSDP``, ``make_shard_fn``), path
+rules (``param_specs``, ``fsdp_param_specs``) and ``cache_specs``.
+
+``make_shard_fn`` is the LM models' ``shard`` hook. The reference's hook
+is ``with_sharding_constraint``, which changes no value; the port's
+resolves the logical axes through the policy's rules, raises where the
+reference's constraint could not be built (a rank that differs, a mesh
+axis the mesh lacks) and returns ``x`` itself. The dense arithmetic of an
+LM runs whole on the mesh's first device; the per-position work is the
+sequence-split flash decode (``models/lm/layers.flash_decode_sharded``).
+The reference stacks a group's layers along a leading scan dimension; the
+port keeps one leaf a layer (``layers/3/attn/wq``), so a port parameter
+spec is the reference's for that leaf without its leading ``None``.
 
 The port's counterpart of a ``jax.Array`` with a ``NamedSharding`` is a
 :class:`Placed` value: a global shape, a :class:`NamedSharding` (``mesh``,
@@ -34,7 +46,9 @@ from .mesh import Mesh
 __all__ = ["P", "NamedSharding", "Placed", "place", "place_tree",
            "to_named", "mesh_batch_axes", "ctr_param_specs", "batch_specs",
            "drop_axis", "fit_spec", "fit_spec_tree", "input_shardings",
-           "data_groups", "tree_map"]
+           "data_groups", "tree_map", "LOGICAL_RULES", "LOGICAL_RULES_FSDP",
+           "make_shard_fn", "fsdp_param_specs", "param_specs",
+           "cache_specs"]
 
 
 class P(tuple):
@@ -77,8 +91,14 @@ def _map_with_path(fn: Callable, tree: Any, path: str = "") -> Any:
     return fn(path, tree)
 
 
+def _shape(x) -> tuple:
+    """A leaf's shape; a Python number (an LM cache's ``index``) is a
+    0-d leaf, as the reference's int32 scalar is."""
+    return tuple(x.shape) if hasattr(x, "shape") else ()
+
+
 def _ndim(x) -> int:
-    return x.ndim if hasattr(x, "ndim") else len(x.shape)
+    return len(_shape(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +171,22 @@ class Placed:
     def local(self, pos: tuple[int, ...]) -> torch.Tensor:
         """The tensor at mesh position ``pos``."""
         return self._local[tuple(pos)]
+
+    def __getitem__(self, i: int) -> "Placed":
+        """Index ``i`` of a leading dim that no axis splits (a stacked
+        cache's layer): each position's tensor indexed in place, a view
+        that writes through, positions sharing a tensor sharing the
+        view."""
+        if self.sharding.shards(0) != 1:
+            raise ValueError(f"dim 0 of {self} is split over the mesh")
+        if not isinstance(i, int) or not -self.shape[0] <= i < self.shape[0]:
+            raise IndexError(f"index {i!r} into dim 0 of {self}")
+        views: dict = {}
+        local = {pos: views.setdefault(id(t), t[i])
+                 for pos, t in self._local.items()}
+        return Placed(self.shape[1:], self.dtype,
+                      NamedSharding(self.mesh, P(*self.sharding.spec[1:])),
+                      local)
 
     def full(self, device: torch.device | str | None = None
              ) -> torch.Tensor:
@@ -282,7 +318,8 @@ def fit_spec(mesh: Mesh, spec: P, shape) -> P:
 
 
 def fit_spec_tree(mesh: Mesh, specs: Any, shapes: Any) -> Any:
-    return tree_map(lambda s, x: fit_spec(mesh, s, x.shape), specs, shapes)
+    return tree_map(lambda s, x: fit_spec(mesh, s, _shape(x)), specs,
+                    shapes)
 
 
 def input_shardings(mesh: Mesh, shapes: Any) -> Any:
@@ -318,3 +355,198 @@ def data_groups(mesh: Mesh, model_axis: str | None = "model",
             i = i * mesh.shape[a] + named[a]
         groups[i][named[model] if model else 0] = pos
     return groups
+
+
+# ---------------------------------------------------------------------------
+# the LM zoo: logical axes, parameter and cache specs
+# ---------------------------------------------------------------------------
+
+def LOGICAL_RULES(mesh: Mesh) -> dict[str, Any]:
+    """Logical activation axis -> mesh axes under tensor parallelism
+    with FSDP: batch over (pod, data), heads / mlp / vocab / experts over
+    model, and the decode KV cache's sequence over model."""
+    batch = mesh_batch_axes(mesh)
+    b = batch if len(batch) > 1 else (batch[0] if batch else None)
+    return {
+        "batch": b,
+        "seq": None,
+        "kv_seq": "model",       # sequence-parallel KV cache (decode)
+        "embed": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "mlp": "model",
+        "expert_mlp": None,      # model axis is taken by experts in MoE
+        "vocab": "model",
+        "experts": "model",
+    }
+
+
+def LOGICAL_RULES_FSDP(mesh: Mesh) -> dict[str, Any]:
+    """Pure FSDP: batch over (data × model), every other logical axis
+    replicated (no tensor parallelism)."""
+    batch = tuple(a for a in ("data", "model") if a in mesh.axis_names)
+    b = batch if len(batch) > 1 else (batch[0] if batch else None)
+    rules = {k: None for k in LOGICAL_RULES(mesh)}
+    rules["batch"] = b
+    rules["kv_seq"] = None
+    return rules
+
+
+def make_shard_fn(mesh: Mesh, policy: str = "tp_fsdp") -> Callable:
+    """The LM models' ``shard(x, logical_axes)`` hook for ``mesh`` under
+    ``policy`` (``"fsdp"``: :func:`LOGICAL_RULES_FSDP`, else
+    :func:`LOGICAL_RULES`). It resolves each logical axis (an unknown
+    name, or None, replicates), raises ``ValueError`` when the axes do
+    not number ``x.ndim`` or a resolved axis is not on the mesh, and
+    returns ``x`` itself: a layout constraint never changes a value."""
+    rules = (LOGICAL_RULES_FSDP(mesh) if policy == "fsdp"
+             else LOGICAL_RULES(mesh))
+
+    def shard(x, logical_axes):
+        if len(logical_axes) != x.ndim:
+            raise ValueError(f"logical axes {tuple(logical_axes)} for a "
+                             f"{x.ndim}-d value of shape {tuple(x.shape)}")
+        spec = P(*(rules.get(a) if a is not None else None
+                   for a in logical_axes))
+        missing = [a for dim in spec for a in _axes(dim)
+                   if a not in mesh.axis_names]
+        if missing:
+            raise ValueError(f"{tuple(logical_axes)} resolves to {spec}, "
+                             f"but the mesh has no axis {missing}")
+        return x
+    return shard
+
+
+def fsdp_param_specs(specs: Any) -> Any:
+    """TP×FSDP parameter specs rewritten to pure FSDP: the TP
+    (``model``) dim takes the whole (data, model) grid and the old FSDP
+    (``data``) dim is freed."""
+    def fix(spec: P) -> P:
+        return P(*(("data", "model") if dim == "model"
+                   else None if dim == "data" else dim for dim in spec))
+    return tree_map(fix, specs)
+
+
+# Each rule: (regex over the "/"-joined path of a leaf in the reference's
+# stacked layout, spec of one layer's leaf); the first match wins.
+_DENSE_RULES = [
+    (r"embed$", P("model", "data")),
+    (r"lm_head$", P("data", "model")),
+    (r"attn/w[qkv]$", P("data", "model")),
+    (r"attn/wo$", P("model", "data")),
+    (r"mlp/w_(gate|up|in)$", P("data", "model")),
+    (r"mlp/w_(down|out)$", P("model", "data")),
+    (r"mlp/b_in$", P("model")),
+    (r"pos_dec$", P(None, None)),
+]
+
+_MOE_RULES = [
+    (r"moe/router$", P(None, None)),
+    (r"moe/w_(gate|up)$", P("model", "data", None)),    # E × D × F
+    (r"moe/w_down$", P("model", None, "data")),         # E × F × D
+] + _DENSE_RULES
+
+# llama4-scale (``cfg.moe_token_replicate``): experts over model and the
+# FFN dim over data, so the expert bank never moves
+_MOE_TOKEN_REPLICATE_RULES = [
+    (r"moe/router$", P(None, None)),
+    (r"moe/w_(gate|up)$", P("model", None, "data")),    # E × D × F/data
+    (r"moe/w_down$", P("model", "data", None)),         # E × F/data × D
+] + _DENSE_RULES
+
+_RWKV_RULES = [
+    (r"embed$", P("model", "data")),
+    (r"lm_head$", P("data", "model")),
+    (r"w[rkvg]$", P("data", "model")),
+    (r"wo$", P("model", "data")),
+    (r"wck$", P("data", "model")),
+    (r"wcv$", P("model", "data")),
+    (r"wcr$", P("data", "model")),
+    (r"w_lora_a$", P("data", None)),
+    (r"w_lora_b$", P(None, "data")),
+    (r"(^|/)u$", P("model", None)),
+]
+
+_ZAMBA_RULES = [
+    (r"embed$", P("model", "data")),
+    (r"lm_head$", P("data", "model")),
+    (r"mamba/w_in$", P("data", "model")),
+    (r"mamba/w_out$", P("model", "data")),
+    (r"mamba/conv_w$", P(None, "model")),
+    (r"mamba/ln_y$", P("model")),
+    (r"shared/w_in$", P("data", "model")),
+    (r"shared/attn/w[qkv]$", P("data", "model")),
+    (r"shared/attn/wo$", P("model", "data")),
+    (r"shared/mlp/w_(gate|up)$", P("data", "model")),
+    (r"shared/mlp/w_down$", P("model", "data")),
+]
+
+_ENCDEC_RULES = [
+    (r"(xattn|attn)/w[qkv]$", P("data", "model")),
+    (r"(xattn|attn)/wo$", P("model", "data")),
+] + _DENSE_RULES
+
+_FAMILY_RULES = {
+    "dense": _DENSE_RULES,
+    "vlm": _DENSE_RULES,
+    "moe": _MOE_RULES,
+    "ssm": _RWKV_RULES,
+    "hybrid": _ZAMBA_RULES,
+    "encdec": _ENCDEC_RULES,
+}
+
+#: the reference's stacked groups (``bridge.STACKED``), a list of
+#: per-layer dicts in a port tree
+_STACKED = re.compile(r"^(layers|mamba|encoder|decoder)/\d+(/|$)")
+
+
+def param_specs(family: str, tree: Any, cfg: Any = None) -> Any:
+    """The spec of every leaf of an LM parameter tree (``tensor_tree()``
+    of a model, meta or real). A leaf's path is matched with the layer
+    index of a stacked group taken out (``mamba/5/w_in`` as the
+    reference's ``mamba/w_in``), so the reference's rules apply as they
+    are written; a rule with one entry fewer than the leaf has dims gets
+    a leading None, a rank that fits neither replicates, and a leaf no
+    rule matches (norms, scalars) replicates. MoE with
+    ``cfg.moe_token_replicate`` takes the token-replicate rules."""
+    rules = _FAMILY_RULES[family]
+    if (family == "moe" and cfg is not None
+            and getattr(cfg, "moe_token_replicate", False)):
+        rules = _MOE_TOKEN_REPLICATE_RULES
+
+    def leaf_spec(path: str, leaf) -> P:
+        ref_path = _STACKED.sub(r"\1\2", path)
+        ndim = _ndim(leaf)
+        for pat, spec in rules:
+            if re.search(pat, ref_path):
+                if len(spec) == ndim - 1:
+                    return P(None, *spec)
+                return spec if len(spec) == ndim else P()
+        return P()
+    return _map_with_path(leaf_spec, tree)
+
+
+def cache_specs(family: str, mesh: Mesh, cache_tree: Any,
+                seq_shard: bool = True) -> Any:
+    """Decode-cache placement. KV caches (L, B, S, kv, hd): batch over
+    (pod, data), sequence over model (``seq_shard``). Recurrent states of
+    four or more dims: batch over data, heads over model; two or three
+    dims: batch only; ``index`` replicated. ``family`` is unused, as in
+    the reference."""
+    del family
+    b = mesh_batch_axes(mesh)
+    b = b if len(b) > 1 else b[0]
+    sp = "model" if seq_shard else None
+
+    def leaf(path: str, x) -> P:
+        ndim = _ndim(x)
+        if ndim == 5 and ("k" in path or "v" in path):
+            return P(None, b, sp, None, None)
+        if path.endswith("index"):
+            return P()
+        if ndim >= 4:
+            return P(None, b, "model", *([None] * (ndim - 3)))
+        if ndim >= 2:
+            return P(None, b, *([None] * (ndim - 2)))
+        return P()
+    return _map_with_path(leaf, cache_tree)

@@ -5,8 +5,10 @@ capacity-routed MoE, RWKV6 (attention-free), Zamba2 (Mamba2 + shared
 attention), Whisper (enc-dec), Pixtral (VLM). Each is an ``nn.Module``
 owning its tensors on one device: ``init(generator)`` draws them,
 ``forward``, ``init_cache``, ``prefill`` and ``decode_step`` serve, and
-``loss(batch)`` trains through ``param_tree()``. The LM mesh is still to
-be ported.
+``loss(batch)`` trains through ``param_tree()``. ``shard`` is the
+reference's activation hook (``distributed.sharding.make_shard_fn`` on a
+mesh) and a model's ``decode_ctx`` its sequence-parallel decode
+(``layers.DecodeShardCtx``); ``launch.steps.build_cell`` sets both.
 """
 
 from .config import LMConfig
@@ -27,11 +29,13 @@ FAMILY_CLASSES = {
 }
 
 
-def make_lm_model(cfg: LMConfig, *, device=None):
+def make_lm_model(cfg: LMConfig, shard=None, *, device=None):
     """The family's model for ``cfg`` on ``device`` (CUDA by default;
-    raises without a card unless ``device="cpu"``), its tensors zero
-    until ``init(generator)`` or ``bridge.load_lm_params``."""
-    return FAMILY_CLASSES[cfg.family](cfg, device=device)
+    raises without a card unless ``device="cpu"``; ``"meta"`` holds
+    shapes and no storage), its tensors zero until ``init(generator)`` or
+    ``bridge.load_lm_params``. ``shard`` (default: none) is called on the
+    activations where the reference calls its hook."""
+    return FAMILY_CLASSES[cfg.family](cfg, shard, device=device)
 
 
 __all__ = ["LMConfig", "DenseTransformer", "MoETransformer", "RWKV6",

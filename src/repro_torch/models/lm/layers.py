@@ -23,14 +23,21 @@ run and no RNG state is stashed. ``chunked_ce_loss`` rematerialises every
 chunk, ``flash_attention`` every k-block, and each family every layer when
 ``cfg.remat`` is set; without autograd (serving) nothing is.
 
-The LM mesh (``DecodeShardCtx``, ``flash_decode_sharded``, the ``shard``
-callable) is still to be ported.
+Sharding is injected, as in the reference: the functions take ``shard``,
+a callable ``(x, logical_axes) -> x`` called where the reference calls
+it (``no_shard`` by default; ``distributed.sharding.make_shard_fn`` on a
+mesh, which checks the axes and changes no value). With a
+:class:`DecodeShardCtx`, ``attention_decode`` runs
+:func:`flash_decode_sharded`: each (batch shard, sequence shard) of a
+placed KV cache attends over its own slots, and the partial softmax
+states merge over the sequence shards in shard order.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -44,7 +51,14 @@ __all__ = ["AttnDims", "Attention", "SwiGLU", "GeluMLP", "LMParams",
            "rms_norm", "rope_freqs", "apply_rope", "attention",
            "attention_decode", "flash_attention", "swiglu", "gelu_mlp",
            "next_token_loss", "chunked_ce_loss", "remat", "take_rows",
-           "FLASH_THRESHOLD", "FLASH_CHUNK"]
+           "FLASH_THRESHOLD", "FLASH_CHUNK", "Shard", "no_shard",
+           "DecodeShardCtx", "flash_decode_sharded", "place_kv"]
+
+Shard = Callable[[torch.Tensor, tuple], torch.Tensor]
+
+
+def no_shard(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+    return x
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -194,12 +208,15 @@ class Attention(nn.Module):
 
 
 def _qkv(p: Attention, dims: AttnDims, x: torch.Tensor,
-         positions: torch.Tensor, rope: bool = True):
+         positions: torch.Tensor, rope: bool = True, *,
+         shard: Shard = no_shard):
     b, s, _ = x.shape
     h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     q = (x @ p.wq).reshape(b, s, h, hd)
     k = (x @ p.wk).reshape(b, s, kv, hd)
     v = (x @ p.wv).reshape(b, s, kv, hd)
+    # q is head-sharded; k/v keep their kv heads whole
+    q = shard(q, ("batch", "seq", "heads", None))
     if dims.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -223,25 +240,37 @@ def _ungrouped(o: torch.Tensor) -> torch.Tensor:
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, kv * g, hd)
 
 
-def _sdpa_decode(q, k, v, valid):
-    """softmax(q·kᵀ/√hd, masked) · v with GQA by grouping: q (b, sq, h,
-    hd) over k/v (b, sk, kv, hd), ``valid`` a bool tensor broadcasting to
-    (sq, sk) (at decode, the (S_max,) slots written so far) or None.
-    Logits in fp32, probabilities in ``v``'s dtype."""
+def _grouped_logits(q, k):
+    """fp32 q·kᵀ/√hd, grouped: q (b, sq, h, hd) over k (b, sk, kv, hd)
+    -> (b, kv, h/kv, sq, sk)."""
     b, sq, h, hd = q.shape
     _, sk, kv, _ = k.shape
     g = h // kv
     qg = _grouped(q, kv).reshape(b, kv, g * sq, hd)
     kt = k.permute(0, 2, 3, 1).to(torch.float32,
                                   memory_format=torch.contiguous_format)
-    logits = (torch.matmul(qg, kt) * float(1.0 / np.sqrt(hd))).reshape(
+    return (torch.matmul(qg, kt) * float(1.0 / np.sqrt(hd))).reshape(
         b, kv, g, sq, sk)
-    if valid is not None:
-        logits = logits.masked_fill(~valid, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+
+
+def _grouped_pv(probs, v):
+    """probs (b, kv, g, sq, sk) in ``v``'s dtype times v (b, sk, kv, hd)
+    -> (b, sq, kv·g, hd)."""
+    b, kv, g, sq, sk = probs.shape
     out = torch.matmul(probs.reshape(b, kv, g * sq, sk),
                        v.permute(0, 2, 1, 3).contiguous())
-    return _ungrouped(out.reshape(b, kv, g, sq, hd))
+    return _ungrouped(out.reshape(b, kv, g, sq, v.shape[-1]))
+
+
+def _sdpa_decode(q, k, v, valid):
+    """softmax(q·kᵀ/√hd, masked) · v with GQA by grouping: q (b, sq, h,
+    hd) over k/v (b, sk, kv, hd), ``valid`` a bool tensor broadcasting to
+    (sq, sk) (at decode, the (S_max,) slots written so far) or None.
+    Logits in fp32, probabilities in ``v``'s dtype."""
+    logits = _grouped_logits(q, k)
+    if valid is not None:
+        logits = logits.masked_fill(~valid, -1e30)
+    return _grouped_pv(torch.softmax(logits, dim=-1).to(v.dtype), v)
 
 
 def _sdpa(q, k, v, *, causal: bool, q_pos=None, k_pos=None):
@@ -270,7 +299,8 @@ def _attend(q, k, v, *, causal: bool):
 
 
 def attention(p: Attention, dims: AttnDims, x: torch.Tensor, *,
-              causal: bool = True, positions: torch.Tensor | None = None,
+              shard: Shard = no_shard, causal: bool = True,
+              positions: torch.Tensor | None = None,
               memory: torch.Tensor | None = None,
               rope: bool = True) -> torch.Tensor:
     """Full (prefill) attention; ``memory`` switches to cross-attention."""
@@ -278,7 +308,7 @@ def attention(p: Attention, dims: AttnDims, x: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     if memory is None:
-        q, k, v = _qkv(p, dims, x, positions, rope)
+        q, k, v = _qkv(p, dims, x, positions, rope, shard=shard)
     else:
         # cross attention: q from x, k/v from memory (no rope on memory)
         h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
@@ -288,19 +318,117 @@ def attention(p: Attention, dims: AttnDims, x: torch.Tensor, *,
         v = (memory @ p.wv).reshape(b, sm, kv, hd)
         causal = False
     out = _attend(q, k, v, causal=causal)
-    return out.reshape(b, s, dims.n_heads * dims.head_dim) @ p.wo
+    out = out.reshape(b, s, dims.n_heads * dims.head_dim) @ p.wo
+    return shard(out, ("batch", "seq", "embed"))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeShardCtx:
+    """Sequence-parallel decode over a placed KV cache: the cache's batch
+    splits over ``batch_axes`` (a mesh axis, a tuple of them, or None
+    when the batch is not split) and its sequence over ``seq_axis``."""
+    mesh: object
+    batch_axes: tuple | str | None
+    seq_axis: str = "model"
+
+
+def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
+                         cache_index: int, ctx: DecodeShardCtx):
+    """One-token attention over a sequence-split KV cache, with this
+    token's k/v written at ``cache_index`` in the one sequence shard that
+    owns it (``k_new`` None: no write, ``cache_index`` only bounds the
+    visible slots).
+
+    q (b, 1, h, hd) whole on the mesh's first device; caches (b, S, kv,
+    hd), ``Placed`` as ``P(batch_axes, seq_axis, None, None)`` (a tensor
+    or another layout is placed so, a copy). Every (batch shard, sequence
+    shard) position takes its fp32 logits at the global slots, −1e30
+    past ``cache_index``, and its local max; the max over the sequence
+    shards gives each its unnormalised ``p``, ``l = Σp`` and ``o = p·v``
+    (p in ``v``'s dtype); ``l`` and ``o`` sum over the sequence shards
+    in shard order 0…n−1 on the first device and ``o / max(l, 1e-30)``
+    joins the batch shards in order there. A write at or past ``S``
+    raises ``IndexError`` (the reference drops it). Returns (out (b, 1,
+    h, hd), k_cache, v_cache), the caches ``Placed`` and written in
+    place.
+    """
+    from repro_torch.distributed.sharding import P, _axes, data_groups, place
+
+    mesh, ax = ctx.mesh, ctx.seq_axis
+    spec = P(ctx.batch_axes, ax, None, None)
+    kc, vc = place(k_cache, mesh, spec), place(v_cache, mesh, spec)
+    s_max = kc.shape[1]
+    s_local = s_max // mesh.shape[ax]
+    if k_new is not None:
+        if not 0 <= cache_index < s_max:
+            raise IndexError(f"decode position {cache_index} is outside "
+                             f"the cache's {s_max} slots")
+        written = set()
+        for pos in np.ndindex(mesh.devices.shape):
+            rows, slots = kc.sharding.local_slices(pos, kc.shape)[:2]
+            if not slots.start <= cache_index < slots.stop:
+                continue
+            for cache, new in ((kc, k_new), (vc, v_new)):
+                t = cache.local(pos)
+                if id(t) not in written:
+                    written.add(id(t))
+                    t[:, cache_index - slots.start] = new[rows, 0].to(
+                        t.device)
+    groups = data_groups(mesh, model_axis=ax,
+                         batch_axes=_axes(ctx.batch_axes))
+    first = mesh.first_device
+    b_local = q.shape[0] // len(groups)
+    outs = []
+    for i, row in enumerate(groups):
+        qi = q[i * b_local:(i + 1) * b_local]
+        parts = []
+        for j, pos in enumerate(row):
+            dev = mesh.devices[pos]
+            logits = _grouped_logits(qi.to(dev), kc.local(pos))
+            kpos = j * s_local + torch.arange(s_local, device=dev)
+            parts.append((logits.masked_fill(~(kpos <= cache_index), -1e30),
+                          vc.local(pos)))
+        m = parts[0][0].amax(dim=-1).to(first)
+        for logits, _ in parts[1:]:
+            m = torch.maximum(m, logits.amax(dim=-1).to(first))
+        l = o = None
+        for logits, v in parts:
+            p = torch.exp(logits - m.to(logits.device)[..., None])
+            l_j, o_j = p.sum(dim=-1).to(first), _grouped_pv(
+                p.to(v.dtype), v).to(first)
+            l, o = (l_j, o_j) if l is None else (l + l_j, o + o_j)
+        l = _ungrouped(l[..., None])                      # (b, sq, h, 1)
+        outs.append(o / torch.clamp_min(l, 1e-30).to(o.dtype))
+    return torch.cat(outs), kc, vc
+
+
+def place_kv(cache: dict, keys, ctx: DecodeShardCtx) -> dict:
+    """Place each stacked (L, b, S, kv, hd) cache ``cache[key]`` over
+    ``ctx``'s mesh, batch over its batch axes and sequence over its
+    sequence axis, in the dict (once: a cache placed so stays as it is),
+    so that :func:`flash_decode_sharded`'s writes land in the cache the
+    caller holds. Returns ``cache``."""
+    from repro_torch.distributed.sharding import P, place
+
+    spec = P(None, ctx.batch_axes, ctx.seq_axis, None, None)
+    for key in keys:
+        cache[key] = place(cache[key], ctx.mesh, spec)
+    return cache
 
 
 def attention_decode(p: Attention, dims: AttnDims, x: torch.Tensor,
-                     k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_index: int, *, rope: bool = True):
+                     k_cache, v_cache, cache_index: int, *,
+                     shard: Shard = no_shard, rope: bool = True,
+                     decode_ctx: DecodeShardCtx | None = None):
     """One-token decode against a (b, S_max, kv, hd) KV cache.
 
     Writes this token's k/v at ``cache_index`` in place and returns (out
     (b, 1, d), k_cache, v_cache). Masking is positional: slots past
     ``cache_index`` are excluded, so a zeroed cache needs no validity map.
     A position past the cache raises (the reference's
-    ``dynamic_update_slice`` would clamp it onto the last slot).
+    ``dynamic_update_slice`` would clamp it onto the last slot). With
+    ``decode_ctx`` the caches are placed over its mesh and attention runs
+    through :func:`flash_decode_sharded`.
     """
     b = x.shape[0]
     s_max = k_cache.shape[1]
@@ -309,13 +437,17 @@ def attention_decode(p: Attention, dims: AttnDims, x: torch.Tensor,
                          f"cache's {s_max} slots")
     positions = torch.full((b, 1), cache_index, dtype=torch.int32,
                            device=x.device)
-    q, k, v = _qkv(p, dims, x, positions, rope)
-    k_cache[:, cache_index] = k[:, 0]
-    v_cache[:, cache_index] = v[:, 0]
-    valid = torch.arange(s_max, device=x.device) <= cache_index
-    out = _sdpa_decode(q, k_cache, v_cache, valid)
+    q, k, v = _qkv(p, dims, x, positions, rope, shard=shard)
+    if decode_ctx is not None:
+        out, k_cache, v_cache = flash_decode_sharded(
+            q, k_cache, v_cache, k, v, cache_index, decode_ctx)
+    else:
+        k_cache[:, cache_index] = k[:, 0]
+        v_cache[:, cache_index] = v[:, 0]
+        valid = torch.arange(s_max, device=x.device) <= cache_index
+        out = _sdpa_decode(q, k_cache, v_cache, valid)
     out = out.reshape(b, 1, dims.n_heads * dims.head_dim) @ p.wo
-    return out, k_cache, v_cache
+    return shard(out, ("batch", "seq", "embed")), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -408,8 +540,10 @@ class SwiGLU(nn.Module):
         normal_(self.w_down, generator, s_out)
 
 
-def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+def swiglu(p: SwiGLU, x: torch.Tensor,
+           shard: Shard = no_shard) -> torch.Tensor:
+    h = shard(F.silu(x @ p.w_gate) * (x @ p.w_up), ("batch", "seq", "mlp"))
+    return shard(h @ p.w_down, ("batch", "seq", "embed"))
 
 
 class GeluMLP(nn.Module):
@@ -430,10 +564,12 @@ class GeluMLP(nn.Module):
         self.b_out.zero_()
 
 
-def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: GeluMLP, x: torch.Tensor,
+             shard: Shard = no_shard) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p.w_in + p.b_in, approximate="tanh")
-    return h @ p.w_out + p.b_out
+    h = shard(h, ("batch", "seq", "mlp"))
+    return shard(h @ p.w_out + p.b_out, ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -449,9 +585,10 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return (logz - tgt).mean()
 
 
-def _chunk_loss(xc, gamma, w_head, targets):
+def _chunk_loss(xc, gamma, w_head, targets, shard: Shard = no_shard):
     """Summed next-token CE of one chunk: norm, head GEMM, fp32 logits."""
-    logits = (rms_norm(xc, gamma) @ w_head).float()
+    logits = shard((rms_norm(xc, gamma) @ w_head).float(),
+                   ("batch", "seq", "vocab"))
     logz = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (logz - tgt).sum()
@@ -459,7 +596,8 @@ def _chunk_loss(xc, gamma, w_head, targets):
 
 def chunked_ce_loss(x: torch.Tensor, gamma: torch.Tensor,
                     w_head: torch.Tensor, tokens: torch.Tensor, *,
-                    chunk: int = 1024) -> torch.Tensor:
+                    chunk: int = 1024,
+                    shard: Shard = no_shard) -> torch.Tensor:
     """Next-token CE directly from final hidden states x (b, s, d),
     sequence-chunked so the (b, s, vocab) fp32 logits never exist at once.
 
@@ -476,5 +614,5 @@ def chunked_ce_loss(x: torch.Tensor, gamma: torch.Tensor,
     for lo in range(0, s_eff, chunk):
         hi = min(lo + chunk, s_eff)
         total = total + remat(_chunk_loss, x[:, lo:hi], gamma, w_head,
-                              targets[:, lo + 1:hi + 1])
+                              targets[:, lo + 1:hi + 1], shard)
     return total / (b * s_eff)

@@ -53,14 +53,17 @@ def capacity(cfg: LMConfig, tokens_per_group: int) -> int:
 GROUP_SIZE = 512      # routing-group length: caps the capacity buffers
 
 
-def moe_ffn(p: MoEFFN, x: torch.Tensor,
-            cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: LMConfig,
+            shard: L.Shard = L.no_shard
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (b, s, d) -> (out (b, s, d), aux_loss scalar).
 
     Groups are cut from the flattened token stream, so at decode (s == 1)
     all b tokens route as one group. A (token, slot) pair's place in its
     expert's buffer is a cumsum over the group's (token, slot) pairs,
     token-major, so which pairs drop is the reference's, pair for pair.
+    The expert buffers' token axis is ``batch`` unless
+    ``cfg.moe_token_replicate`` replicates it (llama4).
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -88,13 +91,19 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor,
     cap_oh = F.one_hot(pos, c).float() * keep[..., None].float()  # (G, g, k, e, c)
     dispatch = cap_oh.sum(dim=2).to(dtype)                       # (G, g, e, c)
     combine = (cap_oh * top_vals[..., None, None]).sum(dim=2).to(dtype)
+    dispatch = shard(dispatch, ("batch", None, "experts", None))
+    combine = shard(combine, ("batch", None, "experts", None))
 
     xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)           # (G, e, c, d)
+    tok_axis = None if cfg.moe_token_replicate else "batch"
+    xin = shard(xin, (tok_axis, "experts", None, None))
     g_ = torch.einsum("gecd,edf->gecf", xin, p.w_gate)
     u = torch.einsum("gecd,edf->gecf", xin, p.w_up)
-    h = F.silu(g_) * u
-    eo = torch.einsum("gecf,efd->gecd", h, p.w_down)
+    h = shard(F.silu(g_) * u, (tok_axis, "experts", None, "expert_mlp"))
+    eo = shard(torch.einsum("gecf,efd->gecd", h, p.w_down),
+               (tok_axis, "experts", None, None))
     out = torch.einsum("gsec,gecd->gsd", combine, eo).reshape(b, s, d)
+    out = shard(out, ("batch", "seq", "embed"))
 
     # load-balancing auxiliary loss (Switch-style)
     frac_tokens = expert_mask.sum(dim=2).mean(dim=(0, 1))        # (e,)
@@ -129,15 +138,16 @@ class MoETransformer(DenseTransformer):
                         dtype=self.dtype)
 
     def _mlp(self, layer, h):
-        out, _aux = moe_ffn(layer.moe, h, self.cfg)
+        out, _aux = moe_ffn(layer.moe, h, self.cfg, self.shard)
         return out
 
     def _aux_block(self, x, layer, positions):
         """``_block`` that also returns the layer's router aux loss."""
         h = L.rms_norm(x, layer.ln1)
-        x = x + L.attention(layer.attn, self.dims, h, causal=True,
-                            positions=positions)
-        out, aux = moe_ffn(layer.moe, L.rms_norm(x, layer.ln2), self.cfg)
+        x = x + L.attention(layer.attn, self.dims, h, shard=self.shard,
+                            causal=True, positions=positions)
+        out, aux = moe_ffn(layer.moe, L.rms_norm(x, layer.ln2), self.cfg,
+                           self.shard)
         return x + out, aux
 
     def loss_terms(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -163,7 +173,7 @@ class MoETransformer(DenseTransformer):
             for a in auxes:
                 aux = aux + a / cfg.n_layers
         ce = L.chunked_ce_loss(x, self.final_norm, self.head_weight(),
-                               tokens)
+                               tokens, shard=self.shard)
         return ce, aux
 
     def loss(self, batch: dict, aux_weight: float = 0.01) -> torch.Tensor:

@@ -22,7 +22,8 @@ class Pixtral(DenseTransformer):
     def fuse_inputs(self, tokens, patch_embeds):
         """(b, s_txt) tokens + (b, s_img, d) patches -> (b, s_img+s_txt, d)."""
         tx = self.embed_tokens(tokens)
-        return torch.cat([patch_embeds.to(tx.dtype), tx], dim=1)
+        return self.shard(torch.cat([patch_embeds.to(tx.dtype), tx], dim=1),
+                          ("batch", "seq", "embed"))
 
     def forward(self, tokens, patch_embeds=None, positions=None):
         if patch_embeds is None:
@@ -40,7 +41,8 @@ class Pixtral(DenseTransformer):
                                  device=x.device)[None]
         x = self._run_layers(x, positions)
         return L.chunked_ce_loss(x[:, pe.shape[1]:], self.final_norm,
-                                 self.head_weight(), batch["tokens"])
+                                 self.head_weight(), batch["tokens"],
+                                 shard=self.shard)
 
     @torch.no_grad()
     def prefill(self, tokens, cache, patch_embeds=None):

@@ -9,7 +9,8 @@ reference's ``lax.scan``). Prefill and decode both run ``forward`` on the
 cache's state, which is updated in place: O(1) in sequence length.
 ``loss`` carries each layer's state as a new tensor instead (autograd
 keeps what it read), from zeros, rematerialising each layer with
-``cfg.remat``.
+``cfg.remat``. ``shard`` is called where the reference calls it; the
+family has no attention, so no ``decode_ctx``.
 """
 
 from __future__ import annotations
@@ -57,10 +58,12 @@ class RWKVLayer(nn.Module):
 
 
 class RWKV6(L.LMParams, nn.Module):
-    def __init__(self, cfg: LMConfig, *, device=None):
+    def __init__(self, cfg: LMConfig, shard: L.Shard | None = None, *,
+                 device=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.shard = shard or L.no_shard
+        self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.hd = cfg.ssm_head_dim
         self.n_heads_tm = cfg.d_model // self.hd
@@ -120,16 +123,17 @@ class RWKV6(L.LMParams, nn.Module):
         out = out.reshape(b, s, d).to(x.dtype)       # state math stays fp32
         out = L.rms_norm(out, layer.ln_x)
         out = (out * F.silu(g)) @ layer.wo
-        return out, x[:, -1, :], state
+        return self.shard(out, ("batch", "seq", "embed")), x[:, -1, :], state
 
     def _channel_mix(self, layer, x, x_prev):
         xs = torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
         mu = layer.mu_c
         xk = x + mu[0] * (xs - x)
         xr = x + mu[1] * (xs - x)
-        kk = torch.square(torch.relu(xk @ layer.wck))
+        kk = self.shard(torch.square(torch.relu(xk @ layer.wck)),
+                        ("batch", "seq", "mlp"))
         out = torch.sigmoid(xr @ layer.wcr) * (kk @ layer.wcv)
-        return out, x[:, -1, :]
+        return self.shard(out, ("batch", "seq", "embed")), x[:, -1, :]
 
     def _block(self, layer, x, st):
         h1, tm_prev, tm_state = self._time_mix(
@@ -153,6 +157,10 @@ class RWKV6(L.LMParams, nn.Module):
         }
 
     # -- public ---------------------------------------------------------------
+    def _embed(self, tokens):
+        return self.shard(L.take_rows(self.embed, tokens),
+                          ("batch", "seq", "embed"))
+
     def _layers(self, x, state):
         """``x`` through every layer from ``state`` (stacked per layer, as
         ``init_cache``; None: zeros). Returns x and each layer's new
@@ -171,7 +179,7 @@ class RWKV6(L.LMParams, nn.Module):
         ``tokens``, stacked per layer. A given ``state`` (a serving cache)
         is updated in place; None starts from zeros and stacks a new
         one."""
-        x, new = self._layers(L.take_rows(self.embed, tokens), state)
+        x, new = self._layers(self._embed(tokens), state)
         if state is None:
             return x, {k: torch.stack([st[k] for st in new]) for k in new[0]}
         for i, st in enumerate(new):
@@ -181,15 +189,17 @@ class RWKV6(L.LMParams, nn.Module):
 
     def forward(self, tokens, state=None, return_state=False):
         x, state = self.hidden(tokens, state)
-        logits = L.rms_norm(x, self.final_norm) @ self.lm_head
+        logits = self.shard(L.rms_norm(x, self.final_norm) @ self.lm_head,
+                            ("batch", "seq", "vocab"))
         if return_state:
             return logits, state
         return logits
 
     def loss(self, batch: dict) -> torch.Tensor:
         tokens = batch["tokens"]
-        x, _ = self._layers(L.take_rows(self.embed, tokens), None)
-        return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens)
+        x, _ = self._layers(self._embed(tokens), None)
+        return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens,
+                                 shard=self.shard)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:

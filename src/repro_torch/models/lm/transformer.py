@@ -8,6 +8,12 @@ the reference's keys and shapes; ``index`` is a Python int, so a decode
 step needs no host sync, and prefill and decode write their rows into the
 cache in place and return it, without autograd. ``loss`` trains through
 ``param_tree()``; with ``cfg.remat`` each layer is rematerialised.
+
+``shard`` is called where the reference calls it (``layers``). Set
+``decode_ctx`` to a ``layers.DecodeShardCtx`` for the sequence-parallel
+decode: ``decode_step`` then places the cache's ``k``/``v`` over its
+mesh (``layers.place_kv``) and attends through
+``layers.flash_decode_sharded``.
 """
 
 from __future__ import annotations
@@ -41,10 +47,13 @@ class DenseLayer(nn.Module):
 
 
 class DenseTransformer(L.LMParams, nn.Module):
-    def __init__(self, cfg: LMConfig, *, device=None):
+    def __init__(self, cfg: LMConfig, shard: L.Shard | None = None, *,
+                 device=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.shard = shard or L.no_shard
+        self.decode_ctx: L.DecodeShardCtx | None = None
+        self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.dims = L.AttnDims(
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
@@ -81,14 +90,14 @@ class DenseTransformer(L.LMParams, nn.Module):
     # -- blocks ---------------------------------------------------------------
     def _block(self, x, layer, positions):
         h = L.rms_norm(x, layer.ln1)
-        h = L.attention(layer.attn, self.dims, h, causal=True,
-                        positions=positions)
+        h = L.attention(layer.attn, self.dims, h, shard=self.shard,
+                        causal=True, positions=positions)
         x = x + h
         h = L.rms_norm(x, layer.ln2)
         return x + self._mlp(layer, h)
 
     def _mlp(self, layer, h):
-        return L.swiglu(layer.mlp, h)
+        return L.swiglu(layer.mlp, h, self.shard)
 
     def _run_layers(self, x, positions):
         for layer in self.layers:
@@ -97,11 +106,13 @@ class DenseTransformer(L.LMParams, nn.Module):
         return x
 
     def _head(self, x):
-        return L.rms_norm(x, self.final_norm) @ self.head_weight()
+        logits = L.rms_norm(x, self.final_norm) @ self.head_weight()
+        return self.shard(logits, ("batch", "seq", "vocab"))
 
     # -- public ---------------------------------------------------------------
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return L.take_rows(self.embed, tokens)
+        return self.shard(L.take_rows(self.embed, tokens),
+                          ("batch", "seq", "embed"))
 
     def forward(self, tokens, positions=None):
         """tokens (b, s) -> logits (b, s, v)."""
@@ -125,7 +136,7 @@ class DenseTransformer(L.LMParams, nn.Module):
                                  device=x.device)[None]
         x = self._run_layers(x, positions)
         return L.chunked_ce_loss(x, self.final_norm, self.head_weight(),
-                                 tokens)
+                                 tokens, shard=self.shard)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -155,9 +166,12 @@ class DenseTransformer(L.LMParams, nn.Module):
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
         for i, layer in enumerate(self.layers):
             h = L.rms_norm(x, layer.ln1)
-            q, k, v = L._qkv(layer.attn, self.dims, h, positions)
+            q, k, v = L._qkv(layer.attn, self.dims, h, positions,
+                             shard=self.shard)
             attn = L._attend(q, k, v, causal=True)
-            x = x + attn.reshape(b, s, cfg.n_heads * cfg.hd) @ layer.attn.wo
+            x = x + self.shard(
+                attn.reshape(b, s, cfg.n_heads * cfg.hd) @ layer.attn.wo,
+                ("batch", "seq", "embed"))
             h = L.rms_norm(x, layer.ln2)
             x = x + self._mlp(layer, h)
             cache["k"][i, :, :s] = k
@@ -171,11 +185,14 @@ class DenseTransformer(L.LMParams, nn.Module):
     def decode_step(self, tokens, cache):
         """tokens (b, 1) + cache -> (logits (b, v), cache one row on)."""
         idx = cache["index"]
+        if self.decode_ctx is not None:
+            L.place_kv(cache, ("k", "v"), self.decode_ctx)
         x = self.embed_tokens(tokens)
         for i, layer in enumerate(self.layers):
             h = L.rms_norm(x, layer.ln1)
-            out, _, _ = L.attention_decode(layer.attn, self.dims, h,
-                                           cache["k"][i], cache["v"][i], idx)
+            out, _, _ = L.attention_decode(
+                layer.attn, self.dims, h, cache["k"][i], cache["v"][i], idx,
+                shard=self.shard, decode_ctx=self.decode_ctx)
             x = x + out
             h = L.rms_norm(x, layer.ln2)
             x = x + self._mlp(layer, h)

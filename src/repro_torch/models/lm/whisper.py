@@ -9,7 +9,11 @@ No RoPE anywhere. Prefill fills the self-attention cache and the
 cross-attention k/v (``xk``/``xv``) from the memory once. ``loss`` is the
 encoder, the decoder's hidden states and ``chunked_ce_loss`` over
 ``dec_norm`` and ``lm_head``; with ``cfg.remat`` every encoder and decoder
-block is rematerialised.
+block is rematerialised. ``shard`` is called where the reference calls
+it; a ``decode_ctx`` places the self-attention cache and the
+cross-attention ``xk``/``xv`` over its mesh and runs both attentions of a
+decode step through ``layers.flash_decode_sharded`` (the cross one with
+every memory slot visible and no write).
 """
 
 from __future__ import annotations
@@ -62,10 +66,13 @@ class WhisperBlock(nn.Module):
 
 
 class Whisper(L.LMParams, nn.Module):
-    def __init__(self, cfg: LMConfig, *, device=None):
+    def __init__(self, cfg: LMConfig, shard: L.Shard | None = None, *,
+                 device=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.shard = shard or L.no_shard
+        self.decode_ctx: L.DecodeShardCtx | None = None
+        self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.dims = L.AttnDims(
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
@@ -96,23 +103,23 @@ class Whisper(L.LMParams, nn.Module):
     # -- encoder ----------------------------------------------------------------
     def _enc_block(self, x, layer):
         h = L.rms_norm(x, layer.ln1)
-        x = x + L.attention(layer.attn, self.dims, h, causal=False,
-                            rope=False)
+        x = x + L.attention(layer.attn, self.dims, h, shard=self.shard,
+                            causal=False, rope=False)
         h = L.rms_norm(x, layer.ln2)
-        return x + L.gelu_mlp(layer.mlp, h)
+        return x + L.gelu_mlp(layer.mlp, h, self.shard)
 
     def encode(self, frames):
         """frames (b, s_enc, d) — stub-frontend output — -> memory."""
         _, s, d = frames.shape
         pos = torch.from_numpy(sinusoid_positions(s, d)).to(frames.device,
                                                             frames.dtype)
-        x = frames + pos[None]
+        x = self.shard(frames + pos[None], ("batch", "seq", "embed"))
         for layer in self.encoder:
             x = L.remat(self._enc_block, x, layer, enabled=self.cfg.remat)
         return L.rms_norm(x, self.enc_norm)
 
     # -- decoder ----------------------------------------------------------------
-    def _embed_dec(self, tokens, pos0=0):
+    def _embed_rows(self, tokens, pos0=0):
         """Token embeddings plus ``pos_dec`` rows [pos0, pos0 + s). Rows
         past the table raise (the reference's ``dynamic_slice_in_dim``
         clamps the start instead)."""
@@ -123,15 +130,19 @@ class Whisper(L.LMParams, nn.Module):
         return (L.take_rows(self.embed, tokens)
                 + self.pos_dec[pos0:pos0 + s][None])
 
+    def _embed_dec(self, tokens, pos0=0):
+        return self.shard(self._embed_rows(tokens, pos0),
+                          ("batch", "seq", "embed"))
+
     def _dec_block(self, x, layer, memory):
         h = L.rms_norm(x, layer.ln1)
-        x = x + L.attention(layer.attn, self.dims, h, causal=True,
-                            rope=False)
+        x = x + L.attention(layer.attn, self.dims, h, shard=self.shard,
+                            causal=True, rope=False)
         h = L.rms_norm(x, layer.ln_x)
-        x = x + L.attention(layer.xattn, self.dims, h, memory=memory,
-                            rope=False)
+        x = x + L.attention(layer.xattn, self.dims, h, shard=self.shard,
+                            memory=memory, rope=False)
         h = L.rms_norm(x, layer.ln2)
-        return x + L.gelu_mlp(layer.mlp, h)
+        return x + L.gelu_mlp(layer.mlp, h, self.shard)
 
     def _decoder_hidden(self, tokens, memory):
         """Teacher-forced decoder hidden states (pre-norm, pre-head)."""
@@ -144,7 +155,8 @@ class Whisper(L.LMParams, nn.Module):
     def decode_full(self, tokens, memory):
         """Teacher-forced decoder (prefill math)."""
         x = self._decoder_hidden(tokens, memory)
-        return L.rms_norm(x, self.dec_norm) @ self.lm_head
+        return self.shard(L.rms_norm(x, self.dec_norm) @ self.lm_head,
+                          ("batch", "seq", "vocab"))
 
     def forward(self, tokens, frames):
         return self.decode_full(tokens, self.encode(frames))
@@ -153,7 +165,7 @@ class Whisper(L.LMParams, nn.Module):
         memory = self.encode(batch["frames"])
         x = self._decoder_hidden(batch["tokens"], memory)
         return L.chunked_ce_loss(x, self.dec_norm, self.lm_head,
-                                 batch["tokens"])
+                                 batch["tokens"], shard=self.shard)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, mem_len: int) -> dict:
@@ -180,7 +192,8 @@ class Whisper(L.LMParams, nn.Module):
         h_, kv_, hd = cfg.n_heads, cfg.n_kv_heads, self.dims.head_dim
         for i, layer in enumerate(self.decoder):
             h = L.rms_norm(x, layer.ln1)
-            q, k, v = L._qkv(layer.attn, self.dims, h, positions, rope=False)
+            q, k, v = L._qkv(layer.attn, self.dims, h, positions, rope=False,
+                             shard=self.shard)
             attn = L._attend(q, k, v, causal=True)
             x = x + attn.reshape(b, s, -1) @ layer.attn.wo
             h = L.rms_norm(x, layer.ln_x)
@@ -190,7 +203,7 @@ class Whisper(L.LMParams, nn.Module):
             attn = L._attend(qx, xk, xv, causal=False)
             x = x + attn.reshape(b, s, -1) @ layer.xattn.wo
             h = L.rms_norm(x, layer.ln2)
-            x = x + L.gelu_mlp(layer.mlp, h)
+            x = x + L.gelu_mlp(layer.mlp, h, self.shard)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
             cache["xk"][i] = xk
@@ -206,21 +219,29 @@ class Whisper(L.LMParams, nn.Module):
         cfg = self.cfg
         b = tokens.shape[0]
         idx = cache["index"]
-        x = self._embed_dec(tokens, idx)
+        ctx = self.decode_ctx
+        if ctx is not None:
+            L.place_kv(cache, ("k", "v", "xk", "xv"), ctx)
+        x = self._embed_rows(tokens, idx)
         h_, hd = cfg.n_heads, self.dims.head_dim
         for i, layer in enumerate(self.decoder):
             h = L.rms_norm(x, layer.ln1)
-            out, _, _ = L.attention_decode(layer.attn, self.dims, h,
-                                           cache["k"][i], cache["v"][i], idx,
-                                           rope=False)
+            out, _, _ = L.attention_decode(
+                layer.attn, self.dims, h, cache["k"][i], cache["v"][i], idx,
+                shard=self.shard, rope=False, decode_ctx=ctx)
             x = x + out
             h = L.rms_norm(x, layer.ln_x)
             qx = (h @ layer.xattn.wq).reshape(b, 1, h_, hd)
-            attn = L._attend(qx, cache["xk"][i], cache["xv"][i],
-                             causal=False)
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            if ctx is not None:
+                # every memory slot visible, nothing written
+                attn, _, _ = L.flash_decode_sharded(
+                    qx, xk, xv, None, None, xk.shape[1] + 1, ctx)
+            else:
+                attn = L._attend(qx, xk, xv, causal=False)
             x = x + attn.reshape(b, 1, -1) @ layer.xattn.wo
             h = L.rms_norm(x, layer.ln2)
-            x = x + L.gelu_mlp(layer.mlp, h)
+            x = x + L.gelu_mlp(layer.mlp, h, self.shard)
         cache["index"] = idx + 1
         x = L.rms_norm(x, self.dec_norm)
         return (x @ self.lm_head)[:, 0], cache

@@ -12,7 +12,9 @@ takes ``concat(h, x_embed)`` projected back to d_model; it has one set of
 weights but its own KV cache at each application. A serving cache's
 states are updated in place; ``loss`` (from zero Mamba states, each Mamba
 layer rematerialised with ``cfg.remat``, as the reference's scan step)
-carries them as new tensors.
+carries them as new tensors. ``shard`` is called where the reference
+calls it; a ``decode_ctx`` runs the shared block's decode attention
+through ``layers.flash_decode_sharded`` over its placed KV caches.
 """
 
 from __future__ import annotations
@@ -78,10 +80,13 @@ class SharedBlock(nn.Module):
 
 
 class Zamba2(L.LMParams, nn.Module):
-    def __init__(self, cfg: LMConfig, *, device=None):
+    def __init__(self, cfg: LMConfig, shard: L.Shard | None = None, *,
+                 device=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.shard = shard or L.no_shard
+        self.decode_ctx: L.DecodeShardCtx | None = None
+        self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.d_in = cfg.ssm_expand * cfg.d_model
         self.hd = cfg.ssm_head_dim
@@ -190,7 +195,8 @@ class Zamba2(L.LMParams, nn.Module):
                                       layer.a_log, layer.d_skip, st["ssm"])
         y = y.reshape(b, s, self.d_in).to(x.dtype)
         y = L.rms_norm(y, layer.ln_y) * F.silu(zg)
-        return x + y @ layer.w_out, {"conv": conv_state, "ssm": ssm_state}
+        out = self.shard(y @ layer.w_out, ("batch", "seq", "embed"))
+        return x + out, {"conv": conv_state, "ssm": ssm_state}
 
     def _zero_mamba_state(self, b):
         cfg = self.cfg
@@ -229,12 +235,14 @@ class Zamba2(L.LMParams, nn.Module):
         h = L.rms_norm(h, p.ln_in) @ p.w_in
         a_in = L.rms_norm(h, p.ln1)
         if kv is None:
-            attn = L.attention(p.attn, self.attn_dims, a_in, causal=True)
+            attn = L.attention(p.attn, self.attn_dims, a_in,
+                               shard=self.shard, causal=True)
         else:
-            attn, _, _ = L.attention_decode(p.attn, self.attn_dims, a_in,
-                                            kv[0], kv[1], idx)
+            attn, _, _ = L.attention_decode(
+                p.attn, self.attn_dims, a_in, kv[0], kv[1], idx,
+                shard=self.shard, decode_ctx=self.decode_ctx)
         h = h + attn
-        h = h + L.swiglu(p.mlp, L.rms_norm(h, p.ln2))
+        h = h + L.swiglu(p.mlp, L.rms_norm(h, p.ln2), self.shard)
         return x + h
 
     # -- forward ----------------------------------------------------------------
@@ -255,14 +263,20 @@ class Zamba2(L.LMParams, nn.Module):
                 si += 1
         return x
 
+    def _embed(self, tokens):
+        return self.shard(L.take_rows(self.embed, tokens),
+                          ("batch", "seq", "embed"))
+
     def forward(self, tokens, positions=None):
-        x = self._run(L.take_rows(self.embed, tokens), None)
-        return L.rms_norm(x, self.final_norm) @ self.lm_head
+        x = self._run(self._embed(tokens), None)
+        return self.shard(L.rms_norm(x, self.final_norm) @ self.lm_head,
+                          ("batch", "seq", "vocab"))
 
     def loss(self, batch: dict) -> torch.Tensor:
         tokens = batch["tokens"]
-        x = self._run(L.take_rows(self.embed, tokens), None)
-        return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens)
+        x = self._run(self._embed(tokens), None)
+        return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens,
+                                 shard=self.shard)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -305,10 +319,11 @@ class Zamba2(L.LMParams, nn.Module):
                 h = torch.cat([x, x0], dim=-1)
                 h = L.rms_norm(h, p.ln_in) @ p.w_in
                 a_in = L.rms_norm(h, p.ln1)
-                q, k, v = L._qkv(p.attn, self.attn_dims, a_in, positions)
+                q, k, v = L._qkv(p.attn, self.attn_dims, a_in, positions,
+                                 shard=self.shard)
                 attn = L._attend(q, k, v, causal=True)
                 h = h + attn.reshape(b, s, -1) @ p.attn.wo
-                h = h + L.swiglu(p.mlp, L.rms_norm(h, p.ln2))
+                h = h + L.swiglu(p.mlp, L.rms_norm(h, p.ln2), self.shard)
                 x = x + h
                 cache["shared"]["k"][si, :, :s] = k
                 cache["shared"]["v"][si, :, :s] = v
@@ -323,6 +338,8 @@ class Zamba2(L.LMParams, nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens, cache):
         idx = cache["index"]
+        if self.decode_ctx is not None and "shared" in cache:
+            L.place_kv(cache["shared"], ("k", "v"), self.decode_ctx)
         x = L.take_rows(self.embed, tokens)
         x = self._run(x, cache["mamba"], shared_kv=cache.get("shared"),
                       idx=idx)

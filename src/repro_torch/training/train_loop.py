@@ -14,7 +14,8 @@ Reading each step's metrics as Python floats waits for the device, as
 ``loss.backward()`` through the model's own buffers, then
 :func:`adamw_update`. It serves any model with ``loss(batch)`` and a
 ``param_tree()``: the CTR models (``make_ctr_step`` is its CTR name) and
-the LM zoo (``launch/train.py``).
+the LM zoo (``launch/train.py``, and ``launch/steps.py``'s cells with
+their gradient accumulation over ``n_micro`` microbatches).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import time
 from typing import Any, Callable
 
 import numpy as np
+import torch
 from torch.profiler import record_function
 
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -49,30 +51,64 @@ class TrainLoopConfig:
     keep_ckpts: int = 2
 
 
-def make_train_step(model, cfg: AdamWConfig) -> Callable:
+def make_train_step(model, cfg: AdamWConfig, n_micro: int = 1) -> Callable:
     """``step_fn(state, batch) -> (state, {"loss", "grad_norm"})`` for a
     model (a ``CTRModel``, an LM of the zoo) whose buffers are
     ``state.params`` (its ``param_tree()``): ``model.loss(batch)`` and its
-    gradients by autograd, then one AdamW update in place. Every parameter must receive a gradient: one
-    that gets none (a kernel output outside autograd) raises. The three
-    parts run inside profiler ranges ``train/forward``,
-    ``train/backward`` and ``train/optimizer``."""
-    def step_fn(state: TrainState, batch: dict):
+    gradients by autograd, then one AdamW update in place. Every
+    parameter must receive a gradient: one that gets none (a kernel
+    output outside autograd) raises. The three parts run inside profiler
+    ranges ``train/forward``, ``train/backward`` and ``train/optimizer``.
+
+    ``n_micro`` > 1 accumulates, as the reference's cell step does
+    (``launch/steps.py:117-141``): the batch's leading dim is cut into
+    ``n_micro`` consecutive microbatches (it must divide), each one's
+    gradients are added in fp32 to zeros, and the summed loss and
+    gradients are divided by ``n_micro`` before the update."""
+    if n_micro < 1:
+        raise ValueError(f"n_micro must be at least 1, not {n_micro}")
+
+    def backward(params: list, batch: dict):
         with record_function("train/forward"):
             loss = model.loss(batch)
         with record_function("train/backward"):
             loss.backward()
-        params = _tensors(state.params)
         missing = [tuple(p.shape) for p in params if p.grad is None]
         if missing:
             raise RuntimeError(f"no gradient reached parameters of shapes "
                                f"{missing}")
-        grads = tree_map(lambda p: p.grad, state.params)
+        return loss.detach()
+
+    def step_fn(state: TrainState, batch: dict):
+        params = _tensors(state.params)
+        if n_micro == 1:
+            loss = backward(params, batch)
+            grads = tree_map(lambda p: p.grad, state.params)
+        else:
+            b = next(iter(batch.values())).shape[0]
+            if b % n_micro:
+                raise ValueError(f"a batch of {b} does not cut into "
+                                 f"{n_micro} microbatches")
+            mb = b // n_micro
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), state.params)
+            loss = None
+            for i in range(n_micro):
+                li = backward(params, {k: v[i * mb:(i + 1) * mb]
+                                       for k, v in batch.items()})
+                with torch.no_grad():
+                    tree_map(lambda g, p: g.add_(p.grad.float()), grads,
+                             state.params)
+                for p in params:
+                    p.grad = None
+                loss = li if loss is None else loss + li
+            loss = loss / n_micro
+            grads = tree_map(lambda g: g / n_micro, grads)
         with record_function("train/optimizer"):
             state, metrics = adamw_update(state, grads, cfg)
         for p in params:
             p.grad = None
-        return state, {"loss": loss.detach(), **metrics}
+        return state, {"loss": loss, **metrics}
     return step_fn
 
 

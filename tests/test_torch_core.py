@@ -175,7 +175,7 @@ def test_port_never_imports_jax_or_the_reference():
         "training/checkpoint", "training/train_loop", "data/pipeline",
         "kernels/autograd", "launch/train_ctr", "distributed/__init__",
         "distributed/mesh", "distributed/sharding",
-        "training/compression")} <= names
+        "training/compression", "launch/mesh", "launch/steps")} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -2176,3 +2176,92 @@ def test_lm_gradients_on_the_card_are_bitwise_repeatable(cuda, arch, tied):
     assert torch.equal(l1, l2)
     for path, g in g1.items():
         assert torch.equal(g, g2[path]), path
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh: the sequence-parallel flash decode on the card
+# ---------------------------------------------------------------------------
+
+def _flash_case(devices, b_ax, idx, update, seed=0):
+    """``flash_decode_sharded`` over a (2, 2) mesh of ``devices`` (the
+    inputs made on the CPU from ``seed``, moved to the first device):
+    (out, k cache, v cache), all on the CPU."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models.lm import layers as L
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((4, 1, 8, 16), generator=g)
+    kc, vc = (torch.randn((4, 64, 2, 16), generator=g) for _ in range(2))
+    kn, vn = (torch.randn((4, 1, 2, 16), generator=g) for _ in range(2))
+    mesh = make_mesh((2, 2), ("data", "model"), devices)
+    dev = mesh.first_device
+    q, kc, vc, kn, vn = (t.to(dev) for t in (q, kc, vc, kn, vn))
+    ctx = L.DecodeShardCtx(mesh=mesh, batch_axes=b_ax)
+    out, k2, v2 = L.flash_decode_sharded(
+        q, kc, vc, kn if update else None, vn if update else None, idx, ctx)
+    assert out.device == dev
+    return out.cpu(), k2.full("cpu"), v2.full("cpu")
+
+
+@pytest.mark.parametrize("b_ax", ["data", None])
+@pytest.mark.parametrize("idx", [5, 32, 63])
+def test_flash_decode_sharded_on_logical_positions_matches_the_cpu(
+        cuda, b_ax, idx):
+    """Four positions on one card against four on the CPU, the write in
+    the first shard, at the boundary and in the last slot: outputs at
+    ``rtol 1e-4, atol 1e-5``, the caches bitwise; and with no write."""
+    card = [torch.device("cuda", torch.cuda.current_device())] * 4
+    for update in (True, False):
+        got = _flash_case(card, b_ax, idx, update)
+        want = _flash_case("cpu", b_ax, idx, update)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-1.2b",
+                                  "whisper-small"])
+def test_reduced_sharded_decode_on_the_card_keeps_the_greedy_tokens(cuda,
+                                                                    arch):
+    """A reduced fp32 decode cell on four positions of the card, 8 steps
+    across its sequence shards' boundary: the greedy tokens of the
+    mesh-less decode on the same cache, logits at ``rtol 2e-4, atol
+    2e-4`` (tests/distributed_inner.py:75)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.models.lm import layers as L
+    from repro_torch.models.lm import make_lm_model
+
+    cfg = get_config(arch).reduced()
+    model = make_lm_model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 12), generator=g, device=cuda)
+    if cfg.family == "encdec":
+        frames = torch.randn((4, 8, cfg.d_model), generator=g,
+                             device=cuda) * 0.1
+        logits, cache = model.prefill(tokens, frames,
+                                      model.init_cache(4, 32, 8))
+    else:
+        logits, cache = model.prefill(tokens, model.init_cache(4, 32))
+    twin = tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, cache)
+    ctx = L.DecodeShardCtx(mesh=_card_mesh(cuda, (2, 2)), batch_axes="data")
+    for _ in range(8):
+        nxt = logits.argmax(-1)[:, None]
+        model.decode_ctx = None
+        logits, cache = model.decode_step(nxt, cache)
+        model.decode_ctx = ctx
+        got, twin = model.decode_step(nxt, twin)
+        torch.testing.assert_close(got, logits, rtol=2e-4, atol=2e-4)
+        assert torch.equal(got.argmax(-1), logits.argmax(-1))
+
+
+def test_flash_decode_sharded_across_two_cards(two_cards):
+    """The four positions over two cards (data shard 0 on the first,
+    1 on the second): the same outputs as the CPU, caches bitwise."""
+    first, second = two_cards
+    devices = [first, first, second, second]
+    for idx in (5, 40):
+        got = _flash_case(devices, "data", idx, True)
+        want = _flash_case("cpu", "data", idx, True)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
