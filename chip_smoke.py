@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's CTR inference and training paths, and the
-LM zoo's serving, training and mesh paths, on one NVIDIA card.
+LM zoo's serving, training and mesh paths and the dry run, on one NVIDIA
+card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -215,8 +216,9 @@ Phases (any failure raises; the script then exits non-zero):
    causal) within ``CPU_TOL``; (e) weight GB, init s, prefill p50 (5
    runs), decode p50 a token (32 steps, a sync each) and the same steps
    queued back to back, tokens/s, peak memory, each beside its bound
-   (weights, and at decode the cache, read once at 3.35 TB/s; the
-   counted GEMM operations at 989 TFLOP/s bf16 and 67 fp32), and for
+   (weights, and at decode the cache, read once at ``hw.HBM_BW``; the
+   counted GEMM operations at ``hw.PEAK_FLOPS_BF16`` in bf16 and
+   ``hw.PEAK_FLOPS_FP32`` in fp32), and for
    llama3-8b the device's idle share of 8 queued decode steps under
    ``torch.profiler``. Numbers also go to ``chiprun_out/lm_phase12.json``.
 13. LM training through ``repro_torch.launch.train``'s step
@@ -228,7 +230,7 @@ Phases (any failure raises; the script then exits non-zero):
    host), a trace of 3 more split by ``train/forward``, ``train/backward``
    and ``train/optimizer``, the idle share, peak memory, the first and
    last loss, and the bound (the weight GEMMs' 8·N·T and the attention's
-   operations at 989 TFLOP/s bf16 and 67 fp32, against the bytes of
+   operations at the bf16 and fp32 peaks of ``hw``, against the bytes of
    parameters, gradients and moments); then the embedding's gradient
    twice on one batch, bitwise; (b) every other arch at published width,
    depth cut only for memory (``LM_TRAIN_ARCHS``, each cut on its own
@@ -255,7 +257,7 @@ Phases (any failure raises; the script then exits non-zero):
    with its top-2 margin and fails unless that margin is within twice
    the row's |diff|), the logits' gap logged (two bf16 paths drift apart
    over 32 random layers), decode ms a token (p50, a sync each step)
-   beside the bound (weights and cache read once at 3.35 TB/s), ATen ops
+   beside the bound (weights and cache read once at ``hw.HBM_BW``), ATen ops
    a step, the bytes its copies of a cache shard write (no more than the
    mesh-less step's) and peak memory; in fp32 at b = 2: logits and the
    written slots within ``rtol 2e-4, atol 2e-4``; (b) qwen3-4b,
@@ -275,6 +277,16 @@ Phases (any failure raises; the script then exits non-zero):
    mesh of meta positions, one worker process each, side by side: ops
    and seconds of each trace. Numbers also go to
    ``chiprun_out/lm_phase14.json``.
+15. The analysis and the dry run (``repro_torch.analysis``,
+   ``repro_torch.launch.dryrun``; no hand kernel, nothing on the card):
+   the card's name, power limit and ``total_memory`` beside
+   ``hw.HBM_BYTES``; then ``dryrun.run_cell`` on whisper-small's
+   ``train_4k``, ``prefill_32k`` and ``decode_32k`` (pod), zamba2-1.2b's
+   ``long_500k`` (pod and multipod) and phi3.5-moe's ``decode_32k``
+   (multipod), one worker process each, side by side: each record's
+   three roofline terms, ``dominant``, ``fits_hbm``, ``n_ops`` and
+   ``lower_s``; any record not ``ok`` fails the run. Records also go to
+   ``chiprun_out/dryrun/`` and ``chiprun_out/dryrun_phase15.json``.
 """
 
 from __future__ import annotations
@@ -288,10 +300,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+if str(SRC) not in sys.path:
+    sys.path.insert(0, str(SRC))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
-FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores, same sheet
-INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, same sheet
+# every rate of the bounds below: the H100 SXM data sheet's, at 700 W
+from repro_torch.analysis import hw  # noqa: E402
 FM_TOL = dict(rtol=1e-5, atol=1e-5)
 LADDER_TOL = dict(rtol=1e-5, atol=1e-6)
 # GEMMs with K up to 2272 summed in another order by cuBLAS and the CPU BLAS
@@ -380,8 +393,8 @@ def n_sets(bytes_per_set: int) -> int:
 
 
 def bound(bytes_moved: float, flops: float,
-          ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+          ops_per_s: float = hw.PEAK_FLOPS_FP32) -> tuple[float, str]:
+    t_bytes = bytes_moved / hw.HBM_BW * 1e3
     t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -394,7 +407,7 @@ def recorder(rows: list):
     """``record(...)``: append one kernel measurement to ``rows`` (one
     dict per kernel and shape) and log it."""
     def record(name, shape, err, ms, plain_ms, lib_ms, bytes_moved, flops,
-               ops_per_s=FP32_FLOPS_PER_S):
+               ops_per_s=hw.PEAK_FLOPS_FP32):
         b_ms, b_by = bound(bytes_moved, flops, ops_per_s)
         rows.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
@@ -935,7 +948,7 @@ def phase_q8_kernels(torch, dev, record):
                 + b * fan_out * 4
             shape = f"b={b},in={fan_in},out={fan_out}"
             record("dmm_q8", shape, err, ms, plain_ms, lib_ms, moved,
-                   2 * b * fan_in * fan_out, INT8_OPS_PER_S)
+                   2 * b * fan_in * fan_out, hw.PEAK_OPS_INT8)
             log(f"[q8] {shape}: library_ms is torch._int_mm, the int32 "
                 f"product only; the fp32 plan's addmm + relu takes "
                 f"{fp32_ms:.5f} ms")
@@ -3721,7 +3734,6 @@ LM_TRACE_STEPS = 8
 LM_FLASH_SEQ = 4096
 LM_FLASH_CHECK = dict(h=32, kv=8, hd=128, s=4096)
 LM_CPU_DECODE = 4                   # (c): decode steps card vs CPU
-BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor-core rate, same sheet
 
 
 def lm_config(arch: str, layers):
@@ -3770,15 +3782,17 @@ def lm_prefill(model, tokens, extra, new: int):
 
 def dispatch_counts(torch, fn, min_copy: int = 0) -> tuple[dict, int, int]:
     """Run ``fn`` once; return 2·m·n·k of every GEMM it dispatches
-    (``mm``/``addmm``/``bmm``/``baddbmm``; ``matmul`` and ``einsum`` lower
-    to them) by operand dtype, the number of ATen ops it dispatches that
-    are not views (each one host dispatch, nearly all a launch), and the
-    bytes written by its copies (``_to_copy``, ``clone``, ``copy_``) of a
+    (``analysis.roofline.gemm_flops``, the dry run's counter: ``mm``/
+    ``addmm``/``bmm``/``baddbmm``; ``matmul`` and ``einsum`` lower to them)
+    by operand dtype, the number of ATen ops it dispatches that are not
+    views (each one host dispatch, nearly all a launch), and the bytes
+    written by its copies (``_to_copy``, ``clone``, ``copy_``) of a
     source of at least ``min_copy`` elements."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from repro_torch.analysis.roofline import gemm_flops
+
     aten = torch.ops.aten
-    first = {aten.mm: 0, aten.bmm: 0, aten.addmm: 1, aten.baddbmm: 1}
     copies = {aten._to_copy: 0, aten.clone: 0, aten.copy_: 1}
     counts: dict = {}
     ops = copied = 0
@@ -3786,13 +3800,14 @@ def dispatch_counts(torch, fn, min_copy: int = 0) -> tuple[dict, int, int]:
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             nonlocal ops, copied
-            out = func(*args, **(kwargs or {}))
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
             ops += not func.is_view
-            i = first.get(func.overloadpacket)
-            if i is not None:
-                a = args[i]
-                counts[a.dtype] = (counts.get(a.dtype, 0)
-                                   + 2 * out.numel() * a.shape[-1])
+            flops = gemm_flops(func, args, kwargs, out)
+            if flops:
+                dt = next(a.dtype for a in args
+                          if isinstance(a, torch.Tensor))
+                counts[dt] = counts.get(dt, 0) + flops
             i = copies.get(func.overloadpacket)
             if i is not None and args[i].numel() >= min_copy:
                 copied += out.numel() * out.element_size()
@@ -3806,7 +3821,8 @@ def dispatch_counts(torch, fn, min_copy: int = 0) -> tuple[dict, int, int]:
 def flops_ms(torch, counts: dict) -> float:
     """The least time of ``counts``' GEMMs: bf16 at the tensor-core rate,
     fp32 (TF32 off: attention logits, the MoE router) outside it."""
-    rate = {torch.bfloat16: BF16_FLOPS_PER_S, torch.float32: FP32_FLOPS_PER_S}
+    rate = {torch.bfloat16: hw.PEAK_FLOPS_BF16,
+            torch.float32: hw.PEAK_FLOPS_FP32}
     return sum(f / rate[dt] for dt, f in counts.items()) * 1e3
 
 
@@ -4009,9 +4025,9 @@ def lm_arch(torch, dev, arch: str, layers, prompt: int, card: str) -> dict:
     logits, cache = lm_prefill(model, tokens, extra, 1)
     dec_ops, step_ops, _ = dispatch_counts(torch, lambda: model.decode_step(
         logits.argmax(-1)[:, None], cache))
-    prefill_bound = max(weights / HBM_BYTES_PER_S * 1e3,
+    prefill_bound = max(weights / hw.HBM_BW * 1e3,
                         flops_ms(torch, pre_ops))
-    decode_bound = max((weights + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+    decode_bound = max((weights + cache_bytes) / hw.HBM_BW * 1e3,
                        flops_ms(torch, dec_ops))
     res = {
         "arch": arch, "family": cfg.family, "layers": cfg.n_layers,
@@ -4171,13 +4187,13 @@ def lm_train_bound(cfg, n_params: int, n_gemm: int, b: int, s: int) -> dict:
     t = b * s
     bf16 = 8 * n_gemm * t
     attn = 4 * 2 * b * cfg.n_heads * s * s * cfg.hd * cfg.n_layers
-    ops_ms = ((bf16 + attn) / BF16_FLOPS_PER_S
-              + attn / FP32_FLOPS_PER_S) * 1e3
+    ops_ms = ((bf16 + attn) / hw.PEAK_FLOPS_BF16
+              + attn / hw.PEAK_FLOPS_FP32) * 1e3
     elem = 2 if cfg.dtype == "bfloat16" else 4
     # parameters read and written, gradients written and read, m and v
     # read and written in fp32
     moved = n_params * (4 * elem + 16)
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bytes_ms = moved / hw.HBM_BW * 1e3
     return {"bf16_tflop": (bf16 + attn) / 1e12, "fp32_tflop": attn / 1e12,
             "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -4715,7 +4731,7 @@ def lm_mesh_llama(torch, dev, mesh, card: str, dtype: str, b: int) -> dict:
         {"tokens": nxt, "cache": cache}), shard_numel)
     # no copy of a cache shard beyond the mesh-less path's own
     assert mesh_copy <= plain_copy, (mesh_copy, plain_copy)
-    bound = max((weights + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+    bound = max((weights + cache_bytes) / hw.HBM_BW * 1e3,
                 flops_ms(torch, gemms))
     res.update({"weights_gb": weights / 1e9, "cache_gb": cache_bytes / 1e9,
                 "max_abs_diff": worst, "max_mean_abs_diff": mean,
@@ -4737,7 +4753,8 @@ def lm_mesh_llama(torch, dev, mesh, card: str, dtype: str, b: int) -> dict:
         f"{res['decode_p50_ms']:.2f} ms/token sharded, "
         f"{res['plain_decode_p50_ms']:.2f} mesh-less (bound {bound:.2f}: "
         f"{res['weights_gb']:.2f} GB weights + {res['cache_gb']:.2f} GB "
-        f"cache at 3.35 TB/s, or the GEMMs' operations if more) | "
+        f"cache at {hw.HBM_BW / 1e12:.2f} TB/s, or the GEMMs' operations "
+        "if more) | "
         f"{mesh_ops} ATen ops a step sharded, "
         f"{plain_ops} mesh-less | copies {res['copy_gb']:.2f} GB a step "
         f"sharded, {res['plain_copy_gb']:.2f} mesh-less | peak "
@@ -4972,8 +4989,6 @@ def lm_mesh_train(torch, dev, mesh, card: str) -> dict:
 def lower_cell(shape: str) -> dict:
     """(e), in a worker process: ``build_cell("qwen3-4b", shape)`` on the
     (16, 16) production mesh of meta positions, then ``lower()``."""
-    if str(SRC) not in sys.path:
-        sys.path.insert(0, str(SRC))
     from repro_torch.launch import make_production_mesh
     from repro_torch.launch.steps import build_cell
 
@@ -5047,6 +5062,70 @@ def run_lm_mesh(torch, dev, card: str) -> dict:
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15: the analysis and the dry run
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh): whisper-small's three cells, zamba2's 524k decode on
+# both meshes, phi3.5-moe's decode over the multipod's 32 batch shards
+DRYRUN_CELLS = (("whisper-small", "train_4k", "pod"),
+                ("whisper-small", "prefill_32k", "pod"),
+                ("whisper-small", "decode_32k", "pod"),
+                ("zamba2-1.2b", "long_500k", "pod"),
+                ("zamba2-1.2b", "long_500k", "multipod"),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k", "multipod"))
+
+
+def dryrun_cell(arch: str, shape: str, mesh_name: str) -> dict:
+    """One cell of phase 15, in a worker process: ``dryrun.run_cell``,
+    its record also written under ``chiprun_out/dryrun/``."""
+    from repro_torch.launch.dryrun import run_cell
+
+    return run_cell(arch, shape, mesh_name,
+                    str(ROOT / "chiprun_out" / "dryrun"))
+
+
+def run_dryrun(torch, card: str) -> list:
+    """Phase 15: ``DRYRUN_CELLS`` through the dry run, one worker process
+    each, side by side (meta traces: host work, no card); every record
+    must be ``ok``. Numbers also go to ``chiprun_out/dryrun_phase15.json``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    props = torch.cuda.get_device_properties(0)
+    log(f"[dryrun] {card} | total_memory {props.total_memory} B "
+        f"({props.total_memory / 1e9:.2f} GB) beside hw.HBM_BYTES "
+        f"{hw.HBM_BYTES:.0f} B; rates: bf16 {hw.PEAK_FLOPS_BF16:.4g}, "
+        f"int8 {hw.PEAK_OPS_INT8:.4g}, fp32 {hw.PEAK_FLOPS_FP32:.4g}, "
+        f"HBM {hw.HBM_BW:.4g} B/s, NVLink {hw.NVLINK_BW:.4g} B/s")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(DRYRUN_CELLS), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        recs = list(pool.map(dryrun_cell, *zip(*DRYRUN_CELLS)))
+    wall = time.perf_counter() - t0
+    for rec in recs:
+        assert rec["status"] == "ok", rec
+        rl = rec["roofline"]
+        log(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']} "
+            f"({rec['chips']} positions, n_micro {rec['n_micro']}): "
+            f"compute_s {rl['compute_s']:.6g} memory_s "
+            f"{rl['memory_s']:.6g} collective_s {rl['collective_s']:.6g} "
+            f"dominant {rl['dominant']} useful_ratio "
+            f"{rl['useful_ratio']:.4f} fits_hbm {rl['fits_hbm']} "
+            f"(arg {rec['memory']['arg_GiB']} GiB, temp "
+            f"{rec['memory']['temp_GiB']}, out {rec['memory']['out_GiB']}) "
+            f"n_ops {rec['n_ops']} lower_s {rec['lower_s']}")
+    log(f"[dryrun] phase 15: {len(recs)} cells side by side in "
+        f"{wall:.1f} s")
+    path = ROOT / "chiprun_out" / "dryrun_phase15.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps({"card": card, "total_memory":
+                                props.total_memory, "seconds": wall,
+                                "records": recs}, indent=1, default=str))
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5056,7 +5135,6 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a "
               "checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
 
     # 1. device and settings
     card = nvidia_smi()
@@ -5167,6 +5245,10 @@ def main() -> int:
     # four positions of the card, the train cell, meta traces (no hand
     # kernel)
     run_lm_mesh(torch, dev, card)
+
+    # 15. the analysis and the dry run: roofline records of six cells
+    # from meta traces (host work, no hand kernel)
+    run_dryrun(torch, card)
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

@@ -1,5 +1,6 @@
 """repro_torch — DPIFrame's CTR inference path in PyTorch, with hand-written
-CUDA kernels for Hopper (``sm_90a``), and the LM zoo's serving path.
+CUDA kernels for Hopper (``sm_90a``), and the LM zoo's serving, training,
+mesh and dry-run paths.
 
 It mirrors ``repro``'s module layout so each module's counterpart is easy
 to find:
@@ -13,7 +14,11 @@ to find:
   models/lm/    the LM zoo: dense, MoE, RWKV6, Zamba2, Whisper, Pixtral
   serving/      batching policies, InferenceEngine, DeviceScheduler,
                 ServingRuntime, delta sources, LM ``generate``
-  launch/       the serving CLI (``python -m repro_torch.launch.serve``)
+  launch/       the serving CLI (``python -m repro_torch.launch.serve``),
+                the training drivers, the cell builder (``steps.py``) and
+                the dry run (``python -m repro_torch.launch.dryrun``)
+  analysis/     H100 constants (``hw``), the closed-form cost model
+                (``analytic``) and the roofline record (``roofline``)
   configs/      ``ctr_spec`` and the ten LM architectures
   data/         dataset schemas, numpy-seeded id samplers (``zipf_ids``)
   bridge.py     loads a reference parameter tree (numpy leaves)

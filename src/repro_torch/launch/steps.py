@@ -24,13 +24,18 @@ attends through ``layers.flash_decode_sharded``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
+import weakref
 from collections import Counter
 from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.analysis.analytic import leaf_bytes
+from repro_torch.analysis.roofline import gemm_flops
 from repro_torch.bridge import _leaves
 from repro_torch.configs import SHAPES, get_config, input_specs
 from repro_torch.distributed import sharding as shd
@@ -41,7 +46,7 @@ from repro_torch.training.optimizer import (AdamWConfig, TrainState,
                                             adamw_init)
 from repro_torch.training.train_loop import make_train_step
 
-__all__ = ["build_cell", "Cell", "Lowered"]
+__all__ = ["build_cell", "Cell", "Lowered", "Trace"]
 
 #: the cache leaves a decode cell places over its mesh: the attention
 #: caches that ``flash_decode_sharded`` reads per position (recurrent
@@ -54,14 +59,103 @@ class Lowered:
     """One trace of a cell's step on ``meta`` tensors (``Cell.lower``):
     the ATen ops it dispatched by name (views excluded), the step's
     outputs (``meta`` tensors; a train step's new ``params``, ``m``, ``v``
-    and metrics) and the host seconds the trace took."""
+    and metrics) and the host seconds the trace took.
+
+    What the reference reads from XLA, the port counts in the same pass:
+    ``flops``, 2·M·N·K of every GEMM-like op the step dispatched
+    (``analysis.roofline.gemm_flops``; ``parse_hlo``'s ``dot_flops``);
+    ``peak_live_bytes``, the peak over the trace of the bytes held by the
+    storages its ops created (inputs, parameters and optimizer state
+    left out; ``memory_analysis().temp_size_in_bytes``);
+    ``moved_bytes``, the bytes the busiest mesh position sent and
+    received (``DecodeShardCtx.moved``; the HLO's collective bytes); and,
+    per position by the fitted spec trees, ``arg_bytes`` (parameters,
+    optimizer state, inputs) and ``out_bytes`` (the outputs). All but
+    the per-position bytes are for the global step."""
     ops: Counter
     outputs: Any
     seconds: float
+    flops: int = 0
+    peak_live_bytes: int = 0
+    moved_bytes: int = 0
+    arg_bytes: int = 0
+    out_bytes: int = 0
 
     @property
     def n_ops(self) -> int:
         return sum(self.ops.values())
+
+
+class _LiveBytes:
+    """Bytes held by the storages that ops created, and their peak: a
+    storage counts once, from the op that made it until it is freed
+    (a ``weakref.finalize`` on the storage, whose Python object lives as
+    long as the storage does)."""
+
+    def __init__(self):
+        self.now = self.peak = 0
+        self.on = True
+        self._held: set[int] = set()
+
+    def add(self, out) -> None:
+        if not self.on:
+            return
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._held:
+                continue
+            n = st.nbytes()
+            self._held.add(key)
+            self.now += n
+            self.peak = max(self.peak, self.now)
+            weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key: int, n: int) -> None:
+        self._held.discard(key)
+        self.now -= n
+
+
+class Trace(TorchDispatchMode):
+    """While active, counts every ATen op dispatched that is not a view
+    (``ops``, by name), their GEMM FLOPs (``flops``, by
+    ``analysis.roofline.gemm_flops``) and the live bytes of the storages
+    they create (``live``: ``live.peak``; ops that return an input or a
+    view of one create none). Set ``live.on`` False around work whose
+    storages are the step's arguments, not its temporaries."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: Counter = Counter()
+        self.flops = 0
+        self.live = _LiveBytes()
+        self._fresh: dict = {}      # op -> its outputs are new storages
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not func.is_view:
+            self.ops[func.overloadpacket.__name__] += 1
+            self.flops += gemm_flops(func, args, kwargs, out)
+            new = self._fresh.get(func)
+            if new is None:
+                new = self._fresh[func] = all(
+                    r.alias_info is None for r in func._schema.returns)
+            if new:
+                self.live.add(out)
+        return out
+
+
+def position_bytes(mesh: Mesh, specs: Any, tree: Any) -> int:
+    """The bytes one position holds of ``tree``: each leaf's bytes over
+    the product of the mesh axes its spec (in ``specs``, the same
+    structure) names."""
+    def split(spec, x):
+        n = math.prod(mesh.shape[a] for e in spec for a in shd._axes(e))
+        return leaf_bytes(x) // n
+    return sum(n for _, n in _leaves(shd.tree_map(split, specs, tree)))
 
 
 def _place_kv_leaves(node: dict, specs: dict, mesh: Mesh) -> None:
@@ -261,9 +355,9 @@ class Cell:
         of the same shape on the meta device, ``meta`` inputs from
         ``configs.input_specs``), so every op dispatches with its real
         shapes and nothing is allocated. The analysis and the dry run
-        take their FLOPs from this trace."""
-        from torch.utils._python_dispatch import TorchDispatchMode
-
+        take their FLOPs, live bytes and bytes between positions from
+        this trace (:class:`Lowered`), counted in the same pass as the
+        ops."""
         if self.device.type == "meta" and self.mesh.first_device.type \
                 == "meta":
             cell = self
@@ -271,30 +365,49 @@ class Cell:
             cell = Cell(self.arch, self.shape, _meta_mesh(self.mesh),
                         self.policy, device="meta")
             cell.n_micro = self.n_micro
-        ops: Counter = Counter()
-
-        class Count(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                if not func.is_view:
-                    ops[func.overloadpacket.__name__] += 1
-                return func(*args, **(kwargs or {}))
-
         kind = cell.cell.kind
+        mesh = cell.mesh
+        ctx = cell.decode_ctx
+        if ctx is not None:
+            ctx.moved.clear()
         # the decode step places and writes its cache in the dict it is
         # given: a copy of the dicts keeps the cell's inputs as they are
         inputs = shd.tree_map(lambda x: x, cell.inputs_sds)
+        arg_bytes = position_bytes(mesh, cell.input_shardspecs(), inputs) \
+            + position_bytes(mesh, cell.pspecs, cell.param_shapes)
         t0 = time.perf_counter()
-        with Count():
+        with Trace() as tr:
+            # what the reference takes as arguments (the optimizer state,
+            # a placed cache) is made before the live bytes count
+            tr.live.on = False
             if kind == "train":
                 state = adamw_init(cell.model.param_tree(), cell.opt_cfg)
+                arg_bytes += 4 + sum(position_bytes(mesh, cell.pspecs, t)
+                                     for t in (state.m, state.v))
+                tr.live.on = True
                 state, metrics = cell.train_step_fn()(state, inputs)
                 outputs = {"params": state.params, "m": state.m,
                            "v": state.v, **metrics}
-            elif kind == "prefill":
-                outputs = cell.prefill_fn()(inputs)
+                out_bytes = sum(position_bytes(mesh, cell.pspecs, t)
+                                for t in (state.params, state.m, state.v)) \
+                    + sum(leaf_bytes(x) for x in metrics.values())
             else:
-                outputs = cell.decode_fn()(inputs)
-        return Lowered(ops, outputs, time.perf_counter() - t0), kind
+                if kind == "decode":
+                    cell.place_cache(inputs["cache"])
+                tr.live.on = True
+                fn = cell.prefill_fn() if kind == "prefill" \
+                    else cell.decode_fn()
+                outputs = fn(inputs)
+                logits, cache = outputs
+                out_bytes = position_bytes(
+                    mesh, cell.input_shardspecs(
+                        {"logits": logits, "cache": cache}),
+                    {"logits": logits, "cache": cache})
+        seconds = time.perf_counter() - t0
+        moved = max(ctx.moved.values(), default=0) if ctx is not None else 0
+        return Lowered(tr.ops, outputs, seconds, flops=tr.flops,
+                       peak_live_bytes=tr.live.peak, moved_bytes=moved,
+                       arg_bytes=arg_bytes, out_bytes=out_bytes), kind
 
 
 def build_cell(arch: str, shape: str, mesh: Mesh, **kwargs) -> Cell:

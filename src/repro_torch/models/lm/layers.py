@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections import Counter
 from typing import Callable
 
 import numpy as np
@@ -326,10 +327,23 @@ def attention(p: Attention, dims: AttnDims, x: torch.Tensor, *,
 class DecodeShardCtx:
     """Sequence-parallel decode over a placed KV cache: the cache's batch
     splits over ``batch_axes`` (a mesh axis, a tuple of them, or None
-    when the batch is not split) and its sequence over ``seq_axis``."""
+    when the batch is not split) and its sequence over ``seq_axis``.
+
+    ``moved`` counts the bytes :func:`flash_decode_sharded` sends between
+    mesh positions, by position (``np.ndindex`` tuples), each copy under
+    its source and its destination; a copy within a position is not
+    counted. It grows until the caller clears it."""
     mesh: object
     batch_axes: tuple | str | None
     seq_axis: str = "model"
+    moved: Counter = dataclasses.field(default_factory=Counter,
+                                       compare=False, hash=False, repr=False)
+
+    def send(self, t: torch.Tensor, src: tuple, dst: tuple) -> None:
+        if src != dst:
+            n = t.numel() * t.element_size()
+            self.moved[src] += n
+            self.moved[dst] += n
 
 
 def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
@@ -351,6 +365,11 @@ def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
     raises ``IndexError`` (the reference drops it). Returns (out (b, 1,
     h, hd), k_cache, v_cache), the caches ``Placed`` and written in
     place.
+
+    Every copy between positions goes into ``ctx.moved``: the new k/v
+    rows to the position that owns the slot, ``qi`` to each position of
+    its batch shard, each local max to the first position and the
+    global max back, ``l`` and ``o`` to the first position.
     """
     from repro_torch.distributed.sharding import P, _axes, data_groups, place
 
@@ -359,6 +378,7 @@ def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
     kc, vc = place(k_cache, mesh, spec), place(v_cache, mesh, spec)
     s_max = kc.shape[1]
     s_local = s_max // mesh.shape[ax]
+    at0 = (0,) * mesh.devices.ndim              # the first device's position
     if k_new is not None:
         if not 0 <= cache_index < s_max:
             raise IndexError(f"decode position {cache_index} is outside "
@@ -372,8 +392,9 @@ def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
                 t = cache.local(pos)
                 if id(t) not in written:
                     written.add(id(t))
-                    t[:, cache_index - slots.start] = new[rows, 0].to(
-                        t.device)
+                    row_new = new[rows, 0]
+                    ctx.send(row_new, at0, pos)
+                    t[:, cache_index - slots.start] = row_new.to(t.device)
     groups = data_groups(mesh, model_axis=ax,
                          batch_axes=_axes(ctx.batch_axes))
     first = mesh.first_device
@@ -384,18 +405,25 @@ def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
         parts = []
         for j, pos in enumerate(row):
             dev = mesh.devices[pos]
+            ctx.send(qi, at0, pos)
             logits = _grouped_logits(qi.to(dev), kc.local(pos))
             kpos = j * s_local + torch.arange(s_local, device=dev)
             parts.append((logits.masked_fill(~(kpos <= cache_index), -1e30),
-                          vc.local(pos)))
-        m = parts[0][0].amax(dim=-1).to(first)
-        for logits, _ in parts[1:]:
-            m = torch.maximum(m, logits.amax(dim=-1).to(first))
+                          vc.local(pos), pos))
+        m = None
+        for logits, _, pos in parts:
+            m_j = logits.amax(dim=-1)
+            ctx.send(m_j, pos, at0)
+            m = m_j.to(first) if m is None else torch.maximum(
+                m, m_j.to(first))
         l = o = None
-        for logits, v in parts:
+        for logits, v, pos in parts:
+            ctx.send(m, at0, pos)
             p = torch.exp(logits - m.to(logits.device)[..., None])
-            l_j, o_j = p.sum(dim=-1).to(first), _grouped_pv(
-                p.to(v.dtype), v).to(first)
+            l_j, o_j = p.sum(dim=-1), _grouped_pv(p.to(v.dtype), v)
+            ctx.send(l_j, pos, at0)
+            ctx.send(o_j, pos, at0)
+            l_j, o_j = l_j.to(first), o_j.to(first)
             l, o = (l_j, o_j) if l is None else (l + l_j, o + o_j)
         l = _ungrouped(l[..., None])                      # (b, sq, h, 1)
         outs.append(o / torch.clamp_min(l, 1e-30).to(o.dtype))

@@ -175,7 +175,9 @@ def test_port_never_imports_jax_or_the_reference():
         "training/checkpoint", "training/train_loop", "data/pipeline",
         "kernels/autograd", "launch/train_ctr", "distributed/__init__",
         "distributed/mesh", "distributed/sharding",
-        "training/compression", "launch/mesh", "launch/steps")} <= names
+        "training/compression", "launch/mesh", "launch/steps",
+        "analysis/__init__", "analysis/hw", "analysis/analytic",
+        "analysis/roofline", "launch/dryrun")} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
