@@ -287,6 +287,29 @@ Phases (any failure raises; the script then exits non-zero):
    three roofline terms, ``dominant``, ``fits_hbm``, ``n_ops`` and
    ``lower_s``; any record not ``ok`` fails the run. Records also go to
    ``chiprun_out/dryrun/`` and ``chiprun_out/dryrun_phase15.json``.
+16. Split weights (``Cell.place_params``,
+   ``repro_torch.distributed.tensor_parallel``; no hand kernel) on phase
+   14's (2, 2) mesh of four positions on cuda:0: (a) and (b), run inside
+   phase 14 on (a)'s llama3-8b ``decode_32k`` cells and their 32,768-slot
+   caches before they are freed, bf16 at b = 4 (TP only) and fp32 at
+   b = 2 (TP × FSDP): 8 steps of phase 14's unsplit cell, the split cell
+   from the same cache index and the mesh-less step, each to a sync, then
+   queued; bf16 holds layer 0's block and the head to phase 14's error
+   ratio against fp32 and the greedy tokens up to near ties, fp32 the
+   logits to ``MESH_DECODE_TOL``; ATen ops a step of each path and the
+   split step's bytes between positions by kind, peak memory. (c)
+   llama3-8b's prefill cell (TP × FSDP) at b = 4, s = 512: bf16 split and
+   mesh-less prefill p50, ops, bytes by kind; fp32 split logits within
+   ``MESH_DECODE_TOL`` of the mesh-less prefill's. (d) phi3.5-moe at
+   depth 8 (TP × FSDP, experts over ``model``), a 4,096-slot cache: bf16,
+   the three paths from one cache state a step, timed, and layer 0's
+   experts held to fp32 by the error ratio; fp32, split and mesh-less
+   steps within ``MESH_DECODE_TOL`` where the routing agrees, failing if
+   it agrees on no step. (e) the eight dense, vlm, moe and encdec archs'
+   ``reduced()`` fp32 prefill and decode cells placed on the card and on
+   a CPU mesh: within ``CPU_TOL`` of the CPU and ``MESH_DECODE_TOL`` of
+   the card's mesh-less step. Numbers also go to
+   ``chiprun_out/lm_phase16.json``.
 """
 
 from __future__ import annotations
@@ -4654,7 +4677,8 @@ def attention_vs_fp32(torch, cell, nxt, plain) -> tuple[float, float]:
     return err(shd), err(mless)
 
 
-def lm_mesh_llama(torch, dev, mesh, card: str, dtype: str, b: int) -> dict:
+def lm_mesh_llama(torch, dev, mesh, card: str, dtype: str, b: int,
+                  then=None) -> dict:
     """(a): llama3-8b, all 32 layers, through ``build_cell("llama3-8b",
     "decode_32k", mesh)``: a 32,768-slot cache (16,384 a sequence shard)
     filled to ``LM_MESH_FILL``, ``LM_MESH_STEPS`` decode steps across the
@@ -4664,7 +4688,9 @@ def lm_mesh_llama(torch, dev, mesh, card: str, dtype: str, b: int) -> dict:
     mesh-less attention's error against fp32, the greedy tokens equal up
     to near ties, the logit gap logged (two bf16 paths that round in
     other orders drift apart over 32 random layers: PERF.md §6).
-    In fp32: logits within ``MESH_DECODE_TOL``."""
+    In fp32: logits within ``MESH_DECODE_TOL``. ``then(cell, cache,
+    plain, nxt, res)``, if given, runs last, before the cell is freed
+    (phase 16's (a) and (b))."""
     from repro_torch.launch.steps import build_cell
 
     torch.cuda.synchronize()
@@ -4759,6 +4785,8 @@ def lm_mesh_llama(torch, dev, mesh, card: str, dtype: str, b: int) -> dict:
         f"{plain_ops} mesh-less | copies {res['copy_gb']:.2f} GB a step "
         f"sharded, {res['plain_copy_gb']:.2f} mesh-less | peak "
         f"{res['peak_gib']:.2f} GiB | {card}")
+    if then is not None:
+        then(cell, cache, plain, nxt, res)
     del cell, cache, plain, model
     released(torch, base, f"(a) {dtype}")
     return res
@@ -4777,7 +4805,9 @@ class routing_record:
         torch, real = self.torch, self.real
 
         def recorded(p, x, cfg, *args):
-            probs = torch.softmax(x.float() @ p.router, dim=-1)
+            # a split step's rows, joined in batch order as it routes them
+            xs = torch.cat(x.parts) if hasattr(x, "parts") else x
+            probs = torch.softmax(xs.float() @ p.router, dim=-1)
             self.calls.append(torch.topk(probs, cfg.top_k, dim=-1)[1])
             return real(p, x, cfg, *args)
         self.moe.moe_ffn = recorded
@@ -5025,10 +5055,18 @@ def lm_mesh_lower(torch) -> list:
     return out
 
 
-def run_lm_mesh(torch, dev, card: str) -> dict:
+def run_lm_mesh(torch, dev, card: str, split: dict | None = None) -> dict:
     """Phase 14: the LM mesh and the cell builder (see the docstring).
-    Numbers also go to ``chiprun_out/lm_phase14.json``."""
+    Numbers also go to ``chiprun_out/lm_phase14.json``. With ``split`` (a
+    dict), phase 16's (a) and (b) run on (a)'s llama3-8b cells and caches
+    before they are freed, their records under the dtype's name."""
     from repro_torch.configs import ARCH_NAMES
+
+    def then(dtype):
+        if split is None:
+            return None
+        return lambda *args: split.__setitem__(
+            dtype, lm_split_decode(torch, *args, card))
 
     t_phase = time.perf_counter()
     mesh = lm_mesh(torch, dev)
@@ -5041,9 +5079,9 @@ def run_lm_mesh(torch, dev, card: str) -> dict:
         f"s={LM_MESH_TRAIN[2]}")
     res = {"card": card,
            "llama": lm_mesh_llama(torch, dev, mesh, card, "bfloat16",
-                                  LM_MESH_B),
+                                  LM_MESH_B, then("bfloat16")),
            "llama_fp32": lm_mesh_llama(torch, dev, mesh, card, "float32",
-                                       LM_MESH_FP32_B)}
+                                       LM_MESH_FP32_B, then("float32"))}
     res["archs"] = [lm_mesh_arch(torch, dev, mesh, arch, layers, card)
                     for arch, layers in LM_MESH_ARCHS]
     res["small"] = {a: lm_mesh_small(torch, dev, mesh, a)
@@ -5124,6 +5162,613 @@ def run_dryrun(torch, card: str) -> list:
                                 props.total_memory, "seconds": wall,
                                 "records": recs}, indent=1, default=str))
     return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 16: split weights (Cell.place_params) on the LM mesh
+# ---------------------------------------------------------------------------
+
+LM_SPLIT_PROMPT = 512         # (c): llama3-8b prefill_32k cut to b = 4, s = 512
+LM_SPLIT_RUNS = 3             # (c): prefills a path, the p50 kept
+LM_SPLIT_MOE = ("phi3.5-moe-42b-a6.6b", 8)   # (d): depth 8 of 32
+LM_SPLIT_MOE_STEPS = 8
+LM_SPLIT_ARCHS = ("llama3-8b", "granite-8b", "smollm-360m", "qwen3-4b",
+                  "pixtral-12b", "phi3.5-moe-42b-a6.6b",
+                  "llama4-maverick-400b-a17b", "whisper-small")
+
+
+class lm_cell_shape:
+    """``repro_torch.configs.SHAPES[name]`` cut to (seq, batch) while
+    inside (a cell reads it when it is built)."""
+
+    def __init__(self, name: str, seq: int, batch: int):
+        import repro_torch.configs as C
+        self.C, self.name = C, name
+        self.saved = C.SHAPES[name]
+        self.cut = C.ShapeCell(name, seq, batch, self.saved.kind)
+
+    def __enter__(self):
+        self.C.SHAPES[self.name] = self.cut
+
+    def __exit__(self, *exc):
+        self.C.SHAPES[self.name] = self.saved
+
+
+class cell_path:
+    """While inside, ``cell``'s model runs as ``path``: ``"split"`` (on
+    ``tp``, its placed parameters), ``"unsplit"`` (whole weights and the
+    placed cache: phase 14's cell) or ``"mesh_less"`` (no ``decode_ctx``,
+    no hook, no split)."""
+
+    def __init__(self, cell, tp, path: str):
+        self.model, self.tp, self.path = cell.model, tp, path
+
+    def __enter__(self):
+        from repro_torch.models.lm import layers as L
+        m = self.model
+        self.saved = m.tp, m.decode_ctx, m.shard
+        m.tp = self.tp if self.path == "split" else None
+        if self.path == "mesh_less":
+            m.decode_ctx, m.shard = None, L.no_shard
+
+    def __exit__(self, *exc):
+        self.model.tp, self.model.decode_ctx, self.model.shard = self.saved
+
+
+def decode_as(torch, cell, tp, path: str, nxt, cache):
+    """One decode step of ``cell`` as ``path`` (``cell_path``); the
+    mesh-less step calls the model, the others the cell's ``decode_fn``
+    (which places the cache)."""
+    with cell_path(cell, tp, path):
+        if path == "mesh_less":
+            return cell.model.decode_step(nxt, cache)
+        return cell.decode_fn()({"tokens": nxt, "cache": cache})
+
+
+def timed(torch, fn):
+    """(``fn()``, ms to a sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def queued_ms(torch, step, nxt, n: int) -> float:
+    """ms a token over ``n`` steps of ``step(nxt) -> logits`` queued as
+    ``generate`` runs them (argmax on the card, one sync at the end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        nxt = step(nxt).argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def split_error_ratio(torch, cell, tp, cache, g) -> dict:
+    """bf16: layer 0's decode block (attention over a copy of layer 0's
+    cache, then the MLP) on the split weights and mesh-less, and the head
+    on one hidden state split and mesh-less, each against the same
+    computed in fp32 (the block's weights and cache cast): relative norm
+    errors. Phase 14's rule: the split error at most
+    ``LM_MESH_ATTN_RATIO`` times the mesh-less one."""
+    import copy
+
+    from repro_torch.models.lm import layers as L
+
+    model, ctx, idx = cell.model, cell.decode_ctx, cache["index"]
+    layer = model.layers[0]
+    b = LM_MESH_B if model.dtype == torch.bfloat16 else LM_MESH_FP32_B
+    nxt = torch.randint(0, cell.cfg.vocab, (b, 1), generator=g,
+                        device=model.device)
+    x = L.take_rows(model.embed, nxt)
+    k0, v0 = cache["k"][0].full(), cache["v"][0].full()
+
+    def block(lyr, x_, kc, vc, ctx_):
+        h = L.rms_norm(x_, lyr.ln1)
+        a, _, _ = L.attention_decode(lyr.attn, model.dims, h, kc, vc, idx,
+                                     decode_ctx=ctx_)
+        x_ = x_ + a
+        return x_ + L.swiglu(lyr.mlp, L.rms_norm(x_, lyr.ln2))
+
+    err = lambda t, truth: float(  # noqa: E731
+        (t.float() - truth).norm() / truth.norm())
+    mless = block(layer, x, k0.clone(), v0.clone(), None)
+    split = block(layer, tp.split_rows(x), k0.clone(), v0.clone(),
+                  ctx).whole("heads")
+    lyr32 = copy.deepcopy(layer).float()
+    truth = block(lyr32, x.float(), k0.float(), v0.float(), None)
+    out = {"block_err": err(split, truth),
+           "block_err_mesh_less": err(mless, truth)}
+    del lyr32, truth, k0, v0
+    xh = L.rms_norm(torch.randn((b, 1, cell.cfg.d_model), generator=g,
+                                device=model.device).to(model.dtype),
+                    model.final_norm)
+    truth = xh.float() @ model.lm_head.float()
+    out["head_err"] = err(tp.head(tp.split_rows(xh), model.lm_head), truth)
+    out["head_err_mesh_less"] = err(xh @ model.lm_head, truth)
+    for part in ("block", "head"):
+        assert out[f"{part}_err"] <= LM_MESH_ATTN_RATIO * max(
+            out[f"{part}_err_mesh_less"], 1e-6), out
+    return out
+
+
+def lm_split_decode(torch, cell, cache, plain, nxt, mesh_res: dict,
+                    card: str) -> dict:
+    """(a) bf16, b = 4 and (b) fp32, b = 2: phase 14 (a)'s llama3-8b
+    decode cell, its cache (placed, ``mesh_res['fill']`` + 9 slots
+    written) and the mesh-less copy, run before phase 14 frees them. The
+    parameters are split by ``Cell.place_params`` (views: no weight
+    memory). ``LM_MESH_STEPS`` steps, each timed to a sync: phase 14's
+    unsplit cell on the cache, then the split cell on the cache from the
+    same index (its writes replace the unsplit step's), then the
+    mesh-less step on its copy; then as many of each queued. bf16: the
+    error ratios of ``split_error_ratio`` and the greedy tokens up to near
+    ties (``check_tokens``); fp32: the split logits within
+    ``MESH_DECODE_TOL`` of the mesh-less step's. One more step of each is
+    counted: ATen ops and, split, the bytes between positions by kind."""
+    dtype = cell.cfg.dtype
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    tp = cell.place_params()
+    assert torch.cuda.memory_allocated() == start, "placed weights copied"
+    w_gate = cell.model.layers[0].mlp.w_gate
+    fsdp = tp.placed(w_gate).split_dim("data") is not None
+    g = torch.Generator(device=cell.model.device).manual_seed(SEED + 16)
+    res = {"dtype": dtype, "b": nxt.shape[0], "layers": cell.cfg.n_layers,
+           "specs": "TP x FSDP" if fsdp else "TP",
+           "slots": cache["k"].shape[2], "start_index": cache["index"]}
+    if dtype == "bfloat16":
+        res.update(split_error_ratio(torch, cell, tp, cache, g))
+    ms = {p: [] for p in ("split", "unsplit", "mesh_less")}
+    worst, differ = 0.0, 0
+    for step in range(LM_MESH_STEPS):
+        idx = cache["index"]
+        (lu, _), t_u = timed(torch, lambda: decode_as(
+            torch, cell, tp, "unsplit", nxt, cache))
+        cache["index"] = idx
+        (ls, _), t_s = timed(torch, lambda: decode_as(
+            torch, cell, tp, "split", nxt, cache))
+        (lp, _), t_p = timed(torch, lambda: decode_as(
+            torch, cell, tp, "mesh_less", nxt, plain))
+        for path, t in (("split", t_s), ("unsplit", t_u),
+                        ("mesh_less", t_p)):
+            ms[path].append(t)
+        assert torch.isfinite(ls.float()).all()
+        if dtype == "float32":
+            torch.testing.assert_close(ls, lp, **MESH_DECODE_TOL)
+            torch.testing.assert_close(ls, lu, **MESH_DECODE_TOL)
+        worst = max(worst, float((ls.float() - lp.float()).abs().max()))
+        differ += check_tokens(torch, ls, lp, f"(split {dtype}) step {step}")
+        nxt = lp.argmax(-1)[:, None]
+    p50 = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    res.update({f"{p}_p50_ms": p50(v) for p, v in ms.items()})
+    idx = cache["index"]
+    queued = {}
+    for path in ("split", "unsplit"):
+        cache["index"] = idx
+        queued[path] = queued_ms(torch, lambda t: decode_as(
+            torch, cell, tp, path, t, cache)[0], nxt, LM_MESH_STEPS)
+    queued["mesh_less"] = queued_ms(torch, lambda t: decode_as(
+        torch, cell, tp, "mesh_less", t, plain)[0], nxt, LM_MESH_STEPS)
+    res.update({f"{p}_queued_ms": t for p, t in queued.items()})
+    ops = {}
+    for path in ("unsplit", "split"):
+        cache["index"] = idx
+        tp.moved.clear()
+        cell.decode_ctx.moved.clear()
+        _, ops[path], _ = dispatch_counts(torch, lambda: decode_as(
+            torch, cell, tp, path, nxt, cache))
+        if path == "unsplit":
+            # its one kind: the flash decode's, each copy counted twice
+            res["unsplit_merge_bytes"] = sum(
+                cell.decode_ctx.moved.values()) // 2
+    res["moved_bytes"] = tp.bytes_by_kind()
+    _, ops["mesh_less"], _ = dispatch_counts(torch, lambda: decode_as(
+        torch, cell, tp, "mesh_less", nxt, plain))
+    res.update({f"{p}_ops": n for p, n in ops.items()})
+    res.update({"max_abs_diff": worst, "tokens_differ": differ,
+                "bound_ms": mesh_res["bound_ms"],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "extra_gib": (torch.cuda.max_memory_allocated() - start)
+                / 2**30, "seconds": time.perf_counter() - t_start})
+    cell.model.tp = None
+    check = (f"layer-0 block vs fp32 split {res['block_err']:.3e}, "
+             f"mesh-less {res['block_err_mesh_less']:.3e}; head split "
+             f"{res['head_err']:.3e}, mesh-less "
+             f"{res['head_err_mesh_less']:.3e} (relative norm) | "
+             if dtype == "bfloat16" else f"within {MESH_DECODE_TOL} | ")
+    log(f"[lmsplit] ({'a' if dtype == 'bfloat16' else 'b'}) llama3-8b "
+        f"decode_32k ({dtype}, L={res['layers']}, b={res['b']} of 128, "
+        f"{res['specs']}; phase 14 (a)'s cache, {res['slots']} slots from "
+        f"index {res['start_index']}, {LM_MESH_STEPS} steps) on "
+        f"{cell.mesh.shape}: " + check
+        + f"logits max|split-mesh-less| {worst:.3e}, {differ} greedy "
+        f"tokens differ | ms/token p50 to a sync: split "
+        f"{res['split_p50_ms']:.2f}, unsplit {res['unsplit_p50_ms']:.2f}, "
+        f"mesh-less {res['mesh_less_p50_ms']:.2f}; queued "
+        f"{queued['split']:.2f}, {queued['unsplit']:.2f}, "
+        f"{queued['mesh_less']:.2f} (bound {res['bound_ms']:.2f}) | ATen "
+        f"ops a step {ops['split']}, {ops['unsplit']}, {ops['mesh_less']} "
+        f"| bytes between positions a step split {res['moved_bytes']}, "
+        f"unsplit merge {res['unsplit_merge_bytes']}, mesh-less 0 | peak "
+        f"{res['peak_gib']:.2f} GiB, {res['extra_gib']:.2f} over the "
+        f"cell's | {card}")
+    return res
+
+
+def split_prefill_cell(torch, dev, mesh, dtype: str):
+    """(c)'s llama3-8b prefill cell in ``dtype`` (all 32 layers, TP ×
+    FSDP), ``prefill_32k`` cut to b = ``LM_MESH_B``, s =
+    ``LM_SPLIT_PROMPT``, its weights from ``SEED`` and placed; returns
+    (cell, its prefill_fn, the placed tree, the prompt)."""
+    from repro_torch.launch.steps import build_cell
+
+    with lm_cell_config("llama3-8b", dtype=dtype), lm_cell_shape(
+            "prefill_32k", LM_SPLIT_PROMPT, LM_MESH_B):
+        cell = build_cell("llama3-8b", "prefill_32k", mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    tokens = torch.randint(0, cell.cfg.vocab, (LM_MESH_B, LM_SPLIT_PROMPT),
+                           generator=g, device=dev)
+    return cell, cell.prefill_fn(), cell.place_params(), tokens
+
+
+def lm_split_prefill(torch, dev, mesh, card: str) -> dict:
+    """(c): llama3-8b's prefill cell (all 32 layers, TP × FSDP),
+    ``prefill_32k`` cut to b = ``LM_MESH_B``, s = ``LM_SPLIT_PROMPT``.
+    bf16: ``LM_SPLIT_RUNS`` prefills split and as many unplaced
+    (mesh-less: the prefill cell runs whole on the first device),
+    alternating, each to a sync; ATen ops and bytes between positions of
+    one split prefill. fp32 (the check, as (b) holds the decode): the
+    split prefill's logits within ``MESH_DECODE_TOL`` of the mesh-less
+    prefill's and the greedy tokens equal up to near ties."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cell, fn, tp, tokens = split_prefill_cell(torch, dev, mesh, "bfloat16")
+    ms = {"split": [], "mesh_less": []}
+    for _ in range(LM_SPLIT_RUNS):
+        for path in ("split", "mesh_less"):
+            cell.model.tp = tp if path == "split" else None
+            (logits, _), t = timed(torch, lambda: fn({"tokens": tokens}))
+            ms[path].append(t)
+            if path == "split":
+                ls = logits
+            else:
+                lp = logits
+    assert torch.isfinite(ls.float()).all()
+    gap = float((ls.float() - lp.float()).abs().max())
+    ops = {}
+    for path in ("mesh_less", "split"):
+        cell.model.tp = tp if path == "split" else None
+        tp.moved.clear()
+        gemms, ops[path], _ = dispatch_counts(
+            torch, lambda: fn({"tokens": tokens}))
+    cell.model.tp = None
+    weights = tensor_bytes(cell.model.state_dict())
+    res = {"b": LM_MESH_B, "s": LM_SPLIT_PROMPT, "layers": cell.cfg.n_layers,
+           "split_p50_ms": sorted(ms["split"])[LM_SPLIT_RUNS // 2],
+           "mesh_less_p50_ms": sorted(ms["mesh_less"])[LM_SPLIT_RUNS // 2],
+           "bound_ms": max(weights / hw.HBM_BW * 1e3,
+                           flops_ms(torch, gemms)),
+           "split_ops": ops["split"], "mesh_less_ops": ops["mesh_less"],
+           "moved_bytes": tp.bytes_by_kind(), "max_abs_diff": gap,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    del cell, fn, tp, tokens, ls, lp, logits
+    released(torch, base, "(c) split prefill, bf16")
+    torch.cuda.reset_peak_memory_stats()
+    cell, fn, tp, tokens = split_prefill_cell(torch, dev, mesh, "float32")
+    ls = fn({"tokens": tokens})[0]
+    cell.model.tp = None
+    lp = fn({"tokens": tokens})[0]
+    assert torch.isfinite(ls).all()
+    torch.testing.assert_close(ls, lp, **MESH_DECODE_TOL)
+    res.update({"fp32_max_abs_diff": float((ls - lp).abs().max()),
+                "fp32_tokens_differ": check_tokens(torch, ls, lp,
+                                                   "(c) fp32"),
+                "fp32_peak_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2**30})
+    log(f"[lmsplit] (c) llama3-8b prefill_32k (L={res['layers']}, TP x "
+        f"FSDP; b={LM_MESH_B} of 32, s={LM_SPLIT_PROMPT} of 32,768) on "
+        f"{mesh.shape}: fp32 within {MESH_DECODE_TOL}, logits "
+        f"max|split-mesh-less| {res['fp32_max_abs_diff']:.3e}, "
+        f"{res['fp32_tokens_differ']} greedy tokens differ | bf16 logits "
+        f"max|split-mesh-less| {gap:.3e} | bf16 prefill p50 of "
+        f"{LM_SPLIT_RUNS}: split {res['split_p50_ms']:.2f} ms, mesh-less "
+        f"{res['mesh_less_p50_ms']:.2f} (bound {res['bound_ms']:.2f}) | "
+        f"ATen ops {ops['split']}, {ops['mesh_less']} | bytes between "
+        f"positions {res['moved_bytes']} | peak bf16 "
+        f"{res['peak_gib']:.2f} GiB, fp32 {res['fp32_peak_gib']:.2f} | "
+        f"{card}")
+    del cell, fn, tp, tokens, ls, lp
+    released(torch, base, "(c) split prefill, fp32")
+    return res
+
+
+def moe_error_ratio(torch, cell, tp, g) -> dict:
+    """Layer 0's experts (``moe_ffn``) on one normed hidden state of
+    ``LM_MESH_B`` tokens, split and mesh-less, against the same with the
+    experts cast to fp32: every path routes from the same fp32 router
+    logits, so they run the same experts. Phase 14's ratio rule, as in
+    ``split_error_ratio``."""
+    import copy
+
+    from repro_torch.models.lm import layers as L
+    from repro_torch.models.lm.moe import moe_ffn
+
+    model, cfg = cell.model, cell.cfg
+    ffn = model.layers[0].moe
+    x = L.rms_norm(torch.randn((LM_MESH_B, 1, cfg.d_model), generator=g,
+                               device=model.device).to(model.dtype),
+                   model.layers[0].ln2)
+    mless, _ = moe_ffn(ffn, x, cfg)
+    split, _ = moe_ffn(ffn, tp.split_rows(x), cfg)
+    split = split.whole("moe_tokens")
+    truth, _ = moe_ffn(copy.deepcopy(ffn).float(), x.float(), cfg)
+    err = lambda t: float((t.float() - truth).norm() / truth.norm())  # noqa
+    out = {"ffn_err": err(split), "ffn_err_mesh_less": err(mless)}
+    assert out["ffn_err"] <= LM_MESH_ATTN_RATIO * max(
+        out["ffn_err_mesh_less"], 1e-6), out
+    return out
+
+
+def split_moe_cell(torch, dev, mesh, dtype: str):
+    """(d)'s phi3.5-moe decode cell in ``dtype`` (depth
+    ``LM_SPLIT_MOE[1]``, published width), its weights from ``SEED``, a
+    ``LM_MESH_SEQ``-slot cache of b = ``LM_MESH_B`` filled to
+    ``LM_MESH_SEQ_FILL`` and placed, the parameters placed; returns
+    (cell, placed tree, cache, first tokens, weight bytes, TP × FSDP?)."""
+    from repro_torch.launch.steps import build_cell
+
+    arch, layers = LM_SPLIT_MOE
+    with lm_cell_config(arch, layers, dtype=dtype):
+        cell = build_cell(arch, "decode_32k", mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    cache = cell.place_cache(fill_cache(torch, cell.model.init_cache(
+        LM_MESH_B, LM_MESH_SEQ), LM_MESH_SEQ_FILL, g))
+    tp = cell.place_params()
+    weights = tensor_bytes(cell.model.state_dict())
+    fsdp = tp.placed(cell.model.layers[0].moe.w_gate).split_dim("data") == 1
+    assert fsdp == (weights / mesh.shape["model"] > 8 * 2**30), weights
+    nxt = torch.randint(0, cell.cfg.vocab, (LM_MESH_B, 1), generator=g,
+                        device=dev)
+    return cell, tp, cache, nxt, weights, fsdp
+
+
+def lm_split_moe(torch, dev, mesh, card: str) -> dict:
+    """(d): phi3.5-moe decode (depth ``LM_SPLIT_MOE[1]``, published width,
+    b = ``LM_MESH_B``, experts over ``model``; the model shard is over 8
+    GiB in both dtypes, so ``data`` stays: TP × FSDP). bf16, timed:
+    ``LM_SPLIT_MOE_STEPS`` steps, each from one cache state, of the
+    unsplit cell, the split cell (from the same index) and the mesh-less
+    step on a copy; bf16 routing flips on one ulp, so these steps are
+    counted, not checked, and the split experts are held to fp32 on one
+    input by ``moe_error_ratio``. fp32, the check (as phase 14 (b) holds
+    its MoE decode): as many split and mesh-less steps from one cache
+    state, each held to ``MESH_DECODE_TOL`` and its greedy tokens up to
+    near ties where every layer routed every token alike; a run where no
+    step did fails."""
+    arch, layers = LM_SPLIT_MOE
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cell, tp, cache, nxt, weights, fsdp = split_moe_cell(
+        torch, dev, mesh, "bfloat16")
+    routes = routing_record(torch)
+    ms = {p: [] for p in ("split", "unsplit", "mesh_less")}
+    bf16_flips, gap = 0, 0.0
+    for step in range(LM_SPLIT_MOE_STEPS):
+        plain = whole_copy(torch, cache)
+        idx = cache["index"]
+        with routes:
+            (lu, _), t_u = timed(torch, lambda: decode_as(
+                torch, cell, tp, "unsplit", nxt, cache))
+            cache["index"] = idx
+            (ls, _), t_s = timed(torch, lambda: decode_as(
+                torch, cell, tp, "split", nxt, cache))
+            (lp, _), t_p = timed(torch, lambda: decode_as(
+                torch, cell, tp, "mesh_less", nxt, plain))
+        for path, t in (("split", t_s), ("unsplit", t_u),
+                        ("mesh_less", t_p)):
+            ms[path].append(t)
+        calls = routes.take()
+        n = len(calls) // 3
+        assert torch.isfinite(ls.float()).all()
+        bf16_flips += not all(torch.equal(a, b) for a, b in zip(
+            calls[n:2 * n], calls[2 * n:]))
+        gap = max(gap, float((ls.float() - lp.float()).abs().max()))
+        nxt = lp.argmax(-1)[:, None]
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    res_ffn = moe_error_ratio(torch, cell, tp, g)
+    tp.moved.clear()
+    _, split_ops, _ = dispatch_counts(torch, lambda: decode_as(
+        torch, cell, tp, "split", nxt, cache))
+    p50 = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    res = {"arch": arch, "layers": layers, "b": LM_MESH_B,
+           "weights_gb": weights / 1e9,
+           "specs": "TP x FSDP" if fsdp else "TP",
+           **{f"{p}_p50_ms": p50(v) for p, v in ms.items()},
+           "split_ops": split_ops, "moved_bytes": tp.bytes_by_kind(),
+           "bf16_max_abs_diff": gap, "bf16_routing_flips": bf16_flips,
+           **res_ffn,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    del cell, tp, cache, plain, nxt, ls, lp, lu
+    released(torch, base, "(d) split MoE, bf16")
+
+    torch.cuda.reset_peak_memory_stats()
+    cell, tp, cache, nxt, weights, fsdp = split_moe_cell(
+        torch, dev, mesh, "float32")
+    worst, differ, flips = 0.0, 0, 0
+    for step in range(LM_SPLIT_MOE_STEPS):
+        plain = whole_copy(torch, cache)
+        with routes:
+            ls = decode_as(torch, cell, tp, "split", nxt, cache)[0]
+            lp = decode_as(torch, cell, tp, "mesh_less", nxt, plain)[0]
+        calls = routes.take()
+        n = len(calls) // 2
+        assert torch.isfinite(ls).all()
+        nxt = lp.argmax(-1)[:, None]
+        diff = [i for i, (a, b) in enumerate(zip(calls[:n], calls[n:]))
+                if not torch.equal(a, b)]
+        if diff:
+            flips += 1
+            log(f"[lmsplit] (d) fp32 step {step}: the routing differs from "
+                f"layer {diff[0]} on ({len(diff)} of {n} layers), "
+                f"max|diff| {float((ls - lp).abs().max()):.3e}, not held "
+                "to the tolerance")
+            continue
+        torch.testing.assert_close(ls, lp, **MESH_DECODE_TOL)
+        worst = max(worst, float((ls - lp).abs().max()))
+        differ += check_tokens(torch, ls, lp, f"(d) fp32 step {step}")
+    assert flips < LM_SPLIT_MOE_STEPS, "(d): no fp32 step routed alike"
+    res.update({"fp32_weights_gb": weights / 1e9,
+                "fp32_specs": "TP x FSDP" if fsdp else "TP",
+                "max_abs_diff": worst,
+                "tokens_differ": differ, "routing_flips": flips,
+                "fp32_peak_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2**30})
+    log(f"[lmsplit] (d) {arch} decode (L={layers} of 32, b={LM_MESH_B}, "
+        f"cache {LM_MESH_SEQ} filled to {LM_MESH_SEQ_FILL}, experts over "
+        f"model) on {mesh.shape}: fp32 ({res['fp32_weights_gb']:.2f} GB, "
+        f"{res['fp32_specs']}) {flips} of {LM_SPLIT_MOE_STEPS} steps routed "
+        f"differently, the others within {MESH_DECODE_TOL}: "
+        f"max|split-mesh-less| {worst:.3e}, {differ} greedy tokens differ "
+        f"| bf16 ({res['weights_gb']:.2f} GB, {res['specs']}): layer 0's "
+        f"experts on one hidden state vs fp32: split "
+        f"{res['ffn_err']:.3e}, mesh-less {res['ffn_err_mesh_less']:.3e} "
+        f"(relative norm); {bf16_flips} of {LM_SPLIT_MOE_STEPS} steps "
+        f"routed differently (max|split-mesh-less| {gap:.3e}, not "
+        f"checked) | bf16 ms/token p50 split {res['split_p50_ms']:.2f}, "
+        f"unsplit {res['unsplit_p50_ms']:.2f}, mesh-less "
+        f"{res['mesh_less_p50_ms']:.2f} | {split_ops} ATen ops a split "
+        f"step | bytes between positions a step {res['moved_bytes']} | "
+        f"peak bf16 {res['peak_gib']:.2f} GiB, fp32 "
+        f"{res['fp32_peak_gib']:.2f} | {card}")
+    del cell, cache, plain, tp, nxt, ls, lp
+    released(torch, base, "(d) split MoE, fp32")
+    return res
+
+
+def lm_split_small(torch, dev, mesh, arch: str) -> tuple[float, float]:
+    """(e): the arch's ``reduced()`` fp32 prefill and decode cells, placed,
+    on the card's mesh and on a CPU mesh of the same shape with the same
+    weights: a prefill of ``LM_MESH_SMALL['prompt']`` rows, then 6 decode
+    steps from a prefill into 16 slots. Returns (max |card - CPU|, max
+    |split - mesh-less| on the card)."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.steps import build_cell
+
+    c = LM_MESH_SMALL
+    cpu = torch.device("cpu")
+    host_mesh = make_mesh(mesh.devices.shape, mesh.axis_names, "cpu")
+    cells = {}
+    with lm_cell_config(arch, reduced=True), lm_cell_shape(
+            "prefill_32k", c["prompt"], LM_MESH_B), lm_cell_shape(
+            "decode_32k", c["s_max"], LM_MESH_B):
+        for kind in ("prefill_32k", "decode_32k"):
+            cells[kind] = (build_cell(arch, kind, host_mesh),
+                           build_cell(arch, kind, mesh))
+    state = None
+    for host, card in cells.values():
+        if state is None:
+            host.model.init(torch.Generator().manual_seed(SEED))
+            state = host.model.state_dict()
+        host.model.load_state_dict(state)
+        card.model.load_state_dict(state)
+        host.place_params()
+        card.place_params()
+    cfg = cells["prefill_32k"][0].cfg
+    g = torch.Generator().manual_seed(SEED + 6)
+    n_tok = c["prompt"] - (c["patches"] if cfg.family == "vlm" else 0)
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (LM_MESH_B, n_tok),
+                                      generator=g)}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.randn((LM_MESH_B, c["frames"], cfg.d_model),
+                                       generator=g) * 0.1
+    if cfg.family == "vlm":
+        inputs["patch_embeds"] = torch.randn(
+            (LM_MESH_B, c["patches"], cfg.d_model), generator=g) * 0.02
+    on = {k: v.to(dev) for k, v in inputs.items()}
+    vs_cpu = vs_plain = 0.0
+
+    def check(got, host_l, plain_l):
+        nonlocal vs_cpu, vs_plain
+        torch.testing.assert_close(got.cpu(), host_l, **CPU_TOL)
+        torch.testing.assert_close(got, plain_l, **MESH_DECODE_TOL)
+        vs_cpu = max(vs_cpu, float((got.cpu() - host_l).abs().max()))
+        vs_plain = max(vs_plain, float((got - plain_l).abs().max()))
+
+    host, card = cells["prefill_32k"]
+    lh, _ = host.prefill_fn()(inputs)
+    lc, _ = card.prefill_fn()(on)
+    with cell_path(card, card.tp, "mesh_less"):
+        lp, _ = card.prefill_fn()(on)
+    check(lc, lh, lp)
+
+    host, card = cells["decode_32k"]
+
+    def prefill(model, x):
+        b = LM_MESH_B
+        if cfg.family == "encdec":
+            return model.prefill(x["tokens"], x["frames"], model.init_cache(
+                b, c["s_max"], c["frames"]))
+        cache = model.init_cache(b, c["s_max"])
+        if cfg.family == "vlm":
+            return model.prefill(x["tokens"], cache,
+                                 patch_embeds=x["patch_embeds"])
+        return model.prefill(x["tokens"], cache)
+
+    lh, ch = prefill(host.model, inputs)
+    lc, cc = prefill(card.model, on)
+    plain = whole_copy(torch, cc)
+    for _ in range(c["steps"]):
+        nxt = lh.argmax(-1)[:, None]
+        lh, ch = host.decode_fn()({"tokens": nxt, "cache": ch})
+        lc, cc = decode_as(torch, card, card.tp, "split", nxt.to(dev), cc)
+        lp, plain = decode_as(torch, card, card.tp, "mesh_less",
+                              nxt.to(dev), plain)
+        check(lc, lh, lp)
+    return vs_cpu, vs_plain
+
+
+def run_lm_split(torch, dev, card: str, early: dict) -> dict:
+    """Phase 16: split weights (see the docstring). ``early`` holds (a)
+    and (b), run inside phase 14 on its llama3-8b cells. Numbers also go
+    to ``chiprun_out/lm_phase16.json``."""
+    t_phase = time.perf_counter()
+    mesh = lm_mesh(torch, dev)
+    assert set(early) == {"bfloat16", "float32"}, early.keys()
+    log(f"[lmsplit] phase 16 on a {mesh.shape} mesh of {mesh.size} "
+        f"positions on {mesh.first_device}; (a) and (b) ran on phase 14 "
+        f"(a)'s cells and caches before they were freed; cuts: (c) "
+        f"prefill_32k b=32, s=32,768 -> b={LM_MESH_B}, s={LM_SPLIT_PROMPT}; "
+        f"(d) {LM_SPLIT_MOE[0]} depth {LM_SPLIT_MOE[1]}/32, decode_32k b="
+        f"128 -> {LM_MESH_B}, cache {LM_MESH_SEQ} slots; (e) reduced() "
+        "configs")
+    res = {"card": card, "decode": early,
+           "prefill": lm_split_prefill(torch, dev, mesh, card),
+           "moe": lm_split_moe(torch, dev, mesh, card)}
+    res["small"] = {a: lm_split_small(torch, dev, mesh, a)
+                    for a in LM_SPLIT_ARCHS}
+    log(f"[lmsplit] (e) reduced fp32 prefill and decode cells, placed: "
+        f"max|card-CPU| within {CPU_TOL}, max|split-mesh-less| on the "
+        f"card within {MESH_DECODE_TOL}: "
+        f"{ {a: (float(f'{x:.2e}'), float(f'{y:.2e}')) for a, (x, y) in res['small'].items()} } | {card}")
+    res["seconds"] = time.perf_counter() - t_phase
+    path = ROOT / "chiprun_out" / "lm_phase16.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(res, indent=1))
+    log(f"[lmsplit] phase 16 took {res['seconds']:.1f} s (and (a), (b) "
+        f"{sum(early[d]['seconds'] for d in early):.1f} s inside phase 14) "
+        f"| {card}")
+    return res
+
 
 
 def main() -> int:
@@ -5243,12 +5888,17 @@ def main() -> int:
 
     # 14. the LM mesh and the cell builder: sequence-parallel decode on
     # four positions of the card, the train cell, meta traces (no hand
-    # kernel)
-    run_lm_mesh(torch, dev, card)
+    # kernel); phase 16's (a) and (b) run on its llama3-8b cells
+    split = {}
+    run_lm_mesh(torch, dev, card, split)
 
     # 15. the analysis and the dry run: roofline records of six cells
     # from meta traces (host work, no hand kernel)
     run_dryrun(torch, card)
+
+    # 16. split weights: serving cells with their parameters placed by
+    # their specs on four positions of the card (no hand kernel)
+    run_lm_split(torch, dev, card, split)
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

@@ -12,8 +12,10 @@ is ``with_sharding_constraint``, which changes no value; the port's
 resolves the logical axes through the policy's rules, raises where the
 reference's constraint could not be built (a rank that differs, a mesh
 axis the mesh lacks) and returns ``x`` itself. The dense arithmetic of an
-LM runs whole on the mesh's first device; the per-position work is the
-sequence-split flash decode (``models/lm/layers.flash_decode_sharded``).
+LM runs whole on the mesh's first device unless its cell's parameters
+are placed (``Cell.place_params``, ``tensor_parallel``); the decode's
+per-position work is the sequence-split flash decode
+(``models/lm/layers.flash_decode_sharded``).
 The reference stacks a group's layers along a leading scan dimension; the
 port keeps one leaf a layer (``layers/3/attn/wq``), so a port parameter
 spec is the reference's for that leaf without its leading ``None``.
@@ -46,7 +48,8 @@ from .mesh import Mesh
 __all__ = ["P", "NamedSharding", "Placed", "place", "place_tree",
            "to_named", "mesh_batch_axes", "ctr_param_specs", "batch_specs",
            "drop_axis", "fit_spec", "fit_spec_tree", "input_shardings",
-           "data_groups", "tree_map", "LOGICAL_RULES", "LOGICAL_RULES_FSDP",
+           "data_groups", "axis_line", "tree_map", "LOGICAL_RULES",
+           "LOGICAL_RULES_FSDP",
            "make_shard_fn", "fsdp_param_specs", "param_specs",
            "cache_specs"]
 
@@ -188,6 +191,34 @@ class Placed:
                       NamedSharding(self.mesh, P(*self.sharding.spec[1:])),
                       local)
 
+    def split_dim(self, axis: str) -> int | None:
+        """The dim that mesh axis ``axis`` splits (None: replicated over
+        it, or an axis of size 1)."""
+        if self.mesh.shape.get(axis, 1) == 1:
+            return None
+        for dim in range(self.ndim):
+            if axis in self.sharding._split(self.ndim)[dim]:
+                return dim
+        return None
+
+    def gather(self, pos: tuple[int, ...], axis: str) -> torch.Tensor:
+        """Position ``pos``'s tensor with the split over ``axis`` undone:
+        the pieces of the positions along ``axis`` through ``pos``
+        (:func:`axis_line`), in axis order, joined on ``pos``'s device
+        (the all-gather). A value ``axis`` does not split is ``pos``'s
+        own tensor."""
+        dim = self.split_dim(axis)
+        if dim is None:
+            return self.local(pos)
+        if len(self.sharding._split(self.ndim)[dim]) > 1:
+            raise NotImplementedError(
+                f"dim {dim} of {self} is split over more axes than "
+                f"{axis!r}")
+        dev = self.mesh.devices[tuple(pos)]
+        return torch.cat([self.local(q).to(dev)
+                          for q in axis_line(self.mesh, pos, axis)],
+                         dim=dim)
+
     def full(self, device: torch.device | str | None = None
              ) -> torch.Tensor:
         """The whole value on ``device`` (the mesh's first device by
@@ -208,13 +239,15 @@ class Placed:
                 f"spec={self.sharding.spec}, mesh={self.mesh.shape})")
 
 
-def place(x: torch.Tensor | Placed, mesh: Mesh, spec: P) -> Placed:
+def place(x: torch.Tensor | Placed, mesh: Mesh, spec: P, *,
+          contiguous: bool = True) -> Placed:
     """``x`` laid out over ``mesh`` per ``spec`` (every split dim must
     divide; :func:`fit_spec` drops the axes that do not). A slice bound for
     ``x``'s own device is a view of ``x`` (made contiguous when a column
-    split needs it); a slice bound for another device is copied there once,
-    whatever the number of positions on that device. An ``x`` already
-    placed that way is returned as it is."""
+    split needs it, unless ``contiguous`` is False: weights a GEMM reads
+    through their strides stay views); a slice bound for another device is
+    copied there once, whatever the number of positions on that device. An
+    ``x`` already placed that way is returned as it is."""
     sharding = NamedSharding(mesh, P(*spec))
     if isinstance(x, Placed):
         if x.sharding.is_equivalent_to(sharding, x.ndim):
@@ -240,7 +273,7 @@ def place(x: torch.Tensor | Placed, mesh: Mesh, spec: P) -> Placed:
             piece = x if whole else x[sl]
             if piece.device != dev:
                 piece = piece.to(dev)
-            elif not piece.is_contiguous():
+            elif contiguous and not piece.is_contiguous():
                 piece = piece.contiguous()
             made[key] = piece
         local[pos] = made[key]
@@ -355,6 +388,15 @@ def data_groups(mesh: Mesh, model_axis: str | None = "model",
             i = i * mesh.shape[a] + named[a]
         groups[i][named[model] if model else 0] = pos
     return groups
+
+
+def axis_line(mesh: Mesh, pos: tuple[int, ...], axis: str
+              ) -> list[tuple[int, ...]]:
+    """The positions that differ from ``pos`` only along ``axis``, in
+    axis order (``pos`` among them)."""
+    i = mesh.axis_names.index(axis)
+    return [tuple(pos[:i]) + (k,) + tuple(pos[i + 1:])
+            for k in range(mesh.shape[axis])]
 
 
 # ---------------------------------------------------------------------------

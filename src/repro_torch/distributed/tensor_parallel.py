@@ -1,0 +1,445 @@
+"""LM weights split over a mesh for serving: the tensor-parallel step.
+
+Port-only. In the reference this work is XLA's partitioner's: its
+``Cell.lower()`` hands the compiled step its parameters under
+``in_shardings=named(cell.pspecs)`` (``repro.launch.steps``), and GSPMD
+derives each position's share of every GEMM and the collectives between
+them. The port's single controller issues that work itself, position by
+position, over the parameter tree placed by ``Cell.place_params``
+(:class:`TensorParallel`):
+
+* The residual stream lives once per batch shard, on that row's first
+  position (:class:`Rows`, rows from ``sharding.data_groups``): the rules
+  leave ``embed`` whole, so norms, RoPE on whole heads and residual adds
+  run there.
+* Column-parallel weights (``model`` on the output dim: ``attn/w[qkv]``,
+  ``mlp/w_(gate|up|in)``, ``mlp/b_in``, ``lm_head``): the row's
+  activation goes to each model position of the row, which multiplies by
+  its own columns (:meth:`TensorParallel.col_linear`, a :class:`Cols`).
+* Row-parallel weights (``model`` on the input dim: ``attn/wo``,
+  ``mlp/w_(down|out)``): each position multiplies its slice of the
+  activation; the partial sums go to the row's first position and add in
+  model order 0…m−1 (the all-reduce); a bias is added once, after the sum
+  (:meth:`TensorParallel.row_linear`).
+* FSDP (``data`` on a weight's other dim): before its GEMM a position
+  gathers its model column's pieces over the data axis, in data order
+  (the all-gather, ``Placed.gather``); positions on one device share the
+  gathered tensor, which is dropped when the step reaches the next layer
+  and at the head (:meth:`TensorParallel.weight`).
+* The vocab-parallel embedding (each model position looks up the ids in
+  its vocab range, zeros elsewhere, and the partials sum in model order:
+  bitwise the whole gather) and head (each model position's logits
+  columns, joined in order) (:meth:`TensorParallel.embed`,
+  :meth:`TensorParallel.head`).
+
+The attention and MoE layouts built on these are in
+``models/lm/layers.py`` (``_qkv_split``, ``flash_decode_sharded``) and
+``models/lm/moe.py`` (``_moe_split``).
+
+Every copy between positions goes through :meth:`TensorParallel.send`:
+counted in ``moved`` by (kind, position), under its source and its
+destination, then moved to the destination's device (free between
+positions of one device, and counted all the same). The kinds are
+``KINDS``: ``tp_reduce`` (an activation to the row's model positions and
+the partial sums back), ``fsdp_gather``, ``vocab`` (token ids, embedding
+partials, logits columns and rows), ``heads`` (q/k/v and attention
+outputs moved so that attention sees whole heads, and k/v to a prefill's
+cache), ``moe_tokens`` (tokens and dispatched buffers to the experts'
+positions) and ``merge`` (the sequence-parallel decode's traffic).
+"""
+
+from __future__ import annotations
+
+import re
+from collections import Counter
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+from .mesh import Mesh
+from .sharding import (Placed, _axes, axis_line, data_groups, place,
+                       tree_map)
+
+__all__ = ["KINDS", "TensorParallel", "Rows", "Cols"]
+
+KINDS = ("tp_reduce", "fsdp_gather", "vocab", "heads", "moe_tokens",
+         "merge")
+
+#: a leaf's layer: the stacked groups of ``tensor_tree()`` paths
+_LAYER = re.compile(r"^((?:layers|encoder|decoder)/\d+)/")
+
+
+def _paths(tree: Any, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, tree
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class TensorParallel:
+    """A model's parameter tree placed over ``mesh`` by ``specs`` (views on
+    the weights' own device, one copy on each other device) and the
+    per-position work of a split step.
+
+    ``batch_axes`` (a mesh axis, a tuple of them, or None) split the
+    batch: ``rows[i][j]`` is the position of batch shard ``i`` and model
+    shard ``j``. ``moved`` counts the bytes copied between positions by
+    ``(kind, position)``; it grows until the caller clears it.
+    """
+
+    def __init__(self, mesh: Mesh, tree: Any, specs: Any, batch_axes):
+        self.mesh = mesh
+        self.batch_axes = batch_axes
+        self.rows = data_groups(mesh, batch_axes=_axes(batch_axes))
+        self.n_model = mesh.shape.get("model", 1)
+        self.moved: Counter = Counter()
+        # column splits stay views: the GEMMs read them through strides
+        self.tree = tree_map(lambda x, s: place(x, mesh, s,
+                                                contiguous=False),
+                             tree, specs)
+        self._by_id = {id(t): (path, pl) for (path, t), (_, pl) in
+                       zip(_paths(tree), _paths(self.tree))}
+        self._gathered: dict = {}
+        self._counted: set = set()
+        self._layer: str | None = None
+
+    # -- counting -----------------------------------------------------------
+    def send(self, kind: str, t: torch.Tensor, src: tuple,
+             dst: tuple) -> torch.Tensor:
+        """``t`` from position ``src`` to ``dst``: counted (unless they are
+        one position) and moved to ``dst``'s device."""
+        if src != dst:
+            n = _nbytes(t)
+            self.moved[kind, src] += n
+            self.moved[kind, dst] += n
+        return t.to(self.mesh.devices[dst])
+
+    def bytes_by_kind(self) -> dict[str, int]:
+        """The bytes copied between positions by kind, each copy once."""
+        out = dict.fromkeys(KINDS, 0)
+        for (kind, _), n in self.moved.items():
+            out[kind] += n
+        return {k: n // 2 for k, n in out.items()}
+
+    def by_position(self, kind: str | None = None) -> Counter:
+        """Bytes each position sent and received (of one kind, or all)."""
+        out: Counter = Counter()
+        for (k, pos), n in self.moved.items():
+            if kind is None or k == kind:
+                out[pos] += n
+        return out
+
+    # -- weights ------------------------------------------------------------
+    def placed(self, t: torch.Tensor) -> Placed:
+        try:
+            return self._by_id[id(t)][1]
+        except KeyError:
+            raise KeyError("not a parameter of the placed model") from None
+
+    def model_dim(self, t: torch.Tensor) -> int | None:
+        """The dim of parameter ``t`` that the ``model`` axis splits."""
+        return self.placed(t).split_dim("model")
+
+    def model_range(self, t: torch.Tensor, j: int) -> tuple[int, int]:
+        """Model shard ``j``'s range of ``t``'s model-split dim."""
+        pl = self.placed(t)
+        n = pl.shape[pl.split_dim("model")]
+        return j * n // self.n_model, (j + 1) * n // self.n_model
+
+    def weight(self, t: torch.Tensor, pos: tuple, *,
+               gather: bool = True) -> torch.Tensor:
+        """What position ``pos`` multiplies by for parameter ``t``: its
+        local piece, with the ``data`` split gathered (``gather``; each
+        position counted once a layer, one tensor a device). Moving to a
+        leaf of another layer, or :meth:`release`, drops the gathered
+        tensors."""
+        path, pl = self._by_id[id(t)]
+        m = _LAYER.match(path)
+        layer = m.group(1) if m else ""
+        if layer != self._layer:
+            self.release()
+            self._layer = layer
+        if not gather or pl.split_dim("data") is None:
+            return pl.local(pos)
+        if (id(pl), pos) not in self._counted:
+            self._counted.add((id(pl), pos))
+            for q in axis_line(self.mesh, pos, "data"):
+                if q != pos:
+                    n = _nbytes(pl.local(q))
+                    self.moved["fsdp_gather", q] += n
+                    self.moved["fsdp_gather", pos] += n
+        names = self.mesh.axis_names
+        dev = self.mesh.devices[pos]
+        key = (id(pl), dev) + tuple(
+            0 if a == "data" or pl.split_dim(a) is None else pos[k]
+            for k, a in enumerate(names))
+        if key not in self._gathered:
+            self._gathered[key] = pl.gather(pos, "data")
+        return self._gathered[key]
+
+    def release(self) -> None:
+        """Drop the gathered weights."""
+        self._gathered.clear()
+        self._counted.clear()
+        self._layer = None
+
+    def local(self, t: Any, pos: tuple) -> Any:
+        """``t`` as position ``pos`` uses it: a parameter's
+        :meth:`weight`; another tensor (a derived table such as RoPE's, a
+        position index) on ``pos``'s device, as each device would make
+        it; anything else as it is."""
+        if not torch.is_tensor(t):
+            return t
+        if id(t) in self._by_id:
+            return self.weight(t, pos)
+        return t.to(self.mesh.devices[pos])
+
+    # -- activations --------------------------------------------------------
+    def split_rows(self, x: torch.Tensor) -> "Rows":
+        """A step input's batch rows on their rows' first positions (its
+        placement by the cell's input specs, not a copy between
+        positions)."""
+        n = len(self.rows)
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                             f"{n} batch shards")
+        b = x.shape[0] // n
+        return Rows(self, [x[i * b:(i + 1) * b].to(
+            self.mesh.devices[row[0]]) for i, row in enumerate(self.rows)])
+
+    def col_linear(self, x: "Rows", t: torch.Tensor,
+                   bias: torch.Tensor | None = None, *,
+                   transposed: bool = False) -> "Cols":
+        """``x @ t (+ bias)`` with ``t``'s output dim over the model
+        positions of each row (``t.T`` when ``transposed``, a tied head);
+        a weight the model axis does not split multiplies whole on the
+        row's first position."""
+        out_dim = 0 if transposed else 1
+        mdim = self.model_dim(t)
+        if mdim is not None and mdim != out_dim:
+            raise ValueError("col_linear on a row-parallel weight")
+        pieces = []
+        for i, row in enumerate(self.rows):
+            sites = row if mdim is not None else row[:1]
+            out = []
+            for j, pos in enumerate(sites):
+                w = self.weight(t, pos)
+                y = x.at(i, j) @ (w.T if transposed else w)
+                if bias is not None:
+                    y = y + self.weight(bias, pos)
+                lo, hi = (self.model_range(t, j) if mdim is not None
+                          else (0, self.placed(t).shape[out_dim]))
+                out.append((pos, lo, hi, y))
+            pieces.append(out)
+        return Cols(self, pieces)
+
+    def row_linear(self, h: "Cols | Rows", t: torch.Tensor,
+                   bias: torch.Tensor | None = None,
+                   kind: str = "heads") -> "Rows":
+        """``h @ t (+ bias)`` with ``t``'s input dim over the model
+        positions of each row: each multiplies its columns of ``h``, the
+        partials add on the row's first position in model order, then the
+        bias. Columns of ``h`` not where ``t``'s rows are go there first
+        (counted as ``kind``); a weight the model axis does not split
+        multiplies whole on the row's first position."""
+        if isinstance(h, Rows):
+            h = Cols.of_rows(h)
+        mdim = self.model_dim(t)
+        if mdim not in (None, 0):
+            raise ValueError("row_linear on a column-parallel weight")
+        parts = []
+        for i, row in enumerate(self.rows):
+            home = row[0]
+            if mdim is None:
+                hw = h.row_at(i, home, kind)
+                acc = hw @ self.weight(t, home)
+            else:
+                ranges = [self.model_range(t, j) for j in range(len(row))]
+                have = h.pieces[i]
+                if [(p, lo, hi) for p, lo, hi, _ in have] != [
+                        (row[j], lo, hi) for j, (lo, hi) in
+                        enumerate(ranges)]:
+                    whole = h.row_at(i, home, kind)
+                    have = [(row[j], lo, hi, self.send(
+                        kind, whole[..., lo:hi], home, row[j]))
+                        for j, (lo, hi) in enumerate(ranges)]
+                acc = None
+                for j, (pos, _, _, hj) in enumerate(have):
+                    part = self.send("tp_reduce", hj @ self.weight(t, pos),
+                                     pos, home)
+                    acc = part if acc is None else acc + part
+            if bias is not None:
+                acc = acc + self.weight(bias, home)
+            parts.append(acc)
+        return Rows(self, parts)
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> "Rows":
+        """``table[tokens]`` (``layers.take_rows``), vocab-parallel: each
+        model position of a row looks up the ids in its vocab range and
+        zeros elsewhere, and the partials add on the row's first position
+        in model order. An id outside the table stays outside every
+        position's range, so the lookup raises (asserts on a card) as the
+        whole gather does."""
+        toks = self.split_rows(tokens)
+        vocab = self.placed(table).shape[0]
+        split = self.model_dim(table) == 0
+        parts = []
+        for i, row in enumerate(self.rows):
+            home = row[0]
+            ids = toks.parts[i]
+            if not split:
+                parts.append(F.embedding(ids, self.weight(table, home)))
+                continue
+            acc = None
+            for j, pos in enumerate(row):
+                lo, hi = self.model_range(table, j)
+                mine = self.send("vocab", ids, home, pos)
+                inside = (mine >= lo) & (mine < hi)
+                other = (mine >= 0) & (mine < vocab) & ~inside
+                rows_j = F.embedding(torch.where(other, 0, mine - lo),
+                                     self.weight(table, pos))
+                part = self.send("vocab", torch.where(
+                    inside[..., None], rows_j, 0), pos, home)
+                acc = part if acc is None else acc + part
+            parts.append(acc)
+        return Rows(self, parts)
+
+    def head(self, x: "Rows", w: torch.Tensor, *,
+             transposed: bool = False) -> torch.Tensor:
+        """``x @ w``, vocab-parallel: each model position's logits
+        columns join in order on its row's first position, the rows in
+        order on the mesh's first device; the gathered weights are then
+        released (the head ends a step)."""
+        out = self.col_linear(x, w, transposed=transposed).to_rows("vocab")
+        self.release()
+        return out.whole("vocab")
+
+
+class Rows:
+    """A batch-split activation: ``parts[i]`` is batch shard ``i``'s rows,
+    on its row's first position ``tp.rows[i][0]``. ``shape`` is the whole
+    value's; ``at(i, j)`` is part ``i`` on model position ``j`` of its
+    row, sent once (``tp_reduce``)."""
+
+    def __init__(self, tp: TensorParallel, parts: list[torch.Tensor]):
+        self.tp = tp
+        self.parts = list(parts)
+        self._at: dict = {}
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((sum(p.shape[0] for p in self.parts),
+                           *self.parts[0].shape[1:]))
+
+    @property
+    def ndim(self) -> int:
+        return self.parts[0].ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0].device
+
+    def map(self, fn: Callable, *args, **kwargs) -> "Rows":
+        """``fn`` on each part, with each :class:`Rows` argument's part
+        and each tensor as the row's first position uses it
+        (``TensorParallel.local``)."""
+        out = []
+        for i, part in enumerate(self.parts):
+            pos = self.tp.rows[i][0]
+            a = [x.parts[i] if isinstance(x, Rows) else self.tp.local(x, pos)
+                 for x in args]
+            out.append(fn(part, *a, **kwargs))
+        return Rows(self.tp, out)
+
+    def at(self, i: int, j: int) -> torch.Tensor:
+        if (i, j) not in self._at:
+            row = self.tp.rows[i]
+            self._at[i, j] = self.tp.send("tp_reduce", self.parts[i],
+                                          row[0], row[j])
+        return self._at[i, j]
+
+    def __add__(self, other) -> "Rows":
+        return self.map(lambda a, b: a + b, other)
+
+    def __getitem__(self, idx) -> "Rows":
+        return self.map(lambda a: a[idx])
+
+    def whole(self, kind: str) -> torch.Tensor:
+        """The value on the mesh's first device, rows joined in order."""
+        at0 = (0,) * self.tp.mesh.devices.ndim
+        return torch.cat([self.tp.send(kind, p, self.tp.rows[i][0], at0)
+                          for i, p in enumerate(self.parts)])
+
+
+class Cols:
+    """An activation split by columns: per batch row ``i``,
+    ``pieces[i]`` lists ``(position, lo, hi, tensor)`` in model order,
+    each tensor columns ``[lo, hi)`` of the row's value (columns of its
+    last dim, or heads of a (b, s, heads, hd) piece: ``dim`` is the dim
+    the pieces join along)."""
+
+    def __init__(self, tp: TensorParallel, pieces: list[list[tuple]],
+                 dim: int = -1):
+        self.tp = tp
+        self.pieces = pieces
+        self.dim = dim
+
+    @classmethod
+    def of_rows(cls, x: Rows) -> "Cols":
+        return cls(x.tp, [[(x.tp.rows[i][0], 0, p.shape[-1], p)]
+                          for i, p in enumerate(x.parts)])
+
+    def map(self, fn: Callable, *args, dim: int | None = None,
+            **kwargs) -> "Cols":
+        """``fn`` on each piece where it lies, with the same piece of each
+        :class:`Cols` argument and each tensor as that position uses it
+        (``TensorParallel.local``); ranges kept, ``dim`` the new joining
+        dim (default: this one's)."""
+        out = []
+        for i, row in enumerate(self.pieces):
+            out.append([(pos, lo, hi, fn(t, *(
+                a.pieces[i][k][3] if isinstance(a, Cols)
+                else self.tp.local(a, pos) for a in args), **kwargs))
+                for k, (pos, lo, hi, t) in enumerate(row)])
+        return Cols(self.tp, out, self.dim if dim is None else dim)
+
+    def gathered(self, kind: str) -> "Cols":
+        """Each row's pieces joined on the row's first position (one
+        piece a row, covering every column)."""
+        out = []
+        for i, row in enumerate(self.pieces):
+            home = self.tp.rows[i][0]
+            out.append([(home, row[0][1], row[-1][2],
+                         self.row_at(i, home, kind))])
+        return Cols(self.tp, out, self.dim)
+
+    def row_at(self, i: int, dst: tuple, kind: str) -> torch.Tensor:
+        """Row ``i`` whole on position ``dst``."""
+        parts = [self.tp.send(kind, t, pos, dst)
+                 for pos, _, _, t in self.pieces[i]]
+        return parts[0] if len(parts) == 1 else torch.cat(parts,
+                                                          dim=self.dim)
+
+    def to_rows(self, kind: str) -> Rows:
+        """Each row whole on its first position."""
+        return Rows(self.tp, [self.row_at(i, self.tp.rows[i][0], kind)
+                              for i in range(len(self.pieces))])
+
+    def whole(self, kind: str) -> torch.Tensor:
+        """The value on the mesh's first device."""
+        at0 = (0,) * self.tp.mesh.devices.ndim
+        return torch.cat([self.row_at(i, at0, kind)
+                          for i in range(len(self.pieces))])

@@ -11,14 +11,14 @@ tensors, so a step takes the inputs alone, or the ``TrainState`` over
 the model's ``param_tree()`` and the batch).
 
 On the port's single-controller mesh the spec trees are computed, fitted
-and held equal to the reference's, but the weights and the activations
-stay whole on the mesh's first device (the ``shard`` hook changes no
-value): the reference's weight partitioning is done by XLA's
-partitioner, not by code the port could carry over, and positions that
-share a card would save no memory by it. What runs per position is the
-reference's own ``shard_map``: the decode cell places its KV caches by
-``cache_specs`` (batch over the batch axes, sequence over ``model``) and
-attends through ``layers.flash_decode_sharded``.
+and held equal to the reference's. A cell's weights stay whole on the
+mesh's first device (the ``shard`` hook changes no value) until
+:meth:`Cell.place_params` splits a serving cell's parameters by
+``pspecs`` (``distributed.tensor_parallel``; the reference hands them to
+its compiled step as ``in_shardings``). What runs per position either
+way is the reference's own ``shard_map``: the decode cell places its KV
+caches by ``cache_specs`` (batch over the batch axes, sequence over
+``model``) and attends through ``layers.flash_decode_sharded``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import weakref
 from collections import Counter
 from typing import Any, Callable
 
-import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -40,6 +39,7 @@ from repro_torch.bridge import _leaves
 from repro_torch.configs import SHAPES, get_config, input_specs
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.mesh import Mesh, make_mesh
+from repro_torch.distributed.tensor_parallel import TensorParallel
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import make_lm_model
 from repro_torch.training.optimizer import (AdamWConfig, TrainState,
@@ -202,12 +202,9 @@ class Cell:
         self.inputs_sds = input_specs(arch, shape)
 
         if self.cell.kind == "decode" and self.cfg.family != "ssm":
-            baxes = shd.mesh_batch_axes(mesh)
-            nb = int(np.prod([mesh.shape[a] for a in baxes]))
-            b_ax = (baxes if len(baxes) > 1 else baxes[0]) \
-                if self.cell.batch % max(nb, 1) == 0 else None
             self.model.decode_ctx = L.DecodeShardCtx(
-                mesh=mesh, batch_axes=b_ax, seq_axis="model")
+                mesh=mesh, batch_axes=self._batch_split(
+                    shd.mesh_batch_axes(mesh)), seq_axis="model")
 
         meta = self.model if self.device.type == "meta" \
             else make_lm_model(self.cfg, device="meta")
@@ -264,6 +261,15 @@ class Cell:
         return TrainState(step=shd.P(), params=self.pspecs,
                           m=self.pspecs, v=self.pspecs)
 
+    def _batch_split(self, baxes: tuple[str, ...]):
+        """The batch's split over ``baxes`` as a spec entry (one axis or
+        the tuple), or None where there are none or the cell's batch does
+        not divide over them (the reference's rule, steps.py:55-60)."""
+        nb = math.prod(self.mesh.shape[a] for a in baxes)
+        if not baxes or self.cell.batch % nb:
+            return None
+        return baxes if len(baxes) > 1 else baxes[0]
+
     def _batch_axes(self) -> tuple[str, ...]:
         if self.policy == "fsdp":
             return tuple(a for a in ("data", "model")
@@ -297,6 +303,41 @@ class Cell:
             _place_kv_leaves(cache, self.input_shardspecs(
                 {"cache": cache})["cache"], self.mesh)
         return cache
+
+    def place_params(self) -> TensorParallel:
+        """Split this serving cell's parameters over its mesh by
+        ``pspecs`` and run ``prefill_fn()`` and ``decode_fn()`` on the
+        split weights from now on (port-only; the reference's
+        ``jax.jit(step, in_shardings=(named(pspecs), ...))``).
+
+        ``model.tensor_tree()`` is placed with ``place_tree``: a position
+        on the weights' own device gets views, each other device one copy
+        however many positions share it, taken now (place the parameters
+        after they are loaded); the placed tree is the model's ``tp``
+        (``distributed.tensor_parallel.TensorParallel``), whose ``moved``
+        counts the copies between positions. Raises
+        ``NotImplementedError`` for a train cell (ROADMAP A6c) and for the
+        ``ssm`` and ``hybrid`` families (A6b)."""
+        if self.cell.kind == "train":
+            raise NotImplementedError(
+                "a train cell's parameters are not split yet: FSDP "
+                "gathers in the backward, gradients reduced to their "
+                "shards and placed optimizer state (ROADMAP A6c)")
+        if self.cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"the {self.cfg.family} family's layout over the model "
+                "axis (heads, u, conv_w, ln_y and their state caches) is "
+                "not split yet (ROADMAP A6b)")
+        b_ax = self.decode_ctx.batch_axes if self.decode_ctx is not None \
+            else self._batch_split(self._batch_axes())
+        self.model.tp = TensorParallel(self.mesh, self.model.tensor_tree(),
+                                       self.pspecs, b_ax)
+        return self.model.tp
+
+    @property
+    def tp(self) -> TensorParallel | None:
+        """The placed parameters (:meth:`place_params`), or None."""
+        return getattr(self.model, "tp", None)
 
     # -- step functions -----------------------------------------------------------
     def train_step_fn(self) -> Callable:

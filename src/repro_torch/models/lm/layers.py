@@ -47,13 +47,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import _as_lists, _leaves
+from repro_torch.distributed.tensor_parallel import Cols, Rows
 
 __all__ = ["AttnDims", "Attention", "SwiGLU", "GeluMLP", "LMParams",
            "rms_norm", "rope_freqs", "apply_rope", "attention",
            "attention_decode", "flash_attention", "swiglu", "gelu_mlp",
            "next_token_loss", "chunked_ce_loss", "remat", "take_rows",
            "FLASH_THRESHOLD", "FLASH_CHUNK", "Shard", "no_shard",
-           "DecodeShardCtx", "flash_decode_sharded", "place_kv"]
+           "DecodeShardCtx", "flash_decode_sharded", "place_kv",
+           "cross_attention_decode", "whole"]
 
 Shard = Callable[[torch.Tensor, tuple], torch.Tensor]
 
@@ -136,6 +138,8 @@ class LMParams:
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    if isinstance(x, Rows):
+        return x.map(rms_norm, gamma, eps=eps)
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
@@ -211,6 +215,8 @@ class Attention(nn.Module):
 def _qkv(p: Attention, dims: AttnDims, x: torch.Tensor,
          positions: torch.Tensor, rope: bool = True, *,
          shard: Shard = no_shard):
+    if isinstance(x, Rows):
+        return _qkv_split(p, dims, x, positions, rope)
     b, s, _ = x.shape
     h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     q = (x @ p.wq).reshape(b, s, h, hd)
@@ -225,6 +231,75 @@ def _qkv(p: Attention, dims: AttnDims, x: torch.Tensor,
         q = apply_rope(q, positions, dims.rope_theta, freqs=p.freqs)
         k = apply_rope(k, positions, dims.rope_theta, freqs=p.freqs)
     return q, k, v
+
+
+def _qkv_cross(p: Attention, dims: AttnDims, x: torch.Tensor,
+               memory: torch.Tensor):
+    """Cross attention's q from ``x``, k/v from ``memory`` (no RoPE, no
+    qk-norm)."""
+    if isinstance(x, Rows):
+        return _qkv_split(p, dims, x, None, False, memory=memory)
+    b, s, _ = x.shape
+    h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    sm = memory.shape[1]
+    q = (x @ p.wq).reshape(b, s, h, hd)
+    k = (memory @ p.wk).reshape(b, sm, kv, hd)
+    v = (memory @ p.wv).reshape(b, sm, kv, hd)
+    return q, k, v
+
+
+def _qkv_split(p: Attention, dims: AttnDims, x: Rows, positions, rope: bool,
+               *, memory: Rows | None = None, assemble: bool = False):
+    """``_qkv`` (``_qkv_cross`` with ``memory``) on split weights: q, k, v
+    as :class:`Cols` of whole heads, (b, s, heads, hd) pieces.
+
+    The projections are column-parallel. Where the split falls on kv-group
+    boundaries (wq, wk and wv each split over the row's m model positions,
+    m dividing the kv heads) and ``assemble`` is False, each position keeps
+    its own heads: q heads [j·h/m, (j+1)·h/m) read kv heads [j·kv/m,
+    (j+1)·kv/m), the pairs ``_grouped`` makes. Otherwise every position's
+    columns go to the row's first position (``heads``), which then holds
+    whole heads. The per-head work (qk-norm, RoPE) runs where the heads
+    are."""
+    tp = x.tp
+    hd = dims.head_dim
+    q = tp.col_linear(x, p.wq)
+    k = tp.col_linear(x if memory is None else memory, p.wk)
+    v = tp.col_linear(x if memory is None else memory, p.wv)
+    per_head = (not assemble and dims.n_kv_heads % tp.n_model == 0
+                and all(tp.model_dim(w) == 1 for w in (p.wq, p.wk, p.wv)))
+    if not per_head:
+        q, k, v = (c.gathered("heads") for c in (q, k, v))
+    q, k, v = (c.map(lambda t: t.reshape(*t.shape[:2], -1, hd), dim=2)
+               for c in (q, k, v))
+    if memory is None and dims.qk_norm:
+        q = q.map(rms_norm, p.q_norm)
+        k = k.map(rms_norm, p.k_norm)
+    if rope:
+        q, k = (c.map(lambda t, pos, f: apply_rope(
+            t, pos, dims.rope_theta, freqs=f), positions, p.freqs)
+            for c in (q, k))
+    return q, k, v
+
+
+def _out(p: Attention, attn, shard: Shard = no_shard):
+    """Attention's (b, s, h, hd) output through ``wo``; on a split step,
+    row-parallel (``TensorParallel.row_linear``), the heads of each
+    position matching ``wo``'s rows there or sent there."""
+    flat = lambda t: t.reshape(*t.shape[:2], -1)   # noqa: E731
+    if isinstance(attn, Rows):
+        return attn.tp.row_linear(attn.map(flat), p.wo)
+    if isinstance(attn, Cols):
+        return attn.tp.row_linear(attn.map(flat, dim=-1), p.wo)
+    b, s = attn.shape[:2]
+    return shard(attn.reshape(b, s, -1) @ p.wo, ("batch", "seq", "embed"))
+
+
+def whole(t):
+    """A split step's activation (q/k/v heads for a prefill's cache)
+    assembled on the mesh's first device (``heads``); a tensor as it
+    is."""
+    return t.whole("heads") if isinstance(t, (Rows, Cols)) else t
 
 
 def _grouped(q: torch.Tensor, kv: int) -> torch.Tensor:
@@ -293,6 +368,8 @@ FLASH_CHUNK = 1024
 
 
 def _attend(q, k, v, *, causal: bool):
+    if isinstance(q, Cols):
+        return q.map(lambda a, b, c: _attend(a, b, c, causal=causal), k, v)
     if q.shape[1] >= FLASH_THRESHOLD or k.shape[1] >= FLASH_THRESHOLD:
         return flash_attention(q, k, v, causal=causal,
                                q_chunk=FLASH_CHUNK, k_chunk=FLASH_CHUNK)
@@ -305,22 +382,16 @@ def attention(p: Attention, dims: AttnDims, x: torch.Tensor, *,
               memory: torch.Tensor | None = None,
               rope: bool = True) -> torch.Tensor:
     """Full (prefill) attention; ``memory`` switches to cross-attention."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     if memory is None:
         q, k, v = _qkv(p, dims, x, positions, rope, shard=shard)
     else:
         # cross attention: q from x, k/v from memory (no rope on memory)
-        h, kv, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-        sm = memory.shape[1]
-        q = (x @ p.wq).reshape(b, s, h, hd)
-        k = (memory @ p.wk).reshape(b, sm, kv, hd)
-        v = (memory @ p.wv).reshape(b, sm, kv, hd)
+        q, k, v = _qkv_cross(p, dims, x, memory)
         causal = False
-    out = _attend(q, k, v, causal=causal)
-    out = out.reshape(b, s, dims.n_heads * dims.head_dim) @ p.wo
-    return shard(out, ("batch", "seq", "embed"))
+    return _out(p, _attend(q, k, v, causal=causal), shard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,81 +424,99 @@ def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
     owns it (``k_new`` None: no write, ``cache_index`` only bounds the
     visible slots).
 
-    q (b, 1, h, hd) whole on the mesh's first device; caches (b, S, kv,
-    hd), ``Placed`` as ``P(batch_axes, seq_axis, None, None)`` (a tensor
-    or another layout is placed so, a copy). Every (batch shard, sequence
-    shard) position takes its fp32 logits at the global slots, −1e30
-    past ``cache_index``, and its local max; the max over the sequence
-    shards gives each its unnormalised ``p``, ``l = Σp`` and ``o = p·v``
-    (p in ``v``'s dtype); ``l`` and ``o`` sum over the sequence shards
-    in shard order 0…n−1 on the first device and ``o / max(l, 1e-30)``
-    joins the batch shards in order there. A write at or past ``S``
-    raises ``IndexError`` (the reference drops it). Returns (out (b, 1,
-    h, hd), k_cache, v_cache), the caches ``Placed`` and written in
-    place.
+    q (b, 1, h, hd) whole on the mesh's first device, or a split step's
+    :class:`Rows` (each batch shard's rows on its row's first position;
+    ``k_new``/``v_new`` alike); caches (b, S, kv, hd), ``Placed`` as
+    ``P(batch_axes, seq_axis, None, None)`` (a tensor or another layout is
+    placed so, a copy). Every (batch shard, sequence shard) position takes
+    its fp32 logits at the global slots, −1e30 past ``cache_index``, and
+    its local max; within each batch row, as the reference's ``pmax`` and
+    ``psum`` over the sequence axis do, the row's first position takes
+    the max over the row's sequence shards, each position its
+    unnormalised ``p``, ``l = Σp`` and ``o = p·v`` (p in ``v``'s dtype),
+    and ``l`` and ``o`` sum in shard order 0…n−1 on the row's first
+    position, where ``o / max(l, 1e-30)`` stays (a :class:`Rows`) or, for
+    a whole ``q``, joins the other rows in order on the mesh's first
+    device. A write at or past ``S`` raises ``IndexError`` (the reference
+    drops it). Returns (out, k_cache, v_cache), the caches ``Placed`` and
+    written in place.
 
-    Every copy between positions goes into ``ctx.moved``: the new k/v
+    Every copy between positions goes into ``ctx.moved`` (and, for a
+    :class:`Rows`, its ``TensorParallel``'s ``merge`` count): the new k/v
     rows to the position that owns the slot, ``qi`` to each position of
-    its batch shard, each local max to the first position and the
-    global max back, ``l`` and ``o`` to the first position.
+    its row, each local max to the row's first position and the row's
+    max back, ``l`` and ``o`` to the row's first position, and, for a
+    whole ``q``, each row's output to the first device.
     """
     from repro_torch.distributed.sharding import P, _axes, data_groups, place
 
     mesh, ax = ctx.mesh, ctx.seq_axis
+    split = isinstance(q, Rows)
+
+    def send(t, src, dst):
+        ctx.send(t, src, dst)
+        if split:
+            return q.tp.send("merge", t, src, dst)
+        return t.to(mesh.devices[dst])
+
     spec = P(ctx.batch_axes, ax, None, None)
     kc, vc = place(k_cache, mesh, spec), place(v_cache, mesh, spec)
     s_max = kc.shape[1]
     s_local = s_max // mesh.shape[ax]
     at0 = (0,) * mesh.devices.ndim              # the first device's position
+    groups = data_groups(mesh, model_axis=ax,
+                         batch_axes=_axes(ctx.batch_axes))
+    if split and len(q.parts) != len(groups):
+        raise ValueError(f"{len(q.parts)} batch shards of q for a cache "
+                         f"split {len(groups)} ways")
+    # where each batch row's q, k_new and v_new are
+    homes = [row[0] for row in groups] if split else [at0] * len(groups)
+    b_local = q.parts[0].shape[0] if split else q.shape[0] // len(groups)
+
+    def row_of(t, i):
+        return t.parts[i] if split else t[i * b_local:(i + 1) * b_local]
+
     if k_new is not None:
         if not 0 <= cache_index < s_max:
             raise IndexError(f"decode position {cache_index} is outside "
                              f"the cache's {s_max} slots")
         written = set()
         for pos in np.ndindex(mesh.devices.shape):
-            rows, slots = kc.sharding.local_slices(pos, kc.shape)[:2]
+            slots = kc.sharding.local_slices(pos, kc.shape)[1]
             if not slots.start <= cache_index < slots.stop:
                 continue
+            i = kc.sharding.shard_index(pos, 0)
             for cache, new in ((kc, k_new), (vc, v_new)):
                 t = cache.local(pos)
                 if id(t) not in written:
                     written.add(id(t))
-                    row_new = new[rows, 0]
-                    ctx.send(row_new, at0, pos)
-                    t[:, cache_index - slots.start] = row_new.to(t.device)
-    groups = data_groups(mesh, model_axis=ax,
-                         batch_axes=_axes(ctx.batch_axes))
-    first = mesh.first_device
-    b_local = q.shape[0] // len(groups)
+                    t[:, cache_index - slots.start] = send(
+                        row_of(new, i)[:, 0], homes[i], pos)
     outs = []
     for i, row in enumerate(groups):
-        qi = q[i * b_local:(i + 1) * b_local]
+        head = row[0]
+        qi = row_of(q, i)
         parts = []
         for j, pos in enumerate(row):
             dev = mesh.devices[pos]
-            ctx.send(qi, at0, pos)
-            logits = _grouped_logits(qi.to(dev), kc.local(pos))
+            logits = _grouped_logits(send(qi, homes[i], pos), kc.local(pos))
             kpos = j * s_local + torch.arange(s_local, device=dev)
             parts.append((logits.masked_fill(~(kpos <= cache_index), -1e30),
                           vc.local(pos), pos))
         m = None
         for logits, _, pos in parts:
-            m_j = logits.amax(dim=-1)
-            ctx.send(m_j, pos, at0)
-            m = m_j.to(first) if m is None else torch.maximum(
-                m, m_j.to(first))
+            m_j = send(logits.amax(dim=-1), pos, head)
+            m = m_j if m is None else torch.maximum(m, m_j)
         l = o = None
         for logits, v, pos in parts:
-            ctx.send(m, at0, pos)
-            p = torch.exp(logits - m.to(logits.device)[..., None])
-            l_j, o_j = p.sum(dim=-1), _grouped_pv(p.to(v.dtype), v)
-            ctx.send(l_j, pos, at0)
-            ctx.send(o_j, pos, at0)
-            l_j, o_j = l_j.to(first), o_j.to(first)
+            p = torch.exp(logits - send(m, head, pos)[..., None])
+            l_j = send(p.sum(dim=-1), pos, head)
+            o_j = send(_grouped_pv(p.to(v.dtype), v), pos, head)
             l, o = (l_j, o_j) if l is None else (l + l_j, o + o_j)
         l = _ungrouped(l[..., None])                      # (b, sq, h, 1)
-        outs.append(o / torch.clamp_min(l, 1e-30).to(o.dtype))
-    return torch.cat(outs), kc, vc
+        out = o / torch.clamp_min(l, 1e-30).to(o.dtype)
+        outs.append(out if split else send(out, head, at0))
+    return (Rows(q.tp, outs) if split else torch.cat(outs)), kc, vc
 
 
 def place_kv(cache: dict, keys, ctx: DecodeShardCtx) -> dict:
@@ -463,6 +552,18 @@ def attention_decode(p: Attention, dims: AttnDims, x: torch.Tensor,
     if not 0 <= cache_index < s_max:
         raise IndexError(f"decode position {cache_index} is outside the "
                          f"cache's {s_max} slots")
+    if isinstance(x, Rows):
+        # q, k_new, v_new whole on each row's first position
+        if decode_ctx is None:
+            raise ValueError("a split decode step attends through a "
+                             "decode_ctx")
+        positions = torch.full((x.parts[0].shape[0], 1), cache_index,
+                               dtype=torch.int32, device=x.device)
+        q, k, v = (c.to_rows("heads") for c in _qkv_split(
+            p, dims, x, positions, rope, assemble=True))
+        out, k_cache, v_cache = flash_decode_sharded(
+            q, k_cache, v_cache, k, v, cache_index, decode_ctx)
+        return _out(p, out), k_cache, v_cache
     positions = torch.full((b, 1), cache_index, dtype=torch.int32,
                            device=x.device)
     q, k, v = _qkv(p, dims, x, positions, rope, shard=shard)
@@ -474,8 +575,30 @@ def attention_decode(p: Attention, dims: AttnDims, x: torch.Tensor,
         v_cache[:, cache_index] = v[:, 0]
         valid = torch.arange(s_max, device=x.device) <= cache_index
         out = _sdpa_decode(q, k_cache, v_cache, valid)
-    out = out.reshape(b, 1, dims.n_heads * dims.head_dim) @ p.wo
-    return shard(out, ("batch", "seq", "embed")), k_cache, v_cache
+    return _out(p, out, shard), k_cache, v_cache
+
+
+def cross_attention_decode(p: Attention, dims: AttnDims, x: torch.Tensor,
+                           xk, xv, decode_ctx: DecodeShardCtx | None = None):
+    """One token's cross attention over a (b, S_mem, kv, hd) memory's k/v:
+    every slot visible, nothing written (through
+    :func:`flash_decode_sharded` with ``decode_ctx``). Returns (b, 1,
+    d)."""
+    if isinstance(x, Rows):
+        if decode_ctx is None:
+            raise ValueError("a split decode step attends through a "
+                             "decode_ctx")
+        hd = dims.head_dim
+        q = x.tp.col_linear(x, p.wq).to_rows("heads").map(
+            lambda t: t.reshape(*t.shape[:2], -1, hd))
+    else:
+        q = (x @ p.wq).reshape(x.shape[0], 1, dims.n_heads, dims.head_dim)
+    if decode_ctx is not None:
+        attn, _, _ = flash_decode_sharded(q, xk, xv, None, None,
+                                          xk.shape[1] + 1, decode_ctx)
+    else:
+        attn = _attend(q, xk, xv, causal=False)
+    return _out(p, attn)
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +693,11 @@ class SwiGLU(nn.Module):
 
 def swiglu(p: SwiGLU, x: torch.Tensor,
            shard: Shard = no_shard) -> torch.Tensor:
+    if isinstance(x, Rows):
+        tp = x.tp
+        h = tp.col_linear(x, p.w_gate).map(lambda g, u: F.silu(g) * u,
+                                           tp.col_linear(x, p.w_up))
+        return tp.row_linear(h, p.w_down, kind="tp_reduce")
     h = shard(F.silu(x @ p.w_gate) * (x @ p.w_up), ("batch", "seq", "mlp"))
     return shard(h @ p.w_down, ("batch", "seq", "embed"))
 
@@ -595,6 +723,11 @@ class GeluMLP(nn.Module):
 def gelu_mlp(p: GeluMLP, x: torch.Tensor,
              shard: Shard = no_shard) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
+    if isinstance(x, Rows):
+        tp = x.tp
+        h = tp.col_linear(x, p.w_in, p.b_in).map(
+            lambda t: F.gelu(t, approximate="tanh"))
+        return tp.row_linear(h, p.w_out, p.b_out, kind="tp_reduce")
     h = F.gelu(x @ p.w_in + p.b_in, approximate="tanh")
     h = shard(h, ("batch", "seq", "mlp"))
     return shard(h @ p.w_out + p.b_out, ("batch", "seq", "embed"))

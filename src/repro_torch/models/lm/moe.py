@@ -5,7 +5,8 @@ the grouped-einsum form. Tokens are cut into GROUP_SIZE-token routing
 groups; each group routes on its own with capacity C = ceil(g·k·cf / E),
 and (token, slot) pairs past an expert's capacity are dropped (they fall
 through the residual). Every expert runs its C slots, empty or not. The
-router is fp32. Under autograd the routing (``topk``'s indices, the
+router is fp32. On split weights (``TensorParallel``) ``moe_ffn`` takes
+``_moe_split``'s layout. Under autograd the routing (``topk``'s indices, the
 one-hots, the capacity cumsum, the keep mask) carries no gradient, as in
 the reference: the router learns through the kept pairs' gate values in
 ``combine`` and through the aux term's mean probabilities.
@@ -17,6 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.sharding import axis_line
+from repro_torch.distributed.tensor_parallel import Rows
 
 from . import layers as L
 from .config import LMConfig
@@ -63,34 +67,16 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: LMConfig,
     expert's buffer is a cumsum over the group's (token, slot) pairs,
     token-major, so which pairs drop is the reference's, pair for pair.
     The expert buffers' token axis is ``batch`` unless
-    ``cfg.moe_token_replicate`` replicates it (llama4).
+    ``cfg.moe_token_replicate`` replicates it (llama4). A :class:`Rows`
+    ``x`` (split weights) returns ``(out, None)`` (:func:`_moe_split`;
+    the aux term is training's).
     """
+    if isinstance(x, Rows):
+        return _moe_split(p, x, cfg), None
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    gsz = min(GROUP_SIZE, b * s)
-    if (b * s) % gsz:
-        raise ValueError(f"{b * s} tokens do not cut into routing groups "
-                         f"of {gsz}")
-    ng = (b * s) // gsz
-    c = capacity(cfg, gsz)
-    dtype = x.dtype
-    xg = x.reshape(ng, gsz, d)
-
-    gate_logits = xg.float() @ p.router                          # (G, g, e)
-    probs = torch.softmax(gate_logits, dim=-1)
-    top_vals, top_idx = torch.topk(probs, k, dim=-1)             # (G, g, k)
-
-    # position of each (token, slot) inside its expert's capacity buffer
-    expert_mask = F.one_hot(top_idx, e).float()                  # (G, g, k, e)
-    flat_mask = expert_mask.reshape(ng, gsz * k, e)
-    pos = torch.cumsum(flat_mask, dim=1) * flat_mask - 1.0
-    pos = pos.reshape(ng, gsz, k, e)
-    keep = (pos >= 0) & (pos < c)
-    pos = torch.where(keep, pos, 0.0).long()
-
-    cap_oh = F.one_hot(pos, c).float() * keep[..., None].float()  # (G, g, k, e, c)
-    dispatch = cap_oh.sum(dim=2).to(dtype)                       # (G, g, e, c)
-    combine = (cap_oh * top_vals[..., None, None]).sum(dim=2).to(dtype)
+    gsz = _group_size(b, s)
+    xg = x.reshape((b * s) // gsz, gsz, d)
+    dispatch, combine, probs, expert_mask = _routing(xg, p.router, cfg)
     dispatch = shard(dispatch, ("batch", None, "experts", None))
     combine = shard(combine, ("batch", None, "experts", None))
 
@@ -106,10 +92,113 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: LMConfig,
     out = shard(out, ("batch", "seq", "embed"))
 
     # load-balancing auxiliary loss (Switch-style)
+    e = cfg.n_experts
     frac_tokens = expert_mask.sum(dim=2).mean(dim=(0, 1))        # (e,)
     frac_probs = probs.mean(dim=(0, 1))                          # (e,)
     aux = e * torch.sum(frac_tokens * frac_probs)
     return out, aux
+
+
+def _group_size(b: int, s: int) -> int:
+    gsz = min(GROUP_SIZE, b * s)
+    if (b * s) % gsz:
+        raise ValueError(f"{b * s} tokens do not cut into routing groups "
+                         f"of {gsz}")
+    return gsz
+
+
+def _routing(xg: torch.Tensor, router: torch.Tensor, cfg: LMConfig):
+    """xg (G, g, d) -> (dispatch, combine (G, g, e, c) in ``xg``'s
+    dtype, the router's probabilities, the top-k one-hots)."""
+    ng, gsz, _ = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(cfg, gsz)
+    dtype = xg.dtype
+    gate_logits = xg.float() @ router                            # (G, g, e)
+    probs = torch.softmax(gate_logits, dim=-1)
+    top_vals, top_idx = torch.topk(probs, k, dim=-1)             # (G, g, k)
+
+    # position of each (token, slot) inside its expert's capacity buffer
+    expert_mask = F.one_hot(top_idx, e).float()                  # (G, g, k, e)
+    flat_mask = expert_mask.reshape(ng, gsz * k, e)
+    pos = torch.cumsum(flat_mask, dim=1) * flat_mask - 1.0
+    pos = pos.reshape(ng, gsz, k, e)
+    keep = (pos >= 0) & (pos < c)
+    pos = torch.where(keep, pos, 0.0).long()
+
+    cap_oh = F.one_hot(pos, c).float() * keep[..., None].float()  # (G, g, k, e, c)
+    dispatch = cap_oh.sum(dim=2).to(dtype)                       # (G, g, e, c)
+    combine = (cap_oh * top_vals[..., None, None]).sum(dim=2).to(dtype)
+    return dispatch, combine, probs, expert_mask
+
+
+def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig) -> Rows:
+    """``moe_ffn``'s output on split weights (``P("model", "data",
+    None)`` for ``w_gate``/``w_up``, ``P("model", None, "data")`` for
+    ``w_down``; llama4's ``P("model", None, "data")`` and ``P("model",
+    "data", None)``).
+
+    A routing group's tokens route together where they are: each batch
+    shard alone when its rows cut into whole groups, else every shard's
+    rows on the first one's first position (``moe_tokens``), in batch
+    order, so the groups are the whole batch's. There the replicated
+    router gives ``dispatch``, ``combine`` and the expert buffers
+    ``xin``. Each model position of that row takes ``xin``'s slots of its
+    experts (``moe_tokens``) and its ``combine`` columns, runs its
+    experts and its partial of the combine einsum; the partials add on
+    the row's first position in model order (``tp_reduce``). Weights with
+    the data split on D (or E whole over the model axis) are gathered
+    over data first; llama4's, with F over data, stay split: the expert
+    slots go to every position along the data axis (the reference's
+    replicated token buffers), each runs its F slice, and the partial
+    expert outputs add in data order before the combine (``tp_reduce``).
+    Outputs return to each shard's first position (``moe_tokens``)."""
+    tp = x.tp
+    b, s, d = x.shape
+    gsz = _group_size(b, s)
+    b_row = x.parts[0].shape[0]
+    units = ([[i] for i in range(len(tp.rows))] if (b_row * s) % gsz == 0
+             else [list(range(len(tp.rows)))])
+    f_split = tp.placed(p.w_gate).split_dim("data") == 2
+    experts_split = tp.model_dim(p.w_gate) == 0
+    outs = [None] * len(tp.rows)
+    for unit in units:
+        row = tp.rows[unit[0]]
+        home = row[0]
+        xs = [tp.send("moe_tokens", x.parts[i], tp.rows[i][0], home)
+              for i in unit]
+        xu = xs[0] if len(xs) == 1 else torch.cat(xs)
+        xg = xu.reshape(xu.shape[0] * s // gsz, gsz, d)
+        dispatch, combine, _, _ = _routing(xg, tp.weight(p.router, home),
+                                           cfg)
+        xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)       # (G, e, c, d)
+        out = None
+        for j, col in enumerate(row if experts_split else row[:1]):
+            lo, hi = (tp.model_range(p.w_gate, j) if experts_split
+                      else (0, cfg.n_experts))
+            holders = (axis_line(tp.mesh, col, "data") if f_split
+                       else [col])
+            eo = None
+            for pos in holders:
+                xj = tp.send("moe_tokens", xin[:, lo:hi], home, pos)
+                g_ = torch.einsum("gecd,edf->gecf", xj,
+                                  tp.weight(p.w_gate, pos, gather=not f_split))
+                u = torch.einsum("gecd,edf->gecf", xj,
+                                 tp.weight(p.w_up, pos, gather=not f_split))
+                part = torch.einsum(
+                    "gecf,efd->gecd", F.silu(g_) * u,
+                    tp.weight(p.w_down, pos, gather=not f_split))
+                part = tp.send("tp_reduce", part, pos, col)
+                eo = part if eo is None else eo + part
+            cj = tp.send("moe_tokens", combine[:, :, lo:hi], home, col)
+            part = tp.send("tp_reduce", torch.einsum("gsec,gecd->gsd", cj, eo),
+                           col, home)
+            out = part if out is None else out + part
+        out = out.reshape(-1, s, d)
+        for k, i in enumerate(unit):
+            outs[i] = tp.send("moe_tokens", out[k * b_row:(k + 1) * b_row],
+                              home, tp.rows[i][0])
+    return Rows(tp, outs)
 
 
 class MoELayer(nn.Module):

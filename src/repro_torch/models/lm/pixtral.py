@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.tensor_parallel import Rows
+
 from . import layers as L
 from .transformer import DenseTransformer
 
@@ -22,6 +24,9 @@ class Pixtral(DenseTransformer):
     def fuse_inputs(self, tokens, patch_embeds):
         """(b, s_txt) tokens + (b, s_img, d) patches -> (b, s_img+s_txt, d)."""
         tx = self.embed_tokens(tokens)
+        if isinstance(tx, Rows):
+            return tx.tp.split_rows(patch_embeds.to(tx.dtype)).map(
+                lambda pe, t: torch.cat([pe, t], dim=1), tx)
         return self.shard(torch.cat([patch_embeds.to(tx.dtype), tx], dim=1),
                           ("batch", "seq", "embed"))
 

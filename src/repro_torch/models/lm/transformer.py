@@ -13,7 +13,11 @@ cache in place and return it, without autograd. ``loss`` trains through
 ``decode_ctx`` to a ``layers.DecodeShardCtx`` for the sequence-parallel
 decode: ``decode_step`` then places the cache's ``k``/``v`` over its
 mesh (``layers.place_kv``) and attends through
-``layers.flash_decode_sharded``.
+``layers.flash_decode_sharded``. Set ``tp`` to a
+``distributed.tensor_parallel.TensorParallel`` over this model's tensors
+(``Cell.place_params``) and ``prefill`` and ``decode_step`` run on the
+split weights: the embedding returns a ``Rows`` and the layer functions
+take that path.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.tensor_parallel import Rows, TensorParallel
 
 from . import layers as L
 from .config import LMConfig
@@ -53,6 +58,7 @@ class DenseTransformer(L.LMParams, nn.Module):
         self.cfg = cfg
         self.shard = shard or L.no_shard
         self.decode_ctx: L.DecodeShardCtx | None = None
+        self.tp: TensorParallel | None = None
         self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.dims = L.AttnDims(
@@ -106,11 +112,17 @@ class DenseTransformer(L.LMParams, nn.Module):
         return x
 
     def _head(self, x):
-        logits = L.rms_norm(x, self.final_norm) @ self.head_weight()
-        return self.shard(logits, ("batch", "seq", "vocab"))
+        x = L.rms_norm(x, self.final_norm)
+        if isinstance(x, Rows):
+            tied = self.cfg.tie_embeddings
+            return x.tp.head(x, self.embed if tied else self.lm_head,
+                             transposed=tied)
+        return self.shard(x @ self.head_weight(), ("batch", "seq", "vocab"))
 
     # -- public ---------------------------------------------------------------
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.embed(self.embed, tokens)
         return self.shard(L.take_rows(self.embed, tokens),
                           ("batch", "seq", "embed"))
 
@@ -157,8 +169,7 @@ class DenseTransformer(L.LMParams, nn.Module):
 
     @torch.no_grad()
     def prefill_from_x(self, x, cache):
-        cfg = self.cfg
-        b, s, _ = x.shape
+        s = x.shape[1]
         s_max = cache["k"].shape[2]
         if s > s_max:
             raise ValueError(f"a prefill of {s} positions does not fit the "
@@ -169,13 +180,11 @@ class DenseTransformer(L.LMParams, nn.Module):
             q, k, v = L._qkv(layer.attn, self.dims, h, positions,
                              shard=self.shard)
             attn = L._attend(q, k, v, causal=True)
-            x = x + self.shard(
-                attn.reshape(b, s, cfg.n_heads * cfg.hd) @ layer.attn.wo,
-                ("batch", "seq", "embed"))
+            x = x + L._out(layer.attn, attn, self.shard)
             h = L.rms_norm(x, layer.ln2)
             x = x + self._mlp(layer, h)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            cache["k"][i, :, :s] = L.whole(k)
+            cache["v"][i, :, :s] = L.whole(v)
         cache["k"][:, :, s:] = 0
         cache["v"][:, :, s:] = 0
         cache["index"] = s

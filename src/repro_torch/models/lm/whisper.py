@@ -13,7 +13,11 @@ block is rematerialised. ``shard`` is called where the reference calls
 it; a ``decode_ctx`` places the self-attention cache and the
 cross-attention ``xk``/``xv`` over its mesh and runs both attentions of a
 decode step through ``layers.flash_decode_sharded`` (the cross one with
-every memory slot visible and no write).
+every memory slot visible and no write). A ``tp``
+(``distributed.tensor_parallel.TensorParallel``, ``Cell.place_params``)
+runs ``prefill`` and ``decode_step`` on split weights, the encoder
+blocks, the decoder's self and cross attention and its MLPs by
+``_ENCDEC_RULES``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.tensor_parallel import Rows, TensorParallel
 
 from . import layers as L
 from .config import LMConfig
@@ -72,6 +77,7 @@ class Whisper(L.LMParams, nn.Module):
         self.cfg = cfg
         self.shard = shard or L.no_shard
         self.decode_ctx: L.DecodeShardCtx | None = None
+        self.tp: TensorParallel | None = None
         self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.dims = L.AttnDims(
@@ -113,6 +119,8 @@ class Whisper(L.LMParams, nn.Module):
         _, s, d = frames.shape
         pos = torch.from_numpy(sinusoid_positions(s, d)).to(frames.device,
                                                             frames.dtype)
+        if self.tp is not None:
+            frames = self.tp.split_rows(frames)
         x = self.shard(frames + pos[None], ("batch", "seq", "embed"))
         for layer in self.encoder:
             x = L.remat(self._enc_block, x, layer, enabled=self.cfg.remat)
@@ -127,6 +135,9 @@ class Whisper(L.LMParams, nn.Module):
         if not 0 <= pos0 <= POS_DEC_ROWS - s:
             raise IndexError(f"decoder positions [{pos0}, {pos0 + s}) are "
                              f"outside pos_dec's {POS_DEC_ROWS} rows")
+        if self.tp is not None:
+            return self.tp.embed(self.embed, tokens).map(
+                lambda t, pd: t + pd[pos0:pos0 + s][None], self.pos_dec)
         return (L.take_rows(self.embed, tokens)
                 + self.pos_dec[pos0:pos0 + s][None])
 
@@ -158,6 +169,12 @@ class Whisper(L.LMParams, nn.Module):
         return self.shard(L.rms_norm(x, self.dec_norm) @ self.lm_head,
                           ("batch", "seq", "vocab"))
 
+    def _logits(self, x):
+        """``x @ lm_head``, vocab-parallel on a split step."""
+        if isinstance(x, Rows):
+            return x.tp.head(x, self.lm_head)
+        return x @ self.lm_head
+
     def forward(self, tokens, frames):
         return self.decode_full(tokens, self.encode(frames))
 
@@ -180,50 +197,42 @@ class Whisper(L.LMParams, nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, frames, cache):
         """Encode + teacher-forced prefix + cache self/cross K/V."""
-        cfg = self.cfg
-        b, s = tokens.shape
+        s = tokens.shape[1]
         if s > cache["k"].shape[2]:
             raise ValueError(f"a prefill of {s} positions does not fit the "
                              f"cache's {cache['k'].shape[2]}")
         memory = self.encode(frames)
         x = self._embed_dec(tokens)
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-        sm = memory.shape[1]
-        h_, kv_, hd = cfg.n_heads, cfg.n_kv_heads, self.dims.head_dim
         for i, layer in enumerate(self.decoder):
             h = L.rms_norm(x, layer.ln1)
             q, k, v = L._qkv(layer.attn, self.dims, h, positions, rope=False,
                              shard=self.shard)
             attn = L._attend(q, k, v, causal=True)
-            x = x + attn.reshape(b, s, -1) @ layer.attn.wo
+            x = x + L._out(layer.attn, attn)
             h = L.rms_norm(x, layer.ln_x)
-            qx = (h @ layer.xattn.wq).reshape(b, s, h_, hd)
-            xk = (memory @ layer.xattn.wk).reshape(b, sm, kv_, hd)
-            xv = (memory @ layer.xattn.wv).reshape(b, sm, kv_, hd)
+            qx, xk, xv = L._qkv_cross(layer.xattn, self.dims, h, memory)
             attn = L._attend(qx, xk, xv, causal=False)
-            x = x + attn.reshape(b, s, -1) @ layer.xattn.wo
+            x = x + L._out(layer.xattn, attn)
             h = L.rms_norm(x, layer.ln2)
             x = x + L.gelu_mlp(layer.mlp, h, self.shard)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
-            cache["xk"][i] = xk
-            cache["xv"][i] = xv
+            cache["k"][i, :, :s] = L.whole(k)
+            cache["v"][i, :, :s] = L.whole(v)
+            cache["xk"][i] = L.whole(xk)
+            cache["xv"][i] = L.whole(xv)
         cache["k"][:, :, s:] = 0
         cache["v"][:, :, s:] = 0
         cache["index"] = s
         x = L.rms_norm(x, self.dec_norm)
-        return (x[:, -1:, :] @ self.lm_head)[:, 0], cache
+        return self._logits(x[:, -1:, :])[:, 0], cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache):
-        cfg = self.cfg
-        b = tokens.shape[0]
         idx = cache["index"]
         ctx = self.decode_ctx
         if ctx is not None:
             L.place_kv(cache, ("k", "v", "xk", "xv"), ctx)
         x = self._embed_rows(tokens, idx)
-        h_, hd = cfg.n_heads, self.dims.head_dim
         for i, layer in enumerate(self.decoder):
             h = L.rms_norm(x, layer.ln1)
             out, _, _ = L.attention_decode(
@@ -231,17 +240,11 @@ class Whisper(L.LMParams, nn.Module):
                 shard=self.shard, rope=False, decode_ctx=ctx)
             x = x + out
             h = L.rms_norm(x, layer.ln_x)
-            qx = (h @ layer.xattn.wq).reshape(b, 1, h_, hd)
-            xk, xv = cache["xk"][i], cache["xv"][i]
-            if ctx is not None:
-                # every memory slot visible, nothing written
-                attn, _, _ = L.flash_decode_sharded(
-                    qx, xk, xv, None, None, xk.shape[1] + 1, ctx)
-            else:
-                attn = L._attend(qx, xk, xv, causal=False)
-            x = x + attn.reshape(b, 1, -1) @ layer.xattn.wo
+            x = x + L.cross_attention_decode(layer.xattn, self.dims, h,
+                                             cache["xk"][i], cache["xv"][i],
+                                             ctx)
             h = L.rms_norm(x, layer.ln2)
             x = x + L.gelu_mlp(layer.mlp, h, self.shard)
         cache["index"] = idx + 1
         x = L.rms_norm(x, self.dec_norm)
-        return (x @ self.lm_head)[:, 0], cache
+        return self._logits(x)[:, 0], cache

@@ -362,9 +362,11 @@ def _leaves(tree):
 def test_moved_bytes_is_the_hand_count_on_a_2x2_mesh():
     """Reduced qwen3 decode on (data 2, model 2), batch 8: per layer the
     first position sends the new k/v rows to the one other position
-    owning slot 0 (data shard 1, model shard 0), q to the three others,
-    the global max back to the three; it receives their local maxes,
-    ``l`` and ``o``."""
+    owning slot 0 (data shard 1, model shard 0) and q to the three
+    others. Each batch row merges on its own first position, (0, 0) and
+    (1, 0): it takes the local max of its row's other position and sends
+    the row's max back, then takes that position's ``l`` and ``o``; row
+    1's output goes to the first position."""
     with patched("qwen3-4b", {"decode_32k": (64, 8)}):
         cfg = TC.get_config("qwen3-4b")
         cell = build_cell("qwen3-4b", "decode_32k",
@@ -379,9 +381,10 @@ def test_moved_bytes_is_the_hand_count_on_a_2x2_mesh():
     q = b_local * h * hd * f32
     stat = b_local * h * f32                       # a max, or l
     o = b_local * h * hd * f32
-    per_layer = kv_rows + 3 * q + 3 * stat + 3 * stat + 3 * stat + 3 * o
+    per_layer = kv_rows + 3 * q + 3 * stat + 2 * o
     assert low.moved_bytes == moved[(0, 0)] == cfg.n_layers * per_layer
     assert max(moved.values()) == moved[(0, 0)]
-    assert moved[(0, 1)] == cfg.n_layers * (q + 3 * stat + o)
-    assert moved[(1, 0)] == cfg.n_layers * (kv_rows + q + 3 * stat + o)
+    assert moved[(0, 1)] == moved[(1, 1)] == cfg.n_layers * (q + 3 * stat
+                                                             + o)
+    assert moved[(1, 0)] == cfg.n_layers * (kv_rows + q + 3 * stat + 2 * o)
     assert one.moved_bytes == 0

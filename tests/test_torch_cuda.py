@@ -2265,3 +2265,71 @@ def test_flash_decode_sharded_across_two_cards(two_cards):
         want = _flash_case("cpu", "data", idx, True)
         torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def _split_case(devices, arch: str):
+    """A reduced fp32 arch's prefill and decode cells on a (2, 2) mesh of
+    ``devices``, parameters placed (``Cell.place_params``), weights drawn
+    on the CPU from one seed: the prefill's logits, then 6 greedy decode
+    steps' logits from a prefill of 6 rows into 16 slots, on the CPU."""
+    import importlib
+
+    import repro_torch.configs as C
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.lm import make_lm_model
+
+    mod = importlib.import_module(f"repro_torch.configs.{C._ARCH_MODULES[arch]}")
+    saved, shapes = mod.CONFIG, dict(C.SHAPES)
+    mod.CONFIG = saved.reduced()
+    C.SHAPES["prefill_32k"] = C.ShapeCell("prefill_32k", 6, 4, "prefill")
+    C.SHAPES["decode_32k"] = C.ShapeCell("decode_32k", 16, 4, "decode")
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), devices)
+        pre = build_cell(arch, "prefill_32k", mesh)
+        dec = build_cell(arch, "decode_32k", mesh)
+    finally:
+        mod.CONFIG = saved
+        C.SHAPES.clear()
+        C.SHAPES.update(shapes)
+    state = make_lm_model(pre.cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    for cell in (pre, dec):
+        cell.model.load_state_dict(state)
+        cell.place_params()
+    first = mesh.first_device
+    tokens = torch.randint(0, pre.cfg.vocab, (4, 6),
+                           generator=torch.Generator().manual_seed(1))
+    out = [pre.prefill_fn()({"tokens": tokens.to(first)})[0].cpu()]
+    logits, cache = dec.model.prefill(tokens.to(first),
+                                      dec.model.init_cache(4, 16))
+    step = dec.decode_fn()
+    for _ in range(6):
+        nxt = logits.argmax(-1)[:, None]
+        logits, cache = step({"tokens": nxt, "cache": cache})
+        assert logits.device == first
+        out.append(logits.cpu())
+    return out
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b"])
+def test_split_cells_on_logical_positions_match_the_cpu(cuda, arch):
+    """Reduced dense and MoE cells with their weights split over four
+    positions of the card against the same on a CPU mesh: prefill and
+    decode logits at ``rtol 1e-4, atol 1e-5``, greedy tokens equal."""
+    card = [torch.device("cuda", torch.cuda.current_device())] * 4
+    for got, want in zip(_split_case(card, arch), _split_case("cpu", arch)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b"])
+def test_split_cells_across_two_cards(two_cards, arch):
+    """The (2, 2) mesh over two cards (data shard 0 on the first, 1 on
+    the second): each card holds its positions' weight pieces, the second
+    a copy; the same logits as the CPU."""
+    first, second = two_cards
+    devices = [first, first, second, second]
+    for got, want in zip(_split_case(devices, arch),
+                         _split_case("cpu", arch)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
