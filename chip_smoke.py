@@ -305,10 +305,16 @@ Phases (any failure raises; the script then exits non-zero):
    the three paths from one cache state a step, timed, and layer 0's
    experts held to fp32 by the error ratio; fp32, split and mesh-less
    steps within ``MESH_DECODE_TOL`` where the routing agrees, failing if
-   it agrees on no step. (e) the eight dense, vlm, moe and encdec archs'
-   ``reduced()`` fp32 prefill and decode cells placed on the card and on
-   a CPU mesh: within ``CPU_TOL`` of the CPU and ``MESH_DECODE_TOL`` of
-   the card's mesh-less step. Numbers also go to
+   it agrees on no step. (e) the ten archs' ``reduced()`` fp32 prefill
+   and decode cells placed on the card and on a CPU mesh (rwkv6's and
+   zamba2's state caches placed too): within ``CPU_TOL`` of the CPU and
+   ``MESH_DECODE_TOL`` of the card's mesh-less step. (f) rwkv6-7b and
+   zamba2-1.2b at published width and depth, ``decode_32k`` cut to b =
+   4, parameters and state caches split, from a split prefill of 16
+   tokens: bf16, split and mesh-less steps to a sync and queued, ATen
+   ops, bytes between positions by kind, peak memory; fp32, split
+   within ``MESH_DECODE_TOL`` of mesh-less over 8 steps, greedy tokens
+   equal up to near ties. Numbers also go to
    ``chiprun_out/lm_phase16.json``.
 """
 
@@ -5174,7 +5180,11 @@ LM_SPLIT_MOE = ("phi3.5-moe-42b-a6.6b", 8)   # (d): depth 8 of 32
 LM_SPLIT_MOE_STEPS = 8
 LM_SPLIT_ARCHS = ("llama3-8b", "granite-8b", "smollm-360m", "qwen3-4b",
                   "pixtral-12b", "phi3.5-moe-42b-a6.6b",
-                  "llama4-maverick-400b-a17b", "whisper-small")
+                  "llama4-maverick-400b-a17b", "whisper-small", "rwkv6-7b",
+                  "zamba2-1.2b")
+LM_SPLIT_RECURRENT = ("rwkv6-7b", "zamba2-1.2b")   # (f): published width
+LM_SPLIT_REC_PROMPT = 16      # (f): the prefill before the decode steps
+LM_SPLIT_REC_STEPS = 8
 
 
 class lm_cell_shape:
@@ -5206,13 +5216,19 @@ class cell_path:
     def __enter__(self):
         from repro_torch.models.lm import layers as L
         m = self.model
-        self.saved = m.tp, m.decode_ctx, m.shard
+        # RWKV6 has no attention and no decode_ctx
+        self.saved = m.tp, getattr(m, "decode_ctx", None), m.shard
         m.tp = self.tp if self.path == "split" else None
         if self.path == "mesh_less":
-            m.decode_ctx, m.shard = None, L.no_shard
+            m.shard = L.no_shard
+            if hasattr(m, "decode_ctx"):
+                m.decode_ctx = None
 
     def __exit__(self, *exc):
-        self.model.tp, self.model.decode_ctx, self.model.shard = self.saved
+        m = self.model
+        m.tp, ctx, m.shard = self.saved
+        if hasattr(m, "decode_ctx"):
+            m.decode_ctx = ctx
 
 
 def decode_as(torch, cell, tp, path: str, nxt, cache):
@@ -5737,6 +5753,127 @@ def lm_split_small(torch, dev, mesh, arch: str) -> tuple[float, float]:
     return vs_cpu, vs_plain
 
 
+def split_recurrent_cell(torch, dev, mesh, arch: str, dtype: str):
+    """(f)'s decode cell of ``arch`` at published width and depth in
+    ``dtype``, ``decode_32k`` cut to b = ``LM_MESH_B``, its weights from
+    ``SEED`` and placed, then a split prefill of ``LM_SPLIT_REC_PROMPT``
+    tokens into a fresh cache of the cell's slots (its states placed by
+    ``cache_specs``); returns (cell, placed tree, cache, first tokens,
+    weight bytes, prefill ms)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import build_cell
+
+    with lm_cell_config(arch, dtype=dtype), lm_cell_shape(
+            "decode_32k", SHAPES["decode_32k"].seq, LM_MESH_B):
+        cell = build_cell(arch, "decode_32k", mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    tp = cell.place_params()
+    tokens = torch.randint(0, cell.cfg.vocab, (LM_MESH_B, LM_SPLIT_REC_PROMPT),
+                           generator=g, device=dev)
+    cache = cell.model.init_cache(LM_MESH_B, cell.cell.seq)
+    (logits, cache), ms = timed(torch, lambda: cell.model.prefill(tokens,
+                                                                  cache))
+    return (cell, tp, cache, logits.argmax(-1)[:, None],
+            tensor_bytes(cell.model.state_dict()), ms)
+
+
+def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
+    """(f): ``arch`` (rwkv6-7b or zamba2-1.2b) at published width and
+    depth, its decode cell on the card's mesh, parameters and state
+    caches split (``split_recurrent_cell``). bf16, timed:
+    ``LM_SPLIT_REC_STEPS`` split steps and as many mesh-less ones on a
+    whole copy of the cache, each to a sync, then as many of each queued;
+    ATen ops a step split and mesh-less, the bytes between positions a
+    split step by kind, the peak memory; bf16 logits drift apart and are
+    recorded, not checked. fp32, the check (as (b) and (d) hold theirs):
+    as many split and mesh-less steps, the logits within
+    ``MESH_DECODE_TOL`` and the greedy tokens equal up to near ties. The
+    bound a token is the weights' bytes over ``hw.HBM_BW``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_start = time.perf_counter()
+    cell, tp, cache, nxt, weights, pre_ms = split_recurrent_cell(
+        torch, dev, mesh, arch, "bfloat16")
+    plain = whole_copy(torch, cache)
+    ms = {"split": [], "mesh_less": []}
+    gap, differ = 0.0, 0
+    for _ in range(LM_SPLIT_REC_STEPS):
+        (ls, _), t_s = timed(torch, lambda: decode_as(
+            torch, cell, tp, "split", nxt, cache))
+        (lp, _), t_p = timed(torch, lambda: decode_as(
+            torch, cell, tp, "mesh_less", nxt, plain))
+        ms["split"].append(t_s)
+        ms["mesh_less"].append(t_p)
+        assert torch.isfinite(ls.float()).all() and torch.isfinite(
+            lp.float()).all()
+        gap = max(gap, float((ls.float() - lp.float()).abs().max()))
+        differ += int((ls.argmax(-1) != lp.argmax(-1)).sum())
+        nxt = lp.argmax(-1)[:, None]
+    queued = {path: queued_ms(torch, lambda t: decode_as(
+        torch, cell, tp, path, t, cache if path == "split" else plain)[0],
+        nxt, LM_SPLIT_REC_STEPS) for path in ("split", "mesh_less")}
+    tp.moved.clear()
+    _, split_ops, _ = dispatch_counts(torch, lambda: decode_as(
+        torch, cell, tp, "split", nxt, cache))
+    moved = tp.bytes_by_kind()
+    _, plain_ops, _ = dispatch_counts(torch, lambda: decode_as(
+        torch, cell, tp, "mesh_less", nxt, plain))
+    p50 = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    res = {"arch": arch, "layers": cell.cfg.n_layers, "b": LM_MESH_B,
+           "slots": cell.cell.seq, "prompt": LM_SPLIT_REC_PROMPT,
+           "weights_gb": weights / 1e9,
+           "cache_mb": tensor_bytes(plain) / 1e6,
+           "prefill_ms": pre_ms,
+           **{f"{p}_p50_ms": p50(v) for p, v in ms.items()},
+           **{f"{p}_queued_ms": t for p, t in queued.items()},
+           "split_ops": split_ops, "mesh_less_ops": plain_ops,
+           "moved_bytes": moved, "bf16_max_abs_diff": gap,
+           "bf16_tokens_differ": differ,
+           "bound_ms": weights / hw.HBM_BW * 1e3,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    del cell, tp, cache, plain, nxt, ls, lp
+    released(torch, base, f"(f) {arch}, bf16")
+
+    torch.cuda.reset_peak_memory_stats()
+    cell, tp, cache, nxt, weights, _ = split_recurrent_cell(
+        torch, dev, mesh, arch, "float32")
+    plain = whole_copy(torch, cache)
+    worst, differ = 0.0, 0
+    for step in range(LM_SPLIT_REC_STEPS):
+        ls = decode_as(torch, cell, tp, "split", nxt, cache)[0]
+        lp = decode_as(torch, cell, tp, "mesh_less", nxt, plain)[0]
+        assert torch.isfinite(ls).all()
+        torch.testing.assert_close(ls, lp, **MESH_DECODE_TOL)
+        worst = max(worst, float((ls - lp).abs().max()))
+        differ += check_tokens(torch, ls, lp, f"(f) {arch} fp32 step {step}")
+        nxt = lp.argmax(-1)[:, None]
+    res.update({"fp32_weights_gb": weights / 1e9, "max_abs_diff": worst,
+                "tokens_differ": differ,
+                "fp32_peak_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2**30, "seconds": time.perf_counter() - t_start})
+    log(f"[lmsplit] (f) {arch} decode_32k (L={res['layers']}, published "
+        f"width, b={LM_MESH_B} of 128, {res['slots']} slots, split prefill "
+        f"of {LM_SPLIT_REC_PROMPT}) on {mesh.shape}: fp32 "
+        f"({res['fp32_weights_gb']:.2f} GB) within {MESH_DECODE_TOL} over "
+        f"{LM_SPLIT_REC_STEPS} steps, max|split-mesh-less| {worst:.3e}, "
+        f"{differ} greedy tokens differ | bf16 ({res['weights_gb']:.2f} "
+        f"GB, cache {res['cache_mb']:.1f} MB): max|split-mesh-less| "
+        f"{gap:.3e}, {res['bf16_tokens_differ']} tokens differ (not "
+        f"checked) | bf16 ms/token p50 to a sync split "
+        f"{res['split_p50_ms']:.2f}, mesh-less {res['mesh_less_p50_ms']:.2f};"
+        f" queued {queued['split']:.2f}, {queued['mesh_less']:.2f} (bound "
+        f"{res['bound_ms']:.2f}) | split prefill {pre_ms:.1f} ms | ATen ops "
+        f"a step {split_ops}, {plain_ops} | bytes between positions a "
+        f"split step {moved} | peak bf16 {res['peak_gib']:.2f} GiB, fp32 "
+        f"{res['fp32_peak_gib']:.2f} | {card}")
+    del cell, tp, cache, plain, nxt, ls, lp
+    released(torch, base, f"(f) {arch}, fp32")
+    return res
+
+
 def run_lm_split(torch, dev, card: str, early: dict) -> dict:
     """Phase 16: split weights (see the docstring). ``early`` holds (a)
     and (b), run inside phase 14 on its llama3-8b cells. Numbers also go
@@ -5750,7 +5887,8 @@ def run_lm_split(torch, dev, card: str, early: dict) -> dict:
         f"prefill_32k b=32, s=32,768 -> b={LM_MESH_B}, s={LM_SPLIT_PROMPT}; "
         f"(d) {LM_SPLIT_MOE[0]} depth {LM_SPLIT_MOE[1]}/32, decode_32k b="
         f"128 -> {LM_MESH_B}, cache {LM_MESH_SEQ} slots; (e) reduced() "
-        "configs")
+        f"configs; (f) {', '.join(LM_SPLIT_RECURRENT)} decode_32k b=128 -> "
+        f"{LM_MESH_B}, from a prefill of {LM_SPLIT_REC_PROMPT}")
     res = {"card": card, "decode": early,
            "prefill": lm_split_prefill(torch, dev, mesh, card),
            "moe": lm_split_moe(torch, dev, mesh, card)}
@@ -5760,6 +5898,8 @@ def run_lm_split(torch, dev, card: str, early: dict) -> dict:
         f"max|card-CPU| within {CPU_TOL}, max|split-mesh-less| on the "
         f"card within {MESH_DECODE_TOL}: "
         f"{ {a: (float(f'{x:.2e}'), float(f'{y:.2e}')) for a, (x, y) in res['small'].items()} } | {card}")
+    res["recurrent"] = {a: lm_split_recurrent(torch, dev, mesh, a, card)
+                        for a in LM_SPLIT_RECURRENT}
     res["seconds"] = time.perf_counter() - t_phase
     path = ROOT / "chiprun_out" / "lm_phase16.json"
     path.parent.mkdir(exist_ok=True)

@@ -23,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import cpu_trig, resolve_device
 
 __all__ = ["DatasetSchema", "AVAZU", "CRITEO", "make_schema", "sample_ids",
            "SKEWS", "zipf_ids", "zipf_ids_from_uniform",
@@ -179,7 +179,8 @@ def planted_effect(ids: torch.Tensor, k: int) -> torch.Tensor:
     deterministic, wide-spectrum function of the id scaled by 1/√k."""
     f = torch.arange(k, dtype=torch.float32, device=ids.device)
     phase = ids.to(torch.float32) * (0.618033988 + 0.1 * f)[None, :]
-    effects = torch.sin(phase * 12.9898) + 0.5 * torch.cos(phase * 78.233)
+    effects = cpu_trig(torch.sin, phase * 12.9898) \
+        + 0.5 * cpu_trig(torch.cos, phase * 78.233)
     return _field_sum(effects) / torch.sqrt(
         torch.tensor(k, dtype=torch.float32, device=ids.device))
 

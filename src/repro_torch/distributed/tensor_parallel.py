@@ -44,8 +44,19 @@ positions of one device, and counted all the same). The kinds are
 the partial sums back), ``fsdp_gather``, ``vocab`` (token ids, embedding
 partials, logits columns and rows), ``heads`` (q/k/v and attention
 outputs moved so that attention sees whole heads, and k/v to a prefill's
-cache), ``moe_tokens`` (tokens and dispatched buffers to the experts'
-positions) and ``merge`` (the sequence-parallel decode's traffic).
+cache; in the recurrent families, the projection columns, decays and
+weight columns a position's heads read), ``moe_tokens`` (tokens and
+dispatched buffers to the experts' positions), ``merge`` (the
+sequence-parallel decode's traffic) and ``state`` (a recurrent state's
+new slice to the positions that hold it but did not compute it).
+
+The recurrent families (``models/lm/rwkv6.py``, ``models/lm/zamba2.py``)
+run their heads at :meth:`TensorParallel.head_sites`: each model position
+its own heads where they divide evenly over the row, else every head on
+the row's first position. Their state caches are placed by
+``sharding.cache_specs`` (:meth:`TensorParallel.place_states`, heads over
+``model``) and each step writes every position's slice in place
+(:meth:`TensorParallel.write_state`); a state is never gathered whole.
 """
 
 from __future__ import annotations
@@ -54,20 +65,21 @@ import re
 from collections import Counter
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .mesh import Mesh
-from .sharding import (Placed, _axes, axis_line, data_groups, place,
-                       tree_map)
+from .sharding import (Placed, _axes, axis_line, cache_specs, data_groups,
+                       fit_spec_tree, place, tree_map)
 
 __all__ = ["KINDS", "TensorParallel", "Rows", "Cols"]
 
 KINDS = ("tp_reduce", "fsdp_gather", "vocab", "heads", "moe_tokens",
-         "merge")
+         "merge", "state")
 
 #: a leaf's layer: the stacked groups of ``tensor_tree()`` paths
-_LAYER = re.compile(r"^((?:layers|encoder|decoder)/\d+)/")
+_LAYER = re.compile(r"^((?:layers|mamba|encoder|decoder)/\d+)/")
 
 
 def _paths(tree: Any, prefix: str = ""):
@@ -185,6 +197,101 @@ class TensorParallel:
         if key not in self._gathered:
             self._gathered[key] = pl.gather(pos, "data")
         return self._gathered[key]
+
+    def cols(self, t: torch.Tensor, lo: int, hi: int, pos: tuple,
+             dim: int = -1) -> torch.Tensor:
+        """Indices ``[lo, hi)`` of parameter ``t``'s dim ``dim`` on
+        position ``pos``: a slice of its own piece where the ``model``
+        axis does not split that dim, else the overlapping pieces of the
+        model positions of ``pos``'s row sent there (``heads``) and
+        joined in order."""
+        dim = dim % t.ndim
+        if self.model_dim(t) != dim:
+            return self.weight(t, pos).narrow(dim, lo, hi - lo)
+        out = []
+        for j, q in enumerate(axis_line(self.mesh, pos, "model")):
+            a, b = self.model_range(t, j)
+            if max(a, lo) < min(b, hi):
+                piece = self.weight(t, q).narrow(dim, max(a, lo) - a,
+                                                 min(b, hi) - max(a, lo))
+                out.append(self.send("heads", piece, q, pos))
+        return out[0] if len(out) == 1 else torch.cat(out, dim=dim)
+
+    # -- recurrent states ---------------------------------------------------
+    def head_sites(self, n_heads: int) -> list[list[tuple]]:
+        """Where each batch row's ``n_heads`` heads run, ``(position,
+        first head, end)`` in model order: model position ``j`` of the row
+        heads ``[j·n/m, (j+1)·n/m)`` where ``m`` divides ``n`` (the heads
+        that ``cache_specs`` puts on it), else all on the row's first
+        position (a head that the model axis would cut, or one model
+        position)."""
+        m = self.n_model
+        if m > 1 and n_heads % m == 0:
+            return [[(pos, j * n_heads // m, (j + 1) * n_heads // m)
+                     for j, pos in enumerate(row)] for row in self.rows]
+        return [[(row[0], 0, n_heads)] for row in self.rows]
+
+    def place_states(self, states: dict) -> dict:
+        """Each stacked (L, B, ...) recurrent state of ``states`` placed
+        over the mesh by its ``cache_specs`` entry, fitted (batch over the
+        batch axes, heads over ``model``; a dim the axes do not divide
+        stays whole), in the dict; a state placed so stays as it is.
+        Returns ``states``."""
+        specs = fit_spec_tree(self.mesh, cache_specs(None, self.mesh,
+                                                     states), states)
+        for key, spec in specs.items():
+            states[key] = place(states[key], self.mesh, spec)
+        return states
+
+    def state_at(self, pl: Placed, i: int, pos: tuple,
+                 *ranges: tuple[int, int]) -> torch.Tensor:
+        """Position ``pos``'s tensor of one layer's placed state ``pl``
+        (B, ...), checked to hold batch row ``i``'s rows and ``ranges`` of
+        the dims after the batch: the tensor the position's step reads and
+        writes."""
+        b = pl.shape[0] // len(self.rows)
+        want = [(i * b, (i + 1) * b), *ranges]
+        sl = pl.sharding.local_slices(pos, pl.shape)
+        got = [(s.start, s.stop) for s in sl[:len(want)]]
+        if got != want:
+            raise ValueError(f"{pl} holds {got} at {pos}, not {want}")
+        return pl.local(pos)
+
+    def write_state(self, pl: Placed, pieces: list[tuple]) -> None:
+        """Write new values of one layer's placed state ``pl`` into every
+        position's tensor, in place. ``pieces`` lists ``(position, region,
+        value)``: ``value`` is the state's ``region`` (``(start, stop)``
+        of each leading dim) as ``position`` computed it, and goes into
+        that position's own tensor first, uncounted. Every other position
+        holding part of a region gets that part sent from the piece's
+        position (``state``); positions of one device that share a tensor
+        are written once and counted all the same."""
+        done = set()
+
+        def write(pos, src, region, value):
+            region = [*region] + [(0, n) for n in pl.shape[len(region):]]
+            sl = pl.sharding.local_slices(pos, pl.shape)
+            inter = [(max(a, s.start), min(b, s.stop))
+                     for (a, b), s in zip(region, sl)]
+            if any(a >= b for a, b in inter):
+                return
+            part = value[tuple(slice(a - r, b - r) for (a, b), (r, _) in
+                               zip(inter, region))]
+            if src != pos:
+                part = self.send("state", part, src, pos)
+            local = pl.local(pos)
+            key = (id(local), tuple(inter))
+            if key not in done:
+                done.add(key)
+                local[tuple(slice(a - s.start, b - s.start)
+                            for (a, b), s in zip(inter, sl))] = part
+
+        for src, region, value in pieces:
+            write(src, src, region, value)
+        for pos in np.ndindex(self.mesh.devices.shape):
+            for src, region, value in pieces:
+                if pos != src:
+                    write(pos, src, region, value)
 
     def release(self) -> None:
         """Drop the gathered weights."""
@@ -425,6 +532,19 @@ class Cols:
             out.append([(home, row[0][1], row[-1][2],
                          self.row_at(i, home, kind))])
         return Cols(self.tp, out, self.dim)
+
+    def take(self, i: int, lo: int, hi: int, dst: tuple,
+             kind: str) -> torch.Tensor:
+        """Columns ``[lo, hi)`` of row ``i`` on position ``dst``: the
+        overlapping pieces' columns sent there (``kind``) and joined in
+        order."""
+        out = []
+        for pos, a, b, t in self.pieces[i]:
+            if max(a, lo) < min(b, hi):
+                piece = t.narrow(self.dim, max(a, lo) - a,
+                                 min(b, hi) - max(a, lo))
+                out.append(self.tp.send(kind, piece, pos, dst))
+        return out[0] if len(out) == 1 else torch.cat(out, dim=self.dim)
 
     def row_at(self, i: int, dst: tuple, kind: str) -> torch.Tensor:
         """Row ``i`` whole on position ``dst``."""

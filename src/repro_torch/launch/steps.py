@@ -50,7 +50,7 @@ __all__ = ["build_cell", "Cell", "Lowered", "Trace"]
 
 #: the cache leaves a decode cell places over its mesh: the attention
 #: caches that ``flash_decode_sharded`` reads per position (recurrent
-#: states stay whole)
+#: states are placed with the split weights, ``Cell.place_params``)
 KV_LEAVES = ("k", "v", "xk", "xv")
 
 
@@ -201,6 +201,8 @@ class Cell:
         self.model = make_lm_model(self.cfg, self.shard, device=self.device)
         self.inputs_sds = input_specs(arch, shape)
 
+        # RWKV6 has no attention: its split decode needs no context but
+        # the placed parameters' (``place_params``)
         if self.cell.kind == "decode" and self.cfg.family != "ssm":
             self.model.decode_ctx = L.DecodeShardCtx(
                 mesh=mesh, batch_axes=self._batch_split(
@@ -297,11 +299,16 @@ class Cell:
     def place_cache(self, cache: dict) -> dict:
         """A decode cell's cache with its KV leaves (``KV_LEAVES``, at any
         depth: Zamba2's ``shared``) placed over the mesh by their fitted
-        ``cache_specs``; written into ``cache`` itself and returned. Cells
-        without a ``decode_ctx`` keep every leaf whole."""
+        ``cache_specs`` and, once the parameters are split
+        (:meth:`place_params`), the recurrent families' states too
+        (``TensorParallel.place_states``); written into ``cache`` itself
+        and returned. Cells without a ``decode_ctx`` or split weights keep
+        every leaf whole."""
         if self.decode_ctx is not None:
             _place_kv_leaves(cache, self.input_shardspecs(
                 {"cache": cache})["cache"], self.mesh)
+        if self.tp is not None and self.cfg.family in ("ssm", "hybrid"):
+            self.model.place_states(cache)
         return cache
 
     def place_params(self) -> TensorParallel:
@@ -315,19 +322,16 @@ class Cell:
         however many positions share it, taken now (place the parameters
         after they are loaded); the placed tree is the model's ``tp``
         (``distributed.tensor_parallel.TensorParallel``), whose ``moved``
-        counts the copies between positions. Raises
-        ``NotImplementedError`` for a train cell (ROADMAP A6c) and for the
-        ``ssm`` and ``hybrid`` families (A6b)."""
+        counts the copies between positions. The recurrent families'
+        state caches are then placed by ``cache_specs`` when a step first
+        sees them (:meth:`place_cache`, or the model's own ``prefill`` and
+        ``decode_step``) and written in place, each position its slice.
+        Raises ``NotImplementedError`` for a train cell (ROADMAP A6c)."""
         if self.cell.kind == "train":
             raise NotImplementedError(
                 "a train cell's parameters are not split yet: FSDP "
                 "gathers in the backward, gradients reduced to their "
                 "shards and placed optimizer state (ROADMAP A6c)")
-        if self.cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"the {self.cfg.family} family's layout over the model "
-                "axis (heads, u, conv_w, ln_y and their state caches) is "
-                "not split yet (ROADMAP A6b)")
         b_ax = self.decode_ctx.batch_axes if self.decode_ctx is not None \
             else self._batch_split(self._batch_axes())
         self.model.tp = TensorParallel(self.mesh, self.model.tensor_tree(),

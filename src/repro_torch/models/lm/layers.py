@@ -47,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import _as_lists, _leaves
+from repro_torch.device import cpu_trig
 from repro_torch.distributed.tensor_parallel import Cols, Rows
 
 __all__ = ["AttnDims", "Attention", "SwiGLU", "GeluMLP", "LMParams",
@@ -140,10 +141,47 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     if isinstance(x, Rows):
         return x.map(rms_norm, gamma, eps=eps)
+    if isinstance(x, Cols):
+        return _rms_norm_cols(x, gamma, eps)
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * gamma.float()).to(dt)
+
+
+def _rms_norm_cols(x: Cols, gamma: torch.Tensor, eps: float) -> Cols:
+    """:func:`rms_norm` over the whole last dim of a row split into column
+    pieces (a recurrent block's heads on their positions): a row in one
+    piece is normed where it is; otherwise each piece's fp32 sum of
+    squares goes to the row's first position (``tp_reduce``), the sums
+    add in model order, and the row's ``rsqrt`` goes back to each piece,
+    which scales its columns by it and by its columns of ``gamma``."""
+    tp, n = x.tp, gamma.shape[-1]
+    out = []
+    for i, row in enumerate(x.pieces):
+        edges = [(lo, hi) for _, lo, hi, _ in row]
+        if (edges[0][0], edges[-1][1]) != (0, n) or any(
+                a[1] != b[0] for a, b in zip(edges, edges[1:])):
+            raise ValueError(f"pieces {edges} do not cover the {n} normed "
+                             "columns")
+        if len(row) == 1:
+            pos, lo, hi, t = row[0]
+            out.append([(pos, lo, hi, rms_norm(t, tp.cols(gamma, lo, hi, pos,
+                                                            0), eps))])
+            continue
+        home = tp.rows[i][0]
+        f = [t.float() for *_, t in row]
+        ss = None
+        for (pos, *_), fj in zip(row, f):
+            part = tp.send("tp_reduce", (fj * fj).sum(dim=-1, keepdim=True),
+                           pos, home)
+            ss = part if ss is None else ss + part
+        scale = torch.rsqrt(ss / n + eps)
+        out.append([(pos, lo, hi, (fj * tp.send("tp_reduce", scale, home, pos)
+                                   * tp.cols(gamma, lo, hi, pos, 0).float()
+                                   ).to(t.dtype))
+                    for (pos, lo, hi, t), fj in zip(row, f)])
+    return Cols(tp, out, x.dim)
 
 
 def rope_freqs(head_dim: int, theta: float = 10_000.0) -> np.ndarray:
@@ -160,8 +198,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     if freqs is None:
         freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
     ang = positions[..., None].float() * freqs              # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos = cpu_trig(torch.cos, ang)[..., None, :]            # (..., S, 1, hd/2)
+    sin = cpu_trig(torch.sin, ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -11,6 +11,18 @@ cache's state, which is updated in place: O(1) in sequence length.
 keeps what it read), from zeros, rematerialising each layer with
 ``cfg.remat``. ``shard`` is called where the reference calls it; the
 family has no attention, so no ``decode_ctx``.
+
+Set ``tp`` to a ``distributed.tensor_parallel.TensorParallel`` over this
+model's tensors (``Cell.place_params``) and ``prefill``/``decode_step``
+run on the split weights, the cache's states placed by ``cache_specs``
+(``tm_state`` heads over ``model``, ``tm_prev``/``cm_prev`` by batch):
+r, k, v and g column-parallel, the decay whole on the row's first
+position (its LoRA is FSDP-split) and each site's heads sliced from it,
+the WKV scan at ``TensorParallel.head_sites`` on each site's ``u`` and
+state slice, ``ln_x`` over the whole d from sums of squares joined in
+model order (``layers.rms_norm`` of a ``Cols``), ``wo`` row-parallel; in
+the channel mix the sigmoid gate's columns join the row-parallel value on
+the row's first position.
 """
 
 from __future__ import annotations
@@ -21,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.tensor_parallel import (Cols, Rows,
+                                                      TensorParallel)
 
 from . import layers as L
 from .config import LMConfig
@@ -63,6 +77,7 @@ class RWKV6(L.LMParams, nn.Module):
         super().__init__()
         self.cfg = cfg
         self.shard = shard or L.no_shard
+        self.tp: TensorParallel | None = None
         self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.hd = cfg.ssm_head_dim
@@ -85,10 +100,11 @@ class RWKV6(L.LMParams, nn.Module):
         return self
 
     # -- pieces ---------------------------------------------------------------
-    def _decay(self, layer, xw):
+    @staticmethod
+    def _decay(xw, w_lora_a, w_lora_b, w_base):
         """Data-dependent per-channel decay in (0, 1), fp32."""
-        lo = torch.tanh(xw @ layer.w_lora_a) @ layer.w_lora_b
-        return torch.exp(-torch.exp((layer.w_base + lo).float()))
+        lo = torch.tanh(xw @ w_lora_a) @ w_lora_b
+        return torch.exp(-torch.exp((w_base + lo).float()))
 
     def _wkv_scan(self, r, k, v, w, u, state):
         """Recurrence over time.
@@ -118,7 +134,8 @@ class RWKV6(L.LMParams, nn.Module):
         k = (xk @ layer.wk).reshape(b, s, h, hd)
         v = (xv @ layer.wv).reshape(b, s, h, hd)
         g = xg @ layer.wg
-        w = self._decay(layer, xw).reshape(b, s, h, hd).to(x.dtype)
+        w = self._decay(xw, layer.w_lora_a, layer.w_lora_b,
+                        layer.w_base).reshape(b, s, h, hd).to(x.dtype)
         out, state = self._wkv_scan(r, k, v, w, layer.u, state)
         out = out.reshape(b, s, d).to(x.dtype)       # state math stays fp32
         out = L.rms_norm(out, layer.ln_x)
@@ -144,6 +161,88 @@ class RWKV6(L.LMParams, nn.Module):
         x = x + h2
         return x, {"tm_prev": tm_prev, "tm_state": tm_state,
                    "cm_prev": cm_prev}
+
+    # -- split weights ----------------------------------------------------------
+    @staticmethod
+    def _shifted(x: Rows, prev) -> Rows:
+        """Each row's ``cat(prev, x[:, :-1])`` on its first position, from
+        the placed state ``prev`` (B, d) there."""
+        tp = x.tp
+        return Rows(tp, [torch.cat([tp.state_at(prev, i, row[0],
+                                                (0, x.shape[-1]))[:, None],
+                                    x.parts[i][:, :-1]], dim=1)
+                         for i, row in enumerate(tp.rows)])
+
+    @staticmethod
+    def _last(x: Rows) -> list[tuple]:
+        """``write_state`` pieces: each row's last token, where it is."""
+        b = x.parts[0].shape[0]
+        return [(x.tp.rows[i][0], ((i * b, (i + 1) * b),), p[:, -1])
+                for i, p in enumerate(x.parts)]
+
+    def _time_mix_split(self, layer, x: Rows, st: dict) -> Rows:
+        tp, s, hd = x.tp, x.shape[1], self.hd
+        xs = self._shifted(x, st["tm_prev"])
+        xr, xk, xv, xg, xw = (x.map(lambda a, c, mu: a + mu[i] * (c - a),
+                                    xs, layer.mu) for i in range(5))
+        r, k, v, g = (tp.col_linear(a, wt) for a, wt in (
+            (xr, layer.wr), (xk, layer.wk), (xv, layer.wv), (xg, layer.wg)))
+        w = xw.map(lambda a, la, lb, base: self._decay(a, la, lb, base).to(
+            x.dtype), layer.w_lora_a, layer.w_lora_b, layer.w_base)
+        outs, gates, states = [], [], []
+        for i, sites in enumerate(tp.head_sites(self.n_heads_tm)):
+            home, b = tp.rows[i][0], x.parts[i].shape[0]
+            row_out, row_gate = [], []
+            for pos, lo, hi in sites:
+                c0, c1 = lo * hd, hi * hd
+                heads = lambda t: t.reshape(b, s, hi - lo, hd)  # noqa: E731
+                rj, kj, vj = (heads(c.take(i, c0, c1, pos, "heads"))
+                              for c in (r, k, v))
+                wj = heads(tp.send("heads", w.parts[i][..., c0:c1], home, pos))
+                out, state = self._wkv_scan(
+                    rj, kj, vj, wj, tp.cols(layer.u, lo, hi, pos, 0),
+                    tp.state_at(st["tm_state"], i, pos, (lo, hi)))
+                states.append((pos, ((i * b, (i + 1) * b), (lo, hi)), state))
+                row_out.append((pos, c0, c1,
+                                out.reshape(b, s, c1 - c0).to(x.dtype)))
+                row_gate.append((pos, c0, c1, F.silu(
+                    g.take(i, c0, c1, pos, "heads"))))
+            outs.append(row_out)
+            gates.append(row_gate)
+        tp.write_state(st["tm_state"], states)
+        tp.write_state(st["tm_prev"], self._last(x))
+        out = L.rms_norm(Cols(tp, outs), layer.ln_x).map(torch.mul,
+                                                          Cols(tp, gates))
+        return tp.row_linear(out, layer.wo)
+
+    def _channel_mix_split(self, layer, x: Rows, st: dict) -> Rows:
+        tp = x.tp
+        xs = self._shifted(x, st["cm_prev"])
+        xk = x.map(lambda a, c, mu: a + mu[0] * (c - a), xs, layer.mu_c)
+        xr = x.map(lambda a, c, mu: a + mu[1] * (c - a), xs, layer.mu_c)
+        kk = tp.col_linear(xk, layer.wck).map(
+            lambda t: torch.square(torch.relu(t)))
+        value = tp.row_linear(kk, layer.wcv, kind="tp_reduce")
+        gate = tp.col_linear(xr, layer.wcr).map(torch.sigmoid)
+        tp.write_state(st["cm_prev"], self._last(x))
+        return gate.to_rows("tp_reduce").map(lambda a, c: a * c, value)
+
+    def _hidden_split(self, tokens, state: dict):
+        """``hidden`` on the split weights: the cache's states placed
+        (``TensorParallel.place_states``) and written in place."""
+        tp = self.tp
+        state = tp.place_states(state)
+        x = tp.embed(self.embed, tokens)
+        for i, layer in enumerate(self.layers):
+            st = {k: v[i] for k, v in state.items()}
+            x = x + self._time_mix_split(layer, L.rms_norm(x, layer.ln1), st)
+            x = x + self._channel_mix_split(layer, L.rms_norm(x, layer.ln2),
+                                            st)
+        return x, state
+
+    def place_states(self, cache: dict) -> dict:
+        """The cache's states placed over ``tp``'s mesh, in the dict."""
+        return self.tp.place_states(cache)
 
     def _zero_state(self, b):
         cfg = self.cfg
@@ -178,7 +277,11 @@ class RWKV6(L.LMParams, nn.Module):
         """Final hidden states (pre-norm, pre-head) and the state after
         ``tokens``, stacked per layer. A given ``state`` (a serving cache)
         is updated in place; None starts from zeros and stacks a new
-        one."""
+        one. With ``tp`` set the step runs on the split weights and
+        ``x`` is a ``Rows``."""
+        if self.tp is not None:
+            return self._hidden_split(tokens, self.init_cache(
+                tokens.shape[0], 0) if state is None else state)
         x, new = self._layers(self._embed(tokens), state)
         if state is None:
             return x, {k: torch.stack([st[k] for st in new]) for k in new[0]}
@@ -189,6 +292,9 @@ class RWKV6(L.LMParams, nn.Module):
 
     def forward(self, tokens, state=None, return_state=False):
         x, state = self.hidden(tokens, state)
+        if isinstance(x, Rows):
+            logits = x.tp.head(L.rms_norm(x, self.final_norm), self.lm_head)
+            return (logits, state) if return_state else logits
         logits = self.shard(L.rms_norm(x, self.final_norm) @ self.lm_head,
                             ("batch", "seq", "vocab"))
         if return_state:

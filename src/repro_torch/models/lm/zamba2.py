@@ -15,6 +15,22 @@ layer rematerialised with ``cfg.remat``, as the reference's scan step)
 carries them as new tensors. ``shard`` is called where the reference
 calls it; a ``decode_ctx`` runs the shared block's decode attention
 through ``layers.flash_decode_sharded`` over its placed KV caches.
+
+Set ``tp`` to a ``distributed.tensor_parallel.TensorParallel`` over this
+model's tensors (``Cell.place_params``) and ``prefill``/``decode_step``
+run on the split weights, the Mamba states placed by ``cache_specs``
+(``ssm`` heads over ``model``; ``conv``, whose spec puts ``model`` on its
+k−1 axis, which ``fit_spec`` drops, by batch). Each Mamba block's heads
+run at ``TensorParallel.head_sites``: a site takes the columns of the
+column-parallel ``w_in`` projection (z | x | B | C | dt) that its heads
+read, wherever the split cut them (its z, x and dt columns and all of B
+and C), and the ``conv_w`` columns of its x, B and C channels; it convolves
+those channels from the replicated conv state, scans its heads from its
+``ssm`` slice, and norms ``ln_y`` over the whole d_in from sums of squares
+joined in model order; ``w_out`` is row-parallel. The shared block runs
+as the dense layers do (``layers._qkv_split``, ``flash_decode_sharded``,
+the split SwiGLU), its ``w_in`` column-parallel, joined on the row's
+first position.
 """
 
 from __future__ import annotations
@@ -25,6 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.tensor_parallel import (Cols, Rows,
+                                                      TensorParallel)
 
 from . import layers as L
 from .config import LMConfig
@@ -86,6 +104,7 @@ class Zamba2(L.LMParams, nn.Module):
         self.cfg = cfg
         self.shard = shard or L.no_shard
         self.decode_ctx: L.DecodeShardCtx | None = None
+        self.tp: TensorParallel | None = None
         self.device = resolve_device(device, meta=True)
         self.dtype = L.torch_dtype(cfg.dtype)
         self.d_in = cfg.ssm_expand * cfg.d_model
@@ -198,6 +217,68 @@ class Zamba2(L.LMParams, nn.Module):
         out = self.shard(y @ layer.w_out, ("batch", "seq", "embed"))
         return x + out, {"conv": conv_state, "ssm": ssm_state}
 
+    def _mamba_block_split(self, layer, x: Rows, st: dict) -> Rows:
+        """``_mamba_block`` on the split weights, the layer's placed
+        states ``st`` written in place."""
+        tp, n, hd, din = x.tp, self.cfg.ssm_state, self.hd, self.d_in
+        s = x.shape[1]
+        z = tp.col_linear(L.rms_norm(x, layer.ln), layer.w_in)
+        ys, gates, convs, ssms = [], [], [], []
+        for i, sites in enumerate(tp.head_sites(self.n_heads_m)):
+            b = x.parts[i].shape[0]
+            rows = (i * b, (i + 1) * b)
+            row_y, row_gate = [], []
+            for j, (pos, lo, hi) in enumerate(sites):
+                c0, c1 = lo * hd, hi * hd
+                # conv channels: this site's x, then B and C
+                chans = ((c0, c1), (din, din + 2 * n))
+                conv_in = torch.cat([z.take(i, din + a, din + e, pos,
+                                            "heads") for a, e in chans], -1)
+                conv_w = torch.cat([tp.cols(layer.conv_w, a, e, pos, 1)
+                                    for a, e in chans], -1)
+                held = tp.state_at(st["conv"], i, pos,
+                                   (0, st["conv"].shape[1]),
+                                   (0, self.conv_dim))
+                out, conv_state = self._conv(conv_in, conv_w, torch.cat(
+                    [held[..., a:e] for a, e in chans], -1))
+                convs.append((pos, (rows, (0, conv_state.shape[1]), (c0, c1)),
+                              conv_state[..., :c1 - c0]))
+                if j == 0:
+                    convs.append((pos, (rows, (0, conv_state.shape[1]),
+                                        chans[1]), conv_state[..., c1 - c0:]))
+                out = F.silu(out)
+                xs_, bb, cc = (out[..., :c1 - c0],
+                               out[..., c1 - c0:c1 - c0 + n],
+                               out[..., c1 - c0 + n:])
+                dt0 = 2 * din + 2 * n
+                dt = F.softplus(z.take(i, dt0 + lo, dt0 + hi, pos,
+                                       "heads").float()
+                                + tp.cols(layer.dt_bias, lo, hi, pos,
+                                          0)[None, None, :])
+                y, ssm_state = self._ssm_scan(
+                    xs_.reshape(b, s, hi - lo, hd), bb.float(), cc.float(),
+                    dt, tp.cols(layer.a_log, lo, hi, pos, 0),
+                    tp.cols(layer.d_skip, lo, hi, pos, 0),
+                    tp.state_at(st["ssm"], i, pos, (lo, hi)))
+                ssms.append((pos, (rows, (lo, hi)), ssm_state))
+                row_y.append((pos, c0, c1,
+                              y.reshape(b, s, c1 - c0).to(x.dtype)))
+                row_gate.append((pos, c0, c1, F.silu(
+                    z.take(i, c0, c1, pos, "heads"))))
+            ys.append(row_y)
+            gates.append(row_gate)
+        tp.write_state(st["conv"], convs)
+        tp.write_state(st["ssm"], ssms)
+        y = L.rms_norm(Cols(tp, ys), layer.ln_y).map(torch.mul,
+                                                      Cols(tp, gates))
+        return x + tp.row_linear(y, layer.w_out)
+
+    def place_states(self, cache: dict) -> dict:
+        """The cache's Mamba states placed over ``tp``'s mesh, in the
+        dict (the shared block's k/v as ``decode_ctx`` places them)."""
+        self.tp.place_states(cache["mamba"])
+        return cache
+
     def _zero_mamba_state(self, b):
         cfg = self.cfg
         return {
@@ -210,7 +291,13 @@ class Zamba2(L.LMParams, nn.Module):
     def _mamba_layers(self, x, states, a, b):
         """Layers [a, b) from ``states`` (stacked per layer; None: zeros).
         Returns x and the layers' new states, a list; nothing is written
-        in place."""
+        in place. A split step's ``x`` (a ``Rows``) runs on the placed
+        ``states``, written in place, and returns no list."""
+        if isinstance(x, Rows):
+            for i in range(a, b):
+                x = self._mamba_block_split(
+                    self.mamba[i], x, {k: v[i] for k, v in states.items()})
+            return x, None
         new = []
         for i in range(a, b):
             st = (self._zero_mamba_state(x.shape[0]) if states is None
@@ -223,16 +310,27 @@ class Zamba2(L.LMParams, nn.Module):
     @staticmethod
     def _store_states(states, a: int, new: list) -> None:
         """Write layers [a, a + len(new))'s new states into the stacked
-        ``states`` (a serving cache) in place."""
-        for j, st in enumerate(new):
+        ``states`` (a serving cache) in place (a split step's ``new`` is
+        None: written already)."""
+        for j, st in enumerate(new or ()):
             for key, val in st.items():
                 states[key][a + j] = val
 
     # -- shared attention block -------------------------------------------------
+    @staticmethod
+    def _shared_in(p, x, x0):
+        """``rms_norm(cat(x, x0)) @ w_in``; on a split step column-parallel,
+        the columns joined on each row's first position."""
+        if isinstance(x, Rows):
+            h = L.rms_norm(x.map(lambda a, e: torch.cat([a, e], dim=-1), x0),
+                           p.ln_in)
+            return x.tp.col_linear(h, p.w_in).to_rows("tp_reduce")
+        h = torch.cat([x, x0], dim=-1)
+        return L.rms_norm(h, p.ln_in) @ p.w_in
+
     def _shared_block(self, p, x, x0, kv=None, idx=None):
         """Full-seq when kv is None; cached decode otherwise."""
-        h = torch.cat([x, x0], dim=-1)
-        h = L.rms_norm(h, p.ln_in) @ p.w_in
+        h = self._shared_in(p, x, x0)
         a_in = L.rms_norm(h, p.ln1)
         if kv is None:
             attn = L.attention(p.attn, self.attn_dims, a_in,
@@ -303,7 +401,9 @@ class Zamba2(L.LMParams, nn.Module):
         application's k/v at positions [0, s) of its cache (the rest
         zeroed)."""
         b, s = tokens.shape
-        x = L.take_rows(self.embed, tokens)
+        if self.tp is not None:
+            self.place_states(cache)
+        x = self._tokens(tokens)
         x0 = x
         states = cache["mamba"]
         if self.n_shared() and s > cache["shared"]["k"].shape[2]:
@@ -316,33 +416,45 @@ class Zamba2(L.LMParams, nn.Module):
             self._store_states(states, a, new)
             if self._shared_after(a, bnd):
                 p = self.shared
-                h = torch.cat([x, x0], dim=-1)
-                h = L.rms_norm(h, p.ln_in) @ p.w_in
+                h = self._shared_in(p, x, x0)
                 a_in = L.rms_norm(h, p.ln1)
                 q, k, v = L._qkv(p.attn, self.attn_dims, a_in, positions,
                                  shard=self.shard)
                 attn = L._attend(q, k, v, causal=True)
-                h = h + attn.reshape(b, s, -1) @ p.attn.wo
+                h = h + L._out(p.attn, attn)
                 h = h + L.swiglu(p.mlp, L.rms_norm(h, p.ln2), self.shard)
                 x = x + h
-                cache["shared"]["k"][si, :, :s] = k
-                cache["shared"]["v"][si, :, :s] = v
+                cache["shared"]["k"][si, :, :s] = L.whole(k)
+                cache["shared"]["v"][si, :, :s] = L.whole(v)
                 si += 1
         if si:
             cache["shared"]["k"][:, :, s:] = 0
             cache["shared"]["v"][:, :, s:] = 0
         x = L.rms_norm(x, self.final_norm)
         cache["index"] = s
-        return (x[:, -1:, :] @ self.lm_head)[:, 0], cache
+        return self._head(x[:, -1:, :])[:, 0], cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache):
         idx = cache["index"]
         if self.decode_ctx is not None and "shared" in cache:
             L.place_kv(cache["shared"], ("k", "v"), self.decode_ctx)
-        x = L.take_rows(self.embed, tokens)
+        if self.tp is not None:
+            self.place_states(cache)
+        x = self._tokens(tokens)
         x = self._run(x, cache["mamba"], shared_kv=cache.get("shared"),
                       idx=idx)
         x = L.rms_norm(x, self.final_norm)
         cache["index"] = idx + 1
-        return (x @ self.lm_head)[:, 0], cache
+        return self._head(x)[:, 0], cache
+
+    def _tokens(self, tokens):
+        """A serving step's token rows: a ``Rows`` on split weights."""
+        if self.tp is not None:
+            return self.tp.embed(self.embed, tokens)
+        return L.take_rows(self.embed, tokens)
+
+    def _head(self, x):
+        if isinstance(x, Rows):
+            return x.tp.head(x, self.lm_head)
+        return x @ self.lm_head

@@ -2312,18 +2312,21 @@ def _split_case(devices, arch: str):
     return out
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b",
+                                  "rwkv6-7b", "zamba2-1.2b"])
 def test_split_cells_on_logical_positions_match_the_cpu(cuda, arch):
-    """Reduced dense and MoE cells with their weights split over four
-    positions of the card against the same on a CPU mesh: prefill and
-    decode logits at ``rtol 1e-4, atol 1e-5``, greedy tokens equal."""
+    """Reduced dense, MoE and recurrent cells with their weights (and
+    rwkv6's and zamba2's state caches) split over four positions of the
+    card against the same on a CPU mesh: prefill and decode logits at
+    ``rtol 1e-4, atol 1e-5``, greedy tokens equal."""
     card = [torch.device("cuda", torch.cuda.current_device())] * 4
     for got, want in zip(_split_case(card, arch), _split_case("cpu", arch)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
         assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b",
+                                  "rwkv6-7b", "zamba2-1.2b"])
 def test_split_cells_across_two_cards(two_cards, arch):
     """The (2, 2) mesh over two cards (data shard 0 on the first, 1 on
     the second): each card holds its positions' weight pieces, the second

@@ -1,12 +1,17 @@
 """Serving cells on split weights (``Cell.place_params``,
 ``repro_torch.distributed.tensor_parallel``) on CPU meshes.
 
-* The prefill and decode cells of the eight dense, vlm, moe and encdec
-  archs (``reduced()``, fp32) on (2, 2) and (1, 4) meshes, parameters
-  placed, against the port's mesh-less step and the reference's
-  mesh-less ``prefill``/``decode_step`` on the same parameters: logits
-  within ``rtol = atol = 2e-4`` (``tests/distributed_inner.py:75``),
-  greedy tokens equal over 6 decode steps.
+* The prefill and decode cells of the ten archs (``reduced()``, fp32) on
+  (2, 2) and (1, 4) meshes, parameters placed, against the port's
+  mesh-less step and the reference's mesh-less ``prefill``/
+  ``decode_step`` on the same parameters: logits within ``rtol = atol =
+  2e-4`` (``tests/distributed_inner.py:75``), greedy tokens equal over 6
+  decode steps; rwkv6 and zamba2 also with 4 heads on (1, 4) (their heads
+  per position; zamba2's 292 ``w_in`` columns cut mid-segment).
+* The recurrent state caches are placed by ``cache_specs``: every
+  position's tensor of every state leaf is its spec's slice of the
+  mesh-less cache, before and after decode steps, updated in place and
+  never assembled whole; ``long_500k`` (b = 1) cells too.
 * Every placed leaf holds its spec's slice (a view of the weight) and no
   position holds whole a leaf its spec splits.
 * Both attention layouts (heads split on kv groups on (2, 2); gathered on
@@ -16,13 +21,14 @@
 * The split embedding is bitwise the whole gather and raises on an id
   outside the table.
 * The bytes between positions are a hand count for reduced llama3's
-  prefill and decode on (2, 2).
-* ``place_params`` raises for train, ``ssm`` and ``hybrid`` cells.
+  prefill and decode and rwkv6's decode on (2, 2).
+* ``place_params`` accepts the recurrent families' serving cells and
+  raises for train cells.
 * The reference's own partitioned cells (its ``Cell`` on its (2, 4) mesh
   of host devices, compiled with its parameters and inputs put by
   ``to_named(cell.pspecs)`` and the cell's input specs, the shapes cut as
-  ``tests/distributed_inner.py:100-116`` cuts them), qwen3-4b and
-  llama4-maverick, against the port's placed cells on a CPU (2, 4) mesh
+  ``tests/distributed_inner.py:100-116`` cuts them), qwen3-4b,
+  llama4-maverick, rwkv6 and zamba2, against the port's placed cells on a CPU (2, 4) mesh
   (this file re-run as a script with
   ``XLA_FLAGS=--xla_force_host_platform_device_count=8``).
 """
@@ -50,7 +56,8 @@ import repro.configs as JC  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 from repro.models.lm import make_lm_model as jax_make_lm_model  # noqa: E402
 from repro_torch.bridge import load_lm_params  # noqa: E402
-from repro_torch.distributed import make_mesh  # noqa: E402
+from repro_torch.distributed import Placed, make_mesh  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.distributed.tensor_parallel import Cols  # noqa: E402
 from repro_torch.launch.steps import Cell, build_cell  # noqa: E402
 from repro_torch.models.lm import moe as TM  # noqa: E402
@@ -58,7 +65,7 @@ from repro_torch.models.lm import moe as TM  # noqa: E402
 TOL = dict(rtol=2e-4, atol=2e-4)        # tests/distributed_inner.py:75
 ARCHS = ("llama3-8b", "granite-8b", "smollm-360m", "qwen3-4b",
          "pixtral-12b", "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
-         "whisper-small")
+         "whisper-small", "rwkv6-7b", "zamba2-1.2b")
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 B, PROMPT, S_MAX, N_IMG, N_FRAMES, STEPS = 4, 6, 16, 2, 8, 6
 
@@ -159,11 +166,15 @@ def _cells(arch: str, shape, params, **overrides):
     return pre, dec, plain
 
 
-#: (arch, mesh, config overrides): the eight archs on both meshes, and
-#: whisper with a vocabulary ``fit_spec`` leaves whole over ``model`` (as
-#: whisper-small's 51,865 rows are)
+#: (arch, mesh, config overrides): the ten archs on both meshes, whisper
+#: with a vocabulary ``fit_spec`` leaves whole over ``model`` (as
+#: whisper-small's 51,865 rows are), and the recurrent families with four
+#: heads over four positions (reduced rwkv6 has one head, which the
+#: column split cuts; reduced zamba2 two)
 SPLIT_CASES = [(a, m, ()) for a in ARCHS for m in MESHES] + [
-    ("whisper-small", "2x2", (("vocab", 255),))]
+    ("whisper-small", "2x2", (("vocab", 255),)),
+    ("rwkv6-7b", "1x4", (("ssm_head_dim", 16),)),
+    ("zamba2-1.2b", "1x4", (("ssm_head_dim", 32),))]
 
 
 @pytest.mark.parametrize("arch,mesh_name,overrides", SPLIT_CASES, ids=[
@@ -178,7 +189,15 @@ def test_split_cells_match_the_mesh_less_step_and_the_reference(
     mesh_less, _ = _prefill(plain.model, inputs, PROMPT)
     torch.testing.assert_close(got, mesh_less, **TOL)
     np.testing.assert_allclose(got.numpy(), want_pre, **TOL)
-    assert isinstance(cache["k"], torch.Tensor)
+    # the prefill's KV caches leave whole, its recurrent states placed
+    fam = pre.cfg.family
+    if fam == "ssm":
+        assert isinstance(cache["tm_state"], Placed)
+    elif fam == "hybrid":
+        assert isinstance(cache["shared"]["k"], torch.Tensor)
+        assert isinstance(cache["mamba"]["ssm"], Placed)
+    else:
+        assert isinstance(cache["k"], torch.Tensor)
 
     ls, cs = _prefill(dec.model, inputs, S_MAX)
     lp, cp = _prefill(plain.model, inputs, S_MAX)
@@ -191,7 +210,8 @@ def test_split_cells_match_the_mesh_less_step_and_the_reference(
         torch.testing.assert_close(ls, lp, **TOL)
         np.testing.assert_allclose(ls.numpy(), want, **TOL)
         assert (ls.argmax(-1).numpy() == want.argmax(-1)).all()
-    assert cs["index"] == PROMPT + STEPS
+    if pre.cfg.family != "ssm":            # RWKV6's cache has no index
+        assert cs["index"] == PROMPT + STEPS
 
 
 def _shapes(tree, path=""):
@@ -360,7 +380,7 @@ def test_moved_bytes_are_a_hand_count_on_a_2x2_mesh():
     want = _hand_count(cfg, b_row, PROMPT, fsdp=True, tok=4)   # int32 ids
     kv_piece = b_row * PROMPT * (cfg.n_kv_heads // 2) * hd * f32
     want["heads"] = cfg.n_layers * 2 * 3 * kv_piece
-    want.update(moe_tokens=0, merge=0)
+    want.update(moe_tokens=0, merge=0, state=0)
     assert pre.tp.bytes_by_kind() == want
 
     _, cache = _prefill(dec.model, inputs, S_MAX)
@@ -377,16 +397,48 @@ def test_moved_bytes_are_a_hand_count_on_a_2x2_mesh():
         stat = b_row * cfg.n_heads * f32         # (b, kv, g, 1): a max, l
         merge = 2 * (q + 3 * stat + q)           # o is q's size
         merge += writes * 2 * 2 * b_row * cfg.n_kv_heads * hd * f32
-        want.update(moe_tokens=0, merge=cfg.n_layers * merge)
+        want.update(moe_tokens=0, merge=cfg.n_layers * merge, state=0)
         assert dec.tp.bytes_by_kind() == want, idx
         by_pos = dec.tp.by_position("merge")
         assert by_pos[(0, 1)] == by_pos[(1, 1)] == cfg.n_layers * (
             merge // 2)
 
 
+def test_rwkv6_moved_bytes_are_a_hand_count_on_a_2x2_mesh():
+    """Reduced rwkv6 with 4 heads of 16 (fp32; d 64, f 128, vocab 256, 2
+    layers), batch 4 on (2, 2), one decode step (TP only): heads 2 a
+    position. A layer, for each row's model position 1: the time mix's
+    four shifted inputs and the channel mix's two go to it, and three
+    partial sums (``wo``, ``wcv``) and the gate's columns (``wcr``) come
+    back (``tp_reduce``), as do its ``ln_x`` sum of squares and the
+    row's ``rsqrt`` (4 bytes a token each); its half of the decay's
+    columns goes to it (``heads``); ``tm_prev`` and ``cm_prev``, replicated
+    over ``model``, reach it from the row's first position (``state``;
+    ``tm_state`` is split by heads and written where it was computed).
+    The embedding and head as in ``_hand_count``."""
+    over = (("ssm_head_dim", 16),)
+    cfg = TC.get_config("rwkv6-7b").reduced(**dict(over))
+    params = reference_run("rwkv6-7b", **dict(over))[0]
+    _, dec, _ = _cells("rwkv6-7b", (2, 2), params, **dict(over))
+    f32, b_row, d = 4, B // 2, cfg.d_model
+    _, cache = _prefill(dec.model, _torch(_inputs(cfg)), S_MAX)
+    dec.tp.moved.clear()
+    dec.decode_fn()({"tokens": torch.zeros(B, 1, dtype=torch.long),
+                     "cache": cache})
+    act = b_row * d * f32                 # one row's (b_row, 1, d)
+    layer = {"tp_reduce": 8 * act + act // 2 + 2 * b_row * f32,
+             "heads": act // 2, "state": 2 * act}
+    want = _hand_count(cfg, b_row, 1, fsdp=False, tok=8)
+    want = {"tp_reduce": 2 * cfg.n_layers * layer["tp_reduce"] + 2 * act,
+            "fsdp_gather": 0, "vocab": want["vocab"],
+            "heads": 2 * cfg.n_layers * layer["heads"], "moe_tokens": 0,
+            "merge": 0, "state": 2 * cfg.n_layers * layer["state"]}
+    assert dec.tp.bytes_by_kind() == want
+
+
 @pytest.mark.parametrize("arch,shape,match", [
-    ("qwen3-4b", "train_4k", "A6c"), ("rwkv6-7b", "decode_32k", "A6b"),
-    ("zamba2-1.2b", "prefill_32k", "A6b"),
+    ("qwen3-4b", "train_4k", "A6c"), ("rwkv6-7b", "train_4k", "A6c"),
+    ("whisper-small", "train_4k", "A6c"),
     ("zamba2-1.2b", "train_4k", "A6c")])
 def test_place_params_refuses_what_is_not_split_yet(arch, shape, match):
     cell = Cell(arch, shape, make_mesh((2, 2), ("data", "model"), "meta"),
@@ -396,9 +448,116 @@ def test_place_params_refuses_what_is_not_split_yet(arch, shape, match):
     assert cell.tp is None
 
 
+@pytest.mark.parametrize("arch", ("rwkv6-7b", "zamba2-1.2b"))
+@pytest.mark.parametrize("shape", ("prefill_32k", "decode_32k",
+                                   "long_500k"))
+def test_place_params_accepts_the_recurrent_serving_cells(arch, shape):
+    """Published shapes on meta tensors: the heads split over ``model``
+    (64 of 64 for both), ``u``/``conv_w``/``ln_y`` as their rules say."""
+    cell = Cell(arch, shape, make_mesh((2, 2), ("data", "model"), "meta"),
+                device="meta")
+    tp = cell.place_params()
+    assert cell.tp is tp and tp.head_sites(64)[0][1][1:] == (32, 64)
+    if arch == "rwkv6-7b":
+        layer = cell.model.layers[0]
+        assert tp.model_dim(layer.u) == 0 and tp.model_dim(layer.wr) == 1
+    else:
+        layer = cell.model.mamba[0]
+        assert (tp.model_dim(layer.conv_w), tp.model_dim(layer.ln_y),
+                tp.model_dim(layer.w_in), tp.model_dim(layer.a_log)) \
+            == (1, 0, 1, None)
+
+
+#: (arch, mesh, overrides, shape): per-head layouts on both meshes, the
+#: conv state ``fit_spec`` leaves whole over ``model``, and ``long_500k``
+#: (b = 1, a batch the data axis does not split: its positions (1, j)
+#: hold replicas)
+STATE_CASES = [
+    ("rwkv6-7b", "2x2", (("ssm_head_dim", 16),), "decode_32k"),
+    ("zamba2-1.2b", "1x4", (("ssm_head_dim", 32),), "decode_32k"),
+    ("rwkv6-7b", "2x2", (("ssm_head_dim", 16),), "long_500k"),
+    ("zamba2-1.2b", "2x2", (), "long_500k")]
+
+
+@pytest.mark.parametrize("arch,mesh_name,overrides,shape", STATE_CASES,
+                         ids=["-".join([a, m, s] + [f"{k}{v}" for k, v in o])
+                              for a, m, o, s in STATE_CASES])
+def test_placed_states_hold_their_spec_slices(arch, mesh_name, overrides,
+                                              shape, monkeypatch):
+    """After a split prefill and each of 4 split decode steps, every
+    position's tensor of every state leaf is its fitted ``cache_specs``
+    slice of the mesh-less cache (within ``TOL``), the same tensor as
+    before (written in place), a proper slice where the spec splits; no
+    state is assembled or gathered whole in a step; logits and greedy
+    tokens as the mesh-less step's."""
+    params = reference_run(arch, **dict(overrides))[0]
+    b = TC.SHAPES[shape].batch if shape == "long_500k" else B
+    with patched(arch, {shape: (S_MAX, b)}, **dict(overrides)):
+        mesh = make_mesh(MESHES[mesh_name], ("data", "model"), "cpu")
+        dec = build_cell(arch, shape, mesh)
+        plain = build_cell(arch, shape,
+                           make_mesh((1, 1), ("data", "model"), "cpu"))
+    for cell in (dec, plain):
+        load_lm_params(cell.model, params)
+    tp = dec.place_params()
+    inputs = _torch(_inputs(dec.cfg, b=b))
+    ls, cs = _prefill(dec.model, inputs, S_MAX)
+    lp, cp = _prefill(plain.model, inputs, S_MAX)
+    torch.testing.assert_close(ls, lp, **TOL)
+    states = cs["mamba"] if "mamba" in cs else cs
+    ref = cp["mamba"] if "mamba" in cp else cp
+    specs = shd.fit_spec_tree(mesh, shd.cache_specs(None, mesh, ref), ref)
+    if "conv" in states:       # the reference's k-1 axis over model
+        assert shd.cache_specs(None, mesh, ref)["conv"][2] == "model"
+        assert specs["conv"][2] is None
+    held = {}
+    for key, pl in states.items():
+        assert isinstance(pl, Placed) and pl.sharding.spec == specs[key]
+        held[key] = {pos: pl.local(pos) for pos in np.ndindex(
+            mesh.devices.shape)}
+
+    def check():
+        n_split = 0
+        for key, pl in states.items():
+            whole = ref[key]
+            split = not pl.sharding.is_fully_replicated
+            n_split += split
+            for pos in np.ndindex(mesh.devices.shape):
+                local = pl.local(pos)
+                assert local is held[key][pos], (key, pos)
+                want = whole[pl.sharding.local_slices(pos, whole.shape)]
+                torch.testing.assert_close(local, want, **TOL)
+                if pl.sharding.shards(2) > 1:
+                    assert local.numel() < whole.numel(), (key, pos)
+        return n_split
+
+    assert check() > 0
+    split_step, plain_step = dec.decode_fn(), plain.decode_fn()
+    for _ in range(4):
+        nxt = lp.argmax(-1)[:, None]
+        tp.moved.clear()
+        with monkeypatch.context() as m:
+            for name in ("full", "gather"):
+                m.setattr(Placed, name, lambda *a, **k: pytest.fail(
+                    "a placed value assembled in a split step"))
+            ls, cs = split_step({"tokens": nxt, "cache": cs})
+        lp, cp = plain_step({"tokens": nxt, "cache": cp})
+        torch.testing.assert_close(ls, lp, **TOL)
+        assert torch.equal(ls.argmax(-1), lp.argmax(-1))
+        check()
+        # the positions holding a replica of a slice they did not compute
+        assert tp.bytes_by_kind()["state"] > 0
+
+
 # --- the reference's partitioned cells on its own 8-device mesh -------------
 
-SUBPROCESS_CASES = ("qwen3-4b", "llama4-maverick-400b-a17b")
+SUBPROCESS_CASES = ("qwen3-4b", "llama4-maverick-400b-a17b", "rwkv6-7b",
+                    "zamba2-1.2b")
+#: config overrides in the subprocess: qk-norm on, and the recurrent
+#: families with four heads, split over the model axis of 4
+SUBPROCESS_OVERRIDES = {"qwen3-4b": {"qk_norm": True},
+                        "rwkv6-7b": {"ssm_head_dim": 16},
+                        "zamba2-1.2b": {"ssm_head_dim": 32}}
 REF_SEQ, REF_B, REF_PROMPT = 64, 8, 6       # tests/distributed_inner.py
 
 
@@ -412,7 +571,7 @@ def _case(arch: str):
     from repro.launch.mesh import make_test_mesh as jax_test_mesh
     jmesh = jax_test_mesh(2, 4)
     mesh = make_mesh((2, 4), ("data", "model"), "cpu")
-    over = {"qk_norm": True} if arch == "qwen3-4b" else {}
+    over = SUBPROCESS_OVERRIDES.get(arch, {})
     shapes = {"prefill_32k": (REF_SEQ, REF_B), "decode_32k": (REF_SEQ, REF_B)}
     with patched(arch, shapes, pkgs=(JC, TC), **over):
         cells = {}

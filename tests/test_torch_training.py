@@ -125,6 +125,30 @@ def test_planted_effect_matches_reference():
                                    err_msg=skew)
 
 
+def test_first_cpu_sin_and_cos_run_on_one_element(monkeypatch):
+    """ROADMAP C3: a process's first multi-threaded CPU ``torch.sin`` or
+    ``torch.cos`` can return elements ~1e-4 off (a race in the vector
+    math library's lazy set-up; a later call is right), which failed
+    ``test_planted_effect_matches_reference`` when it held a worker's
+    first. ``planted_effect`` (through ``device.cpu_trig``) calls each
+    once on a single element first, then on the whole phase table, and
+    only once a process."""
+    import repro_torch.device as device
+    monkeypatch.setattr(device, "_TRIG_READY", set())
+    sizes = {"sin": [], "cos": []}
+    for name in sizes:
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda x, _r=real, _n=name: (
+            sizes[_n].append(x.numel()), _r(x))[1])
+    ids = torch.from_numpy(skewed_ids_from_uniform(
+        np.random.default_rng(0).random((512, CRITEO.k), dtype=np.float32),
+        CRITEO.field_sizes))
+    for _ in range(2):
+        planted_effect(ids, CRITEO.k)
+    n = ids.numel()
+    assert sizes == {"sin": [1, n, n], "cos": [1, n, n]}
+
+
 def test_label_rule_and_skew_laws_match_reference():
     """The same uniforms give the reference's ids (its float32
     arithmetic, ``synthetic.py:136-147``) and its labels
