@@ -312,14 +312,23 @@ Phases (any failure raises; the script then exits non-zero):
    zamba2-1.2b at published width and depth, ``decode_32k`` cut to b =
    4, parameters and state caches split, from a split prefill of 16
    tokens: bf16, split and mesh-less steps to a sync and queued, ATen
-   ops, bytes between positions by kind, peak memory; fp32, split
-   within ``MESH_DECODE_TOL`` of mesh-less over 8 steps, greedy tokens
-   equal up to near ties. Numbers also go to
+   ops, bytes between positions by kind, peak memory, layer 0's
+   recurrent block and the head held to fp32 by phase 14's error ratio;
+   fp32, split within ``MESH_DECODE_TOL`` of mesh-less over 8 steps,
+   greedy tokens equal up to near ties. (g) smollm-360m's ``train_4k``
+   (all 32 layers, pure FSDP) at b = 8, s = 256 and (h) llama3-8b's
+   (depth 4, TP × FSDP) at b = 4, s = 512, parameters placed: one split
+   step held to the unsplit step in fp32 (loss, ``grad_norm``, every
+   gradient, params, m and v within ``TRAIN_SPLIT_TOL``), then 3 bf16
+   steps each split, unsplit and mesh-less to a sync, ATen ops a step,
+   bytes between positions by kind (the forward's alone too), peak
+   memory, the step's bound. Numbers also go to
    ``chiprun_out/lm_phase16.json``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -5185,6 +5194,18 @@ LM_SPLIT_ARCHS = ("llama3-8b", "granite-8b", "smollm-360m", "qwen3-4b",
 LM_SPLIT_RECURRENT = ("rwkv6-7b", "zamba2-1.2b")   # (f): published width
 LM_SPLIT_REC_PROMPT = 16      # (f): the prefill before the decode steps
 LM_SPLIT_REC_STEPS = 8
+# (g), (h): train cells split (arch, depth or None for all, b, s):
+# smollm-360m's train_4k under pure FSDP as phase 14 (d) cuts it, and
+# llama3-8b's under TP x FSDP at depth 4 of 32, b = 4 of 256, s = 512 of
+# 4,096
+LM_SPLIT_TRAIN = (("g", "smollm-360m", None, 8, 256),
+                  ("h", "llama3-8b", 4, 4, 512))
+LM_SPLIT_TRAIN_STEPS = 3
+# their fp32 checks: the LM-training tolerance, with AdamW's eps at 1e-3
+# as tests/test_torch_lm_tp_train.py sets it, so that a gradient near 0
+# does not turn its rounding into a whole step of the update
+TRAIN_SPLIT_TOL = dict(rtol=1e-4, atol=1e-5)
+TRAIN_SPLIT_EPS = 1e-3
 
 
 class lm_cell_shape:
@@ -5753,6 +5774,66 @@ def lm_split_small(torch, dev, mesh, arch: str) -> tuple[float, float]:
     return vs_cpu, vs_plain
 
 
+def recurrent_error_ratio(torch, cell, tp, plain, g) -> dict:
+    """(f) bf16, as ``split_error_ratio`` holds (a): layer 0's recurrent
+    block (rwkv6: time mix and channel mix; zamba2: the Mamba block) on
+    one new token from the layer's states in ``plain`` (a whole copy of
+    the cache), split (the states placed anew by ``cache_specs``) and
+    mesh-less, and the head on one hidden state split and mesh-less, each
+    against the same computed in fp32 (the layer and states cast):
+    relative norm errors, the split error at most
+    ``LM_MESH_ATTN_RATIO`` times the mesh-less one."""
+    import copy
+
+    from repro_torch.models.lm import layers as L
+
+    model = cell.model
+    rwkv = cell.cfg.family == "ssm"
+    layer = model.layers[0] if rwkv else model.mamba[0]
+    states = plain if rwkv else plain["mamba"]
+    nxt = torch.randint(0, cell.cfg.vocab, (LM_MESH_B, 1), generator=g,
+                        device=model.device)
+
+    def block(lyr, x_, dtype=None):
+        st = {k: v[0].to(dtype or v.dtype, copy=True)
+              for k, v in states.items()}
+        return (model._block(lyr, x_, st) if rwkv
+                else model._mamba_block(lyr, x_, st))[0]
+
+    def split_block(x_):
+        st = {k: v[0] for k, v in tp.place_states(
+            {k: v[:1].clone() for k, v in states.items()}).items()}
+        xr = tp.split_rows(x_)
+        if rwkv:
+            y = xr + model._time_mix_split(layer, L.rms_norm(xr, layer.ln1),
+                                           st)
+            y = y + model._channel_mix_split(layer, L.rms_norm(y, layer.ln2),
+                                             st)
+            return y.whole("heads")
+        return model._mamba_block_split(layer, xr, st).whole("heads")
+
+    err = lambda t, truth: float(  # noqa: E731
+        (t.float() - truth).norm() / truth.norm())
+    with torch.no_grad():
+        x = L.take_rows(model.embed, nxt)
+        mless, split = block(layer, x), split_block(x)
+        truth = block(copy.deepcopy(layer).float(), x.float(),
+                      torch.float32).float()
+        out = {"block_err": err(split, truth),
+               "block_err_mesh_less": err(mless, truth)}
+        xh = L.rms_norm(torch.randn((LM_MESH_B, 1, cell.cfg.d_model),
+                                    generator=g, device=model.device
+                                    ).to(model.dtype), model.final_norm)
+        truth = xh.float() @ model.lm_head.float()
+        out["head_err"] = err(tp.head(tp.split_rows(xh), model.lm_head),
+                              truth)
+        out["head_err_mesh_less"] = err(xh @ model.lm_head, truth)
+    for part in ("block", "head"):
+        assert out[f"{part}_err"] <= LM_MESH_ATTN_RATIO * max(
+            out[f"{part}_err_mesh_less"], 1e-6), (cell.arch, out)
+    return out
+
+
 def split_recurrent_cell(torch, dev, mesh, arch: str, dtype: str):
     """(f)'s decode cell of ``arch`` at published width and depth in
     ``dtype``, ``decode_32k`` cut to b = ``LM_MESH_B``, its weights from
@@ -5785,8 +5866,10 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
     ``LM_SPLIT_REC_STEPS`` split steps and as many mesh-less ones on a
     whole copy of the cache, each to a sync, then as many of each queued;
     ATen ops a step split and mesh-less, the bytes between positions a
-    split step by kind, the peak memory; bf16 logits drift apart and are
-    recorded, not checked. fp32, the check (as (b) and (d) hold theirs):
+    split step by kind, the peak memory; the bf16 logits' drift is
+    recorded, and layer 0's recurrent block and the head are held to fp32
+    by ``recurrent_error_ratio``. fp32, the check (as (b) and (d) hold
+    theirs):
     as many split and mesh-less steps, the logits within
     ``MESH_DECODE_TOL`` and the greedy tokens equal up to near ties. The
     bound a token is the weights' bytes over ``hw.HBM_BW``."""
@@ -5798,6 +5881,9 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
     cell, tp, cache, nxt, weights, pre_ms = split_recurrent_cell(
         torch, dev, mesh, arch, "bfloat16")
     plain = whole_copy(torch, cache)
+    ratio = recurrent_error_ratio(
+        torch, cell, tp, plain,
+        torch.Generator(device=dev).manual_seed(SEED + 16))
     ms = {"split": [], "mesh_less": []}
     gap, differ = 0.0, 0
     for _ in range(LM_SPLIT_REC_STEPS):
@@ -5831,7 +5917,7 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
            **{f"{p}_queued_ms": t for p, t in queued.items()},
            "split_ops": split_ops, "mesh_less_ops": plain_ops,
            "moved_bytes": moved, "bf16_max_abs_diff": gap,
-           "bf16_tokens_differ": differ,
+           "bf16_tokens_differ": differ, **ratio,
            "bound_ms": weights / hw.HBM_BW * 1e3,
            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
     del cell, tp, cache, plain, nxt, ls, lp
@@ -5860,9 +5946,14 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
         f"({res['fp32_weights_gb']:.2f} GB) within {MESH_DECODE_TOL} over "
         f"{LM_SPLIT_REC_STEPS} steps, max|split-mesh-less| {worst:.3e}, "
         f"{differ} greedy tokens differ | bf16 ({res['weights_gb']:.2f} "
-        f"GB, cache {res['cache_mb']:.1f} MB): max|split-mesh-less| "
-        f"{gap:.3e}, {res['bf16_tokens_differ']} tokens differ (not "
-        f"checked) | bf16 ms/token p50 to a sync split "
+        f"GB, cache {res['cache_mb']:.1f} MB): layer-0 block vs fp32 "
+        f"split {ratio['block_err']:.3e}, mesh-less "
+        f"{ratio['block_err_mesh_less']:.3e}; head split "
+        f"{ratio['head_err']:.3e}, mesh-less "
+        f"{ratio['head_err_mesh_less']:.3e} (relative norm, within "
+        f"{LM_MESH_ATTN_RATIO}x); logits max|split-mesh-less| {gap:.3e}, "
+        f"{res['bf16_tokens_differ']} tokens differ | bf16 ms/token p50 "
+        f"to a sync split "
         f"{res['split_p50_ms']:.2f}, mesh-less {res['mesh_less_p50_ms']:.2f};"
         f" queued {queued['split']:.2f}, {queued['mesh_less']:.2f} (bound "
         f"{res['bound_ms']:.2f}) | split prefill {pre_ms:.1f} ms | ATen ops "
@@ -5871,6 +5962,195 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
         f"{res['fp32_peak_gib']:.2f} | {card}")
     del cell, tp, cache, plain, nxt, ls, lp
     released(torch, base, f"(f) {arch}, fp32")
+    return res
+
+
+def split_train_cell(torch, dev, mesh, arch: str, layers, b: int, s: int,
+                     dtype: str):
+    """(g)/(h)'s train cell of ``arch`` in ``dtype`` (depth cut to
+    ``layers``; remat as published), ``train_4k`` cut to b, s, its
+    weights from ``SEED``, and one batch of tokens."""
+    from repro_torch.launch.steps import build_cell
+
+    with lm_cell_config(arch, layers, dtype=dtype), lm_cell_shape(
+            "train_4k", s, b):
+        cell = build_cell(arch, "train_4k", mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    return cell, {"tokens": torch.randint(0, cell.cfg.vocab, (b, s),
+                                          generator=g, device=dev)}
+
+
+def host_leaves(torch, tree) -> list:
+    """(path, CPU copy) of each leaf of a tree of tensors or placed
+    values (assembled)."""
+    from repro_torch.bridge import _leaves
+    from repro_torch.distributed import Placed
+    return [(p, (t.full() if isinstance(t, Placed) else t.detach()).to(
+        "cpu", copy=True)) for p, t in _leaves(tree)]
+
+
+def held_to(torch, tree, want: list, tag: str) -> float:
+    """Every leaf of ``tree`` (assembled) within ``TRAIN_SPLIT_TOL`` of
+    ``want`` (``host_leaves``); the largest absolute difference."""
+    from repro_torch.bridge import _leaves
+    from repro_torch.distributed import Placed
+    worst = 0.0
+    for (path, t), (wpath, w) in zip(_leaves(tree), want, strict=True):
+        assert path == wpath, (path, wpath)
+        got = t.full() if isinstance(t, Placed) else t.detach()
+        w = w.to(got.device)
+        torch.testing.assert_close(got, w, msg=f"{tag} {path}",
+                                   **TRAIN_SPLIT_TOL)
+        worst = max(worst, float((got - w).abs().max()))
+    return worst
+
+
+def split_train_check(torch, dev, mesh, arch: str, layers, b: int,
+                      s: int) -> dict:
+    """(g)/(h) fp32 (TF32 off): one step of the unsplit cell (its results
+    kept on the host), then, from the same weights and batch, one split
+    step (``Cell.place_params``): the loss, ``grad_norm``, every
+    gradient leaf and params, m and v after the update within
+    ``TRAIN_SPLIT_TOL``."""
+    import dataclasses
+
+    from repro_torch.training import adamw_update
+    from repro_torch.training.train_loop import loss_and_grads
+
+    cell, batch = split_train_cell(torch, dev, mesh, arch, layers, b, s,
+                                   "float32")
+    cell.opt_cfg = dataclasses.replace(cell.opt_cfg, eps=TRAIN_SPLIT_EPS)
+    start = {k: v.to("cpu", copy=True)
+             for k, v in cell.model.state_dict().items()}
+    state = cell.train_state()
+    loss, grads = loss_and_grads(cell.model, state.params, batch,
+                                 cell.n_micro)
+    want = {"grads": host_leaves(torch, grads)}
+    state, metrics = adamw_update(state, grads, cell.opt_cfg)
+    want.update({part: host_leaves(torch, getattr(state, part))
+                 for part in ("params", "m", "v")})
+    want_loss, want_norm = float(loss), float(metrics["grad_norm"])
+    del state, grads, metrics
+    with torch.no_grad():
+        for k, v in cell.model.state_dict().items():
+            v.copy_(start[k])
+    del start
+    cell.place_params()
+    state = cell.train_state()
+    loss, grads = loss_and_grads(cell.model, state.params, batch,
+                                 cell.n_micro)
+    res = {"loss": float(loss), "loss_unsplit": want_loss,
+           "grads_max_abs_diff": held_to(torch, grads, want.pop("grads"),
+                                         f"({arch}) gradient")}
+    state, metrics = adamw_update(state, grads, cell.opt_cfg)
+    del grads
+    res["grad_norm"], res["grad_norm_unsplit"] = (
+        float(metrics["grad_norm"]), want_norm)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(torch.tensor(res[k]),
+                                   torch.tensor(res[f"{k}_unsplit"]),
+                                   msg=k, **TRAIN_SPLIT_TOL)
+    for part in ("params", "m", "v"):
+        res[f"{part}_max_abs_diff"] = held_to(
+            torch, getattr(state, part), want.pop(part), f"({arch}) {part}")
+    res["policy"] = cell.policy
+    del cell, state, metrics, batch
+    return res
+
+
+def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
+                     s: int) -> dict:
+    """(g)/(h) bf16 (fp32 AdamW state, remat): ``LM_SPLIT_TRAIN_STEPS``
+    steps to a sync of each path from one set of weights (each path's
+    steps move them; split first, its state freed before the others):
+    split (``Cell.place_params``), unsplit (whole weights, the cell's
+    ``shard`` hook) and mesh-less; then one more of each counted (ATen
+    ops; split, the bytes between positions by kind, with the forward's
+    alone first, under ``no_grad``); peak memory of each path's steps
+    above the weights; the step's bound (``lm_train_bound``)."""
+    cell, batch = split_train_cell(torch, dev, mesh, arch, layers, b, s,
+                                   "bfloat16")
+    n_params, n_gemm = lm_param_counts(cell.cfg)
+    res = {"layers": cell.cfg.n_layers, "params": n_params,
+           "policy": cell.policy, "n_micro": cell.n_micro,
+           "remat": cell.cfg.remat,
+           **lm_train_bound(cell.cfg, n_params, n_gemm, b, s)}
+    tp = cell.place_params()
+    base = torch.cuda.memory_allocated()
+    p50 = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    for path in ("split", "unsplit", "mesh_less"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with cell_path(cell, tp, path):
+            state = cell.train_state()
+            step = cell.train_step_fn()
+            times, losses = [], []
+            for _ in range(LM_SPLIT_TRAIN_STEPS):
+                (state, m), t = timed(torch, lambda: step(state, batch))
+                times.append(t)
+                losses.append(float(m["loss"]))
+            assert all(math.isfinite(x) for x in losses), (path, losses)
+            if path == "split":
+                tp.moved.clear()
+                with torch.no_grad():
+                    cell.model.loss(batch)
+                tp.release()
+                res["forward_bytes"] = tp.bytes_by_kind()
+                tp.moved.clear()
+            _, res[f"{path}_ops"], _ = dispatch_counts(
+                torch, lambda: step(state, batch))
+            if path == "split":
+                res["step_bytes"] = tp.bytes_by_kind()
+        res[f"{path}_p50_ms"] = p50(times)
+        res[f"{path}_losses"] = losses
+        res[f"{path}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                   - base) / 2**30
+        del state, step
+    return res
+
+
+def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
+                   s: int, card: str) -> dict:
+    """(g)/(h): ``arch``'s train cell on the card's mesh, its weights
+    split: the fp32 check (``split_train_check``), then the bf16 times
+    and counts (``split_train_time``)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t_start = time.perf_counter()
+    res = {"arch": arch, "b": b, "s": s,
+           "fp32": split_train_check(torch, dev, mesh, arch, layers, b, s)}
+    gc.collect()
+    released(torch, base, f"({item}) {arch}, fp32")
+    res.update(split_train_time(torch, dev, mesh, arch, layers, b, s))
+    gc.collect()
+    released(torch, base, f"({item}) {arch}, bf16")
+    res["seconds"] = time.perf_counter() - t_start
+    f32, fwd, step = res["fp32"], res["forward_bytes"], res["step_bytes"]
+    gb = lambda d: {k: round(v / 1e9, 4) for k, v in d.items()  # noqa: E731
+                    if v}
+    log(f"[lmsplit] ({item}) {arch} train_4k (L={res['layers']}, published "
+        f"width, {res['params'] / 1e9:.3f} B parameters, b={b} of 256, s={s}"
+        f" of 4096, {res['policy']}, n_micro {res['n_micro']}, remat "
+        f"{res['remat']}) on "
+        f"{mesh.shape}: fp32 split step vs unsplit within {TRAIN_SPLIT_TOL} "
+        f"(AdamW eps {TRAIN_SPLIT_EPS}): loss {f32['loss']:.6f} / "
+        f"{f32['loss_unsplit']:.6f}, grad_norm {f32['grad_norm']:.6f} / "
+        f"{f32['grad_norm_unsplit']:.6f}, max|diff| gradients "
+        f"{f32['grads_max_abs_diff']:.3e}, params "
+        f"{f32['params_max_abs_diff']:.3e}, m {f32['m_max_abs_diff']:.3e}, "
+        f"v {f32['v_max_abs_diff']:.3e} | bf16 step p50 to a sync split "
+        f"{res['split_p50_ms']:.2f} ms, unsplit {res['unsplit_p50_ms']:.2f},"
+        f" mesh-less {res['mesh_less_p50_ms']:.2f} (bound "
+        f"{res['bound_ms']:.2f} by {res['bound_by']}) | ATen ops a step "
+        f"{res['split_ops']}, {res['unsplit_ops']}, {res['mesh_less_ops']} "
+        f"| GB between positions a split step {gb(step)}, the forward's "
+        f"{gb(fwd)} | peak above the weights split "
+        f"{res['split_peak_gib']:.2f} GiB, unsplit "
+        f"{res['unsplit_peak_gib']:.2f}, mesh-less "
+        f"{res['mesh_less_peak_gib']:.2f} | {res['seconds']:.1f} s | {card}")
     return res
 
 
@@ -5888,7 +6168,10 @@ def run_lm_split(torch, dev, card: str, early: dict) -> dict:
         f"(d) {LM_SPLIT_MOE[0]} depth {LM_SPLIT_MOE[1]}/32, decode_32k b="
         f"128 -> {LM_MESH_B}, cache {LM_MESH_SEQ} slots; (e) reduced() "
         f"configs; (f) {', '.join(LM_SPLIT_RECURRENT)} decode_32k b=128 -> "
-        f"{LM_MESH_B}, from a prefill of {LM_SPLIT_REC_PROMPT}")
+        f"{LM_MESH_B}, from a prefill of {LM_SPLIT_REC_PROMPT}; (g), (h) "
+        f"train_4k: "
+        + "; ".join(f"({i}) {a} depth {n or 'all'}, b=256 -> {b}, s=4096 "
+                    f"-> {s}" for i, a, n, b, s in LM_SPLIT_TRAIN))
     res = {"card": card, "decode": early,
            "prefill": lm_split_prefill(torch, dev, mesh, card),
            "moe": lm_split_moe(torch, dev, mesh, card)}
@@ -5900,6 +6183,9 @@ def run_lm_split(torch, dev, card: str, early: dict) -> dict:
         f"{ {a: (float(f'{x:.2e}'), float(f'{y:.2e}')) for a, (x, y) in res['small'].items()} } | {card}")
     res["recurrent"] = {a: lm_split_recurrent(torch, dev, mesh, a, card)
                         for a in LM_SPLIT_RECURRENT}
+    res["train"] = {item: lm_split_train(torch, dev, mesh, item, arch,
+                                         layers, b, s, card)
+                    for item, arch, layers, b, s in LM_SPLIT_TRAIN}
     res["seconds"] = time.perf_counter() - t_phase
     path = ROOT / "chiprun_out" / "lm_phase16.json"
     path.parent.mkdir(exist_ok=True)

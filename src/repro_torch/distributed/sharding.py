@@ -48,8 +48,8 @@ from .mesh import Mesh
 __all__ = ["P", "NamedSharding", "Placed", "place", "place_tree",
            "to_named", "mesh_batch_axes", "ctr_param_specs", "batch_specs",
            "drop_axis", "fit_spec", "fit_spec_tree", "input_shardings",
-           "data_groups", "axis_line", "tree_map", "LOGICAL_RULES",
-           "LOGICAL_RULES_FSDP",
+           "data_groups", "axis_line", "axis_group", "pieces", "tree_map",
+           "LOGICAL_RULES", "LOGICAL_RULES_FSDP",
            "make_shard_fn", "fsdp_param_specs", "param_specs",
            "cache_specs"]
 
@@ -201,23 +201,63 @@ class Placed:
                 return dim
         return None
 
-    def gather(self, pos: tuple[int, ...], axis: str) -> torch.Tensor:
-        """Position ``pos``'s tensor with the split over ``axis`` undone:
-        the pieces of the positions along ``axis`` through ``pos``
-        (:func:`axis_line`), in axis order, joined on ``pos``'s device
-        (the all-gather). A value ``axis`` does not split is ``pos``'s
-        own tensor."""
-        dim = self.split_dim(axis)
-        if dim is None:
+    def gather(self, pos: tuple[int, ...], axis: str | tuple[str, ...]
+               ) -> torch.Tensor:
+        """Position ``pos``'s tensor with the split over ``axis`` (one mesh
+        axis or a tuple of them) undone: the pieces of the positions that
+        differ from ``pos`` only along those axes (:func:`axis_group`),
+        in shard order, joined on ``pos``'s device (the all-gather). A
+        value the axes do not split is ``pos``'s own tensor. The axes
+        must split one dim, and split it alone (a pure-FSDP weight's
+        ``("data", "model")`` dim gathers over both)."""
+        axes = _axes(axis)
+        split = self.sharding._split(self.ndim)
+        dims = [d for d in range(self.ndim) if set(split[d]) & set(axes)]
+        if not dims:
             return self.local(pos)
-        if len(self.sharding._split(self.ndim)[dim]) > 1:
+        if len(dims) > 1 or not set(split[dims[0]]) <= set(axes):
             raise NotImplementedError(
-                f"dim {dim} of {self} is split over more axes than "
-                f"{axis!r}")
+                f"{self} is split over more than the axes {axes} on one "
+                "dim")
+        dim = dims[0]
         dev = self.mesh.devices[tuple(pos)]
-        return torch.cat([self.local(q).to(dev)
-                          for q in axis_line(self.mesh, pos, axis)],
-                         dim=dim)
+        pieces = {}
+        for q in axis_group(self.mesh, pos, axes):
+            pieces.setdefault(self.sharding.shard_index(q, dim), q)
+        return torch.cat([self.local(pieces[k]).to(dev)
+                          for k in sorted(pieces)], dim=dim)
+
+    def slice_key(self, pos: tuple[int, ...]) -> tuple:
+        """``(start, stop)`` of each dim that position ``pos`` holds."""
+        return tuple((s.start, s.stop) for s in
+                     self.sharding.local_slices(pos, self.shape))
+
+    def distinct(self) -> list[tuple[tuple[int, ...], torch.Tensor]]:
+        """Each distinct local tensor once, with the first position that
+        holds it, in position order."""
+        seen: dict = {}
+        for pos in np.ndindex(self.mesh.devices.shape):
+            seen.setdefault(id(self._local[pos]), (pos, self._local[pos]))
+        return list(seen.values())
+
+    def holders(self) -> dict[tuple, list[tuple[int, ...]]]:
+        """The positions holding each distinct slice (:meth:`slice_key`),
+        slices in the order of their first holder, positions in mesh
+        order."""
+        out: dict = {}
+        for pos in np.ndindex(self.mesh.devices.shape):
+            out.setdefault(self.slice_key(pos), []).append(pos)
+        return out
+
+    def like(self, fn: Callable[[torch.Tensor], torch.Tensor],
+             dtype: torch.dtype | None = None) -> "Placed":
+        """A value of this shape and sharding whose tensor at every
+        position is ``fn`` of this one's there, called once per distinct
+        tensor, so positions that share a tensor share the result."""
+        made = {id(t): fn(t) for _, t in self.distinct()}
+        return Placed(self.shape, self.dtype if dtype is None else dtype,
+                      self.sharding, {pos: made[id(t)]
+                                      for pos, t in self._local.items()})
 
     def full(self, device: torch.device | str | None = None
              ) -> torch.Tensor:
@@ -278,6 +318,15 @@ def place(x: torch.Tensor | Placed, mesh: Mesh, spec: P, *,
             made[key] = piece
         local[pos] = made[key]
     return Placed(x.shape, x.dtype, sharding, local)
+
+
+def pieces(x: torch.Tensor | Placed) -> list[torch.Tensor]:
+    """A placed value's distinct tensors (:meth:`Placed.distinct`, in
+    position order), or a tensor alone: values placed alike (one
+    sharding, positions sharing tensors alike) give matching lists."""
+    if isinstance(x, Placed):
+        return [t for _, t in x.distinct()]
+    return [x]
 
 
 def place_tree(tree: Any, mesh: Mesh, specs: Any) -> Any:
@@ -397,6 +446,20 @@ def axis_line(mesh: Mesh, pos: tuple[int, ...], axis: str
     i = mesh.axis_names.index(axis)
     return [tuple(pos[:i]) + (k,) + tuple(pos[i + 1:])
             for k in range(mesh.shape[axis])]
+
+
+def axis_group(mesh: Mesh, pos: tuple[int, ...], axes: tuple[str, ...]
+               ) -> list[tuple[int, ...]]:
+    """The positions that differ from ``pos`` only along ``axes``, in
+    mesh order (``pos`` among them)."""
+    idx = [mesh.axis_names.index(a) for a in axes]
+    out = []
+    for sub in np.ndindex(*(mesh.devices.shape[i] for i in idx)):
+        q = list(pos)
+        for i, k in zip(idx, sub):
+            q[i] = k
+        out.append(tuple(q))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""LM weights split over a mesh for serving: the tensor-parallel step.
+"""LM weights split over a mesh: the tensor-parallel step, for serving
+and for training.
 
 Port-only. In the reference this work is XLA's partitioner's: its
 ``Cell.lower()`` hands the compiled step its parameters under
@@ -26,6 +27,10 @@ position, over the parameter tree placed by ``Cell.place_params``
   (the all-gather, ``Placed.gather``); positions on one device share the
   gathered tensor, which is dropped when the step reaches the next layer
   and at the head (:meth:`TensorParallel.weight`).
+* Pure FSDP (a train cell's ``"fsdp"`` policy: the batch over ``("data",
+  "model")``, every weight's split dim over both): no tensor
+  parallelism. Each position is a batch row of its own and gathers every
+  weight whole over the grid before its use.
 * The vocab-parallel embedding (each model position looks up the ids in
   its vocab range, zeros elsewhere, and the partials sum in model order:
   bitwise the whole gather) and head (each model position's logits
@@ -47,8 +52,29 @@ outputs moved so that attention sees whole heads, and k/v to a prefill's
 cache; in the recurrent families, the projection columns, decays and
 weight columns a position's heads read), ``moe_tokens`` (tokens and
 dispatched buffers to the experts' positions), ``merge`` (the
-sequence-parallel decode's traffic) and ``state`` (a recurrent state's
-new slice to the positions that hold it but did not compute it).
+sequence-parallel decode's traffic), ``state`` (a recurrent state's
+new slice to the positions that hold it but did not compute it) and
+``grad_reduce`` (weight gradients to the positions that hold the
+pieces).
+
+Training (``Cell.place_params`` on a train cell, then
+``training.make_train_step``). The trainable leaves are the placed
+pieces, one tensor per device and slice (``TensorParallel.tree``, the
+parameters of the step's ``TrainState``). Under autograd a send is a
+``torch.autograd.Function`` whose backward sends the gradient back,
+counted under the same kind; under ``layers.remat`` the recomputation
+repeats a layer's sends and gathers, and they are counted again. The
+backward runs on each card's autograd thread: the counts take a lock,
+and a use's gradient is one dict entry. Every
+weight a position reads (:meth:`TensorParallel.weight`: a piece, or the
+pieces gathered) is a *use*, whose gradient autograd hands to this
+object instead of accumulating it anywhere. :meth:`TensorParallel.grads`
+then reduces them itself: each slice's gradient is the sum, on the
+slice's first holder and in fp32, of the part of every use that covers
+it, positions in mesh order and a position's uses in forward order (the
+reduce-scatter of a gather's gradient, and the all-reduce of a
+replicated piece's); the sum goes to every other holder (``grad_reduce``
+both ways), so the replicas of a piece stay bitwise equal.
 
 The recurrent families (``models/lm/rwkv6.py``, ``models/lm/zamba2.py``)
 run their heads at :meth:`TensorParallel.head_sites`: each model position
@@ -62,6 +88,7 @@ the row's first position. Their state caches are placed by
 from __future__ import annotations
 
 import re
+import threading
 from collections import Counter
 from typing import Any, Callable
 
@@ -70,13 +97,13 @@ import torch
 import torch.nn.functional as F
 
 from .mesh import Mesh
-from .sharding import (Placed, _axes, axis_line, cache_specs, data_groups,
-                       fit_spec_tree, place, tree_map)
+from .sharding import (Placed, _axes, axis_group, axis_line, cache_specs,
+                       data_groups, fit_spec_tree, place, tree_map)
 
 __all__ = ["KINDS", "TensorParallel", "Rows", "Cols"]
 
 KINDS = ("tp_reduce", "fsdp_gather", "vocab", "heads", "moe_tokens",
-         "merge", "state")
+         "merge", "state", "grad_reduce")
 
 #: a leaf's layer: the stacked groups of ``tensor_tree()`` paths
 _LAYER = re.compile(r"^((?:layers|mamba|encoder|decoder)/\d+)/")
@@ -97,6 +124,40 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class _Send(torch.autograd.Function):
+    """A copy between positions under autograd: the backward sends the
+    gradient back to the source's device, counted under the same
+    kind."""
+
+    @staticmethod
+    def forward(ctx, t, tp, kind, src, dst):
+        ctx.back = (tp, kind, dst, src, t.device)
+        return t.to(tp.mesh.devices[dst])
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, kind, src, dst, dev = ctx.back
+        tp.count(kind, g, src, dst)
+        return g.to(dev), None, None, None, None
+
+
+class _Use(torch.autograd.Function):
+    """A weight as one position reads it, under autograd: forward, the
+    tensor itself (an alias); backward, the gradient handed to ``tp`` as
+    use ``uid``'s and nothing passed on (``anchor`` is a leaf that only
+    makes the output require grad)."""
+
+    @staticmethod
+    def forward(ctx, anchor, w, tp, uid):
+        ctx.tp, ctx.uid = tp, uid
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.tp._got[ctx.uid] = g
+        return None, None, None, None
+
+
 class TensorParallel:
     """A model's parameter tree placed over ``mesh`` by ``specs`` (views on
     the weights' own device, one copy on each other device) and the
@@ -105,15 +166,29 @@ class TensorParallel:
     ``batch_axes`` (a mesh axis, a tuple of them, or None) split the
     batch: ``rows[i][j]`` is the position of batch shard ``i`` and model
     shard ``j``. ``moved`` counts the bytes copied between positions by
-    ``(kind, position)``; it grows until the caller clears it.
+    ``(kind, position)``; it grows until the caller clears it. ``train``:
+    the weights read under autograd are uses whose gradients
+    :meth:`grads` reduces (a train cell's placement).
     """
 
-    def __init__(self, mesh: Mesh, tree: Any, specs: Any, batch_axes):
+    def __init__(self, mesh: Mesh, tree: Any, specs: Any, batch_axes, *,
+                 train: bool = False):
         self.mesh = mesh
+        self.train = train
         self.batch_axes = batch_axes
-        self.rows = data_groups(mesh, batch_axes=_axes(batch_axes))
-        self.n_model = mesh.shape.get("model", 1)
+        baxes = _axes(batch_axes)
+        # pure FSDP splits the batch over the model axis too: no tensor
+        # parallelism, and weights gather over every axis
+        self.model_axis = ("model" if "model" in mesh.axis_names
+                           and "model" not in baxes else None)
+        self.rows = data_groups(mesh, model_axis=self.model_axis,
+                                batch_axes=baxes)
+        self.n_model = (mesh.shape[self.model_axis] if self.model_axis
+                        else 1)
+        self.gather_axes = tuple(a for a in mesh.axis_names
+                                 if a != self.model_axis)
         self.moved: Counter = Counter()
+        self._lock = threading.Lock()
         # column splits stay views: the GEMMs read them through strides
         self.tree = tree_map(lambda x, s: place(x, mesh, s,
                                                 contiguous=False),
@@ -123,16 +198,30 @@ class TensorParallel:
         self._gathered: dict = {}
         self._counted: set = set()
         self._layer: str | None = None
+        # training: the weights read under autograd, and their gradients
+        self.uses: list[tuple] = []
+        self._got: dict[int, torch.Tensor] = {}
+        self._anchor = torch.zeros((), requires_grad=True)
 
     # -- counting -----------------------------------------------------------
+    def count(self, kind: str, t: torch.Tensor, src: tuple,
+              dst: tuple) -> None:
+        """Count ``t``'s bytes from position ``src`` to ``dst`` (nothing
+        when they are one position)."""
+        if src != dst:
+            n = _nbytes(t)
+            with self._lock:        # backwards count from each card's thread
+                self.moved[kind, src] += n
+                self.moved[kind, dst] += n
+
     def send(self, kind: str, t: torch.Tensor, src: tuple,
              dst: tuple) -> torch.Tensor:
         """``t`` from position ``src`` to ``dst``: counted (unless they are
-        one position) and moved to ``dst``'s device."""
-        if src != dst:
-            n = _nbytes(t)
-            self.moved[kind, src] += n
-            self.moved[kind, dst] += n
+        one position) and moved to ``dst``'s device; under autograd the
+        gradient comes back the same way (:class:`_Send`)."""
+        self.count(kind, t, src, dst)
+        if src != dst and torch.is_grad_enabled() and t.requires_grad:
+            return _Send.apply(t, self, kind, src, dst)
         return t.to(self.mesh.devices[dst])
 
     def bytes_by_kind(self) -> dict[str, int]:
@@ -158,45 +247,111 @@ class TensorParallel:
             raise KeyError("not a parameter of the placed model") from None
 
     def model_dim(self, t: torch.Tensor) -> int | None:
-        """The dim of parameter ``t`` that the ``model`` axis splits."""
-        return self.placed(t).split_dim("model")
+        """The dim of parameter ``t`` that the ``model`` axis splits for
+        tensor parallelism (None under pure FSDP)."""
+        if self.model_axis is None:
+            return None
+        return self.placed(t).split_dim(self.model_axis)
 
     def model_range(self, t: torch.Tensor, j: int) -> tuple[int, int]:
         """Model shard ``j``'s range of ``t``'s model-split dim."""
-        pl = self.placed(t)
-        n = pl.shape[pl.split_dim("model")]
+        n = self.placed(t).shape[self.model_dim(t)]
         return j * n // self.n_model, (j + 1) * n // self.n_model
+
+    def _gather_axes(self, pl: Placed) -> tuple[str, ...]:
+        return tuple(a for a in self.gather_axes
+                     if pl.split_dim(a) is not None)
 
     def weight(self, t: torch.Tensor, pos: tuple, *,
                gather: bool = True) -> torch.Tensor:
         """What position ``pos`` multiplies by for parameter ``t``: its
-        local piece, with the ``data`` split gathered (``gather``; each
-        position counted once a layer, one tensor a device). Moving to a
-        leaf of another layer, or :meth:`release`, drops the gathered
-        tensors."""
+        local piece, with the FSDP split (``data``; under pure FSDP
+        ``data`` and ``model``) gathered (``gather``; each position
+        counted once a layer, one tensor a device). Moving to a leaf of
+        another layer, or :meth:`release`, drops the gathered tensors.
+        When training under autograd the tensor is a use (:class:`_Use`)
+        whose gradient :meth:`grads` reduces."""
         path, pl = self._by_id[id(t)]
         m = _LAYER.match(path)
         layer = m.group(1) if m else ""
         if layer != self._layer:
             self.release()
             self._layer = layer
-        if not gather or pl.split_dim("data") is None:
-            return pl.local(pos)
-        if (id(pl), pos) not in self._counted:
-            self._counted.add((id(pl), pos))
-            for q in axis_line(self.mesh, pos, "data"):
-                if q != pos:
-                    n = _nbytes(pl.local(q))
-                    self.moved["fsdp_gather", q] += n
-                    self.moved["fsdp_gather", pos] += n
-        names = self.mesh.axis_names
-        dev = self.mesh.devices[pos]
-        key = (id(pl), dev) + tuple(
-            0 if a == "data" or pl.split_dim(a) is None else pos[k]
-            for k, a in enumerate(names))
-        if key not in self._gathered:
-            self._gathered[key] = pl.gather(pos, "data")
-        return self._gathered[key]
+        axes = self._gather_axes(pl) if gather else ()
+        if not axes:
+            w = pl.local(pos)
+        else:
+            if (id(pl), pos) not in self._counted:
+                self._counted.add((id(pl), pos))
+                for q in axis_group(self.mesh, pos, axes):
+                    self.count("fsdp_gather", pl.local(q), q, pos)
+            key = (id(pl), self.mesh.devices[pos]) + tuple(
+                0 if a in axes or pl.split_dim(a) is None else pos[k]
+                for k, a in enumerate(self.mesh.axis_names))
+            if key not in self._gathered:
+                with torch.no_grad():
+                    self._gathered[key] = pl.gather(pos, axes)
+            w = self._gathered[key]
+        if self.train and torch.is_grad_enabled():
+            self.uses.append((pl, pos, axes))
+            w = _Use.apply(self._anchor, w, self, len(self.uses) - 1)
+        return w
+
+    def grads(self) -> Any:
+        """The weight gradients of the backward just run, reduced, as a
+        tree of ``Placed`` values laid out as ``tree`` (one tensor per
+        device and slice, in the parameter's dtype); the uses
+        are then forgotten. Each slice's gradient is the fp32 sum, on its
+        first holder, of the part of every use covering it (positions in
+        mesh order, a position's uses in forward order), sent there from
+        the use's position; the sum is sent to every other holder
+        (``grad_reduce`` both ways). A slice no use covers is zero; a
+        parameter no gradient reached raises, as the mesh-less step
+        does."""
+        got, uses = self._got, self.uses
+        self._got, self.uses = {}, []
+        by_leaf: dict = {}
+        for uid, (pl, pos, axes) in enumerate(uses):
+            if uid in got:
+                by_leaf.setdefault(id(pl), []).append((pos, uid, axes,
+                                                       got[uid]))
+        missing = [path for path, pl in _paths(self.tree)
+                   if id(pl) not in by_leaf]
+        if missing:
+            raise RuntimeError(f"no gradient reached parameters {missing}")
+        return tree_map(lambda pl: self._reduce(
+            pl, sorted(by_leaf[id(pl)], key=lambda u: u[:2])), self.tree)
+
+    def _reduce(self, pl: Placed, uses: list) -> Placed:
+        split = pl.sharding._split(pl.ndim)
+        local = {}
+        for key, holders in pl.holders().items():
+            home = holders[0]
+            acc = None
+            for pos, _, axes, g in uses:
+                cover = [(0, n) if set(split[d]) & set(axes) else ab
+                         for d, (ab, n) in enumerate(zip(pl.slice_key(pos),
+                                                         pl.shape))]
+                if not all(c0 <= k0 and k1 <= c1 for (k0, k1), (c0, c1)
+                           in zip(key, cover)):
+                    continue
+                part = g[tuple(slice(k0 - c0, k1 - c0) for (k0, k1), (c0, _)
+                               in zip(key, cover))]
+                self.count("grad_reduce", part, pos, home)
+                part = part.to(self.mesh.devices[home]).float()
+                acc = part if acc is None else acc + part
+            if acc is None:
+                acc = torch.zeros([k1 - k0 for k0, k1 in key],
+                                  device=self.mesh.devices[home])
+            value = acc.to(pl.dtype)
+            made: dict = {}
+            for r in holders:
+                self.count("grad_reduce", value, home, r)
+                dev = self.mesh.devices[r]
+                if dev not in made:
+                    made[dev] = value.to(dev)
+                local[r] = made[dev]
+        return Placed(pl.shape, pl.dtype, pl.sharding, local)
 
     def cols(self, t: torch.Tensor, lo: int, hi: int, pos: tuple,
              dim: int = -1) -> torch.Tensor:

@@ -13,12 +13,15 @@ the model's ``param_tree()`` and the batch).
 On the port's single-controller mesh the spec trees are computed, fitted
 and held equal to the reference's. A cell's weights stay whole on the
 mesh's first device (the ``shard`` hook changes no value) until
-:meth:`Cell.place_params` splits a serving cell's parameters by
-``pspecs`` (``distributed.tensor_parallel``; the reference hands them to
-its compiled step as ``in_shardings``). What runs per position either
-way is the reference's own ``shard_map``: the decode cell places its KV
-caches by ``cache_specs`` (batch over the batch axes, sequence over
-``model``) and attends through ``layers.flash_decode_sharded``.
+:meth:`Cell.place_params` splits its parameters by ``pspecs``
+(``distributed.tensor_parallel``; the reference hands them to its
+compiled step as ``in_shardings``): a serving cell's prefill and decode,
+and an attention family's train step, whose parameters, moments and
+gradients are then placed pieces (``state_specs``). What runs per
+position either way is the reference's own ``shard_map``: the decode
+cell places its KV caches by ``cache_specs`` (batch over the batch axes,
+sequence over ``model``) and attends through
+``layers.flash_decode_sharded``.
 """
 
 from __future__ import annotations
@@ -312,10 +315,10 @@ class Cell:
         return cache
 
     def place_params(self) -> TensorParallel:
-        """Split this serving cell's parameters over its mesh by
-        ``pspecs`` and run ``prefill_fn()`` and ``decode_fn()`` on the
-        split weights from now on (port-only; the reference's
-        ``jax.jit(step, in_shardings=(named(pspecs), ...))``).
+        """Split this cell's parameters over its mesh by ``pspecs`` and
+        run its steps on the split weights from now on (port-only; the
+        reference's ``jax.jit(step, in_shardings=(named(pspecs), ...))``,
+        and for a train cell ``in_shardings=(named(state_specs), ...)``).
 
         ``model.tensor_tree()`` is placed with ``place_tree``: a position
         on the weights' own device gets views, each other device one copy
@@ -326,17 +329,39 @@ class Cell:
         state caches are then placed by ``cache_specs`` when a step first
         sees them (:meth:`place_cache`, or the model's own ``prefill`` and
         ``decode_step``) and written in place, each position its slice.
-        Raises ``NotImplementedError`` for a train cell (ROADMAP A6c)."""
+
+        A train cell (the dense, vlm, moe and encdec families) trains the
+        placed pieces: :meth:`train_state` is the state over
+        ``tp.tree``, and ``train_step_fn()`` gathers, reduces and
+        updates them (``training.make_train_step``). The model's buffers
+        stop requiring grad: the pieces on their device are views of
+        them. The batch splits over ``_batch_axes()`` (``data``; under
+        the ``fsdp`` policy ``data`` and ``model``, with no tensor
+        parallelism). Raises ``NotImplementedError`` for rwkv6's and
+        zamba2's train cells (ROADMAP A6c-b)."""
         if self.cell.kind == "train":
-            raise NotImplementedError(
-                "a train cell's parameters are not split yet: FSDP "
-                "gathers in the backward, gradients reduced to their "
-                "shards and placed optimizer state (ROADMAP A6c)")
+            if self.cfg.family in ("ssm", "hybrid"):
+                raise NotImplementedError(
+                    f"{self.arch}'s train cell is not split yet: its loss "
+                    "runs the unsplit recurrence (ROADMAP A6c-b)")
+            tree = self.model.tensor_tree()
+            for _, t in _leaves(tree):
+                t.requires_grad_(False)
         b_ax = self.decode_ctx.batch_axes if self.decode_ctx is not None \
             else self._batch_split(self._batch_axes())
-        self.model.tp = TensorParallel(self.mesh, self.model.tensor_tree(),
-                                       self.pspecs, b_ax)
+        self.model.tp = TensorParallel(
+            self.mesh, self.model.tensor_tree(), self.pspecs, b_ax,
+            train=self.cell.kind == "train")
         return self.model.tp
+
+    def train_state(self) -> TrainState:
+        """A fresh ``TrainState`` for ``train_step_fn()``: over the placed
+        pieces once :meth:`place_params` has run (moments placed as their
+        parameters, by ``state_specs``), else over
+        ``model.param_tree()``."""
+        params = self.tp.tree if self.tp is not None \
+            else self.model.param_tree()
+        return adamw_init(params, self.opt_cfg)
 
     @property
     def tp(self) -> TensorParallel | None:
@@ -346,10 +371,11 @@ class Cell:
     # -- step functions -----------------------------------------------------------
     def train_step_fn(self) -> Callable:
         """``step(state, batch) -> (state, {"loss", "grad_norm"})`` over
-        ``state = adamw_init(cell.model.param_tree(), cell.opt_cfg)``:
-        fp32 gradients accumulated over ``n_micro`` microbatches of the
-        global batch, the loss sum and the gradients divided by
-        ``n_micro``, then one AdamW update in place."""
+        ``state = cell.train_state()``: fp32 gradients accumulated over
+        ``n_micro`` microbatches of the global batch, the loss sum and the
+        gradients divided by ``n_micro``, then one AdamW update in place;
+        on split weights (:meth:`place_params`) each microbatch splits
+        over the batch axes and every part works on the pieces."""
         return make_train_step(self.model, self.opt_cfg,
                                n_micro=self.n_micro)
 
@@ -404,7 +430,7 @@ class Cell:
         this trace (:class:`Lowered`), counted in the same pass as the
         ops."""
         if self.device.type == "meta" and self.mesh.first_device.type \
-                == "meta":
+                == "meta" and self.tp is None:
             cell = self
         else:
             cell = Cell(self.arch, self.shape, _meta_mesh(self.mesh),

@@ -17,7 +17,8 @@ Training: a model's tensors are buffers; ``LMParams.param_tree`` marks
 them ``requires_grad`` and hands them to the optimizer as the reference's
 tree. ``remat`` is the reference's ``jax.checkpoint``: under autograd a
 rematerialised function keeps only its inputs and runs again in the
-backward (``torch.utils.checkpoint``, non-reentrant). Nothing on the LM
+backward (``torch.utils.checkpoint``, non-reentrant; a split step's,
+reentrant: :func:`_remat_split`). Nothing on the LM
 forward draws random numbers, so the recomputation is bitwise the first
 run and no RNG state is stashed. ``chunked_ce_loss`` rematerialises every
 chunk, ``flash_attention`` every k-block, and each family every layer when
@@ -96,11 +97,57 @@ def take_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def remat(fn, *args, enabled: bool = True):
     """``fn(*args)``; when ``enabled`` and autograd is recording, its
     intermediates are dropped and recomputed in the backward (the
-    reference's ``jax.checkpoint``)."""
-    if enabled and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    return fn(*args)
+    reference's ``jax.checkpoint``). A split step's function (a
+    :class:`Rows` among ``args``) takes :func:`_remat_split`."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    if any(isinstance(a, Rows) for a in args):
+        return _remat_split(fn, args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _remat_split(fn, args: tuple):
+    """:func:`remat` of a split step's function: ``checkpoint``'s
+    reentrant form over the parts of the :class:`Rows` arguments, ``fn``
+    returning a ``Rows``, a tensor, or a tuple of them and None. The
+    first run is under ``no_grad``; the backward runs ``fn`` again, to its
+    end, inside one autograd node, so it repeats every send and weight
+    gather of the first run. (The non-reentrant form recomputes from a
+    saved-tensor hook, which a backward spanning several cards enters
+    from each card's autograd thread, and two threads can both recompute
+    one region.)"""
+    rows = [i for i, a in enumerate(args) if isinstance(a, Rows)]
+    tp = args[rows[0]].tp
+    layout: list = []
+
+    def run(_anchor, *parts):
+        it = iter(parts)
+        call = list(args)
+        for i in rows:
+            call[i] = Rows(tp, [next(it) for _ in args[i].parts])
+        out = fn(*call)
+        outs = out if isinstance(out, tuple) else (out,)
+        layout[:] = [*(len(o.parts) if isinstance(o, Rows) else o is None
+                       for o in outs), isinstance(out, tuple)]
+        return tuple(t for o in outs for t in (
+            o.parts if isinstance(o, Rows) else () if o is None else (o,)))
+
+    # the anchor (a leaf that requires grad) makes the outputs require
+    # grad when no input does (the encoder's frames): the weights' uses
+    # are inside
+    flat = iter(checkpoint(run, tp._anchor,
+                           *(p for i in rows for p in args[i].parts),
+                           use_reentrant=True, preserve_rng_state=False))
+    outs = []
+    for kind in layout[:-1]:
+        if kind is True:                       # a None output
+            outs.append(None)
+        elif kind is False:                    # a tensor output
+            outs.append(next(flat))
+        else:
+            outs.append(Rows(tp, [next(flat) for _ in range(kind)]))
+    return tuple(outs) if layout[-1] else outs[0]
 
 
 class LMParams:
@@ -795,8 +842,8 @@ def _chunk_loss(xc, gamma, w_head, targets, shard: Shard = no_shard):
 
 def chunked_ce_loss(x: torch.Tensor, gamma: torch.Tensor,
                     w_head: torch.Tensor, tokens: torch.Tensor, *,
-                    chunk: int = 1024,
-                    shard: Shard = no_shard) -> torch.Tensor:
+                    chunk: int = 1024, shard: Shard = no_shard,
+                    transposed: bool = False) -> torch.Tensor:
     """Next-token CE directly from final hidden states x (b, s, d),
     sequence-chunked so the (b, s, vocab) fp32 logits never exist at once.
 
@@ -804,7 +851,15 @@ def chunked_ce_loss(x: torch.Tensor, gamma: torch.Tensor,
     target; each chunk is rematerialised under autograd, so its (b, chunk,
     vocab) fp32 logits are not kept for the backward across chunks. The
     sum over chunks is divided by b·(s - 1), as in the reference.
+    ``transposed``: ``w_head`` is a (vocab, d) table read as ``w_head.T``
+    (a tied head). A split step's ``x`` (:class:`Rows`) takes
+    :func:`_chunked_ce_split`.
     """
+    if isinstance(x, Rows):
+        return _chunked_ce_split(x, gamma, w_head, tokens, chunk,
+                                 transposed)
+    if transposed:
+        w_head = w_head.T
     b, s, _ = x.shape
     s_eff = s - 1                              # last position has no target
     chunk = min(chunk, s_eff)
@@ -814,4 +869,75 @@ def chunked_ce_loss(x: torch.Tensor, gamma: torch.Tensor,
         hi = min(lo + chunk, s_eff)
         total = total + remat(_chunk_loss, x[:, lo:hi], gamma, w_head,
                               targets[:, lo + 1:hi + 1], shard)
+    return total / (b * s_eff)
+
+
+def _chunk_loss_split(xc: Rows, gamma, w, targets: Rows, transposed: bool):
+    """:func:`_chunk_loss` of one chunk on split weights, summed per batch
+    row, vocab-parallel: each model position of a row multiplies the
+    row's normed chunk (sent there, ``tp_reduce``) by its vocab columns
+    and sends its fp32 row max, its sum of ``exp(logit - max)`` and the
+    target's logit where the target is in its range (else 0) to the row's
+    first position (``vocab``), which forms ``logsumexp`` from them (the
+    maxes are constants to autograd, as ``logsumexp``'s own shift is).
+    No position holds more than its own vocab columns of the logits."""
+    tp = xc.tp
+    xn = rms_norm(xc, gamma)
+    vdim = 0 if transposed else 1
+    split = tp.model_dim(w) == vdim
+    out = []
+    for i, row in enumerate(tp.rows):
+        home = row[0]
+        tgt_i = targets.parts[i]
+        maxes, sums, tgts = [], [], []
+        for j, pos in enumerate(row if split else row[:1]):
+            lo, hi = (tp.model_range(w, j) if split
+                      else (0, tp.placed(w).shape[vdim]))
+            wj = tp.weight(w, pos)
+            logits = (xn.at(i, j) @ (wj.T if transposed else wj)).float()
+            m = logits.amax(dim=-1).detach()
+            t = tp.send("vocab", tgt_i, home, pos)
+            ins = (t >= lo) & (t < hi)
+            picked = torch.gather(logits, -1, torch.where(
+                ins, t - lo, 0).long()[..., None])[..., 0]
+            maxes.append(tp.send("vocab", m, pos, home))
+            sums.append(tp.send("vocab", torch.exp(
+                logits - m[..., None]).sum(dim=-1), pos, home))
+            tgts.append(tp.send("vocab", torch.where(ins, picked, 0.0), pos,
+                                home))
+        mx = maxes[0]
+        for m in maxes[1:]:
+            mx = torch.maximum(mx, m)
+        z = tgt = None
+        for m, sm, tg in zip(maxes, sums, tgts):
+            zj = sm * torch.exp(m - mx)
+            z = zj if z is None else z + zj
+            tgt = tg if tgt is None else tgt + tg
+        out.append((mx + torch.log(z) - tgt).sum())
+    return Rows(tp, out)
+
+
+def _chunked_ce_split(x: Rows, gamma, w, tokens, chunk: int,
+                      transposed: bool) -> torch.Tensor:
+    """:func:`chunked_ce_loss` on split weights: each batch row's chunks
+    rematerialised (:func:`_chunk_loss_split`) and summed on the row's
+    first position, the rows' sums sent to the mesh's first position
+    (``vocab``) and added in row order there, then divided by
+    b·(s - 1)."""
+    tp = x.tp
+    b, s, _ = x.shape
+    s_eff = s - 1
+    chunk = min(chunk, s_eff)
+    targets = tp.split_rows(tokens)
+    totals = None
+    for lo in range(0, s_eff, chunk):
+        hi = min(lo + chunk, s_eff)
+        part = remat(_chunk_loss_split, x[:, lo:hi], gamma, w,
+                     targets[:, lo + 1:hi + 1], transposed)
+        totals = part if totals is None else totals + part
+    at0 = (0,) * tp.mesh.devices.ndim
+    total = None
+    for i, t in enumerate(totals.parts):
+        t = tp.send("vocab", t, tp.rows[i][0], at0)
+        total = t if total is None else total + t
     return total / (b * s_eff)

@@ -68,11 +68,11 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: LMConfig,
     token-major, so which pairs drop is the reference's, pair for pair.
     The expert buffers' token axis is ``batch`` unless
     ``cfg.moe_token_replicate`` replicates it (llama4). A :class:`Rows`
-    ``x`` (split weights) returns ``(out, None)`` (:func:`_moe_split`;
-    the aux term is training's).
+    ``x`` (split weights) takes :func:`_moe_split`, whose aux term is
+    None when serving.
     """
     if isinstance(x, Rows):
-        return _moe_split(p, x, cfg), None
+        return _moe_split(p, x, cfg)
     b, s, d = x.shape
     gsz = _group_size(b, s)
     xg = x.reshape((b * s) // gsz, gsz, d)
@@ -132,7 +132,8 @@ def _routing(xg: torch.Tensor, router: torch.Tensor, cfg: LMConfig):
     return dispatch, combine, probs, expert_mask
 
 
-def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig) -> Rows:
+def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig
+               ) -> tuple[Rows, torch.Tensor | None]:
     """``moe_ffn``'s output on split weights (``P("model", "data",
     None)`` for ``w_gate``/``w_up``, ``P("model", None, "data")`` for
     ``w_down``; llama4's ``P("model", None, "data")`` and ``P("model",
@@ -152,7 +153,13 @@ def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig) -> Rows:
     slots go to every position along the data axis (the reference's
     replicated token buffers), each runs its F slice, and the partial
     expert outputs add in data order before the combine (``tp_reduce``).
-    Outputs return to each shard's first position (``moe_tokens``)."""
+    Outputs return to each shard's first position (``moe_tokens``).
+
+    A train cell's step (``tp.train``) computes the aux term too: each
+    routing unit's sums of its kept one-hots and its probabilities over
+    its tokens go to the mesh's first position (``moe_tokens``), add in
+    unit order, and are divided by the batch's tokens there
+    (``moe_ffn``'s means); serving's is None."""
     tp = x.tp
     b, s, d = x.shape
     gsz = _group_size(b, s)
@@ -162,6 +169,8 @@ def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig) -> Rows:
     f_split = tp.placed(p.w_gate).split_dim("data") == 2
     experts_split = tp.model_dim(p.w_gate) == 0
     outs = [None] * len(tp.rows)
+    at0 = (0,) * tp.mesh.devices.ndim
+    stats = []
     for unit in units:
         row = tp.rows[unit[0]]
         home = row[0]
@@ -169,8 +178,13 @@ def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig) -> Rows:
               for i in unit]
         xu = xs[0] if len(xs) == 1 else torch.cat(xs)
         xg = xu.reshape(xu.shape[0] * s // gsz, gsz, d)
-        dispatch, combine, _, _ = _routing(xg, tp.weight(p.router, home),
-                                           cfg)
+        dispatch, combine, probs, expert_mask = _routing(
+            xg, tp.weight(p.router, home), cfg)
+        if tp.train:
+            stats.append((tp.send("moe_tokens",
+                                  expert_mask.sum(dim=(0, 1, 2)), home, at0),
+                          tp.send("moe_tokens", probs.sum(dim=(0, 1)), home,
+                                  at0)))
         xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)       # (G, e, c, d)
         out = None
         for j, col in enumerate(row if experts_split else row[:1]):
@@ -198,7 +212,14 @@ def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig) -> Rows:
         for k, i in enumerate(unit):
             outs[i] = tp.send("moe_tokens", out[k * b_row:(k + 1) * b_row],
                               home, tp.rows[i][0])
-    return Rows(tp, outs)
+    if not stats:
+        return Rows(tp, outs), None
+    tok_sum, prob_sum = stats[0]
+    for t, pr in stats[1:]:
+        tok_sum, prob_sum = tok_sum + t, prob_sum + pr
+    n = b * s
+    aux = cfg.n_experts * torch.sum((tok_sum / n) * (prob_sum / n))
+    return Rows(tp, outs), aux
 
 
 class MoELayer(nn.Module):
@@ -261,9 +282,7 @@ class MoETransformer(DenseTransformer):
             aux = 0.0
             for a in auxes:
                 aux = aux + a / cfg.n_layers
-        ce = L.chunked_ce_loss(x, self.final_norm, self.head_weight(),
-                               tokens, shard=self.shard)
-        return ce, aux
+        return self._ce(x, tokens), aux
 
     def loss(self, batch: dict, aux_weight: float = 0.01) -> torch.Tensor:
         """Next-token loss + router load-balancing aux term."""

@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.distributed.tensor_parallel import Rows
 
-from . import layers as L
 from .transformer import DenseTransformer
 
 
@@ -45,9 +44,7 @@ class Pixtral(DenseTransformer):
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None]
         x = self._run_layers(x, positions)
-        return L.chunked_ce_loss(x[:, pe.shape[1]:], self.final_norm,
-                                 self.head_weight(), batch["tokens"],
-                                 shard=self.shard)
+        return self._ce(x[:, pe.shape[1]:], batch["tokens"])
 
     @torch.no_grad()
     def prefill(self, tokens, cache, patch_embeds=None):

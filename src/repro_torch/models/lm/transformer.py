@@ -15,9 +15,9 @@ decode: ``decode_step`` then places the cache's ``k``/``v`` over its
 mesh (``layers.place_kv``) and attends through
 ``layers.flash_decode_sharded``. Set ``tp`` to a
 ``distributed.tensor_parallel.TensorParallel`` over this model's tensors
-(``Cell.place_params``) and ``prefill`` and ``decode_step`` run on the
-split weights: the embedding returns a ``Rows`` and the layer functions
-take that path.
+(``Cell.place_params``) and ``prefill``, ``decode_step`` and ``loss``
+run on the split weights: the embedding returns a ``Rows`` and the layer
+functions take that path.
 """
 
 from __future__ import annotations
@@ -147,8 +147,15 @@ class DenseTransformer(L.LMParams, nn.Module):
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=x.device)[None]
         x = self._run_layers(x, positions)
-        return L.chunked_ce_loss(x, self.final_norm, self.head_weight(),
-                                 tokens, shard=self.shard)
+        return self._ce(x, tokens)
+
+    def _ce(self, x, tokens):
+        """``layers.chunked_ce_loss`` over the final norm and the head (a
+        tied head as the embedding table read transposed)."""
+        tied = self.cfg.tie_embeddings
+        return L.chunked_ce_loss(x, self.final_norm,
+                                 self.embed if tied else self.lm_head,
+                                 tokens, shard=self.shard, transposed=tied)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:

@@ -12,7 +12,11 @@ stores them: 2-byte void ``.npy`` arrays whose manifest dtype says
 "bfloat16".
 
 :func:`restore_checkpoint` writes into the target's own tensors (a
-model's buffers stay the model's), on whatever device they live.
+model's buffers stay the model's), on whatever device they live. A
+placed leaf (a split train step's ``Placed`` state) is written whole, as
+the mesh-less leaf it stands for, and restored into every distinct piece
+its slice, so a checkpoint of either kind of step restores into the
+other.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Placed
+
 from .optimizer import tree_flatten
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
@@ -36,8 +42,8 @@ def _leaf_key(path: tuple) -> str:
     return "/".join(str(k) for k in path)
 
 
-def _to_numpy(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
-    leaf = leaf.detach()
+def _to_numpy(leaf: torch.Tensor | Placed) -> tuple[np.ndarray, str]:
+    leaf = leaf.full("cpu") if isinstance(leaf, Placed) else leaf.detach()
     if leaf.dtype == torch.bfloat16:
         return (leaf.view(torch.int16).cpu().numpy().view(np.dtype("V2")),
                 _BF16)
@@ -104,12 +110,17 @@ def restore_checkpoint(ckpt_dir: str, step: int, target: Any) -> Any:
         if meta["key"] != _leaf_key(tpath):
             raise ValueError(f"checkpoint leaf {meta['key']!r} where the "
                              f"target has {_leaf_key(tpath)!r}")
-        if not isinstance(tgt, torch.Tensor):
+        if not isinstance(tgt, (torch.Tensor, Placed)):
             raise TypeError(f"target leaf {meta['key']!r} is a "
                             f"{type(tgt).__name__}, not a tensor")
         arr = np.load(os.path.join(path, meta["file"]))
         if list(arr.shape) != list(tgt.shape):
             raise ValueError(f"leaf {meta['key']}: checkpoint shape "
                              f"{arr.shape} != target {tuple(tgt.shape)}")
-        tgt.copy_(_to_tensor(arr, meta["dtype"]))
+        value = _to_tensor(arr, meta["dtype"])
+        if isinstance(tgt, Placed):
+            for pos, t in tgt.distinct():
+                t.copy_(value[tgt.sharding.local_slices(pos, tgt.shape)])
+        else:
+            tgt.copy_(value)
     return target

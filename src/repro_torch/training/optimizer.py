@@ -14,6 +14,15 @@ A parameter tree is the reference's nesting of dicts and lists; its
 leaves are tensors. :func:`adamw_update` writes the new parameters and
 moments into the tree's own tensors (a model's buffers, from
 ``CTRModel.param_tree``) under ``torch.no_grad()``.
+
+A split train step's leaves are ``Placed`` values
+(``TensorParallel.param_tree``, the state laid out by the cell's
+``state_specs``): the moments are placed as their parameters, each
+distinct piece (one tensor a device and slice) is updated once with its
+gradient piece on its own device, and the global norm sums each distinct
+slice's squares once, in leaf order then slice order, on the mesh's
+first device. The norm's partial sums and the clip scale move between
+devices as 0-d tensors, outside ``TensorParallel.moved``.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ import dataclasses
 from typing import Any, Callable, Iterator
 
 import torch
+
+from repro_torch.distributed.sharding import Placed, pieces
 
 __all__ = ["AdamWConfig", "TrainState", "adamw_init", "adamw_update",
            "global_norm", "tree_flatten", "tree_map"]
@@ -89,16 +100,30 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> TrainState:
     dt = getattr(torch, cfg.state_dtype)
 
     def zeros(p):
+        if isinstance(p, Placed):
+            return p.like(zeros, dt)
         return torch.zeros(p.shape, dtype=dt, device=p.device)
     return TrainState(step=torch.zeros((), dtype=torch.int32), params=params,
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
+def _squares(x) -> Iterator[torch.Tensor]:
+    """A leaf's fp32 sum of squares: a placed leaf's per distinct slice,
+    slices in order, each on the mesh's first device."""
+    if isinstance(x, Placed):
+        for holders in x.holders().values():
+            t = x.local(holders[0])
+            yield torch.sum(torch.square(t.to(torch.float32))).to(
+                x.mesh.first_device)
+    else:
+        yield torch.sum(torch.square(x.to(torch.float32)))
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum over leaves (in leaf order) of each leaf's sum of
     squares, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for _, x in tree_flatten(tree)))
+    return torch.sqrt(sum(sq for _, x in tree_flatten(tree)
+                          for sq in _squares(x)))
 
 
 def _f32(x: float, device: torch.device) -> torch.Tensor:
@@ -134,5 +159,9 @@ def adamw_update(state: TrainState, grads: Any,
         m.copy_(m32)
         v.copy_(v32)
 
-    tree_map(upd, state.params, grads, state.m, state.v)
+    def upd_leaf(*leaves):
+        for p, g, m, v in zip(*map(pieces, leaves), strict=True):
+            upd(p, g, m, v)
+
+    tree_map(upd_leaf, state.params, grads, state.m, state.v)
     return (dataclasses.replace(state, step=step), {"grad_norm": gnorm})

@@ -31,11 +31,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.distributed.sharding import Placed, pieces
+
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .optimizer import AdamWConfig, TrainState, adamw_update, tree_map
 
 __all__ = ["TrainLoopConfig", "run_train_loop", "make_train_step",
-           "make_ctr_step"]
+           "make_ctr_step", "loss_and_grads"]
 
 
 @dataclasses.dataclass
@@ -55,61 +57,100 @@ def make_train_step(model, cfg: AdamWConfig, n_micro: int = 1) -> Callable:
     """``step_fn(state, batch) -> (state, {"loss", "grad_norm"})`` for a
     model (a ``CTRModel``, an LM of the zoo) whose buffers are
     ``state.params`` (its ``param_tree()``): ``model.loss(batch)`` and its
-    gradients by autograd, then one AdamW update in place. Every
-    parameter must receive a gradient: one that gets none (a kernel
-    output outside autograd) raises. The three parts run inside profiler
-    ranges ``train/forward``, ``train/backward`` and ``train/optimizer``.
+    gradients by autograd (:func:`loss_and_grads`), then one AdamW update
+    in place. Every parameter must receive a gradient: one that gets none
+    (a kernel output outside autograd) raises. The three parts run inside
+    profiler ranges ``train/forward``, ``train/backward`` and
+    ``train/optimizer``.
 
     ``n_micro`` > 1 accumulates, as the reference's cell step does
     (``launch/steps.py:117-141``): the batch's leading dim is cut into
     ``n_micro`` consecutive microbatches (it must divide), each one's
     gradients are added in fp32 to zeros, and the summed loss and
-    gradients are divided by ``n_micro`` before the update."""
+    gradients are divided by ``n_micro`` before the update.
+
+    On split weights (an LM whose ``tp`` is set: ``Cell.place_params`` of
+    a train cell) ``state.params`` is ``model.tp.tree``, the
+    placed pieces, and so are the gradients, the fp32 accumulators and
+    the moments: each microbatch's forward and backward run on the split
+    weights and ``TensorParallel.grads`` reduces its gradients to their
+    pieces before they are added."""
     if n_micro < 1:
         raise ValueError(f"n_micro must be at least 1, not {n_micro}")
 
-    def backward(params: list, batch: dict):
+    def step_fn(state: TrainState, batch: dict):
+        loss, grads = loss_and_grads(model, state.params, batch, n_micro)
+        with record_function("train/optimizer"):
+            state, metrics = adamw_update(state, grads, cfg)
+        return state, {"loss": loss, **metrics}
+    return step_fn
+
+
+def loss_and_grads(model, params: Any, batch: dict,
+                   n_micro: int = 1) -> tuple[torch.Tensor, Any]:
+    """``model.loss`` over ``batch`` (``n_micro`` microbatches) and the
+    gradients of ``params`` (the model's ``param_tree()``, or on split
+    weights ``model.tp.tree``): a tree of the same structure, the
+    leaves in the parameters' dtype for one microbatch, else the fp32
+    mean over the microbatches."""
+    tp = getattr(model, "tp", None)
+    leaves = _tensors(params)
+    if tp is not None and not all(isinstance(p, Placed) for p in leaves):
+        raise TypeError("a split step takes the state over the placed "
+                        "pieces: adamw_init(model.tp.tree, cfg)")
+
+    def backward(batch: dict):
+        # on split weights the gathered weights of one part are never
+        # another's: the backward regathers what it recomputes
+        if tp is not None:
+            tp.release()
         with record_function("train/forward"):
             loss = model.loss(batch)
+        if tp is not None:
+            tp.release()
         with record_function("train/backward"):
             loss.backward()
-        missing = [tuple(p.shape) for p in params if p.grad is None]
+        if tp is not None:
+            tp.release()
+            return loss.detach(), tp.grads()
+        missing = [tuple(p.shape) for p in leaves if p.grad is None]
         if missing:
             raise RuntimeError(f"no gradient reached parameters of shapes "
                                f"{missing}")
-        return loss.detach()
-
-    def step_fn(state: TrainState, batch: dict):
-        params = _tensors(state.params)
-        if n_micro == 1:
-            loss = backward(params, batch)
-            grads = tree_map(lambda p: p.grad, state.params)
-        else:
-            b = next(iter(batch.values())).shape[0]
-            if b % n_micro:
-                raise ValueError(f"a batch of {b} does not cut into "
-                                 f"{n_micro} microbatches")
-            mb = b // n_micro
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
-            loss = None
-            for i in range(n_micro):
-                li = backward(params, {k: v[i * mb:(i + 1) * mb]
-                                       for k, v in batch.items()})
-                with torch.no_grad():
-                    tree_map(lambda g, p: g.add_(p.grad.float()), grads,
-                             state.params)
-                for p in params:
-                    p.grad = None
-                loss = li if loss is None else loss + li
-            loss = loss / n_micro
-            grads = tree_map(lambda g: g / n_micro, grads)
-        with record_function("train/optimizer"):
-            state, metrics = adamw_update(state, grads, cfg)
-        for p in params:
+        grads = tree_map(lambda p: p.grad, params)
+        for p in leaves:
             p.grad = None
-        return state, {"loss": loss, **metrics}
-    return step_fn
+        return loss.detach(), grads
+
+    if n_micro == 1:
+        return backward(batch)
+    b = next(iter(batch.values())).shape[0]
+    if b % n_micro:
+        raise ValueError(f"a batch of {b} does not cut into "
+                         f"{n_micro} microbatches")
+    mb = b // n_micro
+    acc = tree_map(_like(lambda t: torch.zeros(
+        t.shape, dtype=torch.float32, device=t.device), torch.float32),
+        params)
+    loss = None
+    for i in range(n_micro):
+        li, gi = backward({k: v[i * mb:(i + 1) * mb]
+                           for k, v in batch.items()})
+        with torch.no_grad():
+            tree_map(_add, acc, gi)
+        loss = li if loss is None else loss + li
+    return loss / n_micro, tree_map(_like(lambda g: g / n_micro), acc)
+
+
+def _like(fn: Callable, dtype: torch.dtype | None = None) -> Callable:
+    """``fn`` on a tensor leaf, and on each distinct piece of a placed
+    one."""
+    return lambda x: x.like(fn, dtype) if isinstance(x, Placed) else fn(x)
+
+
+def _add(acc, g) -> None:
+    for a, b in zip(pieces(acc), pieces(g), strict=True):
+        a.add_(b.float())
 
 
 #: the CTR drivers' name for the step (``launch/train_ctr.py``)
@@ -117,6 +158,7 @@ make_ctr_step = make_train_step
 
 
 def _tensors(tree: Any) -> list:
+    """The leaves of ``tree`` in order."""
     out: list = []
     tree_map(out.append, tree)
     return out

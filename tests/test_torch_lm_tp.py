@@ -23,7 +23,8 @@
 * The bytes between positions are a hand count for reduced llama3's
   prefill and decode and rwkv6's decode on (2, 2).
 * ``place_params`` accepts the recurrent families' serving cells and
-  raises for train cells.
+  the attention families' train cells, and raises for the recurrent
+  families' train cells (ROADMAP A6c-b).
 * The reference's own partitioned cells (its ``Cell`` on its (2, 4) mesh
   of host devices, compiled with its parameters and inputs put by
   ``to_named(cell.pspecs)`` and the cell's input specs, the shapes cut as
@@ -380,7 +381,7 @@ def test_moved_bytes_are_a_hand_count_on_a_2x2_mesh():
     want = _hand_count(cfg, b_row, PROMPT, fsdp=True, tok=4)   # int32 ids
     kv_piece = b_row * PROMPT * (cfg.n_kv_heads // 2) * hd * f32
     want["heads"] = cfg.n_layers * 2 * 3 * kv_piece
-    want.update(moe_tokens=0, merge=0, state=0)
+    want.update(moe_tokens=0, merge=0, state=0, grad_reduce=0)
     assert pre.tp.bytes_by_kind() == want
 
     _, cache = _prefill(dec.model, inputs, S_MAX)
@@ -397,7 +398,8 @@ def test_moved_bytes_are_a_hand_count_on_a_2x2_mesh():
         stat = b_row * cfg.n_heads * f32         # (b, kv, g, 1): a max, l
         merge = 2 * (q + 3 * stat + q)           # o is q's size
         merge += writes * 2 * 2 * b_row * cfg.n_kv_heads * hd * f32
-        want.update(moe_tokens=0, merge=cfg.n_layers * merge, state=0)
+        want.update(moe_tokens=0, merge=cfg.n_layers * merge, state=0,
+                    grad_reduce=0)
         assert dec.tp.bytes_by_kind() == want, idx
         by_pos = dec.tp.by_position("merge")
         assert by_pos[(0, 1)] == by_pos[(1, 1)] == cfg.n_layers * (
@@ -432,20 +434,34 @@ def test_rwkv6_moved_bytes_are_a_hand_count_on_a_2x2_mesh():
     want = {"tp_reduce": 2 * cfg.n_layers * layer["tp_reduce"] + 2 * act,
             "fsdp_gather": 0, "vocab": want["vocab"],
             "heads": 2 * cfg.n_layers * layer["heads"], "moe_tokens": 0,
-            "merge": 0, "state": 2 * cfg.n_layers * layer["state"]}
+            "merge": 0, "state": 2 * cfg.n_layers * layer["state"],
+            "grad_reduce": 0}
     assert dec.tp.bytes_by_kind() == want
 
 
 @pytest.mark.parametrize("arch,shape,match", [
-    ("qwen3-4b", "train_4k", "A6c"), ("rwkv6-7b", "train_4k", "A6c"),
-    ("whisper-small", "train_4k", "A6c"),
-    ("zamba2-1.2b", "train_4k", "A6c")])
+    ("rwkv6-7b", "train_4k", "A6c-b"), ("zamba2-1.2b", "train_4k", "A6c-b")])
 def test_place_params_refuses_what_is_not_split_yet(arch, shape, match):
     cell = Cell(arch, shape, make_mesh((2, 2), ("data", "model"), "meta"),
                 device="meta")
     with pytest.raises(NotImplementedError, match=match):
         cell.place_params()
     assert cell.tp is None
+
+
+@pytest.mark.parametrize("arch,policy", [("qwen3-4b", "tp_fsdp"),
+                                         ("whisper-small", "fsdp")])
+def test_place_params_accepts_the_attention_train_cells(arch, policy):
+    """Published shapes on meta tensors: the train cell's parameters are
+    placed, under TP × FSDP or pure FSDP (no model axis for tensor
+    parallelism, every position a batch row); the split step itself is
+    held in ``tests/test_torch_lm_tp_train.py``."""
+    cell = Cell(arch, "train_4k", make_mesh((2, 2), ("data", "model"),
+                                            "meta"), device="meta")
+    tp = cell.place_params()
+    assert cell.tp is tp and cell.policy == policy
+    assert len(tp.rows) == (2 if policy == "tp_fsdp" else 4)
+    assert (tp.model_axis is None) == (policy == "fsdp")
 
 
 @pytest.mark.parametrize("arch", ("rwkv6-7b", "zamba2-1.2b"))
