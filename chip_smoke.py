@@ -322,8 +322,14 @@ Phases (any failure raises; the script then exits non-zero):
    gradient, params, m and v within ``TRAIN_SPLIT_TOL``), then 3 bf16
    steps each split, unsplit and mesh-less to a sync, ATen ops a step,
    bytes between positions by kind (the forward's alone too), peak
-   memory, the step's bound. Numbers also go to
-   ``chiprun_out/lm_phase16.json``.
+   memory, the step's bound. (i) rwkv6-7b's ``train_4k`` (depth 2 of 32)
+   and (j) zamba2-1.2b's (depth 7 of 38: one full chunk of 6 with its
+   shared block and a tail layer), both TP × FSDP at b = 4, s = 64, as
+   (g) and (h): their losses start every recurrent layer from zero
+   states and place no state cache (``state`` moves 0 bytes); (i) draws
+   rwkv6's ``u`` from N(0, 0.5²), since at the init's zeros layer 0's
+   ``u`` gradient is ill-conditioned in fp32 (``split_train_cell``).
+   Numbers also go to ``chiprun_out/lm_phase16.json``.
 """
 
 from __future__ import annotations
@@ -4216,23 +4222,35 @@ def lm_param_counts(cfg) -> tuple[int, int]:
 
 
 def lm_train_bound(cfg, n_params: int, n_gemm: int, b: int, s: int) -> dict:
-    """The least time of one training step of a dense decoder with remat:
-    the weight GEMMs' 8·N·T operations in bf16 (forward, recompute,
-    backward twice), the attention's q·kᵀ in fp32 and p·v in bf16, each
-    2·b·h·s²·hd a layer a pass over four passes, at the data sheet's rates;
-    against the bytes of parameters, AdamW moments and gradients, each read
-    or written once."""
+    """The least time of one training step of a decoder with remat: the
+    weight GEMMs' 8·N·T operations in bf16 (forward, recompute, backward
+    twice), the attention's q·kᵀ in fp32 and p·v in bf16, each
+    2·b·h·s²·hd a layer a pass over four passes (zamba2: an application
+    of its shared block; rwkv6: none), the recurrences in fp32 over the
+    same four passes (rwkv6's WKV step 7·d·hd operations a token a layer:
+    k·vᵀ, u∘kv, the sum, r·S and the decayed update; zamba2's scan
+    6·d_in·n: dt·x·Bᵀ, the decay, the sum and S·c), at the data sheet's
+    rates; against the bytes of parameters, AdamW moments and gradients,
+    each read or written once."""
     t = b * s
     bf16 = 8 * n_gemm * t
-    attn = 4 * 2 * b * cfg.n_heads * s * s * cfg.hd * cfg.n_layers
+    n_attn, scan = cfg.n_layers, 0
+    if cfg.family == "ssm":
+        n_attn, scan = 0, 7 * cfg.d_model * cfg.ssm_head_dim
+    elif cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.shared_attn_every
+        scan = 6 * cfg.ssm_expand * cfg.d_model * cfg.ssm_state
+    attn = 4 * 2 * b * cfg.n_heads * s * s * cfg.hd * n_attn
+    scan = 4 * t * cfg.n_layers * scan
     ops_ms = ((bf16 + attn) / hw.PEAK_FLOPS_BF16
-              + attn / hw.PEAK_FLOPS_FP32) * 1e3
+              + (attn + scan) / hw.PEAK_FLOPS_FP32) * 1e3
     elem = 2 if cfg.dtype == "bfloat16" else 4
     # parameters read and written, gradients written and read, m and v
     # read and written in fp32
     moved = n_params * (4 * elem + 16)
     bytes_ms = moved / hw.HBM_BW * 1e3
-    return {"bf16_tflop": (bf16 + attn) / 1e12, "fp32_tflop": attn / 1e12,
+    return {"bf16_tflop": (bf16 + attn) / 1e12,
+            "fp32_tflop": (attn + scan) / 1e12,
             "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -5194,12 +5212,17 @@ LM_SPLIT_ARCHS = ("llama3-8b", "granite-8b", "smollm-360m", "qwen3-4b",
 LM_SPLIT_RECURRENT = ("rwkv6-7b", "zamba2-1.2b")   # (f): published width
 LM_SPLIT_REC_PROMPT = 16      # (f): the prefill before the decode steps
 LM_SPLIT_REC_STEPS = 8
-# (g), (h): train cells split (arch, depth or None for all, b, s):
-# smollm-360m's train_4k under pure FSDP as phase 14 (d) cuts it, and
+# (g)-(j): train cells split (item, arch, depth or None for all, b, s):
+# smollm-360m's train_4k under pure FSDP as phase 14 (d) cuts it,
 # llama3-8b's under TP x FSDP at depth 4 of 32, b = 4 of 256, s = 512 of
-# 4,096
+# 4,096, and the recurrent families' under TP x FSDP at b = 4, s = 64
+# (their scans are Python loops over time at each head site): rwkv6-7b at
+# depth 2 of 32, zamba2-1.2b at 7 of 38 (a full chunk of 6 with its
+# shared block, then a tail layer)
 LM_SPLIT_TRAIN = (("g", "smollm-360m", None, 8, 256),
-                  ("h", "llama3-8b", 4, 4, 512))
+                  ("h", "llama3-8b", 4, 4, 512),
+                  ("i", "rwkv6-7b", 2, 4, 64),
+                  ("j", "zamba2-1.2b", 7, 4, 64))
 LM_SPLIT_TRAIN_STEPS = 3
 # their fp32 checks: the LM-training tolerance, with AdamW's eps at 1e-3
 # as tests/test_torch_lm_tp_train.py sets it, so that a gradient near 0
@@ -5967,16 +5990,29 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
 
 def split_train_cell(torch, dev, mesh, arch: str, layers, b: int, s: int,
                      dtype: str):
-    """(g)/(h)'s train cell of ``arch`` in ``dtype`` (depth cut to
+    """(g)-(j)'s train cell of ``arch`` in ``dtype`` (depth cut to
     ``layers``; remat as published), ``train_4k`` cut to b, s, its
-    weights from ``SEED``, and one batch of tokens."""
+    weights from ``SEED``, and one batch of tokens.
+
+    rwkv6's bonus ``u`` is drawn from N(0, 0.5²) instead of the init's
+    zeros: with ``u`` = 0 and a zero state the first WKV output is exactly
+    0, ``ln_x`` scales its gradient by rsqrt(eps) = 1e3, and layer 0's
+    ``u`` gradient holds to ``TRAIN_SPLIT_TOL`` in no fp32 evaluation:
+    weights moved by a relative 1e-7 move elements of it out of the
+    tolerance (``u_misses``; (i) logs the count from zeros and from the
+    draw)."""
     from repro_torch.launch.steps import build_cell
+    from repro_torch.models.lm import layers as L
 
     with lm_cell_config(arch, layers, dtype=dtype), lm_cell_shape(
             "train_4k", s, b):
         cell = build_cell(arch, "train_4k", mesh)
     g = torch.Generator(device=dev).manual_seed(SEED)
     cell.model.init(g)
+    if cell.cfg.family == "ssm":
+        with torch.no_grad():
+            for layer in cell.model.layers:
+                L.normal_(layer.u, g, 0.5)
     return cell, {"tokens": torch.randint(0, cell.cfg.vocab, (b, s),
                                           generator=g, device=dev)}
 
@@ -6000,15 +6036,52 @@ def held_to(torch, tree, want: list, tag: str) -> float:
         assert path == wpath, (path, wpath)
         got = t.full() if isinstance(t, Placed) else t.detach()
         w = w.to(got.device)
-        torch.testing.assert_close(got, w, msg=f"{tag} {path}",
-                                   **TRAIN_SPLIT_TOL)
+        torch.testing.assert_close(
+            got, w, msg=lambda m, p=path: f"{tag} {p}: {m}",
+            **TRAIN_SPLIT_TOL)
         worst = max(worst, float((got - w).abs().max()))
     return worst
 
 
+def u_misses(torch, cell, batch, u_scale: float) -> int:
+    """rwkv6: the elements of layer 0's ``u`` gradient (the unsplit fp32
+    step, every ``u`` drawn as ``split_train_cell`` draws it times
+    ``u_scale``; 0: the init's zeros) that leave ``TRAIN_SPLIT_TOL`` of
+    themselves when every weight moves by a relative 1e-7 (a seeded
+    draw). The weights are left as they were."""
+    from repro_torch.bridge import _leaves
+
+    model = cell.model
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def u_grad():
+        tree = model.param_tree()
+        model.loss(batch).backward()
+        g = model.layers[0].u.grad.clone()
+        for _, t in _leaves(tree):
+            t.grad = None
+            t.requires_grad_(False)
+        return g
+
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.u.mul_(u_scale)
+    want = u_grad()
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 32)
+    with torch.no_grad():
+        for v in model.state_dict().values():
+            v.mul_(1 + 1e-7 * torch.randn(v.shape, generator=gen,
+                                          device=v.device, dtype=v.dtype))
+    got = u_grad()
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(start[k])
+    return int((~torch.isclose(got, want, **TRAIN_SPLIT_TOL)).sum())
+
+
 def split_train_check(torch, dev, mesh, arch: str, layers, b: int,
                       s: int) -> dict:
-    """(g)/(h) fp32 (TF32 off): one step of the unsplit cell (its results
+    """(g)-(j) fp32 (TF32 off): one step of the unsplit cell (its results
     kept on the host), then, from the same weights and batch, one split
     step (``Cell.place_params``): the loss, ``grad_norm``, every
     gradient leaf and params, m and v after the update within
@@ -6021,6 +6094,11 @@ def split_train_check(torch, dev, mesh, arch: str, layers, b: int,
     cell, batch = split_train_cell(torch, dev, mesh, arch, layers, b, s,
                                    "float32")
     cell.opt_cfg = dataclasses.replace(cell.opt_cfg, eps=TRAIN_SPLIT_EPS)
+    # why rwkv6's u is drawn: the step's own conditioning at the init's 0
+    conditioning = {} if cell.cfg.family != "ssm" else {
+        "u_misses_zero": u_misses(torch, cell, batch, 0.0),
+        "u_misses_drawn": u_misses(torch, cell, batch, 1.0),
+        "u_numel": cell.model.layers[0].u.numel()}
     start = {k: v.to("cpu", copy=True)
              for k, v in cell.model.state_dict().items()}
     state = cell.train_state()
@@ -6055,13 +6133,14 @@ def split_train_check(torch, dev, mesh, arch: str, layers, b: int,
         res[f"{part}_max_abs_diff"] = held_to(
             torch, getattr(state, part), want.pop(part), f"({arch}) {part}")
     res["policy"] = cell.policy
+    res.update(conditioning)
     del cell, state, metrics, batch
     return res
 
 
 def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
                      s: int) -> dict:
-    """(g)/(h) bf16 (fp32 AdamW state, remat): ``LM_SPLIT_TRAIN_STEPS``
+    """(g)-(j) bf16 (fp32 AdamW state, remat): ``LM_SPLIT_TRAIN_STEPS``
     steps to a sync of each path from one set of weights (each path's
     steps move them; split first, its state freed before the others):
     split (``Cell.place_params``), unsplit (whole weights, the cell's
@@ -6113,7 +6192,7 @@ def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
 
 def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
                    s: int, card: str) -> dict:
-    """(g)/(h): ``arch``'s train cell on the card's mesh, its weights
+    """(g)-(j): ``arch``'s train cell on the card's mesh, its weights
     split: the fp32 check (``split_train_check``), then the bf16 times
     and counts (``split_train_time``)."""
     torch.cuda.synchronize()
@@ -6129,6 +6208,8 @@ def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
     released(torch, base, f"({item}) {arch}, bf16")
     res["seconds"] = time.perf_counter() - t_start
     f32, fwd, step = res["fp32"], res["forward_bytes"], res["step_bytes"]
+    # a train step places no state cache: every scan starts from zeros
+    assert fwd["state"] == step["state"] == 0, (fwd, step)
     gb = lambda d: {k: round(v / 1e9, 4) for k, v in d.items()  # noqa: E731
                     if v}
     log(f"[lmsplit] ({item}) {arch} train_4k (L={res['layers']}, published "
@@ -6141,7 +6222,14 @@ def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
         f"{f32['grad_norm_unsplit']:.6f}, max|diff| gradients "
         f"{f32['grads_max_abs_diff']:.3e}, params "
         f"{f32['params_max_abs_diff']:.3e}, m {f32['m_max_abs_diff']:.3e}, "
-        f"v {f32['v_max_abs_diff']:.3e} | bf16 step p50 to a sync split "
+        f"v {f32['v_max_abs_diff']:.3e}"
+        + ("" if "u_misses_zero" not in f32 else
+           f" (u drawn, N(0, 0.5^2): weights moved by a relative 1e-7 put "
+           f"{f32['u_misses_drawn']} of layer 0's {f32['u_numel']} "
+           f"u-gradient elements out of the tolerance of the unsplit step, "
+           f"against "
+           f"{f32['u_misses_zero']} from the init's u = 0)")
+        + f" | bf16 step p50 to a sync split "
         f"{res['split_p50_ms']:.2f} ms, unsplit {res['unsplit_p50_ms']:.2f},"
         f" mesh-less {res['mesh_less_p50_ms']:.2f} (bound "
         f"{res['bound_ms']:.2f} by {res['bound_by']}) | ATen ops a step "
@@ -6168,7 +6256,7 @@ def run_lm_split(torch, dev, card: str, early: dict) -> dict:
         f"(d) {LM_SPLIT_MOE[0]} depth {LM_SPLIT_MOE[1]}/32, decode_32k b="
         f"128 -> {LM_MESH_B}, cache {LM_MESH_SEQ} slots; (e) reduced() "
         f"configs; (f) {', '.join(LM_SPLIT_RECURRENT)} decode_32k b=128 -> "
-        f"{LM_MESH_B}, from a prefill of {LM_SPLIT_REC_PROMPT}; (g), (h) "
+        f"{LM_MESH_B}, from a prefill of {LM_SPLIT_REC_PROMPT}; (g)-(j) "
         f"train_4k: "
         + "; ".join(f"({i}) {a} depth {n or 'all'}, b=256 -> {b}, s=4096 "
                     f"-> {s}" for i, a, n, b, s in LM_SPLIT_TRAIN))

@@ -83,6 +83,8 @@ the row's first position. Their state caches are placed by
 ``sharding.cache_specs`` (:meth:`TensorParallel.place_states`, heads over
 ``model``) and each step writes every position's slice in place
 (:meth:`TensorParallel.write_state`); a state is never gathered whole.
+Their train steps place no state: each head site starts its scan from
+zeros on its own device and keeps nothing.
 """
 
 from __future__ import annotations

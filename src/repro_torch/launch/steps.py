@@ -330,20 +330,16 @@ class Cell:
         sees them (:meth:`place_cache`, or the model's own ``prefill`` and
         ``decode_step``) and written in place, each position its slice.
 
-        A train cell (the dense, vlm, moe and encdec families) trains the
-        placed pieces: :meth:`train_state` is the state over
-        ``tp.tree``, and ``train_step_fn()`` gathers, reduces and
-        updates them (``training.make_train_step``). The model's buffers
-        stop requiring grad: the pieces on their device are views of
-        them. The batch splits over ``_batch_axes()`` (``data``; under
-        the ``fsdp`` policy ``data`` and ``model``, with no tensor
-        parallelism). Raises ``NotImplementedError`` for rwkv6's and
-        zamba2's train cells (ROADMAP A6c-b)."""
+        A train cell (every family) trains the placed pieces:
+        :meth:`train_state` is the state over ``tp.tree``, and
+        ``train_step_fn()`` gathers, reduces and updates them
+        (``training.make_train_step``). The model's buffers stop requiring
+        grad: the pieces on their device are views of them. The batch
+        splits over ``_batch_axes()`` (``data``; under the ``fsdp`` policy
+        ``data`` and ``model``, with no tensor parallelism). rwkv6's and
+        zamba2's losses run each recurrent layer from zero states made
+        where they are read, and place no state cache."""
         if self.cell.kind == "train":
-            if self.cfg.family in ("ssm", "hybrid"):
-                raise NotImplementedError(
-                    f"{self.arch}'s train cell is not split yet: its loss "
-                    "runs the unsplit recurrence (ROADMAP A6c-b)")
             tree = self.model.tensor_tree()
             for _, t in _leaves(tree):
                 t.requires_grad_(False)

@@ -22,7 +22,12 @@ the WKV scan at ``TensorParallel.head_sites`` on each site's ``u`` and
 state slice, ``ln_x`` over the whole d from sums of squares joined in
 model order (``layers.rms_norm`` of a ``Cols``), ``wo`` row-parallel; in
 the channel mix the sigmoid gate's columns join the row-parallel value on
-the row's first position.
+the row's first position. ``loss`` on the split weights (a train cell's
+``place_params``) runs the same blocks with no cache (``_block_split``):
+each row's token shifts and each head site's scan start from zeros made
+where they are read, nothing is written, each layer is rematerialised
+with ``cfg.remat``, and the CE is vocab-parallel; the decay reaches each
+site through a send, whose gradient comes back.
 """
 
 from __future__ import annotations
@@ -164,14 +169,21 @@ class RWKV6(L.LMParams, nn.Module):
 
     # -- split weights ----------------------------------------------------------
     @staticmethod
-    def _shifted(x: Rows, prev) -> Rows:
-        """Each row's ``cat(prev, x[:, :-1])`` on its first position, from
-        the placed state ``prev`` (B, d) there."""
+    def _shifted(x: Rows, prev: list) -> Rows:
+        """Each row's ``cat(prev[i], x[:, :-1])`` on its first position,
+        ``prev[i]`` (b, d) the token before the row's first."""
+        return Rows(x.tp, [torch.cat([p[:, None], part[:, :-1]], dim=1)
+                           for p, part in zip(prev, x.parts)])
+
+    @staticmethod
+    def _prev(x: Rows, pl) -> list:
+        """Each row's token-shift state: its slice of the placed ``pl``
+        (B, d) on its first position, or (``pl`` None) zeros there."""
         tp = x.tp
-        return Rows(tp, [torch.cat([tp.state_at(prev, i, row[0],
-                                                (0, x.shape[-1]))[:, None],
-                                    x.parts[i][:, :-1]], dim=1)
-                         for i, row in enumerate(tp.rows)])
+        if pl is None:
+            return [p.new_zeros(p.shape[0], p.shape[-1]) for p in x.parts]
+        return [tp.state_at(pl, i, row[0], (0, x.shape[-1]))
+                for i, row in enumerate(tp.rows)]
 
     @staticmethod
     def _last(x: Rows) -> list[tuple]:
@@ -180,9 +192,33 @@ class RWKV6(L.LMParams, nn.Module):
         return [(x.tp.rows[i][0], ((i * b, (i + 1) * b),), p[:, -1])
                 for i, p in enumerate(x.parts)]
 
-    def _time_mix_split(self, layer, x: Rows, st: dict) -> Rows:
-        tp, s, hd = x.tp, x.shape[1], self.hd
-        xs = self._shifted(x, st["tm_prev"])
+    def _wkv_site(self, layer, r: Cols, k: Cols, v: Cols, w: Rows, i: int,
+                  pos: tuple, lo: int, hi: int, state):
+        """Heads ``[lo, hi)`` of batch row ``i`` scanned at ``pos`` from the
+        scan state ``state`` (b, hi − lo, hd, hd) fp32: their r, k and v
+        columns and decays sent there, ``u``'s rows read there. Returns
+        the output (b, s, (hi − lo)·hd) fp32 and the final state."""
+        tp, hd = r.tp, self.hd
+        b, s = w.parts[i].shape[:2]
+        c0, c1 = lo * hd, hi * hd
+        heads = lambda t: t.reshape(b, s, hi - lo, hd)      # noqa: E731
+        rj, kj, vj = (heads(c.take(i, c0, c1, pos, "heads"))
+                      for c in (r, k, v))
+        wj = heads(tp.send("heads", w.parts[i][..., c0:c1], tp.rows[i][0],
+                           pos))
+        out, state = self._wkv_scan(rj, kj, vj, wj,
+                                    tp.cols(layer.u, lo, hi, pos, 0), state)
+        return out.reshape(b, s, c1 - c0), state
+
+    def _time_mix_split(self, layer, x: Rows, st: dict | None) -> Rows:
+        """``_time_mix`` on the split weights from the layer's placed
+        states ``st``, written in place; ``st`` None (a train step) starts
+        from zeros made where they are read (the token shift on each row's
+        first position, each head site's scan state there, fp32) and
+        keeps no state."""
+        tp, hd = x.tp, self.hd
+        xs = self._shifted(x, self._prev(
+            x, None if st is None else st["tm_prev"]))
         xr, xk, xv, xg, xw = (x.map(lambda a, c, mu: a + mu[i] * (c - a),
                                     xs, layer.mu) for i in range(5))
         r, k, v, g = (tp.col_linear(a, wt) for a, wt in (
@@ -191,41 +227,51 @@ class RWKV6(L.LMParams, nn.Module):
             x.dtype), layer.w_lora_a, layer.w_lora_b, layer.w_base)
         outs, gates, states = [], [], []
         for i, sites in enumerate(tp.head_sites(self.n_heads_tm)):
-            home, b = tp.rows[i][0], x.parts[i].shape[0]
+            b = x.parts[i].shape[0]
             row_out, row_gate = [], []
             for pos, lo, hi in sites:
                 c0, c1 = lo * hd, hi * hd
-                heads = lambda t: t.reshape(b, s, hi - lo, hd)  # noqa: E731
-                rj, kj, vj = (heads(c.take(i, c0, c1, pos, "heads"))
-                              for c in (r, k, v))
-                wj = heads(tp.send("heads", w.parts[i][..., c0:c1], home, pos))
-                out, state = self._wkv_scan(
-                    rj, kj, vj, wj, tp.cols(layer.u, lo, hi, pos, 0),
-                    tp.state_at(st["tm_state"], i, pos, (lo, hi)))
+                held = (torch.zeros(b, hi - lo, hd, hd, dtype=torch.float32,
+                                    device=tp.mesh.devices[pos])
+                        if st is None else
+                        tp.state_at(st["tm_state"], i, pos, (lo, hi)))
+                out, state = self._wkv_site(layer, r, k, v, w, i, pos, lo,
+                                            hi, held)
                 states.append((pos, ((i * b, (i + 1) * b), (lo, hi)), state))
-                row_out.append((pos, c0, c1,
-                                out.reshape(b, s, c1 - c0).to(x.dtype)))
+                row_out.append((pos, c0, c1, out.to(x.dtype)))
                 row_gate.append((pos, c0, c1, F.silu(
                     g.take(i, c0, c1, pos, "heads"))))
             outs.append(row_out)
             gates.append(row_gate)
-        tp.write_state(st["tm_state"], states)
-        tp.write_state(st["tm_prev"], self._last(x))
+        if st is not None:
+            tp.write_state(st["tm_state"], states)
+            tp.write_state(st["tm_prev"], self._last(x))
         out = L.rms_norm(Cols(tp, outs), layer.ln_x).map(torch.mul,
                                                           Cols(tp, gates))
         return tp.row_linear(out, layer.wo)
 
-    def _channel_mix_split(self, layer, x: Rows, st: dict) -> Rows:
+    def _channel_mix_split(self, layer, x: Rows, st: dict | None) -> Rows:
+        """``_channel_mix`` on the split weights, its token shift as in
+        ``_time_mix_split``."""
         tp = x.tp
-        xs = self._shifted(x, st["cm_prev"])
+        xs = self._shifted(x, self._prev(
+            x, None if st is None else st["cm_prev"]))
         xk = x.map(lambda a, c, mu: a + mu[0] * (c - a), xs, layer.mu_c)
         xr = x.map(lambda a, c, mu: a + mu[1] * (c - a), xs, layer.mu_c)
         kk = tp.col_linear(xk, layer.wck).map(
             lambda t: torch.square(torch.relu(t)))
         value = tp.row_linear(kk, layer.wcv, kind="tp_reduce")
         gate = tp.col_linear(xr, layer.wcr).map(torch.sigmoid)
-        tp.write_state(st["cm_prev"], self._last(x))
+        if st is not None:
+            tp.write_state(st["cm_prev"], self._last(x))
         return gate.to_rows("tp_reduce").map(lambda a, c: a * c, value)
+
+    def _block_split(self, x: Rows, layer, st: dict | None = None) -> Rows:
+        """``_block`` on the split weights: from the layer's placed states
+        ``st``, written in place, or (None, a train step) from zeros."""
+        x = x + self._time_mix_split(layer, L.rms_norm(x, layer.ln1), st)
+        return x + self._channel_mix_split(layer, L.rms_norm(x, layer.ln2),
+                                           st)
 
     def _hidden_split(self, tokens, state: dict):
         """``hidden`` on the split weights: the cache's states placed
@@ -234,10 +280,8 @@ class RWKV6(L.LMParams, nn.Module):
         state = tp.place_states(state)
         x = tp.embed(self.embed, tokens)
         for i, layer in enumerate(self.layers):
-            st = {k: v[i] for k, v in state.items()}
-            x = x + self._time_mix_split(layer, L.rms_norm(x, layer.ln1), st)
-            x = x + self._channel_mix_split(layer, L.rms_norm(x, layer.ln2),
-                                            st)
+            x = self._block_split(x, layer, {k: v[i] for k, v in
+                                             state.items()})
         return x, state
 
     def place_states(self, cache: dict) -> dict:
@@ -302,8 +346,17 @@ class RWKV6(L.LMParams, nn.Module):
         return logits
 
     def loss(self, batch: dict) -> torch.Tensor:
+        """Sequence-chunked CE from zero states. With ``tp`` set, on the
+        split weights: each layer from zeros (``_block_split``),
+        rematerialised with ``cfg.remat``, and the vocab-parallel CE."""
         tokens = batch["tokens"]
-        x, _ = self._layers(self._embed(tokens), None)
+        if self.tp is not None:
+            x = self.tp.embed(self.embed, tokens)
+            for layer in self.layers:
+                x = L.remat(self._block_split, x, layer,
+                            enabled=self.cfg.remat)
+        else:
+            x, _ = self._layers(self._embed(tokens), None)
         return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens,
                                  shard=self.shard)
 

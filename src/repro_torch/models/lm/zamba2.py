@@ -30,7 +30,13 @@ those channels from the replicated conv state, scans its heads from its
 joined in model order; ``w_out`` is row-parallel. The shared block runs
 as the dense layers do (``layers._qkv_split``, ``flash_decode_sharded``,
 the split SwiGLU), its ``w_in`` column-parallel, joined on the row's
-first position.
+first position. ``loss`` on the split weights (a train cell's
+``place_params``) embeds vocab-parallel and runs each Mamba block with
+no cache: every head site convolves and scans from zeros made on its
+device and writes nothing, each layer rematerialised with
+``cfg.remat``; the shared block runs full-sequence split attention at
+each application, its one set of weights read afresh each time (the
+gradients of the applications sum in ``TensorParallel.grads``).
 """
 
 from __future__ import annotations
@@ -217,11 +223,47 @@ class Zamba2(L.LMParams, nn.Module):
         out = self.shard(y @ layer.w_out, ("batch", "seq", "embed"))
         return x + out, {"conv": conv_state, "ssm": ssm_state}
 
-    def _mamba_block_split(self, layer, x: Rows, st: dict) -> Rows:
-        """``_mamba_block`` on the split weights, the layer's placed
-        states ``st`` written in place."""
+    def _mamba_site(self, layer, z: Cols, i: int, pos: tuple, lo: int,
+                    hi: int, conv0, ssm0):
+        """Heads ``[lo, hi)`` of batch row ``i`` at ``pos``: the ``w_in``
+        columns they read (their x, z and dt, all of B and C) sent there,
+        convolved from ``conv0`` (b, k−1, their x channels then B and C)
+        and scanned from ``ssm0`` (b, hi − lo, hd, n) fp32. Returns their y
+        (b, s, (hi − lo)·hd) in the model dtype, their gate, and the final
+        conv and ssm states."""
+        tp, n, hd, din = z.tp, self.cfg.ssm_state, self.hd, self.d_in
+        c0, c1 = lo * hd, hi * hd
+        chans = ((c0, c1), (din, din + 2 * n))
+        conv_in = torch.cat([z.take(i, din + a, din + e, pos, "heads")
+                             for a, e in chans], -1)
+        conv_w = torch.cat([tp.cols(layer.conv_w, a, e, pos, 1)
+                            for a, e in chans], -1)
+        out, conv_state = self._conv(conv_in, conv_w, conv0)
+        b, s = out.shape[:2]
+        out = F.silu(out)
+        xs_, bb, cc = (out[..., :c1 - c0], out[..., c1 - c0:c1 - c0 + n],
+                       out[..., c1 - c0 + n:])
+        dt0 = 2 * din + 2 * n
+        dt = F.softplus(z.take(i, dt0 + lo, dt0 + hi, pos, "heads").float()
+                        + tp.cols(layer.dt_bias, lo, hi, pos,
+                                  0)[None, None, :])
+        y, ssm_state = self._ssm_scan(
+            xs_.reshape(b, s, hi - lo, hd), bb.float(), cc.float(), dt,
+            tp.cols(layer.a_log, lo, hi, pos, 0),
+            tp.cols(layer.d_skip, lo, hi, pos, 0), ssm0)
+        gate = F.silu(z.take(i, c0, c1, pos, "heads"))
+        return (y.reshape(b, s, c1 - c0).to(conv_in.dtype), gate, conv_state,
+                ssm_state)
+
+    def _mamba_block_split(self, layer, x: Rows, st: dict | None = None
+                           ) -> Rows:
+        """``_mamba_block`` on the split weights, each head site's work in
+        ``_mamba_site``: from the layer's placed states ``st``, written in
+        place, or (``st`` None, a train step) from zeros made on each
+        site's device (the conv state in the model dtype, the ssm slice in
+        fp32), keeping no state."""
         tp, n, hd, din = x.tp, self.cfg.ssm_state, self.hd, self.d_in
-        s = x.shape[1]
+        k1 = self.cfg.conv_kernel - 1
         z = tp.col_linear(L.rms_norm(x, layer.ln), layer.w_in)
         ys, gates, convs, ssms = [], [], [], []
         for i, sites in enumerate(tp.head_sites(self.n_heads_m)):
@@ -230,45 +272,34 @@ class Zamba2(L.LMParams, nn.Module):
             row_y, row_gate = [], []
             for j, (pos, lo, hi) in enumerate(sites):
                 c0, c1 = lo * hd, hi * hd
-                # conv channels: this site's x, then B and C
-                chans = ((c0, c1), (din, din + 2 * n))
-                conv_in = torch.cat([z.take(i, din + a, din + e, pos,
-                                            "heads") for a, e in chans], -1)
-                conv_w = torch.cat([tp.cols(layer.conv_w, a, e, pos, 1)
-                                    for a, e in chans], -1)
-                held = tp.state_at(st["conv"], i, pos,
-                                   (0, st["conv"].shape[1]),
-                                   (0, self.conv_dim))
-                out, conv_state = self._conv(conv_in, conv_w, torch.cat(
-                    [held[..., a:e] for a, e in chans], -1))
-                convs.append((pos, (rows, (0, conv_state.shape[1]), (c0, c1)),
+                bc = (din, din + 2 * n)
+                if st is None:
+                    dev = tp.mesh.devices[pos]
+                    conv0 = torch.zeros(b, k1, c1 - c0 + 2 * n,
+                                        dtype=self.dtype, device=dev)
+                    ssm0 = torch.zeros(b, hi - lo, hd, n,
+                                       dtype=torch.float32, device=dev)
+                else:
+                    held = tp.state_at(st["conv"], i, pos, (0, k1),
+                                       (0, self.conv_dim))
+                    conv0 = torch.cat([held[..., a:e]
+                                       for a, e in ((c0, c1), bc)], -1)
+                    ssm0 = tp.state_at(st["ssm"], i, pos, (lo, hi))
+                y, gate, conv_state, ssm_state = self._mamba_site(
+                    layer, z, i, pos, lo, hi, conv0, ssm0)
+                convs.append((pos, (rows, (0, k1), (c0, c1)),
                               conv_state[..., :c1 - c0]))
-                if j == 0:
-                    convs.append((pos, (rows, (0, conv_state.shape[1]),
-                                        chans[1]), conv_state[..., c1 - c0:]))
-                out = F.silu(out)
-                xs_, bb, cc = (out[..., :c1 - c0],
-                               out[..., c1 - c0:c1 - c0 + n],
-                               out[..., c1 - c0 + n:])
-                dt0 = 2 * din + 2 * n
-                dt = F.softplus(z.take(i, dt0 + lo, dt0 + hi, pos,
-                                       "heads").float()
-                                + tp.cols(layer.dt_bias, lo, hi, pos,
-                                          0)[None, None, :])
-                y, ssm_state = self._ssm_scan(
-                    xs_.reshape(b, s, hi - lo, hd), bb.float(), cc.float(),
-                    dt, tp.cols(layer.a_log, lo, hi, pos, 0),
-                    tp.cols(layer.d_skip, lo, hi, pos, 0),
-                    tp.state_at(st["ssm"], i, pos, (lo, hi)))
+                if j == 0:      # B and C's conv state: the row's first site
+                    convs.append((pos, (rows, (0, k1), bc),
+                                  conv_state[..., c1 - c0:]))
                 ssms.append((pos, (rows, (lo, hi)), ssm_state))
-                row_y.append((pos, c0, c1,
-                              y.reshape(b, s, c1 - c0).to(x.dtype)))
-                row_gate.append((pos, c0, c1, F.silu(
-                    z.take(i, c0, c1, pos, "heads"))))
+                row_y.append((pos, c0, c1, y))
+                row_gate.append((pos, c0, c1, gate))
             ys.append(row_y)
             gates.append(row_gate)
-        tp.write_state(st["conv"], convs)
-        tp.write_state(st["ssm"], ssms)
+        if st is not None:
+            tp.write_state(st["conv"], convs)
+            tp.write_state(st["ssm"], ssms)
         y = L.rms_norm(Cols(tp, ys), layer.ln_y).map(torch.mul,
                                                       Cols(tp, gates))
         return x + tp.row_linear(y, layer.w_out)
@@ -292,11 +323,18 @@ class Zamba2(L.LMParams, nn.Module):
         """Layers [a, b) from ``states`` (stacked per layer; None: zeros).
         Returns x and the layers' new states, a list; nothing is written
         in place. A split step's ``x`` (a ``Rows``) runs on the placed
-        ``states``, written in place, and returns no list."""
+        ``states``, written in place, and returns no list; from None (a
+        train step) each layer starts from zeros, rematerialised with
+        ``cfg.remat``, and keeps no state."""
         if isinstance(x, Rows):
             for i in range(a, b):
-                x = self._mamba_block_split(
-                    self.mamba[i], x, {k: v[i] for k, v in states.items()})
+                if states is None:
+                    x = L.remat(self._mamba_block_split, self.mamba[i], x,
+                                enabled=self.cfg.remat)
+                else:
+                    x = self._mamba_block_split(
+                        self.mamba[i], x, {k: v[i] for k, v in
+                                           states.items()})
             return x, None
         new = []
         for i in range(a, b):
@@ -371,8 +409,13 @@ class Zamba2(L.LMParams, nn.Module):
                           ("batch", "seq", "vocab"))
 
     def loss(self, batch: dict) -> torch.Tensor:
+        """Sequence-chunked CE from zero Mamba states; with ``tp`` set, on
+        the split weights (``_mamba_layers`` from None, the shared block's
+        full-sequence split attention at each application, the
+        vocab-parallel CE)."""
         tokens = batch["tokens"]
-        x = self._run(self._embed(tokens), None)
+        x = self._run(self._tokens(tokens) if self.tp is not None
+                      else self._embed(tokens), None)
         return L.chunked_ce_loss(x, self.final_norm, self.lm_head, tokens,
                                  shard=self.shard)
 

@@ -2325,9 +2325,15 @@ def test_split_cells_on_logical_positions_match_the_cpu(cuda, arch):
         assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
+#: rwkv6 with 4 heads of 16: its reduced single head is ill-conditioned
+#: in fp32 (tests/test_torch_lm_tp_train_recurrent.py)
+SPLIT_TRAIN_OVERRIDES = {"rwkv6-7b": {"ssm_head_dim": 16}}
+
+
 def _split_train_case(devices, arch: str):
     """A reduced fp32 train cell (remat on, two microbatches, AdamW eps
-    1e-3) on a (2, 2) mesh of ``devices``, parameters placed
+    1e-3; ``SPLIT_TRAIN_OVERRIDES``) on a (2, 2) mesh of ``devices``,
+    parameters placed
     (``Cell.place_params``), weights and a batch of 8 rows of 8 drawn on
     the CPU from one seed: the loss, every gradient leaf (assembled), the
     gradient norm, then params, m and v after the update, on the CPU;
@@ -2345,7 +2351,8 @@ def _split_train_case(devices, arch: str):
 
     mod = importlib.import_module(f"repro_torch.configs.{C._ARCH_MODULES[arch]}")
     saved, shapes = mod.CONFIG, dict(C.SHAPES)
-    mod.CONFIG = saved.reduced(remat=True)
+    mod.CONFIG = saved.reduced(remat=True,
+                               **SPLIT_TRAIN_OVERRIDES.get(arch, {}))
     C.SHAPES["train_4k"] = C.ShapeCell("train_4k", 8, 8, "train")
     try:
         cell = build_cell(arch, "train_4k",
@@ -2383,12 +2390,14 @@ def _split_train_case(devices, arch: str):
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "smollm-360m",
-                                  "phi3.5-moe-42b-a6.6b", "whisper-small"])
+                                  "phi3.5-moe-42b-a6.6b", "whisper-small",
+                                  "rwkv6-7b", "zamba2-1.2b"])
 def test_split_train_step_on_logical_positions_matches_the_cpu(cuda, arch):
-    """A reduced train cell's split step (TP × FSDP: llama3, phi3.5-moe;
-    pure FSDP: smollm-360m, whisper-small) over four positions of the
-    card against the same on a CPU mesh: the loss, every gradient, the
-    norm and the updated state at ``rtol 1e-4, atol 1e-5``."""
+    """A reduced train cell's split step (TP × FSDP: llama3, phi3.5-moe,
+    rwkv6, zamba2; pure FSDP: smollm-360m, whisper-small) over four
+    positions of the card against the same on a CPU mesh: the loss, every
+    gradient, the norm and the updated state at ``rtol 1e-4, atol
+    1e-5``."""
     card = [torch.device("cuda", torch.cuda.current_device())] * 4
     got, want = _split_train_case(card, arch), _split_train_case("cpu", arch)
     assert len(got) == len(want)
@@ -2401,16 +2410,13 @@ def test_split_train_step_on_logical_positions_matches_the_cpu(cuda, arch):
 def test_split_cells_across_two_cards(two_cards, arch):
     """The (2, 2) mesh over two cards (data shard 0 on the first, 1 on
     the second): each card holds its positions' weight pieces, the second
-    a copy; the same logits as the CPU; and, for the attention families,
-    the train cell's split step (gradients reduced across the cards) as
-    the CPU's."""
+    a copy; the same logits as the CPU; and the train cell's split step
+    (gradients reduced across the cards) as the CPU's."""
     first, second = two_cards
     devices = [first, first, second, second]
     for got, want in zip(_split_case(devices, arch),
                          _split_case("cpu", arch)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-    if arch in ("rwkv6-7b", "zamba2-1.2b"):     # ROADMAP A6c-b
-        return
     for got, want in zip(_split_train_case(devices, arch),
                          _split_train_case("cpu", arch), strict=True):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -22,9 +22,8 @@
   outside the table.
 * The bytes between positions are a hand count for reduced llama3's
   prefill and decode and rwkv6's decode on (2, 2).
-* ``place_params`` accepts the recurrent families' serving cells and
-  the attention families' train cells, and raises for the recurrent
-  families' train cells (ROADMAP A6c-b).
+* ``place_params`` accepts the recurrent families' serving and train
+  cells and the attention families' train cells.
 * The reference's own partitioned cells (its ``Cell`` on its (2, 4) mesh
   of host devices, compiled with its parameters and inputs put by
   ``to_named(cell.pspecs)`` and the cell's input specs, the shapes cut as
@@ -439,14 +438,26 @@ def test_rwkv6_moved_bytes_are_a_hand_count_on_a_2x2_mesh():
     assert dec.tp.bytes_by_kind() == want
 
 
-@pytest.mark.parametrize("arch,shape,match", [
-    ("rwkv6-7b", "train_4k", "A6c-b"), ("zamba2-1.2b", "train_4k", "A6c-b")])
-def test_place_params_refuses_what_is_not_split_yet(arch, shape, match):
+@pytest.mark.parametrize("arch,shape,policy", [
+    ("rwkv6-7b", "train_4k", "tp_fsdp"),
+    ("zamba2-1.2b", "train_4k", "tp_fsdp")])
+def test_place_params_refuses_what_is_not_split_yet(arch, shape, policy):
+    """The recurrent families' published train cells, refused while their
+    losses ran only the unsplit recurrence, are placed: on meta tensors
+    under TP × FSDP, two batch rows of two model positions, and no state
+    cache placed (a train step starts every scan from zeros); the split
+    step itself is held in
+    ``tests/test_torch_lm_tp_train_recurrent.py``."""
     cell = Cell(arch, shape, make_mesh((2, 2), ("data", "model"), "meta"),
                 device="meta")
-    with pytest.raises(NotImplementedError, match=match):
-        cell.place_params()
-    assert cell.tp is None
+    tp = cell.place_params()
+    assert cell.tp is tp and tp.train
+    assert cell.policy == policy and tp.model_axis == "model"
+    assert [len(r) for r in tp.rows] == [2, 2]
+    w = cell.model.layers[0].wr if arch == "rwkv6-7b" \
+        else cell.model.mamba[0].w_in
+    assert tp.placed(w).sharding.spec == shd.P("data", "model")
+    assert not any(t.requires_grad for t in cell.model.state_dict().values())
 
 
 @pytest.mark.parametrize("arch,policy", [("qwen3-4b", "tp_fsdp"),

@@ -18,8 +18,9 @@ otherwise.
   and without remat, are a hand count.
 * A resume through ``run_train_loop`` is bitwise an unbroken run, and the
   split state's checkpoint restores into the mesh-less state.
-* ``place_params`` accepts the published train cells of the eight archs
-  on meta (2, 2) and (1, 4) meshes under ``auto``.
+* ``place_params`` accepts the published train cells of the ten archs
+  on meta (2, 2) and (1, 4) meshes under ``auto`` (the recurrent
+  families' split steps: ``tests/test_torch_lm_tp_train_recurrent.py``).
 * The reference's partitioned train step (its ``Cell`` on its (2, 4) mesh
   of host devices, jitted with ``in_shardings=(state specs, input
   specs)`` and ``out_shardings=(state specs, None)``) against the port's
@@ -124,11 +125,12 @@ def _flat(tree, path=()):
         yield path, tree
 
 
-def _cells(arch: str, shape, remat: bool, n_micro: int, seed: int = 0):
-    """A reduced train cell of ``arch`` on a CPU mesh of ``shape`` with
-    its parameters placed, and its mesh-less twin on the same
-    parameters."""
-    with patched(arch, {"train_4k": (S, B)}, remat=remat):
+def _cells(arch: str, shape, remat: bool, n_micro: int, seed: int = 0,
+           **overrides):
+    """A reduced train cell of ``arch`` (with config ``overrides``) on a
+    CPU mesh of ``shape`` with its parameters placed, and its mesh-less
+    twin on the same parameters."""
+    with patched(arch, {"train_4k": (S, B)}, remat=remat, **overrides):
         split = build_cell(arch, "train_4k", make_mesh(shape, AXES, "cpu"))
         plain = build_cell(arch, "train_4k",
                            make_mesh((1, 1), AXES, "cpu"))
@@ -319,14 +321,14 @@ def test_resume_is_bitwise_and_restores_into_the_mesh_less_state(tmp_path):
             assert torch.equal(a.full(), b.detach()), (part, path)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("rwkv6-7b", "zamba2-1.2b"))
 @pytest.mark.parametrize("mesh_name", MESHES)
 def test_place_params_accepts_the_published_train_cells(arch, mesh_name):
-    """On meta tensors under ``auto``: pure FSDP (every position a batch
-    row, no tensor parallelism, weights gathered over both axes) for the
-    three archs the reference measured to fit, TP × FSDP for the rest;
-    the state's moments placed as their parameters, bf16 for the very
-    large archs."""
+    """On meta tensors under ``auto``, the ten archs: pure FSDP (every
+    position a batch row, no tensor parallelism, weights gathered over
+    both axes) for the three archs the reference measured to fit, TP ×
+    FSDP for the rest; the state's moments placed as their parameters,
+    bf16 for the very large archs."""
     cell = Cell(arch, "train_4k", make_mesh(MESHES[mesh_name], AXES,
                                             "meta"), device="meta")
     tp = cell.place_params()
@@ -343,8 +345,10 @@ def test_place_params_accepts_the_published_train_cells(arch, mesh_name):
     for (_, p), (_, m) in zip(_flat(state.params), _flat(state.m)):
         assert isinstance(m, Placed) and m.sharding == p.sharding
         assert m.dtype == (torch.bfloat16 if big else torch.float32)
-    wq = cell.model.layers[0].attn.wq if arch != "whisper-small" \
-        else cell.model.decoder[0].attn.wq
+    wq = {"whisper-small": lambda m: m.decoder[0].attn.wq,
+          "rwkv6-7b": lambda m: m.layers[0].wr,
+          "zamba2-1.2b": lambda m: m.mamba[0].w_in}.get(
+              arch, lambda m: m.layers[0].attn.wq)(cell.model)
     pl = tp.placed(wq)
     assert pl.sharding.spec == (shd.P(None, ("data", "model"))
                                 if arch in FSDP_ARCHS
@@ -360,10 +364,10 @@ SUBPROCESS_OVERRIDES = {"qwen3-4b": {"qk_norm": True}}
 REF_SEQ, REF_B = 16, 8
 
 
-def _case(arch: str):
-    """One step of the reference's train cell compiled on its (2, 4) mesh
-    against the port's placed cell on a CPU (2, 4) mesh, from the same
-    parameters and batch."""
+def _case(arch: str, **overrides):
+    """One step of the reference's train cell (its config reduced with
+    ``overrides``) compiled on its (2, 4) mesh against the port's placed
+    cell on a CPU (2, 4) mesh, from the same parameters and batch."""
     import jax
     import jax.numpy as jnp
     import repro.configs as JC
@@ -375,9 +379,8 @@ def _case(arch: str):
 
     jmesh = make_test_mesh(2, 4)
     mesh = make_mesh((2, 4), AXES, "cpu")
-    over = SUBPROCESS_OVERRIDES.get(arch, {})
     with patched(arch, {"train_4k": (REF_SEQ, REF_B)}, pkgs=(JC, TC),
-                 **over):
+                 **overrides):
         jcell = jsteps.build_cell(arch, "train_4k", jmesh)
         cell = build_cell(arch, "train_4k", mesh)
     assert cell.policy == jcell.policy
@@ -442,7 +445,7 @@ if __name__ == "__main__":
     results = {}
     for name in SUBPROCESS_CASES:
         try:
-            _case(name)
+            _case(name, **SUBPROCESS_OVERRIDES.get(name, {}))
             results[name] = "OK"
         except Exception:   # reported per case by the parent test
             results[name] = traceback.format_exc()
