@@ -272,10 +272,8 @@ Phases (any failure raises; the script then exits non-zero):
    ``rtol 2e-4, atol 2e-4``; (d) smollm-360m's train cell, all 32
    layers, ``train_4k`` cut to b = 8, s = 256: 3 steps with ``n_micro``
    1 and 3 with 2 from the same parameters and batches, losses within
-   1e-2, step p50 of each; (e) ``lower()`` of qwen3-4b's ``train_4k``,
-   ``prefill_32k`` and ``decode_32k`` cells on the (16, 16) production
-   mesh of meta positions, one worker process each, side by side: ops
-   and seconds of each trace. Numbers also go to
+   1e-2, step p50 of each. (The production mesh's ``lower()`` runs in
+   phase 15, through the dry run.) Numbers also go to
    ``chiprun_out/lm_phase14.json``.
 15. The analysis and the dry run (``repro_torch.analysis``,
    ``repro_torch.launch.dryrun``; no hand kernel, nothing on the card):
@@ -283,10 +281,14 @@ Phases (any failure raises; the script then exits non-zero):
    ``hw.HBM_BYTES``; then ``dryrun.run_cell`` on whisper-small's
    ``train_4k``, ``prefill_32k`` and ``decode_32k`` (pod), zamba2-1.2b's
    ``long_500k`` (pod and multipod) and phi3.5-moe's ``decode_32k``
-   (multipod), one worker process each, side by side: each record's
-   three roofline terms, ``dominant``, ``fits_hbm``, ``n_ops`` and
-   ``lower_s``; any record not ``ok`` fails the run. Records also go to
-   ``chiprun_out/dryrun/`` and ``chiprun_out/dryrun_phase15.json``.
+   (multipod), one worker process each, side by side, each the trace
+   of the split step (one batch row run, the others counted by
+   symmetry): each record's three roofline terms, ``dominant``,
+   ``fits_hbm``, ``n_ops``, ``lower_s`` and ``collective_breakdown``;
+   any record not ``ok`` or not ``"trace": "split"``, a train or prefill
+   cell with neither ``fsdp_gather`` nor ``tp_reduce`` bytes, or a decode
+   cell with no bytes but the ``merge``'s fails the run. Records also go
+   to ``chiprun_out/dryrun/`` and ``chiprun_out/dryrun_phase15.json``.
 16. Split weights (``Cell.place_params``,
    ``repro_torch.distributed.tensor_parallel``; no hand kernel) on phase
    14's (2, 2) mesh of four positions on cuda:0: (a) and (b), run inside
@@ -297,7 +299,11 @@ Phases (any failure raises; the script then exits non-zero):
    queued; bf16 holds layer 0's block and the head to phase 14's error
    ratio against fp32 and the greedy tokens up to near ties, fp32 the
    logits to ``MESH_DECODE_TOL``; ATen ops a step of each path and the
-   split step's bytes between positions by kind, peak memory. (c)
+   split step's bytes between positions by kind, peak memory; (a) also
+   holds ``lower()``, the dry run's meta trace of the cell cut to b = 4,
+   to one split step on the card at the trace's cache index: every
+   position's bytes by kind, and the busiest position's, equal
+   (``trace_vs_card``). (c)
    llama3-8b's prefill cell (TP × FSDP) at b = 4, s = 512: bf16 split and
    mesh-less prefill p50, ops, bytes by kind; fp32 split logits within
    ``MESH_DECODE_TOL`` of the mesh-less prefill's. (d) phi3.5-moe at
@@ -322,13 +328,17 @@ Phases (any failure raises; the script then exits non-zero):
    gradient, params, m and v within ``TRAIN_SPLIT_TOL``), then 3 bf16
    steps each split, unsplit and mesh-less to a sync, ATen ops a step,
    bytes between positions by kind (the forward's alone too), peak
-   memory, the step's bound. (i) rwkv6-7b's ``train_4k`` (depth 2 of 32)
-   and (j) zamba2-1.2b's (depth 7 of 38: one full chunk of 6 with its
-   shared block and a tail layer), both TP × FSDP at b = 4, s = 64, as
-   (g) and (h): their losses start every recurrent layer from zero
-   states and place no state cache (``state`` moves 0 bytes); (i) draws
-   rwkv6's ``u`` from N(0, 0.5²), since at the init's zeros layer 0's
-   ``u`` gradient is ill-conditioned in fp32 (``split_train_cell``).
+   memory, the step's bound; (h) also holds its ``lower()`` trace to
+   one more split step as (a) does. (i) rwkv6-7b's ``train_4k`` (depth
+   2 of 32; its ``lower()`` trace is of the unplaced step, as the dry
+   run still traces rwkv6's and zamba2's train and prefill cells: no
+   bytes between positions) and (j) zamba2-1.2b's (depth 7 of 38: one
+   full chunk of 6 with its shared block and a tail layer), both TP ×
+   FSDP at b = 4, s = 64, as (g) and (h): their losses start every
+   recurrent layer from zero states and place no state cache
+   (``state`` moves 0 bytes); (i) draws rwkv6's ``u`` from N(0, 0.5²),
+   since at the init's zeros layer 0's ``u`` gradient is
+   ill-conditioned in fp32 (``split_train_cell``).
    Numbers also go to ``chiprun_out/lm_phase16.json``.
 """
 
@@ -4559,7 +4569,6 @@ LM_MESH_ATTN_RATIO = 2.0
 LM_MESH_SMALL = dict(prompt=6, s_max=16, frames=8, patches=2, steps=6)
 # (d): smollm-360m whole, train_4k cut to b = 8, s = 256
 LM_MESH_TRAIN = ("smollm-360m", 8, 256, 3)
-LM_MESH_LOWER = ("train_4k", "prefill_32k", "decode_32k")
 
 
 class lm_cell_config:
@@ -5049,45 +5058,6 @@ def lm_mesh_train(torch, dev, mesh, card: str) -> dict:
     return res
 
 
-def lower_cell(shape: str) -> dict:
-    """(e), in a worker process: ``build_cell("qwen3-4b", shape)`` on the
-    (16, 16) production mesh of meta positions, then ``lower()``."""
-    from repro_torch.launch import make_production_mesh
-    from repro_torch.launch.steps import build_cell
-
-    t0 = time.perf_counter()
-    cell = build_cell("qwen3-4b", shape,
-                      make_production_mesh(devices="meta"))
-    build_s = time.perf_counter() - t0
-    record, kind = cell.lower()
-    return {"shape": shape, "kind": kind, "policy": cell.policy,
-            "n_micro": cell.n_micro, "build_s": build_s,
-            "seconds": record.seconds, "ops": record.n_ops,
-            "top_ops": record.ops.most_common(4)}
-
-
-def lm_mesh_lower(torch) -> list:
-    """(e): the three traces, one worker process each, side by side (the
-    trace is host work on meta tensors, PyTorch's meta functions at ~150
-    µs an op)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(LM_MESH_LOWER), mp_context=multiprocessing
-                             .get_context("spawn")) as pool:
-        out = list(pool.map(lower_cell, LM_MESH_LOWER))
-    for r in out:
-        log(f"[lmmesh] (e) qwen3-4b {r['shape']} on the (16, 16) meta "
-            f"mesh: Cell {r['build_s']:.2f} s ({r['policy']}, n_micro "
-            f"{r['n_micro']}), lower() traced {r['kind']} in "
-            f"{r['seconds']:.1f} s, {r['ops']} ATen ops (most: "
-            f"{r['top_ops']})")
-    log(f"[lmmesh] (e) {len(out)} traces side by side in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return out
-
-
 def run_lm_mesh(torch, dev, card: str, split: dict | None = None) -> dict:
     """Phase 14: the LM mesh and the cell builder (see the docstring).
     Numbers also go to ``chiprun_out/lm_phase14.json``. With ``split`` (a
@@ -5109,7 +5079,9 @@ def run_lm_mesh(torch, dev, card: str, split: dict | None = None) -> dict:
         + ", ".join(f"{a} {n}/{lm_config(a, None).n_layers}"
                     for a, n in LM_MESH_ARCHS if n is not None)
         + f"; (d) train_4k b=256, s=4096 -> b={LM_MESH_TRAIN[1]}, "
-        f"s={LM_MESH_TRAIN[2]}")
+        f"s={LM_MESH_TRAIN[2]}; (e), qwen3-4b's three unplaced lower() "
+        f"traces on the (16, 16) meta mesh (~210 s), removed: phase 15 "
+        f"drives lower() through the dry run")
     res = {"card": card,
            "llama": lm_mesh_llama(torch, dev, mesh, card, "bfloat16",
                                   LM_MESH_B, then("bfloat16")),
@@ -5124,7 +5096,6 @@ def run_lm_mesh(torch, dev, card: str, split: dict | None = None) -> dict:
         f"{MESH_DECODE_TOL}: "
         f"{ {a: (float(f'{x:.2e}'), float(f'{y:.2e}')) for a, (x, y) in res['small'].items()} }")
     res["train"] = lm_mesh_train(torch, dev, mesh, card)
-    res["lower"] = lm_mesh_lower(torch)
     res["seconds"] = time.perf_counter() - t_phase
     path = ROOT / "chiprun_out" / "lm_phase14.json"
     path.parent.mkdir(exist_ok=True)
@@ -5178,15 +5149,23 @@ def run_dryrun(torch, card: str) -> list:
     for rec in recs:
         assert rec["status"] == "ok", rec
         rl = rec["roofline"]
+        kinds = rl["collective_breakdown"]
         log(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']} "
-            f"({rec['chips']} positions, n_micro {rec['n_micro']}): "
-            f"compute_s {rl['compute_s']:.6g} memory_s "
-            f"{rl['memory_s']:.6g} collective_s {rl['collective_s']:.6g} "
-            f"dominant {rl['dominant']} useful_ratio "
+            f"({rec['chips']} positions, n_micro {rec['n_micro']}, "
+            f"{rec['trace']} step, {rec['rows_traced']} of {rec['rows']} "
+            f"batch rows traced): compute_s {rl['compute_s']:.6g} "
+            f"memory_s {rl['memory_s']:.6g} collective_s "
+            f"{rl['collective_s']:.6g} (busiest position's bytes by kind "
+            f"{kinds}) dominant {rl['dominant']} useful_ratio "
             f"{rl['useful_ratio']:.4f} fits_hbm {rl['fits_hbm']} "
             f"(arg {rec['memory']['arg_GiB']} GiB, temp "
             f"{rec['memory']['temp_GiB']}, out {rec['memory']['out_GiB']}) "
             f"n_ops {rec['n_ops']} lower_s {rec['lower_s']}")
+        assert rec["trace"] == "split", rec["trace"]
+        if rec["kind"] == "decode":
+            assert set(kinds) - {"merge"}, kinds
+        else:
+            assert kinds.get("fsdp_gather") or kinds.get("tp_reduce"), kinds
     log(f"[dryrun] phase 15: {len(recs)} cells side by side in "
         f"{wall:.1f} s")
     path = ROOT / "chiprun_out" / "dryrun_phase15.json"
@@ -5273,6 +5252,54 @@ class cell_path:
         m.tp, ctx, m.shard = self.saved
         if hasattr(m, "decode_ctx"):
             m.decode_ctx = ctx
+
+
+def trace_vs_card(torch, cell, tp, step) -> dict:
+    """(a), (h): ``cell.lower()``, the dry run's meta trace of the split
+    step (one batch row run, the others counted by symmetry), beside one
+    split step of the same cell on the card (``step``, on inputs of the
+    cell's input specs' dtypes and, for a decode, its cache index): every
+    position's bytes between positions by kind, the busiest position's
+    by kind and in all, exactly equal to ``tp.moved``'s."""
+    from repro_torch.distributed.tensor_parallel import KINDS
+
+    tp.moved.clear()
+    step()
+    torch.cuda.synchronize()
+    card = +tp.moved
+    per_pos = tp.by_position()
+    busiest = max(sorted(per_pos), key=per_pos.__getitem__)
+    t0 = time.perf_counter()
+    low, _ = cell.lower()
+    seconds = time.perf_counter() - t0
+    assert low.trace == "split" and low.rows_traced == 1 < low.rows, low
+    assert +low.moved == card, (low.moved, card)
+    assert low.moved_bytes == per_pos[busiest]
+    assert low.moved_by_kind == {k: card[k, busiest] for k in KINDS
+                                 if card[k, busiest]}
+    return {"step": "split", "trace_s": seconds, "trace_ops": low.n_ops,
+            "rows": low.rows, "busiest": list(busiest),
+            "busiest_bytes": low.moved_bytes,
+            "busiest_by_kind": low.moved_by_kind,
+            "bytes_by_kind": tp.bytes_by_kind()}
+
+
+def trace_unplaced(cell) -> dict:
+    """(i): ``cell.lower()`` of a train cell whose split step the dry run
+    does not trace yet (rwkv6's and zamba2's train and prefill cells,
+    which scan each head site and time step in Python): the unplaced
+    step on whole weights, one row, no bytes between positions, its ops
+    and FLOPs counted."""
+    t0 = time.perf_counter()
+    low, kind = cell.lower()
+    seconds = time.perf_counter() - t0
+    assert kind == "train" and low.trace == "unplaced", (kind, low.trace)
+    assert (low.rows, low.rows_traced) == (1, 1), low
+    assert low.moved_bytes == 0 and not +low.moved \
+        and low.moved_by_kind == {}, low.moved
+    assert low.n_ops > 0 and low.flops > 0, low
+    return {"step": "unplaced", "trace_s": seconds, "trace_ops": low.n_ops,
+            "flops": low.flops}
 
 
 def decode_as(torch, cell, tp, path: str, nxt, cache):
@@ -5428,6 +5455,17 @@ def lm_split_decode(torch, cell, cache, plain, nxt, mesh_res: dict,
     res["moved_bytes"] = tp.bytes_by_kind()
     _, ops["mesh_less"], _ = dispatch_counts(torch, lambda: decode_as(
         torch, cell, tp, "mesh_less", nxt, plain))
+    if dtype == "bfloat16":
+        # the dry run's trace of this cell as cut here, beside one split
+        # step at the trace's cache index with int32 tokens (its specs)
+        from repro_torch.launch.steps import build_cell
+        with lm_cell_config("llama3-8b", dtype=dtype), lm_cell_shape(
+                "decode_32k", cache["k"].shape[2], nxt.shape[0]):
+            twin = build_cell("llama3-8b", "decode_32k", cell.mesh,
+                              device="meta")
+        cache["index"] = twin.inputs_sds["cache"]["index"]
+        res["trace"] = trace_vs_card(torch, twin, tp, lambda: decode_as(
+            torch, cell, tp, "split", nxt.to(torch.int32), cache))
     res.update({f"{p}_ops": n for p, n in ops.items()})
     res.update({"max_abs_diff": worst, "tokens_differ": differ,
                 "bound_ms": mesh_res["bound_ms"],
@@ -5435,6 +5473,13 @@ def lm_split_decode(torch, cell, cache, plain, nxt, mesh_res: dict,
                 "extra_gib": (torch.cuda.max_memory_allocated() - start)
                 / 2**30, "seconds": time.perf_counter() - t_start})
     cell.model.tp = None
+    tr = res.get("trace")
+    traced = ("" if tr is None else
+              f" | dry-run trace of the cell as cut ({tr['trace_ops']} "
+              f"ops, {tr['trace_s']:.2f} s, 1 of {tr['rows']} batch rows "
+              f"run) equals one split step at index 0: busiest position "
+              f"{tr['busiest']} {tr['busiest_bytes']} B "
+              f"{tr['busiest_by_kind']}, all {tr['bytes_by_kind']}")
     check = (f"layer-0 block vs fp32 split {res['block_err']:.3e}, "
              f"mesh-less {res['block_err_mesh_less']:.3e}; head split "
              f"{res['head_err']:.3e}, mesh-less "
@@ -5455,7 +5500,7 @@ def lm_split_decode(torch, cell, cache, plain, nxt, mesh_res: dict,
         f"| bytes between positions a step split {res['moved_bytes']}, "
         f"unsplit merge {res['unsplit_merge_bytes']}, mesh-less 0 | peak "
         f"{res['peak_gib']:.2f} GiB, {res['extra_gib']:.2f} over the "
-        f"cell's | {card}")
+        f"cell's{traced} | {card}")
     return res
 
 
@@ -6139,7 +6184,7 @@ def split_train_check(torch, dev, mesh, arch: str, layers, b: int,
 
 
 def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
-                     s: int) -> dict:
+                     s: int, trace: str | None = None) -> dict:
     """(g)-(j) bf16 (fp32 AdamW state, remat): ``LM_SPLIT_TRAIN_STEPS``
     steps to a sync of each path from one set of weights (each path's
     steps move them; split first, its state freed before the others):
@@ -6147,7 +6192,11 @@ def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
     ``shard`` hook) and mesh-less; then one more of each counted (ATen
     ops; split, the bytes between positions by kind, with the forward's
     alone first, under ``no_grad``); peak memory of each path's steps
-    above the weights; the step's bound (``lm_train_bound``)."""
+    above the weights; the step's bound (``lm_train_bound``). ``trace``
+    ``"split"``: the cell's dry-run trace held to one more split step
+    (``trace_vs_card``, int32 tokens as the cell's input specs);
+    ``"unplaced"``: the cell's dry-run trace of the unplaced step
+    (``trace_unplaced``)."""
     cell, batch = split_train_cell(torch, dev, mesh, arch, layers, b, s,
                                    "bfloat16")
     n_params, n_gemm = lm_param_counts(cell.cfg)
@@ -6182,11 +6231,17 @@ def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
                 torch, lambda: step(state, batch))
             if path == "split":
                 res["step_bytes"] = tp.bytes_by_kind()
+                if trace == "split":
+                    ids = {k: v.to(torch.int32) for k, v in batch.items()}
+                    res["trace"] = trace_vs_card(
+                        torch, cell, tp, lambda: step(state, ids))
         res[f"{path}_p50_ms"] = p50(times)
         res[f"{path}_losses"] = losses
         res[f"{path}_peak_gib"] = (torch.cuda.max_memory_allocated()
                                    - base) / 2**30
         del state, step
+    if trace == "unplaced":
+        res["trace"] = trace_unplaced(cell)
     return res
 
 
@@ -6203,7 +6258,9 @@ def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
            "fp32": split_train_check(torch, dev, mesh, arch, layers, b, s)}
     gc.collect()
     released(torch, base, f"({item}) {arch}, fp32")
-    res.update(split_train_time(torch, dev, mesh, arch, layers, b, s))
+    res.update(split_train_time(torch, dev, mesh, arch, layers, b, s,
+                                trace={"h": "split",
+                                       "i": "unplaced"}.get(item)))
     gc.collect()
     released(torch, base, f"({item}) {arch}, bf16")
     res["seconds"] = time.perf_counter() - t_start
@@ -6238,7 +6295,21 @@ def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
         f"{gb(fwd)} | peak above the weights split "
         f"{res['split_peak_gib']:.2f} GiB, unsplit "
         f"{res['unsplit_peak_gib']:.2f}, mesh-less "
-        f"{res['mesh_less_peak_gib']:.2f} | {res['seconds']:.1f} s | {card}")
+        f"{res['mesh_less_peak_gib']:.2f} | {res['seconds']:.1f} s"
+        + ("" if "trace" not in res else
+           f" | dry-run trace of the cell as cut ({res['trace']['trace_ops']}"
+           f" ops, {res['trace']['trace_s']:.2f} s, 1 of "
+           f"{res['trace']['rows']} batch rows run) equals one split step "
+           f"on int32 tokens: busiest position {res['trace']['busiest']} "
+           f"{res['trace']['busiest_bytes']} B "
+           f"{res['trace']['busiest_by_kind']}"
+           if res["trace"]["step"] == "split" else
+           f" | dry-run trace of the cell as cut, the unplaced step (its "
+           f"split step's trace waits for one site's scan counted once): "
+           f"{res['trace']['trace_ops']} ops, {res['trace']['trace_s']:.2f}"
+           f" s, {res['trace']['flops']:.4e} FLOPs, no bytes between "
+           f"positions")
+        + f" | {card}")
     return res
 
 

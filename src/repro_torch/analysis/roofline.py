@@ -11,12 +11,24 @@ Counterpart of ``repro.analysis.roofline``, with H100 constants
 
 The reference reads its FLOPs, collective bytes and memory from XLA (the
 loop-corrected HLO of the compiled step and its ``memory_analysis``);
-the port compiles nothing and takes each from the trace instead
-(:class:`repro_torch.launch.steps.Lowered`): FLOPs by
-:func:`gemm_flops` over every op the step dispatched, the bytes
-``layers.flash_decode_sharded`` sends between positions, the peak of the
-live bytes the step's ops created, and the per-position bytes of the
-parameters, optimizer state, inputs and outputs by their fitted specs.
+the port compiles nothing and takes each from the trace of the split
+step instead (:class:`repro_torch.launch.steps.Lowered`): FLOPs by
+:func:`gemm_flops` over every op the step dispatched, the bytes every
+position copies to and from the others (``TensorParallel.moved``, by the
+port's ``KINDS``), the peak of the live bytes the step's ops created
+(a one-row trace's each once a row, an estimate: ``Lowered``), and the
+per-position bytes of the parameters, optimizer state, inputs
+and outputs by their fitted specs.
+
+A byte of ``collective_s`` is one the busiest position sent or received:
+each point-to-point copy counts under its source and its destination,
+so a position's bytes are the sum of what it sent and what it got, by
+kind in ``collective_breakdown``. ``parse_hlo`` counts each collective
+once, by the size of its result per device (an all-gather's gathered
+tensor, an all-reduce's operand), whatever the algorithm moves: a ring
+all-gather of n pieces sends and receives n − 1 pieces a device, and a
+ring all-reduce twice that, where the port's copies are the pieces
+themselves.
 The trace unrolls every Python loop and re-runs each checkpointed block
 under backward, so its FLOPs need no loop correction. The MODEL_FLOPS /
 traced-FLOPs ratio surfaces remat and redundancy waste (remat alone puts
@@ -30,6 +42,8 @@ import json
 
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.distributed.tensor_parallel import KINDS
+
 from . import hw
 from .analytic import analytic_cost
 
@@ -37,8 +51,12 @@ __all__ = ["RooflineReport", "analyze_cell", "gemm_flops"]
 
 #: what the port does not model, in every record
 NOTE = ("port: FLOPs, bytes between positions and live bytes from one "
-        "meta trace of the step (no compiler, no partitioner); weights "
-        "stay whole on the first position (not split across cards)")
+        "meta trace of the step (no compiler, no partitioner), the "
+        "weights split by pspecs, one batch row traced and the others "
+        "counted by symmetry (its live bytes once a row: an estimate, "
+        "the mean position's); rwkv6's and zamba2's train and prefill "
+        "cells trace the unplaced step (trace: unplaced, no bytes "
+        "between positions)")
 
 
 def gemm_flops(func, args, kwargs, out) -> int:
@@ -142,7 +160,8 @@ def analyze_cell(arch: str, shape: str, mesh_name: str, chips: int,
         model_flops_global=an.model_flops,
         useful_ratio=useful,
         collective_bytes_per_device=moved,
-        collective_breakdown={"flash_decode_merge": moved},
+        collective_breakdown={k: lowered.moved_by_kind[k] for k in KINDS
+                              if lowered.moved_by_kind.get(k)},
         hbm_bytes_per_device=an.hbm_bytes_per_device,
         hbm_components=an.components,
         arg_bytes=lowered.arg_bytes,

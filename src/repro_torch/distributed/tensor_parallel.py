@@ -85,10 +85,32 @@ the row's first position. Their state caches are placed by
 (:meth:`TensorParallel.write_state`); a state is never gathered whole.
 Their train steps place no state: each head site starts its scan from
 zeros on its own device and keeps nothing.
+
+A one-row placement (``one_row``, the meta trace of ``Cell.lower``)
+runs the work of batch row 0 alone and counts every other row by
+symmetry: the rows are alike, and shifting the batch-axis coordinates of
+every position maps one row's work onto another's. A copy between
+positions that shift together (within a row, an FSDP gather, a state
+write) is counted for the traced row, and :meth:`TensorParallel.fold`
+gives each position the sum of those counts over its batch-axis
+coordinates. A copy with one end that does not shift (the mesh's first
+position, a routing unit of every row) is counted for each row as it is
+made (:meth:`TensorParallel.send_fixed`); so is work done once for all
+the rows (:meth:`TensorParallel.every_row`), and the gradient reduction
+(:meth:`TensorParallel.grads`), whose first holders do not shift,
+counts every row's uses from the traced row's by formula. The pieces of
+the other rows' positions are the traced row's tensors (the same
+shapes), so the optimizer and the reduction run over the traced row's
+slices alone. Row 0 holds the mesh's first position, so every copy there
+is made or counted in the traced row. Once folded, ``moved`` holds every
+position's counts, as a trace of all the rows would. Such a placement
+runs on a ``meta`` mesh only: the other rows' work is not done.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import re
 import threading
 from collections import Counter
@@ -102,7 +124,7 @@ from .mesh import Mesh
 from .sharding import (Placed, _axes, axis_group, axis_line, cache_specs,
                        data_groups, fit_spec_tree, place, tree_map)
 
-__all__ = ["KINDS", "TensorParallel", "Rows", "Cols"]
+__all__ = ["KINDS", "TensorParallel", "Rows", "Cols", "RowsNotAlike"]
 
 KINDS = ("tp_reduce", "fsdp_gather", "vocab", "heads", "moe_tokens",
          "merge", "state", "grad_reduce")
@@ -126,6 +148,20 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _part(pl: Placed, split: tuple, key: tuple, pos: tuple, axes: tuple,
+          g: torch.Tensor) -> torch.Tensor | None:
+    """The part of use gradient ``g`` (of ``pl`` at ``pos``, gathered over
+    ``axes``; ``split``: ``pl``'s axes by dim) that covers the slice
+    ``key``, or None when the use does not cover it."""
+    cover = [(0, n) if set(split[d]) & set(axes) else ab
+             for d, (ab, n) in enumerate(zip(pl.slice_key(pos), pl.shape))]
+    if not all(c0 <= k0 and k1 <= c1 for (k0, k1), (c0, c1)
+               in zip(key, cover)):
+        return None
+    return g[tuple(slice(k0 - c0, k1 - c0) for (k0, k1), (c0, _)
+                   in zip(key, cover))]
+
+
 class _Send(torch.autograd.Function):
     """A copy between positions under autograd: the backward sends the
     gradient back to the source's device, counted under the same
@@ -141,6 +177,61 @@ class _Send(torch.autograd.Function):
         tp, kind, src, dst, dev = ctx.back
         tp.count(kind, g, src, dst)
         return g.to(dev), None, None, None, None
+
+
+class _SendFixed(torch.autograd.Function):
+    """:meth:`TensorParallel.send_fixed` under autograd: the backward's
+    copies back are counted for every row too."""
+
+    @staticmethod
+    def forward(ctx, t, tp, kind, src, dst, moving):
+        ctx.back = (tp, kind, src, dst, moving, t.device)
+        return t.to(tp.mesh.devices[dst])
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, kind, src, dst, moving, dev = ctx.back
+        tp._count_rows(kind, _nbytes(g), src, dst, moving)
+        return g.to(dev), None, None, None, None, None
+
+
+class RowsNotAlike(Exception):
+    """A one-row trace met work that the rows do not do alike (a train
+    step's routing unit of every row): trace all the rows instead."""
+
+
+class _RowPlaced(Placed):
+    """A placed value of a one-row placement: each position's tensor is
+    that of the position of row 0 with the same coordinates off the
+    batch axes (``stand``), and :meth:`holders` lists the slices those
+    positions hold."""
+
+    def __init__(self, shape, dtype, sharding, local, stand: dict):
+        super().__init__(shape, dtype, sharding, local)
+        self._stand = stand
+
+    def holders(self) -> dict[tuple, list[tuple[int, ...]]]:
+        out: dict = {}
+        for pos in sorted(set(self._stand.values())):
+            out.setdefault(self.slice_key(pos), []).append(pos)
+        return out
+
+
+class _SendEach(torch.autograd.Function):
+    """:meth:`TensorParallel._send_each` under autograd: the backward
+    counts each pair's gradient on its way back."""
+
+    @staticmethod
+    def forward(ctx, t, tp, kind, pairs):
+        ctx.back = (tp, kind, pairs)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, kind, pairs = ctx.back
+        for src, dst in pairs:
+            tp.count(kind, g, dst, src)
+        return g, None, None, None
 
 
 class _Use(torch.autograd.Function):
@@ -167,14 +258,20 @@ class TensorParallel:
 
     ``batch_axes`` (a mesh axis, a tuple of them, or None) split the
     batch: ``rows[i][j]`` is the position of batch shard ``i`` and model
-    shard ``j``. ``moved`` counts the bytes copied between positions by
-    ``(kind, position)``; it grows until the caller clears it. ``train``:
-    the weights read under autograd are uses whose gradients
-    :meth:`grads` reduces (a train cell's placement).
+    shard ``j``; ``n_rows`` counts them. ``moved`` counts the bytes
+    copied between positions by ``(kind, position)``; it grows until the
+    caller clears it. ``train``: the weights read under autograd are uses
+    whose gradients :meth:`grads` reduces (a train cell's placement).
+    ``one_row``: ``rows`` is row 0 alone, and the others are counted by
+    symmetry (the module's docstring; :meth:`fold` ends such a step's
+    count); ``mesh`` must then be on the ``meta`` device.
     """
 
     def __init__(self, mesh: Mesh, tree: Any, specs: Any, batch_axes, *,
-                 train: bool = False):
+                 train: bool = False, one_row: bool = False):
+        if one_row and mesh.first_device.type != "meta":
+            raise ValueError("a one-row placement counts the other rows' "
+                             "work without doing it: meta meshes only")
         self.mesh = mesh
         self.train = train
         self.batch_axes = batch_axes
@@ -185,6 +282,7 @@ class TensorParallel:
                            and "model" not in baxes else None)
         self.rows = data_groups(mesh, model_axis=self.model_axis,
                                 batch_axes=baxes)
+        self.n_rows = len(self.rows)
         self.n_model = (mesh.shape[self.model_axis] if self.model_axis
                         else 1)
         self.gather_axes = tuple(a for a in mesh.axis_names
@@ -195,6 +293,21 @@ class TensorParallel:
         self.tree = tree_map(lambda x, s: place(x, mesh, s,
                                                 contiguous=False),
                              tree, specs)
+        self.one_row = one_row and self.n_rows > 1
+        self._once = False
+        if self.one_row:
+            # the batch axes' indices, each row's coordinates on them, and
+            # the row-0 position standing for each position
+            self._bidx = [mesh.axis_names.index(a) for a in baxes
+                          if a in mesh.axis_names]
+            self._shifts = [tuple(row[0][k] for k in self._bidx)
+                            for row in self.rows]
+            self.rows = self.rows[:1]
+            self._row: Counter = Counter()
+            self._stand = {pos: tuple(0 if k in self._bidx else c
+                                      for k, c in enumerate(pos))
+                           for pos in np.ndindex(mesh.devices.shape)}
+            self.tree = tree_map(self._alias, self.tree)
         self._by_id = {id(t): (path, pl) for (path, t), (_, pl) in
                        zip(_paths(tree), _paths(self.tree))}
         self._gathered: dict = {}
@@ -209,12 +322,16 @@ class TensorParallel:
     def count(self, kind: str, t: torch.Tensor, src: tuple,
               dst: tuple) -> None:
         """Count ``t``'s bytes from position ``src`` to ``dst`` (nothing
-        when they are one position)."""
+        when they are one position); in a one-row trace, for the traced
+        row, to be folded (:meth:`fold`), unless done once for every row
+        (:meth:`every_row`)."""
         if src != dst:
             n = _nbytes(t)
             with self._lock:        # backwards count from each card's thread
-                self.moved[kind, src] += n
-                self.moved[kind, dst] += n
+                moved = (self._row if self.one_row and not self._once
+                         else self.moved)
+                moved[kind, src] += n
+                moved[kind, dst] += n
 
     def send(self, kind: str, t: torch.Tensor, src: tuple,
              dst: tuple) -> torch.Tensor:
@@ -225,6 +342,128 @@ class TensorParallel:
         if src != dst and torch.is_grad_enabled() and t.requires_grad:
             return _Send.apply(t, self, kind, src, dst)
         return t.to(self.mesh.devices[dst])
+
+    def send_fixed(self, kind: str, t: torch.Tensor, src: tuple,
+                   dst: tuple, moving: str = "src") -> torch.Tensor:
+        """:meth:`send` of a copy that a batch row makes between one of
+        its positions (``src`` or ``dst``, as ``moving`` says) and a
+        position that is the same for every row (the mesh's first, a
+        routing unit's home). Each row calls it for its own copy; in a
+        one-row trace the traced row's call counts every row's, its
+        moving end shifted to that row."""
+        if not self.one_row or self._once:
+            return self.send(kind, t, src, dst)
+        self._count_rows(kind, _nbytes(t), src, dst, moving)
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _SendFixed.apply(t, self, kind, src, dst, moving)
+        return t.to(self.mesh.devices[dst])
+
+    def _send_each(self, kind: str, t: torch.Tensor,
+                   pairs: list[tuple]) -> torch.Tensor:
+        """``t`` copied between each ``(src, dst)`` of ``pairs``, all
+        counted (under autograd each gradient's way back too) and ``t``
+        returned once: a one-row trace's stand-in for copies that several
+        positions make alike (:meth:`partials_summed`); its tensors are
+        ``meta``."""
+        for src, dst in pairs:
+            self.count(kind, t, src, dst)
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _SendEach.apply(t, self, kind, pairs)
+        return t
+
+    def _shift(self, pos: tuple, i: int) -> tuple:
+        """``pos`` with its batch-axis coordinates moved on by row
+        ``i``'s."""
+        pos = list(pos)
+        for k, c in zip(self._bidx, self._shifts[i]):
+            pos[k] = (pos[k] + c) % self.mesh.devices.shape[k]
+        return tuple(pos)
+
+    def _count_rows(self, kind: str, n: int, src: tuple, dst: tuple,
+                    moving: str) -> None:
+        with self._lock:
+            for i in range(len(self._shifts)):
+                s = self._shift(src, i) if moving == "src" else src
+                d = self._shift(dst, i) if moving == "dst" else dst
+                if s != d:
+                    self.moved[kind, s] += n
+                    self.moved[kind, d] += n
+
+    def partials_summed(self, fn: Callable, x: torch.Tensor,
+                        weights: tuple, src: tuple, dst: tuple,
+                        holders: list[tuple], kinds: tuple[str, str], *,
+                        gather: bool = True) -> torch.Tensor:
+        """The sum on ``dst``, in holder order, of each holder's partial
+        ``fn(x, *w)``: ``x`` sent from ``src`` to each of ``holders``
+        (``kinds[0]``), each of ``weights`` read there (:meth:`weight`,
+        ``gather``) and the partial sent to ``dst`` (``kinds[1]``). With
+        several holders the weights stay split over ``data`` and ``fn``
+        must sum over their slices, each slice's term its own (a SwiGLU's
+        over F): a one-row trace joins the holders' slices along that dim
+        and runs ``fn`` once, every copy counted, for the same FLOPs,
+        forward and backward, in a fraction of the ops."""
+        if self.one_row and len(holders) > 1 and not gather:
+            ws = [torch.cat([self.weight(w, q, gather=False)
+                             for q in holders],
+                            dim=self.placed(w).split_dim("data"))
+                  for w in weights]
+            xj = self._send_each(kinds[0], x, [(src, q) for q in holders])
+            return self._send_each(kinds[1], fn(xj, *ws),
+                                   [(q, dst) for q in holders])
+        out = None
+        for q in holders:
+            xj = self.send(kinds[0], x, src, q)
+            part = fn(xj, *(self.weight(w, q, gather=gather)
+                            for w in weights))
+            part = self.send(kinds[1], part, q, dst)
+            out = part if out is None else out + part
+        return out
+
+    def op_rows(self) -> int:
+        """The batch rows that an op run now stands for: each row in a
+        one-row trace (but for work done once for every row), else one."""
+        return self.n_rows if self.one_row and not self._once else 1
+
+    @contextlib.contextmanager
+    def _done_once(self):
+        prev, self._once = self._once, True
+        try:
+            yield
+        finally:
+            self._once = prev
+
+    @contextlib.contextmanager
+    def every_row(self):
+        """Work done once for every row's tokens together, on row 0's
+        positions (a routing unit of every row): a one-row trace counts
+        its copies and ops as they are, not for each row. A train step's
+        rows are then not alike (row 0's positions use the weights for
+        all), so a one-row trace raises :class:`RowsNotAlike` and is run
+        over every row instead."""
+        if self.one_row and self.train:
+            raise RowsNotAlike("a train step's work of every row on row 0")
+        with self._done_once():
+            yield
+
+    def fold(self) -> None:
+        """End a one-row trace's count: each position gets the traced
+        row's counts summed over its batch-axis coordinates (every row's
+        copies of those kinds). A no-op for a placement of every row."""
+        if not self.one_row:
+            return
+        with self._lock:
+            row, self._row = self._row, Counter()
+            for (kind, pos), n in row.items():
+                for i in range(len(self._shifts)):
+                    self.moved[kind, self._shift(pos, i)] += n
+
+    def join_rows(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The rows' parts, on one position, joined in row order (in a
+        one-row trace the traced row's part stands for each row's)."""
+        if not self.one_row:
+            return torch.cat(parts)
+        with self._done_once():
+            return torch.cat(parts * self.n_rows)
 
     def bytes_by_kind(self) -> dict[str, int]:
         """The bytes copied between positions by kind, each copy once."""
@@ -321,8 +560,87 @@ class TensorParallel:
                    if id(pl) not in by_leaf]
         if missing:
             raise RuntimeError(f"no gradient reached parameters {missing}")
-        return tree_map(lambda pl: self._reduce(
+        reduce = self._reduce_row if self.one_row else self._reduce
+        return tree_map(lambda pl: reduce(
             pl, sorted(by_leaf[id(pl)], key=lambda u: u[:2])), self.tree)
+
+    def _alias(self, pl: Placed) -> _RowPlaced:
+        return _RowPlaced(pl.shape, pl.dtype, pl.sharding,
+                          {pos: pl.local(s) for pos, s in self._stand.items()},
+                          self._stand)
+
+    def _reduce_row(self, pl: Placed, uses: list) -> _RowPlaced:
+        """:meth:`_reduce` in a one-row trace: every row's copies counted
+        (:meth:`_count_reduce`), and the sums made for the slices of the
+        traced row's positions, from the traced row's uses."""
+        self._count_reduce(pl, uses)
+        split = pl.sharding._split(pl.ndim)
+        made: dict = {}
+        for pos in sorted(set(self._stand.values())):
+            key = pl.slice_key(pos)
+            if key in made:
+                continue
+            acc = None
+            for p, _, axes, g in uses:
+                part = _part(pl, split, key, p, axes, g)
+                if part is not None:
+                    part = part.to(self.mesh.devices[pos]).float()
+                    acc = part if acc is None else acc + part
+            if acc is None:
+                acc = torch.zeros([k1 - k0 for k0, k1 in key],
+                                  device=self.mesh.devices[pos])
+            made[key] = acc.to(pl.dtype)
+        return _RowPlaced(pl.shape, pl.dtype, pl.sharding,
+                          {pos: made[pl.slice_key(s)]
+                           for pos, s in self._stand.items()}, self._stand)
+
+    def _count_reduce(self, pl: Placed, uses: list) -> None:
+        """:meth:`_reduce`'s ``grad_reduce`` bytes for leaf ``pl``, every
+        row's uses counted from the traced row's ``uses``.
+
+        A slice's first holder (its home) is its holder with coordinate 0
+        on each axis that does not split the leaf. A use at ``p`` that
+        gathers the axes ``G`` covers the slices that differ from ``p``'s
+        only on ``G``: it sends each its part, but for ``p``'s own slice
+        when ``p`` is its home. Over the rows, the uses of the traced
+        use's shifts are at every position with its coordinates off the
+        batch axes, and the homes they reach are counted in closed form.
+        Each slice's sum then goes from its home to every other holder."""
+        names, shape = self.mesh.axis_names, self.mesh.devices.shape
+        size = dict(zip(names, shape))
+        split = pl.sharding._split(pl.ndim)
+        spl = {a for axes in split for a in axes}
+        batch = {names[k] for k in self._bidx}
+        idx = np.indices(shape)
+        homes = np.ones(shape, bool)
+        for k, a in enumerate(names):
+            if a not in spl:
+                homes &= idx[k] == 0
+        numel = math.prod(k1 - k0 for k0, k1 in pl.slice_key(
+            (0,) * len(shape)))
+        out = np.zeros(shape, np.int64)
+        for (p0, axes, itemsize), n_uses in Counter(
+                (p, axes, g.element_size()) for p, _, axes, g in uses).items():
+            whole = {a for d in split if set(d) & set(axes) for a in d}
+            kept = spl - whole          # split axes the use does not gather
+            part = numel * itemsize * n_uses
+            shifts = np.ones(shape, bool)     # the use's position in each row
+            reach = homes * math.prod(size[a] for a in batch
+                                      if a not in kept)
+            for k, a in enumerate(names):
+                if a not in batch:
+                    shifts &= idx[k] == p0[k]
+                    if a in kept:
+                        reach = reach * (idx[k] == p0[k])
+            own = shifts & homes
+            out += part * (shifts * math.prod(size[a] for a in whole)
+                           - 2 * own + reach)
+        holders = math.prod(size[a] for a in names if a not in spl)
+        out += numel * pl.dtype.itemsize * np.where(homes, holders - 1, 1)
+        with self._lock:
+            for pos in zip(*np.nonzero(out)):
+                pos = tuple(int(c) for c in pos)
+                self.moved["grad_reduce", pos] += int(out[pos])
 
     def _reduce(self, pl: Placed, uses: list) -> Placed:
         split = pl.sharding._split(pl.ndim)
@@ -331,14 +649,9 @@ class TensorParallel:
             home = holders[0]
             acc = None
             for pos, _, axes, g in uses:
-                cover = [(0, n) if set(split[d]) & set(axes) else ab
-                         for d, (ab, n) in enumerate(zip(pl.slice_key(pos),
-                                                         pl.shape))]
-                if not all(c0 <= k0 and k1 <= c1 for (k0, k1), (c0, c1)
-                           in zip(key, cover)):
+                part = _part(pl, split, key, pos, axes, g)
+                if part is None:
                     continue
-                part = g[tuple(slice(k0 - c0, k1 - c0) for (k0, k1), (c0, _)
-                               in zip(key, cover))]
                 self.count("grad_reduce", part, pos, home)
                 part = part.to(self.mesh.devices[home]).float()
                 acc = part if acc is None else acc + part
@@ -406,7 +719,7 @@ class TensorParallel:
         (B, ...), checked to hold batch row ``i``'s rows and ``ranges`` of
         the dims after the batch: the tensor the position's step reads and
         writes."""
-        b = pl.shape[0] // len(self.rows)
+        b = pl.shape[0] // self.n_rows
         want = [(i * b, (i + 1) * b), *ranges]
         sl = pl.sharding.local_slices(pos, pl.shape)
         got = [(s.start, s.stop) for s in sl[:len(want)]]
@@ -472,7 +785,7 @@ class TensorParallel:
         """A step input's batch rows on their rows' first positions (its
         placement by the cell's input specs, not a copy between
         positions)."""
-        n = len(self.rows)
+        n = self.n_rows
         if x.shape[0] % n:
             raise ValueError(f"a batch of {x.shape[0]} does not split over "
                              f"{n} batch shards")
@@ -601,7 +914,7 @@ class Rows:
 
     @property
     def shape(self) -> torch.Size:
-        return torch.Size((sum(p.shape[0] for p in self.parts),
+        return torch.Size((self.parts[0].shape[0] * self.tp.n_rows,
                            *self.parts[0].shape[1:]))
 
     @property
@@ -644,8 +957,9 @@ class Rows:
     def whole(self, kind: str) -> torch.Tensor:
         """The value on the mesh's first device, rows joined in order."""
         at0 = (0,) * self.tp.mesh.devices.ndim
-        return torch.cat([self.tp.send(kind, p, self.tp.rows[i][0], at0)
-                          for i, p in enumerate(self.parts)])
+        return self.tp.join_rows([
+            self.tp.send_fixed(kind, p, self.tp.rows[i][0], at0)
+            for i, p in enumerate(self.parts)])
 
 
 class Cols:
@@ -703,10 +1017,12 @@ class Cols:
                 out.append(self.tp.send(kind, piece, pos, dst))
         return out[0] if len(out) == 1 else torch.cat(out, dim=self.dim)
 
-    def row_at(self, i: int, dst: tuple, kind: str) -> torch.Tensor:
-        """Row ``i`` whole on position ``dst``."""
-        parts = [self.tp.send(kind, t, pos, dst)
-                 for pos, _, _, t in self.pieces[i]]
+    def row_at(self, i: int, dst: tuple, kind: str, *,
+               fixed: bool = False) -> torch.Tensor:
+        """Row ``i`` whole on position ``dst`` (``fixed``: a position that
+        is the same for every row, ``TensorParallel.send_fixed``)."""
+        send = self.tp.send_fixed if fixed else self.tp.send
+        parts = [send(kind, t, pos, dst) for pos, _, _, t in self.pieces[i]]
         return parts[0] if len(parts) == 1 else torch.cat(parts,
                                                           dim=self.dim)
 
@@ -718,5 +1034,5 @@ class Cols:
     def whole(self, kind: str) -> torch.Tensor:
         """The value on the mesh's first device."""
         at0 = (0,) * self.tp.mesh.devices.ndim
-        return torch.cat([self.row_at(i, at0, kind)
-                          for i in range(len(self.pieces))])
+        return self.tp.join_rows([self.row_at(i, at0, kind, fixed=True)
+                                  for i in range(len(self.pieces))])

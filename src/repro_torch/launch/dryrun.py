@@ -8,7 +8,11 @@ needs a card: each cell's ``Cell.lower()`` runs its step once on a
 their FLOPs, bytes between positions and live bytes from that trace
 (``repro_torch.analysis.roofline``). A record has ``lower_s`` (the
 trace's wall seconds) and ``n_ops`` (the ATen ops it dispatched) where
-the reference's has ``compile_s``. A trace costs ~150 µs of host time an
+the reference's has ``compile_s``, ``trace`` (``"split"``: the step on
+weights split by the cell's specs, as the reference lowers the
+partitioned step; ``"unplaced"``: rwkv6's and zamba2's train and prefill
+cells, on whole weights) and ``rows_traced`` of the mesh's ``rows``
+(batch rows run; the others are counted by symmetry). A trace costs ~150 µs of host time an
 op, 30-150 s a cell, so the cells run side by side in spawned worker
 processes, one cell a process, as many processes as cells or CPU cores,
 whichever is fewer; the records keep the grid's order.
@@ -32,7 +36,8 @@ import traceback
 from concurrent.futures import ProcessPoolExecutor
 
 from repro_torch.analysis.roofline import analyze_cell
-from repro_torch.configs import ARCH_NAMES, SHAPES, applicable_shapes
+from repro_torch.configs import (ARCH_NAMES, SHAPES, applicable_shapes,
+                                 get_config)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import build_cell
 
@@ -52,7 +57,8 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str | None,
         "arch": arch, "shape": shape, "mesh": mesh_name, "chips": chips,
         "kind": kind, "status": "ok",
         "lower_s": round(t_lower, 1), "n_ops": lowered.n_ops,
-        "n_micro": cell.n_micro,
+        "trace": lowered.trace, "rows_traced": lowered.rows_traced,
+        "rows": lowered.rows, "n_micro": cell.n_micro,
         "memory": {
             "arg_GiB": round(lowered.arg_bytes / 2**30, 3),
             "out_GiB": round(lowered.out_bytes / 2**30, 3),
@@ -129,13 +135,16 @@ def main(argv=None) -> None:
             mp_context=multiprocessing.get_context("spawn"),
             max_tasks_per_child=1)
     try:
-        for arch, shape, mesh_name, reason in cells:
-            if reason == "run":
-                print(f"[dryrun] CELL  {arch:28s} {shape:12s} {mesh_name}",
-                      flush=True)
-                futures[arch, shape, mesh_name] = pool.submit(
-                    _cell_or_fail, arch, shape, mesh_name, args.out,
-                    not args.no_roofline)
+        # the unplaced recurrent scans take most of the grid's time: they
+        # start first
+        for arch, shape, mesh_name in sorted(runs, key=lambda c: not (
+                get_config(c[0]).family in ("ssm", "hybrid")
+                and SHAPES[c[1]].kind != "decode")):
+            print(f"[dryrun] CELL  {arch:28s} {shape:12s} {mesh_name}",
+                  flush=True)
+            futures[arch, shape, mesh_name] = pool.submit(
+                _cell_or_fail, arch, shape, mesh_name, args.out,
+                not args.no_roofline)
         results = []
         for arch, shape, mesh_name, reason in cells:
             if reason != "run":
@@ -148,10 +157,16 @@ def main(argv=None) -> None:
             rec = futures[arch, shape, mesh_name].result()
             if rec["status"] == "ok":
                 rl = rec.get("roofline", {})
+                kinds = rl.get("collective_breakdown") or {"-": 0}
+                top = max(kinds, key=kinds.get)
                 print(f"[dryrun]   ok: {arch} {shape} {mesh_name} "
-                      f"lower={rec['lower_s']}s ops={rec['n_ops']} "
+                      f"{rec['trace']} rows={rec['rows_traced']}/"
+                      f"{rec['rows']} lower={rec['lower_s']}s "
+                      f"ops={rec['n_ops']} "
                       f"temp={rec['memory']['temp_GiB']}GiB "
-                      f"dominant={rl.get('dominant', '?')}", flush=True)
+                      f"dominant={rl.get('dominant', '?')} "
+                      f"collective={rl.get('collective_s', 0):.6g}s "
+                      f"top={top}", flush=True)
             else:
                 print(f"[dryrun]   FAIL: {arch} {shape} {mesh_name} "
                       f"{rec['error']}", flush=True)

@@ -26,6 +26,7 @@ sequence over ``model``) and attends through
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import time
@@ -42,7 +43,8 @@ from repro_torch.bridge import _leaves
 from repro_torch.configs import SHAPES, get_config, input_specs
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.mesh import Mesh, make_mesh
-from repro_torch.distributed.tensor_parallel import TensorParallel
+from repro_torch.distributed.tensor_parallel import (KINDS, RowsNotAlike,
+                                                      TensorParallel)
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import make_lm_model
 from repro_torch.training.optimizer import (AdamWConfig, TrainState,
@@ -64,17 +66,35 @@ class Lowered:
     outputs (``meta`` tensors; a train step's new ``params``, ``m``, ``v``
     and metrics) and the host seconds the trace took.
 
+    ``trace`` says which step ran: ``"split"``, the parameters placed by
+    ``pspecs`` (``Cell.place_params``), ``rows_traced`` of the mesh's
+    ``rows`` batch rows run and the others counted by symmetry
+    (``distributed.tensor_parallel``); or ``"unplaced"``, the step on
+    whole weights (rwkv6's and zamba2's train and prefill cells, whose
+    split steps scan each head site and time step in Python, and a mesh
+    of one position), whose one copy between positions is a sharded
+    decode's merge (``DecodeShardCtx.moved``, under ``merge``).
+
     What the reference reads from XLA, the port counts in the same pass:
     ``flops``, 2·M·N·K of every GEMM-like op the step dispatched
-    (``analysis.roofline.gemm_flops``; ``parse_hlo``'s ``dot_flops``);
-    ``peak_live_bytes``, the peak over the trace of the bytes held by the
-    storages its ops created (inputs, parameters and optimizer state
-    left out; ``memory_analysis().temp_size_in_bytes``);
-    ``moved_bytes``, the bytes the busiest mesh position sent and
-    received (``DecodeShardCtx.moved``; the HLO's collective bytes); and,
-    per position by the fitted spec trees, ``arg_bytes`` (parameters,
-    optimizer state, inputs) and ``out_bytes`` (the outputs). All but
-    the per-position bytes are for the global step."""
+    (``analysis.roofline.gemm_flops``; ``parse_hlo``'s ``dot_flops``),
+    for the global step: a one-row trace's per-row GEMMs count once for
+    each row; ``peak_live_bytes``, the peak over the trace of the bytes
+    held by the storages its ops created (inputs, parameters and
+    optimizer state left out; ``memory_analysis().temp_size_in_bytes``),
+    a one-row trace's each counted once for each row: an estimate for the
+    global step, the rows' temporaries held together as a mesh's rows
+    run in step (a trace of every row runs them one after another on one
+    host and frees a row's before the next's, so its peak is lower: 1.0
+    to 7.0 times it on ``tests/test_torch_lm_dryrun_split.py``'s cells),
+    so the mean position's at the traced row's peak, not the busiest's;
+    ``moved``, every position's bytes sent and received by ``(kind,
+    position)`` (``TensorParallel.moved``, every row's), and
+    ``moved_by_kind``, the busiest position's by kind (nonzero kinds),
+    whose total is ``moved_bytes`` (the HLO's collective bytes); and, per
+    position by the fitted spec trees, ``arg_bytes`` (parameters,
+    optimizer state, inputs) and ``out_bytes`` (the outputs). All but the
+    per-position bytes are for the global step."""
     ops: Counter
     outputs: Any
     seconds: float
@@ -83,6 +103,11 @@ class Lowered:
     moved_bytes: int = 0
     arg_bytes: int = 0
     out_bytes: int = 0
+    moved: Counter = dataclasses.field(default_factory=Counter)
+    moved_by_kind: dict = dataclasses.field(default_factory=dict)
+    trace: str = "split"
+    rows: int = 1
+    rows_traced: int = 1
 
     @property
     def n_ops(self) -> int:
@@ -100,7 +125,8 @@ class _LiveBytes:
         self.on = True
         self._held: set[int] = set()
 
-    def add(self, out) -> None:
+    def add(self, out, k: int = 1) -> None:
+        """Hold ``out``'s new storages, each ``k`` times."""
         if not self.on:
             return
         for t in (out if isinstance(out, (tuple, list)) else (out,)):
@@ -110,7 +136,7 @@ class _LiveBytes:
             key = st._cdata
             if key in self._held:
                 continue
-            n = st.nbytes()
+            n = st.nbytes() * k
             self._held.add(key)
             self.now += n
             self.peak = max(self.peak, self.now)
@@ -127,13 +153,16 @@ class Trace(TorchDispatchMode):
     ``analysis.roofline.gemm_flops``) and the live bytes of the storages
     they create (``live``: ``live.peak``; ops that return an input or a
     view of one create none). Set ``live.on`` False around work whose
-    storages are the step's arguments, not its temporaries."""
+    storages are the step's arguments, not its temporaries. ``scale``, a
+    callable, gives the number of times each op stands for (a one-row
+    trace's rows), by which its FLOPs and bytes are multiplied."""
 
-    def __init__(self):
+    def __init__(self, scale: Callable[[], int] | None = None):
         super().__init__()
         self.ops: Counter = Counter()
         self.flops = 0
         self.live = _LiveBytes()
+        self.scale = scale or (lambda: 1)
         self._fresh: dict = {}      # op -> its outputs are new storages
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -141,13 +170,14 @@ class Trace(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not func.is_view:
             self.ops[func.overloadpacket.__name__] += 1
-            self.flops += gemm_flops(func, args, kwargs, out)
+            k = self.scale()
+            self.flops += k * gemm_flops(func, args, kwargs, out)
             new = self._fresh.get(func)
             if new is None:
                 new = self._fresh[func] = all(
                     r.alias_info is None for r in func._schema.returns)
             if new:
-                self.live.add(out)
+                self.live.add(out, k)
         return out
 
 
@@ -339,6 +369,11 @@ class Cell:
         ``data`` and ``model``, with no tensor parallelism). rwkv6's and
         zamba2's losses run each recurrent layer from zero states made
         where they are read, and place no state cache."""
+        return self._place(one_row=False)
+
+    def _place(self, one_row: bool) -> TensorParallel:
+        """:meth:`place_params`; ``one_row``: batch row 0's work alone, the
+        others counted by symmetry (a meta trace, :meth:`lower`)."""
         if self.cell.kind == "train":
             tree = self.model.tensor_tree()
             for _, t in _leaves(tree):
@@ -347,7 +382,7 @@ class Cell:
             else self._batch_split(self._batch_axes())
         self.model.tp = TensorParallel(
             self.mesh, self.model.tensor_tree(), self.pspecs, b_ax,
-            train=self.cell.kind == "train")
+            train=self.cell.kind == "train", one_row=one_row)
         return self.model.tp
 
     def train_state(self) -> TrainState:
@@ -418,37 +453,63 @@ class Cell:
 
         There is no eager counterpart of the reference's ``jit(...)
         .lower()``: nothing is compiled. The step runs as it would on a
-        card, over a ``meta`` twin of this cell (the same policy, a mesh
-        of the same shape on the meta device, ``meta`` inputs from
-        ``configs.input_specs``), so every op dispatches with its real
-        shapes and nothing is allocated. The analysis and the dry run
-        take their FLOPs, live bytes and bytes between positions from
-        this trace (:class:`Lowered`), counted in the same pass as the
-        ops."""
-        if self.device.type == "meta" and self.mesh.first_device.type \
-                == "meta" and self.tp is None:
-            cell = self
-        else:
-            cell = Cell(self.arch, self.shape, _meta_mesh(self.mesh),
-                        self.policy, device="meta")
-            cell.n_micro = self.n_micro
+        card, over a ``meta`` twin of this cell (its config, policy and
+        inputs, on a mesh of the same shape on the meta device), so every
+        op dispatches with its real shapes and nothing is allocated. As
+        the reference lowers the partitioned step, the twin's parameters
+        are placed by ``pspecs`` (:meth:`place_params`) and the split
+        step runs: batch row 0's work alone, every other row counted by
+        symmetry (``TensorParallel``'s ``one_row``), or, where the rows
+        do not work alike (a train step's MoE routing unit spanning every
+        row), every row. rwkv6's and zamba2's train and prefill cells
+        trace the unplaced step, and so does a mesh of one position,
+        which has nothing to split (there the split step's remat, the
+        reentrant checkpoint of ``layers._remat_split``, would recompute
+        each block's last product too). The analysis and the dry run take
+        their FLOPs, live bytes and bytes between positions from this
+        trace (:class:`Lowered`), counted in the same pass as the ops."""
+        if self.mesh.size == 1 or (self.cfg.family in ("ssm", "hybrid")
+                                   and self.cell.kind != "decode"):
+            return self._lower("unplaced")
+        try:
+            return self._lower("one_row")
+        except RowsNotAlike:
+            return self._lower("all_rows")
+
+    def _meta_twin(self) -> "Cell":
+        """This cell on a ``meta`` mesh of the same shape: its config,
+        shape, policy, specs, inputs and microbatches, a new ``meta``
+        model with nothing placed."""
+        twin = copy.copy(self)
+        twin.mesh = _meta_mesh(self.mesh)
+        twin.device = torch.device("meta")
+        twin.shard = shd.make_shard_fn(twin.mesh, self.policy)
+        twin.model = make_lm_model(self.cfg, twin.shard, device="meta")
+        if self.decode_ctx is not None:
+            twin.model.decode_ctx = L.DecodeShardCtx(
+                mesh=twin.mesh, batch_axes=self.decode_ctx.batch_axes,
+                seq_axis=self.decode_ctx.seq_axis)
+        return twin
+
+    def _lower(self, how: str) -> tuple[Lowered, str]:
+        """:meth:`lower`'s trace of one step: ``how`` is ``"one_row"``,
+        ``"all_rows"`` (the split step) or ``"unplaced"``."""
+        cell = self._meta_twin()
         kind = cell.cell.kind
         mesh = cell.mesh
-        ctx = cell.decode_ctx
-        if ctx is not None:
-            ctx.moved.clear()
+        tp = None if how == "unplaced" else cell._place(how == "one_row")
         # the decode step places and writes its cache in the dict it is
         # given: a copy of the dicts keeps the cell's inputs as they are
         inputs = shd.tree_map(lambda x: x, cell.inputs_sds)
         arg_bytes = position_bytes(mesh, cell.input_shardspecs(), inputs) \
             + position_bytes(mesh, cell.pspecs, cell.param_shapes)
         t0 = time.perf_counter()
-        with Trace() as tr:
+        with Trace(None if tp is None else tp.op_rows) as tr:
             # what the reference takes as arguments (the optimizer state,
             # a placed cache) is made before the live bytes count
             tr.live.on = False
             if kind == "train":
-                state = adamw_init(cell.model.param_tree(), cell.opt_cfg)
+                state = cell.train_state()
                 arg_bytes += 4 + sum(position_bytes(mesh, cell.pspecs, t)
                                      for t in (state.m, state.v))
                 tr.live.on = True
@@ -471,10 +532,29 @@ class Cell:
                         {"logits": logits, "cache": cache}),
                     {"logits": logits, "cache": cache})
         seconds = time.perf_counter() - t0
-        moved = max(ctx.moved.values(), default=0) if ctx is not None else 0
-        return Lowered(tr.ops, outputs, seconds, flops=tr.flops,
-                       peak_live_bytes=tr.live.peak, moved_bytes=moved,
-                       arg_bytes=arg_bytes, out_bytes=out_bytes), kind
+        low = Lowered(tr.ops, outputs, seconds, flops=tr.flops,
+                      peak_live_bytes=tr.live.peak, arg_bytes=arg_bytes,
+                      out_bytes=out_bytes, trace="unplaced")
+        if tp is not None:
+            tp.fold()
+            per_pos = tp.by_position()
+            busiest = max(sorted(per_pos), key=per_pos.__getitem__,
+                          default=None)
+            low.trace = "split"
+            low.moved = Counter(tp.moved)
+            low.moved_by_kind = {k: tp.moved[k, busiest] for k in KINDS
+                                 if tp.moved[k, busiest]}
+            low.moved_bytes = per_pos[busiest] if per_pos else 0
+            low.rows = tp.n_rows
+            low.rows_traced = len(tp.rows)
+        elif cell.decode_ctx is not None and cell.decode_ctx.moved:
+            # the unplaced decode's one copy between positions: the flash
+            # decode's merge over the cache's shards (DecodeShardCtx)
+            low.moved = Counter({("merge", pos): n for pos, n
+                                 in cell.decode_ctx.moved.items()})
+            low.moved_bytes = max(cell.decode_ctx.moved.values())
+            low.moved_by_kind = {"merge": low.moved_bytes}
+        return low, kind
 
 
 def build_cell(arch: str, shape: str, mesh: Mesh, **kwargs) -> Cell:

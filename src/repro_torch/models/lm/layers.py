@@ -551,9 +551,13 @@ def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
     at0 = (0,) * mesh.devices.ndim              # the first device's position
     groups = data_groups(mesh, model_axis=ax,
                          batch_axes=_axes(ctx.batch_axes))
-    if split and len(q.parts) != len(groups):
-        raise ValueError(f"{len(q.parts)} batch shards of q for a cache "
-                         f"split {len(groups)} ways")
+    if split:
+        if q.tp.n_rows != len(groups):
+            raise ValueError(f"{q.tp.n_rows} batch shards of q for a "
+                             f"cache split {len(groups)} ways")
+        # the rows that run (row 0 alone in a one-row trace, which counts
+        # the others by symmetry)
+        groups = q.tp.rows
     # where each batch row's q, k_new and v_new are
     homes = [row[0] for row in groups] if split else [at0] * len(groups)
     b_local = q.parts[0].shape[0] if split else q.shape[0] // len(groups)
@@ -571,6 +575,8 @@ def flash_decode_sharded(q, k_cache, v_cache, k_new, v_new,
             if not slots.start <= cache_index < slots.stop:
                 continue
             i = kc.sharding.shard_index(pos, 0)
+            if i >= len(groups):
+                continue
             for cache, new in ((kc, k_new), (vc, v_new)):
                 t = cache.local(pos)
                 if id(t) not in written:
@@ -938,6 +944,6 @@ def _chunked_ce_split(x: Rows, gamma, w, tokens, chunk: int,
     at0 = (0,) * tp.mesh.devices.ndim
     total = None
     for i, t in enumerate(totals.parts):
-        t = tp.send("vocab", t, tp.rows[i][0], at0)
+        t = tp.send_fixed("vocab", t, tp.rows[i][0], at0)
         total = t if total is None else total + t
     return total / (b * s_eff)

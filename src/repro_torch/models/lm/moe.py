@@ -14,6 +14,8 @@ the reference: the router learns through the kept pairs' gate values in
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -132,6 +134,47 @@ def _routing(xg: torch.Tensor, router: torch.Tensor, cfg: LMConfig):
     return dispatch, combine, probs, expert_mask
 
 
+def _experts(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The experts' SwiGLU on their slots ``x`` (G, e, c, d)."""
+    g_ = torch.einsum("gecd,edf->gecf", x, w_gate)
+    u = torch.einsum("gecd,edf->gecf", x, w_up)
+    return torch.einsum("gecf,efd->gecd", F.silu(g_) * u, w_down)
+
+
+def _moe_unit(p: MoEFFN, tp, cfg: LMConfig, xu, row, s: int, d: int,
+              gsz: int, f_split: bool, experts_split: bool, at0: tuple,
+              stats: list) -> torch.Tensor:
+    """One routing unit of :func:`_moe_split`: ``xu`` (its rows' tokens,
+    on the row's first position ``row[0]``) routed, run through the
+    experts of ``row``'s model positions, and combined there; a train
+    step's aux sums go to ``at0`` (appended to ``stats``)."""
+    home = row[0]
+    xg = xu.reshape(xu.shape[0] * s // gsz, gsz, d)
+    dispatch, combine, probs, expert_mask = _routing(
+        xg, tp.weight(p.router, home), cfg)
+    if tp.train:
+        stats.append((tp.send_fixed("moe_tokens",
+                                    expert_mask.sum(dim=(0, 1, 2)), home,
+                                    at0),
+                      tp.send_fixed("moe_tokens", probs.sum(dim=(0, 1)),
+                                    home, at0)))
+    xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)       # (G, e, c, d)
+    out = None
+    for j, col in enumerate(row if experts_split else row[:1]):
+        lo, hi = (tp.model_range(p.w_gate, j) if experts_split
+                  else (0, cfg.n_experts))
+        holders = (axis_line(tp.mesh, col, "data") if f_split
+                   else [col])
+        eo = tp.partials_summed(
+            _experts, xin[:, lo:hi], (p.w_gate, p.w_up, p.w_down), home,
+            col, holders, ("moe_tokens", "tp_reduce"), gather=not f_split)
+        cj = tp.send("moe_tokens", combine[:, :, lo:hi], home, col)
+        part = tp.send("tp_reduce", torch.einsum("gsec,gecd->gsd", cj, eo),
+                       col, home)
+        out = part if out is None else out + part
+    return out.reshape(-1, s, d)
+
+
 def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig
                ) -> tuple[Rows, torch.Tensor | None]:
     """``moe_ffn``'s output on split weights (``P("model", "data",
@@ -164,7 +207,8 @@ def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig
     b, s, d = x.shape
     gsz = _group_size(b, s)
     b_row = x.parts[0].shape[0]
-    units = ([[i] for i in range(len(tp.rows))] if (b_row * s) % gsz == 0
+    per_row = (b_row * s) % gsz == 0
+    units = ([[i] for i in range(len(tp.rows))] if per_row
              else [list(range(len(tp.rows)))])
     f_split = tp.placed(p.w_gate).split_dim("data") == 2
     experts_split = tp.model_dim(p.w_gate) == 0
@@ -174,44 +218,18 @@ def _moe_split(p: MoEFFN, x: Rows, cfg: LMConfig
     for unit in units:
         row = tp.rows[unit[0]]
         home = row[0]
-        xs = [tp.send("moe_tokens", x.parts[i], tp.rows[i][0], home)
-              for i in unit]
-        xu = xs[0] if len(xs) == 1 else torch.cat(xs)
-        xg = xu.reshape(xu.shape[0] * s // gsz, gsz, d)
-        dispatch, combine, probs, expert_mask = _routing(
-            xg, tp.weight(p.router, home), cfg)
-        if tp.train:
-            stats.append((tp.send("moe_tokens",
-                                  expert_mask.sum(dim=(0, 1, 2)), home, at0),
-                          tp.send("moe_tokens", probs.sum(dim=(0, 1)), home,
-                                  at0)))
-        xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)       # (G, e, c, d)
-        out = None
-        for j, col in enumerate(row if experts_split else row[:1]):
-            lo, hi = (tp.model_range(p.w_gate, j) if experts_split
-                      else (0, cfg.n_experts))
-            holders = (axis_line(tp.mesh, col, "data") if f_split
-                       else [col])
-            eo = None
-            for pos in holders:
-                xj = tp.send("moe_tokens", xin[:, lo:hi], home, pos)
-                g_ = torch.einsum("gecd,edf->gecf", xj,
-                                  tp.weight(p.w_gate, pos, gather=not f_split))
-                u = torch.einsum("gecd,edf->gecf", xj,
-                                 tp.weight(p.w_up, pos, gather=not f_split))
-                part = torch.einsum(
-                    "gecf,efd->gecd", F.silu(g_) * u,
-                    tp.weight(p.w_down, pos, gather=not f_split))
-                part = tp.send("tp_reduce", part, pos, col)
-                eo = part if eo is None else eo + part
-            cj = tp.send("moe_tokens", combine[:, :, lo:hi], home, col)
-            part = tp.send("tp_reduce", torch.einsum("gsec,gecd->gsd", cj, eo),
-                           col, home)
-            out = part if out is None else out + part
-        out = out.reshape(-1, s, d)
+        if per_row:
+            xu = tp.send("moe_tokens", x.parts[unit[0]], home, home)
+        else:                       # every row's tokens, on (0, ..., 0)
+            xu = x.whole("moe_tokens")
+        with contextlib.nullcontext() if per_row else tp.every_row():
+            out = _moe_unit(p, tp, cfg, xu, row, s, d, gsz, f_split,
+                            experts_split, at0, stats)
         for k, i in enumerate(unit):
-            outs[i] = tp.send("moe_tokens", out[k * b_row:(k + 1) * b_row],
-                              home, tp.rows[i][0])
+            part = out[k * b_row:(k + 1) * b_row]
+            outs[i] = (tp.send("moe_tokens", part, home, home) if per_row
+                       else tp.send_fixed("moe_tokens", part, home,
+                                          tp.rows[i][0], moving="dst"))
     if not stats:
         return Rows(tp, outs), None
     tok_sum, prob_sum = stats[0]

@@ -142,10 +142,13 @@ def test_roofline_report_has_the_reference_fields():
 
 def test_analyze_cell_terms_from_the_trace():
     """Each term from its count: FLOPs and the live peak split over the
-    chips, the busiest position's bytes over NVLink, H100 rates."""
+    chips, the busiest position's bytes over NVLink (by kind in the
+    breakdown, nonzero kinds in ``KINDS`` order), H100 rates."""
     low = Lowered(None, None, 0.0, flops=512 * 10**12,
                   peak_live_bytes=512 * 2**30, moved_bytes=9 * 10**9,
-                  arg_bytes=70 * 10**9, out_bytes=5 * 10**9)
+                  arg_bytes=70 * 10**9, out_bytes=5 * 10**9,
+                  moved_by_kind={"merge": 3 * 10**9, "state": 0,
+                                 "tp_reduce": 6 * 10**9})
     rep = analyze_cell("qwen3-4b", "decode_32k", "multipod", 512, low)
     an = TA.analytic_cost("qwen3-4b", "decode_32k", 512)
     assert rep.hlo_dot_flops_per_device == 10**12
@@ -153,7 +156,9 @@ def test_analyze_cell_terms_from_the_trace():
     assert rep.compute_s == 10**12 / hw.PEAK_FLOPS_BF16
     assert rep.memory_s == an.hbm_bytes_per_device / hw.HBM_BW
     assert rep.collective_s == 9e9 / hw.NVLINK_BW == 0.02
-    assert rep.collective_breakdown == {"flash_decode_merge": 9e9}
+    assert rep.collective_breakdown == {"tp_reduce": 6 * 10**9,
+                                        "merge": 3 * 10**9}
+    assert list(rep.collective_breakdown) == ["tp_reduce", "merge"]
     assert rep.dominant == "collective"
     assert rep.temp_bytes == 2**30
     assert rep.useful_ratio == an.model_flops / 512 / 10**12
@@ -331,7 +336,8 @@ def test_lower_counts_the_reference_fields_per_position():
     """A reduced qwen3 train cell on (2, 2): the arguments are the
     parameters, AdamW's moments and step and the tokens, the outputs the
     new parameters and moments and two fp32 metrics, each split by its
-    fitted spec; the trace's live peak leaves the arguments out."""
+    fitted spec; the trace's live peak leaves the arguments out; the
+    split step's busiest position's bytes between positions."""
     with patched("qwen3-4b", {"train_4k": (64, 8)}):
         mesh = make_mesh((2, 2), ("data", "model"), "meta")
         cell = build_cell("qwen3-4b", "train_4k", mesh)
@@ -339,7 +345,15 @@ def test_lower_counts_the_reference_fields_per_position():
         tokens = position_bytes(mesh, cell.input_shardspecs(),
                                 cell.inputs_sds)
         params = position_bytes(mesh, cell.pspecs, cell.param_shapes)
-    assert kind == "train" and low.moved_bytes == 0
+    assert kind == "train" and low.trace == "split"
+    per_pos = {}
+    for (_, pos), n in low.moved.items():
+        per_pos[pos] = per_pos.get(pos, 0) + n
+    assert sorted(per_pos) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert low.moved_bytes == max(per_pos.values()) == per_pos[(0, 0)]
+    assert low.moved_bytes == sum(low.moved_by_kind.values())
+    assert {"tp_reduce", "fsdp_gather", "vocab", "grad_reduce"} \
+        <= set(low.moved_by_kind)
     whole = sum(t.numel() * 4 for t in _leaves(cell.param_shapes))
     assert whole / 4 <= params < whole
     assert tokens == 8 * 64 * 4 // 2                  # batch over data
@@ -360,31 +374,80 @@ def _leaves(tree):
 
 
 def test_moved_bytes_is_the_hand_count_on_a_2x2_mesh():
-    """Reduced qwen3 decode on (data 2, model 2), batch 8: per layer the
-    first position sends the new k/v rows to the one other position
-    owning slot 0 (data shard 1, model shard 0) and q to the three
-    others. Each batch row merges on its own first position, (0, 0) and
-    (1, 0): it takes the local max of its row's other position and sends
-    the row's max back, then takes that position's ``l`` and ``o``; row
-    1's output goes to the first position."""
+    """Reduced qwen3 decode on (data 2, model 2), batch 8, split: each
+    batch row of 4 works on its own positions, (i, 0) and (i, 1). Per
+    layer, on every position: the row's q to its other position and that
+    position's local max, the row's max, ``l`` and ``o`` back (``merge``;
+    the new k/v rows are at slot 0's owner, the row's first position,
+    already); q's, k's and v's columns joined on the first position and
+    the attention output's columns sent back to ``wo``'s rows
+    (``heads``); the normed activation to the other position and the
+    partial sums back, for attention and the MLP (``tp_reduce``). Then
+    the head's input (``tp_reduce``); the token ids and the embedding's
+    partials, the logits' columns to the row's first position and the
+    second row's logits to the first position (``vocab``). The unplaced
+    decode of the same cell (whole weights, the cache split) copies in
+    its merge alone (``DecodeShardCtx.moved``): per layer the first
+    position sends the new k/v rows to the one other position owning
+    slot 0 (data shard 1, model shard 0) and q to the three others; each
+    batch row merges on its own first position, (0, 0) and (1, 0): it
+    takes the local max of its row's other position and sends the row's
+    max back, then takes that position's ``l`` and ``o``; row 1's output
+    goes to the first position. A (1, 1) mesh copies nothing. A reduced
+    llama3 train cell on (2, 2) gathers and reduces its hand count
+    (``_hand_count``)."""
+    from test_torch_lm_tp_train import _hand_count
+
     with patched("qwen3-4b", {"decode_32k": (64, 8)}):
         cfg = TC.get_config("qwen3-4b")
         cell = build_cell("qwen3-4b", "decode_32k",
                           make_mesh((2, 2), ("data", "model"), "meta"))
         low, _ = cell.lower()
+        unplaced, _ = cell._lower("unplaced")
         one, _ = build_cell("qwen3-4b", "decode_32k", make_mesh(
             (1, 1), ("data", "model"), "meta")).lower()
-        moved = dict(cell.decode_ctx.moved)
-    f32, b_local = 4, 4
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    kv_rows = 2 * b_local * kv * hd * f32          # k and v, one position
+    f32, b_local, tok = 4, 4, 4
+    d, h, kv, hd, v = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+        cfg.vocab
     q = b_local * h * hd * f32
     stat = b_local * h * f32                       # a max, or l
     o = b_local * h * hd * f32
+    act = b_local * d * f32                        # one token a row
+    cols = b_local * (h + 2 * kv) * hd * f32 // 2  # q, k, v: one half
+    hand = {
+        "merge": cfg.n_layers * (q + 3 * stat + o),
+        "heads": cfg.n_layers * (cols + o // 2),
+        "tp_reduce": cfg.n_layers * 4 * act + act,
+        "vocab": b_local * tok + act + b_local * v * f32 // 2,
+    }
+    first = dict(hand, vocab=hand["vocab"] + b_local * v * f32)
+    for pos in np.ndindex(2, 2):
+        got = {k: n for (k, p), n in low.moved.items() if p == pos}
+        assert got == (first if pos[1] == 0 else hand), pos
+    assert low.moved_bytes == sum(first.values())
+    assert low.moved_by_kind == first
+    assert one.moved_bytes == 0 and one.trace == "unplaced"
+
+    assert {k for k, _ in unplaced.moved} == {"merge"}
+    moved = {pos: n for (_, pos), n in unplaced.moved.items()}
+    kv_rows = 2 * b_local * kv * hd * f32          # k and v, one position
     per_layer = kv_rows + 3 * q + 3 * stat + 2 * o
-    assert low.moved_bytes == moved[(0, 0)] == cfg.n_layers * per_layer
+    assert unplaced.moved_bytes == moved[(0, 0)] == cfg.n_layers * per_layer
     assert max(moved.values()) == moved[(0, 0)]
     assert moved[(0, 1)] == moved[(1, 1)] == cfg.n_layers * (q + 3 * stat
                                                              + o)
     assert moved[(1, 0)] == cfg.n_layers * (kv_rows + q + 3 * stat + 2 * o)
-    assert one.moved_bytes == 0
+    assert unplaced.moved_by_kind == {"merge": unplaced.moved_bytes}
+
+    for remat in (False, True):
+        with patched("llama3-8b", {"train_4k": (8, 8)}, remat=remat):
+            train = build_cell("llama3-8b", "train_4k", make_mesh(
+                (2, 2), ("data", "model"), "meta"))
+            low, _ = train.lower()
+        want = _hand_count(train.cfg, 4, 8, remat)
+        by_kind = {}
+        for (k, _), n in low.moved.items():
+            by_kind[k] = by_kind.get(k, 0) + n
+        assert {k: by_kind[k] // 2 for k in ("fsdp_gather",
+                                            "grad_reduce")} \
+            == {k: want[k] for k in ("fsdp_gather", "grad_reduce")}

@@ -4,8 +4,9 @@
   skips exactly ``applicable_shapes``' (80 cells, 16 skips).
 * The CLI on whisper-small's ``decode_32k`` at full size on the pod mesh,
   in its spawned worker: the record file and ``summary.json``, a
-  record's keys the reference's less ``compile_s`` plus ``lower_s`` and
-  ``n_ops``, its roofline the reference's fields.
+  record's keys the reference's less ``compile_s`` plus ``lower_s``,
+  ``n_ops``, ``trace`` and ``rows_traced`` of ``rows``, its roofline the
+  reference's fields.
 * A cell that raises gives a ``FAIL`` record and exit code 1; skips alone
   start no worker.
 """
@@ -57,15 +58,21 @@ def test_cli_writes_the_reference_records(whisper_decode):
     rec = json.loads((whisper_decode /
                       "whisper-small__decode_32k__pod.json").read_text())
     assert rec == summary[0]
-    assert set(rec) == JAX_RECORD_KEYS - {"compile_s"} | {"n_ops"}
+    assert set(rec) == JAX_RECORD_KEYS - {"compile_s"} | {
+        "n_ops", "trace", "rows_traced", "rows"}
     assert set(rec["memory"]) == JAX_MEMORY_KEYS
     assert set(rec["roofline"]) == {f.name for f in
                                     dataclasses.fields(JReport)}
     assert (rec["chips"], rec["kind"], rec["n_micro"]) == (256, "decode", 1)
-    assert rec["n_ops"] > 100_000 and rec["lower_s"] > 0
+    # the split step, one batch row of 16 model positions traced
+    assert (rec["trace"], rec["rows_traced"], rec["rows"]) == ("split", 1,
+                                                               16)
+    assert rec["n_ops"] > 10_000 and rec["lower_s"] > 0
     rl = rec["roofline"]
     assert rl["dominant"] in ("memory", "collective") and rl["fits_hbm"]
-    assert rl["collective_bytes_per_device"] > 0
+    assert rl["collective_bytes_per_device"] == sum(
+        rl["collective_breakdown"].values()) > 0
+    assert rl["collective_breakdown"]["merge"] > 0
     assert rl["note"]
 
 
