@@ -330,12 +330,11 @@ Phases (any failure raises; the script then exits non-zero):
    bytes between positions by kind (the forward's alone too), peak
    memory, the step's bound; (h) also holds its ``lower()`` trace to
    one more split step as (a) does. (i) rwkv6-7b's ``train_4k`` (depth
-   2 of 32; its ``lower()`` trace is of the unplaced step, as the dry
-   run still traces rwkv6's and zamba2's train and prefill cells: no
-   bytes between positions) and (j) zamba2-1.2b's (depth 7 of 38: one
-   full chunk of 6 with its shared block and a tail layer), both TP ×
-   FSDP at b = 4, s = 64, as (g) and (h): their losses start every
-   recurrent layer from zero states and place no state cache
+   2 of 32) and (j) zamba2-1.2b's (depth 7 of 38: one full chunk of 6
+   with its shared block and a tail layer), both TP × FSDP at b = 4,
+   s = 64, as (h), their ``lower()`` traces too (a row's two head sites
+   scanned as one, ``TensorParallel.scan_sites``): their losses start
+   every recurrent layer from zero states and place no state cache
    (``state`` moves 0 bytes); (i) draws rwkv6's ``u`` from N(0, 0.5²),
    since at the init's zeros layer 0's ``u`` gradient is
    ill-conditioned in fp32 (``split_train_cell``).
@@ -5255,7 +5254,7 @@ class cell_path:
 
 
 def trace_vs_card(torch, cell, tp, step) -> dict:
-    """(a), (h): ``cell.lower()``, the dry run's meta trace of the split
+    """(a), (h)-(j): ``cell.lower()``, the dry run's meta trace of the split
     step (one batch row run, the others counted by symmetry), beside one
     split step of the same cell on the card (``step``, on inputs of the
     cell's input specs' dtypes and, for a decode, its cache index): every
@@ -5282,24 +5281,6 @@ def trace_vs_card(torch, cell, tp, step) -> dict:
             "busiest_bytes": low.moved_bytes,
             "busiest_by_kind": low.moved_by_kind,
             "bytes_by_kind": tp.bytes_by_kind()}
-
-
-def trace_unplaced(cell) -> dict:
-    """(i): ``cell.lower()`` of a train cell whose split step the dry run
-    does not trace yet (rwkv6's and zamba2's train and prefill cells,
-    which scan each head site and time step in Python): the unplaced
-    step on whole weights, one row, no bytes between positions, its ops
-    and FLOPs counted."""
-    t0 = time.perf_counter()
-    low, kind = cell.lower()
-    seconds = time.perf_counter() - t0
-    assert kind == "train" and low.trace == "unplaced", (kind, low.trace)
-    assert (low.rows, low.rows_traced) == (1, 1), low
-    assert low.moved_bytes == 0 and not +low.moved \
-        and low.moved_by_kind == {}, low.moved
-    assert low.n_ops > 0 and low.flops > 0, low
-    return {"step": "unplaced", "trace_s": seconds, "trace_ops": low.n_ops,
-            "flops": low.flops}
 
 
 def decode_as(torch, cell, tp, path: str, nxt, cache):
@@ -6184,7 +6165,7 @@ def split_train_check(torch, dev, mesh, arch: str, layers, b: int,
 
 
 def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
-                     s: int, trace: str | None = None) -> dict:
+                     s: int, trace: bool = False) -> dict:
     """(g)-(j) bf16 (fp32 AdamW state, remat): ``LM_SPLIT_TRAIN_STEPS``
     steps to a sync of each path from one set of weights (each path's
     steps move them; split first, its state freed before the others):
@@ -6192,11 +6173,9 @@ def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
     ``shard`` hook) and mesh-less; then one more of each counted (ATen
     ops; split, the bytes between positions by kind, with the forward's
     alone first, under ``no_grad``); peak memory of each path's steps
-    above the weights; the step's bound (``lm_train_bound``). ``trace``
-    ``"split"``: the cell's dry-run trace held to one more split step
-    (``trace_vs_card``, int32 tokens as the cell's input specs);
-    ``"unplaced"``: the cell's dry-run trace of the unplaced step
-    (``trace_unplaced``)."""
+    above the weights; the step's bound (``lm_train_bound``). ``trace``:
+    the cell's dry-run trace held to one more split step
+    (``trace_vs_card``, int32 tokens as the cell's input specs)."""
     cell, batch = split_train_cell(torch, dev, mesh, arch, layers, b, s,
                                    "bfloat16")
     n_params, n_gemm = lm_param_counts(cell.cfg)
@@ -6231,7 +6210,7 @@ def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
                 torch, lambda: step(state, batch))
             if path == "split":
                 res["step_bytes"] = tp.bytes_by_kind()
-                if trace == "split":
+                if trace:
                     ids = {k: v.to(torch.int32) for k, v in batch.items()}
                     res["trace"] = trace_vs_card(
                         torch, cell, tp, lambda: step(state, ids))
@@ -6240,8 +6219,6 @@ def split_train_time(torch, dev, mesh, arch: str, layers, b: int,
         res[f"{path}_peak_gib"] = (torch.cuda.max_memory_allocated()
                                    - base) / 2**30
         del state, step
-    if trace == "unplaced":
-        res["trace"] = trace_unplaced(cell)
     return res
 
 
@@ -6259,8 +6236,7 @@ def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
     gc.collect()
     released(torch, base, f"({item}) {arch}, fp32")
     res.update(split_train_time(torch, dev, mesh, arch, layers, b, s,
-                                trace={"h": "split",
-                                       "i": "unplaced"}.get(item)))
+                                trace=item in ("h", "i", "j")))
     gc.collect()
     released(torch, base, f"({item}) {arch}, bf16")
     res["seconds"] = time.perf_counter() - t_start
@@ -6302,13 +6278,7 @@ def lm_split_train(torch, dev, mesh, item: str, arch: str, layers, b: int,
            f"{res['trace']['rows']} batch rows run) equals one split step "
            f"on int32 tokens: busiest position {res['trace']['busiest']} "
            f"{res['trace']['busiest_bytes']} B "
-           f"{res['trace']['busiest_by_kind']}"
-           if res["trace"]["step"] == "split" else
-           f" | dry-run trace of the cell as cut, the unplaced step (its "
-           f"split step's trace waits for one site's scan counted once): "
-           f"{res['trace']['trace_ops']} ops, {res['trace']['trace_s']:.2f}"
-           f" s, {res['trace']['flops']:.4e} FLOPs, no bytes between "
-           f"positions")
+           f"{res['trace']['busiest_by_kind']}")
         + f" | {card}")
     return res
 

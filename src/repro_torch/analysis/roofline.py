@@ -54,9 +54,9 @@ NOTE = ("port: FLOPs, bytes between positions and live bytes from one "
         "meta trace of the step (no compiler, no partitioner), the "
         "weights split by pspecs, one batch row traced and the others "
         "counted by symmetry (its live bytes once a row: an estimate, "
-        "the mean position's); rwkv6's and zamba2's train and prefill "
-        "cells trace the unplaced step (trace: unplaced, no bytes "
-        "between positions)")
+        "the mean position's); a recurrent row's head sites scanned as "
+        "one; a one-position mesh traces the unplaced step (trace: "
+        "unplaced)")
 
 
 def gemm_flops(func, args, kwargs, out) -> int:

@@ -84,7 +84,9 @@ the row's first position. Their state caches are placed by
 ``model``) and each step writes every position's slice in place
 (:meth:`TensorParallel.write_state`); a state is never gathered whole.
 Their train steps place no state: each head site starts its scan from
-zeros on its own device and keeps nothing.
+zeros on its own device and keeps nothing. A head site's scan runs
+through :meth:`TensorParallel.scan_sites`, which a one-row trace joins
+over the row's sites.
 
 A one-row placement (``one_row``, the meta trace of ``Cell.lower``)
 runs the work of batch row 0 alone and counts every other row by
@@ -104,7 +106,13 @@ shapes), so the optimizer and the reduction run over the traced row's
 slices alone. Row 0 holds the mesh's first position, so every copy there
 is made or counted in the traced row. Once folded, ``moved`` holds every
 position's counts, as a trace of all the rows would. Such a placement
-runs on a ``meta`` mesh only: the other rows' work is not done.
+runs on a ``meta`` mesh only: the other rows' work is not done. Work
+that several positions of the traced row do alike, each on its own
+slice, runs once over the slices joined, every copy counted as made:
+llama4's experts over their F-holders (:meth:`partials_summed`) and a
+recurrent row's head sites (:meth:`scan_sites`), so a trace dispatches
+about the ops of the unplaced step, whose scans step through every
+token.
 """
 
 from __future__ import annotations
@@ -418,6 +426,33 @@ class TensorParallel:
             part = self.send(kinds[1], part, q, dst)
             out = part if out is None else out + part
         return out
+
+    def scan_sites(self, fn: Callable, sites: list[tuple], args: list[tuple],
+                   dims: tuple) -> list[tuple]:
+        """``fn(*args[k])`` for each of a row's head sites ``sites[k]``
+        (``(position, lo, hi)``, :meth:`head_sites`), its arguments
+        already on its position: each site's output (b, s, heads, ...)
+        and final state (b, heads, ...). ``fn`` (a recurrence) treats its
+        heads independently; ``dims`` gives each argument's head dim, or
+        None for one that every site holds alike (the same value at
+        each).
+
+        A one-row trace joins the sites' arguments along their head dims
+        (an argument held alike is read from the first site) and runs
+        ``fn`` once, over all the row's heads as the unplaced step does,
+        then splits each output back by the sites' ``[lo, hi)``: the same
+        FLOPs, forward and backward, in a fraction of the ops. The sites'
+        other work stays theirs, so every copy is counted as before. An
+        argument held alike gets its whole gradient on the first site and
+        none on the others: the same sum, the copies being one value."""
+        if not self.one_row or len(sites) == 1:
+            return [fn(*a) for a in args]
+        joined = [args[0][k] if d is None else
+                  torch.cat([a[k] for a in args], dim=d)
+                  for k, d in enumerate(dims)]
+        sizes = [hi - lo for _, lo, hi in sites]
+        out, state = fn(*joined)
+        return list(zip(out.split(sizes, dim=2), state.split(sizes, dim=1)))
 
     def op_rows(self) -> int:
         """The batch rows that an op run now stands for: each row in a

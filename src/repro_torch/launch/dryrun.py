@@ -10,12 +10,15 @@ their FLOPs, bytes between positions and live bytes from that trace
 trace's wall seconds) and ``n_ops`` (the ATen ops it dispatched) where
 the reference's has ``compile_s``, ``trace`` (``"split"``: the step on
 weights split by the cell's specs, as the reference lowers the
-partitioned step; ``"unplaced"``: rwkv6's and zamba2's train and prefill
-cells, on whole weights) and ``rows_traced`` of the mesh's ``rows``
-(batch rows run; the others are counted by symmetry). A trace costs ~150 µs of host time an
-op, 30-150 s a cell, so the cells run side by side in spawned worker
-processes, one cell a process, as many processes as cells or CPU cores,
-whichever is fewer; the records keep the grid's order.
+partitioned step, on every production mesh; ``"unplaced"``, on whole
+weights, only for a mesh of one position) and ``rows_traced`` of the
+mesh's ``rows`` (batch rows run; the others are counted by symmetry).
+A trace costs ~150-250 µs of host time an op: 6-750 s a cell, and about
+an hour or more for rwkv6's and zamba2's train and prefill cells, whose
+scans step through every token. So the cells run side by side in
+spawned worker processes, one cell a process, as many processes as
+cells or CPU cores, whichever is fewer; the records keep the grid's
+order.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
@@ -135,8 +138,8 @@ def main(argv=None) -> None:
             mp_context=multiprocessing.get_context("spawn"),
             max_tasks_per_child=1)
     try:
-        # the unplaced recurrent scans take most of the grid's time: they
-        # start first
+        # the recurrent train and prefill cells scan token by token and
+        # take most of the grid's time: they start first
         for arch, shape, mesh_name in sorted(runs, key=lambda c: not (
                 get_config(c[0]).family in ("ssm", "hybrid")
                 and SHAPES[c[1]].kind != "decode")):

@@ -70,9 +70,8 @@ class Lowered:
     ``pspecs`` (``Cell.place_params``), ``rows_traced`` of the mesh's
     ``rows`` batch rows run and the others counted by symmetry
     (``distributed.tensor_parallel``); or ``"unplaced"``, the step on
-    whole weights (rwkv6's and zamba2's train and prefill cells, whose
-    split steps scan each head site and time step in Python, and a mesh
-    of one position), whose one copy between positions is a sharded
+    whole weights (a mesh of one position, and ``Cell._lower("unplaced")``
+    asked for by name), whose one copy between positions is a sharded
     decode's merge (``DecodeShardCtx.moved``, under ``merge``).
 
     What the reference reads from XLA, the port counts in the same pass:
@@ -461,15 +460,16 @@ class Cell:
         step runs: batch row 0's work alone, every other row counted by
         symmetry (``TensorParallel``'s ``one_row``), or, where the rows
         do not work alike (a train step's MoE routing unit spanning every
-        row), every row. rwkv6's and zamba2's train and prefill cells
-        trace the unplaced step, and so does a mesh of one position,
-        which has nothing to split (there the split step's remat, the
-        reentrant checkpoint of ``layers._remat_split``, would recompute
-        each block's last product too). The analysis and the dry run take
-        their FLOPs, live bytes and bytes between positions from this
-        trace (:class:`Lowered`), counted in the same pass as the ops."""
-        if self.mesh.size == 1 or (self.cfg.family in ("ssm", "hybrid")
-                                   and self.cell.kind != "decode"):
+        row), every row. In a one-row trace rwkv6's and zamba2's head
+        sites of a row scan as one (``TensorParallel.scan_sites``), so
+        their recurrences dispatch about the unplaced step's ops. Only a
+        mesh of one position traces the unplaced step: it has nothing to
+        split (there the split step's remat, the reentrant checkpoint of
+        ``layers._remat_split``, would recompute each block's last
+        product too). The analysis and the dry run take their FLOPs, live
+        bytes and bytes between positions from this trace
+        (:class:`Lowered`), counted in the same pass as the ops."""
+        if self.mesh.size == 1:
             return self._lower("unplaced")
         try:
             return self._lower("one_row")

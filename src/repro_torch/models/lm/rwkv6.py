@@ -19,10 +19,12 @@ run on the split weights, the cache's states placed by ``cache_specs``
 r, k, v and g column-parallel, the decay whole on the row's first
 position (its LoRA is FSDP-split) and each site's heads sliced from it,
 the WKV scan at ``TensorParallel.head_sites`` on each site's ``u`` and
-state slice, ``ln_x`` over the whole d from sums of squares joined in
-model order (``layers.rms_norm`` of a ``Cols``), ``wo`` row-parallel; in
-the channel mix the sigmoid gate's columns join the row-parallel value on
-the row's first position. ``loss`` on the split weights (a train cell's
+state slice (``TensorParallel.scan_sites``: a one-row trace scans a
+row's sites as one, their inputs joined along the heads), ``ln_x`` over
+the whole d from sums of squares joined in model order
+(``layers.rms_norm`` of a ``Cols``), ``wo`` row-parallel; in the channel
+mix the sigmoid gate's columns join the row-parallel value on the row's
+first position. ``loss`` on the split weights (a train cell's
 ``place_params``) runs the same blocks with no cache (``_block_split``):
 each row's token shifts and each head site's scan start from zeros made
 where they are read, nothing is written, each layer is rematerialised
@@ -192,12 +194,11 @@ class RWKV6(L.LMParams, nn.Module):
         return [(x.tp.rows[i][0], ((i * b, (i + 1) * b),), p[:, -1])
                 for i, p in enumerate(x.parts)]
 
-    def _wkv_site(self, layer, r: Cols, k: Cols, v: Cols, w: Rows, i: int,
-                  pos: tuple, lo: int, hi: int, state):
-        """Heads ``[lo, hi)`` of batch row ``i`` scanned at ``pos`` from the
-        scan state ``state`` (b, hi − lo, hd, hd) fp32: their r, k and v
-        columns and decays sent there, ``u``'s rows read there. Returns
-        the output (b, s, (hi − lo)·hd) fp32 and the final state."""
+    def _wkv_inputs(self, layer, r: Cols, k: Cols, v: Cols, w: Rows, i: int,
+                    pos: tuple, lo: int, hi: int) -> tuple:
+        """What heads ``[lo, hi)`` of batch row ``i`` scan at ``pos``: their
+        r, k and v columns and decays sent there, each (b, s, hi − lo,
+        hd), and ``u``'s rows read there."""
         tp, hd = r.tp, self.hd
         b, s = w.parts[i].shape[:2]
         c0, c1 = lo * hd, hi * hd
@@ -206,16 +207,16 @@ class RWKV6(L.LMParams, nn.Module):
                       for c in (r, k, v))
         wj = heads(tp.send("heads", w.parts[i][..., c0:c1], tp.rows[i][0],
                            pos))
-        out, state = self._wkv_scan(rj, kj, vj, wj,
-                                    tp.cols(layer.u, lo, hi, pos, 0), state)
-        return out.reshape(b, s, c1 - c0), state
+        return rj, kj, vj, wj, tp.cols(layer.u, lo, hi, pos, 0)
 
     def _time_mix_split(self, layer, x: Rows, st: dict | None) -> Rows:
         """``_time_mix`` on the split weights from the layer's placed
         states ``st``, written in place; ``st`` None (a train step) starts
         from zeros made where they are read (the token shift on each row's
         first position, each head site's scan state there, fp32) and
-        keeps no state."""
+        keeps no state. A row's sites scan through
+        ``TensorParallel.scan_sites``: each site's inputs, then the scans,
+        then each site's outputs."""
         tp, hd = x.tp, self.hd
         xs = self._shifted(x, self._prev(
             x, None if st is None else st["tm_prev"]))
@@ -227,18 +228,23 @@ class RWKV6(L.LMParams, nn.Module):
             x.dtype), layer.w_lora_a, layer.w_lora_b, layer.w_base)
         outs, gates, states = [], [], []
         for i, sites in enumerate(tp.head_sites(self.n_heads_tm)):
-            b = x.parts[i].shape[0]
-            row_out, row_gate = [], []
+            b, s = x.parts[i].shape[:2]
+            args = []
             for pos, lo, hi in sites:
-                c0, c1 = lo * hd, hi * hd
                 held = (torch.zeros(b, hi - lo, hd, hd, dtype=torch.float32,
                                     device=tp.mesh.devices[pos])
                         if st is None else
                         tp.state_at(st["tm_state"], i, pos, (lo, hi)))
-                out, state = self._wkv_site(layer, r, k, v, w, i, pos, lo,
-                                            hi, held)
+                args.append((*self._wkv_inputs(layer, r, k, v, w, i, pos,
+                                               lo, hi), held))
+            scanned = tp.scan_sites(self._wkv_scan, sites, args,
+                                    (2, 2, 2, 2, 0, 1))
+            row_out, row_gate = [], []
+            for (pos, lo, hi), (out, state) in zip(sites, scanned):
+                c0, c1 = lo * hd, hi * hd
                 states.append((pos, ((i * b, (i + 1) * b), (lo, hi)), state))
-                row_out.append((pos, c0, c1, out.to(x.dtype)))
+                row_out.append((pos, c0, c1,
+                                out.reshape(b, s, c1 - c0).to(x.dtype)))
                 row_gate.append((pos, c0, c1, F.silu(
                     g.take(i, c0, c1, pos, "heads"))))
             outs.append(row_out)

@@ -26,17 +26,20 @@ column-parallel ``w_in`` projection (z | x | B | C | dt) that its heads
 read, wherever the split cut them (its z, x and dt columns and all of B
 and C), and the ``conv_w`` columns of its x, B and C channels; it convolves
 those channels from the replicated conv state, scans its heads from its
-``ssm`` slice, and norms ``ln_y`` over the whole d_in from sums of squares
-joined in model order; ``w_out`` is row-parallel. The shared block runs
-as the dense layers do (``layers._qkv_split``, ``flash_decode_sharded``,
-the split SwiGLU), its ``w_in`` column-parallel, joined on the row's
-first position. ``loss`` on the split weights (a train cell's
-``place_params``) embeds vocab-parallel and runs each Mamba block with
-no cache: every head site convolves and scans from zeros made on its
-device and writes nothing, each layer rematerialised with
-``cfg.remat``; the shared block runs full-sequence split attention at
-each application, its one set of weights read afresh each time (the
-gradients of the applications sum in ``TensorParallel.grads``).
+``ssm`` slice (``TensorParallel.scan_sites``: a one-row trace scans a
+row's sites as one, their inputs joined along the heads and B and C
+read from the first site's), and norms ``ln_y`` over the whole d_in
+from sums of squares joined in model order; ``w_out`` is row-parallel.
+The shared block runs as the dense layers do (``layers._qkv_split``,
+``flash_decode_sharded``, the split SwiGLU), its ``w_in``
+column-parallel, joined on the row's first position. ``loss`` on the
+split weights (a train cell's ``place_params``) embeds vocab-parallel
+and runs each Mamba block with no cache: every head site convolves and
+scans from zeros made on its device and writes nothing, each layer
+rematerialised with ``cfg.remat``; the shared block runs full-sequence
+split attention at each application, its one set of weights read afresh
+each time (the gradients of the applications sum in
+``TensorParallel.grads``).
 """
 
 from __future__ import annotations
@@ -223,14 +226,15 @@ class Zamba2(L.LMParams, nn.Module):
         out = self.shard(y @ layer.w_out, ("batch", "seq", "embed"))
         return x + out, {"conv": conv_state, "ssm": ssm_state}
 
-    def _mamba_site(self, layer, z: Cols, i: int, pos: tuple, lo: int,
-                    hi: int, conv0, ssm0):
-        """Heads ``[lo, hi)`` of batch row ``i`` at ``pos``: the ``w_in``
-        columns they read (their x, z and dt, all of B and C) sent there,
-        convolved from ``conv0`` (b, k−1, their x channels then B and C)
-        and scanned from ``ssm0`` (b, hi − lo, hd, n) fp32. Returns their y
-        (b, s, (hi − lo)·hd) in the model dtype, their gate, and the final
-        conv and ssm states."""
+    def _mamba_inputs(self, layer, z: Cols, i: int, pos: tuple, lo: int,
+                      hi: int, conv0, ssm0) -> tuple:
+        """Heads ``[lo, hi)`` of batch row ``i`` at ``pos`` up to their
+        scan: the ``w_in`` columns they read (their x and dt, all of B and
+        C) sent there and convolved from ``conv0`` (b, k−1, their x
+        channels then B and C). Returns the scan's arguments (x (b, s,
+        hi − lo, hd), B and C (b, s, n) fp32, dt (b, s, hi − lo) fp32,
+        ``a_log``, ``d_skip``, ``ssm0`` (b, hi − lo, hd, n) fp32) and the
+        final conv state."""
         tp, n, hd, din = z.tp, self.cfg.ssm_state, self.hd, self.d_in
         c0, c1 = lo * hd, hi * hd
         chans = ((c0, c1), (din, din + 2 * n))
@@ -247,32 +251,29 @@ class Zamba2(L.LMParams, nn.Module):
         dt = F.softplus(z.take(i, dt0 + lo, dt0 + hi, pos, "heads").float()
                         + tp.cols(layer.dt_bias, lo, hi, pos,
                                   0)[None, None, :])
-        y, ssm_state = self._ssm_scan(
-            xs_.reshape(b, s, hi - lo, hd), bb.float(), cc.float(), dt,
-            tp.cols(layer.a_log, lo, hi, pos, 0),
-            tp.cols(layer.d_skip, lo, hi, pos, 0), ssm0)
-        gate = F.silu(z.take(i, c0, c1, pos, "heads"))
-        return (y.reshape(b, s, c1 - c0).to(conv_in.dtype), gate, conv_state,
-                ssm_state)
+        return ((xs_.reshape(b, s, hi - lo, hd), bb.float(), cc.float(), dt,
+                 tp.cols(layer.a_log, lo, hi, pos, 0),
+                 tp.cols(layer.d_skip, lo, hi, pos, 0), ssm0), conv_state)
 
     def _mamba_block_split(self, layer, x: Rows, st: dict | None = None
                            ) -> Rows:
-        """``_mamba_block`` on the split weights, each head site's work in
-        ``_mamba_site``: from the layer's placed states ``st``, written in
-        place, or (``st`` None, a train step) from zeros made on each
-        site's device (the conv state in the model dtype, the ssm slice in
-        fp32), keeping no state."""
+        """``_mamba_block`` on the split weights: from the layer's placed
+        states ``st``, written in place, or (``st`` None, a train step)
+        from zeros made on each site's device (the conv state in the model
+        dtype, the ssm slice in fp32), keeping no state. A row's sites
+        scan through ``TensorParallel.scan_sites``: each site's inputs
+        (``_mamba_inputs``), then the scans, then each site's outputs."""
         tp, n, hd, din = x.tp, self.cfg.ssm_state, self.hd, self.d_in
         k1 = self.cfg.conv_kernel - 1
+        bc = (din, din + 2 * n)
         z = tp.col_linear(L.rms_norm(x, layer.ln), layer.w_in)
         ys, gates, convs, ssms = [], [], [], []
         for i, sites in enumerate(tp.head_sites(self.n_heads_m)):
-            b = x.parts[i].shape[0]
+            b, s = x.parts[i].shape[:2]
             rows = (i * b, (i + 1) * b)
-            row_y, row_gate = [], []
+            args = []
             for j, (pos, lo, hi) in enumerate(sites):
                 c0, c1 = lo * hd, hi * hd
-                bc = (din, din + 2 * n)
                 if st is None:
                     dev = tp.mesh.devices[pos]
                     conv0 = torch.zeros(b, k1, c1 - c0 + 2 * n,
@@ -285,16 +286,25 @@ class Zamba2(L.LMParams, nn.Module):
                     conv0 = torch.cat([held[..., a:e]
                                        for a, e in ((c0, c1), bc)], -1)
                     ssm0 = tp.state_at(st["ssm"], i, pos, (lo, hi))
-                y, gate, conv_state, ssm_state = self._mamba_site(
+                site_args, conv_state = self._mamba_inputs(
                     layer, z, i, pos, lo, hi, conv0, ssm0)
+                args.append(site_args)
                 convs.append((pos, (rows, (0, k1), (c0, c1)),
                               conv_state[..., :c1 - c0]))
                 if j == 0:      # B and C's conv state: the row's first site
                     convs.append((pos, (rows, (0, k1), bc),
                                   conv_state[..., c1 - c0:]))
+            # B and C (None): each site's copy is the same value
+            scanned = tp.scan_sites(self._ssm_scan, sites, args,
+                                    (2, None, None, 2, 0, 0, 1))
+            row_y, row_gate = [], []
+            for (pos, lo, hi), (y, ssm_state) in zip(sites, scanned):
+                c0, c1 = lo * hd, hi * hd
                 ssms.append((pos, (rows, (lo, hi)), ssm_state))
-                row_y.append((pos, c0, c1, y))
-                row_gate.append((pos, c0, c1, gate))
+                row_y.append((pos, c0, c1,
+                              y.reshape(b, s, c1 - c0).to(x.dtype)))
+                row_gate.append((pos, c0, c1,
+                                 F.silu(z.take(i, c0, c1, pos, "heads"))))
             ys.append(row_y)
             gates.append(row_gate)
         if st is not None:
