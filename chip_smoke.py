@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's CTR inference and training paths, and the
 LM zoo's serving, training and mesh paths and the dry run, on one NVIDIA
-card.
+card; on a machine of four, also the LM split steps with one card a mesh
+position (phase 17).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -124,7 +125,7 @@ Phases (any failure raises; the script then exits non-zero):
    ``CachedStore`` with int8 compute, refreshed and updated between
    requests with no rebuild, within 1e-2 of the dense fp32 plan, and its
    fp32-row twin bitwise the dense int8-compute plan.
-8. Summary, printed last (after phases 9-13): one JSON line of every
+8. Summary, printed last (after phases 9-17): one JSON line of every
    ported kernel (its launches from its paths in phases 3-7, 10 and 11),
    then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -339,6 +340,48 @@ Phases (any failure raises; the script then exits non-zero):
    since at the init's zeros layer 0's ``u`` gradient is
    ill-conditioned in fp32 (``split_train_cell``).
    Numbers also go to ``chiprun_out/lm_phase16.json``.
+17. Split weights over four cards (``Cell.place_params``,
+   ``Cell.on_mesh``, ``Cell.place_params(seed=)``; no hand kernel): the
+   (2, 2) ("data", "model") mesh with one card a position, (d, m) on
+   cuda:(2d + m). With fewer than four cards it prints one line saying
+   it needs four and how many it found, and runs nothing else; on four,
+   any failure raises. (a) phase 14 (a)'s llama3-8b ``decode_32k`` cell
+   (32 layers, 32,768 slots filled to 16,380), bf16 at b = 4 and fp32 at
+   b = 2: the same weights and cache on the four cards and on four
+   logical positions of cuda:0 (``Cell.on_mesh``), 8 steps of each from
+   one cache state: logits bitwise or (fp32) within
+   ``MESH_DECODE_TOL``, the bytes between positions by kind equal
+   position by position, ms a token to a sync of every card and queued
+   (bf16 also mesh-less on a whole copy), ATen ops, each card's peak and
+   its idle share in a profiler trace (which also counts the copies
+   between cards by kind: ``Memcpy PtoP`` is peer to peer), the bound
+   (each card's pieces and cache slice at ``hw.HBM_BW``, its copies at
+   ``hw.NVLINK_BW``); bf16 also ``trace_vs_card`` on the four cards.
+   (b) phase 16 (h)'s llama3-8b ``train_4k`` cell (depth 4, TP × FSDP,
+   b = 4, s = 512): one fp32 split step over the four cards held to the
+   one-card unsplit step at ``TRAIN_SPLIT_TOL`` (AdamW eps 1e-3); then 3
+   bf16 steps on the four cards and on one card's logical positions,
+   ATen ops, ``fsdp_gather`` and ``grad_reduce`` bytes (equal), each
+   card's peak and idle share. (c) llama4-maverick ``decode_32k`` at
+   published width (d 5,120, 128 experts of d_ff 8,192, top-1, vocab
+   202,048) at the deepest of 8, 7, 6, 5, 4 layers whose busiest card
+   holds its parameters and cache within 75 GB less a headroom: built on
+   ``meta``, each card drawing its own pieces from the seed
+   (``Cell.place_params(seed=)``), so no card and no host buffer holds
+   the model (the process's resident set, sampled every 10 ms, grows by
+   less than 8 GiB); first at
+   depth 1 on the four cards and on one card's logical positions, every
+   piece and 8 steps' logits bitwise; then 8 bf16 steps to a sync and
+   queued, ATen ops, bytes by kind, layer 0's experts held to fp32 by
+   ``moe_error_ratio_routed`` (the routed experts, assembled from their
+   pieces), each card's peak (at most 75 GB) and idle share, the bound
+   from the bytes each card reads (its non-expert pieces, its slices of
+   the routed experts, its cache slice) and its copies at NVLink's
+   rate. (d) phase 16 (f)'s rwkv6-7b and zamba2-1.2b decode on the four
+   cards (``lm_split_recurrent``): fp32 within ``MESH_DECODE_TOL`` of
+   mesh-less, bf16 timed, bytes by kind with ``state`` (the recurrent
+   states' replicas, now between cards) above zero, each card's peak and
+   idle share. Numbers also go to ``chiprun_out/lm_phase17.json``.
 """
 
 from __future__ import annotations
@@ -346,9 +389,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -4847,8 +4892,16 @@ class routing_record:
 
         def recorded(p, x, cfg, *args):
             # a split step's rows, joined in batch order as it routes them
-            xs = torch.cat(x.parts) if hasattr(x, "parts") else x
-            probs = torch.softmax(xs.float() @ p.router, dim=-1)
+            # on the first row's card
+            xs = x
+            if hasattr(x, "parts"):
+                dev = x.parts[0].device
+                xs = torch.cat([t if t.device == dev else t.to(dev)
+                                for t in x.parts])
+            router = p.router
+            if router.is_meta:      # a model built on meta: its pieces
+                router = x.tp.placed(router).full(xs.device)
+            probs = torch.softmax(xs.float() @ router, dim=-1)
             self.calls.append(torch.topk(probs, cfg.top_k, dim=-1)[1])
             return real(p, x, cfg, *args)
         self.moe.moe_ffn = recorded
@@ -5293,23 +5346,29 @@ def decode_as(torch, cell, tp, path: str, nxt, cache):
         return cell.decode_fn()({"tokens": nxt, "cache": cache})
 
 
+def sync_all(torch) -> None:
+    """Wait for every card (a step split over cards ends on each)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def timed(torch, fn):
-    """(``fn()``, ms to a sync)."""
-    torch.cuda.synchronize()
+    """(``fn()``, ms to a sync of every card)."""
+    sync_all(torch)
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all(torch)
     return out, (time.perf_counter() - t0) * 1e3
 
 
 def queued_ms(torch, step, nxt, n: int) -> float:
     """ms a token over ``n`` steps of ``step(nxt) -> logits`` queued as
     ``generate`` runs them (argmax on the card, one sync at the end)."""
-    torch.cuda.synchronize()
+    sync_all(torch)
     t0 = time.perf_counter()
     for _ in range(n):
         nxt = step(nxt).argmax(-1)[:, None]
-    torch.cuda.synchronize()
+    sync_all(torch)
     return (time.perf_counter() - t0) * 1e3 / n
 
 
@@ -5908,7 +5967,8 @@ def split_recurrent_cell(torch, dev, mesh, arch: str, dtype: str):
             tensor_bytes(cell.model.state_dict()), ms)
 
 
-def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
+def lm_split_recurrent(torch, dev, mesh, arch: str, card: str,
+                       then=None) -> dict:
     """(f): ``arch`` (rwkv6-7b or zamba2-1.2b) at published width and
     depth, its decode cell on the card's mesh, parameters and state
     caches split (``split_recurrent_cell``). bf16, timed:
@@ -5921,7 +5981,9 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
     theirs):
     as many split and mesh-less steps, the logits within
     ``MESH_DECODE_TOL`` and the greedy tokens equal up to near ties. The
-    bound a token is the weights' bytes over ``hw.HBM_BW``."""
+    bound a token is the weights' bytes over ``hw.HBM_BW``. ``then(cell,
+    tp, cache, nxt)``, if given, runs on the bf16 cell before it is freed
+    (phase 17 (d)'s trace); its dict joins the result."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5956,8 +6018,9 @@ def lm_split_recurrent(torch, dev, mesh, arch: str, card: str) -> dict:
     moved = tp.bytes_by_kind()
     _, plain_ops, _ = dispatch_counts(torch, lambda: decode_as(
         torch, cell, tp, "mesh_less", nxt, plain))
+    extra = {} if then is None else then(cell, tp, cache, nxt)
     p50 = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
-    res = {"arch": arch, "layers": cell.cfg.n_layers, "b": LM_MESH_B,
+    res = {"arch": arch, "layers": cell.cfg.n_layers, "b": LM_MESH_B, **extra,
            "slots": cell.cell.seq, "prompt": LM_SPLIT_REC_PROMPT,
            "weights_gb": weights / 1e9,
            "cache_mb": tensor_bytes(plain) / 1e6,
@@ -6324,6 +6387,743 @@ def run_lm_split(torch, dev, card: str, early: dict) -> dict:
         f"| {card}")
     return res
 
+# ---------------------------------------------------------------------------
+# 17. split weights over four cards
+# ---------------------------------------------------------------------------
+
+LM_FOUR_CARDS = 4
+LM_FOUR_STEPS = 8             # (a), (c): decode steps a path
+LM_FOUR_TRACE = 4             # decode steps (a train step) under the profiler
+LM_FOUR_MOE = "llama4-maverick-400b-a17b"
+LM_FOUR_MOE_DEPTHS = (8, 7, 6, 5, 4)    # (c): the deepest that fits, of 48
+LM_FOUR_PEAK = 75e9           # (c): each card's peak allocation at most
+LM_FOUR_HEADROOM = 6e9        # (c): the whole cache made on the first card
+                              # before it is placed, gathered embedding and
+                              # head slices, logits
+LM_FOUR_HOST_GROWTH = 8 * 2**30   # (c): the process's resident set may grow
+                                  # so much: no host buffer holds a model
+
+
+def four_mesh(torch):
+    """The (2, 2) ("data", "model") mesh with one card a position:
+    position (d, m) on cuda:(2d + m)."""
+    from repro_torch.distributed import make_mesh
+    mesh = make_mesh(LM_MESH_SHAPE, ("data", "model"))
+    assert [d.index for d in mesh.devices.flat] == [0, 1, 2, 3], mesh
+    return mesh
+
+
+def card_memory(torch, peak: bool = False) -> list:
+    """Bytes allocated (or the peak since the last reset) on each card."""
+    n = torch.cuda.device_count()
+    fn = torch.cuda.max_memory_allocated if peak \
+        else torch.cuda.memory_allocated
+    return [fn(i) for i in range(n)]
+
+
+def reset_peaks(torch) -> None:
+    sync_all(torch)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def freed_after(torch, tag: str, fn, *args):
+    """``fn(*args)``, then every card's memory back within 256 MiB of
+    where it was (``released_all``): the item's tensors die with its
+    frame."""
+    bases = card_memory(torch)
+    res = fn(*args)
+    released_all(torch, bases, tag)
+    return res
+
+
+def released_all(torch, bases: list, tag: str) -> None:
+    """``released`` on every card: each back within 256 MiB of ``bases``."""
+    gc.collect()
+    sync_all(torch)
+    for i, base in enumerate(bases):
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(i) - base
+        assert held < 2**28, f"{tag}: cuda:{i} {held / 2**30:.2f} GiB held"
+
+
+def host_rss() -> int:
+    """The process's resident set now (``/proc/self/statm``), bytes."""
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE")
+
+
+class rss_watch:
+    """While inside, a thread samples ``host_rss`` every 10 ms: ``growth``
+    is the largest sample less the resident set at entry (the process's
+    peak, ``ru_maxrss``, cannot see growth below an earlier phase's)."""
+
+    def __enter__(self):
+        import threading
+        self.base = self.top = host_rss()
+        self.samples, self.done = 0, threading.Event()
+
+        def sample():
+            while not self.done.wait(0.01):
+                self.top = max(self.top, host_rss())
+                self.samples += 1
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
+        self.top = max(self.top, host_rss())
+
+    @property
+    def growth(self) -> int:
+        return self.top - self.base
+
+
+def card_trace(torch, run, tag: str) -> dict:
+    """``run()`` under ``torch.profiler``: each card's idle share over the
+    trace's window (its first to its last device event on any card), the
+    device copies by name (``Memcpy PtoP``: card to card, peer to peer;
+    ``DtoH``/``HtoD``: through the host) and their bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_all(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        sync_all(torch)
+    out = ROOT / "build" / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"lm_four_{tag}.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        raise RuntimeError(f"{tag}: the trace recorded no device events")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    # a device event's card: its "device" argument, else its process id
+    # (the trace's row of that card)
+    card = lambda e: e.get("args", {}).get("device", e.get("pid"))  # noqa
+    by_card: dict = {}
+    for e in events:
+        by_card.setdefault(str(card(e)), []).append(e)
+    idle = {dev: 1 - device_busy(evs)[0] / (t1 - t0)
+            for dev, evs in sorted(by_card.items())}
+    copies, copy_bytes = Counter(), Counter()
+    for e in events:
+        if e["cat"] == "gpu_memcpy":
+            name = e["name"].split(" (")[0]
+            copies[name] += 1
+            copy_bytes[name] += int(e.get("args", {}).get("bytes", 0))
+    sample = [{k: e.get(k) for k in ("name", "pid", "tid", "args")}
+              for e in events if e["cat"] == "gpu_memcpy"][:2]
+    return {"idle": idle, "window_ms": (t1 - t0) / 1e3,
+            "copies": dict(copies), "copy_bytes": dict(copy_bytes),
+            "copy_sample": sample}
+
+
+def piece_bytes(placed_tree) -> Counter:
+    """Bytes each device holds of a tree of ``Placed`` values (a tensor
+    shared by positions counted once)."""
+    from repro_torch.bridge import _leaves
+    out: Counter = Counter()
+    for _, pl in _leaves(placed_tree):
+        for pos, t in pl.distinct():
+            out[pl.mesh.devices[pos]] += t.numel() * t.element_size()
+    return out
+
+
+def card_moved(tp) -> Counter:
+    """Bytes each card sent and received between positions since
+    ``tp.moved`` was last cleared: take it right after the one step the
+    bound is for, before any other step adds to ``tp.moved``."""
+    moved: Counter = Counter()
+    for pos, n in tp.by_position().items():
+        moved[tp.mesh.devices[pos]] += n
+    return moved
+
+
+def four_bound(reads: Counter, moved: Counter, mesh) -> dict:
+    """The least time of one split step on the mesh's cards: for each
+    card, the bytes it must read (``reads``) at ``hw.HBM_BW`` or the bytes
+    it sends and receives between cards in that step (``card_moved``) at
+    ``hw.NVLINK_BW`` each way, the larger; the bound is the slowest
+    card's."""
+    per = {str(d): max(reads[d] / hw.HBM_BW, moved[d] / (2 * hw.NVLINK_BW))
+           * 1e3 for d in mesh.device_set}
+    return {"bound_ms": max(per.values()), "card_bound_ms": per,
+            "read_gb": {str(d): reads[d] / 1e9 for d in mesh.device_set},
+            "link_gb": {str(d): moved[d] / 1e9 for d in mesh.device_set}}
+
+
+def trace_note(tr: dict) -> str:
+    """``card_trace``'s numbers for a log line."""
+    idle = {k: round(v, 3) for k, v in tr["idle"].items()}
+    return (f"idle share by card {idle} over {tr['window_ms']:.1f} ms, "
+            f"copies by kind {tr['copies']} ({gb(tr['copy_bytes'])} GB)")
+
+
+def gb(d: dict) -> dict:
+    """Nonzero byte counts in GB, the largest first."""
+    return {k: round(v / 1e9, 6) for k, v in
+            sorted(d.items(), key=lambda kv: -kv[1]) if v}
+
+
+def four_llama_decode(torch, mesh, card: str, dtype: str, b: int) -> dict:
+    """(a) in ``dtype`` at batch ``b`` (``four_decode_run``), every card's
+    memory back where it was after."""
+    return freed_after(torch, f"(a) {dtype}", four_decode_run, torch, mesh,
+                       card, dtype, b)
+
+
+def four_decode_run(torch, mesh, card: str, dtype: str, b: int) -> dict:
+    """(a): phase 14 (a)'s llama3-8b ``decode_32k`` cell (32 layers, a
+    32,768-slot cache filled to ``LM_MESH_FILL``) on ``mesh``'s four
+    cards and, over the same weights and cache, on four logical positions
+    of cuda:0 (``Cell.on_mesh``); bf16 also mesh-less on a whole copy.
+    ``LM_FOUR_STEPS`` steps of each from one cache state, each to a sync
+    of every card: the four-card logits against the one card's, bitwise
+    or (fp32) within ``MESH_DECODE_TOL``; the bytes between positions by
+    kind equal; queued ms, ATen ops, each card's peak and idle share (a
+    profiler trace of ``LM_FOUR_TRACE`` queued steps), the bound (each
+    card's pieces and cache slice at ``hw.HBM_BW``, its copies at
+    ``hw.NVLINK_BW``); bf16: ``trace_vs_card`` on the four cards."""
+    import numpy as np
+
+    from repro_torch.launch.steps import build_cell
+
+    dev = mesh.first_device
+    t_start = time.perf_counter()
+    with lm_cell_config("llama3-8b", dtype=dtype):
+        cell = build_cell("llama3-8b", "decode_32k", mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cell.model.init(g)
+    weights = tensor_bytes(cell.model.state_dict())
+    cache = fill_cache(torch, cell.model.init_cache(b, cell.cell.seq),
+                       LM_MESH_FILL, g)
+    cache_bytes = tensor_bytes(cache)
+    nxt = torch.randint(0, cell.cfg.vocab, (b, 1), generator=g, device=dev)
+    cell.place_cache(cache)
+    one = cell.on_mesh(lm_mesh(torch, dev))
+    c1 = one.place_cache(whole_copy(torch, cache))
+    plain = whole_copy(torch, cache) if dtype == "bfloat16" else None
+    tp4, tp1 = cell.place_params(), one.place_params()
+    fsdp = tp4.placed(cell.model.layers[0].mlp.w_gate).split_dim("data")
+    reset_peaks(torch)
+    ms = {"four": [], "one": [], "mesh_less": []}
+    equal, worst, differ = 0, 0.0, 0
+    for step in range(LM_FOUR_STEPS):
+        (l4, _), t4 = timed(torch, lambda: decode_as(
+            torch, cell, tp4, "split", nxt, cache))
+        (l1, _), t1 = timed(torch, lambda: decode_as(
+            torch, one, tp1, "split", nxt, c1))
+        ms["four"].append(t4)
+        ms["one"].append(t1)
+        assert l4.device == dev and torch.isfinite(l4.float()).all()
+        if torch.equal(l4, l1):
+            equal += 1
+        else:
+            worst = max(worst, float((l4.float() - l1.float()).abs().max()))
+            if dtype == "float32":
+                torch.testing.assert_close(l4, l1, **MESH_DECODE_TOL)
+        if plain is not None:
+            (lp, _), tm = timed(torch, lambda: decode_as(
+                torch, cell, tp4, "mesh_less", nxt, plain))
+            ms["mesh_less"].append(tm)
+            differ += check_tokens(torch, l4, lp, f"(a) four cards {step}")
+        nxt = l1.argmax(-1)[:, None]
+    peaks = card_memory(torch, peak=True)
+    if equal == LM_FOUR_STEPS:
+        # the caches written alike too, position by position
+        for key in ("k", "v"):
+            for pos in np.ndindex(mesh.devices.shape):
+                assert torch.equal(cache[key].local(pos).to(dev),
+                                   c1[key].local(pos)), (key, pos)
+    idx = cache["index"]
+    moved, ops = {}, {}
+    for path, c, tp, cc in (("four", cell, tp4, cache), ("one", one, tp1, c1)):
+        cc["index"] = idx
+        tp.moved.clear()
+        _, ops[path], _ = dispatch_counts(torch, lambda: decode_as(
+            torch, c, tp, "split", nxt, cc))
+        moved[path] = +tp.moved
+    link = card_moved(tp4)
+    # one placement on two device lists: the same copies, position by
+    # position
+    assert moved["four"] == moved["one"], (moved["four"], moved["one"])
+    reads = piece_bytes(tp4.tree) + piece_bytes(
+        {k: cache[k] for k in ("k", "v")})
+    res = {"dtype": dtype, "b": b, "layers": cell.cfg.n_layers,
+           "slots": cell.cell.seq, "weights_gb": weights / 1e9,
+           "cache_gb": cache_bytes / 1e9, "steps_bitwise": equal,
+           "max_abs_diff_one_card": worst,
+           "moved_bytes": tp4.bytes_by_kind(),
+           "ops_four": ops["four"], "ops_one": ops["one"],
+           "peak_gb": [p / 1e9 for p in peaks],
+           **four_bound(reads, link, mesh),
+           "mesh_less_bound_ms": (weights + cache_bytes) / hw.HBM_BW * 1e3}
+    p50 = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    res.update({f"{p}_p50_ms": p50(v) for p, v in ms.items() if v})
+    queued = {"four": queued_ms(torch, lambda t: decode_as(
+        torch, cell, tp4, "split", t, cache)[0], nxt, LM_FOUR_STEPS),
+        "one": queued_ms(torch, lambda t: decode_as(
+            torch, one, tp1, "split", t, c1)[0], nxt, LM_FOUR_STEPS)}
+    if plain is not None:
+        queued["mesh_less"] = queued_ms(torch, lambda t: decode_as(
+            torch, cell, tp4, "mesh_less", t, plain)[0], nxt, LM_FOUR_STEPS)
+        _, res["ops_mesh_less"], _ = dispatch_counts(torch, lambda: decode_as(
+            torch, cell, tp4, "mesh_less", nxt, plain))
+        res["tokens_differ_mesh_less"] = differ
+
+    def four_steps():
+        t = nxt
+        for _ in range(LM_FOUR_TRACE):
+            t = decode_as(torch, cell, tp4, "split", t, cache)[0].argmax(
+                -1)[:, None]
+    res["trace"] = card_trace(torch, four_steps, f"decode_{dtype}")
+    res.update({f"{p}_queued_ms": t for p, t in queued.items()})
+    if dtype == "bfloat16":
+        with lm_cell_config("llama3-8b", dtype=dtype), lm_cell_shape(
+                "decode_32k", cell.cell.seq, b):
+            twin = build_cell("llama3-8b", "decode_32k", mesh,
+                              device="meta")
+        cache["index"] = twin.inputs_sds["cache"]["index"]
+        res["lower"] = trace_vs_card(torch, twin, tp4, lambda: decode_as(
+            torch, cell, tp4, "split", nxt.to(torch.int32), cache))
+    res["seconds"] = time.perf_counter() - t_start
+    tr = res["trace"]
+    log(f"[lmfour] (a) llama3-8b decode_32k ({dtype}, L={res['layers']}, "
+        f"b={b} of 128, {res['slots']} slots filled to {LM_MESH_FILL}, "
+        f"TP{'' if fsdp is None else ' x FSDP'}) on four cards, "
+        f"position (d, m) on cuda:(2d+m), against the same weights and "
+        f"cache on four positions of cuda:0: {equal} of {LM_FOUR_STEPS} "
+        f"steps' logits bitwise (max|diff| {worst:.3e}), bytes between "
+        f"positions by kind equal, position by position: "
+        f"{gb(res['moved_bytes'])} GB | ms/token p50 to a sync four cards "
+        f"{res['four_p50_ms']:.2f}, one card {res['one_p50_ms']:.2f}"
+        + (f", mesh-less {res['mesh_less_p50_ms']:.2f}"
+           if plain is not None else "")
+        + f"; queued {', '.join(f'{k} {v:.2f}' for k, v in queued.items())}"
+        f" (bound four cards {res['bound_ms']:.2f}, one card mesh-less "
+        f"{res['mesh_less_bound_ms']:.2f}) | ATen ops a step four "
+        f"{res['ops_four']}, one {res['ops_one']}"
+        + (f", mesh-less {res['ops_mesh_less']}" if plain is not None
+           else "")
+        + f" | peak GB by card {[round(p, 2) for p in res['peak_gb']]} | "
+        f"{LM_FOUR_TRACE} queued steps traced: {trace_note(tr)}"
+        + ("" if "lower" not in res else
+           f" | lower() ({res['lower']['trace_ops']} ops, "
+           f"{res['lower']['trace_s']:.2f} s) equals the four-card step "
+           f"byte for byte")
+        + f" | {res['seconds']:.1f} s | {card}")
+    return res
+
+
+def four_train_time(torch, mesh, arch: str, layers: int, b: int,
+                    s: int) -> dict:
+    """(b) in bf16: ``LM_SPLIT_TRAIN_STEPS`` steps to a sync of every card
+    on four logical positions of cuda:0 and on the four cards over the
+    same weights (``Cell.on_mesh``), ATen ops and bytes by kind a step
+    (equal), each card's peak, a profiler trace of one four-card step,
+    the bound (phase 16's one-card bound over four cards, or the busiest
+    card's copies at ``hw.NVLINK_BW``)."""
+    cell, batch = split_train_cell(torch, mesh.first_device, mesh, arch,
+                                   layers, b, s, "bfloat16")
+    n_params, n_gemm = lm_param_counts(cell.cfg)
+    one_bound = lm_train_bound(cell.cfg, n_params, n_gemm, b, s)
+    p50 = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    res = {}
+    for path, c in (("one", cell.on_mesh(lm_mesh(torch, mesh.first_device))),
+                    ("four", cell)):
+        tp = c.place_params()
+        state = c.train_state()
+        step = c.train_step_fn()
+        reset_peaks(torch)
+        times, losses = [], []
+        for _ in range(LM_SPLIT_TRAIN_STEPS):
+            (state, m), t = timed(torch, lambda: step(state, batch))
+            times.append(t)
+            losses.append(float(m["loss"]))
+        assert all(math.isfinite(x) for x in losses), (path, losses)
+        res[f"{path}_peak_gb"] = [p / 1e9 for p in
+                                  card_memory(torch, peak=True)]
+        tp.moved.clear()
+        _, res[f"{path}_ops"], _ = dispatch_counts(
+            torch, lambda: step(state, batch))
+        res[f"{path}_bytes"] = tp.bytes_by_kind()
+        link = max(card_moved(tp).values()) / (2 * hw.NVLINK_BW)
+        res[f"{path}_p50_ms"] = p50(times)
+        res[f"{path}_losses"] = losses
+        if path == "four":
+            res["trace"] = card_trace(torch, lambda: step(state, batch),
+                                      "train_bf16")
+            res["link_ms"] = link * 1e3
+            res["bound_ms"] = max(one_bound["bound_ms"] / mesh.size,
+                                  link * 1e3)
+    assert res["four_bytes"] == res["one_bytes"], res
+    res["one_card_bound_ms"] = one_bound["bound_ms"]
+    return res
+
+
+def four_llama_train(torch, mesh, card: str) -> dict:
+    """(b): phase 16 (h)'s llama3-8b ``train_4k`` cell (depth 4, TP ×
+    FSDP, b = 4, s = 512) on the four cards: one fp32 split step held to
+    the one-card unsplit step (``split_train_check``); then the bf16
+    steps of ``four_train_time``."""
+    item, arch, layers, b, s = LM_SPLIT_TRAIN[1]
+    dev = mesh.first_device
+    t_start = time.perf_counter()
+    reset_peaks(torch)
+    res = {"arch": arch, "layers": layers, "b": b, "s": s,
+           "fp32": freed_after(torch, "(b) fp32", split_train_check, torch,
+                               dev, mesh, arch, layers, b, s)}
+    res["fp32_peak_gb"] = [p / 1e9 for p in card_memory(torch, peak=True)]
+    res.update(freed_after(torch, "(b) bf16", four_train_time, torch, mesh,
+                           arch, layers, b, s))
+    res["seconds"] = time.perf_counter() - t_start
+    f32, tr, one_bound = res["fp32"], res["trace"], res["one_card_bound_ms"]
+    log(f"[lmfour] (b) {arch} train_4k (L={layers}, b={b}, s={s}, "
+        f"{f32['policy']}) on four cards: fp32 split step vs the one-card "
+        f"unsplit step within {TRAIN_SPLIT_TOL}: loss {f32['loss']:.6f} / "
+        f"{f32['loss_unsplit']:.6f}, max|diff| gradients "
+        f"{f32['grads_max_abs_diff']:.3e}, params "
+        f"{f32['params_max_abs_diff']:.3e}, m {f32['m_max_abs_diff']:.3e}, "
+        f"v {f32['v_max_abs_diff']:.3e} | bf16 step p50 to a sync four "
+        f"cards {res['four_p50_ms']:.2f} ms, one card (logical) "
+        f"{res['one_p50_ms']:.2f} (bound four cards {res['bound_ms']:.2f}: "
+        f"one card's over four or the busiest card's link time "
+        f"{res['link_ms']:.2f}; one card {one_bound:.2f}) | ATen ops {res['four_ops']}, "
+        f"{res['one_ops']} | GB a step {gb(res['four_bytes'])} (equal on "
+        f"one card) | peak GB by card four {[round(p, 2) for p in res['four_peak_gb']]}"
+        f", fp32 {[round(p, 2) for p in res['fp32_peak_gb']]} | one step "
+        f"traced: {trace_note(tr)} | "
+        f"{res['seconds']:.1f} s | {card}")
+    return res
+
+
+def four_moe_cell(torch, mesh, layers: int):
+    """(c)'s llama4-maverick ``decode_32k`` cell (published width, depth
+    ``layers``, b = ``LM_MESH_B``) built on ``meta`` and placed piece by
+    piece from ``SEED`` (``Cell.place_params(seed=)``: each card draws its
+    own pieces; no device and no host buffer holds the model), a
+    32,768-slot cache filled to ``LM_MESH_FILL`` and placed; returns
+    (cell, placed tree, cache, first tokens)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import Cell
+
+    with lm_cell_config(LM_FOUR_MOE, layers), lm_cell_shape(
+            "decode_32k", SHAPES["decode_32k"].seq, LM_MESH_B):
+        cell = Cell(LM_FOUR_MOE, "decode_32k", mesh, device="meta")
+    tp = cell.place_params(seed=SEED)
+    g = torch.Generator(device=mesh.first_device).manual_seed(SEED)
+    cache = cell.place_cache(fill_cache(torch, cell.model.init_cache(
+        LM_MESH_B, cell.cell.seq), LM_MESH_FILL, g))
+    nxt = torch.randint(0, cell.cfg.vocab, (LM_MESH_B, 1), generator=g,
+                        device=mesh.first_device)
+    return cell, tp, cache, nxt
+
+
+def moe_depth(torch, mesh) -> tuple[int, dict]:
+    """The deepest of ``LM_FOUR_MOE_DEPTHS`` whose busiest position holds
+    its parameters and cache slice within ``LM_FOUR_PEAK`` less
+    ``LM_FOUR_HEADROOM`` (by the specs, on ``meta``); the estimates."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import Cell, position_bytes
+
+    est = {}
+    for layers in LM_FOUR_MOE_DEPTHS:
+        with lm_cell_config(LM_FOUR_MOE, layers), lm_cell_shape(
+                "decode_32k", SHAPES["decode_32k"].seq, LM_MESH_B):
+            cell = Cell(LM_FOUR_MOE, "decode_32k", mesh, device="meta")
+        cache = cell.model.init_cache(LM_MESH_B, cell.cell.seq)
+        est[layers] = (position_bytes(mesh, cell.pspecs, cell.param_shapes)
+                       + position_bytes(mesh, cell.input_shardspecs(
+                           {"cache": cache})["cache"], cache))
+        if est[layers] + LM_FOUR_HEADROOM <= LM_FOUR_PEAK:
+            return layers, est
+    raise AssertionError(f"(c): not even {LM_FOUR_MOE_DEPTHS[-1]} layers "
+                         f"fit: {est}")
+
+
+def expert_rows(torch, pl, e: int, dev):
+    """Expert ``e`` of a placed (E, ., .) expert leaf, assembled on
+    ``dev`` from the pieces that hold it."""
+    (_, a, b) = pl.shape
+    out = torch.empty((a, b), dtype=pl.dtype, device=dev)
+    for key, holders in pl.holders().items():
+        (e0, e1), (a0, a1), (b0, b1) = key
+        if e0 <= e < e1:
+            out[a0:a1, b0:b1] = pl.local(holders[0])[e - e0].to(dev)
+    return out
+
+
+def moe_error_ratio_routed(torch, cell, tp, g) -> dict:
+    """``moe_error_ratio`` for a model no card holds: layer 0's experts on
+    one normed hidden state of ``LM_MESH_B`` tokens, split (``moe_ffn`` on
+    the placed pieces) and mesh-less, against fp32. The mesh-less and
+    fp32 outputs run only the experts the fp32 router gives a slot,
+    assembled from their pieces: every other expert's slots are empty
+    and add exact zeros, so this is ``moe_ffn``'s value."""
+    from repro_torch.models.lm import layers as L
+    from repro_torch.models.lm import moe
+
+    cfg, dev = cell.cfg, cell.model.device
+    ffn = cell.model.layers[0].moe
+    ln2 = tp.placed(cell.model.layers[0].ln2).full(dev)
+    x = L.rms_norm(torch.randn((LM_MESH_B, 1, cfg.d_model), generator=g,
+                               device=dev).to(cell.model.dtype), ln2)
+    split, _ = moe.moe_ffn(ffn, tp.split_rows(x), cfg)
+    split = split.whole("moe_tokens")
+    xg = x.reshape(1, LM_MESH_B, cfg.d_model)
+    router = tp.placed(ffn.router).full(dev)
+    dispatch, combine, _, _ = moe._routing(xg, router, cfg)
+    used = dispatch.sum(dim=(0, 1, 3)).nonzero().flatten().tolist()
+    w = [torch.stack([expert_rows(torch, tp.placed(t), e, dev)
+                      for e in used])
+         for t in (ffn.w_gate, ffn.w_up, ffn.w_down)]
+
+    def run(dt):
+        xin = torch.einsum("gsec,gsd->gecd", dispatch[:, :, used].to(dt),
+                           xg.to(dt))
+        eo = moe._experts(xin, *(t.to(dt) for t in w))
+        return torch.einsum("gsec,gecd->gsd", combine[:, :, used].to(dt),
+                            eo).reshape(x.shape)
+    truth = run(torch.float32)
+    err = lambda t: float((t.float() - truth).norm() / truth.norm())  # noqa
+    out = {"ffn_err": err(split), "ffn_err_mesh_less": err(run(x.dtype)),
+           "experts_routed": len(used)}
+    assert out["ffn_err"] <= LM_MESH_ATTN_RATIO * max(
+        out["ffn_err_mesh_less"], 1e-6), out
+    return out
+
+
+def four_moe_pieces_equal(torch, a, b) -> int:
+    """Each position's pieces of ``a`` and ``b`` (one model placed on two
+    device lists) bitwise equal; the bytes compared."""
+    import numpy as np
+
+    from repro_torch.bridge import _leaves
+    n = 0
+    for (_, pa), (_, pb) in zip(_leaves(a.tree), _leaves(b.tree),
+                                strict=True):
+        for pos in np.ndindex(pa.mesh.devices.shape):
+            ta, tb = pa.local(pos), pb.local(pos)
+            assert torch.equal(ta.to(tb.device), tb), pos
+            n += ta.numel() * ta.element_size()
+    return n
+
+
+def four_moe_check(torch, mesh) -> dict:
+    """(c) at depth 1 (one card holds it, ~37 GB): the cell placed from one
+    seed on the four cards and on four logical positions of cuda:0: every
+    piece bitwise equal, then ``LM_FOUR_STEPS`` bf16 steps of each from
+    one cache state, logits bitwise; the bytes between positions equal."""
+    c4, tp4, cache4, nxt = four_moe_cell(torch, mesh, 1)
+    c1, tp1, cache1, nxt1 = four_moe_cell(torch, lm_mesh(
+        torch, mesh.first_device), 1)
+    assert torch.equal(nxt, nxt1)
+    compared = four_moe_pieces_equal(torch, tp4, tp1)
+    equal, worst = 0, 0.0
+    for _ in range(LM_FOUR_STEPS):
+        tp4.moved.clear()
+        tp1.moved.clear()
+        l4 = decode_as(torch, c4, tp4, "split", nxt, cache4)[0]
+        l1 = decode_as(torch, c1, tp1, "split", nxt, cache1)[0]
+        assert +tp4.moved == +tp1.moved
+        same = torch.equal(l4, l1)
+        equal += same
+        if not same:
+            worst = max(worst, float((l4.float() - l1.float()).abs().max()))
+        nxt = l1.argmax(-1)[:, None]
+    res = {"pieces_gb": compared / 1e9, "steps_bitwise": equal,
+           "max_abs_diff": worst,
+           "one_card_peak_gb": torch.cuda.max_memory_allocated(0) / 1e9}
+    assert equal == LM_FOUR_STEPS, res
+    return res
+
+
+def four_moe_full(torch, mesh, layers: int) -> dict:
+    """(c) at depth ``layers`` on the four cards (``four_moe``)."""
+    from repro_torch.bridge import _leaves
+
+    reset_peaks(torch)
+    t0 = time.perf_counter()
+    cell, tp, cache, nxt = four_moe_cell(torch, mesh, layers)
+    sync_all(torch)
+    res = {"layers": layers, "slots": cell.cell.seq,
+           "place_s": time.perf_counter() - t0,
+           "card_gb": [m / 1e9 for m in card_memory(torch)],
+           "model_gb": tensor_bytes(cell.model.state_dict()) / 1e9}
+    ms = []
+    for _ in range(LM_FOUR_STEPS):
+        (logits, _), t = timed(torch, lambda: decode_as(
+            torch, cell, tp, "split", nxt, cache))
+        ms.append(t)
+        assert torch.isfinite(logits.float()).all()
+        nxt = logits.argmax(-1)[:, None]
+    res["queued_ms"] = queued_ms(torch, lambda t: decode_as(
+        torch, cell, tp, "split", t, cache)[0], nxt, LM_FOUR_STEPS)
+    tp.moved.clear()
+    _, res["ops"], _ = dispatch_counts(torch, lambda: decode_as(
+        torch, cell, tp, "split", nxt, cache))
+    res["moved_bytes"] = tp.bytes_by_kind()
+    link = card_moved(tp)
+    # the experts one more step routes to, recorded untimed and uncounted
+    with routing_record(torch) as routes:
+        decode_as(torch, cell, tp, "split", nxt, cache)
+    routed = routes.take()
+    assert len(routed) == cell.cfg.n_layers, len(routed)
+    res.update(moe_error_ratio_routed(
+        torch, cell, tp, torch.Generator(device=mesh.first_device)
+        .manual_seed(SEED + 16)))
+
+    def steps():
+        t = nxt
+        for _ in range(LM_FOUR_TRACE):
+            t = decode_as(torch, cell, tp, "split", t, cache)[0].argmax(
+                -1)[:, None]
+    res["trace"] = card_trace(torch, steps, "moe")
+    # the bytes a card reads: its non-expert pieces, its slices of the
+    # experts the recorded step routed to (layer by layer), its cache
+    reads: Counter = piece_bytes({k: cache[k] for k in ("k", "v")})
+    for path, pl in _leaves(tp.tree):
+        expert = path[-2:-1] == ("moe",) and path[-1] != "router"
+        for pos, t in pl.distinct():
+            n = t.numel() * t.element_size()
+            if expert:
+                (e0, e1) = pl.slice_key(pos)[0]
+                hit = set(routed[path[1]].flatten().tolist())
+                n = n * len(hit & set(range(e0, e1))) // (e1 - e0)
+            reads[pl.mesh.devices[pos]] += n
+    res.update(four_bound(reads, link, mesh))
+    peaks = card_memory(torch, peak=True)
+    res.update({"peak_gb": [p / 1e9 for p in peaks],
+                "p50_ms": sorted(ms)[len(ms) // 2]})
+    assert max(peaks) <= LM_FOUR_PEAK, res["peak_gb"]
+    assert all(t.is_meta for _, t in _leaves(cell.model.tensor_tree()))
+    return res
+
+
+def four_moe(torch, mesh, card: str) -> dict:
+    """(c): llama4-maverick ``decode_32k`` at published width (d 5,120,
+    128 experts of d_ff 8,192, top-1, vocab 202,048) over the four cards
+    at the deepest of ``LM_FOUR_MOE_DEPTHS`` that fits (``moe_depth``):
+    built on ``meta``, each card drawing its own pieces (no card and no
+    host buffer holds the model; the process's resident set grows by less
+    than ``LM_FOUR_HOST_GROWTH``, ``rss_watch``); first the depth-1 check
+    (``four_moe_check``); then ``LM_FOUR_STEPS`` bf16 steps to a sync of
+    every card and as many queued, ATen ops and bytes by kind a step,
+    layer 0's experts held to fp32 (``moe_error_ratio_routed``), each
+    card's peak (at most ``LM_FOUR_PEAK``) and idle share; the bound:
+    each card's non-expert pieces, its slices of the experts the step
+    routes to and its cache slice at ``hw.HBM_BW``, or its copies at
+    ``hw.NVLINK_BW``."""
+    t_start = time.perf_counter()
+    with rss_watch() as rss:
+        d1 = freed_after(torch, "(c) depth 1", four_moe_check, torch, mesh)
+        layers, est = moe_depth(torch, mesh)
+        res = {"depth1": d1,
+               "estimate_gb": {k: v / 1e9 for k, v in est.items()},
+               **freed_after(torch, "(c)", four_moe_full, torch, mesh,
+                             layers)}
+    res.update({"host_rss_gb": rss.base / 1e9,
+                "host_rss_growth_gb": rss.growth / 1e9,
+                "host_rss_samples": rss.samples})
+    assert rss.growth < LM_FOUR_HOST_GROWTH, res
+    res["seconds"] = time.perf_counter() - t_start
+    tr = res["trace"]
+    log(f"[lmfour] (c) {LM_FOUR_MOE} decode_32k at published width (L="
+        f"{layers} of 48, the deepest of {LM_FOUR_MOE_DEPTHS} whose busiest "
+        f"position's parameters and cache fit {LM_FOUR_PEAK / 1e9:.0f} GB "
+        f"less {LM_FOUR_HEADROOM / 1e9:.0f}; b={LM_MESH_B} of 128, "
+        f"{res['slots']} slots filled to {LM_MESH_FILL}) on four cards, "
+        f"built on meta, each card drawing its pieces "
+        f"({res['model_gb']:.1f} GB of parameters, {res['place_s']:.1f} s; "
+        f"held by card {[round(x, 2) for x in res['card_gb']]} GB; host "
+        f"resident set {res['host_rss_gb']:.2f} GB, at most "
+        f"+{res['host_rss_growth_gb']:.2f} GB in {res['host_rss_samples']} "
+        f"samples): depth 1 on one "
+        f"card's logical positions, {d1['pieces_gb']:.1f} GB of pieces and "
+        f"{d1['steps_bitwise']} of {LM_FOUR_STEPS} steps' logits bitwise "
+        f"| layer 0's experts vs fp32 ({res['experts_routed']} routed): "
+        f"split {res['ffn_err']:.3e}, mesh-less "
+        f"{res['ffn_err_mesh_less']:.3e} | ms/token p50 to a sync "
+        f"{res['p50_ms']:.2f}, queued {res['queued_ms']:.2f} (bound "
+        f"{res['bound_ms']:.2f}: read GB by card {res['read_gb']}, link GB "
+        f"{res['link_gb']}) | {res['ops']} ATen ops a step | GB between "
+        f"positions a step {gb(res['moved_bytes'])} | peak GB by card "
+        f"{[round(p, 2) for p in res['peak_gb']]} | {LM_FOUR_TRACE} queued "
+        f"steps traced: {trace_note(tr)} | "
+        f"{res['seconds']:.1f} s | {card}")
+    return res
+
+
+def four_recurrent(torch, mesh, arch: str, card: str) -> dict:
+    """(d): phase 16 (f)'s item (``lm_split_recurrent``) on the four cards:
+    bf16 timed, fp32 held to mesh-less within ``MESH_DECODE_TOL``, bytes
+    by kind with ``state`` (the recurrent states' replicas, now between
+    cards), each card's peak and idle share (``LM_FOUR_TRACE`` queued
+    split steps)."""
+    bases = card_memory(torch)
+    reset_peaks(torch)
+
+    def trace(cell, tp, cache, nxt):
+        def steps():
+            t = nxt
+            for _ in range(LM_FOUR_TRACE):
+                t = decode_as(torch, cell, tp, "split", t, cache)[0].argmax(
+                    -1)[:, None]
+        weights = piece_bytes(tp.tree)
+        return {"trace": card_trace(torch, steps, arch),
+                "bound_ms_four": max(weights.values()) / hw.HBM_BW * 1e3}
+    res = lm_split_recurrent(torch, mesh.first_device, mesh, arch, card,
+                             then=trace)
+    res["card_peak_gb"] = [p / 1e9 for p in card_memory(torch, peak=True)]
+    assert res["moved_bytes"]["state"] > 0, res["moved_bytes"]
+    released_all(torch, bases, f"(d) {arch}")
+    tr = res["trace"]
+    log(f"[lmfour] (d) {arch} on four cards: the split step's states "
+        f"between cards, {res['moved_bytes']['state']} B of 'state' a step "
+        f"| peak GB by card {[round(p, 2) for p in res['card_peak_gb']]} | "
+        f"{LM_FOUR_TRACE} queued steps traced: {trace_note(tr)} | bound "
+        f"four cards {res['bound_ms_four']:.2f} ms | {card}")
+    return res
+
+
+def run_lm_four(torch, card: str) -> dict | None:
+    """Phase 17: split weights over four cards (see the docstring), or one
+    line saying it needs four cards. Numbers also go to
+    ``chiprun_out/lm_phase17.json``."""
+    n = torch.cuda.device_count()
+    if n < LM_FOUR_CARDS:
+        log(f"[lmfour] phase 17 needs {LM_FOUR_CARDS} cards, found {n}: "
+            "skipped")
+        return None
+    t_phase = time.perf_counter()
+    mesh = four_mesh(torch)
+    log(f"[lmfour] phase 17 on {mesh}, position (d, m) on cuda:(2d+m) | "
+        f"{card}")
+    res = {"card": card, "cards": [torch.cuda.get_device_name(i)
+                                   for i in range(n)],
+           "decode": {dt: four_llama_decode(torch, mesh, card, dt, b)
+                      for dt, b in (("bfloat16", LM_MESH_B),
+                                    ("float32", LM_MESH_FP32_B))},
+           "train": four_llama_train(torch, mesh, card),
+           "moe": four_moe(torch, mesh, card),
+           "recurrent": {a: four_recurrent(torch, mesh, a, card)
+                         for a in LM_SPLIT_RECURRENT}}
+    res["seconds"] = time.perf_counter() - t_phase
+    path = ROOT / "chiprun_out" / "lm_phase17.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(res, indent=1, default=str))
+    log(f"[lmfour] phase 17 took {res['seconds']:.1f} s | {card}")
+    return res
 
 
 def main() -> int:
@@ -6454,6 +7254,10 @@ def main() -> int:
     # 16. split weights: serving cells with their parameters placed by
     # their specs on four positions of the card (no hand kernel)
     run_lm_split(torch, dev, card, split)
+
+    # 17. split weights over four cards, one card a position (one line
+    # and nothing else on a machine with fewer)
+    run_lm_four(torch, card)
 
     # 8. summary
     lookup = "src/repro/kernels/multi_table_lookup.py"

@@ -280,14 +280,19 @@ class Placed:
 
 
 def place(x: torch.Tensor | Placed, mesh: Mesh, spec: P, *,
-          contiguous: bool = True) -> Placed:
+          contiguous: bool = True,
+          draw: Callable[[tuple, torch.device], torch.Tensor] | None = None
+          ) -> Placed:
     """``x`` laid out over ``mesh`` per ``spec`` (every split dim must
     divide; :func:`fit_spec` drops the axes that do not). A slice bound for
     ``x``'s own device is a view of ``x`` (made contiguous when a column
     split needs it, unless ``contiguous`` is False: weights a GEMM reads
     through their strides stay views); a slice bound for another device is
     copied there once, whatever the number of positions on that device. An
-    ``x`` already placed that way is returned as it is."""
+    ``x`` already placed that way is returned as it is. With ``draw``,
+    ``x`` gives only the shape and dtype (a ``meta`` tensor) and each
+    distinct slice is made on its device as ``draw(key, device)``, ``key``
+    its ``(start, stop)`` by dim, once a device."""
     sharding = NamedSharding(mesh, P(*spec))
     if isinstance(x, Placed):
         if x.sharding.is_equivalent_to(sharding, x.ndim):
@@ -307,7 +312,9 @@ def place(x: torch.Tensor | Placed, mesh: Mesh, spec: P, *,
         dev = mesh.devices[pos]
         sl = sharding.local_slices(pos, x.shape)
         key = (dev, tuple((s.start, s.stop) for s in sl))
-        if key not in made:
+        if key not in made and draw is not None:
+            made[key] = draw(key[1], dev)
+        elif key not in made:
             whole = all(s.start == 0 and s.stop == n
                         for s, n in zip(sl, x.shape))
             piece = x if whole else x[sl]

@@ -118,6 +118,7 @@ token.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import re
 import threading
@@ -272,11 +273,15 @@ class TensorParallel:
     whose gradients :meth:`grads` reduces (a train cell's placement).
     ``one_row``: ``rows`` is row 0 alone, and the others are counted by
     symmetry (the module's docstring; :meth:`fold` ends such a step's
-    count); ``mesh`` must then be on the ``meta`` device.
+    count); ``mesh`` must then be on the ``meta`` device. ``draw``: the
+    leaves of ``tree`` give only shapes (``meta``), and each piece is
+    made where it lies as ``draw(path, leaf, key, device)`` (``key``: its
+    ``(start, stop)`` by dim; ``sharding.place``).
     """
 
     def __init__(self, mesh: Mesh, tree: Any, specs: Any, batch_axes, *,
-                 train: bool = False, one_row: bool = False):
+                 train: bool = False, one_row: bool = False,
+                 draw: Callable | None = None):
         if one_row and mesh.first_device.type != "meta":
             raise ValueError("a one-row placement counts the other rows' "
                              "work without doing it: meta meshes only")
@@ -298,9 +303,10 @@ class TensorParallel:
         self.moved: Counter = Counter()
         self._lock = threading.Lock()
         # column splits stay views: the GEMMs read them through strides
-        self.tree = tree_map(lambda x, s: place(x, mesh, s,
-                                                contiguous=False),
-                             tree, specs)
+        paths = {id(t): path for path, t in _paths(tree)}
+        self.tree = tree_map(lambda x, s: place(
+            x, mesh, s, contiguous=False, draw=None if draw is None else
+            functools.partial(draw, paths[id(x)], x)), tree, specs)
         self.one_row = one_row and self.n_rows > 1
         self._once = False
         if self.one_row:

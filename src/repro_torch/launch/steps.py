@@ -17,8 +17,10 @@ mesh's first device (the ``shard`` hook changes no value) until
 (``distributed.tensor_parallel``; the reference hands them to its
 compiled step as ``in_shardings``): a serving cell's prefill and decode,
 and an attention family's train step, whose parameters, moments and
-gradients are then placed pieces (``state_specs``). What runs per
-position either way is the reference's own ``shard_map``: the decode
+gradients are then placed pieces (``state_specs``). A cell built on
+``meta``, a model no one device holds, has its pieces drawn where they
+lie (``place_params(seed=)``). What runs per position either way is the
+reference's own ``shard_map``: the decode
 cell places its KV caches by ``cache_specs`` (batch over the batch axes,
 sequence over ``model``) and attends through
 ``layers.flash_decode_sharded``.
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import math
 import time
 import weakref
@@ -44,7 +47,7 @@ from repro_torch.configs import SHAPES, get_config, input_specs
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.mesh import Mesh, make_mesh
 from repro_torch.distributed.tensor_parallel import (KINDS, RowsNotAlike,
-                                                      TensorParallel)
+                                                      TensorParallel, _paths)
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import make_lm_model
 from repro_torch.training.optimizer import (AdamWConfig, TrainState,
@@ -202,6 +205,61 @@ def _meta_mesh(mesh: Mesh) -> Mesh:
     return make_mesh(mesh.devices.shape, mesh.axis_names, "meta")
 
 
+class _InitLaws(TorchDispatchMode):
+    """While active, the in-place ops that the tensors of ``leaves``
+    ((path, tensor) pairs) get are recorded by path (``laws``), not run:
+    a model's ``init`` on ``meta`` gives each leaf's law (N(0, 1) then a
+    scale, a constant, zeros)."""
+
+    OPS = ("normal_", "mul_", "fill_", "zero_")
+
+    def __init__(self, leaves):
+        super().__init__()
+        self.path = {id(t): path for path, t in leaves}
+        self.laws: dict[str, list] = {path: [] for path, _ in leaves}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        path = self.path.get(id(args[0])) if args else None
+        if path is None:
+            return func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if name not in self.OPS:
+            raise NotImplementedError(f"{path}'s init runs {name}: no law "
+                                      "a piece can be drawn by")
+        kwargs.pop("generator", None)
+        self.laws[path].append((name, args[1:], kwargs))
+        return args[0]
+
+
+def _piece_seed(seed: int, path: str, key: tuple) -> int:
+    digest = hashlib.blake2b(repr((seed, path, key)).encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") & (2**63 - 1)
+
+
+def _piece_draw(model, seed: int) -> Callable:
+    """``draw(path, leaf, key, device)`` for ``TensorParallel``: the piece
+    ``key`` of the leaf at ``path`` made on ``device`` by the model's own
+    init law for that leaf (its ``init`` run on ``meta``), every draw from
+    a generator on ``device`` seeded by (``seed``, ``path``, ``key``)."""
+    with _InitLaws(list(_paths(model.tensor_tree()))) as rec:
+        model.init(torch.Generator())
+
+    def draw(path: str, leaf: torch.Tensor, key: tuple,
+             device: torch.device) -> torch.Tensor:
+        piece = torch.zeros([b - a for a, b in key], dtype=leaf.dtype,
+                            device=device)
+        gen = torch.Generator(device=device).manual_seed(
+            _piece_seed(seed, path, key))
+        for name, args, kwargs in rec.laws[path]:
+            if name == "normal_":
+                kwargs = {**kwargs, "generator": gen}
+            getattr(piece, name)(*args, **kwargs)
+        return piece
+    return draw
+
+
 class Cell:
     """Everything needed to run or trace one (arch × shape × mesh) cell.
 
@@ -265,6 +323,27 @@ class Cell:
     @property
     def decode_ctx(self) -> L.DecodeShardCtx | None:
         return getattr(self.model, "decode_ctx", None)
+
+    def on_mesh(self, mesh: Mesh) -> "Cell":
+        """This cell on ``mesh``, a mesh of the same axes and shape on
+        other devices (four cards for four logical positions of one),
+        over the same model's tensors: the model shallow-copied, with its
+        own ``shard`` hook and ``decode_ctx`` for ``mesh`` and nothing
+        placed (``place_params``), so the same weights run on both."""
+        if (mesh.axis_names, mesh.devices.shape) != (
+                self.mesh.axis_names, self.mesh.devices.shape):
+            raise ValueError(f"{mesh} is not shaped as {self.mesh}")
+        twin = copy.copy(self)
+        twin.mesh = mesh
+        twin.shard = shd.make_shard_fn(mesh, self.policy)
+        twin.model = copy.copy(self.model)
+        twin.model.shard = twin.shard
+        twin.model.tp = None
+        if self.decode_ctx is not None:
+            twin.model.decode_ctx = L.DecodeShardCtx(
+                mesh=mesh, batch_axes=self.decode_ctx.batch_axes,
+                seq_axis=self.decode_ctx.seq_axis)
+        return twin
 
     def _choose_microbatches(self) -> int:
         """Gradient-accumulation depth so the rematerialised activation
@@ -343,7 +422,7 @@ class Cell:
             self.model.place_states(cache)
         return cache
 
-    def place_params(self) -> TensorParallel:
+    def place_params(self, seed: int | None = None) -> TensorParallel:
         """Split this cell's parameters over its mesh by ``pspecs`` and
         run its steps on the split weights from now on (port-only; the
         reference's ``jax.jit(step, in_shardings=(named(pspecs), ...))``,
@@ -367,21 +446,44 @@ class Cell:
         splits over ``_batch_axes()`` (``data``; under the ``fsdp`` policy
         ``data`` and ``model``, with no tensor parallelism). rwkv6's and
         zamba2's losses run each recurrent layer from zero states made
-        where they are read, and place no state cache."""
-        return self._place(one_row=False)
+        where they are read, and place no state cache.
 
-    def _place(self, one_row: bool) -> TensorParallel:
+        A cell built on ``meta`` (``Cell(..., device="meta")``: a model no
+        one device holds) has no weights to split: ``seed`` draws each
+        piece on its position's device, by the model's own init law for
+        its leaf (``init``: N(0, 1) times a scale, a constant, zeros),
+        from a generator there seeded by (``seed``, the leaf's path, the
+        piece's slice), once a device; a piece's values then depend on
+        neither the mesh's devices (cards of one kind) nor its holders,
+        and no whole leaf is made anywhere. The model's tensors stay on
+        ``meta``; its ``device`` becomes the mesh's first, where its
+        caches and outputs go and its RoPE tables are made."""
+        return self._place(one_row=False, seed=seed)
+
+    def _place(self, one_row: bool, seed: int | None = None
+               ) -> TensorParallel:
         """:meth:`place_params`; ``one_row``: batch row 0's work alone, the
         others counted by symmetry (a meta trace, :meth:`lower`)."""
+        tree = self.model.tensor_tree()
+        on_meta = any(t.is_meta for _, t in _leaves(tree))
+        drawn = on_meta and self.mesh.first_device.type != "meta"
+        if drawn != (seed is not None):
+            raise ValueError(
+                "seed draws the pieces of a model built on meta for a mesh "
+                "of devices; place loaded weights without one" if seed
+                is not None else "a model on meta has no weights to split "
+                "over a mesh of devices: pass seed to draw its pieces")
         if self.cell.kind == "train":
-            tree = self.model.tensor_tree()
             for _, t in _leaves(tree):
                 t.requires_grad_(False)
         b_ax = self.decode_ctx.batch_axes if self.decode_ctx is not None \
             else self._batch_split(self._batch_axes())
         self.model.tp = TensorParallel(
-            self.mesh, self.model.tensor_tree(), self.pspecs, b_ax,
-            train=self.cell.kind == "train", one_row=one_row)
+            self.mesh, tree, self.pspecs, b_ax,
+            train=self.cell.kind == "train", one_row=one_row,
+            draw=_piece_draw(self.model, seed) if drawn else None)
+        if drawn:
+            self.model.to_placed_device(self.mesh.first_device)
         return self.model.tp
 
     def train_state(self) -> TrainState:

@@ -9,6 +9,9 @@ Counterpart of ``repro.models.ctr.common``. Every model is an
   build_graph(level, compute_dtype="fp32")
                        -> OpGraph (consumed by DualParallelExecutor);
                        "int8" runs the MLP's matmuls in int8 (K12)
+  compile(level="dual", batch_size=256, **kw)
+                       -> InferencePlan (``core.compile_plan``), the
+                       serving path: ``model.compile().predict(ids)``
   forward(ids)         -> logits (b, 1): the "dual" graph, tails fused,
                        in its own order; differentiable (the training
                        path)
@@ -339,6 +342,16 @@ class CTRModel(nn.Module):
         self.embedding = FusedEmbeddingCollection(self.spec.embedding_spec(),
                                                   store=store)
         return self
+
+    def compile(self, level: str = "dual", batch_size: int = 256, **kwargs):
+        """Compile this model into an ``InferencePlan`` (the serving-side
+        artifact): ``plan = model.compile(); plan.predict(ids)``. Thin
+        delegation to :func:`repro_torch.core.compile_plan` (``kwargs``:
+        ``device``, ``mesh``, ``runtime_provider``, ``compute_dtype``,
+        ...); serving holds plans or an ``InferenceEngine`` rather than
+        calling :meth:`forward` per request."""
+        from repro_torch.core.plan import compile_plan
+        return compile_plan(self, level, batch_size, **kwargs)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         """Logits (b, 1): the "dual" graph with its non-GEMM tails fused

@@ -179,6 +179,17 @@ class LMParams:
             t.requires_grad_(True)
         return tree
 
+    def to_placed_device(self, device) -> None:
+        """Run on ``device`` from now on, the weights being placed pieces
+        (a model built on ``meta``): its caches and outputs go there, and
+        each module whose buffers derive from no parameter makes them
+        there anew through its ``derive(device)`` (an attention's RoPE
+        table)."""
+        self.device = device
+        for m in self.modules():
+            if m is not self and hasattr(m, "derive"):
+                m.derive(device)
+
 
 # ---------------------------------------------------------------------------
 # norms & rotary
@@ -280,9 +291,15 @@ class Attention(nn.Module):
                     wv=(d, kv * hd), wo=(h * hd, d))
         if dims.qk_norm:
             add_buffers(self, device, dtype, q_norm=(hd,), k_norm=(hd,))
-        self.register_buffer(
-            "freqs", torch.from_numpy(rope_freqs(hd, dims.rope_theta))
-            .to(device), persistent=False)
+        self.register_buffer("freqs", None, persistent=False)
+        self.derive(device)
+
+    def derive(self, device) -> None:
+        """Make ``freqs`` on ``device`` (anew for a model built on
+        ``meta`` whose weights are placed pieces: it runs its steps
+        there)."""
+        self.freqs = torch.from_numpy(rope_freqs(
+            self.dims.head_dim, self.dims.rope_theta)).to(device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

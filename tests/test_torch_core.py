@@ -130,6 +130,25 @@ def test_plan_predict_pads_and_rejects_oversize():
         plan.predict(np.concatenate([ids, ids]))
 
 
+@pytest.mark.parametrize("model_name", list(CTR_MODELS))
+def test_model_compile_matches_the_reference(model_name):
+    """``model.compile(...)`` delegates to ``compile_plan`` as the
+    reference's does: the plan's scores equal the reference's
+    ``model.compile(params, batch_size=8).predict(ids)`` on the same
+    parameters (tests/test_plan.py:87's tolerance), and a plan through
+    ``compile_plan`` bitwise."""
+    jmodel, jparams, model = make_pair(model_name)
+    ids = sample_ids(SCHEMA, 8, seed=2)
+    plan = model.compile(batch_size=8, device="cpu")
+    assert (plan.level, plan.batch_size) == ("dual", 8)
+    got = plan.predict(ids)
+    np.testing.assert_allclose(
+        got, jmodel.compile(jparams, batch_size=8).predict(ids),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        got, compile_plan(model, "dual", 8, device="cpu").predict(ids))
+
+
 def test_plan_captures_schedule_and_stats():
     _, _, model = make_pair("dcnv2")
     plan = compile_plan(model, "dual", 16, device="cpu")

@@ -2267,11 +2267,41 @@ def test_flash_decode_sharded_across_two_cards(two_cards):
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
+def _lm_inputs(cfg, b: int, s: int, g) -> dict:
+    """A prompt of ``s`` rows a sequence (pixtral: 2 of them patches),
+    with whisper's 8 frames, on the CPU."""
+    n_img = 2 if cfg.family == "vlm" else 0
+    out = {"tokens": torch.randint(0, cfg.vocab, (b, s - n_img),
+                                   generator=g)}
+    if cfg.family == "encdec":
+        out["frames"] = 0.1 * torch.randn(b, 8, cfg.d_model, generator=g)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = 0.02 * torch.randn(b, n_img, cfg.d_model,
+                                                 generator=g)
+    return out
+
+
+def _lm_prefill(model, inputs: dict, s_max: int):
+    """``model``'s prefill of ``inputs`` into a fresh ``s_max``-slot
+    cache, each family's call."""
+    b = inputs["tokens"].shape[0]
+    if model.cfg.family == "encdec":
+        return model.prefill(inputs["tokens"], inputs["frames"],
+                             model.init_cache(b, s_max,
+                                              inputs["frames"].shape[1]))
+    if model.cfg.family == "vlm":
+        return model.prefill(inputs["tokens"], model.init_cache(b, s_max),
+                             patch_embeds=inputs["patch_embeds"])
+    return model.prefill(inputs["tokens"], model.init_cache(b, s_max))
+
+
 def _split_case(devices, arch: str):
     """A reduced fp32 arch's prefill and decode cells on a (2, 2) mesh of
     ``devices``, parameters placed (``Cell.place_params``), weights drawn
     on the CPU from one seed: the prefill's logits, then 6 greedy decode
-    steps' logits from a prefill of 6 rows into 16 slots, on the CPU."""
+    steps' logits from a prefill of 6 rows into 16 slots, on the CPU
+    (whisper with 8 random frames, pixtral with 2 of the rows random
+    patches)."""
     import importlib
 
     import repro_torch.configs as C
@@ -2298,11 +2328,10 @@ def _split_case(devices, arch: str):
         cell.model.load_state_dict(state)
         cell.place_params()
     first = mesh.first_device
-    tokens = torch.randint(0, pre.cfg.vocab, (4, 6),
-                           generator=torch.Generator().manual_seed(1))
-    out = [pre.prefill_fn()({"tokens": tokens.to(first)})[0].cpu()]
-    logits, cache = dec.model.prefill(tokens.to(first),
-                                      dec.model.init_cache(4, 16))
+    inputs = {k: v.to(first) for k, v in _lm_inputs(
+        pre.cfg, 4, 6, torch.Generator().manual_seed(1)).items()}
+    out = [pre.prefill_fn()(inputs)[0].cpu()]
+    logits, cache = _lm_prefill(dec.model, inputs, 16)
     step = dec.decode_fn()
     for _ in range(6):
         nxt = logits.argmax(-1)[:, None]
@@ -2368,11 +2397,8 @@ def _split_train_case(devices, arch: str):
     cell.place_params()
     g = torch.Generator().manual_seed(1)
     first = cell.mesh.first_device
-    batch = {"tokens": torch.randint(0, cell.cfg.vocab, (8, 8),
-                                     generator=g).to(first)}
-    if cell.cfg.family == "encdec":
-        batch["frames"] = (0.1 * torch.randn(8, 8, cell.cfg.d_model,
-                                             generator=g)).to(first)
+    batch = {k: v.to(first) for k, v in _lm_inputs(cell.cfg, 8, 8,
+                                                   g).items()}
     state = cell.train_state()
     loss, grads = loss_and_grads(cell.model, state.params, batch, 2)
     out = [loss.cpu()] + [t.full().cpu() for _, t in _leaves(grads)]
@@ -2403,6 +2429,99 @@ def test_split_train_step_on_logical_positions_matches_the_cpu(cuda, arch):
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=str(i))
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards: one mesh position a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+LM_ARCHS = ("llama3-8b", "granite-8b", "smollm-360m", "qwen3-4b",
+            "pixtral-12b", "phi3.5-moe-42b-a6.6b",
+            "llama4-maverick-400b-a17b", "whisper-small", "rwkv6-7b",
+            "zamba2-1.2b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_split_cells_one_card_a_position_match_the_cpu(four_cards, arch):
+    """The ten archs' reduced prefill and decode cells on the (2, 2) mesh
+    with position (d, m) on cuda:(2d + m): the same logits as the CPU at
+    ``rtol 1e-4, atol 1e-5``, greedy tokens equal."""
+    for got, want in zip(_split_case(four_cards, arch),
+                         _split_case("cpu", arch), strict=True):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_split_train_step_one_card_a_position_matches_the_cpu(four_cards,
+                                                              arch):
+    """The ten archs' reduced train cells' split step on the (2, 2) mesh
+    with one card a position (gradients reduced across four cards): the
+    loss, every gradient, the norm and the updated state as the CPU's at
+    ``rtol 1e-4, atol 1e-5``."""
+    for got, want in zip(_split_train_case(four_cards, arch),
+                         _split_train_case("cpu", arch), strict=True):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _meta_llama4_case(devices):
+    """A reduced llama4-maverick decode cell built on ``meta`` and placed
+    from one seed over a (2, 2) mesh of ``devices`` (each position's
+    pieces drawn on its device): every position's pieces, then the logits
+    of a prefill of 6 rows into 16 slots and of 6 greedy decode steps, on
+    the CPU."""
+    import importlib
+
+    import numpy as np
+
+    import repro_torch.configs as C
+    from repro_torch.bridge import _leaves
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.steps import Cell
+
+    arch = "llama4-maverick-400b-a17b"
+    mod = importlib.import_module(f"repro_torch.configs.{C._ARCH_MODULES[arch]}")
+    saved, shapes = mod.CONFIG, dict(C.SHAPES)
+    mod.CONFIG = saved.reduced()
+    C.SHAPES["decode_32k"] = C.ShapeCell("decode_32k", 16, 4, "decode")
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), devices)
+        cell = Cell(arch, "decode_32k", mesh, device="meta")
+    finally:
+        mod.CONFIG = saved
+        C.SHAPES.clear()
+        C.SHAPES.update(shapes)
+    tp = cell.place_params(seed=7)
+    pieces = [pl.local(pos).cpu() for _, pl in _leaves(tp.tree)
+              for pos in np.ndindex(mesh.devices.shape)]
+    inputs = {k: v.to(mesh.first_device) for k, v in _lm_inputs(
+        cell.cfg, 4, 6, torch.Generator().manual_seed(1)).items()}
+    logits, cache = _lm_prefill(cell.model, inputs, 16)
+    out, step = [logits.cpu()], cell.decode_fn()
+    for _ in range(6):
+        logits, cache = step({"tokens": logits.argmax(-1)[:, None],
+                              "cache": cache})
+        out.append(logits.cpu())
+    return pieces, out
+
+
+def test_meta_placed_llama4_on_four_cards_matches_one_cards_positions(
+        four_cards):
+    """Drawn on four cards and on four logical positions of cuda:0, from
+    one seed: every piece bitwise, and the split prefill's and decode
+    steps' logits bitwise (the same ops in the same order on cards of one
+    kind)."""
+    logical = [four_cards[0]] * 4
+    (pa, la), (pb, lb) = (_meta_llama4_case(four_cards),
+                          _meta_llama4_case(logical))
+    assert len(pa) == len(pb)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    for a, b in zip(la, lb, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b",

@@ -30,7 +30,9 @@
   ``tests/distributed_inner.py:100-116`` cuts them), qwen3-4b,
   llama4-maverick, rwkv6 and zamba2, against the port's placed cells on a CPU (2, 4) mesh
   (this file re-run as a script with
-  ``XLA_FLAGS=--xla_force_host_platform_device_count=8``).
+  ``XLA_FLAGS=--xla_force_host_platform_device_count=8``); llama4-maverick
+  and zamba2 also built on ``meta`` and placed piece by piece
+  (``place_params(seed=)``), the reference given the pieces assembled.
 """
 
 import contextlib
@@ -55,7 +57,7 @@ import jax.numpy as jnp  # noqa: E402
 import repro.configs as JC  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 from repro.models.lm import make_lm_model as jax_make_lm_model  # noqa: E402
-from repro_torch.bridge import load_lm_params  # noqa: E402
+from repro_torch.bridge import load_lm_params, stacked_lm_tree  # noqa: E402
 from repro_torch.distributed import Placed, make_mesh  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.distributed.tensor_parallel import Cols  # noqa: E402
@@ -579,20 +581,32 @@ def test_placed_states_hold_their_spec_slices(arch, mesh_name, overrides,
 # --- the reference's partitioned cells on its own 8-device mesh -------------
 
 SUBPROCESS_CASES = ("qwen3-4b", "llama4-maverick-400b-a17b", "rwkv6-7b",
-                    "zamba2-1.2b")
+                    "zamba2-1.2b", "meta:llama4-maverick-400b-a17b",
+                    "meta:zamba2-1.2b")
 #: config overrides in the subprocess: qk-norm on, and the recurrent
 #: families with four heads, split over the model axis of 4
 SUBPROCESS_OVERRIDES = {"qwen3-4b": {"qk_norm": True},
                         "rwkv6-7b": {"ssm_head_dim": 16},
                         "zamba2-1.2b": {"ssm_head_dim": 32}}
 REF_SEQ, REF_B, REF_PROMPT = 64, 8, 6       # tests/distributed_inner.py
+META_SEED = 11
 
 
-def _case(arch: str):
+def assembled_params(cell) -> dict:
+    """The pieces ``cell.place_params(seed=)`` drew, assembled as the
+    reference's parameter tree (``bridge.stacked_lm_tree``) of jax
+    arrays."""
+    tree = shd.tree_map(lambda pl: pl.full("cpu"), cell.tp.tree)
+    return jax.tree.map(jnp.asarray, stacked_lm_tree(tree))
+
+
+def _case(arch: str, meta: bool = False):
     """The reference's prefill and decode cells compiled on its (2, 4)
     mesh with ``in_shardings`` from its specs, called on parameters and
     inputs put by them, against the port's placed cells on a CPU (2, 4)
-    mesh."""
+    mesh. ``meta``: the port's cells built on ``meta`` and placed piece by
+    piece from ``META_SEED``, each cell's pieces assembled for the
+    reference."""
     from repro.distributed import sharding as jshd
     from repro.launch import steps as jsteps
     from repro.launch.mesh import make_test_mesh as jax_test_mesh
@@ -604,15 +618,21 @@ def _case(arch: str):
         cells = {}
         for shape in shapes:
             jcell = jsteps.build_cell(arch, shape, jmesh)
-            cell = build_cell(arch, shape, mesh)
+            cell = Cell(arch, shape, mesh, device="meta") if meta \
+                else build_cell(arch, shape, mesh)
             cells[shape] = jcell, cell
     jpre, pre = cells["prefill_32k"]
     jdec, dec = cells["decode_32k"]
     params = jpre.model.init(jax.random.PRNGKey(0))
     host = jax.tree.map(np.asarray, params)
     for cell in (pre, dec):
-        load_lm_params(cell.model, host)
-        cell.place_params()
+        if meta:
+            cell.place_params(seed=META_SEED)
+        else:
+            load_lm_params(cell.model, host)
+            cell.place_params()
+    if meta:        # the prefill cell's pieces; the decode cell's below
+        params = assembled_params(pre)
     named = lambda t: jshd.to_named(jmesh, t)    # noqa: E731
     rng = np.random.default_rng(5)
     tokens = rng.integers(0, pre.cfg.vocab, (REF_B, REF_SEQ)).astype(np.int32)
@@ -626,6 +646,8 @@ def _case(arch: str):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert (tl.argmax(-1).numpy() == np.asarray(jl.argmax(-1))).all()
 
+    if meta:
+        params = assembled_params(dec)
     prompt = {"tokens": tokens[:, :REF_PROMPT]}
     jl, jcache = _prefill(jdec.model, {k: jnp.asarray(v) for k, v in
                                        prompt.items()}, REF_SEQ, params)
@@ -670,7 +692,7 @@ if __name__ == "__main__":
     results = {}
     for name in SUBPROCESS_CASES:
         try:
-            _case(name)
+            _case(name.split(":")[-1], meta=name.startswith("meta:"))
             results[name] = "OK"
         except Exception:   # reported per case by the parent test
             results[name] = traceback.format_exc()

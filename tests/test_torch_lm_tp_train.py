@@ -26,8 +26,11 @@ otherwise.
   specs)`` and ``out_shardings=(state specs, None)``) against the port's
   placed cell on a CPU (2, 4) mesh at ``rtol = atol = 2e-4``
   (``tests/distributed_inner.py:75``): qwen3-4b, smollm-360m (pure
-  FSDP), llama4-maverick and whisper-small (pure FSDP); this file re-run
-  as a script with ``XLA_FLAGS=--xla_force_host_platform_device_count=8``.
+  FSDP), llama4-maverick and whisper-small (pure FSDP), and
+  llama4-maverick built on ``meta`` and placed piece by piece
+  (``place_params(seed=)``), the reference given the pieces assembled;
+  this file re-run as a script with
+  ``XLA_FLAGS=--xla_force_host_platform_device_count=8``.
 """
 
 import contextlib
@@ -358,16 +361,19 @@ def test_place_params_accepts_the_published_train_cells(arch, mesh_name):
 # --- the reference's partitioned train step on its own 8-device mesh ---------
 
 SUBPROCESS_CASES = ("qwen3-4b", "smollm-360m", "llama4-maverick-400b-a17b",
-                    "whisper-small")
+                    "whisper-small", "meta:llama4-maverick-400b-a17b")
 #: qk-norm on for qwen3-4b, as in tests/test_torch_lm_tp.py
 SUBPROCESS_OVERRIDES = {"qwen3-4b": {"qk_norm": True}}
 REF_SEQ, REF_B = 16, 8
+META_SEED = 11
 
 
-def _case(arch: str, **overrides):
+def _case(arch: str, meta: bool = False, **overrides):
     """One step of the reference's train cell (its config reduced with
     ``overrides``) compiled on its (2, 4) mesh against the port's placed
-    cell on a CPU (2, 4) mesh, from the same parameters and batch."""
+    cell on a CPU (2, 4) mesh, from the same parameters and batch.
+    ``meta``: the port's cell built on ``meta`` and placed piece by piece
+    from ``META_SEED``, its pieces assembled for the reference."""
     import jax
     import jax.numpy as jnp
     import repro.configs as JC
@@ -382,14 +388,20 @@ def _case(arch: str, **overrides):
     with patched(arch, {"train_4k": (REF_SEQ, REF_B)}, pkgs=(JC, TC),
                  **overrides):
         jcell = jsteps.build_cell(arch, "train_4k", jmesh)
-        cell = build_cell(arch, "train_4k", mesh)
+        cell = Cell(arch, "train_4k", mesh, device="meta") if meta \
+            else build_cell(arch, "train_4k", mesh)
     assert cell.policy == jcell.policy
     assert cell.n_micro == jcell.n_micro == 1
     jcell.opt_cfg = dataclasses.replace(jcell.opt_cfg, eps=TRAIN_EPS)
     cell.opt_cfg = dataclasses.replace(cell.opt_cfg, eps=TRAIN_EPS)
-    params = jcell.model.init(jax.random.PRNGKey(0))
-    load_lm_params(cell.model, jax.tree.map(np.asarray, params))
-    cell.place_params()
+    if meta:
+        cell.place_params(seed=META_SEED)
+        params = jax.tree.map(jnp.asarray, stacked_lm_tree(shd.tree_map(
+            lambda pl: pl.full("cpu"), cell.tp.tree)))
+    else:
+        params = jcell.model.init(jax.random.PRNGKey(0))
+        load_lm_params(cell.model, jax.tree.map(np.asarray, params))
+        cell.place_params()
     named = lambda t: jshd.to_named(jmesh, t)    # noqa: E731
     st_named = named(jax.tree.map(lambda s: s, jcell.state_specs(),
                                   is_leaf=lambda s: isinstance(
@@ -444,8 +456,10 @@ if __name__ == "__main__":
     assert jax.device_count() == 8
     results = {}
     for name in SUBPROCESS_CASES:
+        arch = name.split(":")[-1]
         try:
-            _case(name, **SUBPROCESS_OVERRIDES.get(name, {}))
+            _case(arch, meta=name.startswith("meta:"),
+                  **SUBPROCESS_OVERRIDES.get(arch, {}))
             results[name] = "OK"
         except Exception:   # reported per case by the parent test
             results[name] = traceback.format_exc()
